@@ -1,0 +1,68 @@
+"""Shared machinery for the annealed-SDE integrators
+(cmcd_tpu/integrators/base.py).
+
+State layout: z (N, dim), w (N,) running log-importance-weight.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from cmcd_tpu_torch.distributions import diag_gaussian_grad_log_prob
+
+
+@dataclasses.dataclass(frozen=True)
+class IntegratorContext:
+    """Everything an evolve function needs besides (z, betas, params).
+
+    target_log_prob: batched (N, dim) -> (N,)
+    apply_sn: batched score net (net, x, i) -> (N, dim), or None
+    """
+
+    target_log_prob: Callable
+    nbridges: int
+    dim: int
+    apply_sn: Optional[Callable] = None
+    eps_schedule: str = ""
+    grad_clipping: bool = False
+
+
+def target_grad(ctx: IntegratorContext):
+    """Batched d/dz log pi(z): (N, dim) -> (N, dim), through autograd."""
+
+    def grad_pi(z):
+        with torch.enable_grad():
+            z = z.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(ctx.target_log_prob(z).sum(), z)
+        return g
+
+    return grad_pi
+
+
+def make_grad_u(
+    ctx: IntegratorContext,
+    vd_params,
+    clip_target: Optional[float],
+    clip_vd: Optional[float],
+):
+    """gradU(z, beta) = -(beta * grad log pi + (1-beta) * grad log q).
+
+    Clip placement follows the JAX package: CAIS (KL) clips the target score
+    at +/-1e3 and leaves the q score alone; CAIS_VAR clips both at +/-1e2;
+    None leaves that score unclipped.
+    """
+    grad_pi = target_grad(ctx)
+
+    def grad_u(z, beta):
+        gu = grad_pi(z)
+        gp = diag_gaussian_grad_log_prob(vd_params, z)
+        if clip_target is not None:
+            gu = torch.clamp(gu, -clip_target, clip_target)
+        if clip_vd is not None:
+            gp = torch.clamp(gp, -clip_vd, clip_vd)
+        return -(beta * gu + (1.0 - beta) * gp)
+
+    return grad_u

@@ -1,0 +1,17 @@
+"""Fused kernels and their entry points. Nothing is compiled at import:
+a kernel is built by ops/build.py the first time its wrapper launches it."""
+
+from cmcd_tpu_torch.ops.fused import compute_elbos_fused, supports_fused
+from cmcd_tpu_torch.ops.overdamped import (
+    evolve_overdamped_fused,
+    evolve_overdamped_fused_plain,
+)
+from cmcd_tpu_torch.ops.target_grads import score_for_target
+
+__all__ = [
+    "compute_elbos_fused",
+    "evolve_overdamped_fused",
+    "evolve_overdamped_fused_plain",
+    "score_for_target",
+    "supports_fused",
+]

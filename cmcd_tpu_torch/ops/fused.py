@@ -1,0 +1,75 @@
+"""The evaluation entry through the fused rollout
+(cmcd_tpu/ops/fused.py::compute_elbos_fused and supports_fused).
+
+The variational draw, the initial and final log-prob terms and the beta grid
+stay in plain torch; the K-step loop runs in one launch of the CUDA kernel
+(ops/overdamped.py). Forward only: evaluation, sampling, ln Z.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cmcd_tpu_torch import bounds
+from cmcd_tpu_torch.distributions import diag_gaussian_log_prob, diag_gaussian_sample
+from cmcd_tpu_torch.integrators import overdamped as od
+from cmcd_tpu_torch.ops.overdamped import evolve_overdamped_fused, kernel_fits
+from cmcd_tpu_torch.ops.target_grads import score_for_target
+from cmcd_tpu_torch.schedules import betas_from_grid
+
+KERNEL_SPECS = {"MCD_CAIS_sn": od.CAIS, "MCD_CAIS_var_sn": od.CAIS_VAR}
+
+
+def supports_fused(setup: bounds.CMCDSetup, target) -> bool:
+    """True if the kernel implements (mode, target score, net) at this size:
+    a CAIS-family mode, the default many_gmm, the two-layer geffner net on
+    the state, and a net width that fits one block's threads and shared
+    memory (ops/overdamped.kernel_fits)."""
+    score = score_for_target(target)
+    return (
+        setup.mode in KERNEL_SPECS
+        and score is not None
+        and setup.dim == 2
+        and setup.nn_arch == "geffner"
+        and setup.nlayers == 2
+        and setup.nbridges >= 1
+        and kernel_fits(setup.dim + setup.emb_dim, score.means.shape[0])
+    )
+
+
+@torch.no_grad()
+def compute_elbos_fused(params, n_chains: int, setup: bounds.CMCDSetup, target,
+                        *, generator=None, base_normals=None, noise=None,
+                        rollout=evolve_overdamped_fused):
+    """Per-chain negative ELBOs via the fused rollout: (neg_elbos (N,), z (N, dim)).
+
+    Same contract as bounds.compute_elbos. The kernel's Philox seed is drawn
+    from `generator` on the device, so consecutive calls need no host sync.
+    base_normals (N, dim) / noise (K, N, dim): optional draws standing in
+    for the generator's. rollout: the kernel's wrapper, or its plain twin
+    (ops/overdamped.evolve_overdamped_fused_plain) when the two are compared
+    on the card.
+    """
+    if not supports_fused(setup, target):
+        raise NotImplementedError(
+            f"no fused kernel for mode {setup.mode} on {target.name} "
+            f"(nn {setup.nn_arch}, emb_dim {setup.emb_dim}); see ROADMAP queue B"
+        )
+    p = bounds.merged_params(params)
+    vd = p["vd"]
+    dev = vd["mean"].device
+    z0 = diag_gaussian_sample(vd, n_chains, generator=generator,
+                              base_normals=base_normals)
+    w0 = -diag_gaussian_log_prob(vd, z0)
+    betas = betas_from_grid(p["mgridref_y"], p["gridref_x"], p["target_x"])
+    seed = torch.randint(2**31 - 1, (1,), generator=generator, device=dev)
+    z, w = rollout(
+        z0.contiguous(), w0.contiguous(), betas.contiguous(), p["eps"],
+        vd["mean"].contiguous(), vd["logdiag"].contiguous(),
+        score_for_target(target, dev), KERNEL_SPECS[setup.mode],
+        dim=setup.dim, nbridges=setup.nbridges, sn=p["sn"],
+        eps_schedule=setup.eps_schedule, grad_clipping=setup.grad_clipping,
+        seed=seed, noise=noise,
+    )
+    w = w + target.log_prob(z)
+    return -w, z

@@ -1,0 +1,261 @@
+"""The fused overdamped rollout: wrapper of the CUDA kernel
+(csrc/overdamped.cu) and its plain PyTorch twin.
+
+Counterpart of cmcd_tpu/ops/pallas_overdamped.py::evolve_overdamped_pallas,
+with the port's layout: z0 (N, dim), w0 (N,), betas (K,), injected noise
+(K, N, dim), all f32. The kernel covers the CAIS and CAIS_VAR specs on the
+many_gmm score (ops/target_grads.py) with the two-layer geffner net; the
+wrapper raises on anything else.
+
+On a CPU tensor the wrapper runs the plain twin; on a CUDA tensor it
+launches the kernel or raises, never falling back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from cmcd_tpu_torch.integrators.overdamped import CAIS, CAIS_VAR, OverdampedSpec
+from cmcd_tpu_torch.networks.geffner import GeffnerNet
+from cmcd_tpu_torch.ops import build
+from cmcd_tpu_torch.schedules import eps_at_step
+
+# The kernel's limits, mirrored from csrc/overdamped.cu so that the gate
+# (ops/fused.supports_fused) can decide without a card; _library() checks
+# this copy against the built kernel's own.
+CHAINS_PER_BLOCK = 8      # TC
+MAX_THREADS = 256         # one thread per net feature
+MAX_MIX = 64              # score components the kernel's warps cover
+MAX_SMEM = 232448         # bytes of shared memory a block may use on sm_90
+EPS_SCHEDULES = {"": 0, "linear": 1, "cos_sq": 2}
+KERNEL_SPECS = (CAIS, CAIS_VAR)
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def smem_bytes(in_dim: int, n_mix: int) -> int:
+    """Dynamic shared memory of one block (the kernel's layout: W2, two
+    hidden tiles, the head, the means and the per-chain exchange)."""
+    ip = _round_up(in_dim, 4)
+    tc = CHAINS_PER_BLOCK
+    return 4 * (ip * ip + 2 * tc * ip + 2 * ip + _round_up(2 * n_mix, 4) + 3 * tc * 2)
+
+
+def kernel_fits(in_dim: int, n_mix: int) -> bool:
+    """True if a net of width in_dim and a score of n_mix components fit
+    one block (threads, shared memory, warp lanes)."""
+    return (
+        in_dim >= 1
+        and _round_up(in_dim, 32) <= MAX_THREADS
+        and 1 <= n_mix <= MAX_MIX
+        and smem_bytes(in_dim, n_mix) <= MAX_SMEM
+    )
+
+
+def _check(z0, w0, betas, grad_logp, spec, dim, nbridges, sn, eps_schedule, noise):
+    """Raise on what the kernel does not take (both devices)."""
+    if spec not in KERNEL_SPECS:
+        raise NotImplementedError(
+            f"fused rollout: spec {spec} has no kernel (CAIS and CAIS_VAR only)"
+        )
+    if getattr(grad_logp, "kernel_name", None) != "many_gmm":
+        raise NotImplementedError(
+            "fused rollout: the kernel inlines the many_gmm score only "
+            "(ops/target_grads.score_for_target)"
+        )
+    if dim != 2:
+        raise ValueError(f"fused rollout: dim must be 2 (many_gmm), got {dim}")
+    if not isinstance(sn, GeffnerNet) or len(sn.layers) != 2:
+        raise NotImplementedError(
+            "fused rollout: the kernel inlines the two-layer geffner net on the state"
+        )
+    if sn.nbridges != nbridges:
+        raise ValueError("fused rollout: net embedding rows != nbridges")
+    if not kernel_fits(sn.in_dim, grad_logp.means.shape[0]):
+        raise NotImplementedError(
+            f"fused rollout: in_dim {sn.in_dim} does not fit one block"
+        )
+    if eps_schedule not in EPS_SCHEDULES:
+        raise ValueError(f"unknown eps schedule {eps_schedule!r}")
+    n = z0.shape[0]
+    if z0.shape != (n, dim) or w0.shape != (n,) or betas.shape != (nbridges,):
+        raise ValueError(
+            f"fused rollout: shapes z0 {tuple(z0.shape)}, w0 {tuple(w0.shape)}, "
+            f"betas {tuple(betas.shape)} do not match N={n}, dim={dim}, K={nbridges}"
+        )
+    if noise is not None and noise.shape != (nbridges, n, dim):
+        raise ValueError(f"fused rollout: noise must be {(nbridges, n, dim)}")
+
+
+@torch.no_grad()
+def evolve_overdamped_fused_plain(
+    z0, w0, betas, eps, vd_mean, vd_logdiag, grad_logp, spec: OverdampedSpec,
+    *, dim: int, nbridges: int, sn=None, eps_schedule: str = "",
+    grad_clipping: bool = False, seed=0, noise=None, generator=None,
+):
+    """The kernel's math in eager torch, step by step: the same clips, the
+    same CAIS carry of (score, net output) and the same weight formula.
+    Without injected noise the draws come from `generator`, or from a
+    generator seeded with `seed` on z0's device (not the kernel's Philox
+    stream: the two agree in distribution only). Returns (z (N, dim), w (N,))."""
+    clip_t = spec.clip_target if grad_clipping else None
+    clip_q = spec.clip_vd if grad_clipping else None
+    inv_var_q = torch.exp(-2.0 * vd_logdiag)
+    if noise is None and generator is None:
+        generator = torch.Generator(device=z0.device).manual_seed(int(seed))
+
+    def grad_u(gt, z, beta):
+        gq = -(z - vd_mean) * inv_var_q
+        if clip_t is not None:
+            gt = torch.clamp(gt, -clip_t, clip_t)
+        if clip_q is not None:
+            gq = torch.clamp(gq, -clip_q, clip_q)
+        return -(beta * gt + (1.0 - beta) * gq)
+
+    z, w = z0, w0
+    gt, sn_cur = grad_logp(z), sn(z, 0)
+    for i in range(nbridges):
+        eps_i = eps_at_step(eps, i, nbridges, eps_schedule)
+        scale = torch.sqrt(2.0 * torch.as_tensor(eps_i))
+        beta = betas[i]
+        fk_mean = z - eps_i * grad_u(gt, z, beta)
+        fk_mean = fk_mean - eps_i * sn_cur
+        if noise is None:
+            xi = torch.randn(z.shape, generator=generator, device=z.device)
+        else:
+            xi = noise[i]
+        z_new = fk_mean + scale * xi
+        gt_new, sn_new = grad_logp(z_new), sn(z_new, i + spec.bwd_sn_offset)
+        bk_mean = z_new - eps_i * grad_u(gt_new, z_new, beta)
+        bk_mean = bk_mean + eps_i * sn_new
+        resid = (z - bk_mean) * (1.0 / scale)
+        w = w - 0.5 * (torch.sum(resid * resid, -1) - torch.sum(xi * xi, -1))
+        z, gt, sn_cur = z_new, gt_new, sn_new
+    return z, w
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = build.load("overdamped")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.cmcd_overdamped_rollout.argtypes = [p] * 18 + [i] * 6 + [f] * 3 + [p]
+    lib.cmcd_overdamped_rollout.restype = ctypes.c_int
+    lib.cmcd_error_string.argtypes = [ctypes.c_int]
+    lib.cmcd_error_string.restype = ctypes.c_char_p
+    lib.cmcd_overdamped_chains_per_block.restype = ctypes.c_int
+    lib.cmcd_overdamped_fits.argtypes = [i, i]
+    lib.cmcd_overdamped_fits.restype = ctypes.c_int
+    lib.cmcd_overdamped_smem_bytes.argtypes = [i, i]
+    lib.cmcd_overdamped_smem_bytes.restype = ctypes.c_longlong
+    if lib.cmcd_overdamped_chains_per_block() != CHAINS_PER_BLOCK:
+        raise RuntimeError("csrc/overdamped.cu and ops/overdamped.py disagree on TC")
+    # Every edge of the limits: shared memory (228/229 features), threads
+    # (256/257) and the score's lanes (0, 1, 64, 65 components).
+    for in_dim in (0, 1, 3, 18, 132, 224, 225, 228, 229, 256, 257, 302):
+        for n_mix in (0, 1, 40, 64, 65):
+            if (bool(lib.cmcd_overdamped_fits(in_dim, n_mix)) != kernel_fits(in_dim, n_mix)
+                    or lib.cmcd_overdamped_smem_bytes(in_dim, n_mix) != smem_bytes(in_dim, n_mix)):
+                raise RuntimeError(
+                    "csrc/overdamped.cu and ops/overdamped.py disagree on what fits "
+                    f"one block at in_dim {in_dim}, {n_mix} components"
+                )
+    return lib
+
+
+def _f32(t, device):
+    return torch.as_tensor(t, dtype=torch.float32, device=device).contiguous()
+
+
+@torch.no_grad()
+def pack_geffner(sn: GeffnerNet, dim: int):
+    """The kernel's view of the net: (w1z (dim, in), c1 (K, in), emb,
+    w2 (in, in) as input x output, b2, headw (dim, in), headb, factor).
+
+    c1 = emb @ W1[dim:] + b1 is the embedding half of layer 1, the same for
+    every chain; it is formed in float64 so that the TF32 setting of the
+    card cannot round it."""
+    l1, l2 = sn.layers
+    w1 = l1.weight.t()                                   # (in, in): input x output
+    c1 = (sn.emb.double() @ w1[dim:].double() + l1.bias.double()).float()
+    return (
+        w1[:dim].contiguous(), c1.contiguous(), sn.emb.detach().contiguous(),
+        l2.weight.t().contiguous(), l2.bias.detach().contiguous(),
+        sn.head.weight.detach().contiguous(), sn.head.bias.detach().contiguous(),
+        sn.factor_sn.detach().reshape(()),
+    )
+
+
+@torch.no_grad()
+def evolve_overdamped_fused(
+    z0, w0, betas, eps, vd_mean, vd_logdiag, grad_logp, spec: OverdampedSpec,
+    *, dim: int, nbridges: int, sn=None, eps_schedule: str = "",
+    grad_clipping: bool = False, seed=0, noise=None,
+):
+    """Run nbridges CAIS / CAIS_VAR steps for every chain in one launch.
+
+    z0: (N, dim) f32; w0: (N,) f32; betas: (K,); eps: scalar tensor or float;
+    vd_mean / vd_logdiag: (dim,); grad_logp: ops/target_grads.ManyGMMScore;
+    sn: the GeffnerNet; seed: int or one-element integer tensor (read on the
+    device, so no host sync); noise: optional (K, N, dim) standard normals.
+    Returns (z (N, dim), w (N,)).
+    """
+    _check(z0, w0, betas, grad_logp, spec, dim, nbridges, sn, eps_schedule, noise)
+    kwargs = dict(dim=dim, nbridges=nbridges, sn=sn, eps_schedule=eps_schedule,
+                  grad_clipping=grad_clipping, seed=seed, noise=noise)
+    if z0.device.type == "cpu":
+        return evolve_overdamped_fused_plain(
+            z0, w0, betas, eps, vd_mean, vd_logdiag, grad_logp, spec, **kwargs
+        )
+    if z0.device.type != "cuda":
+        raise ValueError(f"fused rollout: no kernel for device {z0.device}")
+    dev = z0.device
+    tensors = [z0, w0, betas, vd_mean, vd_logdiag] + ([noise] if noise is not None else [])
+    for t in tensors:
+        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(
+                "fused rollout: z0, w0, betas, vd params and noise must be "
+                f"contiguous f32 on {dev}"
+            )
+
+    w1z, c1, emb, w2, b2, headw, headb, factor = pack_geffner(sn, dim)
+    scal = torch.stack([_f32(eps, dev).reshape(()), factor.to(dev, torch.float32)])
+    seed_t = torch.as_tensor(seed, dtype=torch.int64, device=dev).reshape(1)
+    means = _f32(grad_logp.means, dev)
+    vd_inv_var = torch.exp(-2.0 * vd_logdiag).contiguous()
+    weights = [w1z, c1, emb, w2, b2, headw, headb]
+    for t in weights:
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError(f"fused rollout: net weights must be f32 on {dev}")
+    n = z0.shape[0]
+    z_out = torch.empty_like(z0)
+    w_out = torch.empty_like(w0)
+    clip_t = spec.clip_target if grad_clipping else None
+    clip_q = spec.clip_vd if grad_clipping else None
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    err = _library().cmcd_overdamped_rollout(
+        ptr(z0), ptr(w0), ptr(betas),
+        None if noise is None else ptr(noise),
+        ptr(scal), ptr(seed_t),
+        *(ptr(t) for t in weights),
+        ptr(means), ptr(vd_mean), ptr(vd_inv_var), ptr(z_out), ptr(w_out),
+        n, nbridges, sn.in_dim, sn.emb_dim, means.shape[0],
+        EPS_SCHEDULES[eps_schedule],
+        grad_logp.inv_var,
+        math.inf if clip_t is None else clip_t,
+        math.inf if clip_q is None else clip_q,
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+    )
+    if err != 0:
+        msg = _library().cmcd_error_string(err).decode()
+        raise RuntimeError(f"overdamped rollout kernel failed: {msg} ({err})")
+    evolve_overdamped_fused.launches += 1
+    return z_out, w_out
+
+
+evolve_overdamped_fused.launches = 0
