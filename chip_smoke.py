@@ -6,23 +6,42 @@
 
 Phases, one line each; any failure exits non-zero:
   1. device: needs CUDA (no CPU run); prints the card's name and power limit.
-  2. build: compiles csrc/overdamped.cu with nvcc for sm_90a (ptxas report).
-  3. kernel vs plain twin under injected noise, at the CPU tests' size and
-     at full width (K=256, emb_dim 130, grad clipping, factor_sn 0.3, random
-     embedding) for N=2000 and for the main path's N=500, whose last block
-     holds 4 live and 4 idle chains; fails above the stated tolerances.
-  4. main path: cmcd_tpu_torch.main.run_experiment with the flagship flags
-     (many_gmm, MCD_CAIS_var_sn, K=256, emb_dim 130, iters 0) and the 30 x 500
-     evaluation; the kernel must be launched 30 times, ELBO and ln Z finite.
+  2. build: compiles csrc/overdamped.cu and csrc/vargrad.cu with nvcc for
+     sm_90a, both at once (ptxas report per kernel).
+  3. kernels vs their plain versions. The rollout under injected noise, at
+     the CPU tests' size and at full width (K=256, emb_dim 130, grad clipping,
+     factor_sn 0.3, random embedding) for N=2000 and for the evaluation's
+     N=500, whose last block holds 4 live and 4 idle chains, with and without
+     the stored trajectory. The VarGrad replay backward from the same
+     trajectory and a random cotangent, at the test size and at full width
+     for N=2000 and N=1001 (both leave a partial last chain tile). Then one
+     whole training step, var_bound_fused through the kernels against the
+     same call through the plain versions: loss and every gradient leaf.
+     Fails above the stated tolerances.
+  4. evaluation path: cmcd_tpu_torch.main.run_experiment with the flagship
+     flags (many_gmm, MCD_CAIS_var_sn, K=256, emb_dim 130, iters 0) and the
+     30 x 500 evaluation; the rollout must be launched 30 times, ELBO and
+     ln Z finite.
   5. statistics: the same evaluation with the kernel's Philox noise and with
-     the plain twin's torch.randn noise agree within 4 combined standard
+     the plain version's torch.randn noise agree within 4 combined standard
      errors in ELBO and ln Z.
-  6. timing: kernel and plain twin for one K=256 rollout at N=500 (the main
-     path's shape) and N=2000 (CUDA events) and for one 30 x 500 evaluation
-     (host clock around synchronize), in the order plain, kernel, kernel,
-     plain; then the kernel evaluation's device time under torch.profiler.
-Then a JSON line with the kernel's launches, error and times, and as the last
-line {"ok": true, "device": {...}}.
+  6. timing of the evaluation: kernel and plain version for one K=256 rollout
+     at N=500 and N=2000 (CUDA events) and for one 30 x 500 evaluation (host
+     clock around synchronize), in the order plain, kernel, kernel, plain;
+     then the kernel evaluation's device time under torch.profiler.
+  7. training path: run_experiment with the flagship flags and TRAIN_ITERS
+     optimizer steps at N=2000, then the 30 x 500 evaluation. The rollout must
+     be launched TRAIN_ITERS + 30 times and the backward TRAIN_ITERS times, no
+     logged loss may be NaN, the run must not diverge, and the mean of the
+     last 100 per-step losses must lie below half the mean of the first 100.
+     ELBO and ln Z before (phase 4) and after training are printed, not gated.
+  8. timing of training at N=2000, K=256, in the order plain, kernel, kernel,
+     plain: the rollout with and without the trajectory store and the replay
+     backward (CUDA events), one optimizer step through the kernels over 50
+     steps against the eager step (host clock around synchronize), and one
+     fused step's device time by kernel under torch.profiler.
+Then a JSON line with each kernel's launches, error, times and bound, and as
+the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -48,6 +67,15 @@ FLAGSHIP = (
     "--noconfig.pretrain_mfvi --config.n_samples 500 --config.n_input_dist_seeds 30"
 ).split()
 
+TRAIN_ITERS = 2000
+TRAIN = FLAGSHIP + ["--config.iters", str(TRAIN_ITERS), "--config.lr", "0.005",
+                    "--config.log.every", "1"]
+
+# The card's published peaks (NVIDIA H100 SXM data sheet): FP32 outside the
+# tensor cores and device memory.
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
 # Kernel vs plain twin under the same noise. Small size: the CPU tests'
 # tolerance. Full width (K=256): the two sum the 132-wide products in
 # different orders and 256 steps compound it, so w (|w| ~ 1e3) gets an
@@ -55,6 +83,11 @@ FLAGSHIP = (
 # N=2000 (z 9.5e-6 abs; w 5.9e-3 abs, 5.3e-6 rel; PERF.md).
 TOL_SMALL = {"z_atol": 2e-4, "z_rtol": 1e-4, "w_atol": 5e-4, "w_rtol": 1e-4}
 TOL_FULL = {"z_atol": 1e-4, "z_rtol": 0.0, "w_atol": 2e-2, "w_rtol": 1e-5}
+TRAJ_ATOL, TRAJ_SHARE = 1e-2, 1e-3
+# Gradients, per leaf: |g_kernel - g_plain| <= rel * |g_plain| + floor. At
+# full width the two sum 514k points in f32 in different orders.
+GRAD_TOL_SMALL = (1e-4, 1e-6)
+GRAD_TOL_FULL = (1e-3, 0.0)
 
 
 def fail(msg: str):
@@ -79,16 +112,22 @@ def phase_device() -> str:
 
 
 def phase_build():
-    from cmcd_tpu_torch.ops import build
-    from cmcd_tpu_torch.ops.overdamped import _library
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cmcd_tpu_torch.ops import build, overdamped, vargrad
 
     t0 = time.perf_counter()
-    so = build.build("overdamped")
-    _library()
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
+        libs = list(pool.map(build.build, ("overdamped", "vargrad")))
+    overdamped._library()
+    vargrad._library()
     secs = time.perf_counter() - t0
-    with open(so[:-3] + ".log") as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
-    print(f"[2 build] {secs:.2f} s {os.path.relpath(so)} | " + " | ".join(ptxas), flush=True)
+    for so in libs:
+        with open(so[:-3] + ".log") as f:
+            ptxas = [ln.strip() for ln in f
+                     if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
+        print(f"[2 build] {os.path.relpath(so)} | " + " | ".join(ptxas), flush=True)
+    print(f"[2 build] both sources in {secs:.2f} s", flush=True)
 
 
 def make_problem(n, k, emb_dim, *, seed, factor_sn=0.3, sigma=3.0, eps=0.1):
@@ -132,10 +171,22 @@ def compare(case, spec, tol, **kw):
 
     args = dict(case)
     pos = [args.pop(a) for a in ("z0", "w0", "betas", "eps", "vd_mean", "vd_logdiag", "grad_logp")]
-    z_k, w_k = evolve_overdamped_fused(*pos, spec, **args, **kw)
-    z_p, w_p = evolve_overdamped_fused_plain(*pos, spec, **args, **kw)
+    z_k, w_k, t_k = evolve_overdamped_fused(*pos, spec, **args, return_trajectory=True, **kw)
+    z_p, w_p, t_p = evolve_overdamped_fused_plain(*pos, spec, **args, return_trajectory=True,
+                                                  **kw)
+    z_n, w_n = evolve_overdamped_fused(*pos, spec, **args, **kw)
     torch.cuda.synchronize()
     dz, dw = (z_k - z_p).abs(), (w_k - w_p).abs()
+    # Mid-path the two rollouts drift apart further than at the end (rounding
+    # differences grow along the path and contract again near the modes): the
+    # stored path is held to TRAJ_ATOL everywhere and to the z tolerance in
+    # all but TRAJ_SHARE of its elements.
+    dt = (t_k - t_p).abs()
+    bad_t = dt > tol["z_atol"] + tol["z_rtol"] * t_p.abs()
+    traj_ok = float(dt.max()) <= TRAJ_ATOL and float(bad_t.float().mean()) <= TRAJ_SHARE
+    # Storing the trajectory changes nothing else, and its ends are exact.
+    same = bool(torch.equal(z_n, z_k) and torch.equal(w_n, w_k)
+                and torch.equal(t_k[0], pos[0]) and torch.equal(t_k[-1], z_k))
     bad_z = dz > tol["z_atol"] + tol["z_rtol"] * z_p.abs()
     bad_w = dw > tol["w_atol"] + tol["w_rtol"] * w_p.abs()
     stats = {
@@ -143,11 +194,99 @@ def compare(case, spec, tol, **kw):
         "z_max_rel": float((dz / z_p.abs().clamp_min(1e-6)).max()),
         "w_max_abs": float(dw.max()),
         "w_max_rel": float((dw / w_p.abs().clamp_min(1e-6)).max()),
+        "traj_max_abs": float(dt.max()),
         "z_bad": int(bad_z.any(-1).sum()),
         "w_bad": int(bad_w.sum()),
+        "traj_beyond_z_tol": int(bad_t.sum()),
+        "traj_ok": traj_ok,
+        "traj_ends_exact_and_outputs_unchanged": same,
         "finite": bool(torch.isfinite(z_k).all() and torch.isfinite(w_k).all()),
     }
-    return stats, not (stats["z_bad"] or stats["w_bad"]) and stats["finite"]
+    good = not (stats["z_bad"] or stats["w_bad"]) and traj_ok and same
+    return stats, good and stats["finite"]
+
+
+def _flat(grads):
+    """A gradient dict of the replay backward as {leaf name: tensor}."""
+    return {**{k: v for k, v in grads.items() if k != "sn"}, **grads["sn"]}
+
+
+def _grad_errors(got, want, tol):
+    """Per leaf |got - want| against rel * |want| + floor (norms in f64):
+    (worst error / |want|, its leaf, all within tolerance)."""
+    rel, floor = tol
+    worst, worst_leaf, ok = 0.0, "", True
+    for name, w in want.items():
+        g = got[name]
+        if g is None or not bool(torch.isfinite(g).all()):
+            return math.inf, name, False
+        err = float((g.double() - w.double()).norm())
+        ref = float(w.double().norm())
+        ok &= err <= rel * ref + floor
+        if err / max(ref, 1e-30) > worst:
+            worst, worst_leaf = err / max(ref, 1e-30), name
+    return worst, worst_leaf, ok
+
+
+def compare_backward(case, tol, **kw):
+    """The replay backward kernel against its plain version, from the plain
+    rollout's trajectory and a random cotangent."""
+    from cmcd_tpu_torch.integrators.overdamped import CAIS_VAR
+    from cmcd_tpu_torch.ops.overdamped import evolve_overdamped_fused_plain
+    from cmcd_tpu_torch.ops.vargrad import (
+        evolve_vargrad_bwd_replay,
+        evolve_vargrad_bwd_replay_plain,
+    )
+
+    args = dict(case)
+    noise = args.pop("noise")
+    pos = [args.pop(a) for a in ("z0", "w0", "betas", "eps", "vd_mean", "vd_logdiag", "grad_logp")]
+    _, _, traj = evolve_overdamped_fused_plain(*pos, CAIS_VAR, **args, noise=noise,
+                                               return_trajectory=True, **kw)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    cot = torch.randn(pos[0].shape[0], generator=gen, device="cuda")
+    g_k = evolve_vargrad_bwd_replay(traj, cot, *pos[2:], CAIS_VAR, **args, **kw)
+    g_p = evolve_vargrad_bwd_replay_plain(traj, cot, *pos[2:], CAIS_VAR, **args, **kw)
+    torch.cuda.synchronize()
+    return _grad_errors(_flat(g_k), _flat(g_p), tol)
+
+
+def compare_training_step():
+    """One whole training step at the flagship size with factor_sn 0.3, a
+    head of scale 0.05 (as the CPU tests) and injected draws: var_bound_fused through the kernels against the same
+    call through the plain versions, loss and every gradient leaf."""
+    from cmcd_tpu_torch.ops.fused_train import var_bound_fused
+    from cmcd_tpu_torch.ops.overdamped import evolve_overdamped_fused_plain
+    from cmcd_tpu_torch.ops.vargrad import evolve_vargrad_bwd_replay_plain
+    from cmcd_tpu_torch.train.trainer import tree_leaves
+
+    cfg, setup, target, params, ctx = flagship()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    with torch.no_grad():  # a live net that leaves the chains inside the target's support
+        params["train"]["sn"].factor_sn.fill_(0.3)
+        params["train"]["sn"].head.weight.normal_(0.0, 0.05, generator=gen)
+    draws = dict(base_normals=torch.randn(cfg.N, 2, generator=gen, device="cuda"),
+                 noise=torch.randn(cfg.nbridges, cfg.N, 2, generator=gen, device="cuda"))
+    leaves = tree_leaves(params["train"])
+    names = [str(i) for i in range(len(leaves))]
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    out = {}
+    for path, kw in (("kernel", {}), ("plain", dict(rollout=evolve_overdamped_fused_plain,
+                                                    backward=evolve_vargrad_bwd_replay_plain))):
+        loss, _ = var_bound_fused(params, cfg.N, ctx, setup, target, **draws, **kw)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        live = {n: g for n, g in zip(names, grads) if g is not None}
+        out[path] = (float(loss.detach()), live)
+    torch.cuda.synchronize()
+    (l_k, g_k), (l_p, g_p) = out["kernel"], out["plain"]
+    worst, leaf, ok = _grad_errors(g_k, g_p, GRAD_TOL_FULL)
+    loss_rel = abs(l_k - l_p) / abs(l_p)
+    print(f"[3 compare] training step N={cfg.N} K={cfg.nbridges}: loss kernel {l_k!r} plain "
+          f"{l_p!r} (rel {loss_rel:.3e}, limit 1e-4), {len(g_p)} gradient leaves, worst "
+          f"relative error {worst:.3e} (leaf {leaf}, limit {GRAD_TOL_FULL[0]})", flush=True)
+    # Below the loss's clamp at 1e7, where the gradient would be zero.
+    return ok and loss_rel <= 1e-4 and set(g_k) == set(g_p) and l_p < 1e7
 
 
 def phase_compare():
@@ -163,18 +302,37 @@ def phase_compare():
     ):
         stats, good = compare(small, spec, TOL_SMALL, **kw)
         ok &= good
-        print(f"[3 compare] small N=256 K=8 emb16 {name}: {json.dumps(stats)}", flush=True)
+        print(f"[3 compare] rollout small N=256 K=8 emb16 {name}: {json.dumps(stats)}", flush=True)
     max_err = 0.0
     for n, seed in ((2000, 1), (500, 5)):
         full = make_problem(n, 256, 130, seed=seed, sigma=15.0, eps=0.65)
         stats, good = compare(full, CAIS_VAR, TOL_FULL, grad_clipping=True)
         ok &= good
-        max_err = max(max_err, stats["z_max_abs"], stats["w_max_abs"])
-        print(f"[3 compare] full N={n} K=256 emb130 CAIS_VAR: {json.dumps(stats)} "
+        max_err = max(max_err, stats["z_max_abs"], stats["w_max_abs"], stats["traj_max_abs"])
+        print(f"[3 compare] rollout full N={n} K=256 emb130 CAIS_VAR: {json.dumps(stats)} "
               f"tol {json.dumps(TOL_FULL)}", flush=True)
+
+    for name, kw in (
+        ("", dict(grad_clipping=True)),
+        ("cos_sq", dict(grad_clipping=True, eps_schedule="cos_sq")),
+        ("linear noclip", dict(grad_clipping=False, eps_schedule="linear")),
+    ):
+        worst, leaf, good = compare_backward(make_problem(250, 8, 16, seed=3), GRAD_TOL_SMALL, **kw)
+        ok &= good
+        print(f"[3 compare] backward small N=250 K=8 emb16 {name}: worst relative error "
+              f"{worst:.3e} (leaf {leaf}), limit {GRAD_TOL_SMALL}, ok {good}", flush=True)
+    bwd_err = 0.0
+    for n, seed in ((2000, 6), (1001, 7)):
+        full = make_problem(n, 256, 130, seed=seed, sigma=15.0, eps=0.65)
+        worst, leaf, good = compare_backward(full, GRAD_TOL_FULL, grad_clipping=True)
+        ok &= good
+        bwd_err = max(bwd_err, worst)
+        print(f"[3 compare] backward full N={n} K=256 emb130: worst relative error "
+              f"{worst:.3e} (leaf {leaf}), limit {GRAD_TOL_FULL}, ok {good}", flush=True)
+    ok &= compare_training_step()
     if not ok:
-        fail("kernel and plain twin disagree beyond tolerance")
-    return max_err
+        fail("a kernel and its plain version disagree beyond tolerance")
+    return max_err, bwd_err
 
 
 def flagship():
@@ -198,7 +356,7 @@ def phase_main_path():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = evolve_overdamped_fused.launches
-    print(f"[4 main path] ELBO {out['final_elbo']!r} +- {out['final_elbo_std']!r} "
+    print(f"[4 evaluation path] ELBO {out['final_elbo']!r} +- {out['final_elbo_std']!r} "
           f"ln Z {out['final_ln_Z']!r} +- {out['final_ln_Z_std']!r} launches {launches} "
           f"wall {wall:.3f} s samples {out['samples'].shape}", flush=True)
     if launches != cfg.n_input_dist_seeds:
@@ -277,8 +435,12 @@ def _profile(fn):
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = _wall_ms(fn)
+    # Kernels, memcpy and memset only: an annotation such as the optimizer's
+    # step spans the kernels it launched and would count them twice by name.
     records = sorted((e.time_range.start, e.time_range.end, e.name)
-                     for e in prof.events() if e.device_type == DeviceType.CUDA)
+                     for e in prof.events() if e.device_type == DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)
+                     and not e.name.startswith("Optimizer."))
     busy_us, reach = 0.0, -math.inf
     by_name = {}
     for start, end, name in records:
@@ -287,7 +449,9 @@ def _profile(fn):
         ms, count = by_name.get(name, (0.0, 0))
         by_name[name] = (ms + (end - start) / 1e3, count + 1)
     top = sorted(([n[:60], ms, c] for n, (ms, c) in by_name.items()), key=lambda r: -r[1])
-    return wall, busy_us / 1e3, top[:6]
+    top = top[:6] + [["all device records", sum(ms for ms, _ in by_name.values()),
+                      sum(c for _, c in by_name.values())]]
+    return wall, busy_us / 1e3, top
 
 
 def phase_timing():
@@ -328,32 +492,185 @@ def phase_timing():
     return min(rollout["N500"]["kernel"]), min(rollout["N500"]["plain"]), evals
 
 
+def phase_training_path():
+    from cmcd_tpu_torch.main import parse_flags, run_experiment
+    from cmcd_tpu_torch.ops.overdamped import evolve_overdamped_fused
+    from cmcd_tpu_torch.ops.vargrad import evolve_vargrad_bwd_replay
+
+    cfg = parse_flags(TRAIN)
+    evolve_overdamped_fused.launches = 0
+    evolve_vargrad_bwd_replay.launches = 0
+    t0 = time.perf_counter()
+    out = run_experiment(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = evolve_overdamped_fused.launches, evolve_vargrad_bwd_replay.launches
+    result = out["train"]
+    losses = result.losses.double()
+    first, last = float(losses[:100].mean()), float(losses[-100:].mean())
+    print(f"[7 training path] {cfg.iters} steps N={cfg.N} K={cfg.nbridges}: rollout launches "
+          f"{fwd} backward launches {bwd} wall {wall:.3f} s ({1e3 * wall / cfg.iters:.3f} ms per "
+          f"step, evaluation and init included) | loss mean first 100 {first!r} last 100 "
+          f"{last!r} ratio {last / first!r} | after training ELBO {out['final_elbo']!r} +- "
+          f"{out['final_elbo_std']!r} ln Z {out['final_ln_Z']!r} +- {out['final_ln_Z_std']!r} "
+          f"diverged {result.diverged} steps_done {result.steps_done}", flush=True)
+    if fwd != cfg.iters + cfg.n_input_dist_seeds or bwd != cfg.iters:
+        fail(f"training path launched rollout {fwd} and backward {bwd} times, expected "
+             f"{cfg.iters + cfg.n_input_dist_seeds} and {cfg.iters}")
+    if len(losses) != cfg.iters or bool(torch.isnan(losses).any()):
+        fail(f"training path logged {len(losses)} losses, NaN among them: "
+             f"{bool(torch.isnan(losses).any())}")
+    if result.diverged or result.steps_done != cfg.iters:
+        fail("training path diverged")
+    if not last < 0.5 * first:
+        fail(f"training loss did not halve: first 100 {first}, last 100 {last}")
+    if not (math.isfinite(out["final_elbo"]) and math.isfinite(out["final_ln_Z"])):
+        fail("training path ELBO / ln Z not finite")
+    if out["neg_elbos"].shape != (30, 500) or not np.isfinite(out["samples"]).all():
+        fail("training path evaluation output malformed")
+    return fwd, bwd
+
+
+def _work(n, k, in_dim, n_mix=40):
+    """Least time the card could take for one call of each kernel at these
+    shapes: FP32 operations over the FP32 peak against bytes (every input
+    read once, every output written once) over the memory rate."""
+    points = (k + 1) * n
+    score = 6 * n_mix                                     # per point: distances, exp, sums
+    net_apply = in_dim * in_dim + 4 * in_dim              # FMAs: layer 2, layer 1's z part, head
+    weights = 4 * (2 * in_dim + k * in_dim + k * (in_dim - 2) + in_dim * in_dim + 3 * in_dim
+                   + 2 + 2 * n_mix)
+    fwd_flops = 2 * points * (net_apply + score)
+    fwd_bytes = 4 * (3 * n + k) + weights + 4 * (3 * n) + 8 * points  # z0, w0, betas; z, w, traj
+    # Backward: the apply again, W2 g_a2, the outer product into dW2.
+    bwd_flops = 2 * points * (3 * in_dim * in_dim + 8 * in_dim + score)
+    bwd_bytes = 8 * points + 4 * (n + k) + weights + 4 * (in_dim * in_dim + 5 * in_dim + 8
+                                                          + (k + 1) * (2 * in_dim + 2))
+    bound = lambda flops, nbytes: {
+        "bound_ms": 1e3 * max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES),
+        "bound_by": "operations" if flops / PEAK_FLOPS >= nbytes / PEAK_BYTES else "bytes",
+        "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+    }
+    return bound(fwd_flops, fwd_bytes), bound(bwd_flops, bwd_bytes)
+
+
+def phase_training_timing():
+    from cmcd_tpu_torch import bounds
+    from cmcd_tpu_torch.integrators.overdamped import CAIS_VAR
+    from cmcd_tpu_torch.ops.fused_train import var_bound_fused
+    from cmcd_tpu_torch.ops.overdamped import (
+        evolve_overdamped_fused,
+        evolve_overdamped_fused_plain,
+    )
+    from cmcd_tpu_torch.ops.vargrad import (
+        evolve_vargrad_bwd_replay,
+        evolve_vargrad_bwd_replay_plain,
+    )
+    from cmcd_tpu_torch.train import train
+
+    case = make_problem(2000, 256, 130, seed=2, sigma=15.0, eps=0.65)
+    case.pop("noise")
+    pos = [case.pop(a) for a in ("z0", "w0", "betas", "eps", "vd_mean", "vd_logdiag", "grad_logp")]
+    seed = torch.tensor([7], device="cuda")
+    kw = dict(case, grad_clipping=True)
+    _, _, traj = evolve_overdamped_fused(*pos, CAIS_VAR, **kw, seed=seed, return_trajectory=True)
+    cot = torch.randn(2000, generator=torch.Generator(device="cuda").manual_seed(5), device="cuda")
+    fns = {
+        "rollout": (lambda: evolve_overdamped_fused(*pos, CAIS_VAR, **kw, seed=seed), 20),
+        "rollout_traj": (lambda: evolve_overdamped_fused(*pos, CAIS_VAR, **kw, seed=seed,
+                                                         return_trajectory=True), 20),
+        "rollout_traj_plain": (lambda: evolve_overdamped_fused_plain(
+            *pos, CAIS_VAR, **kw, seed=7, return_trajectory=True), 2),
+        "backward": (lambda: evolve_vargrad_bwd_replay(traj, cot, *pos[2:], CAIS_VAR, **kw), 20),
+        "backward_plain": (lambda: evolve_vargrad_bwd_replay_plain(
+            traj, cot, *pos[2:], CAIS_VAR, **kw), 2),
+    }
+    times = {name: [] for name in fns}
+    for name in ("rollout_traj_plain", "backward_plain", "rollout", "rollout_traj", "backward",
+                 "backward", "rollout_traj", "rollout", "backward_plain", "rollout_traj_plain"):
+        fn, reps = fns[name]
+        times[name].append(_event_ms(fn, reps))
+    print(f"[8 timing] kernels N=2000 K=256 emb130 ms {json.dumps(times)}", flush=True)
+
+    # One optimizer step (train() itself, loss read at the end only).
+    cfg, setup, target, params, ctx = flagship()
+    trainable = bounds.default_trainable(setup.mode, cfg.train_eps, cfg.train_vi, cfg.train_betas)
+    fused = lambda p, n, c, s, generator: var_bound_fused(p, n, c, s, target, generator=generator)
+
+    def steps(loss_fn, iters):
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        return lambda: train(setup, params, ctx, lr=0.005, iters=iters, batch_size=cfg.N,
+                             generator=gen, trainable=trainable, loss_fn=loss_fn,
+                             steps_per_call=iters, nan_check_every=10**9)
+
+    steps(fused, 5)()
+    step_ms = {"eager": [], "kernel": []}
+    for name in ("eager", "kernel", "kernel", "eager"):
+        loss_fn, iters = (bounds.var_bound, 3) if name == "eager" else (fused, 50)
+        step_ms[name].append(_wall_ms(steps(loss_fn, iters)) / iters)
+    print(f"[8 timing] optimizer step N=2000 K=256 ms per step {json.dumps(step_ms)} "
+          f"(kernel: 50 steps, eager: 3 steps per reading)", flush=True)
+    prof_wall, prof_dev, top = _profile(steps(fused, 10))
+    print(f"[8 profile] 10 fused steps: wall {prof_wall!r} ms under the profiler, device busy "
+          f"{prof_dev!r} ms ({100 * prof_dev / prof_wall!r}%), per step busy {prof_dev / 10!r} "
+          f"ms, device records [name, ms, count] {json.dumps(top)}; busy over the fastest "
+          f"unprofiled step {100 * prof_dev / 10 / min(step_ms['kernel'])!r}%", flush=True)
+    return times, step_ms
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6",
+    everything = "1,2,3,4,5,6,7,8"
+    ap.add_argument("--phases", default=everything,
                     help="comma-separated phases to run (default: all)")
     phases = {int(p) for p in ap.parse_args(argv).phases.split(",")}
     smi = phase_device()
     phase_build()
-    max_err = phase_compare() if 3 in phases else None
-    launches = phase_main_path() if 4 in phases else None
+    errors = phase_compare() if 3 in phases else None
+    eval_launches = phase_main_path() if 4 in phases else None
     if 5 in phases:
         phase_statistics()
     timing = phase_timing() if 6 in phases else None
-    if phases != {1, 2, 3, 4, 5, 6}:
+    train_launches = phase_training_path() if 7 in phases else None
+    train_timing = phase_training_timing() if 8 in phases else None
+    if phases != {int(p) for p in everything.split(",")}:
         print(f"partial run (phases {sorted(phases)}): no result line")
         return 1
-    kernel_ms, plain_ms, _ = timing
+    times, step_ms = train_timing
+    fwd_bound, bwd_bound = _work(2000, 256, 132)
+    keep = lambda b: {k: b[k] for k in ("bound_ms", "bound_by")}
+    print(f"[bounds] N=2000 K=256 in_dim 132: rollout {json.dumps(fwd_bound)} backward "
+          f"{json.dumps(bwd_bound)}; peaks {PEAK_FLOPS / 1e12} TFLOP/s FP32, "
+          f"{PEAK_BYTES / 1e12} TB/s; evaluation N=500 rollout {timing[0]!r} ms (plain "
+          f"{timing[1]!r}); optimizer step ms {json.dumps(step_ms)}")
     print(smi)
+    # launches: of the training path's run (phase 7: TRAIN_ITERS steps and the
+    # 30 x 500 evaluation); times at that path's shape, N=2000 with the
+    # trajectory stored. No single PyTorch call computes either function.
     print(json.dumps({"kernels": [{
         "name": "overdamped_rollout",
         "route": "cuda",
         "source": "cmcd_tpu_torch/csrc/overdamped.cu",
         "replaces": "cmcd_tpu/ops/pallas_overdamped.py:102",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
+        "launches": train_launches[0],
+        "launches_evaluation_path": eval_launches,
+        "max_abs_err": errors[0],
+        "ms": min(times["rollout_traj"]),
+        "plain_ms": min(times["rollout_traj_plain"]),
+        **keep(fwd_bound),
+        "library_ms": None,
+    }, {
+        "name": "vargrad_replay",
+        "route": "cuda",
+        "source": "cmcd_tpu_torch/csrc/vargrad.cu",
+        "replaces": "cmcd_tpu/ops/pallas_vargrad.py:67",
+        "launches": train_launches[1],
+        "max_abs_err": errors[1],
+        "max_abs_err_is": "worst per-leaf |g_kernel - g_plain| / |g_plain| at full width",
+        "ms": min(times["backward"]),
+        "plain_ms": min(times["backward_plain"]),
+        **keep(bwd_bound),
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

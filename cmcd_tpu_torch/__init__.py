@@ -7,9 +7,18 @@ functions on tensors elsewhere, an explicit `device`, and an explicit
 layout: `z` is (N, dim), `w` is (N,), injected noise is (K, N, dim), f32.
 
 What it covers so far: the many_gmm target, the overdamped CAIS / CAIS_VAR
-modes, the geffner score net, the ELBO/VarGrad values, and the 30x500
-evaluation through the hand-written CUDA rollout kernel
-(`csrc/overdamped.cu`). Training is not ported yet (ROADMAP queue A).
+modes, the geffner score net, the ELBO/VarGrad losses with their gradients,
+the trainer (elementwise clip then Adam, projection, EMA, NaN guard, MFVI
+pretraining), the 30x500 evaluation and the `--config.*` CLI. On the card
+VarGrad training runs through two hand-written CUDA kernels, one launch
+each per step: the rollout that stores its trajectory
+(`csrc/overdamped.cu`) and the replay backward (`csrc/vargrad.cu`), joined
+by `ops/fused_train.var_bound_fused`; evaluation runs the rollout alone.
+The KL modes' fused training, the other targets, modes and nets,
+checkpoints and W2 are still to be ported (ROADMAP queues A and B).
+
+Entry points and constructors run on the card unless the caller passes
+`device="cpu"` (`utils/device.py`).
 
 This package imports torch, numpy and the standard library only, never jax.
 """
@@ -22,6 +31,7 @@ from cmcd_tpu_torch.bounds import (
     default_trainable,
     initialize,
     kl_bound,
+    loss_fn_for_mode,
     merged_params,
     var_bound,
 )
@@ -35,6 +45,7 @@ __all__ = [
     "initialize",
     "kl_bound",
     "load_target",
+    "loss_fn_for_mode",
     "merged_params",
     "var_bound",
 ]

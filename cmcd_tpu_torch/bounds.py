@@ -3,8 +3,9 @@
 
 Parameters live in a dict {"train": {...}, "notrain": {...}}; the frozen
 subtree is detached at loss time where JAX applies stop_gradient. The score
-net is a GeffnerNet module under params["train"]["sn"]. This module gives
-loss values only: training is not ported yet (ROADMAP queue A).
+net is a GeffnerNet module under params["train"]["sn"]. The losses build an
+autograd graph where JAX differentiates: torch.autograd of var_bound is the
+oracle the fused training loss (ops/fused_train.py) is held against.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from cmcd_tpu_torch.distributions import (
 from cmcd_tpu_torch.integrators.base import IntegratorContext
 from cmcd_tpu_torch.networks import build_score_network
 from cmcd_tpu_torch.schedules import betas_from_grid, make_beta_grid_params
+from cmcd_tpu_torch.utils.device import resolve_device
 
 # Modes that thread the eps schedule through (as in cmcd_tpu/bounds.py).
 _EPS_SCHEDULE_MODES = ("MCD_CAIS_sn", "MCD_CAIS_var_sn")
@@ -84,11 +86,12 @@ def initialize(
 ):
     """Build the parameter dict and the evolve context: (params, ctx).
 
-    The net is initialised from torch.Generator().manual_seed(seed); its
-    bits differ from JAX's PRNGKey(seed) init (compare through
-    utils/convert.py).
+    device=None is the card (utils/device.resolve_device). The net is
+    initialised from torch.Generator().manual_seed(seed); its bits differ
+    from JAX's PRNGKey(seed) init (compare through utils/convert.py).
     """
     integrators.check_mode(setup.mode)
+    device = resolve_device(device)
     train: dict[str, Any] = {}
     notrain: dict[str, Any] = {}
 
@@ -103,7 +106,7 @@ def initialize(
 
     apply_sn = None
     if integrators.mode_uses_score_network(setup.mode):
-        gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+        gen = torch.Generator(device=device).manual_seed(seed)
         train["sn"], apply_sn = build_score_network(
             setup.dim, setup.emb_dim, setup.nbridges, nlayers=setup.nlayers,
             arch=setup.nn_arch, generator=gen, device=device,
@@ -155,13 +158,21 @@ def compute_elbos(params, n_chains: int, ctx: IntegratorContext, setup: CMCDSetu
 
 
 def kl_bound(params, n_chains: int, ctx, setup, **draws):
-    """Mean negative ELBO (the KL training loss value)."""
+    """Mean negative ELBO (the KL training loss). Exact under autograd at
+    nbridges 0 (MFVI pretraining); with bridges the eager target score
+    detaches z (integrators/base.py), so the KL modes' gradient is
+    incomplete until their slice is ported."""
     neg_elbos, z = compute_elbos(params, n_chains, ctx, setup, **draws)
     return torch.mean(neg_elbos), (neg_elbos, z)
 
 
 def var_bound(params, n_chains: int, ctx, setup, **draws):
-    """VarGrad loss value: clipped population variance (ddof 0, as JAX) of
-    the negative ELBOs."""
+    """VarGrad loss: clipped population variance (ddof 0, as JAX) of the
+    negative ELBOs."""
     neg_elbos, z = compute_elbos(params, n_chains, ctx, setup, **draws)
     return torch.clamp(torch.var(neg_elbos, correction=0), -1e7, 1e7), (neg_elbos, z)
+
+
+def loss_fn_for_mode(mode: str):
+    """VarGrad for the "var" modes, the KL bound otherwise."""
+    return var_bound if "var" in mode else kl_bound

@@ -1,0 +1,251 @@
+// What the CMCD kernels for NVIDIA Hopper (sm_90a) share: the overdamped
+// CAIS step's pieces, stated once. Included by overdamped.cu (the rollout)
+// and vargrad.cu (the VarGrad replay backward).
+//
+// The score net is the two-layer geffner net on h0 = [z, emb_i]:
+//   a1 = z @ W1[:2] + c1[i]          c1 = emb @ W1[2:] + b1 (per call, wrapper)
+//   h1 = h0 + softplus(a1)
+//   a2 = h1 @ W2 + b2,  h2 = h1 + softplus(a2)
+//   sn = (h2 @ headW^T + headb) * factor_sn
+// and the target score is the isotropic, equally weighted many_gmm's
+//   gt = inv_var * (sum_k r_k(z) m_k - z),  r = softmax_k(-inv_var/2 |z - m_k|^2).
+//
+// Work split of one block. Thread f owns net feature f for a tile of TC
+// chains (so each W2 element read from shared memory feeds TC FMAs and the
+// hidden states are read as broadcast float4s); the head and the score are
+// reductions with one warp per chain, lanes over features or components.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace cmcd {
+
+constexpr int TC = 8;         // chains one feature thread carries through a layer
+constexpr int DIM = 2;        // state dimension (many_gmm)
+constexpr int MAX_MIX = 64;   // score components: two per lane
+constexpr size_t MAX_SMEM = 232448;  // 227 KiB a block may use on sm_90
+
+// The net and the target as a kernel sees them (device pointers, f32).
+struct NetArgs {
+  const float* w1z;    // (2, in): rows of layer-1 W (in x out) for z
+  const float* c1;     // (K, in): emb_i @ W1[2:] + b1
+  const float* emb;    // (K, emb_dim)
+  const float* w2;     // (in, in): layer-2 W, row k = input feature k
+  const float* b2;     // (in,)
+  const float* headw;  // (2, in)
+  const float* headb;  // (2,)
+  const float* means;  // (n_mix, 2)
+  int in_dim, in_pad, emb_dim, n_mix;
+  float inv_var_t;
+};
+
+__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+__device__ __forceinline__ float softplus_f(float x) {
+  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
+}
+
+// d/dx softplus(x), stable for both signs.
+__device__ __forceinline__ float sigmoid_f(float x) {
+  const float e = expf(-fabsf(x));
+  return x >= 0.f ? 1.0f / (1.0f + e) : e / (1.0f + e);
+}
+
+// jnp.clip semantics: NaN passes through.
+__device__ __forceinline__ float clip_f(float x, float c) {
+  return x < -c ? -c : (x > c ? c : x);
+}
+
+// The eps schedule: 0 constant, 1 linear, 2 cos_sq. eps_i = eps0 * eps_slope
+// + eps_offset with both independent of eps0, so d eps_i / d eps0 = eps_slope.
+__device__ __forceinline__ float eps_slope(int i, int k, int sched) {
+  if (sched == 2) {  // cos_sq
+    const float phase = (float)i / (float)k;
+    const float c = cosf((phase + 0.008f) / 1.008f * 0.5f * 3.14159265358979f);
+    return c * c;
+  }
+  if (sched == 1) return 1.0f - (float)i / (float)(k - 1);  // linear
+  return 1.0f;
+}
+
+__device__ __forceinline__ float eps_at(float eps0, int i, int k, int sched) {
+  if (sched == 2) return eps0 * eps_slope(i, k, sched);
+  if (sched == 1) return (1e-4f - eps0) / (float)(k - 1) * (float)i + eps0;
+  return eps0;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Philox4x32-10 (Salmon et al., SC'11) on counter c with key (k0, k1).
+__device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0, uint32_t k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t lo0 = 0xD2511F53u * c[0], hi0 = __umulhi(0xD2511F53u, c[0]);
+    const uint32_t lo1 = 0xCD9E8D57u * c[2], hi1 = __umulhi(0xCD9E8D57u, c[2]);
+    const uint32_t n0 = hi1 ^ c[1] ^ k0, n2 = hi0 ^ c[3] ^ k1;
+    c[0] = n0; c[1] = lo1; c[2] = n2; c[3] = lo0;
+    k0 += 0x9E3779B9u; k1 += 0xBB67AE85u;
+  }
+}
+
+// The two standard normals of (chain, step): Box-Muller on two Philox words.
+__device__ __forceinline__ float2 philox_normal2(unsigned long long seed, uint32_t chain,
+                                                 uint32_t step) {
+  uint32_t c[4] = {chain, step, 0u, 0u};
+  philox4x32_10(c, (uint32_t)seed, (uint32_t)(seed >> 32));
+  const float u1 = (float)((c[0] >> 8) + 1u) * (1.0f / 16777216.0f);  // (0, 1]
+  const float u2 = (float)(c[1] >> 8) * (1.0f / 16777216.0f);         // [0, 1)
+  const float r = sqrtf(-2.0f * logf(u1));
+  float s, co;
+  sincospif(2.0f * u2, &s, &co);
+  return make_float2(r * co, r * s);
+}
+
+// Copies W2 (in x in, row k = input feature k) into shared memory with row
+// stride `ws`, zero beyond in_dim; every thread of the block calls it.
+__device__ __forceinline__ void load_w2(const NetArgs& net, float* w2s, int ws) {
+  const int ip = net.in_pad, in = net.in_dim;
+  for (int idx = threadIdx.x; idx < ip * ws; idx += blockDim.x) {
+    const int k = idx / ws, f = idx - k * ws;
+    w2s[idx] = (k < in && f < in) ? net.w2[k * in + f] : 0.f;
+  }
+}
+
+// Layer 1 for feature f of TC chains at bridge row idx: a1 and
+// h1 = h0 + softplus(a1), h0 = [z, emb_idx]. zs: TC x DIM positions.
+__device__ __forceinline__ void layer1_feature(const NetArgs& net, int idx, int f,
+                                               float w1z0, float w1z1, const float* zs,
+                                               float a1[TC], float h1[TC]) {
+  const float cf = net.c1[(size_t)idx * net.in_dim + f];
+  const float e = f >= DIM ? net.emb[(size_t)idx * net.emb_dim + f - DIM] : 0.f;
+#pragma unroll
+  for (int c = 0; c < TC; ++c) {
+    const float x0 = zs[c * DIM], x1 = zs[c * DIM + 1];
+    a1[c] = fmaf(x1, w1z1, fmaf(x0, w1z0, cf));
+    const float h0 = f == 0 ? x0 : (f == 1 ? x1 : e);
+    h1[c] = h0 + softplus_f(a1[c]);
+  }
+}
+
+// acc[c] = sum_k hs[c][k] * w2s[k][f] for TC chains: hs has row stride ip (a
+// multiple of 4, zero beyond in_dim), w2s row stride ws.
+__device__ __forceinline__ void layer2_feature(const float* w2s, int ws, const float* hs,
+                                               int ip, int f, float acc[TC]) {
+#pragma unroll
+  for (int c = 0; c < TC; ++c) acc[c] = 0.f;
+#pragma unroll 2
+  for (int k = 0; k < ip; k += 4) {
+    const float wa = w2s[(k + 0) * ws + f];
+    const float wb = w2s[(k + 1) * ws + f];
+    const float wc = w2s[(k + 2) * ws + f];
+    const float wd = w2s[(k + 3) * ws + f];
+#pragma unroll
+    for (int c = 0; c < TC; ++c) {
+      const float4 h = *reinterpret_cast<const float4*>(hs + c * ip + k);
+      acc[c] = fmaf(h.x, wa, acc[c]);
+      acc[c] = fmaf(h.y, wb, acc[c]);
+      acc[c] = fmaf(h.z, wc, acc[c]);
+      acc[c] = fmaf(h.w, wd, acc[c]);
+    }
+  }
+}
+
+// One warp, one chain: the head's two raw outputs (h2 . headW[d], no bias,
+// no factor) and the many_gmm score at (x0, x1). h2: the chain's in_dim
+// hidden values; hws: 2 x in_pad head rows; mus: n_mix x 2 means. All lanes
+// return the same values.
+__device__ __forceinline__ void head_and_score(const NetArgs& net, const float* h2,
+                                               const float* hws, const float* mus, float x0,
+                                               float x1, float out[DIM], float gt[DIM]) {
+  const int lane = threadIdx.x & 31, ip = net.in_pad;
+  float s0 = 0.f, s1 = 0.f;
+  for (int k = lane; k < net.in_dim; k += 32) {
+    const float h = h2[k];
+    s0 = fmaf(h, hws[k], s0);
+    s1 = fmaf(h, hws[ip + k], s1);
+  }
+  out[0] = warp_sum(s0);
+  out[1] = warp_sum(s1);
+
+  float l0 = -INFINITY, l1 = -INFINITY;
+  const int j0 = lane, j1 = lane + 32;
+  if (j0 < net.n_mix) {
+    const float dx = x0 - mus[2 * j0], dy = x1 - mus[2 * j0 + 1];
+    l0 = -0.5f * net.inv_var_t * (dx * dx + dy * dy);
+  }
+  if (j1 < net.n_mix) {
+    const float dx = x0 - mus[2 * j1], dy = x1 - mus[2 * j1 + 1];
+    l1 = -0.5f * net.inv_var_t * (dx * dx + dy * dy);
+  }
+  const float m = warp_max(fmaxf(l0, l1));
+  const float e0 = j0 < net.n_mix ? expf(l0 - m) : 0.f;
+  const float e1 = j1 < net.n_mix ? expf(l1 - m) : 0.f;
+  float sum = e0 + e1;
+  float a0 = (j0 < net.n_mix ? e0 * mus[2 * j0] : 0.f) + (j1 < net.n_mix ? e1 * mus[2 * j1] : 0.f);
+  float a1 = (j0 < net.n_mix ? e0 * mus[2 * j0 + 1] : 0.f) +
+             (j1 < net.n_mix ? e1 * mus[2 * j1 + 1] : 0.f);
+  sum = warp_sum(sum);
+  a0 = warp_sum(a0);
+  a1 = warp_sum(a1);
+  gt[0] = net.inv_var_t * (a0 / sum - x0);
+  gt[1] = net.inv_var_t * (a1 / sum - x1);
+}
+
+// Target score and net output at the TC points in zn_s, bridge row idx, by a
+// block of round_up(in_dim, 32) threads; writes gt_s and sn_s (TC x DIM
+// each). w2s has row stride in_pad; h1s, h2s are TC x in_pad tiles. Every
+// thread of the block must call it.
+__device__ __forceinline__ void point_eval(const NetArgs& net, int idx, float w1z0,
+                                           float w1z1, float b2f, float factor,
+                                           const float* w2s, float* h1s, float* h2s,
+                                           const float* hws, const float* mus,
+                                           const float* zn_s, float* gt_s, float* sn_s) {
+  const int tid = threadIdx.x, ip = net.in_pad;
+  const int lane = tid & 31, warp = tid >> 5, nwarp = blockDim.x >> 5;
+  const bool feat = tid < net.in_dim;
+
+  if (feat) {
+    float a1[TC], h1[TC];
+    layer1_feature(net, idx, tid, w1z0, w1z1, zn_s, a1, h1);
+#pragma unroll
+    for (int c = 0; c < TC; ++c) h1s[c * ip + tid] = h1[c];
+  }
+  __syncthreads();
+
+  if (feat) {
+    float acc[TC];
+    layer2_feature(w2s, ip, h1s, ip, tid, acc);
+#pragma unroll
+    for (int c = 0; c < TC; ++c)
+      h2s[c * ip + tid] = h1s[c * ip + tid] + softplus_f(acc[c] + b2f);
+  }
+  __syncthreads();
+
+  for (int c = warp; c < TC; c += nwarp) {
+    float out[DIM], gt[DIM];
+    head_and_score(net, h2s + c * ip, hws, mus, zn_s[c * DIM], zn_s[c * DIM + 1], out, gt);
+    if (lane == 0) {
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) {
+        sn_s[c * DIM + d] = (out[d] + net.headb[d]) * factor;
+        gt_s[c * DIM + d] = gt[d];
+      }
+    }
+  }
+  __syncthreads();
+}
+
+}  // namespace cmcd

@@ -7,7 +7,8 @@
 // a head, a per-bridge embedding table and factor_sn). The Python wrapper is
 // cmcd_tpu_torch/ops/overdamped.py::evolve_overdamped_fused; its plain
 // PyTorch twin evolve_overdamped_fused_plain states the same math step by
-// step.
+// step. The step's pieces (net layers, head, score, schedule, Philox) are
+// in cmcd_common.cuh, shared with vargrad.cu.
 //
 // One launch runs all K steps for every chain. Per step, for one chain:
 //   eps_i    = eps schedule at i; scale = sqrt(2 eps_i)
@@ -47,19 +48,18 @@
 //    (chain, step, 0, 0), so a later kernel can regenerate any step's draw;
 //    Box-Muller turns two words into the two normals of a step. An injected
 //    (K, N, 2) noise array replaces it for exact comparisons.
+//  * Training needs the path, not only its end: with a trajectory pointer
+//    the owner thread also stores z_0..z_K as (K + 1, N, 2), 8 bytes per
+//    chain-step, for the VarGrad replay backward (vargrad.cu) to read.
 //  * f32 throughout, no tensor cores: wgmma, TMA and bf16 are later work.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "cmcd_common.cuh"
 
 namespace {
 
-constexpr int TC = 8;          // chains per block
-constexpr int DIM = 2;         // state dimension (many_gmm)
-constexpr int MAX_MIX = 64;    // score components: two per lane
+using namespace cmcd;
+
 constexpr int MAX_THREADS = 256;
-constexpr size_t MAX_SMEM = 232448;  // 227 KiB a block may use on sm_90
 
 struct RolloutArgs {
   const float* z0;          // (n, 2)
@@ -68,23 +68,15 @@ struct RolloutArgs {
   const float* noise;       // (K, n, 2) or nullptr: in-kernel Philox
   const float* scal;        // [eps0, factor_sn]
   const long long* seed;    // one int64
-  const float* w1z;         // (2, in): rows of layer-1 W (in x out) for z
-  const float* c1;          // (K, in): emb_i @ W1[2:] + b1
-  const float* emb;         // (K, emb_dim)
-  const float* w2;          // (in, in): layer-2 W, row k = input feature k
-  const float* b2;          // (in,)
-  const float* headw;       // (2, in)
-  const float* headb;       // (2,)
-  const float* means;       // (n_mix, 2)
+  NetArgs net;
   const float* vd_mean;     // (2,)
   const float* vd_inv_var;  // (2,): exp(-2 logdiag)
   float* z_out;             // (n, 2)
   float* w_out;             // (n,)
-  int n, nbridges, in_dim, in_pad, emb_dim, n_mix, eps_schedule;
-  float inv_var_t, clip_t, clip_q;
+  float* traj;              // (K + 1, n, 2) or nullptr: z_0..z_K
+  int n, nbridges, eps_schedule;
+  float clip_t, clip_q;
 };
-
-__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 // Dynamic shared memory of one block: W2, the two hidden tiles, the head,
 // the means and the per-chain exchange (the layout in overdamped_rollout).
@@ -102,183 +94,32 @@ __host__ inline bool fits(int in_dim, int n_mix) {
          n_mix <= MAX_MIX && smem_bytes(in_dim, n_mix) <= MAX_SMEM;
 }
 
-__device__ __forceinline__ float softplus_f(float x) {
-  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-}
-
-// jnp.clip semantics: NaN passes through.
-__device__ __forceinline__ float clip_f(float x, float c) {
-  return x < -c ? -c : (x > c ? c : x);
-}
-
-__device__ __forceinline__ float eps_at(float eps0, int i, int k, int sched) {
-  if (sched == 2) {  // cos_sq
-    float phase = (float)i / (float)k;
-    float c = cosf((phase + 0.008f) / 1.008f * 0.5f * 3.14159265358979f);
-    return eps0 * c * c;
-  }
-  if (sched == 1) return (1e-4f - eps0) / (float)(k - 1) * (float)i + eps0;  // linear
-  return eps0;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Philox4x32-10 (Salmon et al., SC'11) on counter c with key (k0, k1).
-__device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t lo0 = 0xD2511F53u * c[0], hi0 = __umulhi(0xD2511F53u, c[0]);
-    const uint32_t lo1 = 0xCD9E8D57u * c[2], hi1 = __umulhi(0xCD9E8D57u, c[2]);
-    const uint32_t n0 = hi1 ^ c[1] ^ k0, n2 = hi0 ^ c[3] ^ k1;
-    c[0] = n0; c[1] = lo1; c[2] = n2; c[3] = lo0;
-    k0 += 0x9E3779B9u; k1 += 0xBB67AE85u;
-  }
-}
-
-// The two standard normals of (chain, step): Box-Muller on two Philox words.
-__device__ __forceinline__ float2 philox_normal2(unsigned long long seed, uint32_t chain,
-                                                 uint32_t step) {
-  uint32_t c[4] = {chain, step, 0u, 0u};
-  philox4x32_10(c, (uint32_t)seed, (uint32_t)(seed >> 32));
-  const float u1 = (float)((c[0] >> 8) + 1u) * (1.0f / 16777216.0f);  // (0, 1]
-  const float u2 = (float)(c[1] >> 8) * (1.0f / 16777216.0f);         // [0, 1)
-  const float r = sqrtf(-2.0f * logf(u1));
-  float s, co;
-  sincospif(2.0f * u2, &s, &co);
-  return make_float2(r * co, r * s);
-}
-
-// Target score and net output at the TC points in zn_s, bridge index idx;
-// writes gt_s and sn_s. Every thread of the block must call it.
-__device__ __forceinline__ void point_eval(const RolloutArgs& a, int idx, float w1z0,
-                                           float w1z1, float b2f, float factor,
-                                           const float* w2s, float* h1s, float* h2s,
-                                           const float* hws, const float* mus,
-                                           const float* zn_s, float* gt_s, float* sn_s) {
-  const int tid = threadIdx.x, in = a.in_dim, ip = a.in_pad;
-  const int lane = tid & 31, warp = tid >> 5, nwarp = blockDim.x >> 5;
-  const bool feat = tid < in;
-
-  // Layer 1: h1 = h0 + softplus(z @ W1[:2] + c1[idx]), h0 = [z, emb_idx].
-  if (feat) {
-    const float cf = a.c1[(size_t)idx * in + tid];
-    const float e = tid >= DIM ? a.emb[(size_t)idx * a.emb_dim + tid - DIM] : 0.f;
-#pragma unroll
-    for (int c = 0; c < TC; ++c) {
-      const float x0 = zn_s[c * DIM], x1 = zn_s[c * DIM + 1];
-      const float pre = fmaf(x1, w1z1, fmaf(x0, w1z0, cf));
-      const float h0 = tid == 0 ? x0 : (tid == 1 ? x1 : e);
-      h1s[c * ip + tid] = h0 + softplus_f(pre);
-    }
-  }
-  __syncthreads();
-
-  // Layer 2: h2 = h1 + softplus(h1 @ W2 + b2); thread f owns feature f.
-  if (feat) {
-    float acc[TC];
-#pragma unroll
-    for (int c = 0; c < TC; ++c) acc[c] = 0.f;
-#pragma unroll 2
-    for (int k = 0; k < ip; k += 4) {
-      const float wa = w2s[(k + 0) * ip + tid];
-      const float wb = w2s[(k + 1) * ip + tid];
-      const float wc = w2s[(k + 2) * ip + tid];
-      const float wd = w2s[(k + 3) * ip + tid];
-#pragma unroll
-      for (int c = 0; c < TC; ++c) {
-        const float4 h = *reinterpret_cast<const float4*>(h1s + c * ip + k);
-        acc[c] = fmaf(h.x, wa, acc[c]);
-        acc[c] = fmaf(h.y, wb, acc[c]);
-        acc[c] = fmaf(h.z, wc, acc[c]);
-        acc[c] = fmaf(h.w, wd, acc[c]);
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < TC; ++c)
-      h2s[c * ip + tid] = h1s[c * ip + tid] + softplus_f(acc[c] + b2f);
-  }
-  __syncthreads();
-
-  // Head and many_gmm score: one warp per chain.
-  for (int c = warp; c < TC; c += nwarp) {
-    float s0 = 0.f, s1 = 0.f;
-    for (int k = lane; k < in; k += 32) {
-      const float h = h2s[c * ip + k];
-      s0 = fmaf(h, hws[k], s0);
-      s1 = fmaf(h, hws[ip + k], s1);
-    }
-    s0 = warp_sum(s0);
-    s1 = warp_sum(s1);
-
-    const float x0 = zn_s[c * DIM], x1 = zn_s[c * DIM + 1];
-    float l0 = -INFINITY, l1 = -INFINITY;
-    const int j0 = lane, j1 = lane + 32;
-    if (j0 < a.n_mix) {
-      const float dx = x0 - mus[2 * j0], dy = x1 - mus[2 * j0 + 1];
-      l0 = -0.5f * a.inv_var_t * (dx * dx + dy * dy);
-    }
-    if (j1 < a.n_mix) {
-      const float dx = x0 - mus[2 * j1], dy = x1 - mus[2 * j1 + 1];
-      l1 = -0.5f * a.inv_var_t * (dx * dx + dy * dy);
-    }
-    const float m = warp_max(fmaxf(l0, l1));
-    const float e0 = j0 < a.n_mix ? expf(l0 - m) : 0.f;
-    const float e1 = j1 < a.n_mix ? expf(l1 - m) : 0.f;
-    float sum = e0 + e1;
-    float a0 = (j0 < a.n_mix ? e0 * mus[2 * j0] : 0.f) + (j1 < a.n_mix ? e1 * mus[2 * j1] : 0.f);
-    float a1 = (j0 < a.n_mix ? e0 * mus[2 * j0 + 1] : 0.f) +
-               (j1 < a.n_mix ? e1 * mus[2 * j1 + 1] : 0.f);
-    sum = warp_sum(sum);
-    a0 = warp_sum(a0);
-    a1 = warp_sum(a1);
-    if (lane == 0) {
-      sn_s[c * DIM] = (s0 + a.headb[0]) * factor;
-      sn_s[c * DIM + 1] = (s1 + a.headb[1]) * factor;
-      gt_s[c * DIM] = a.inv_var_t * (a0 / sum - x0);
-      gt_s[c * DIM + 1] = a.inv_var_t * (a1 / sum - x1);
-    }
-  }
-  __syncthreads();
-}
-
 __global__ void __launch_bounds__(MAX_THREADS) overdamped_rollout(const RolloutArgs a) {
   extern __shared__ float4 smem4[];
   float* w2s = reinterpret_cast<float*>(smem4);  // in_pad x in_pad
-  const int ip = a.in_pad, in = a.in_dim, K = a.nbridges;
+  const NetArgs& net = a.net;
+  const int ip = net.in_pad, in = net.in_dim, K = a.nbridges;
   float* h1s = w2s + ip * ip;                    // TC x in_pad
   float* h2s = h1s + TC * ip;                    // TC x in_pad
   float* hws = h2s + TC * ip;                    // 2 x in_pad
   float* mus = hws + 2 * ip;                     // n_mix x 2 (padded to 4)
-  float* zn_s = mus + round_up(2 * a.n_mix, 4);  // TC x 2
+  float* zn_s = mus + round_up(2 * net.n_mix, 4);  // TC x 2
   float* gt_s = zn_s + TC * DIM;                 // TC x 2
   float* sn_s = gt_s + TC * DIM;                 // TC x 2
 
   const int tid = threadIdx.x, nthr = blockDim.x;
-  for (int idx = tid; idx < ip * ip; idx += nthr) {
-    const int k = idx / ip, f = idx - k * ip;
-    w2s[idx] = (k < in && f < in) ? a.w2[k * in + f] : 0.f;
-  }
+  load_w2(net, w2s, ip);
   for (int idx = tid; idx < 2 * TC * ip; idx += nthr) h1s[idx] = 0.f;  // h1s and h2s
   for (int idx = tid; idx < 2 * ip; idx += nthr) {
     const int j = idx / ip, k = idx - j * ip;
-    hws[idx] = k < in ? a.headw[j * in + k] : 0.f;
+    hws[idx] = k < in ? net.headw[j * in + k] : 0.f;
   }
-  for (int idx = tid; idx < 2 * a.n_mix; idx += nthr) mus[idx] = a.means[idx];
+  for (int idx = tid; idx < 2 * net.n_mix; idx += nthr) mus[idx] = net.means[idx];
 
   const bool feat = tid < in;
-  const float w1z0 = feat ? a.w1z[tid] : 0.f;
-  const float w1z1 = feat ? a.w1z[in + tid] : 0.f;
-  const float b2f = feat ? a.b2[tid] : 0.f;
+  const float w1z0 = feat ? net.w1z[tid] : 0.f;
+  const float w1z1 = feat ? net.w1z[in + tid] : 0.f;
+  const float b2f = feat ? net.b2[tid] : 0.f;
   const float eps0 = a.scal[0], factor = a.scal[1];
   const unsigned long long seed = (unsigned long long)a.seed[0];
 
@@ -296,12 +137,13 @@ __global__ void __launch_bounds__(MAX_THREADS) overdamped_rollout(const RolloutA
       viv[d] = a.vd_inv_var[d];
       if (live) z[d] = a.z0[chain * DIM + d];
       zn_s[tid * DIM + d] = z[d];
+      if (live && a.traj != nullptr) a.traj[(size_t)chain * DIM + d] = z[d];
     }
     if (live) w = a.w0[chain];
   }
   __syncthreads();
 
-  point_eval(a, 0, w1z0, w1z1, b2f, factor, w2s, h1s, h2s, hws, mus, zn_s, gt_s, sn_s);
+  point_eval(net, 0, w1z0, w1z1, b2f, factor, w2s, h1s, h2s, hws, mus, zn_s, gt_s, sn_s);
   if (owner) {
 #pragma unroll
     for (int d = 0; d < DIM; ++d) {
@@ -337,7 +179,7 @@ __global__ void __launch_bounds__(MAX_THREADS) overdamped_rollout(const RolloutA
       }
     }
     __syncthreads();
-    point_eval(a, min(i + 1, K - 1), w1z0, w1z1, b2f, factor, w2s, h1s, h2s, hws, mus, zn_s,
+    point_eval(net, min(i + 1, K - 1), w1z0, w1z1, b2f, factor, w2s, h1s, h2s, hws, mus, zn_s,
                gt_s, sn_s);
     if (owner) {
       float r2 = 0.f;
@@ -353,6 +195,8 @@ __global__ void __launch_bounds__(MAX_THREADS) overdamped_rollout(const RolloutA
         z[d] = zn;
         gt[d] = gtn;
         sn[d] = snn;
+        if (live && a.traj != nullptr)
+          a.traj[((size_t)(i + 1) * a.n + chain) * DIM + d] = zn;
       }
       w += -0.5f * (r2 - xi2);
     }
@@ -369,14 +213,15 @@ __global__ void __launch_bounds__(MAX_THREADS) overdamped_rollout(const RolloutA
 
 extern "C" {
 
-// Launches the rollout on `stream`. Returns a cudaError_t (0 on success).
+// Launches the rollout on `stream`; traj may be null (no trajectory stored).
+// Returns a cudaError_t (0 on success).
 int cmcd_overdamped_rollout(const float* z0, const float* w0, const float* betas,
                             const float* noise, const float* scal, const long long* seed,
                             const float* w1z, const float* c1, const float* emb,
                             const float* w2, const float* b2, const float* headw,
                             const float* headb, const float* means, const float* vd_mean,
-                            const float* vd_inv_var, float* z_out, float* w_out, int n,
-                            int nbridges, int in_dim, int emb_dim, int n_mix, int eps_schedule,
+                            const float* vd_inv_var, float* z_out, float* w_out, float* traj,
+                            int n, int nbridges, int in_dim, int emb_dim, int n_mix, int eps_schedule,
                             float inv_var_t, float clip_t, float clip_q, void* stream) {
   if (n <= 0 || nbridges <= 0) return (int)cudaSuccess;
   if (in_dim != DIM + emb_dim || !fits(in_dim, n_mix)) return (int)cudaErrorInvalidValue;
@@ -386,9 +231,10 @@ int cmcd_overdamped_rollout(const float* z0, const float* w0, const float* betas
   cudaError_t err = cudaFuncSetAttribute(
       overdamped_rollout, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  RolloutArgs a{z0, w0, betas, noise, scal, seed, w1z, c1, emb, w2, b2, headw, headb, means,
-                vd_mean, vd_inv_var, z_out, w_out, n, nbridges, in_dim, in_pad, emb_dim, n_mix,
-                eps_schedule, inv_var_t, clip_t, clip_q};
+  const NetArgs net{w1z, c1, emb, w2, b2, headw, headb, means,
+                    in_dim, in_pad, emb_dim, n_mix, inv_var_t};
+  RolloutArgs a{z0, w0, betas, noise, scal, seed, net, vd_mean, vd_inv_var, z_out, w_out, traj,
+                n, nbridges, eps_schedule, clip_t, clip_q};
   const int blocks = (n + TC - 1) / TC;
   overdamped_rollout<<<blocks, threads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();

@@ -1,19 +1,26 @@
-"""Experiment CLI (cmcd_tpu/main.py), evaluation only so far.
+"""Experiment CLI (cmcd_tpu/main.py).
 
 Same flag surface as the JAX CLI, parsed with argparse:
   python -m cmcd_tpu_torch.main --config.model many_gmm \\
       --config.boundmode MCD_CAIS_var_sn --config.nbridges 256 \\
       --config.emb_dim 130 --config.N 2000 --config.init_eps 0.65 \\
-      --config.init_sigma 15 --config.grad_clipping True --config.iters 0 \\
+      --config.init_sigma 15 --config.grad_clipping True --config.lr 0.005 \\
+      --config.train_eps False --config.train_vi False --config.iters 40000 \\
       --noconfig.pretrain_mfvi
+plus `--device cpu` (outside the --config.* namespace, which mirrors the JAX
+config field for field): the CLI and run_experiment run on the card and
+raise when there is none, unless the caller asks for the CPU.
 
-Phases: init, then the 30 x 500 evaluation, then ELBO and ln Z are printed.
-On a CUDA device the evaluation always runs the fused rollout kernel, one
-launch per seed group; a configuration the kernel does not cover, or
+Phases: optional MFVI pretraining, mode init, training, the 30 x 500
+evaluation (and the EMA parameters' when use_ema), JSONL metrics
+(log.jsonl). On a CUDA device training runs through the fused VarGrad loss
+(ops/fused_train.var_bound_fused: rollout kernel with trajectory, replay
+backward kernel) and evaluation through the fused rollout, one launch per
+seed group; a configuration the kernels do not cover, or use_pallas_train /
 use_pallas_eval off, raises there instead of running eagerly. On the CPU
-use_pallas_eval picks the kernel's plain twin or the eager integrator.
-Training (iters > 0, MFVI pretraining) is not ported yet and raises, and so
-does a non-default value of a field in NOT_PORTED.
+the two switches pick the kernels' plain versions or the eager integrator.
+bf16_fused_net is accepted and ignored: the backward kernel computes in f32.
+A non-default value of a field in NOT_PORTED raises.
 """
 
 from __future__ import annotations
@@ -28,16 +35,14 @@ from cmcd_tpu_torch import bounds
 from cmcd_tpu_torch.config import Config, apply_lookup_tables, get_config
 from cmcd_tpu_torch.distributions import diag_gaussian_init
 from cmcd_tpu_torch.targets import load_target
-from cmcd_tpu_torch.train import evaluate
+from cmcd_tpu_torch.train import evaluate, mfvi_pretrain, train
+from cmcd_tpu_torch.utils import MetricLogger, ThroughputMeter, resolve_device
 
-# Fields the JAX CLI acts on even at iters 0 that the port does not
-# implement yet: checkpoints, resume and the artifact dump, plots, the
-# profiler, JSONL metrics. The remaining training fields (lr, N, mfvi_*,
-# use_ema, use_pallas_train, bf16_fused_net, bf16_residuals, remat_steps,
-# steps_per_call) act only once training runs, in both CLIs; the
-# evaluation kernel computes in f32 in both.
+# Fields of the JAX CLI that the port does not implement yet: checkpoints,
+# resume and the artifact dump, plots, the profiler. bf16_residuals and
+# remat_steps act only on the KL modes' fused training, which is not ported.
 NOT_PORTED = ("checkpoint_dir", "checkpoint_every", "resume", "plot_dir",
-              "profile_dir", "log.every", "log.jsonl")
+              "profile_dir")
 
 
 def _parse_bool(text: str) -> bool:
@@ -70,26 +75,37 @@ def _add_fields(parser, obj, prefix: str):
             parser.add_argument(f"--config.{name}", dest=name, type=type(value))
 
 
-def parse_flags(argv=None) -> Config:
+def parse_args(argv=None) -> tuple:
     """`--config.X value`, `--config.X=value` and `--noconfig.X` onto the
-    defaults of config.get_config()."""
+    defaults of config.get_config(), and `--device`: (config, device or None)."""
     config = get_config()
     parser = argparse.ArgumentParser(
         prog="python -m cmcd_tpu_torch.main", argument_default=argparse.SUPPRESS
     )
+    parser.add_argument("--device", dest="--device",
+                        help="where to run: default the card; cpu runs on the CPU")
     _add_fields(parser, config, "")
-    for name, value in vars(parser.parse_args(argv)).items():
+    args = vars(parser.parse_args(argv))
+    device = args.pop("--device", None)
+    for name, value in args.items():
         *path, leaf = name.split(".")
         holder = config
         for part in path:
             holder = getattr(holder, part)
         setattr(holder, leaf, value)
-    return config
+    return config, device
 
 
-def init_experiment(config: Config, device) -> tuple:
-    """The mode init phase: (target, setup, params, ctx) on `device`."""
-    target = load_target(config.model, config, device=device)
+def parse_flags(argv=None) -> Config:
+    """The config part of parse_args."""
+    return parse_args(argv)[0]
+
+
+def init_experiment(config: Config, device, target=None, vdparams=None) -> tuple:
+    """The mode init phase: (target, setup, params, ctx) on `device`;
+    target: already loaded, if so; vdparams: the pretrained variational
+    distribution, if any."""
+    target = target or load_target(config.model, config, device=device)
     setup = bounds.CMCDSetup(
         mode=config.boundmode,
         dim=target.dim,
@@ -106,7 +122,8 @@ def init_experiment(config: Config, device) -> tuple:
     params, ctx = bounds.initialize(
         setup,
         target.log_prob,
-        vdparams=diag_gaussian_init(target.dim, config.init_sigma, device=device),
+        vdparams=vdparams if vdparams is not None
+        else diag_gaussian_init(target.dim, config.init_sigma, device=device),
         eps=config.init_eps,
         eta=config.init_eta,
         gamma=config.init_gamma,
@@ -123,58 +140,127 @@ def _field(config, name: str):
     return config
 
 
+def _use_fused(what, switch, supported, device, setup, target) -> bool:
+    """Whether `what` runs fused. On the CPU the switch and the kernels'
+    coverage decide; on the card an uncovered configuration raises (the
+    switch itself was checked before anything touched the card)."""
+    if device.type == "cuda" and not supported:
+        raise NotImplementedError(
+            f"no fused CUDA kernel for {what} of mode {setup.mode} on {target.name} "
+            f"(nn {setup.nn_arch}, emb_dim {setup.emb_dim}); see ROADMAP queue B"
+        )
+    return switch and supported
+
+
 def run_experiment(config: Config, device=None) -> dict:
-    """Init, then evaluate; returns final ELBO / ln Z (+ stds), the
-    negative-ELBO matrix and the samples."""
+    """[MFVI pretrain] -> init -> train -> evaluate; returns final ELBO /
+    ln Z (+ stds, + EMA), the negative-ELBO matrix, the samples and the
+    TrainResult. device=None is the card (utils/device.resolve_device)."""
     for k, v in apply_lookup_tables(config).items():
         setattr(config, k, v)
     print(config)
-    if config.iters > 0 or config.pretrain_mfvi:
-        raise NotImplementedError("training: next PR, see ROADMAP")
     defaults = get_config()
     for name in NOT_PORTED:
         if _field(config, name) != _field(defaults, name):
             raise NotImplementedError(f"config.{name} is not ported yet; see ROADMAP")
+    device = resolve_device(device)
+    if device.type == "cuda":
+        for switch, what in ((config.use_pallas_eval, "the evaluation"),
+                             (config.use_pallas_train or config.iters <= 0, "training")):
+            if not switch:
+                raise NotImplementedError(
+                    f"on a CUDA device {what} runs the fused kernel only; "
+                    "use_pallas_eval / use_pallas_train off are for CPU runs"
+                )
+    logger = MetricLogger(config.log.jsonl)
+    try:
+        return _run_phases(config, device, logger)
+    finally:
+        logger.close()
 
-    device = torch.device(device or ("cuda" if torch.cuda.is_available() else "cpu"))
-    if device.type == "cuda" and not config.use_pallas_eval:
-        raise NotImplementedError(
-            "on a CUDA device the evaluation runs the fused kernel only; "
-            "use_pallas_eval off is for CPU runs"
-        )
-    target, setup, params, ctx = init_experiment(config, device)
+
+def _run_phases(config: Config, device, logger: MetricLogger) -> dict:
+    from cmcd_tpu_torch.ops import (
+        compute_elbos_fused,
+        supports_fused,
+        supports_fused_train,
+        var_bound_fused,
+    )
+
     generator = torch.Generator(device=device).manual_seed(config.seed)
+    eval_generator = torch.Generator(device=device).manual_seed(config.seed + 1)
+
+    target = load_target(config.model, config, device=device)
+    vdparams = None
+    if config.pretrain_mfvi:
+        vdparams, elbo_init, _ = mfvi_pretrain(
+            target.dim, target.log_prob, lr=config.mfvi_lr, iters=config.mfvi_iters,
+            batch_size=config.N, generator=generator, init_sigma=config.init_sigma,
+            device=device,
+        )
+        print("Done training initial parameters, got ELBO %.2f." % elbo_init)
+        logger.log({"elbo_init": elbo_init})
+
+    target, setup, params, ctx = init_experiment(config, device, target, vdparams)
+    trainable = bounds.default_trainable(
+        setup.mode, config.train_eps, config.train_vi, config.train_betas
+    )
 
     eval_elbo_fn = None
-    if config.use_pallas_eval:
-        from cmcd_tpu_torch.ops import compute_elbos_fused, supports_fused
+    if _use_fused("the evaluation", config.use_pallas_eval,
+                  supports_fused(setup, target), device, setup, target):
+        eval_elbo_fn = lambda p, n, g: compute_elbos_fused(p, n, setup, target, generator=g)
+        print(f"Using the fused evaluation path on {device.type}.")
 
-        if not supports_fused(setup, target):
-            if device.type == "cuda":
-                raise NotImplementedError(
-                    f"no fused CUDA kernel for mode {setup.mode} on {target.name} "
-                    f"(nn {setup.nn_arch}, emb_dim {setup.emb_dim}); see ROADMAP queue B"
-                )
-        else:
-            eval_elbo_fn = lambda p, n, g: compute_elbos_fused(p, n, setup, target, generator=g)
-            print(f"Using the fused evaluation path on {device.type}.")
+    train_loss_fn = None
+    if config.iters > 0 and _use_fused(
+            "training", config.use_pallas_train, supports_fused_train(setup, target),
+            device, setup, target):
+        train_loss_fn = lambda p, n, c, s, generator: var_bound_fused(
+            p, n, c, s, target, generator=generator)
+        print(f"Using the fused training path on {device.type} (forward + backward kernels).")
+        if config.bf16_fused_net:
+            print("bf16_fused_net is ignored: the backward kernel computes in f32.")
 
-    out = evaluate(
-        params,
-        ctx,
-        setup,
-        generator=generator,
-        n_samples=config.n_samples,
-        n_input_dist_seeds=config.n_input_dist_seeds,
-        elbo_fn=eval_elbo_fn,
+    meter = ThroughputMeter(config.N, config.nbridges)
+
+    def callback(step, info, z):
+        info["chain_steps_per_sec"] = meter.chain_rate(info.pop("steps_per_sec", 0.0))
+        logger.log(info, step=step)
+
+    result = train(
+        setup, params, ctx, lr=config.lr, iters=config.iters, batch_size=config.N,
+        generator=generator, trainable=trainable, loss_fn=train_loss_fn,
+        use_ema=config.use_ema, callback=callback, log_every=config.log.every or None,
+        steps_per_call=config.steps_per_call,
     )
+    if result.diverged:
+        print("Diverged at step %d; evaluating last finite params." % result.steps_done)
+    params = result.params
+
+    def run_eval(p):
+        return evaluate(p, ctx, setup, generator=eval_generator, n_samples=config.n_samples,
+                        n_input_dist_seeds=config.n_input_dist_seeds, elbo_fn=eval_elbo_fn)
+
+    out = run_eval(params)
     print("Got ELBO %.4f." % out["final_elbo"])
     print("Got ln Z %.4f." % out["final_ln_Z"])
+    logger.log({k: v for k, v in out.items() if isinstance(v, float)})
+    out["train"] = result
+
+    if config.use_ema and result.ema_params is not None:
+        out_ema = run_eval(result.ema_params)
+        print("With EMA, got ELBO %.4f." % out_ema["final_elbo"])
+        print("With EMA, got ln Z %.4f." % out_ema["final_ln_Z"])
+        out["final_elbo_ema"] = out_ema["final_elbo"]
+        out["final_ln_Z_ema"] = out_ema["final_ln_Z"]
+
     return out
 
 
 def main(argv=None):
-    run_experiment(parse_flags(argv))
+    config, device = parse_args(argv)
+    run_experiment(config, device=device)
 
 
 if __name__ == "__main__":

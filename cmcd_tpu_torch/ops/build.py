@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface. At first use it is
 compiled by nvcc for sm_90a into `cmcd_tpu_torch/_build/`, under a name keyed
-on a hash of the source and the flags, and loaded with ctypes. Nothing is
+on a hash of the source, the shared headers (`csrc/*.cuh`) and the flags,
+and loaded with ctypes. Nothing is
 built when a module is imported, so the CPU-only test runs never need nvcc.
 """
 
@@ -40,8 +41,11 @@ def build(name: str) -> str:
     library's path. nvcc's output (ptxas register and shared-memory report
     included) is kept beside it as <library>.log."""
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + [os.path.join(CSRC_DIR, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     so = os.path.join(BUILD_DIR, f"{name}_{digest.hexdigest()[:16]}.so")
     if os.path.exists(so):
         return so

@@ -63,3 +63,11 @@ def eps_at_step(eps, i: int, nbridges: int, schedule: str | None):
     if schedule == "linear":
         return eps_linear(eps, i, nbridges)
     return eps
+
+
+def eps_per_step(eps, nbridges: int, schedule: str | None):
+    """The step sizes of all bridges at once: (nbridges,), differentiable in
+    a tensor `eps`; entry i equals eps_at_step(eps, i, nbridges, schedule)."""
+    eps = torch.as_tensor(eps, dtype=torch.float32)
+    steps = [eps_at_step(eps, i, nbridges, schedule) for i in range(nbridges)]
+    return torch.stack([torch.as_tensor(e, device=eps.device) for e in steps])

@@ -7,10 +7,13 @@ names the ROADMAP queue that holds it.
 from __future__ import annotations
 
 from cmcd_tpu_torch.targets.base import Target
+from cmcd_tpu_torch.utils.device import resolve_device
 
 
 def load_target(name: str, config=None, device=None) -> Target:
-    """Load a target density by name; config attributes as in cmcd_tpu."""
+    """Load a target density by name; config attributes as in cmcd_tpu.
+    device=None is the card (utils/device.resolve_device)."""
+    device = resolve_device(device)
     if name == "many_gmm":
         from cmcd_tpu_torch.targets.gmm import make_many_gmm
 

@@ -1,10 +1,21 @@
-"""Parameters from the JAX package into the port.
+"""Parameters between the JAX package and the port, both ways.
 
 params_from_jax takes `jax.device_get(params)` of cmcd_tpu.initialize (a
 tree of numpy arrays) and returns the port's params: the same
 {"train": ..., "notrain": ...} tree of f32 tensors, with the geffner net as
 a GeffnerNet whose nn.Linear weights are the JAX (in, out) matrices
 transposed. The tests feed both packages the same weights this way.
+
+params_to_numpy and grads_to_numpy go back: a port tree (values, or the
+`.grad` of every leaf after `loss.backward()`) as nested dicts of numpy
+arrays in the JAX layout (`layers[i]["w"]` is `Linear.weight.T`), so that
+`jax.tree_util` flattens it in the same leaf order as `jax.grad`'s result
+and a test can compare leaf by leaf. A leaf the loss does not use (eta and
+gamma in an overdamped mode) has no `.grad`; JAX gives it zeros, and so
+does grads_to_numpy.
+
+The constructors build on the card unless told otherwise (device=None,
+utils/device.resolve_device).
 """
 
 from __future__ import annotations
@@ -13,6 +24,7 @@ import numpy as np
 import torch
 
 from cmcd_tpu_torch.networks.geffner import GeffnerNet
+from cmcd_tpu_torch.utils.device import resolve_device
 
 
 def _t(x, device):
@@ -22,6 +34,7 @@ def _t(x, device):
 @torch.no_grad()
 def geffner_from_jax(sn, device=None) -> GeffnerNet:
     """A GeffnerNet holding the JAX geffner params `sn` (numpy tree)."""
+    device = resolve_device(device)
     emb = np.asarray(sn["emb"])
     nbridges, emb_dim = emb.shape
     in_dim, x_dim = np.asarray(sn["head"]["w"]).shape
@@ -36,20 +49,47 @@ def geffner_from_jax(sn, device=None) -> GeffnerNet:
     return net
 
 
-def geffner_to_numpy(net: GeffnerNet) -> dict:
+def _value(t):
+    return t.detach().cpu().numpy()
+
+
+def _grad(t):
+    return _value(torch.zeros_like(t) if t.grad is None else t.grad)
+
+
+def geffner_to_numpy(net: GeffnerNet, leaf=_value) -> dict:
     """The inverse of geffner_from_jax: the JAX layout as numpy arrays."""
-    dense = lambda lin: {"w": lin.weight.detach().t().cpu().numpy(),
-                         "b": lin.bias.detach().cpu().numpy()}
+    dense = lambda lin: {"w": leaf(lin.weight).T, "b": leaf(lin.bias)}
     return {
         "layers": [dense(lin) for lin in net.layers],
         "head": dense(net.head),
-        "emb": net.emb.detach().cpu().numpy(),
-        "factor_sn": net.factor_sn.detach().cpu().numpy(),
+        "emb": leaf(net.emb),
+        "factor_sn": leaf(net.factor_sn),
     }
+
+
+def _to_numpy(tree, leaf):
+    if isinstance(tree, GeffnerNet):
+        return geffner_to_numpy(tree, leaf)
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v, leaf) for k, v in tree.items()}
+    return leaf(tree)
+
+
+def params_to_numpy(tree) -> dict:
+    """A port tree's values in the JAX layout (nested dicts of numpy)."""
+    return _to_numpy(tree, _value)
+
+
+def grads_to_numpy(tree) -> dict:
+    """The `.grad` of every leaf of a port tree in the JAX layout; zeros
+    where a leaf has none."""
+    return _to_numpy(tree, _grad)
 
 
 def params_from_jax(tree, device=None):
     """Convert a numpy tree of JAX params (nested dicts) to the port's."""
+    device = resolve_device(device)
 
     def convert(key, value):
         if key in ("sn",):

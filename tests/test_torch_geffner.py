@@ -26,7 +26,7 @@ def _jax_net(factor_sn=0.3):
 
 def test_converter_round_trip_is_exact():
     sn, _ = _jax_net()
-    back = geffner_to_numpy(geffner_from_jax(sn))
+    back = geffner_to_numpy(geffner_from_jax(sn, device="cpu"))
     for a, b in zip(jax.tree_util.tree_leaves(sn), jax.tree_util.tree_leaves(back)):
         np.testing.assert_array_equal(np.asarray(a, np.float32), b)
 
@@ -38,7 +38,7 @@ def test_apply_matches_jax(i):
     sn, apply = _jax_net()
     x = np.random.default_rng(i).normal(scale=5.0, size=(64, 2)).astype(np.float32)
     want = np.asarray(apply(jax.tree_util.tree_map(jnp.asarray, sn), jnp.asarray(x), i))
-    got = geffner_from_jax(sn)(torch.from_numpy(x), i).detach().numpy()
+    got = geffner_from_jax(sn, device="cpu")(torch.from_numpy(x), i).detach().numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
@@ -58,7 +58,7 @@ def test_params_from_jax_initialize_tree():
     params, _ = cmcd_tpu.initialize(setup, target.log_prob, eps=0.65, init_sigma=15.0,
                                     trainable=trainable)
     tree = jax.device_get(params)
-    port = params_from_jax(tree)
+    port = params_from_jax(tree, device="cpu")
     assert set(port["train"]) == set(tree["train"])
     assert set(port["notrain"]) == set(tree["notrain"])
     np.testing.assert_array_equal(port["notrain"]["vd"]["logdiag"].numpy(),

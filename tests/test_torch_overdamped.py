@@ -78,7 +78,7 @@ def case(request):
         "betas": torch.from_numpy(np.array(betas)),
         "eps": torch.tensor(0.1),
         "vd": {k: torch.from_numpy(np.array(v)) for k, v in params["vd"].items()},
-        "sn": geffner_from_jax(jax.device_get(params["sn"])),
+        "sn": geffner_from_jax(jax.device_get(params["sn"]), device="cpu"),
     }
     jax_out = {"scan": (np.asarray(z_scan), np.asarray(w_scan)),
                "pallas": (np.asarray(z_pal), np.asarray(w_pal))}
@@ -103,7 +103,7 @@ def test_fused_plain_twin_matches_jax_scan_and_pallas(case):
 
 def test_eager_integrator_matches_jax_scan_and_pallas(case):
     spec, schedule, p, jax_out = case
-    ctx = TCtx(target_log_prob=load_target("many_gmm").log_prob, nbridges=K, dim=2,
+    ctx = TCtx(target_log_prob=load_target("many_gmm", device="cpu").log_prob, nbridges=K, dim=2,
                apply_sn=lambda net, x, i: net(x, i), eps_schedule=schedule,
                grad_clipping=True)
     params = {"vd": p["vd"], "eps": p["eps"], "sn": p["sn"]}
@@ -115,7 +115,7 @@ def test_eager_integrator_matches_jax_scan_and_pallas(case):
 
 def _args():
     jt, params, betas, ctx, z0, noise = _case("")
-    sn = geffner_from_jax(jax.device_get(params["sn"]))
+    sn = geffner_from_jax(jax.device_get(params["sn"]), device="cpu")
     return (torch.from_numpy(z0), torch.zeros(N), torch.from_numpy(np.array(betas)),
             torch.tensor(0.1), torch.zeros(2), torch.full((2,), math.log(3.0)),
             make_many_gmm_score()), sn

@@ -1,8 +1,10 @@
 """The port's evaluation slice end to end against the JAX package, on the
 CPU: compute_elbos_fused (plain twin on a CPU tensor) and the eager
 compute_elbos against JAX's compute_elbos_fused(interpret=True) under the
-same draws, the loss values, evaluate's ln Z aggregation, the CLI, and the
-rule that the port never imports JAX."""
+same draws, the loss values, evaluate's ln Z aggregation, the CLI with its
+device default (the card unless the caller asks for the CPU), and the rule
+that the port never imports JAX. The training slice has its own file,
+tests/test_torch_train_slice.py."""
 
 import os
 import re
@@ -53,10 +55,10 @@ def problem():
                                    interpret=True)
     tsetup = tb.CMCDSetup(mode="MCD_CAIS_var_sn", dim=2, nbridges=K, emb_dim=EMB,
                           grad_clipping=True)
-    target = load_target("many_gmm")
-    _, ctx = tb.initialize(tsetup, target.log_prob)
+    target = load_target("many_gmm", device="cpu")
+    _, ctx = tb.initialize(tsetup, target.log_prob, device="cpu")
     return {
-        "params": params_from_jax(jax.device_get(params)),
+        "params": params_from_jax(jax.device_get(params), device="cpu"),
         "setup": tsetup, "target": target, "ctx": ctx,
         "draws": {"base_normals": torch.from_numpy(base), "noise": torch.from_numpy(noise)},
         "neg": np.asarray(neg), "z": np.asarray(z),
@@ -116,7 +118,7 @@ TINY = ("--config.model many_gmm --config.boundmode MCD_CAIS_var_sn --config.nbr
 
 
 def test_cli_evaluates_with_iters_zero_on_cpu(capsys):
-    main(TINY)
+    main(TINY + ["--device", "cpu"])
     out = capsys.readouterr().out
     lnz = re.search(r"Got ln Z (\S+)\.", out)
     assert lnz and np.isfinite(float(lnz.group(1)))
@@ -126,12 +128,17 @@ def test_cli_evaluates_with_iters_zero_on_cpu(capsys):
 
 @pytest.mark.parametrize("extra", [["--config.iters", "5"], ["--config.pretrain_mfvi"]])
 def test_training_is_refused(extra):
-    with pytest.raises(NotImplementedError, match="training"):
-        run_experiment(parse_flags(TINY + extra))
+    """Without a card nothing runs unless the caller asks for the CPU:
+    no silent CPU run. With device="cpu" the same flags train."""
+    flags = TINY + extra + ["--config.mfvi_iters", "20"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_experiment(parse_flags(flags))
+    out = run_experiment(parse_flags(flags), device="cpu")
+    assert np.isfinite(out["final_ln_Z"]) and not out["train"].diverged
 
 
 def test_cli_evaluates_eagerly_without_the_fused_path_on_cpu(capsys):
-    main(TINY + ["--noconfig.use_pallas_eval"])
+    main(TINY + ["--noconfig.use_pallas_eval", "--device", "cpu"])
     out = capsys.readouterr().out
     lnz = re.search(r"Got ln Z (\S+)\.", out)
     assert lnz and np.isfinite(float(lnz.group(1)))
@@ -148,10 +155,10 @@ def test_cuda_evaluation_never_goes_eager():
 @pytest.mark.parametrize("extra", [["--config.plot_dir", "plots"],
                                    ["--config.checkpoint_dir", "ckpt"],
                                    ["--config.resume"],
-                                   ["--config.log.jsonl", "m.jsonl"]])
+                                   ["--config.profile_dir", "prof"]])
 def test_unported_fields_are_refused(extra):
     with pytest.raises(NotImplementedError, match="not ported"):
-        run_experiment(parse_flags(TINY + extra))
+        run_experiment(parse_flags(TINY + extra), device="cpu")
 
 
 def test_flag_forms():
@@ -164,7 +171,7 @@ def test_flag_forms():
 
 
 def test_supports_fused_gate():
-    target = load_target("many_gmm")
+    target = load_target("many_gmm", device="cpu")
     ok = tb.CMCDSetup(mode="MCD_CAIS_var_sn", dim=2, nbridges=256, emb_dim=130)
     assert supports_fused(ok, target)
     assert supports_fused(tb.CMCDSetup(mode="MCD_CAIS_sn", dim=2, nbridges=8), target)
@@ -207,6 +214,8 @@ class Refuse:
             raise ImportError("the port imported " + name)
 sys.meta_path.insert(0, Refuse())
 import cmcd_tpu_torch, cmcd_tpu_torch.main, cmcd_tpu_torch.ops, cmcd_tpu_torch.utils.convert
+import cmcd_tpu_torch.ops.vargrad, cmcd_tpu_torch.ops.fused_train, cmcd_tpu_torch.train.trainer
+import cmcd_tpu_torch.utils.logging, cmcd_tpu_torch.utils.device
 assert "jax" not in sys.modules
 print("clean")
 """
