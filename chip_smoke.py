@@ -6,18 +6,30 @@
 
 Phases, one line each; any failure exits non-zero:
   1. device: needs CUDA (no CPU run); prints the card's name and power limit.
-  2. build: compiles csrc/overdamped.cu and csrc/vargrad.cu with nvcc for
-     sm_90a, both at once (ptxas report per kernel).
+  2. build: compiles csrc/overdamped.cu, csrc/vargrad.cu and csrc/kl.cu with
+     nvcc for sm_90a, all at once (ptxas report per kernel).
   3. kernels vs their plain versions. The rollout under injected noise, at
      the CPU tests' size and at full width (K=256, emb_dim 130, grad clipping,
      factor_sn 0.3, random embedding) for N=2000 and for the evaluation's
      N=500, whose last block holds 4 live and 4 idle chains, with and without
-     the stored trajectory. The VarGrad replay backward from the same
+     the stored trajectory, under both specs (CAIS_VAR; CAIS, the KL path's). The VarGrad replay backward from the same
      trajectory and a random cotangent, at the test size and at full width
      for N=2000 and N=1001 (both leave a partial last chain tile). Then one
      whole training step, var_bound_fused through the kernels against the
      same call through the plain versions: loss and every gradient leaf.
-     Fails above the stated tolerances.
+     The rollout's noise stack (its Philox draws, injected again, give the
+     same z and w bit for bit). The KL reverse sweep against its plain
+     version, every gradient leaf and dL/dz0, at the test size (K=6, N=128,
+     emb 16; three schedules, with and without clipping) and at full width
+     for N=2000, N=1001 and N=6000 (four groups of feature threads, several
+     tiles per block); where a leaf misses the float32 limit the plain
+     version in float64 arbitrates (the kernel may be at most 4 times as far
+     from it as the float32 plain version is). The re-rolling VarGrad
+     backward against its plain version under injected noise, and from a
+     seed against the replay kernel on the trajectory the rollout stored
+     from that seed, also at N=REROLL_N. One whole KL training step,
+     kl_bound_fused through the kernels against the plain versions. Fails
+     above the stated tolerances.
   4. evaluation path: cmcd_tpu_torch.main.run_experiment with the flagship
      flags (many_gmm, MCD_CAIS_var_sn, K=256, emb_dim 130, iters 0) and the
      30 x 500 evaluation; the rollout must be launched 30 times, ELBO and
@@ -40,6 +52,20 @@ Phases, one line each; any failure exits non-zero:
      backward (CUDA events), one optimizer step through the kernels over 50
      steps against the eager step (host clock around synchronize), and one
      fused step's device time by kernel under torch.profiler.
+  9. KL training path: run_experiment with the many_gmm_kl flags
+     (MCD_CAIS_sn, init_eps 0.1) and TRAIN_ITERS steps at N=2000, then the
+     30 x 500 evaluation. The rollout must be launched TRAIN_ITERS + 30 times
+     and the reverse sweep TRAIN_ITERS times, no logged loss may be NaN, the
+     run must not diverge, and the ELBO after training must lie above the
+     ELBO of the same evaluation at the initial parameters.
+ 10. reroll path: run_experiment with the flagship VarGrad flags at
+     N=REROLL_N, where the stored trajectory would pass the byte budget and
+     "auto" takes the re-rolling backward, for REROLL_ITERS steps: the reroll
+     kernel must be launched once per step and the replay kernel never.
+ 11. timing at N=2000, K=256, in the order plain, kernel, kernel, plain: the
+     KL reverse sweep and the re-rolling backward (CUDA events), the rollout
+     and the re-rolling backward at N=REROLL_N, and one KL optimizer step
+     through the kernels over 50 steps against the eager step.
 Then a JSON line with each kernel's launches, error, times and bound, and as
 the last line {"ok": true, "device": {...}}.
 """
@@ -71,6 +97,21 @@ TRAIN_ITERS = 2000
 TRAIN = FLAGSHIP + ["--config.iters", str(TRAIN_ITERS), "--config.lr", "0.005",
                     "--config.log.every", "1"]
 
+KL_FLAGS = (
+    "--config.model many_gmm --config.boundmode MCD_CAIS_sn "
+    "--config.N 2000 --config.nbridges 256 --config.emb_dim 130 "
+    "--config.init_eps 0.1 --config.init_sigma 15 --config.grad_clipping True "
+    "--config.train_eps False --config.train_vi False --config.lr 0.005 "
+    "--noconfig.pretrain_mfvi --config.n_samples 500 --config.n_input_dist_seeds 30 "
+    "--config.log.every 1"
+).split()
+
+# Where (K + 1) * N * 2 * 4 bytes of trajectory pass the 256 MiB budget at
+# K=256 (N > 130560) and backward="auto" takes the re-rolling kernel.
+REROLL_N, REROLL_ITERS = 131072, 5
+# Chains per slice where a plain version runs in slices at N=REROLL_N.
+PLAIN_CHUNK = 8192
+
 # The card's published peaks (NVIDIA H100 SXM data sheet): FP32 outside the
 # tensor cores and device memory.
 PEAK_FLOPS = 67e12
@@ -88,6 +129,14 @@ TRAJ_ATOL, TRAJ_SHARE = 1e-2, 1e-3
 # full width the two sum 514k points in f32 in different orders.
 GRAD_TOL_SMALL = (1e-4, 1e-6)
 GRAD_TOL_FULL = (1e-3, 0.0)
+# The KL sweep chains the state cotangent through all K steps, so rounding
+# compounds along it. Where a leaf misses GRAD_TOL_FULL the plain version in
+# float64 arbitrates: the kernel passes if it is at most F64_SLACK times as
+# far from the float64 gradient as the float32 plain version is.
+F64_SLACK = 4.0
+# The re-rolling backward from a seed against the replay kernel on the
+# trajectory the rollout stored from that seed, per leaf.
+REROLL_VS_REPLAY_TOL = (1e-4, 0.0)
 
 
 def fail(msg: str):
@@ -114,20 +163,21 @@ def phase_device() -> str:
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
-    from cmcd_tpu_torch.ops import build, overdamped, vargrad
+    from cmcd_tpu_torch.ops import build, kl, overdamped, vargrad
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
-        libs = list(pool.map(build.build, ("overdamped", "vargrad")))
+    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, started together
+        libs = list(pool.map(build.build, ("overdamped", "vargrad", "kl")))
     overdamped._library()
     vargrad._library()
+    kl._library()
     secs = time.perf_counter() - t0
     for so in libs:
         with open(so[:-3] + ".log") as f:
             ptxas = [ln.strip() for ln in f
                      if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
         print(f"[2 build] {os.path.relpath(so)} | " + " | ".join(ptxas), flush=True)
-    print(f"[2 build] both sources in {secs:.2f} s", flush=True)
+    print(f"[2 build] all three sources in {secs:.2f} s", flush=True)
 
 
 def make_problem(n, k, emb_dim, *, seed, factor_sn=0.3, sigma=3.0, eps=0.1):
@@ -161,6 +211,15 @@ def make_problem(n, k, emb_dim, *, seed, factor_sn=0.3, sigma=3.0, eps=0.1):
         dim=2,
         nbridges=k,
     )
+
+
+def _split(case):
+    """A problem of make_problem as (the wrappers' positional arguments from
+    z0 to grad_logp, their keyword arguments, the injected noise)."""
+    kw = dict(case)
+    noise = kw.pop("noise")
+    names = ("z0", "w0", "betas", "eps", "vd_mean", "vd_logdiag", "grad_logp")
+    return [kw.pop(a) for a in names], kw, noise
 
 
 def compare(case, spec, tol, **kw):
@@ -238,9 +297,7 @@ def compare_backward(case, tol, **kw):
         evolve_vargrad_bwd_replay_plain,
     )
 
-    args = dict(case)
-    noise = args.pop("noise")
-    pos = [args.pop(a) for a in ("z0", "w0", "betas", "eps", "vd_mean", "vd_logdiag", "grad_logp")]
+    pos, args, noise = _split(case)
     _, _, traj = evolve_overdamped_fused_plain(*pos, CAIS_VAR, **args, noise=noise,
                                                return_trajectory=True, **kw)
     gen = torch.Generator(device="cuda").manual_seed(17)
@@ -251,41 +308,247 @@ def compare_backward(case, tol, **kw):
     return _grad_errors(_flat(g_k), _flat(g_p), tol)
 
 
-def compare_training_step():
-    """One whole training step at the flagship size with factor_sn 0.3, a
-    head of scale 0.05 (as the CPU tests) and injected draws: var_bound_fused through the kernels against the same
-    call through the plain versions, loss and every gradient leaf."""
-    from cmcd_tpu_torch.ops.fused_train import var_bound_fused
-    from cmcd_tpu_torch.ops.overdamped import evolve_overdamped_fused_plain
-    from cmcd_tpu_torch.ops.vargrad import evolve_vargrad_bwd_replay_plain
-    from cmcd_tpu_torch.train.trainer import tree_leaves
+def compare_noise_stack(case, **kw):
+    """The rollout's noise stack is what the kernel used: its Philox draws,
+    injected again, give the same z, w and trajectory bit for bit."""
+    from cmcd_tpu_torch.integrators.overdamped import CAIS
+    from cmcd_tpu_torch.ops.overdamped import evolve_overdamped_fused
 
-    cfg, setup, target, params, ctx = flagship()
+    pos, args, _ = _split(case)
+    seed = torch.tensor([13], device="cuda")
+    z, w, traj, draws = evolve_overdamped_fused(*pos, CAIS, **args, seed=seed,
+                                                return_trajectory=True, return_noise=True, **kw)
+    z2, w2, traj2, same = evolve_overdamped_fused(*pos, CAIS, **args, noise=draws,
+                                                  return_trajectory=True, return_noise=True, **kw)
+    torch.cuda.synchronize()
+    stats = {"z_equal": bool(torch.equal(z, z2)), "w_equal": bool(torch.equal(w, w2)),
+             "traj_equal": bool(torch.equal(traj, traj2)), "injected_handed_on": same is draws,
+             "mean": float(draws.mean()), "std": float(draws.std())}
+    good = (all(stats[k] for k in ("z_equal", "w_equal", "traj_equal", "injected_handed_on"))
+            and abs(stats["mean"]) < 0.01 and abs(stats["std"] - 1.0) < 0.01)
+    return stats, good
+
+
+def _norm_errors(got, ref):
+    return {name: float((got[name].double() - r.double()).norm()) for name, r in ref.items()}
+
+
+def compare_sweep(case, tol, arbitrate=False, **kw):
+    """The KL reverse-sweep kernel against its plain version, from the plain
+    rollout's trajectory, its noise and random cotangents: every gradient
+    leaf and dL/dz0. With arbitrate also the plain version in float64: a
+    leaf beyond `tol` still passes if the kernel is at most F64_SLACK times
+    as far from the float64 value as the float32 plain version is."""
+    from cmcd_tpu_torch.integrators.overdamped import CAIS
+    from cmcd_tpu_torch.ops.kl import evolve_kl_bwd, evolve_kl_bwd_plain
+    from cmcd_tpu_torch.ops.overdamped import evolve_overdamped_fused_plain
+
+    pos, args, noise = _split(case)
+    _, _, traj = evolve_overdamped_fused_plain(*pos, CAIS, **args, noise=noise,
+                                               return_trajectory=True, **kw)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    n = pos[0].shape[0]
+    cot = torch.randn(n, generator=gen, device="cuda")
+    g_zf = torch.randn(n, 2, generator=gen, device="cuda")
+    tree = lambda out: {**_flat(out[0]), "g_z0": out[1]}
+    got = tree(evolve_kl_bwd(traj, noise, cot, g_zf, *pos[2:], CAIS, **args, **kw))
+    want = tree(evolve_kl_bwd_plain(traj, noise, cot, g_zf, *pos[2:], CAIS, **args, **kw))
+    torch.cuda.synchronize()
+    worst, leaf, ok = _grad_errors(got, want, tol)
+    line = f"worst relative error {worst:.3e} (leaf {leaf}), limit {tol}"
+    if arbitrate:
+        ref = tree(evolve_kl_bwd_plain(traj.double(), noise.double(), cot, g_zf, *pos[2:], CAIS,
+                                       **args, **kw))
+        e_k, e_p, e_kp = _norm_errors(got, ref), _norm_errors(want, ref), _norm_errors(got, want)
+        rel, floor = tol
+        needed = [name for name in ref
+                  if e_kp[name] > rel * float(want[name].double().norm()) + floor]
+        ok = all(bool(torch.isfinite(g).all()) for g in got.values()) and all(
+            e_k[name] <= F64_SLACK * e_p[name] for name in needed)
+        rel64 = lambda e: max(e[name] / max(float(ref[name].norm()), 1e-30) for name in ref)
+        line += (f"; against float64: kernel {rel64(e_k):.3e}, float32 plain {rel64(e_p):.3e} "
+                 f"(worst leaf each); leaves that needed the float64 arbiter: {needed or 'none'}")
+    return worst, line, ok
+
+
+def compare_reroll(case, tol, **kw):
+    """The re-rolling backward kernel under injected noise against its plain
+    version (the plain rollout, then the replay's plain version)."""
+    from cmcd_tpu_torch.integrators.overdamped import CAIS_VAR
+    from cmcd_tpu_torch.ops.vargrad import (
+        evolve_vargrad_bwd_reroll,
+        evolve_vargrad_bwd_reroll_plain,
+    )
+
+    pos, args, noise = _split(case)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    cot = torch.randn(pos[0].shape[0], generator=gen, device="cuda")
+    rest = (pos[0], cot, *pos[2:], CAIS_VAR)
+    g_k = evolve_vargrad_bwd_reroll(*rest, **args, noise=noise, **kw)
+    g_p = evolve_vargrad_bwd_reroll_plain(*rest, **args, noise=noise, **kw)
+    torch.cuda.synchronize()
+    return _grad_errors(_flat(g_k), _flat(g_p), tol)
+
+
+def _chain_chunks(n, chunk):
+    return [slice(a, min(a + chunk, n)) for a in range(0, n, chunk)]
+
+
+def compare_rollout_chunked(case, spec, tol, chunk, **kw):
+    """The rollout kernel on all N chains at once against its plain version
+    on slices of `chunk` chains (chains are independent), under the same
+    injected noise: final z and w. For an N whose plain rollout is too large
+    for one pass. Up to TRAJ_SHARE of the chains may miss `tol` if the plain
+    version in float64 arbitrates for them."""
+    from cmcd_tpu_torch.ops.overdamped import (
+        evolve_overdamped_fused,
+        evolve_overdamped_fused_plain,
+    )
+    from cmcd_tpu_torch.train.trainer import double_tree
+
+    pos, args, noise = _split(case)
+    z_k, w_k = evolve_overdamped_fused(*pos, spec, **args, noise=noise, **kw)
+    parts = [evolve_overdamped_fused_plain(pos[0][sl], pos[1][sl], *pos[2:], spec, **args,
+                                           noise=noise[:, sl].contiguous(), **kw)
+             for sl in _chain_chunks(pos[0].shape[0], chunk)]
+    z_p, w_p = (torch.cat([part[i] for part in parts]) for i in (0, 1))
+    torch.cuda.synchronize()
+    dz, dw = (z_k - z_p).abs(), (w_k - w_p).abs()
+    bad = ((dz > tol["z_atol"] + tol["z_rtol"] * z_p.abs()).any(-1)
+           | (dw > tol["w_atol"] + tol["w_rtol"] * w_p.abs()))
+    stats = {
+        "z_max_abs": float(dz[~bad].max()), "w_max_abs": float(dw[~bad].max()),
+        "chains_beyond_tol": int(bad.sum()), "share_beyond_tol": float(bad.float().mean()),
+        "z_max_abs_beyond_tol": float(dz.max()), "w_max_abs_beyond_tol": float(dw.max()),
+        "finite": bool(torch.isfinite(z_k).all() and torch.isfinite(w_k).all()),
+    }
+    good = stats["finite"] and stats["share_beyond_tol"] <= TRAJ_SHARE
+    if bad.any():
+        # Among so many chains a few amplify the two float32 summation orders
+        # past the limit by the last step (mid-path the N=2000 check sees the
+        # same). The plain version in float64 on those chains arbitrates: per
+        # chain the kernel's distance from it over the float32 plain version's,
+        # whose median may be at most F64_SLACK (the norms over those chains,
+        # which one chain can dominate, are printed beside it).
+        f64 = lambda t: t.double() if torch.is_tensor(t) and t.is_floating_point() else t
+        args64 = dict(args, sn=double_tree(args["sn"]))
+        z_d, w_d = evolve_overdamped_fused_plain(
+            *(f64(t[bad]) for t in pos[:2]), *(f64(t) for t in pos[2:]), spec, **args64,
+            noise=noise[:, bad].double(), **kw)
+        def far(a_k, a_p, ref):
+            e_k, e_p = ((a[bad].double() - ref).abs().reshape(len(ref), -1).amax(1)
+                        for a in (a_k, a_p))
+            return {"kernel": float(e_k.norm()), "plain": float(e_p.norm()),
+                    "median_ratio": float((e_k / e_p.clamp_min(1e-30)).median())}
+
+        stats["against_float64"] = {"z": far(z_k, z_p, z_d), "w": far(w_k, w_p, w_d)}
+        good &= all(v["median_ratio"] <= F64_SLACK for v in stats["against_float64"].values())
+    return stats, good
+
+
+def compare_reroll_chunked(case, tol, chunk, **kw):
+    """The re-rolling backward kernel on all N chains at once against its
+    plain version on slices of `chunk` chains, summed in float64 (the
+    gradient is a sum over chains), under the same injected noise. Returns
+    (worst relative error, its leaf, ok, ms of the chunked plain pass)."""
+    from cmcd_tpu_torch.integrators.overdamped import CAIS_VAR
+    from cmcd_tpu_torch.ops.vargrad import (
+        evolve_vargrad_bwd_reroll,
+        evolve_vargrad_bwd_reroll_plain,
+    )
+
+    pos, args, noise = _split(case)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    cot = torch.randn(pos[0].shape[0], generator=gen, device="cuda")
+    g_k = _flat(evolve_vargrad_bwd_reroll(pos[0], cot, *pos[2:], CAIS_VAR, **args, noise=noise,
+                                          **kw))
+    total = {}
+
+    def plain_pass():
+        total.clear()
+        for sl in _chain_chunks(pos[0].shape[0], chunk):
+            part = _flat(evolve_vargrad_bwd_reroll_plain(
+                pos[0][sl], cot[sl], *pos[2:], CAIS_VAR, **args,
+                noise=noise[:, sl].contiguous(), **kw))
+            for name, g in part.items():
+                total[name] = total.get(name, 0.0) + g.double()
+
+    plain_ms = _wall_ms(plain_pass)
+    return (*_grad_errors(g_k, total, tol), plain_ms)
+
+
+def compare_reroll_with_replay(case, **kw):
+    """From one seed: the rollout kernel stores its trajectory and the replay
+    kernel reads it; the re-rolling kernel makes the trajectory again from
+    (z0, seed). The two gradients agree if it draws the rollout's numbers."""
+    from cmcd_tpu_torch.integrators.overdamped import CAIS_VAR
+    from cmcd_tpu_torch.ops.overdamped import evolve_overdamped_fused
+    from cmcd_tpu_torch.ops.vargrad import evolve_vargrad_bwd_replay, evolve_vargrad_bwd_reroll
+
+    pos, args, _ = _split(case)
+    seed = torch.tensor([29], device="cuda")
+    _, _, traj = evolve_overdamped_fused(*pos, CAIS_VAR, **args, seed=seed,
+                                         return_trajectory=True, **kw)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    cot = torch.randn(pos[0].shape[0], generator=gen, device="cuda")
+    g_replay = evolve_vargrad_bwd_replay(traj, cot, *pos[2:], CAIS_VAR, **args, **kw)
+    g_reroll = evolve_vargrad_bwd_reroll(pos[0], cot, *pos[2:], CAIS_VAR, **args, seed=seed, **kw)
+    torch.cuda.synchronize()
+    return _grad_errors(_flat(g_reroll), _flat(g_replay), REROLL_VS_REPLAY_TOL)
+
+
+def compare_training_step(flags=None, name="VarGrad", arbitrate=False):
+    """One whole training step at the flagship size with factor_sn 0.3, a
+    head of scale 0.05 (as the CPU tests) and injected draws: the mode's
+    fused loss through the kernels against the same call through the plain
+    versions, loss and every gradient leaf."""
+    from cmcd_tpu_torch.ops.fused_train import fused_training_path
+    from cmcd_tpu_torch.train.trainer import double_tree, tree_leaf_names, tree_leaves
+
+    cfg, setup, target, params, ctx = flagship(flags)
+    loss_fn, _ = fused_training_path(setup, cfg.N)
     gen = torch.Generator(device="cuda").manual_seed(23)
     with torch.no_grad():  # a live net that leaves the chains inside the target's support
         params["train"]["sn"].factor_sn.fill_(0.3)
         params["train"]["sn"].head.weight.normal_(0.0, 0.05, generator=gen)
     draws = dict(base_normals=torch.randn(cfg.N, 2, generator=gen, device="cuda"),
                  noise=torch.randn(cfg.nbridges, cfg.N, 2, generator=gen, device="cuda"))
-    leaves = tree_leaves(params["train"])
-    names = [str(i) for i in range(len(leaves))]
-    for leaf in leaves:
-        leaf.requires_grad_(True)
-    out = {}
-    for path, kw in (("kernel", {}), ("plain", dict(rollout=evolve_overdamped_fused_plain,
-                                                    backward=evolve_vargrad_bwd_replay_plain))):
-        loss, _ = var_bound_fused(params, cfg.N, ctx, setup, target, **draws, **kw)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        live = {n: g for n, g in zip(names, grads) if g is not None}
-        out[path] = (float(loss.detach()), live)
+    names = tree_leaf_names(params["train"])
+    plain = dict(plain=True)
+
+    def value_and_grads(tree, kw, cast=lambda t: t):
+        tree_l = tree_leaves(tree["train"])
+        for leaf in tree_l:
+            leaf.requires_grad_(True)
+        loss, _ = loss_fn(tree, cfg.N, ctx, setup, target, **kw,
+                          **{k: cast(v) for k, v in draws.items()})
+        grads = torch.autograd.grad(loss, tree_l, allow_unused=True)
+        return float(loss.detach()), {n: g for n, g in zip(names, grads) if g is not None}
+
+    (l_k, g_k), (l_p, g_p) = value_and_grads(params, {}), value_and_grads(params, plain)
     torch.cuda.synchronize()
-    (l_k, g_k), (l_p, g_p) = out["kernel"], out["plain"]
     worst, leaf, ok = _grad_errors(g_k, g_p, GRAD_TOL_FULL)
     loss_rel = abs(l_k - l_p) / abs(l_p)
-    print(f"[3 compare] training step N={cfg.N} K={cfg.nbridges}: loss kernel {l_k!r} plain "
-          f"{l_p!r} (rel {loss_rel:.3e}, limit 1e-4), {len(g_p)} gradient leaves, worst "
-          f"relative error {worst:.3e} (leaf {leaf}, limit {GRAD_TOL_FULL[0]})", flush=True)
-    # Below the loss's clamp at 1e7, where the gradient would be zero.
+    line = ""
+    if arbitrate:
+        # The whole step again in float64 (plain versions on a float64 copy
+        # of the parameters and draws): the arbiter of the two float32 paths.
+        _, g_d = value_and_grads(double_tree(params), plain, lambda t: t.double())
+        e_k, e_p = _norm_errors(g_k, g_d), _norm_errors(g_p, g_d)
+        rel, floor = GRAD_TOL_FULL
+        needed = [n for n, e in _norm_errors(g_k, g_p).items()
+                  if e > rel * float(g_p[n].double().norm()) + floor]
+        ok = all(bool(torch.isfinite(g).all()) for g in g_k.values()) and all(
+            e_k[n] <= F64_SLACK * e_p[n] for n in needed)
+        rel64 = lambda e: max(e[n] / max(float(g_d[n].norm()), 1e-30) for n in g_d)
+        line = (f"; against the float64 step: kernels {rel64(e_k):.3e}, float32 plain versions "
+                f"{rel64(e_p):.3e} (worst leaf each); leaves that needed the float64 arbiter "
+                f"(kernels at most {F64_SLACK} times as far): "
+                f"{[(n, e_k[n] / max(e_p[n], 1e-30)) for n in needed] or 'none'}")
+    print(f"[3 compare] {name} training step N={cfg.N} K={cfg.nbridges}: loss kernel {l_k!r} "
+          f"plain {l_p!r} (rel {loss_rel:.3e}, limit 1e-4), {len(g_p)} gradient leaves, worst "
+          f"relative error {worst:.3e} (leaf {leaf}, limit {GRAD_TOL_FULL[0]}){line}", flush=True)
+    # Below the VarGrad loss's clamp at 1e7, where the gradient would be zero.
     return ok and loss_rel <= 1e-4 and set(g_k) == set(g_p) and l_p < 1e7
 
 
@@ -311,6 +574,14 @@ def phase_compare():
         max_err = max(max_err, stats["z_max_abs"], stats["w_max_abs"], stats["traj_max_abs"])
         print(f"[3 compare] rollout full N={n} K=256 emb130 CAIS_VAR: {json.dumps(stats)} "
               f"tol {json.dumps(TOL_FULL)}", flush=True)
+        # The KL path's rollout at the same two shapes: spec CAIS (no clip on
+        # the variational score) at the KL recipe's step size.
+        full = make_problem(n, 256, 130, seed=seed + 10, sigma=15.0, eps=0.1)
+        stats, good = compare(full, CAIS, TOL_FULL, grad_clipping=True)
+        ok &= good
+        max_err = max(max_err, stats["z_max_abs"], stats["w_max_abs"], stats["traj_max_abs"])
+        print(f"[3 compare] rollout full N={n} K=256 emb130 CAIS: {json.dumps(stats)} "
+              f"tol {json.dumps(TOL_FULL)}", flush=True)
 
     for name, kw in (
         ("", dict(grad_clipping=True)),
@@ -330,17 +601,84 @@ def phase_compare():
         print(f"[3 compare] backward full N={n} K=256 emb130: worst relative error "
               f"{worst:.3e} (leaf {leaf}), limit {GRAD_TOL_FULL}, ok {good}", flush=True)
     ok &= compare_training_step()
+
+    stats, good = compare_noise_stack(make_problem(2000, 256, 130, seed=8, sigma=15.0),
+                                      grad_clipping=True)
+    ok &= good
+    print(f"[3 compare] rollout noise stack N=2000 K=256 emb130 CAIS: {json.dumps(stats)}",
+          flush=True)
+    for name, kw in (
+        ("", dict(grad_clipping=True)),
+        ("cos_sq", dict(grad_clipping=True, eps_schedule="cos_sq")),
+        ("linear", dict(grad_clipping=True, eps_schedule="linear")),
+        ("noclip", dict(grad_clipping=False)),
+        ("linear noclip", dict(grad_clipping=False, eps_schedule="linear")),
+    ):
+        _, line, good = compare_sweep(make_problem(128, 6, 16, seed=3, sigma=8.0),
+                                      GRAD_TOL_SMALL, **kw)
+        ok &= good
+        print(f"[3 compare] KL sweep small N=128 K=6 emb16 {name}: {line}, ok {good}", flush=True)
+        worst, leaf, good = compare_reroll(make_problem(250, 8, 16, seed=3), GRAD_TOL_SMALL, **kw)
+        ok &= good
+        print(f"[3 compare] reroll small N=250 K=8 emb16 {name}: worst relative error "
+              f"{worst:.3e} (leaf {leaf}), limit {GRAD_TOL_SMALL}, ok {good}", flush=True)
+    # N=6000 is past 132 tiles of 32 chains: the sweeps run four groups of
+    # feature threads there and a block walks more than one tile.
+    kl_err = reroll_err = 0.0
+    for n, seed in ((2000, 6), (1001, 7), (6000, 9)):
+        full = make_problem(n, 256, 130, seed=seed, sigma=15.0)
+        worst, line, good = compare_sweep(full, GRAD_TOL_FULL, arbitrate=True, grad_clipping=True)
+        ok &= good
+        kl_err = max(kl_err, worst)
+        print(f"[3 compare] KL sweep full N={n} K=256 emb130: {line}, ok {good}", flush=True)
+        full = make_problem(n, 256, 130, seed=seed, sigma=15.0, eps=0.65)
+        worst, leaf, good = compare_reroll(full, GRAD_TOL_FULL, grad_clipping=True)
+        ok &= good
+        reroll_err = max(reroll_err, worst)
+        print(f"[3 compare] reroll full N={n} K=256 emb130 (injected noise, vs plain): worst "
+              f"relative error {worst:.3e} (leaf {leaf}), limit {GRAD_TOL_FULL}, ok {good}",
+              flush=True)
+        worst, leaf, good = compare_reroll_with_replay(full, grad_clipping=True)
+        ok &= good
+        print(f"[3 compare] reroll full N={n} K=256 emb130 (seed, vs the replay kernel on the "
+              f"rollout's trajectory): worst relative error {worst:.3e} (leaf {leaf}), limit "
+              f"{REROLL_VS_REPLAY_TOL}, ok {good}", flush=True)
+    # The re-rolling path's own shape (four groups, 32 tiles per block). The
+    # plain versions' one batched pass does not fit the card there, and chains
+    # are independent: they run on slices of PLAIN_CHUNK chains, the rollout's
+    # results joined, the gradient's summed.
+    big = make_problem(REROLL_N, 256, 130, seed=10, sigma=15.0, eps=0.65)
+    stats, good = compare_rollout_chunked(big, CAIS_VAR, TOL_FULL, PLAIN_CHUNK, grad_clipping=True)
+    ok &= good
+    max_err = max(max_err, stats["z_max_abs"], stats["w_max_abs"])
+    print(f"[3 compare] rollout full N={REROLL_N} K=256 emb130 CAIS_VAR (plain version in slices "
+          f"of {PLAIN_CHUNK} chains): {json.dumps(stats)} tol {json.dumps(TOL_FULL)}", flush=True)
+    worst, leaf, good, reroll_big_plain_ms = compare_reroll_chunked(
+        big, GRAD_TOL_FULL, PLAIN_CHUNK, grad_clipping=True)
+    ok &= good
+    reroll_big_err = worst
+    print(f"[3 compare] reroll full N={REROLL_N} K=256 emb130 (injected noise, vs plain in slices "
+          f"of {PLAIN_CHUNK} chains, summed; {reroll_big_plain_ms:.1f} ms): worst relative error "
+          f"{worst:.3e} (leaf {leaf}), limit {GRAD_TOL_FULL}, ok {good}", flush=True)
+    worst, leaf, good = compare_reroll_with_replay(big, grad_clipping=True)
+    ok &= good
+    print(f"[3 compare] reroll full N={REROLL_N} K=256 emb130 (seed, vs the replay kernel on the "
+          f"rollout's trajectory): worst relative error {worst:.3e} (leaf {leaf}), limit "
+          f"{REROLL_VS_REPLAY_TOL}, ok {good}", flush=True)
+    del big
+    ok &= compare_training_step(KL_FLAGS + ["--config.iters", "0"], "KL", arbitrate=True)
     if not ok:
         fail("a kernel and its plain version disagree beyond tolerance")
-    return max_err, bwd_err
+    return max_err, bwd_err, kl_err, max(reroll_err, reroll_big_err), (reroll_big_err,
+                                                                       reroll_big_plain_ms)
 
 
-def flagship():
+def flagship(flags=None):
     """(config, setup, target, params, ctx) as main.run_experiment builds
-    them for the flagship flags."""
+    them for `flags` (default: the flagship VarGrad flags)."""
     from cmcd_tpu_torch.main import init_experiment, parse_flags
 
-    cfg = parse_flags(FLAGSHIP)
+    cfg = parse_flags(flags or FLAGSHIP)
     target, setup, params, ctx = init_experiment(cfg, torch.device("cuda"))
     return cfg, setup, target, params, ctx
 
@@ -546,12 +884,21 @@ def _work(n, k, in_dim, n_mix=40):
     bwd_flops = 2 * points * (3 * in_dim * in_dim + 8 * in_dim + score)
     bwd_bytes = 8 * points + 4 * (n + k) + weights + 4 * (in_dim * in_dim + 5 * in_dim + 8
                                                           + (k + 1) * (2 * in_dim + 2))
+    # KL sweep: the backward's work plus the 40-component Hessian product per
+    # point; reads trajectory, noise, cot and g_zfinal, writes dL/dz0 too.
+    kl_flops = bwd_flops + 2 * points * 10 * n_mix
+    kl_bytes = bwd_bytes + 8 * k * n + 16 * n
+    # Reroll: the backward's work on a trajectory it makes itself (one apply
+    # per point serves both); reads z0 instead of the trajectory.
+    reroll_flops = bwd_flops + 2 * points * 8
+    reroll_bytes = bwd_bytes - 8 * points + 8 * n + 8
     bound = lambda flops, nbytes: {
         "bound_ms": 1e3 * max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES),
         "bound_by": "operations" if flops / PEAK_FLOPS >= nbytes / PEAK_BYTES else "bytes",
         "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
     }
-    return bound(fwd_flops, fwd_bytes), bound(bwd_flops, bwd_bytes)
+    return (bound(fwd_flops, fwd_bytes), bound(bwd_flops, bwd_bytes), bound(kl_flops, kl_bytes),
+            bound(reroll_flops, reroll_bytes))
 
 
 def phase_training_timing():
@@ -618,9 +965,183 @@ def phase_training_timing():
     return times, step_ms
 
 
+def phase_kl_training_path():
+    from cmcd_tpu_torch.main import parse_flags, run_experiment
+    from cmcd_tpu_torch.ops.kl import evolve_kl_bwd
+    from cmcd_tpu_torch.ops.overdamped import evolve_overdamped_fused
+    from cmcd_tpu_torch.ops.vargrad import evolve_vargrad_bwd_replay, evolve_vargrad_bwd_reroll
+
+    # The same evaluation (same seeds) at the initial parameters first.
+    init = run_experiment(parse_flags(KL_FLAGS + ["--config.iters", "0"]))
+    cfg = parse_flags(KL_FLAGS + ["--config.iters", str(TRAIN_ITERS)])
+    counters = (evolve_overdamped_fused, evolve_kl_bwd, evolve_vargrad_bwd_replay,
+                evolve_vargrad_bwd_reroll)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = run_experiment(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd, replay, reroll = (fn.launches for fn in counters)
+    result = out["train"]
+    losses = result.losses.double()
+    first, last = float(losses[:100].mean()), float(losses[-100:].mean())
+    print(f"[9 KL training path] {cfg.iters} steps N={cfg.N} K={cfg.nbridges} "
+          f"{cfg.boundmode}: rollout launches {fwd} reverse-sweep launches {bwd} (VarGrad "
+          f"backward launches {replay + reroll}) wall {wall:.3f} s ({1e3 * wall / cfg.iters:.3f} "
+          f"ms per step, evaluation and init included) | loss mean first 100 {first!r} last 100 "
+          f"{last!r} | ELBO {init['final_elbo']!r} -> {out['final_elbo']!r} +- "
+          f"{out['final_elbo_std']!r} ln Z {init['final_ln_Z']!r} -> {out['final_ln_Z']!r} +- "
+          f"{out['final_ln_Z_std']!r} diverged {result.diverged} steps_done {result.steps_done}",
+          flush=True)
+    if fwd != cfg.iters + cfg.n_input_dist_seeds or bwd != cfg.iters or replay or reroll:
+        fail(f"KL training path launched rollout {fwd}, reverse sweep {bwd}, VarGrad backward "
+             f"{replay + reroll} times, expected {cfg.iters + cfg.n_input_dist_seeds}, "
+             f"{cfg.iters}, 0")
+    if len(losses) != cfg.iters or bool(torch.isnan(losses).any()):
+        fail(f"KL training path logged {len(losses)} losses, NaN among them: "
+             f"{bool(torch.isnan(losses).any())}")
+    if result.diverged or result.steps_done != cfg.iters:
+        fail("KL training path diverged")
+    if not (math.isfinite(out["final_elbo"]) and math.isfinite(out["final_ln_Z"])):
+        fail("KL training path ELBO / ln Z not finite")
+    if not out["final_elbo"] > init["final_elbo"]:
+        fail(f"KL training did not raise the ELBO: {init['final_elbo']} -> {out['final_elbo']}")
+    if out["neg_elbos"].shape != (30, 500) or not np.isfinite(out["samples"]).all():
+        fail("KL training path evaluation output malformed")
+    return fwd, bwd
+
+
+def phase_reroll_path():
+    from cmcd_tpu_torch.main import parse_flags, run_experiment
+    from cmcd_tpu_torch.ops.overdamped import evolve_overdamped_fused
+    from cmcd_tpu_torch.ops.vargrad import evolve_vargrad_bwd_replay, evolve_vargrad_bwd_reroll
+
+    cfg = parse_flags(FLAGSHIP + ["--config.N", str(REROLL_N), "--config.iters",
+                                  str(REROLL_ITERS), "--config.lr", "0.005",
+                                  "--config.log.every", "1"])
+    counters = (evolve_overdamped_fused, evolve_vargrad_bwd_reroll, evolve_vargrad_bwd_replay)
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = run_experiment(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    fwd, reroll, replay = (fn.launches for fn in counters)
+    traj_mib = (cfg.nbridges + 1) * cfg.N * 2 * 4 / 2**20
+    losses = out["train"].losses.double()
+    print(f"[10 reroll path] {cfg.iters} steps N={cfg.N} K={cfg.nbridges} {cfg.boundmode}: "
+          f"rollout launches {fwd} reroll launches {reroll} replay launches {replay} wall "
+          f"{wall:.3f} s | peak device memory {peak / 2**20:.1f} MiB ({(peak - before) / 2**20:.1f} "
+          f"MiB above the start; the trajectory alone would be {traj_mib:.1f} MiB) | losses "
+          f"{[float(x) for x in losses]!r} | ELBO {out['final_elbo']!r} ln Z {out['final_ln_Z']!r}",
+          flush=True)
+    if fwd != cfg.iters + cfg.n_input_dist_seeds or reroll != cfg.iters or replay:
+        fail(f"reroll path launched rollout {fwd}, reroll {reroll}, replay {replay} times, "
+             f"expected {cfg.iters + cfg.n_input_dist_seeds}, {cfg.iters}, 0")
+    if len(losses) != cfg.iters or bool(torch.isnan(losses).any()) or out["train"].diverged:
+        fail("reroll path: NaN loss or diverged")
+    if not (math.isfinite(out["final_elbo"]) and math.isfinite(out["final_ln_Z"])):
+        fail("reroll path ELBO / ln Z not finite")
+    return reroll, peak
+
+
+def phase_kl_timing():
+    from cmcd_tpu_torch import bounds
+    from cmcd_tpu_torch.integrators.overdamped import CAIS, CAIS_VAR
+    from cmcd_tpu_torch.ops.fused_train import kl_bound_fused
+    from cmcd_tpu_torch.ops.kl import evolve_kl_bwd, evolve_kl_bwd_plain
+    from cmcd_tpu_torch.ops.overdamped import evolve_overdamped_fused
+    from cmcd_tpu_torch.ops.vargrad import (
+        evolve_vargrad_bwd_reroll,
+        evolve_vargrad_bwd_reroll_plain,
+    )
+    from cmcd_tpu_torch.train import train
+
+    seed = torch.tensor([7], device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cot = torch.randn(2000, generator=gen, device="cuda")
+    g_zf = torch.randn(2000, 2, generator=gen, device="cuda")
+
+    def problem(eps):
+        pos, kw, _ = _split(make_problem(2000, 256, 130, seed=2, sigma=15.0, eps=eps))
+        return pos, dict(kw, grad_clipping=True)
+
+    pos, kw = problem(0.1)       # the KL recipe's step size
+    _, _, traj, noise = evolve_overdamped_fused(*pos, CAIS, **kw, seed=seed,
+                                                return_trajectory=True, return_noise=True)
+    vpos, vkw = problem(0.65)    # the VarGrad recipe's
+    fns = {
+        "rollout_traj_noise": (lambda: evolve_overdamped_fused(
+            *pos, CAIS, **kw, seed=seed, return_trajectory=True, return_noise=True), 20),
+        "kl_sweep": (lambda: evolve_kl_bwd(traj, noise, cot, g_zf, *pos[2:], CAIS, **kw), 10),
+        "kl_sweep_plain": (lambda: evolve_kl_bwd_plain(traj, noise, cot, g_zf, *pos[2:], CAIS,
+                                                       **kw), 1),
+        "reroll": (lambda: evolve_vargrad_bwd_reroll(vpos[0], cot, *vpos[2:], CAIS_VAR, **vkw,
+                                                     seed=seed), 10),
+        "reroll_plain": (lambda: evolve_vargrad_bwd_reroll_plain(
+            vpos[0], cot, *vpos[2:], CAIS_VAR, **vkw, seed=7), 1),
+    }
+    times = {name: [] for name in fns}
+    for name in ("kl_sweep_plain", "reroll_plain", "kl_sweep", "reroll", "rollout_traj_noise",
+                 "rollout_traj_noise", "reroll", "kl_sweep", "reroll_plain", "kl_sweep_plain"):
+        fn, reps = fns[name]
+        times[name].append(_event_ms(fn, reps))
+    print(f"[11 timing] kernels N=2000 K=256 emb130 ms {json.dumps(times)}", flush=True)
+
+    # The re-rolling path's own shape, and what the kernel allocates there.
+    big_z0 = 15.0 * torch.randn(REROLL_N, 2, generator=gen, device="cuda")
+    big_w0 = torch.zeros(REROLL_N, device="cuda")
+    big_cot = torch.randn(REROLL_N, generator=gen, device="cuda")
+    big = {
+        "rollout": lambda: evolve_overdamped_fused(big_z0, big_w0, *vpos[2:], CAIS_VAR, **vkw,
+                                                   seed=seed),
+        "reroll": lambda: evolve_vargrad_bwd_reroll(big_z0, big_cot, *vpos[2:], CAIS_VAR, **vkw,
+                                                    seed=seed),
+    }
+    big_ms = {name: [_event_ms(fn, 2) for _ in range(2)] for name, fn in big.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    big["reroll"]()
+    torch.cuda.synchronize()
+    scratch = (torch.cuda.max_memory_allocated() - before) / 2**20
+    print(f"[11 timing] kernels N={REROLL_N} K=256 emb130 ms {json.dumps(big_ms)}; one reroll "
+          f"call allocates {scratch:.1f} MiB at its peak", flush=True)
+
+    cfg, setup, target, params, ctx = flagship(KL_FLAGS + ["--config.iters", "0"])
+    trainable = bounds.default_trainable(setup.mode, cfg.train_eps, cfg.train_vi, cfg.train_betas)
+    fused = lambda p, n, c, s, generator: kl_bound_fused(p, n, c, s, target, generator=generator)
+
+    def steps(loss_fn, iters):
+        g = torch.Generator(device="cuda").manual_seed(1)
+        return lambda: train(setup, params, ctx, lr=0.005, iters=iters, batch_size=cfg.N,
+                             generator=g, trainable=trainable, loss_fn=loss_fn,
+                             steps_per_call=iters, nan_check_every=10**9)
+
+    steps(fused, 5)()
+    step_ms = {"eager": [], "kernel": []}
+    for name in ("eager", "kernel", "kernel", "eager"):
+        loss_fn, iters = (bounds.kl_bound, 1) if name == "eager" else (fused, 50)
+        step_ms[name].append(_wall_ms(steps(loss_fn, iters)) / iters)
+    print(f"[11 timing] KL optimizer step N=2000 K=256 ms per step {json.dumps(step_ms)} "
+          f"(kernel: 50 steps, eager: 1 step per reading)", flush=True)
+    prof_wall, prof_dev, top = _profile(steps(fused, 10))
+    print(f"[11 profile] 10 fused KL steps: wall {prof_wall!r} ms under the profiler, device "
+          f"busy {prof_dev!r} ms ({100 * prof_dev / prof_wall!r}%), per step busy "
+          f"{prof_dev / 10!r} ms, device records [name, ms, count] {json.dumps(top)}; busy over "
+          f"the fastest unprofiled step {100 * prof_dev / 10 / min(step_ms['kernel'])!r}%",
+          flush=True)
+    return {**times, **{f"{name}_big": ms for name, ms in big_ms.items()}}, step_ms
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    everything = "1,2,3,4,5,6,7,8"
+    everything = "1,2,3,4,5,6,7,8,9,10,11"
     ap.add_argument("--phases", default=everything,
                     help="comma-separated phases to run (default: all)")
     phases = {int(p) for p in ap.parse_args(argv).phases.split(",")}
@@ -633,20 +1154,30 @@ def main(argv=None):
     timing = phase_timing() if 6 in phases else None
     train_launches = phase_training_path() if 7 in phases else None
     train_timing = phase_training_timing() if 8 in phases else None
+    kl_launches = phase_kl_training_path() if 9 in phases else None
+    reroll = phase_reroll_path() if 10 in phases else None
+    kl_timing = phase_kl_timing() if 11 in phases else None
     if phases != {int(p) for p in everything.split(",")}:
         print(f"partial run (phases {sorted(phases)}): no result line")
         return 1
     times, step_ms = train_timing
-    fwd_bound, bwd_bound = _work(2000, 256, 132)
+    kl_times, kl_step_ms = kl_timing
+    fwd_bound, bwd_bound, kl_bound, reroll_bound = _work(2000, 256, 132)
     keep = lambda b: {k: b[k] for k in ("bound_ms", "bound_by")}
     print(f"[bounds] N=2000 K=256 in_dim 132: rollout {json.dumps(fwd_bound)} backward "
-          f"{json.dumps(bwd_bound)}; peaks {PEAK_FLOPS / 1e12} TFLOP/s FP32, "
+          f"{json.dumps(bwd_bound)} KL sweep {json.dumps(kl_bound)} reroll "
+          f"{json.dumps(reroll_bound)}; peaks {PEAK_FLOPS / 1e12} TFLOP/s FP32, "
           f"{PEAK_BYTES / 1e12} TB/s; evaluation N=500 rollout {timing[0]!r} ms (plain "
-          f"{timing[1]!r}); optimizer step ms {json.dumps(step_ms)}")
+          f"{timing[1]!r}); optimizer step ms VarGrad {json.dumps(step_ms)} KL "
+          f"{json.dumps(kl_step_ms)}")
+    big_bound = _work(REROLL_N, 256, 132)[3]
+    print(f"[bounds] N={REROLL_N} K=256 in_dim 132: reroll {json.dumps(big_bound)}")
     print(smi)
-    # launches: of the training path's run (phase 7: TRAIN_ITERS steps and the
-    # 30 x 500 evaluation); times at that path's shape, N=2000 with the
-    # trajectory stored. No single PyTorch call computes either function.
+    # launches: of each kernel's own main path, counted from 0 just before it
+    # (phase 7: VarGrad training and the 30 x 500 evaluation; phase 9: the KL
+    # twin; phase 10: the re-rolling steps); times, plain times and bounds at
+    # N=2000, K=256. No single PyTorch call computes any of the four functions.
+    err_is = "worst per-leaf |g_kernel - g_plain| / |g_plain| at full width"
     print(json.dumps({"kernels": [{
         "name": "overdamped_rollout",
         "route": "cuda",
@@ -654,8 +1185,10 @@ def main(argv=None):
         "replaces": "cmcd_tpu/ops/pallas_overdamped.py:102",
         "launches": train_launches[0],
         "launches_evaluation_path": eval_launches,
+        "launches_kl_path": kl_launches[0],
         "max_abs_err": errors[0],
         "ms": min(times["rollout_traj"]),
+        "ms_with_noise_stack": min(kl_times["rollout_traj_noise"]),
         "plain_ms": min(times["rollout_traj_plain"]),
         **keep(fwd_bound),
         "library_ms": None,
@@ -666,11 +1199,42 @@ def main(argv=None):
         "replaces": "cmcd_tpu/ops/pallas_vargrad.py:67",
         "launches": train_launches[1],
         "max_abs_err": errors[1],
-        "max_abs_err_is": "worst per-leaf |g_kernel - g_plain| / |g_plain| at full width",
+        "max_abs_err_is": err_is,
         "ms": min(times["backward"]),
         "plain_ms": min(times["backward_plain"]),
         **keep(bwd_bound),
         "library_ms": None,
+    }, {
+        "name": "kl_reverse_sweep",
+        "route": "cuda",
+        "source": "cmcd_tpu_torch/csrc/kl.cu",
+        "replaces": "cmcd_tpu/ops/pallas_kl.py:49",
+        "launches": kl_launches[1],
+        "max_abs_err": errors[2],
+        "max_abs_err_is": err_is,
+        "ms": min(kl_times["kl_sweep"]),
+        "plain_ms": min(kl_times["kl_sweep_plain"]),
+        **keep(kl_bound),
+        "library_ms": None,
+    }, {
+        "name": "vargrad_reroll",
+        "route": "cuda",
+        "source": "cmcd_tpu_torch/csrc/vargrad.cu",
+        "replaces": "cmcd_tpu/ops/pallas_vargrad.py:385",
+        "launches": reroll[0],
+        "max_abs_err": errors[3],
+        "max_abs_err_is": err_is,
+        "ms": min(kl_times["reroll"]),
+        "plain_ms": min(kl_times["reroll_plain"]),
+        **keep(reroll_bound),
+        "library_ms": None,
+        # At the re-rolling path's own N: the plain version in slices of
+        # PLAIN_CHUNK chains (one wall-clock pass, phase 3).
+        "path_n": REROLL_N,
+        "max_abs_err_at_path_n": errors[4][0],
+        "ms_at_path_n": min(kl_times["reroll_big"]),
+        "plain_ms_at_path_n": errors[4][1],
+        "bound_ms_at_path_n": big_bound["bound_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -159,9 +159,9 @@ def compute_elbos(params, n_chains: int, ctx: IntegratorContext, setup: CMCDSetu
 
 def kl_bound(params, n_chains: int, ctx, setup, **draws):
     """Mean negative ELBO (the KL training loss). Exact under autograd at
-    nbridges 0 (MFVI pretraining); with bridges the eager target score
-    detaches z (integrators/base.py), so the KL modes' gradient is
-    incomplete until their slice is ported."""
+    any nbridges: the eager target score stays differentiable in the state
+    (integrators/base.target_grad), so the gradient is the full backprop
+    through time that jax.grad of the scan loss gives."""
     neg_elbos, z = compute_elbos(params, n_chains, ctx, setup, **draws)
     return torch.mean(neg_elbos), (neg_elbos, z)
 

@@ -1,6 +1,6 @@
 // What the CMCD kernels for NVIDIA Hopper (sm_90a) share: the overdamped
 // CAIS step's pieces, stated once. Included by overdamped.cu (the rollout)
-// and vargrad.cu (the VarGrad replay backward).
+// and, through cmcd_tile.cuh, by vargrad.cu and kl.cu (the backward kernels).
 //
 // The score net is the two-layer geffner net on h0 = [z, emb_i]:
 //   a1 = z @ W1[:2] + c1[i]          c1 = emb @ W1[2:] + b1 (per call, wrapper)
@@ -163,13 +163,11 @@ __device__ __forceinline__ void layer2_feature(const float* w2s, int ws, const f
   }
 }
 
-// One warp, one chain: the head's two raw outputs (h2 . headW[d], no bias,
-// no factor) and the many_gmm score at (x0, x1). h2: the chain's in_dim
-// hidden values; hws: 2 x in_pad head rows; mus: n_mix x 2 means. All lanes
-// return the same values.
-__device__ __forceinline__ void head_and_score(const NetArgs& net, const float* h2,
-                                               const float* hws, const float* mus, float x0,
-                                               float x1, float out[DIM], float gt[DIM]) {
+// One warp, one chain: the head's two raw outputs h2 . headW[d] (no bias, no
+// factor). h2: the chain's in_dim hidden values; hws: 2 x in_pad head rows.
+// All lanes return the same values.
+__device__ __forceinline__ void head_raw(const NetArgs& net, const float* h2,
+                                         const float* hws, float out[DIM]) {
   const int lane = threadIdx.x & 31, ip = net.in_pad;
   float s0 = 0.f, s1 = 0.f;
   for (int k = lane; k < net.in_dim; k += 32) {
@@ -179,16 +177,31 @@ __device__ __forceinline__ void head_and_score(const NetArgs& net, const float* 
   }
   out[0] = warp_sum(s0);
   out[1] = warp_sum(s1);
+}
 
+// What a lane keeps of the score for the Hessian product: its two components'
+// softmax weights r and offsets d = m_k - x (zero past n_mix).
+struct ScoreLanes {
+  float r[2], dx[2], dy[2];
+};
+
+// One warp, one chain: the many_gmm score at (x0, x1) from the n_mix x 2
+// means in mus, two components per lane. All lanes return the same gt; with
+// `sl` each lane also returns its own two components.
+__device__ __forceinline__ void many_gmm_score(const NetArgs& net, const float* mus, float x0,
+                                               float x1, float gt[DIM],
+                                               ScoreLanes* sl = nullptr) {
+  const int lane = threadIdx.x & 31;
   float l0 = -INFINITY, l1 = -INFINITY;
+  float dx0 = 0.f, dy0 = 0.f, dx1 = 0.f, dy1 = 0.f;
   const int j0 = lane, j1 = lane + 32;
   if (j0 < net.n_mix) {
-    const float dx = x0 - mus[2 * j0], dy = x1 - mus[2 * j0 + 1];
-    l0 = -0.5f * net.inv_var_t * (dx * dx + dy * dy);
+    dx0 = x0 - mus[2 * j0], dy0 = x1 - mus[2 * j0 + 1];
+    l0 = -0.5f * net.inv_var_t * (dx0 * dx0 + dy0 * dy0);
   }
   if (j1 < net.n_mix) {
-    const float dx = x0 - mus[2 * j1], dy = x1 - mus[2 * j1 + 1];
-    l1 = -0.5f * net.inv_var_t * (dx * dx + dy * dy);
+    dx1 = x0 - mus[2 * j1], dy1 = x1 - mus[2 * j1 + 1];
+    l1 = -0.5f * net.inv_var_t * (dx1 * dx1 + dy1 * dy1);
   }
   const float m = warp_max(fmaxf(l0, l1));
   const float e0 = j0 < net.n_mix ? expf(l0 - m) : 0.f;
@@ -202,6 +215,44 @@ __device__ __forceinline__ void head_and_score(const NetArgs& net, const float* 
   a1 = warp_sum(a1);
   gt[0] = net.inv_var_t * (a0 / sum - x0);
   gt[1] = net.inv_var_t * (a1 / sum - x1);
+  if (sl != nullptr) {
+    sl->r[0] = e0 / sum, sl->r[1] = e1 / sum;
+    sl->dx[0] = -dx0, sl->dy[0] = -dy0;
+    sl->dx[1] = -dx1, sl->dy[1] = -dy1;
+  }
+}
+
+// One warp, one chain: the score's Jacobian-transpose product H v at the
+// point whose lanes are in sl (the Hessian of log p is symmetric),
+//   H v = -a v + a^2 sum_k r_k c_k (c_k . v),  c_k = d_k - sum_i r_i d_i,
+// the centred form of sum r d d^T - (sum r d)(sum r d)^T: between modes
+// |d_k| reaches 40 sqrt(2) and the uncentred sums cancel. All lanes return
+// the same hv.
+__device__ __forceinline__ void many_gmm_hvp(const NetArgs& net, const ScoreLanes& sl,
+                                             const float v[DIM], float hv[DIM]) {
+  const float sx = warp_sum(sl.r[0] * sl.dx[0] + sl.r[1] * sl.dx[1]);
+  const float sy = warp_sum(sl.r[0] * sl.dy[0] + sl.r[1] * sl.dy[1]);
+  float tx = 0.f, ty = 0.f;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const float cx = sl.dx[q] - sx, cy = sl.dy[q] - sy;
+    const float w = sl.r[q] * (cx * v[0] + cy * v[1]);
+    tx = fmaf(w, cx, tx);
+    ty = fmaf(w, cy, ty);
+  }
+  tx = warp_sum(tx);
+  ty = warp_sum(ty);
+  const float a = net.inv_var_t;
+  hv[0] = a * (a * tx - v[0]);
+  hv[1] = a * (a * ty - v[1]);
+}
+
+// One warp, one chain: head_raw and many_gmm_score together.
+__device__ __forceinline__ void head_and_score(const NetArgs& net, const float* h2,
+                                               const float* hws, const float* mus, float x0,
+                                               float x1, float out[DIM], float gt[DIM]) {
+  head_raw(net, h2, hws, out);
+  many_gmm_score(net, mus, x0, x1, gt);
 }
 
 // Target score and net output at the TC points in zn_s, bridge row idx, by a

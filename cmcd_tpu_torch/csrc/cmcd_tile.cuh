@@ -1,0 +1,360 @@
+// What the backward kernels (vargrad.cu, kl.cu) share: the score net's apply
+// and its hand-written VJP on a tile of chains, the per-block partial sums
+// and the kernel that reduces them.
+//
+// With out = h2 @ headW^T + headb, sn = out * factor_sn and g_out the
+// cotangent of out (the caller's, one per chain):
+//   dheadW[d] = g_out[d] h2;  g_h2 = g_out @ headW
+//   g_a2 = g_h2 * sigmoid(a2);  db2 = g_a2;  dW2 = h1 (x) g_a2
+//   g_h1 = g_h2 + W2 g_a2;  g_a1 = g_h1 * sigmoid(a1);  dW1[:2] = z (x) g_a1
+//   g_z  = g_h1[:2] + W1[:2] g_a1          (the identity path counts)
+// each summed over the chains a block sees. The embedding half of layer 1
+// is a product of the wrapper (c1 = emb @ W1[2:] + b1, once per call), so
+// its transpose is the wrapper's too: a block returns the per-point sums
+// over chains G1[j] = sum_n g_a1 and GH1[j] = sum_n g_h1, from which two
+// small products give demb, dW1[2:], db1.
+//
+// Work split of one block of NG groups of feature threads on a tile of
+// TB = NG * TC chains: thread (g, f) owns feature f for the TC chains of
+// group g through the apply and the VJP (activations and sigmoids stay in
+// its registers), and column f of dW2 for the g-th share of the rows k in
+// the outer product, where it reads h1 transposed as broadcast float4s. W2
+// and the block's dW2 sit in shared memory with row stride in_pad + 1 (odd,
+// so both the column walk of the apply and the row walk of W2 g_a2 are free
+// of bank conflicts). Blocks run in no order, so nothing accumulates across
+// them: each block writes its partial sums to scratch and partials_reduce
+// adds them in block order. No atomics: the same inputs give the same bits.
+
+#pragma once
+
+#include "cmcd_common.cuh"
+
+namespace cmcd {
+
+constexpr int FW_MAX = 160;  // feature threads of one group: in_dim <= 160
+constexpr int NSCAL = 10;    // eps, mean x2, logdiag x2, factor, headb x2, beta_fk, beta_bk
+constexpr int NFEAT = 7;     // headW x2, b2, W1z x2, G1, GH1
+
+// Partials summed over every block: dW2 (in x in), dheadW (2 x in), db2,
+// dW1[:2] (2 x in), then eps, mean x2, logdiag x2, factor, headb x2.
+__host__ __device__ inline int len_a(int in_dim) { return in_dim * in_dim + 5 * in_dim + 8; }
+// Partials of one point: G1 (in), GH1 (in), dbeta_j, dbeta_{j-1}.
+__host__ __device__ inline int len_b(int in_dim) { return 2 * in_dim + 2; }
+
+// Floats of shared memory the tile itself takes (the layout in Tile).
+__host__ __device__ inline size_t tile_floats(int ng, int in_dim, int n_mix) {
+  const int ip = round_up(in_dim, 4), tb = ng * TC;
+  return (size_t)2 * ip * (ip + 1) + 2 * tb * ip + (size_t)ip * (tb + 4) + 2 * ip +
+         round_up(2 * n_mix, 4) + NSCAL * (ng * FW_MAX / 32);
+}
+
+// The tile's shared memory, carved from `base`; `rest` is the first float
+// past it, for the kernel's own per-chain buffers.
+template <int NG>
+struct Tile {
+  static constexpr int TB = NG * TC;   // chains per tile
+  static constexpr int TBP = TB + 4;   // row stride of the transposed hidden tile
+  float *w2s, *gw2s, *h1s, *xs, *h1t, *hws, *mus, *sc_s, *rest;
+  int ws;
+
+  __device__ Tile(float* base, const NetArgs& net) {
+    const int ip = net.in_pad;
+    ws = ip + 1;
+    w2s = base;                                // in_pad x ws
+    gw2s = w2s + ip * ws;                      // in_pad x ws: dW2 of this block
+    h1s = gw2s + ip * ws;                      // TB x in_pad
+    xs = h1s + TB * ip;                        // TB x in_pad: h2, then g_a2
+    h1t = xs + TB * ip;                        // in_pad x TBP: h1 transposed
+    hws = h1t + ip * TBP;                      // 2 x in_pad
+    mus = hws + 2 * ip;                        // n_mix x 2 (padded to 4)
+    sc_s = mus + round_up(2 * net.n_mix, 4);   // warps x NSCAL
+    rest = sc_s + NSCAL * (NG * FW_MAX / 32);
+  }
+};
+
+// A thread's place among the feature threads and the weights it keeps.
+struct FeatThread {
+  int g, f;      // group, feature
+  bool feat;     // f < in_dim
+  float w1z0, w1z1, b2f, hw0, hw1;
+
+  __device__ FeatThread(const NetArgs& net, int ng) {
+    const int fw = blockDim.x / ng;
+    g = threadIdx.x / fw;
+    f = threadIdx.x - g * fw;
+    feat = f < net.in_dim;
+    w1z0 = feat ? net.w1z[f] : 0.f;
+    w1z1 = feat ? net.w1z[net.in_dim + f] : 0.f;
+    b2f = feat ? net.b2[f] : 0.f;
+    hw0 = feat ? net.headw[f] : 0.f;
+    hw1 = feat ? net.headw[net.in_dim + f] : 0.f;
+  }
+};
+
+// What a feature thread keeps from the apply for the VJP.
+struct FeatRegs {
+  float sig1[TC], sig2[TC], h2v[TC];
+};
+
+// Fills the tile's constants and zeroes its accumulators; every thread of
+// the block calls it, and the block synchronizes before the first use.
+template <int NG>
+__device__ __forceinline__ void tile_init(const Tile<NG>& t, const NetArgs& net) {
+  const int ip = net.in_pad, in = net.in_dim, tid = threadIdx.x, nthr = blockDim.x;
+  load_w2(net, t.w2s, t.ws);
+  // gw2s, h1s, xs and h1t follow w2s: zero them all (pad columns stay zero).
+  for (int i = tid; i < ip * t.ws + 2 * t.TB * ip + ip * t.TBP; i += nthr) t.gw2s[i] = 0.f;
+  for (int i = tid; i < 2 * ip; i += nthr) {
+    const int d = i / ip, k = i - d * ip;
+    t.hws[i] = k < in ? net.headw[d * in + k] : 0.f;
+  }
+  for (int i = tid; i < 2 * net.n_mix; i += nthr) t.mus[i] = net.means[i];
+  for (int i = tid; i < (nthr >> 5) * NSCAL; i += nthr) t.sc_s[i] = 0.f;
+}
+
+// The net's two layers at the TB points in zc_s (TB x DIM), bridge row idx:
+// h1 into h1s and (transposed) h1t, h2 into xs; the sigmoids and h2 of this
+// thread's feature stay in r. Ends with a barrier.
+template <int NG>
+__device__ __forceinline__ void tile_layers(const Tile<NG>& t, const NetArgs& net,
+                                            const FeatThread& th, int idx, const float* zc_s,
+                                            FeatRegs& r) {
+  const int ip = net.in_pad, g = th.g, f = th.f;
+  float h1v[TC];
+  if (th.feat) {
+    float a1[TC];
+    layer1_feature(net, idx, f, th.w1z0, th.w1z1, zc_s + g * TC * DIM, a1, h1v);
+#pragma unroll
+    for (int c = 0; c < TC; ++c) {
+      r.sig1[c] = sigmoid_f(a1[c]);
+      t.h1s[(g * TC + c) * ip + f] = h1v[c];
+    }
+    float4* col = reinterpret_cast<float4*>(t.h1t + f * t.TBP + g * TC);
+    col[0] = make_float4(h1v[0], h1v[1], h1v[2], h1v[3]);
+    col[1] = make_float4(h1v[4], h1v[5], h1v[6], h1v[7]);
+  }
+  __syncthreads();
+
+  if (th.feat) {
+    float acc[TC];
+    layer2_feature(t.w2s, t.ws, t.h1s + g * TC * ip, ip, f, acc);
+#pragma unroll
+    for (int c = 0; c < TC; ++c) {
+      const float a2 = acc[c] + th.b2f;
+      r.sig2[c] = sigmoid_f(a2);
+      r.h2v[c] = h1v[c] + softplus_f(a2);
+      t.xs[(g * TC + c) * ip + f] = r.h2v[c];
+    }
+  }
+  __syncthreads();
+}
+
+// The net's VJP at the tile's points from go_s (TB x DIM), the cotangent of
+// the head's raw output per chain: adds this thread's sums into ft (dheadW
+// x2, db2, dW1[:2] x2, G1, GH1) and the tile's dW2 into gw2s. With gz_s
+// (warps x TC x DIM) each warp also leaves its share of g_z = g_h1[:2] +
+// W1[:2] g_a1 for its group's chains there. Every thread of the block calls
+// it after the block has synchronized on go_s; ends with a barrier.
+template <int NG>
+__device__ __forceinline__ void tile_vjp(const Tile<NG>& t, const NetArgs& net,
+                                         const FeatThread& th, const float* zc_s,
+                                         const float* go_s, const FeatRegs& r,
+                                         float ft[NFEAT], float* gz_s) {
+  constexpr int TB = NG * TC;
+  const int ip = net.in_pad, in = net.in_dim, g = th.g, f = th.f, ws = t.ws;
+  // Head backward and g_a2 = g_h2 * sigmoid(a2); g_a2 replaces h2 in xs.
+  float gh2[TC];
+  if (th.feat) {
+#pragma unroll
+    for (int c = 0; c < TC; ++c) {
+      const int cc = g * TC + c;
+      const float go0 = go_s[cc * DIM], go1 = go_s[cc * DIM + 1];
+      ft[0] = fmaf(go0, r.h2v[c], ft[0]);
+      ft[1] = fmaf(go1, r.h2v[c], ft[1]);
+      gh2[c] = go0 * th.hw0 + go1 * th.hw1;
+      const float ga2 = gh2[c] * r.sig2[c];
+      ft[2] += ga2;
+      t.xs[cc * ip + f] = ga2;
+    }
+  }
+  __syncthreads();
+
+  float gz0[TC], gz1[TC];
+#pragma unroll
+  for (int c = 0; c < TC; ++c) gz0[c] = gz1[c] = 0.f;
+  if (th.feat) {
+    // g_h1[c][f] = g_h2[c][f] + sum_k W2[f][k] g_a2[c][k]: row f of W2.
+    float acc[TC];
+#pragma unroll
+    for (int c = 0; c < TC; ++c) acc[c] = 0.f;
+    const float* wrow = t.w2s + f * ws;
+    const float* gs = t.xs + g * TC * ip;
+#pragma unroll 2
+    for (int k = 0; k < ip; k += 4) {
+      const float wa = wrow[k], wb = wrow[k + 1], wc = wrow[k + 2], wd = wrow[k + 3];
+#pragma unroll
+      for (int c = 0; c < TC; ++c) {
+        const float4 v = *reinterpret_cast<const float4*>(gs + c * ip + k);
+        acc[c] = fmaf(v.x, wa, acc[c]);
+        acc[c] = fmaf(v.y, wb, acc[c]);
+        acc[c] = fmaf(v.z, wc, acc[c]);
+        acc[c] = fmaf(v.w, wd, acc[c]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < TC; ++c) {
+      const int cc = g * TC + c;
+      const float gh1 = gh2[c] + acc[c];
+      const float ga1 = gh1 * r.sig1[c];
+      ft[3] = fmaf(zc_s[cc * DIM], ga1, ft[3]);
+      ft[4] = fmaf(zc_s[cc * DIM + 1], ga1, ft[4]);
+      ft[5] += ga1;
+      ft[6] += gh1;
+      gz0[c] = fmaf(ga1, th.w1z0, f == 0 ? gh1 : 0.f);
+      gz1[c] = fmaf(ga1, th.w1z1, f == 1 ? gh1 : 0.f);
+    }
+  }
+  if (gz_s != nullptr) {  // uniform over the block
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int c = 0; c < TC; ++c) {
+      const float s0 = warp_sum(gz0[c]), s1 = warp_sum(gz1[c]);
+      if (lane == 0) {
+        gz_s[(warp * TC + c) * DIM] = s0;
+        gz_s[(warp * TC + c) * DIM + 1] = s1;
+      }
+    }
+  }
+
+  if (th.feat) {
+    // dW2[k][f] += sum_c h1[c][k] g_a2[c][f] over all TB chains, for the
+    // rows k of this thread's group.
+    float ga[TB];
+#pragma unroll
+    for (int c = 0; c < TB; ++c) ga[c] = t.xs[c * ip + f];
+    const int kper = (in + NG - 1) / NG;
+    const int k1 = min(in, (g + 1) * kper);
+    for (int k = g * kper; k < k1; ++k) {
+      float s = t.gw2s[k * ws + f];
+      const float4* hk = reinterpret_cast<const float4*>(t.h1t + k * t.TBP);
+#pragma unroll
+      for (int c4 = 0; c4 < TB / 4; ++c4) {
+        const float4 h = hk[c4];
+        s = fmaf(h.x, ga[4 * c4], s);
+        s = fmaf(h.y, ga[4 * c4 + 1], s);
+        s = fmaf(h.z, ga[4 * c4 + 2], s);
+        s = fmaf(h.w, ga[4 * c4 + 3], s);
+      }
+      t.gw2s[k * ws + f] = s;
+    }
+  }
+  __syncthreads();
+}
+
+// One chain's g_z from the shares tile_vjp left in gz_s: the warps of the
+// chain's group, in order.
+template <int NG>
+__device__ __forceinline__ float tile_gz(const float* gz_s, int chain_in_tile, int d) {
+  const int wpg = (blockDim.x >> 5) / NG;
+  const int g = chain_in_tile / TC, c = chain_in_tile - g * TC;
+  float s = 0.f;
+  for (int w = g * wpg; w < (g + 1) * wpg; ++w) s += gz_s[(w * TC + c) * DIM + d];
+  return s;
+}
+
+// The per-point partials of this block (G1, GH1 and the two beta scalars)
+// into pb (len_b floats): written, or added to what an earlier tile of the
+// same block left there. Zeroes them for the next point. Every thread calls
+// it after a barrier; it ends with one.
+template <int NG>
+__device__ __forceinline__ void flush_point(const Tile<NG>& t, const NetArgs& net,
+                                            const FeatThread& th, float ft[NFEAT], float* pb,
+                                            bool add) {
+  const int ip = net.in_pad, in = net.in_dim, tid = threadIdx.x, nthr = blockDim.x;
+  const int nwarp = nthr >> 5;
+  if (th.feat) {
+    t.xs[(th.g * 2) * ip + th.f] = ft[5];
+    t.xs[(th.g * 2 + 1) * ip + th.f] = ft[6];
+  }
+  ft[5] = ft[6] = 0.f;
+  __syncthreads();
+  for (int i = tid; i < 2 * in; i += nthr) {
+    const int q = i / in, c = i - q * in;
+    float s = 0.f;
+    for (int gg = 0; gg < NG; ++gg) s += t.xs[(gg * 2 + q) * ip + c];
+    pb[i] = add ? pb[i] + s : s;
+  }
+  if (tid < 2) {
+    float s = 0.f;
+    for (int w = 0; w < nwarp; ++w) {
+      s += t.sc_s[w * NSCAL + 8 + tid];
+      t.sc_s[w * NSCAL + 8 + tid] = 0.f;
+    }
+    pb[2 * in + tid] = add ? pb[2 * in + tid] + s : s;
+  }
+  __syncthreads();
+}
+
+// The partials this block sums over all its points into pa (len_a floats):
+// dW2 from shared memory; the per-feature sums across the NG groups and the
+// scalars across the warps, in fixed order. Every thread calls it after a
+// barrier; it ends with one.
+template <int NG>
+__device__ __forceinline__ void flush_block(const Tile<NG>& t, const NetArgs& net,
+                                            const FeatThread& th, const float ft[NFEAT],
+                                            float* pa) {
+  const int ip = net.in_pad, in = net.in_dim, tid = threadIdx.x, nthr = blockDim.x;
+  const int nwarp = nthr >> 5;
+  for (int i = tid; i < in * in; i += nthr) {
+    const int k = i / in, c = i - k * in;
+    pa[i] = t.gw2s[k * t.ws + c];
+  }
+  if (th.feat) {
+#pragma unroll
+    for (int q = 0; q < 5; ++q) t.xs[(th.g * 5 + q) * ip + th.f] = ft[q];
+  }
+  __syncthreads();
+  for (int i = tid; i < 5 * in; i += nthr) {  // dheadW (2 x in), db2, dW1[:2] (2 x in)
+    const int q = i / in, c = i - q * in;
+    float s = 0.f;
+    for (int gg = 0; gg < NG; ++gg) s += t.xs[(gg * 5 + q) * ip + c];
+    pa[in * in + i] = s;
+  }
+  if (tid < 8) {
+    float s = 0.f;
+    for (int w = 0; w < nwarp; ++w) s += t.sc_s[w * NSCAL + tid];
+    pa[in * in + 5 * in + tid] = s;
+  }
+  __syncthreads();
+}
+
+// Adds the partials in block order: out_a[e] over all blocks, out_b[j][e]
+// over the `splits` blocks that saw point j.
+__global__ void partials_reduce(const float* part_a, const float* part_b, float* out_a,
+                                float* out_b, int nblocks, int la, int npoints, int splits,
+                                int lb) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < la) {
+    float s = 0.f;
+    for (int b = 0; b < nblocks; ++b) s += part_a[(size_t)b * la + e];
+    out_a[e] = s;
+  } else if (e - la < npoints * lb) {
+    const int e2 = e - la, j = e2 / lb, q = e2 - j * lb;
+    float s = 0.f;
+    for (int t = 0; t < splits; ++t) s += part_b[((size_t)j * splits + t) * lb + q];
+    out_b[e2] = s;
+  }
+}
+
+// Launches partials_reduce for part_a (nblocks, la) and part_b (npoints,
+// splits, lb) on `stream`.
+inline cudaError_t launch_reduce(const float* part_a, const float* part_b, float* out_a,
+                                 float* out_b, int nblocks, int npoints, int splits,
+                                 int in_dim, cudaStream_t stream) {
+  const int la = len_a(in_dim), lb = len_b(in_dim), total = la + npoints * lb;
+  partials_reduce<<<(total + 255) / 256, 256, 0, stream>>>(part_a, part_b, out_a, out_b,
+                                                           nblocks, la, npoints, splits, lb);
+  return cudaGetLastError();
+}
+
+}  // namespace cmcd

@@ -1,0 +1,330 @@
+// KL reverse sweep for NVIDIA Hopper (sm_90a): backprop through time of the
+// CAIS log-weight increments from the stored trajectory and noise.
+//
+// Replaces cmcd_tpu/ops/pallas_kl.py::evolve_kl_bwd_pallas (the TPU kernel
+// "B3") in its carry form (one net, in both kernels, backward net at i + 1:
+// MCD_CAIS_sn) on the many_gmm target (dim 2) with the two-layer geffner
+// net. The Python wrapper is cmcd_tpu_torch/ops/kl.py::evolve_kl_bwd; its
+// plain PyTorch version evolve_kl_bwd_plain walks the same sweep. The TPU
+// kernel traces jax.vjp of the step; here every derivative is written out.
+//
+// What it computes. With z_0..z_K and the draws xi_0..xi_{K-1} data, c_n the
+// cotangent of chain n's summed increments and g_K that of its final state,
+//   L = sum_n [ c_n sum_j (bk_lp_j - fk_lp_j) + g_K . z_K ],
+//   z_{j+1} = fk_mean_j + sqrt(2 e_j) xi_j,  fk_mean_j = z_j + e_j D_j(z_j) - e_j sn(z_j, j)
+//   bk_mean_j = z_{j+1} + e_j D_j(z_{j+1}) + e_j sn(z_{j+1}, j + 1),  r_j = z_j - bk_mean_j
+//   D_j(z) = b_j clip(gt(z), ct) + (1 - b_j) clip(gq(z), cq),  gq = -(z - mu) exp(-2 logdiag)
+// differentiated in theta = (eps0, betas, mu, logdiag, net) and in z_0 with
+// nothing stopped: every state depends on the one before. fk_lp_j is
+// -|xi_j|^2 / 2 plus the log term that bk_lp_j's cancels, so only r_j and
+// the state chain carry gradient. Each point p = K..0 is visited once, and
+// both steps that touch z_p, step p - 1 (z_p is where its backward kernel's
+// mean is formed) and step p (its forward kernel starts there), use the same
+// score gt(z_p) and net output sn(z_p, min(p, K - 1)), so each is applied and
+// transposed once per point. Carried from point p + 1: F_p, the cotangent of
+// fk_mean_p, and Z_p = F_p - c r_p / (2 e_p), the cotangent z_p gets directly
+// from step p (at p = K: Z_K = g_K, no F). At point p, with e, b of step p
+// and e', b' of step p - 1 (either role missing at the ends):
+//   forward role   g_e_p   += F . (D_p(z_p) - sn)
+//                  g_b_p   += e F . (gtc - gqc)
+//                  g_gt += b e F;  g_sn += -e F;  g_gq += (1 - b) e F
+//   backward role  r = z_{p-1} - bk_mean_{p-1};  B = c r / (2 e') (cotangent of bk_mean)
+//                  g_e_p-1 += B . (D_p-1(z_p) + sn) + c |r|^2 / (2 e')^2
+//                  g_b_p-1 += e' B . (gtc - gqc)
+//                  g_gt += b' e' B;  g_sn += e' B;  g_gq += (1 - b') e' B
+//   clips          g_gt, g_gq pass nothing where their score was clipped
+//   vd             g_mu += g_gq exp(-2 logdiag);  g_logdiag += g_gq (-2 gq)
+//   state          T = Z_p + B - exp(-2 logdiag) g_gq + H(z_p) g_gt + J_sn(z_p)^T g_sn
+//                  (H: the many_gmm Hessian product of cmcd_common.cuh; J_sn^T:
+//                  the net's input VJP of cmcd_tile.cuh, which also sums the
+//                  net's weight gradients from g_sn)
+//   p >= 1         T is the cotangent of z_p = fk_mean_{p-1} + sqrt(2 e') xi_{p-1}:
+//                  g_e_p-1 += T . xi_{p-1} / sqrt(2 e');  F_{p-1} = T;  Z_{p-1} = T - B
+//   p = 0          dL/dz_0 = T
+//   g_eps0 = sum_j g_e_j s_j with s_j = d eps_j / d eps0 of the schedule.
+//
+// What bounds it on the H100. Per point and chain one net apply, W2 g_a2 and
+// the dW2 outer product, 3 x in_dim^2 FMAs (52k at in_dim 132), and the
+// 40-component Hessian product; trajectory and noise are 16 bytes per point:
+// bound by FP32 arithmetic and shared-memory bandwidth, not device memory.
+// But the sweep is sequential along a chain, so only the chains run side by
+// side.
+//
+// What the design does about it:
+//  * A block owns chain tiles b, b + B, ... and walks each from point K to
+//    point 0 with the carries (F, Z: four floats per chain) in shared
+//    memory. The tile is the VarGrad kernels' (cmcd_tile.cuh): W2 and the
+//    block's dW2 in shared memory, thread (g, f) owns feature f for eight
+//    chains. With fewer 32-chain tiles than SMs it runs NG = 2 groups on
+//    tiles of 16 chains, else NG = 4 on 32.
+//  * The head, the score, its Hessian product and the scalar derivatives take
+//    one warp per chain; the net's input VJP leaves the feature threads as
+//    per-warp sums that one thread per chain adds up.
+//  * Per-point sums (the betas, G1, GH1) leave the block after every point;
+//    everything else is summed over the block's whole walk. partials_reduce
+//    adds the blocks' partials in block order: no atomics.
+//  * f32 throughout, no tensor cores: wgmma, TMA and bf16 are later work.
+
+#include "cmcd_tile.cuh"
+
+namespace {
+
+using namespace cmcd;
+
+struct KlArgs {
+  const float* traj;        // (K + 1, n, 2)
+  const float* noise;       // (K, n, 2)
+  const float* cot;         // (n,)
+  const float* g_zfinal;    // (n, 2)
+  const float* betas;       // (K,)
+  const float* scal;        // [eps0, factor_sn]
+  NetArgs net;
+  const float* vd_mean;     // (2,)
+  const float* vd_logdiag;  // (2,)
+  float* part_a;            // (blocks, len_a)
+  float* part_b;            // (K + 1, blocks, len_b)
+  float* g_z0;              // (n, 2)
+  int n, nbridges, eps_schedule;
+  float clip_t, clip_q;
+};
+
+// Shared memory of one block of NG groups: the tile; per chain z_p, z_{p-1},
+// xi_{p-1}, g_out, the state cotangent so far, the carries F and Z, the
+// cotangent c; and the warps' shares of the net's input VJP.
+__host__ inline size_t smem_bytes(int ng, int in_dim, int n_mix) {
+  const int tb = ng * TC;
+  return (tile_floats(ng, in_dim, n_mix) + 7 * tb * DIM + tb +
+          (ng * FW_MAX / 32) * TC * DIM) * sizeof(float);
+}
+
+// What one block holds (NG = 4, the larger of the two forms).
+__host__ inline bool fits(int in_dim, int n_mix) {
+  return in_dim >= 1 && round_up(in_dim, 32) <= FW_MAX && n_mix >= 1 && n_mix <= MAX_MIX &&
+         smem_bytes(4, in_dim, n_mix) <= MAX_SMEM;
+}
+
+template <int NG>
+__global__ void __launch_bounds__(NG* FW_MAX) kl_reverse_sweep(const KlArgs a) {
+  constexpr int TB = NG * TC;
+  extern __shared__ float4 smem4[];
+  const NetArgs& net = a.net;
+  const int ip = net.in_pad, in = net.in_dim, K = a.nbridges, sched = a.eps_schedule;
+  const Tile<NG> t(reinterpret_cast<float*>(smem4), net);
+  float* zc_s = t.rest;            // TB x 2: z_p
+  float* zp_s = zc_s + TB * DIM;   // TB x 2: z_{p-1}
+  float* xi_s = zp_s + TB * DIM;   // TB x 2: xi_{p-1}
+  float* go_s = xi_s + TB * DIM;   // TB x 2: g_out
+  float* tz_s = go_s + TB * DIM;   // TB x 2: T without the net's share
+  float* fc_s = tz_s + TB * DIM;   // TB x 2: carry F
+  float* zd_s = fc_s + TB * DIM;   // TB x 2: carry Z (holds -B inside a point)
+  float* cot_s = zd_s + TB * DIM;  // TB
+  float* gz_s = cot_s + TB;        // warps x TC x 2
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarp = blockDim.x >> 5;
+  const FeatThread th(net, NG);
+  const float eps0 = a.scal[0], factor = a.scal[1];
+  float vm[DIM], viv[DIM], hb[DIM];
+#pragma unroll
+  for (int d = 0; d < DIM; ++d) {
+    vm[d] = a.vd_mean[d];
+    viv[d] = expf(-2.0f * a.vd_logdiag[d]);
+    hb[d] = net.headb[d];
+  }
+  tile_init(t, net);
+  float ft[NFEAT];
+#pragma unroll
+  for (int q = 0; q < NFEAT; ++q) ft[q] = 0.f;
+  float* sc = t.sc_s + warp * NSCAL;
+  __syncthreads();
+
+  const int ntiles = (a.n + TB - 1) / TB;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int base = tile * TB;
+    if (tid < TB * DIM) {
+      const bool live = base + tid / DIM < a.n;
+      zd_s[tid] = live ? a.g_zfinal[(size_t)base * DIM + tid] : 0.f;
+      fc_s[tid] = 0.f;
+    }
+    if (tid < TB) cot_s[tid] = base + tid < a.n ? a.cot[base + tid] : 0.f;
+
+    for (int p = K; p >= 0; --p) {
+      const bool m_fk = p <= K - 1, m_bk = p >= 1;
+      // Step p (forward role) and step p - 1 (backward role); a dead role's
+      // step size is 1 so that nothing divides by zero.
+      const float e_f = m_fk ? eps_at(eps0, p, K, sched) : 1.f;
+      const float e_b = m_bk ? eps_at(eps0, p - 1, K, sched) : 1.f;
+      const float s_f = eps_slope(p, K, sched), s_b = eps_slope(p - 1, K, sched);
+      const float b_f = m_fk ? a.betas[p] : 0.f;
+      const float b_b = m_bk ? a.betas[p - 1] : 0.f;
+      if (tid < TB * DIM) {
+        const bool live = base + tid / DIM < a.n;
+        const size_t at = (size_t)base * DIM + tid, row = (size_t)a.n * DIM;
+        zc_s[tid] = live ? a.traj[p * row + at] : 0.f;
+        zp_s[tid] = live && m_bk ? a.traj[(p - 1) * row + at] : 0.f;
+        xi_s[tid] = live && m_bk ? a.noise[(p - 1) * row + at] : 0.f;
+      }
+      __syncthreads();
+
+      FeatRegs r;
+      tile_layers(t, net, th, min(p, K - 1), zc_s, r);
+
+      // Head, score, Hessian product and the scalar derivatives: one warp
+      // per chain, every lane the same scalars, lane 0 keeps the sums.
+      for (int c = warp; c < TB; c += nwarp) {
+        float out[DIM], gt[DIM], g_gt[DIM], hv[DIM], bk[DIM], g_gq[DIM];
+        ScoreLanes sl;
+        head_raw(net, t.xs + c * ip, t.hws, out);
+        many_gmm_score(net, t.mus, zc_s[c * DIM], zc_s[c * DIM + 1], gt, &sl);
+        const float cn = cot_s[c];
+        float ge_f = 0.f, ge_b = 0.f, gb_f = 0.f, gb_b = 0.f, r2 = 0.f;
+        float g_factor = 0.f, g_sn[DIM], g_mu[DIM], g_ld[DIM];
+#pragma unroll
+        for (int d = 0; d < DIM; ++d) {
+          const float z = zc_s[c * DIM + d];
+          const float o = out[d] + hb[d], sn = o * factor;
+          const float gq = -(z - vm[d]) * viv[d];
+          const float gtc = clip_f(gt[d], a.clip_t), gqc = clip_f(gq, a.clip_q);
+          const float diff = gtc - gqc;
+          float ggt = 0.f, gsn = 0.f, ggq = 0.f;
+          bk[d] = 0.f;
+          if (m_fk) {
+            const float f = fc_s[c * DIM + d], ef = e_f * f;
+            ge_f += f * ((b_f * gtc + (1.0f - b_f) * gqc) - sn);
+            gb_f += ef * diff;
+            ggt += b_f * ef;
+            gsn -= ef;
+            ggq += (1.0f - b_f) * ef;
+          }
+          if (m_bk) {
+            const float drift = b_b * gtc + (1.0f - b_b) * gqc;
+            const float rb = zp_s[c * DIM + d] - ((z + e_b * drift) + e_b * sn);
+            const float gd = 0.5f * cn * rb;  // e' B
+            bk[d] = gd / e_b;
+            ge_b += bk[d] * (drift + sn);
+            r2 += rb * rb;
+            gb_b += gd * diff;
+            ggt += b_b * gd;
+            gsn += gd;
+            ggq += (1.0f - b_b) * gd;
+          }
+          g_gt[d] = gt[d] == gtc ? ggt : 0.f;
+          g_gq[d] = gq == gqc ? ggq : 0.f;
+          g_mu[d] = g_gq[d] * viv[d];
+          g_ld[d] = g_gq[d] * (-2.0f * gq);
+          g_sn[d] = gsn;
+          g_factor += gsn * o;
+        }
+        many_gmm_hvp(net, sl, g_gt, hv);
+        if (lane == 0) {
+          if (m_bk) {
+            const float is2 = 1.0f / (2.0f * e_b);
+            ge_b += cn * r2 * is2 * is2;
+          }
+          sc[0] += s_f * ge_f + s_b * ge_b;
+          sc[5] += g_factor;
+          sc[8] += gb_f;
+          sc[9] += gb_b;
+#pragma unroll
+          for (int d = 0; d < DIM; ++d) {
+            sc[1 + d] += g_mu[d];
+            sc[3 + d] += g_ld[d];
+            sc[6 + d] += g_sn[d] * factor;
+            go_s[c * DIM + d] = g_sn[d] * factor;
+            tz_s[c * DIM + d] = ((zd_s[c * DIM + d] + bk[d]) - viv[d] * g_gq[d]) + hv[d];
+            zd_s[c * DIM + d] = -bk[d];
+          }
+        }
+      }
+      __syncthreads();
+
+      tile_vjp(t, net, th, zc_s, go_s, r, ft, gz_s);
+
+      // T complete: the next carries, the noise scale's share of d eps, or
+      // dL/dz_0. One thread per chain, all in the first warp.
+      if (warp == 0) {
+        float ge = 0.f;
+        if (lane < TB) {
+#pragma unroll
+          for (int d = 0; d < DIM; ++d) {
+            const float tot = tz_s[lane * DIM + d] + tile_gz<NG>(gz_s, lane, d);
+            if (m_bk) {
+              ge = fmaf(tot, xi_s[lane * DIM + d], ge);
+              fc_s[lane * DIM + d] = tot;
+              zd_s[lane * DIM + d] += tot;
+            } else if (base + lane < a.n) {
+              a.g_z0[(size_t)(base + lane) * DIM + d] = tot;
+            }
+          }
+        }
+        ge = warp_sum(ge);
+        if (lane == 0 && m_bk) sc[0] += s_b * ge * (1.0f / sqrtf(2.0f * e_b));
+      }
+      flush_point(t, net, th, ft,
+                  a.part_b + ((size_t)p * gridDim.x + blockIdx.x) * len_b(in),
+                  tile != (int)blockIdx.x);
+    }
+  }
+
+  flush_block(t, net, th, ft, a.part_a + (size_t)blockIdx.x * len_a(in));
+}
+
+template <int NG>
+cudaError_t launch_sweep(const KlArgs& a, int blocks, cudaStream_t stream) {
+  const size_t smem = smem_bytes(NG, a.net.in_dim, a.net.n_mix);
+  cudaError_t err = cudaFuncSetAttribute(kl_reverse_sweep<NG>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kl_reverse_sweep<NG><<<blocks, NG * round_up(a.net.in_dim, 32), smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches the reverse sweep and its reduction on `stream`: `blocks` blocks
+// of `groups` (2 or 4) groups of feature threads, blocks <= the number of
+// chain tiles of 8 x groups chains. part_a: (blocks, len_a) and part_b:
+// (points, blocks, len_b) are scratch; out_a: (len_a,), out_b: (points,
+// len_b) and g_z0: (n, 2) receive the results. Returns a cudaError_t.
+int cmcd_kl_reverse_sweep(const float* traj, const float* noise, const float* cot,
+                          const float* g_zfinal, const float* betas, const float* scal,
+                          const float* w1z, const float* c1, const float* emb, const float* w2,
+                          const float* b2, const float* headw, const float* headb,
+                          const float* means, const float* vd_mean, const float* vd_logdiag,
+                          float* part_a, float* part_b, float* out_a, float* out_b, float* g_z0,
+                          int n, int nbridges, int in_dim, int emb_dim, int n_mix,
+                          int eps_schedule, int blocks, int groups, float inv_var_t,
+                          float clip_t, float clip_q, void* stream) {
+  if (n <= 0 || nbridges <= 0 || (groups != 2 && groups != 4)) return (int)cudaErrorInvalidValue;
+  if (blocks <= 0 || blocks > (n + groups * TC - 1) / (groups * TC))
+    return (int)cudaErrorInvalidValue;
+  if (in_dim != DIM + emb_dim || !fits(in_dim, n_mix)) return (int)cudaErrorInvalidValue;
+  const NetArgs net{w1z, c1, emb, w2, b2, headw, headb, means,
+                    in_dim, round_up(in_dim, 4), emb_dim, n_mix, inv_var_t};
+  const KlArgs a{traj, noise, cot, g_zfinal, betas, scal, net, vd_mean, vd_logdiag,
+                 part_a, part_b, g_z0, n, nbridges, eps_schedule, clip_t, clip_q};
+  const cudaError_t err = groups == 2 ? launch_sweep<2>(a, blocks, (cudaStream_t)stream)
+                                      : launch_sweep<4>(a, blocks, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_reduce(part_a, part_b, out_a, out_b, blocks, nbridges + 1, blocks, in_dim,
+                            (cudaStream_t)stream);
+}
+
+const char* cmcd_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+int cmcd_kl_chains_per_group() { return TC; }
+
+// The launch's own limits and buffer lengths, for the wrapper to check its
+// copy against.
+int cmcd_kl_fits(int in_dim, int n_mix) { return fits(in_dim, n_mix) ? 1 : 0; }
+
+long long cmcd_kl_smem_bytes(int groups, int in_dim, int n_mix) {
+  return (long long)smem_bytes(groups, in_dim, n_mix);
+}
+
+int cmcd_kl_len_a(int in_dim) { return len_a(in_dim); }
+
+int cmcd_kl_len_b(int in_dim) { return len_b(in_dim); }
+
+}  // extern "C"

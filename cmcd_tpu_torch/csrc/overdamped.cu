@@ -50,7 +50,9 @@
 //    (K, N, 2) noise array replaces it for exact comparisons.
 //  * Training needs the path, not only its end: with a trajectory pointer
 //    the owner thread also stores z_0..z_K as (K + 1, N, 2), 8 bytes per
-//    chain-step, for the VarGrad replay backward (vargrad.cu) to read.
+//    chain-step, for the VarGrad replay backward (vargrad.cu) to read; with
+//    a noise pointer also the Philox draws xi_0..xi_{K-1} as (K, N, 2), which
+//    the KL reverse sweep (kl.cu) reads beside the path.
 //  * f32 throughout, no tensor cores: wgmma, TMA and bf16 are later work.
 
 #include "cmcd_common.cuh"
@@ -74,6 +76,7 @@ struct RolloutArgs {
   float* z_out;             // (n, 2)
   float* w_out;             // (n,)
   float* traj;              // (K + 1, n, 2) or nullptr: z_0..z_K
+  float* noise_out;         // (K, n, 2) or nullptr: the Philox draws as used
   int n, nbridges, eps_schedule;
   float clip_t, clip_q;
 };
@@ -168,6 +171,10 @@ __global__ void __launch_bounds__(MAX_THREADS) overdamped_rollout(const RolloutA
         const float2 g = philox_normal2(seed, (uint32_t)chain, (uint32_t)i);
         xi[0] = g.x;
         xi[1] = g.y;
+        if (live && a.noise_out != nullptr) {
+          a.noise_out[((size_t)i * a.n + chain) * DIM] = g.x;
+          a.noise_out[((size_t)i * a.n + chain) * DIM + 1] = g.y;
+        }
       }
 #pragma unroll
       for (int d = 0; d < DIM; ++d) {
@@ -213,7 +220,8 @@ __global__ void __launch_bounds__(MAX_THREADS) overdamped_rollout(const RolloutA
 
 extern "C" {
 
-// Launches the rollout on `stream`; traj may be null (no trajectory stored).
+// Launches the rollout on `stream`; traj and noise_out may be null (nothing
+// stored).
 // Returns a cudaError_t (0 on success).
 int cmcd_overdamped_rollout(const float* z0, const float* w0, const float* betas,
                             const float* noise, const float* scal, const long long* seed,
@@ -221,7 +229,7 @@ int cmcd_overdamped_rollout(const float* z0, const float* w0, const float* betas
                             const float* w2, const float* b2, const float* headw,
                             const float* headb, const float* means, const float* vd_mean,
                             const float* vd_inv_var, float* z_out, float* w_out, float* traj,
-                            int n, int nbridges, int in_dim, int emb_dim, int n_mix, int eps_schedule,
+                            float* noise_out, int n, int nbridges, int in_dim, int emb_dim, int n_mix, int eps_schedule,
                             float inv_var_t, float clip_t, float clip_q, void* stream) {
   if (n <= 0 || nbridges <= 0) return (int)cudaSuccess;
   if (in_dim != DIM + emb_dim || !fits(in_dim, n_mix)) return (int)cudaErrorInvalidValue;
@@ -234,7 +242,7 @@ int cmcd_overdamped_rollout(const float* z0, const float* w0, const float* betas
   const NetArgs net{w1z, c1, emb, w2, b2, headw, headb, means,
                     in_dim, in_pad, emb_dim, n_mix, inv_var_t};
   RolloutArgs a{z0, w0, betas, noise, scal, seed, net, vd_mean, vd_inv_var, z_out, w_out, traj,
-                n, nbridges, eps_schedule, clip_t, clip_q};
+                noise_out, n, nbridges, eps_schedule, clip_t, clip_q};
   const int blocks = (n + TC - 1) / TC;
   overdamped_rollout<<<blocks, threads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();

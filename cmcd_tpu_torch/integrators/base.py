@@ -30,13 +30,21 @@ class IntegratorContext:
     grad_clipping: bool = False
 
 
-def target_grad(ctx: IntegratorContext):
-    """Batched d/dz log pi(z): (N, dim) -> (N, dim), through autograd."""
+def target_grad(ctx: IntegratorContext, differentiable: bool = True):
+    """Batched d/dz log pi(z): (N, dim) -> (N, dim), through autograd.
+
+    differentiable: keep z in the graph and build the score's own graph
+    (create_graph), so that a loss differentiated through the rollout sees
+    the score's Jacobian (the KL modes' backprop through time). Off, z is
+    detached first: the form of the modes that cut the state from the graph
+    themselves (VarGrad)."""
 
     def grad_pi(z):
         with torch.enable_grad():
-            z = z.detach().requires_grad_(True)
-            (g,) = torch.autograd.grad(ctx.target_log_prob(z).sum(), z)
+            chain = differentiable and z.requires_grad
+            if not chain:
+                z = z.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(ctx.target_log_prob(z).sum(), z, create_graph=chain)
         return g
 
     return grad_pi
@@ -47,14 +55,15 @@ def make_grad_u(
     vd_params,
     clip_target: Optional[float],
     clip_vd: Optional[float],
+    differentiable: bool = True,
 ):
     """gradU(z, beta) = -(beta * grad log pi + (1-beta) * grad log q).
 
     Clip placement follows the JAX package: CAIS (KL) clips the target score
     at +/-1e3 and leaves the q score alone; CAIS_VAR clips both at +/-1e2;
-    None leaves that score unclipped.
+    None leaves that score unclipped. differentiable: see target_grad.
     """
-    grad_pi = target_grad(ctx)
+    grad_pi = target_grad(ctx, differentiable)
 
     def grad_u(z, beta):
         gu = grad_pi(z)

@@ -7,7 +7,9 @@ Weight update:   w += log B - log F
 
 This eager path calls the target score through autograd and the net once
 per use, step by step; it is the reference the fused rollout
-(ops/overdamped.py) is held against.
+(ops/overdamped.py) is held against. Without stop_grad_state the score stays
+differentiable in z, so torch.autograd of a loss through the rollout is the
+exact backprop through time (the oracle of ops/kl.py).
 """
 
 from __future__ import annotations
@@ -56,10 +58,8 @@ def evolve_overdamped(
     noise: optional (nbridges, N, dim) standard normals replacing the
     per-step draws from `generator`.
     """
-    if ctx.grad_clipping:
-        grad_u = make_grad_u(ctx, params["vd"], spec.clip_target, spec.clip_vd)
-    else:
-        grad_u = make_grad_u(ctx, params["vd"], None, None)
+    clips = (spec.clip_target, spec.clip_vd) if ctx.grad_clipping else (None, None)
+    grad_u = make_grad_u(ctx, params["vd"], *clips, differentiable=not spec.stop_grad_state)
     apply_sn = ctx.apply_sn
 
     w = torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)

@@ -13,14 +13,16 @@ raise when there is none, unless the caller asks for the CPU.
 
 Phases: optional MFVI pretraining, mode init, training, the 30 x 500
 evaluation (and the EMA parameters' when use_ema), JSONL metrics
-(log.jsonl). On a CUDA device training runs through the fused VarGrad loss
-(ops/fused_train.var_bound_fused: rollout kernel with trajectory, replay
-backward kernel) and evaluation through the fused rollout, one launch per
-seed group; a configuration the kernels do not cover, or use_pallas_train /
-use_pallas_eval off, raises there instead of running eagerly. On the CPU
-the two switches pick the kernels' plain versions or the eager integrator.
-bf16_fused_net is accepted and ignored: the backward kernel computes in f32.
-A non-default value of a field in NOT_PORTED raises.
+(log.jsonl). On a CUDA device training runs through a fused loss
+(ops/fused_train: var_bound_fused for MCD_CAIS_var_sn, the rollout kernel
+with its trajectory and the replay or re-rolling backward kernel;
+kl_bound_fused for MCD_CAIS_sn, the rollout kernel with trajectory and noise
+and the reverse-sweep kernel) and evaluation through the fused rollout, one
+launch per seed group; a configuration the kernels do not cover, or
+use_pallas_train / use_pallas_eval off, raises there instead of running
+eagerly. On the CPU the two switches pick the kernels' plain versions or
+the eager integrator. The fields in IGNORED are accepted and ignored with
+one printed line each. A non-default value of a field in NOT_PORTED raises.
 """
 
 from __future__ import annotations
@@ -39,10 +41,18 @@ from cmcd_tpu_torch.train import evaluate, mfvi_pretrain, train
 from cmcd_tpu_torch.utils import MetricLogger, ThroughputMeter, resolve_device
 
 # Fields of the JAX CLI that the port does not implement yet: checkpoints,
-# resume and the artifact dump, plots, the profiler. bf16_residuals and
-# remat_steps act only on the KL modes' fused training, which is not ported.
+# resume and the artifact dump, plots, the profiler.
 NOT_PORTED = ("checkpoint_dir", "checkpoint_every", "resume", "plot_dir",
               "profile_dir")
+
+# Switches that the fused training path accepts and ignores when on, each with why.
+# bf16_residuals and remat_steps size the JAX package's KL residuals to a
+# TPU's on-chip memory; here trajectory and noise are f32 in device memory.
+IGNORED = {
+    "bf16_fused_net": "the backward kernels compute in f32",
+    "bf16_residuals": "the KL residuals (trajectory, noise) are stored in f32",
+    "remat_steps": "the fused KL backward keeps no per-step residuals to rematerialise",
+}
 
 
 def _parse_bool(text: str) -> bool:
@@ -182,9 +192,9 @@ def run_experiment(config: Config, device=None) -> dict:
 def _run_phases(config: Config, device, logger: MetricLogger) -> dict:
     from cmcd_tpu_torch.ops import (
         compute_elbos_fused,
+        fused_training_path,
         supports_fused,
         supports_fused_train,
-        var_bound_fused,
     )
 
     generator = torch.Generator(device=device).manual_seed(config.seed)
@@ -216,11 +226,14 @@ def _run_phases(config: Config, device, logger: MetricLogger) -> dict:
     if config.iters > 0 and _use_fused(
             "training", config.use_pallas_train, supports_fused_train(setup, target),
             device, setup, target):
-        train_loss_fn = lambda p, n, c, s, generator: var_bound_fused(
+        fused_loss, path = fused_training_path(setup, config.N)
+        train_loss_fn = lambda p, n, c, s, generator: fused_loss(
             p, n, c, s, target, generator=generator)
-        print(f"Using the fused training path on {device.type} (forward + backward kernels).")
-        if config.bf16_fused_net:
-            print("bf16_fused_net is ignored: the backward kernel computes in f32.")
+        print(f"Using the fused training path on {device.type} "
+              f"(forward + backward kernels: {path}).")
+        for name, why in IGNORED.items():
+            if getattr(config, name):
+                print(f"{name} is ignored: {why}.")
 
     meter = ThroughputMeter(config.N, config.nbridges)
 

@@ -3,10 +3,15 @@ a kernel is built by ops/build.py the first time its wrapper launches it."""
 
 from cmcd_tpu_torch.ops.fused import compute_elbos_fused, supports_fused
 from cmcd_tpu_torch.ops.fused_train import (
+    KL_FUSED_MODES,
+    fused_training_path,
+    kl_bound_fused,
     neg_elbos_fused,
+    neg_elbos_fused_kl,
     supports_fused_train,
     var_bound_fused,
 )
+from cmcd_tpu_torch.ops.kl import evolve_kl_bwd, evolve_kl_bwd_plain
 from cmcd_tpu_torch.ops.overdamped import (
     evolve_overdamped_fused,
     evolve_overdamped_fused_plain,
@@ -15,15 +20,25 @@ from cmcd_tpu_torch.ops.target_grads import score_for_target
 from cmcd_tpu_torch.ops.vargrad import (
     evolve_vargrad_bwd_replay,
     evolve_vargrad_bwd_replay_plain,
+    evolve_vargrad_bwd_reroll,
+    evolve_vargrad_bwd_reroll_plain,
 )
 
 __all__ = [
+    "KL_FUSED_MODES",
     "compute_elbos_fused",
+    "evolve_kl_bwd",
+    "evolve_kl_bwd_plain",
     "evolve_overdamped_fused",
     "evolve_overdamped_fused_plain",
     "evolve_vargrad_bwd_replay",
     "evolve_vargrad_bwd_replay_plain",
+    "evolve_vargrad_bwd_reroll",
+    "evolve_vargrad_bwd_reroll_plain",
+    "fused_training_path",
+    "kl_bound_fused",
     "neg_elbos_fused",
+    "neg_elbos_fused_kl",
     "score_for_target",
     "supports_fused",
     "supports_fused_train",

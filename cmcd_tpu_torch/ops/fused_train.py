@@ -1,118 +1,225 @@
-"""The fused VarGrad training loss: kernel forward, kernel backward
+"""The fused training losses: kernel forward, kernel backward
 (cmcd_tpu/ops/fused_train.py: _make_evolve, neg_elbos_pallas,
-var_bound_pallas).
+var_bound_pallas; _make_evolve_kl, neg_elbos_pallas_kl, kl_bound_pallas).
 
-var_bound_fused stands in for bounds.var_bound on MCD_CAIS_var_sn: the same
-(loss, (neg_elbos, z)) contract and the same math, but the K-step rollout
-runs in the fused rollout kernel with its trajectory stored
-(ops/overdamped.py) and the gradient in the replay backward kernel
-(ops/vargrad.py), joined by a torch.autograd.Function.
+var_bound_fused stands in for bounds.var_bound on MCD_CAIS_var_sn and
+kl_bound_fused for bounds.kl_bound on MCD_CAIS_sn: the same (loss,
+(neg_elbos, z)) contract and the same math, but the K-step rollout runs in
+the fused rollout kernel (ops/overdamped.py) and the gradient in a backward
+kernel, joined by a torch.autograd.Function.
 
 Everything outside the bridge loop stays plain autograd, as in JAX: the
 reparameterised initial term -log q(z0(theta)), the chain rule from
-mgridref_y to betas, the variance and its clip. Only the summed per-step
-log-weight increments have the custom backward. The chain states and the
-final-state target term are cut from the graph, as the VarGrad integrator
-does (integrators/overdamped.py, stop_grad_state).
+mgridref_y to betas, the final target term, the mean or the variance and its
+clip. Only the summed per-step log-weight increments have the custom
+backward.
 
-On CPU tensors the Function runs the two plain versions; on CUDA tensors it
-launches the kernels or raises.
+VarGrad cuts the chain states and the final-state target term from the
+graph, as its integrator does (integrators/overdamped.py, stop_grad_state),
+so its gradient is a sum over independent points. backward="replay" stores
+the rollout's trajectory and hands it to the replay kernel (ops/vargrad.py);
+"reroll" stores nothing and lets the backward kernel roll the trajectory
+again from (z0, seed); "auto" replays unless the stored trajectory,
+(K + 1) * N * dim * 4 bytes, would exceed _REPLAY_BYTES_BUDGET.
+
+KL cuts nothing: z0 and z_final carry real cotangents. The rollout stores
+trajectory and noise, autograd gives the final target term's gradient in
+z_final, and the reverse-sweep kernel (ops/kl.py) chains it back through
+every step to theta and to z0, from where autograd goes on through the
+reparameterised draw.
+
+On CPU tensors the Functions run the plain versions; on CUDA tensors they
+launch the kernels or raise. plain=True runs the plain versions wherever the
+tensors lie: the card's check of a whole step through the kernels against the
+same step without them.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from cmcd_tpu_torch import bounds
 from cmcd_tpu_torch.distributions import diag_gaussian_log_prob, diag_gaussian_sample
 from cmcd_tpu_torch.integrators import overdamped as od
+from cmcd_tpu_torch.ops import kl, vargrad
 from cmcd_tpu_torch.ops.fused import supports_fused
-from cmcd_tpu_torch.ops.overdamped import evolve_overdamped_fused
+from cmcd_tpu_torch.ops.kl import evolve_kl_bwd, evolve_kl_bwd_plain
+from cmcd_tpu_torch.ops.overdamped import evolve_overdamped_fused, evolve_overdamped_fused_plain
 from cmcd_tpu_torch.ops.target_grads import score_for_target
-from cmcd_tpu_torch.ops.vargrad import evolve_vargrad_bwd_replay
-from cmcd_tpu_torch.ops.vargrad import kernel_fits as backward_fits
+from cmcd_tpu_torch.ops.vargrad import (
+    evolve_vargrad_bwd_replay,
+    evolve_vargrad_bwd_replay_plain,
+    evolve_vargrad_bwd_reroll,
+    evolve_vargrad_bwd_reroll_plain,
+)
 from cmcd_tpu_torch.schedules import betas_from_grid
+
+# The modes whose KL loss has a fused backward. Still to port: MCD_ULA,
+# MCD_ULA_sn and MCD_DNF (the per-point sweep), UHA and the underdamped family.
+KL_FUSED_MODES = frozenset({"MCD_CAIS_sn"})
+
+# The stored trajectory costs (K + 1) * N * dim * 4 bytes between the forward
+# and the backward kernel; past this budget "auto" takes the re-rolling
+# backward, which stores nothing.
+_REPLAY_BYTES_BUDGET = 256 * 1024 * 1024
 
 
 def supports_fused_train(setup: bounds.CMCDSetup, target) -> bool:
-    """True if the fused training loss can run: what supports_fused asks of
-    the rollout, the VarGrad mode, and a net that also fits one block of the
-    backward kernel (ops/vargrad.kernel_fits)."""
-    return (
-        supports_fused(setup, target)
-        and setup.mode == "MCD_CAIS_var_sn"
-        and backward_fits(setup.dim + setup.emb_dim, score_for_target(target).means.shape[0])
-    )
+    """True if a fused training loss can run: what supports_fused asks of
+    the rollout, the VarGrad mode or a mode of KL_FUSED_MODES, and a net that
+    also fits one block of that mode's backward kernel."""
+    if not supports_fused(setup, target):
+        return False
+    fits = {"MCD_CAIS_var_sn": vargrad.kernel_fits}
+    fits.update(dict.fromkeys(KL_FUSED_MODES, kl.kernel_fits))
+    return setup.mode in fits and fits[setup.mode](
+        setup.dim + setup.emb_dim, score_for_target(target).means.shape[0])
+
+
+def choose_backward(backward: str, setup: bounds.CMCDSetup, n_chains: int) -> str:
+    """"replay" or "reroll" for the VarGrad loss: `backward` itself, or for
+    "auto" the replay unless its trajectory would pass _REPLAY_BYTES_BUDGET."""
+    if backward not in ("auto", "replay", "reroll"):
+        raise ValueError(f"backward must be auto, replay or reroll, got {backward!r}")
+    if backward != "auto":
+        return backward
+    traj_bytes = (setup.nbridges + 1) * n_chains * setup.dim * 4
+    return "replay" if traj_bytes <= _REPLAY_BYTES_BUDGET else "reroll"
+
+
+def _theta_grads(call, g, eps):
+    """A backward kernel's gradient dict in the order of the Functions' theta
+    inputs: eps, betas, vd_mean, vd_logdiag, the net's parameters."""
+    g_weights = [g["sn"][name] for name, _ in call["static"]["sn"].named_parameters()]
+    return (g["eps"].reshape(eps.shape), g["betas"], g["vd_mean"], g["vd_logdiag"], *g_weights)
 
 
 class _Evolve(torch.autograd.Function):
     """(theta; z0, seed, noise) -> (deltas, z_final) for CAIS_VAR.
 
-    Forward: the fused rollout, storing the trajectory. Backward: the replay
-    kernel on the cotangent of deltas. theta is eps, betas, vd_mean,
-    vd_logdiag and the net's parameters (passed as inputs so that autograd
-    routes their gradients; the net module itself rides in `call`); z0, seed
-    and noise are data and z_final carries no gradient.
+    Forward: the fused rollout, storing the trajectory if call["replay"].
+    Backward: the replay kernel on the stored trajectory, or the re-rolling
+    kernel on (z0, seed, noise), with the cotangent of deltas. theta is eps,
+    betas, vd_mean, vd_logdiag and the net's parameters (passed as inputs so
+    that autograd routes their gradients; the net module itself rides in
+    `call`); z0, seed and noise are data and z_final carries no gradient.
     """
 
     @staticmethod
     def forward(ctx, call, z0, seed, noise, eps, betas, vd_mean, vd_logdiag, *weights):
-        z, deltas, traj = call["rollout"](
+        z, deltas, *traj = call["rollout"](
             z0, torch.zeros(z0.shape[0], dtype=z0.dtype, device=z0.device),
             betas.contiguous(), eps, vd_mean.contiguous(), vd_logdiag.contiguous(),
-            call["score"], od.CAIS_VAR, seed=seed, noise=noise, return_trajectory=True,
-            **call["static"],
+            call["score"], od.CAIS_VAR, seed=seed, noise=noise,
+            return_trajectory=call["replay"], **call["static"],
         )
         ctx.call = call
-        ctx.save_for_backward(traj, eps, betas, vd_mean, vd_logdiag)
+        ctx.draws = (seed, noise)
+        ctx.save_for_backward(traj[0] if call["replay"] else z0, eps, betas, vd_mean, vd_logdiag)
         ctx.mark_non_differentiable(z)
         return deltas, z
 
     @staticmethod
     def backward(ctx, g_deltas, _g_z):
         call = ctx.call
-        traj, eps, betas, vd_mean, vd_logdiag = ctx.saved_tensors
+        start, eps, betas, vd_mean, vd_logdiag = ctx.saved_tensors
+        draws = {} if call["replay"] else dict(zip(("seed", "noise"), ctx.draws))
         g = call["backward"](
-            traj, g_deltas.contiguous(), betas.contiguous(), eps, vd_mean.contiguous(),
-            vd_logdiag.contiguous(), call["score"], od.CAIS_VAR, **call["static"],
+            start, g_deltas.contiguous(), betas.contiguous(), eps, vd_mean.contiguous(),
+            vd_logdiag.contiguous(), call["score"], od.CAIS_VAR, **draws, **call["static"],
         )
-        g_weights = [g["sn"][name] for name, _ in call["static"]["sn"].named_parameters()]
-        return (None, None, None, None, g["eps"].reshape(eps.shape), g["betas"],
-                g["vd_mean"], g["vd_logdiag"], *g_weights)
+        return (None, None, None, None, *_theta_grads(call, g, eps))
 
 
-def neg_elbos_fused(params, n_chains: int, ctx, setup: bounds.CMCDSetup, target,
-                    *, generator=None, base_normals=None, noise=None,
-                    rollout=evolve_overdamped_fused, backward=evolve_vargrad_bwd_replay):
-    """Per-chain negative ELBOs through the fused rollout, differentiable in
-    params through the fused backward (VarGrad semantics): (neg_elbos, z).
+class _EvolveKL(torch.autograd.Function):
+    """(theta, z0; seed, noise) -> (deltas, z_final) for CAIS, nothing cut.
 
-    base_normals (N, dim) / noise (K, N, dim): optional draws standing in
-    for the generator's. rollout / backward: the kernels' wrappers, or their
-    plain versions where the two are compared on the card.
+    Forward: the fused rollout, storing trajectory and noise. Backward: the
+    reverse-sweep kernel with the cotangents of deltas and of z_final;
+    returns the gradients of theta (as _Evolve) and of z0.
     """
+
+    @staticmethod
+    def forward(ctx, call, z0, seed, noise, eps, betas, vd_mean, vd_logdiag, *weights):
+        z, deltas, traj, draws = call["rollout"](
+            z0, torch.zeros(z0.shape[0], dtype=z0.dtype, device=z0.device),
+            betas.contiguous(), eps, vd_mean.contiguous(), vd_logdiag.contiguous(),
+            call["score"], od.CAIS, seed=seed, noise=noise, return_trajectory=True,
+            return_noise=True, **call["static"],
+        )
+        ctx.call = call
+        ctx.save_for_backward(traj, draws, eps, betas, vd_mean, vd_logdiag)
+        return deltas, z
+
+    @staticmethod
+    def backward(ctx, g_deltas, g_z):
+        call = ctx.call
+        traj, draws, eps, betas, vd_mean, vd_logdiag = ctx.saved_tensors
+        g, g_z0 = call["backward"](
+            traj, draws, g_deltas.contiguous(), g_z.contiguous(), betas.contiguous(), eps,
+            vd_mean.contiguous(), vd_logdiag.contiguous(), call["score"], od.CAIS,
+            **call["static"],
+        )
+        return (None, g_z0, None, None, *_theta_grads(call, g, eps))
+
+
+def _prepare(params, n_chains, setup, target, generator, base_normals, plain, backward):
+    """What both losses do before the rollout: (p, z0, w0, betas, seed, call).
+    call["backward"] is the wrapper named `backward` ("replay", "reroll" or
+    "kl"), call["rollout"] the rollout's, or with `plain` their plain versions."""
     if not supports_fused_train(setup, target):
         raise NotImplementedError(
             f"no fused training kernels for mode {setup.mode} on {target.name} "
             f"(nn {setup.nn_arch}, emb_dim {setup.emb_dim}); see ROADMAP queue B"
         )
     p = bounds.merged_params(params)
-    vd, sn = p["vd"], p["sn"]
+    vd = p["vd"]
     dev = vd["mean"].device
     # Reparameterised draw: -log q(z0(theta)) carries the vd gradient through
-    # plain autograd; the rollout sees z0 as data.
+    # plain autograd.
     z0 = diag_gaussian_sample(vd, n_chains, generator=generator, base_normals=base_normals)
     w0 = -diag_gaussian_log_prob(vd, z0)
     betas = betas_from_grid(p["mgridref_y"], p["gridref_x"], p["target_x"])
     seed = torch.randint(2**31 - 1, (1,), generator=generator, device=dev)
+    wrappers = {
+        "replay": (evolve_vargrad_bwd_replay, evolve_vargrad_bwd_replay_plain),
+        "reroll": (evolve_vargrad_bwd_reroll, evolve_vargrad_bwd_reroll_plain),
+        "kl": (evolve_kl_bwd, evolve_kl_bwd_plain),
+    }
     call = {
-        "rollout": rollout, "backward": backward, "score": score_for_target(target, dev),
-        "static": dict(dim=setup.dim, nbridges=setup.nbridges, sn=sn,
+        "rollout": evolve_overdamped_fused_plain if plain else evolve_overdamped_fused,
+        "backward": wrappers[backward][plain],
+        "replay": backward == "replay",
+        "score": score_for_target(target, dev),
+        "static": dict(dim=setup.dim, nbridges=setup.nbridges, sn=p["sn"],
                        eps_schedule=setup.eps_schedule, grad_clipping=setup.grad_clipping),
     }
+    return p, z0, w0, betas, seed, call
+
+
+def neg_elbos_fused(params, n_chains: int, ctx, setup: bounds.CMCDSetup, target,
+                    *, generator=None, base_normals=None, noise=None,
+                    backward: str = "auto", plain: bool = False):
+    """Per-chain negative ELBOs through the fused rollout, differentiable in
+    params through a fused backward (VarGrad semantics): (neg_elbos, z).
+
+    base_normals (N, dim) / noise (K, N, dim): optional draws standing in
+    for the generator's. backward: "auto", "replay" or "reroll" (the module
+    docstring). plain: the plain versions instead of the kernels' wrappers.
+    """
+    if setup.mode != "MCD_CAIS_var_sn":
+        raise NotImplementedError(f"the fused VarGrad loss is for MCD_CAIS_var_sn, not {setup.mode}")
+    p, z0, w0, betas, seed, call = _prepare(
+        params, n_chains, setup, target, generator, base_normals, plain,
+        choose_backward(backward, setup, n_chains))
+    vd = p["vd"]
+    # The rollout sees z0 as data.
     deltas, z = _Evolve.apply(
-        call, z0.detach().contiguous(), seed, noise, torch.as_tensor(p["eps"], device=dev),
-        betas, vd["mean"], vd["logdiag"], *sn.parameters(),
+        call, z0.detach().contiguous(), seed, noise,
+        torch.as_tensor(p["eps"], device=z0.device), betas, vd["mean"], vd["logdiag"],
+        *p["sn"].parameters(),
     )
     w = w0 + deltas + ctx.target_log_prob(z.detach())
     return -w, z
@@ -123,3 +230,47 @@ def var_bound_fused(params, n_chains: int, ctx, setup: bounds.CMCDSetup, target,
     bounds.var_bound plus the target argument."""
     neg_elbos, z = neg_elbos_fused(params, n_chains, ctx, setup, target, **draws)
     return torch.clamp(torch.var(neg_elbos, correction=0), -1e7, 1e7), (neg_elbos, z)
+
+
+def neg_elbos_fused_kl(params, n_chains: int, ctx, setup: bounds.CMCDSetup, target,
+                       *, generator=None, base_normals=None, noise=None, plain: bool = False):
+    """Per-chain negative ELBOs through the fused rollout, differentiable in
+    params through the reverse-sweep kernel (full backprop through time: the
+    state cotangent chains through every step, the final target term and the
+    reparameterised initial draw): (neg_elbos, z).
+
+    The draws and plain as in neg_elbos_fused.
+    """
+    if setup.mode not in KL_FUSED_MODES:
+        raise NotImplementedError(
+            f"the fused KL loss implements {sorted(KL_FUSED_MODES)}, not {setup.mode}; "
+            "see ROADMAP queue B"
+        )
+    p, z0, w0, betas, seed, call = _prepare(params, n_chains, setup, target, generator,
+                                            base_normals, plain, "kl")
+    vd = p["vd"]
+    deltas, z = _EvolveKL.apply(
+        call, z0.contiguous(), seed, noise, torch.as_tensor(p["eps"], device=z0.device),
+        betas, vd["mean"], vd["logdiag"], *p["sn"].parameters(),
+    )
+    # The floored eager log-prob: its gradient in z is the sweep's g_zfinal.
+    w = w0 + deltas + ctx.target_log_prob(z)
+    return -w, z
+
+
+def kl_bound_fused(params, n_chains: int, ctx, setup: bounds.CMCDSetup, target, **draws):
+    """KL loss (mean negative ELBO) with the fused forward and backward: the
+    contract of bounds.kl_bound plus the target argument."""
+    neg_elbos, z = neg_elbos_fused_kl(params, n_chains, ctx, setup, target, **draws)
+    return torch.mean(neg_elbos), (neg_elbos, z)
+
+
+def fused_training_path(setup: bounds.CMCDSetup, n_chains: int) -> tuple:
+    """(loss, what it runs) for training `setup` on batches of n_chains: the
+    fused loss of the mode (the rule of bounds.loss_fn_for_mode) with the
+    VarGrad backward settled here, once, and that choice in words."""
+    if "var" in setup.mode:
+        backward = choose_backward("auto", setup, n_chains)
+        return (functools.partial(var_bound_fused, backward=backward),
+                f"var_bound_fused, VarGrad {backward} backward")
+    return kl_bound_fused, "kl_bound_fused, KL reverse sweep"

@@ -1,0 +1,208 @@
+"""The KL reverse sweep: wrapper of the CUDA kernel (csrc/kl.cu) and its
+plain PyTorch version.
+
+Counterpart of cmcd_tpu/ops/pallas_kl.py::evolve_kl_bwd_pallas in its carry
+form (the CAIS structure: one net in both kernels, backward net at i + 1),
+with the port's layout: traj (K + 1, N, dim) and noise (K, N, dim) as the
+fused rollout stored them (ops/overdamped.py, return_trajectory and
+return_noise), cot (N,) the cotangent of each chain's summed log-weight
+increments, g_zfinal (N, dim) that of its final state. Nothing is stopped:
+the KL loss differentiates through the whole rollout, so the state
+cotangent chains backward through every step, through the target score's
+Jacobian and the net's. Returns (grads, g_z0): the gradient of
+  sum_n [ cot_n * sum_i (bk_lp_i - fk_lp_i) + g_zfinal_n . z_K ]
+in theta as the dict of ops/vargrad.py,
+  {"eps": (), "betas": (K,), "vd_mean": (dim,), "vd_logdiag": (dim,),
+   "sn": {parameter name of the GeffnerNet: gradient in that parameter's shape}},
+and in the initial state, g_z0 (N, dim), for the reparameterised draw.
+
+The sweep visits each stored point once, from z_K down to z_0 (the
+derivation is the header of csrc/kl.cu): the point's score and net output
+serve both the step that ends there and the step that starts there, so each
+is applied and transposed once. The kernel writes every derivative out; the
+plain version walks the same sweep with torch ops, the score's Hessian
+product from ops/target_grads.ManyGMMScore.hvp and the net's VJP from
+torch.autograd, in the dtype of `traj` (float64 to arbitrate between two
+float32 summation orders).
+
+On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
+launches the kernel or raises, never falling back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from cmcd_tpu_torch.integrators.overdamped import OverdampedSpec
+from cmcd_tpu_torch.ops import build
+from cmcd_tpu_torch.ops import vargrad as vg
+from cmcd_tpu_torch.ops.overdamped import EPS_SCHEDULES
+from cmcd_tpu_torch.schedules import eps_at_step
+
+
+# Floats of shared memory beside the tile (ops/vargrad.smem_bytes). Per chain:
+# three states, g_out, the state cotangent and the two carries (2-vectors),
+# the cotangent; per warp: its share of the net's input VJP for a group's chains.
+EXTRA_FLOATS = (15, 2 * vg.CHAINS_PER_GROUP)
+
+kernel_fits = functools.partial(vg.kernel_fits, extra=EXTRA_FLOATS)
+kernel_fits.__doc__ = "ops/vargrad.kernel_fits for one block of the sweep kernel."
+
+
+def _check(traj, noise, cot, g_zfinal, betas, grad_logp, spec, dim, nbridges, sn, eps_schedule):
+    n = cot.shape[0]
+    vg.check_backward_config("KL reverse sweep", betas, grad_logp, spec, dim, nbridges, sn,
+                             eps_schedule, fits=kernel_fits)
+    if spec.stop_grad_state:
+        raise NotImplementedError("KL reverse sweep: the spec stops the state gradient (VarGrad)")
+    if (traj.shape != (nbridges + 1, n, dim) or noise.shape != (nbridges, n, dim)
+            or cot.shape != (n,) or g_zfinal.shape != (n, dim)):
+        raise ValueError(
+            f"KL reverse sweep: shapes traj {tuple(traj.shape)}, noise {tuple(noise.shape)}, "
+            f"cot {tuple(cot.shape)}, g_zfinal {tuple(g_zfinal.shape)} do not match N={n}, "
+            f"dim={dim}, K={nbridges}"
+        )
+
+
+@torch.no_grad()
+def evolve_kl_bwd_plain(
+    traj, noise, cot, g_zfinal, betas, eps, vd_mean, vd_logdiag, grad_logp,
+    spec: OverdampedSpec, *, dim: int, nbridges: int, sn=None, eps_schedule: str = "",
+    grad_clipping: bool = False,
+):
+    """The kernel's function in plain torch, point by point from z_K to z_0,
+    in traj's dtype. Carried between points: fk, the cotangent of the forward
+    mean of the step that starts at the point, and direct, what the point's
+    state gets from that step besides (g_zfinal at z_K)."""
+    K, dt, dev = nbridges, traj.dtype, traj.device
+    as_t = lambda t: torch.as_tensor(t, device=dev).detach().to(dt)
+    clip_t = spec.clip_target if grad_clipping else None
+    clip_q = spec.clip_vd if grad_clipping else None
+    betas, mu, logdiag, cot = as_t(betas), as_t(vd_mean), as_t(vd_logdiag), as_t(cot)
+    eps0 = as_t(eps).reshape(())
+    # eps_j = eps0 * slope_j + offset_j in every schedule.
+    step = [eps_at_step(eps0, j, K, eps_schedule) for j in range(K)]
+    slope = [eps_at_step(1.0, j, K, eps_schedule) - eps_at_step(0.0, j, K, eps_schedule)
+             for j in range(K)]
+    viv = torch.exp(-2.0 * logdiag)
+    weights = {name: as_t(p).requires_grad_(True) for name, p in sn.named_parameters()}
+    g_w = {name: torch.zeros_like(w) for name, w in weights.items()}
+    g_eps = torch.zeros((), dtype=dt, device=dev)
+    g_betas, g_mu, g_ld = torch.zeros_like(betas), torch.zeros_like(mu), torch.zeros_like(mu)
+    c = cot[:, None]
+
+    fk, direct = None, as_t(g_zfinal)
+    for p in range(K, -1, -1):
+        z = traj[p].detach()
+        with torch.enable_grad():
+            z_in = z.clone().requires_grad_(True)
+            sn_graph = vg.geffner_from_weights(weights, z_in, min(p, K - 1))
+        sn_out = sn_graph.detach()
+        gt = grad_logp(z)
+        gq = -(z - mu) * viv
+        gtc = gt if clip_t is None else torch.clamp(gt, -clip_t, clip_t)
+        gqc = gq if clip_q is None else torch.clamp(gq, -clip_q, clip_q)
+        g_gt, g_sn, g_gq = torch.zeros_like(z), torch.zeros_like(z), torch.zeros_like(z)
+        total = direct
+        if p <= K - 1:  # z_p starts step p
+            b, e = betas[p], step[p]
+            g_eps = g_eps + slope[p] * torch.sum(fk * ((b * gtc + (1.0 - b) * gqc) - sn_out))
+            g_betas[p] += torch.sum(e * fk * (gtc - gqc))
+            g_gt, g_sn, g_gq = g_gt + b * e * fk, g_sn - e * fk, g_gq + (1.0 - b) * e * fk
+        if p >= 1:  # z_p is where step p - 1's backward mean is formed
+            b, e = betas[p - 1], step[p - 1]
+            drift = b * gtc + (1.0 - b) * gqc
+            r = traj[p - 1] - (z + e * drift + e * sn_out)
+            g_mean = c * r / (2.0 * e)
+            g_e = torch.sum(g_mean * (drift + sn_out)) + torch.sum(c * r * r) / (2.0 * e) ** 2
+            g_betas[p - 1] += torch.sum(e * g_mean * (gtc - gqc))
+            g_gt, g_sn = g_gt + b * e * g_mean, g_sn + e * g_mean
+            g_gq = g_gq + (1.0 - b) * e * g_mean
+            total = total + g_mean
+        g_gt = torch.where(gt == gtc, g_gt, torch.zeros_like(g_gt))   # a clipped score
+        g_gq = torch.where(gq == gqc, g_gq, torch.zeros_like(g_gq))   # passes nothing
+        g_mu += torch.sum(g_gq * viv, dim=0)
+        g_ld += torch.sum(g_gq * (-2.0 * gq), dim=0)
+        g_zin, *g_wp = torch.autograd.grad(sn_graph, [z_in, *weights.values()], g_sn)
+        for name, g in zip(g_w, g_wp):
+            g_w[name] += g
+        total = total - viv * g_gq + grad_logp.hvp(z, g_gt) + g_zin
+        if p >= 1:  # z_p = fk_mean_{p-1} + sqrt(2 e) xi_{p-1}
+            g_e = g_e + torch.sum(total * noise[p - 1]) / torch.sqrt(2.0 * e)
+            g_eps = g_eps + slope[p - 1] * g_e
+            fk, direct = total, total - g_mean
+    grads = {"eps": g_eps, "betas": g_betas, "vd_mean": g_mu, "vd_logdiag": g_ld, "sn": g_w}
+    return grads, total
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = build.load("kl")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.cmcd_kl_reverse_sweep.argtypes = [p] * 21 + [i] * 8 + [f] * 3 + [p]
+    lib.cmcd_kl_reverse_sweep.restype = ctypes.c_int
+    vg.declare_limits(lib, "kl", EXTRA_FLOATS, "csrc/kl.cu")
+    return lib
+
+
+def _launch(lib, traj, noise, cot, g_zfinal, betas, eps, vd_mean, vd_logdiag, grad_logp, spec, *,
+            dim, nbridges, sn, eps_schedule, grad_clipping, groups, blocks, stream):
+    """Marshal the arguments, launch, and assemble (grads, g_z0)."""
+    points = nbridges + 1
+    scal, weights, means, buffers = vg.marshal(
+        "KL reverse sweep", sn, dim, eps, grad_logp, traj.device, blocks, points, blocks)
+    g_z0 = torch.empty_like(g_zfinal)
+    ptr = vg.ptr
+    err = lib.cmcd_kl_reverse_sweep(
+        ptr(traj), ptr(noise), ptr(cot), ptr(g_zfinal), ptr(betas), ptr(scal),
+        *(ptr(t) for t in weights),
+        ptr(means), ptr(vd_mean), ptr(vd_logdiag),
+        *(ptr(t) for t in buffers), ptr(g_z0),
+        cot.shape[0], nbridges, sn.in_dim, sn.emb_dim, means.shape[0],
+        EPS_SCHEDULES[eps_schedule], blocks, groups,
+        grad_logp.inv_var, *vg.clips(spec, grad_clipping),
+        ctypes.c_void_p(stream),
+    )
+    vg.raise_on(err, lib, "KL reverse sweep")
+    return vg.assemble_grads(buffers[2], buffers[3], sn, dim, nbridges), g_z0
+
+
+@torch.no_grad()
+def evolve_kl_bwd(
+    traj, noise, cot, g_zfinal, betas, eps, vd_mean, vd_logdiag, grad_logp,
+    spec: OverdampedSpec, *, dim: int, nbridges: int, sn=None, eps_schedule: str = "",
+    grad_clipping: bool = False,
+):
+    """KL (backprop-through-time) gradient from the stored trajectory and
+    noise, in one launch of the sweep kernel and one of its reduction.
+
+    traj: (K + 1, N, dim) f32; noise: (K, N, dim) f32; cot: (N,); g_zfinal:
+    (N, dim); betas: (K,); eps: scalar tensor or float; vd_mean / vd_logdiag:
+    (dim,); grad_logp: ops/target_grads.ManyGMMScore; sn: the GeffnerNet.
+    Returns (the gradient dict of the module docstring, g_z0 (N, dim)).
+    """
+    _check(traj, noise, cot, g_zfinal, betas, grad_logp, spec, dim, nbridges, sn, eps_schedule)
+    kwargs = dict(dim=dim, nbridges=nbridges, sn=sn, eps_schedule=eps_schedule,
+                  grad_clipping=grad_clipping)
+    if traj.device.type == "cpu":
+        return evolve_kl_bwd_plain(
+            traj, noise, cot, g_zfinal, betas, eps, vd_mean, vd_logdiag, grad_logp, spec, **kwargs
+        )
+    if traj.device.type != "cuda":
+        raise ValueError(f"KL reverse sweep: no kernel for device {traj.device}")
+    dev = traj.device
+    vg.check_device_tensors("KL reverse sweep", dev,
+                            (traj, noise, cot, g_zfinal, betas, vd_mean, vd_logdiag))
+    groups, blocks = vg.sweep_grid(cot.shape[0], dev)
+    out = _launch(
+        _library(), traj, noise, cot, g_zfinal, betas, eps, vd_mean, vd_logdiag, grad_logp, spec,
+        groups=groups, blocks=blocks, stream=torch.cuda.current_stream(dev).cuda_stream, **kwargs,
+    )
+    evolve_kl_bwd.launches += 1
+    return out
+
+
+evolve_kl_bwd.launches = 0

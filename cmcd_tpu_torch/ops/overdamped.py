@@ -5,7 +5,8 @@ Counterpart of cmcd_tpu/ops/pallas_overdamped.py::evolve_overdamped_pallas,
 with the port's layout: z0 (N, dim), w0 (N,), betas (K,), injected noise
 (K, N, dim), all f32; with return_trajectory=True also the stored path
 z_0..z_K as (K + 1, N, dim), which the VarGrad backward (ops/vargrad.py)
-reads. The kernel covers the CAIS and CAIS_VAR specs on the
+reads, and with return_noise=True the draws xi_0..xi_{K-1} as (K, N, dim),
+which the KL reverse sweep (ops/kl.py) reads beside it. The kernel covers the CAIS and CAIS_VAR specs on the
 many_gmm score (ops/target_grads.py) with the two-layer geffner net; the
 wrapper raises on anything else.
 
@@ -100,14 +101,16 @@ def evolve_overdamped_fused_plain(
     z0, w0, betas, eps, vd_mean, vd_logdiag, grad_logp, spec: OverdampedSpec,
     *, dim: int, nbridges: int, sn=None, eps_schedule: str = "",
     grad_clipping: bool = False, seed=0, noise=None, generator=None,
-    return_trajectory: bool = False,
+    return_trajectory: bool = False, return_noise: bool = False,
 ):
     """The kernel's math in eager torch, step by step: the same clips, the
     same CAIS carry of (score, net output) and the same weight formula.
     Without injected noise the draws come from `generator`, or from a
     generator seeded with `seed` on z0's device (not the kernel's Philox
     stream: the two agree in distribution only). Returns (z (N, dim), w (N,)),
-    and with return_trajectory also traj (K + 1, N, dim) = z_0..z_K."""
+    with return_trajectory also traj (K + 1, N, dim) = z_0..z_K, and with
+    return_noise also the draws (K, N, dim) (the injected tensor itself, if
+    there was one)."""
     clip_t = spec.clip_target if grad_clipping else None
     clip_q = spec.clip_vd if grad_clipping else None
     inv_var_q = torch.exp(-2.0 * vd_logdiag)
@@ -123,7 +126,7 @@ def evolve_overdamped_fused_plain(
         return -(beta * gt + (1.0 - beta) * gq)
 
     z, w = z0, w0
-    traj = [z0]
+    traj, draws = [z0], []
     gt, sn_cur = grad_logp(z), sn(z, 0)
     for i in range(nbridges):
         eps_i = eps_at_step(eps, i, nbridges, eps_schedule)
@@ -133,6 +136,8 @@ def evolve_overdamped_fused_plain(
         fk_mean = fk_mean - eps_i * sn_cur
         if noise is None:
             xi = torch.randn(z.shape, generator=generator, device=z.device)
+            if return_noise:
+                draws.append(xi)
         else:
             xi = noise[i]
         z_new = fk_mean + scale * xi
@@ -144,16 +149,19 @@ def evolve_overdamped_fused_plain(
         z, gt, sn_cur = z_new, gt_new, sn_new
         if return_trajectory:
             traj.append(z)
+    out = (z, w)
     if return_trajectory:
-        return z, w, torch.stack(traj)
-    return z, w
+        out += (torch.stack(traj),)
+    if return_noise:
+        out += (noise if noise is not None else torch.stack(draws),)
+    return out
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = build.load("overdamped")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.cmcd_overdamped_rollout.argtypes = [p] * 19 + [i] * 6 + [f] * 3 + [p]
+    lib.cmcd_overdamped_rollout.argtypes = [p] * 20 + [i] * 6 + [f] * 3 + [p]
     lib.cmcd_overdamped_rollout.restype = ctypes.c_int
     lib.cmcd_error_string.argtypes = [ctypes.c_int]
     lib.cmcd_error_string.restype = ctypes.c_char_p
@@ -205,6 +213,7 @@ def evolve_overdamped_fused(
     z0, w0, betas, eps, vd_mean, vd_logdiag, grad_logp, spec: OverdampedSpec,
     *, dim: int, nbridges: int, sn=None, eps_schedule: str = "",
     grad_clipping: bool = False, seed=0, noise=None, return_trajectory: bool = False,
+    return_noise: bool = False,
 ):
     """Run nbridges CAIS / CAIS_VAR steps for every chain in one launch.
 
@@ -213,12 +222,14 @@ def evolve_overdamped_fused(
     sn: the GeffnerNet; seed: int or one-element integer tensor (read on the
     device, so no host sync); noise: optional (K, N, dim) standard normals.
     Returns (z (N, dim), w (N,)); with return_trajectory also traj
-    (K + 1, N, dim): row 0 is z0, row K equals z.
+    (K + 1, N, dim): row 0 is z0, row K equals z; with return_noise also the
+    draws (K, N, dim) the kernel used: its Philox normals as it stored them,
+    or the injected tensor itself.
     """
     _check(z0, w0, betas, grad_logp, spec, dim, nbridges, sn, eps_schedule, noise)
     kwargs = dict(dim=dim, nbridges=nbridges, sn=sn, eps_schedule=eps_schedule,
                   grad_clipping=grad_clipping, seed=seed, noise=noise,
-                  return_trajectory=return_trajectory)
+                  return_trajectory=return_trajectory, return_noise=return_noise)
     if z0.device.type == "cpu":
         return evolve_overdamped_fused_plain(
             z0, w0, betas, eps, vd_mean, vd_logdiag, grad_logp, spec, **kwargs
@@ -247,6 +258,7 @@ def evolve_overdamped_fused(
     z_out = torch.empty_like(z0)
     w_out = torch.empty_like(w0)
     traj = z0.new_empty((nbridges + 1, n, dim)) if return_trajectory else None
+    draws = z0.new_empty((nbridges, n, dim)) if return_noise and noise is None else None
     clip_t = spec.clip_target if grad_clipping else None
     clip_q = spec.clip_vd if grad_clipping else None
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
@@ -257,6 +269,7 @@ def evolve_overdamped_fused(
         *(ptr(t) for t in weights),
         ptr(means), ptr(vd_mean), ptr(vd_inv_var), ptr(z_out), ptr(w_out),
         None if traj is None else ptr(traj),
+        None if draws is None else ptr(draws),
         n, nbridges, sn.in_dim, sn.emb_dim, means.shape[0],
         EPS_SCHEDULES[eps_schedule],
         grad_logp.inv_var,
@@ -268,9 +281,12 @@ def evolve_overdamped_fused(
         msg = _library().cmcd_error_string(err).decode()
         raise RuntimeError(f"overdamped rollout kernel failed: {msg} ({err})")
     evolve_overdamped_fused.launches += 1
+    out = (z_out, w_out)
     if return_trajectory:
-        return z_out, w_out, traj
-    return z_out, w_out
+        out += (traj,)
+    if return_noise:
+        out += (noise if noise is not None else draws,)
+    return out
 
 
 evolve_overdamped_fused.launches = 0

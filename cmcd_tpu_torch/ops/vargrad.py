@@ -1,24 +1,28 @@
-"""The VarGrad replay backward: wrapper of the CUDA kernel (csrc/vargrad.cu)
-and its plain PyTorch version.
+"""The VarGrad backward, replaying a stored trajectory or rolling it again:
+wrappers of the two CUDA kernels (csrc/vargrad.cu) and their plain PyTorch
+versions.
 
-Counterpart of cmcd_tpu/ops/pallas_vargrad.py::evolve_vargrad_bwd_replay,
-with the port's layout: traj (K + 1, N, dim) holds z_0..z_K as the fused
-rollout stored them (ops/overdamped.py, return_trajectory=True), cot (N,) is
-the cotangent of each chain's summed log-weight increments. Returns the
-gradient of  sum_n cot_n * sum_i (bk_lp_i - fk_lp_i)  with every state held
-fixed (VarGrad's stop-gradient), as a dict
+Counterpart of cmcd_tpu/ops/pallas_vargrad.py::evolve_vargrad_bwd_replay and
+::evolve_vargrad_bwd_pallas, with the port's layout: traj (K + 1, N, dim)
+holds z_0..z_K as the fused rollout stored them (ops/overdamped.py,
+return_trajectory=True), cot (N,) is the cotangent of each chain's summed
+log-weight increments. The re-rolling form takes z0 (N, dim) and the
+rollout's seed (or its injected noise) instead of the trajectory and makes
+every z_j again, so nothing is stored between forward and backward. Both
+return the gradient of  sum_n cot_n * sum_i (bk_lp_i - fk_lp_i)  with every
+state held fixed (VarGrad's stop-gradient), as a dict
   {"eps": (), "betas": (K,), "vd_mean": (dim,), "vd_logdiag": (dim,),
    "sn": {parameter name of the GeffnerNet: gradient in that parameter's shape}}.
 
-The kernel writes every derivative out by hand and reduces over chains and
-points itself; the wrapper only transposes the one product it also makes on
+The kernels write every derivative out by hand and reduce over chains and
+points themselves; the wrapper only transposes the one product it also makes on
 the way in (c1 = emb @ W1[dim:] + b1, ops/overdamped.pack_geffner): from
 the kernel's per-point sums over chains it forms d emb, d W1[dim:] and d b1
 with two small matrix products. The plain version states the point loss
 over the whole (K + 1, N) array and lets torch.autograd differentiate it.
 
-On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises, never falling back.
+On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
+launches its kernel or raises, never falling back.
 """
 
 from __future__ import annotations
@@ -34,39 +38,69 @@ from cmcd_tpu_torch.distributions import LOG_2PI
 from cmcd_tpu_torch.integrators.overdamped import OverdampedSpec
 from cmcd_tpu_torch.networks.geffner import GeffnerNet, softplus
 from cmcd_tpu_torch.ops import build
-from cmcd_tpu_torch.ops.overdamped import EPS_SCHEDULES, MAX_MIX, MAX_SMEM, pack_geffner
+from cmcd_tpu_torch.ops.overdamped import (
+    EPS_SCHEDULES,
+    MAX_MIX,
+    MAX_SMEM,
+    evolve_overdamped_fused_plain,
+    pack_geffner,
+)
 from cmcd_tpu_torch.schedules import eps_per_step
 
-# The kernel's limits, mirrored from csrc/vargrad.cu (checked against the
-# built kernel's own in _library()).
-GROUPS = 4                # NG: groups of feature threads in a block
-CHAINS_PER_TILE = 32      # TB = NG * 8
-MAX_THREADS = 640
+# The kernels' limits, mirrored from csrc/cmcd_tile.cuh and csrc/vargrad.cu
+# (checked against the built kernels' own in _library()).
+GROUPS = 4                # NG of the replay kernel: groups of feature threads
+CHAINS_PER_GROUP = 8      # TC
+CHAINS_PER_TILE = GROUPS * CHAINS_PER_GROUP
+GROUP_THREADS = 160       # FW_MAX: feature threads of one group
 
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def smem_bytes(in_dim: int, n_mix: int) -> int:
-    """Dynamic shared memory of one block (the kernel's layout: W2 and the
-    dW2 accumulator, the hidden tile both ways, the h2 / g_a2 tile, head,
-    means, per-chain exchange and the per-warp scalars)."""
-    ip, tb = _round_up(in_dim, 4), CHAINS_PER_TILE
-    floats = (2 * ip * (ip + 1) + 2 * tb * ip + ip * (tb + 4) + 2 * ip
-              + _round_up(2 * n_mix, 4) + 4 * tb * 2 + tb + 10 * (MAX_THREADS // 32))
-    return 4 * floats
+def tile_floats(groups: int, in_dim: int, n_mix: int) -> int:
+    """Floats of shared memory of the backward kernels' tile (csrc/
+    cmcd_tile.cuh: W2 and the dW2 accumulator, the hidden tile both ways,
+    the h2 / g_a2 tile, head, means and the per-warp scalars)."""
+    ip, tb = _round_up(in_dim, 4), groups * CHAINS_PER_GROUP
+    return (2 * ip * (ip + 1) + 2 * tb * ip + ip * (tb + 4) + 2 * ip
+            + _round_up(2 * n_mix, 4) + 10 * (groups * GROUP_THREADS // 32))
 
 
-def kernel_fits(in_dim: int, n_mix: int) -> bool:
-    """True if a net of width in_dim and a score of n_mix components fit
-    one block of the backward kernel."""
+# Floats of shared memory beside the tile: (per chain of the tile, per warp
+# of the block). VarGrad kernels: three states, g_out (2-vectors), the cotangent.
+EXTRA_FLOATS = (9, 0)
+
+
+def smem_bytes(in_dim: int, n_mix: int, groups: int = GROUPS, extra=EXTRA_FLOATS) -> int:
+    """Dynamic shared memory of one block of a backward kernel: the tile and
+    the kernel's own `extra` floats per chain and per warp."""
+    per_chain, per_warp = extra
+    return 4 * (tile_floats(groups, in_dim, n_mix) + per_chain * groups * CHAINS_PER_GROUP
+                + per_warp * (groups * GROUP_THREADS // 32))
+
+
+def kernel_fits(in_dim: int, n_mix: int, extra=EXTRA_FLOATS) -> bool:
+    """True if a net of width in_dim and a score of n_mix components fit one
+    block of a backward kernel at four groups, the larger form: a group's
+    feature threads, two score components per lane, the shared memory."""
     return (
         in_dim >= 1
-        and GROUPS * _round_up(in_dim, 32) <= MAX_THREADS
+        and _round_up(in_dim, 32) <= GROUP_THREADS
         and 1 <= n_mix <= MAX_MIX
-        and smem_bytes(in_dim, n_mix) <= MAX_SMEM
+        and smem_bytes(in_dim, n_mix, GROUPS, extra) <= MAX_SMEM
     )
+
+
+def sweep_grid(n: int, device) -> tuple:
+    """(groups, blocks) of a kernel that walks chain tiles sequentially (the
+    re-rolling backward, the KL reverse sweep): tiles of 32 chains on four
+    groups of feature threads, or, when those would leave SMs idle, tiles of
+    16 chains on two; at most one block per SM, each taking tiles b, b + B, ..."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    groups = 2 if -(-n // CHAINS_PER_TILE) < sms else 4
+    return groups, min(-(-n // (groups * CHAINS_PER_GROUP)), sms)
 
 
 def _len_a(in_dim: int) -> int:
@@ -77,49 +111,72 @@ def _len_b(in_dim: int) -> int:
     return 2 * in_dim + 2
 
 
-def _check(traj, cot, betas, grad_logp, spec, dim, nbridges, sn, eps_schedule):
-    """Raise on what the kernel does not take (both devices)."""
+def check_backward_config(what, betas, grad_logp, spec, dim, nbridges, sn, eps_schedule,
+                          fits=None):
+    """Raise on what the backward kernels do not take (both devices): the
+    CAIS structure, the many_gmm score, the two-layer geffner net, a width
+    that fits one block (`fits`, default this module's kernel_fits)."""
     if not (spec.fwd_sn and spec.bwd_sn and spec.bwd_sn_offset == 1):
         raise NotImplementedError(
-            "replay backward: the point-centric gradient needs the CAIS kernel "
+            f"{what}: the point-centric gradient needs the CAIS kernel "
             f"structure (net in both kernels, backward net at i + 1), got {spec}"
         )
     if getattr(grad_logp, "kernel_name", None) != "many_gmm":
         raise NotImplementedError(
-            "replay backward: the kernel inlines the many_gmm score only "
+            f"{what}: the kernel inlines the many_gmm score only "
             "(ops/target_grads.score_for_target)"
         )
     if dim != 2:
-        raise ValueError(f"replay backward: dim must be 2 (many_gmm), got {dim}")
+        raise ValueError(f"{what}: dim must be 2 (many_gmm), got {dim}")
     if not isinstance(sn, GeffnerNet) or len(sn.layers) != 2:
         raise NotImplementedError(
-            "replay backward: the kernel inlines the two-layer geffner net on the state"
+            f"{what}: the kernel inlines the two-layer geffner net on the state"
         )
     if sn.nbridges != nbridges:
-        raise ValueError("replay backward: net embedding rows != nbridges")
-    if not kernel_fits(sn.in_dim, grad_logp.means.shape[0]):
-        raise NotImplementedError(
-            f"replay backward: in_dim {sn.in_dim} does not fit one block"
-        )
+        raise ValueError(f"{what}: net embedding rows != nbridges")
+    if not (fits or kernel_fits)(sn.in_dim, grad_logp.means.shape[0]):
+        raise NotImplementedError(f"{what}: in_dim {sn.in_dim} does not fit one block")
     if eps_schedule not in EPS_SCHEDULES:
         raise ValueError(f"unknown eps schedule {eps_schedule!r}")
+    if betas.shape != (nbridges,):
+        raise ValueError(f"{what}: betas {tuple(betas.shape)} do not match K={nbridges}")
+
+
+def check_device_tensors(what, dev, tensors):
+    """A kernel reads raw pointers: contiguous f32 on its device, or raise."""
+    for t in tensors:
+        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{what}: every tensor must be contiguous f32 on {dev}")
+
+
+def _check(traj, cot, betas, grad_logp, spec, dim, nbridges, sn, eps_schedule):
     n = cot.shape[0]
-    if traj.shape != (nbridges + 1, n, dim) or cot.shape != (n,) or betas.shape != (nbridges,):
+    check_backward_config("replay backward", betas, grad_logp, spec, dim, nbridges, sn,
+                          eps_schedule)
+    if traj.shape != (nbridges + 1, n, dim) or cot.shape != (n,):
         raise ValueError(
-            f"replay backward: shapes traj {tuple(traj.shape)}, cot {tuple(cot.shape)}, "
-            f"betas {tuple(betas.shape)} do not match N={n}, dim={dim}, K={nbridges}"
+            f"replay backward: shapes traj {tuple(traj.shape)}, cot {tuple(cot.shape)} "
+            f"do not match N={n}, dim={dim}, K={nbridges}"
         )
+
+
+def geffner_from_weights(weights: dict, z, rows):
+    """The geffner net from a dict of its parameters (so that autograd
+    differentiates in them, in their dtype): z (..., N, dim) with embedding
+    row(s) `rows`, an index or a tensor of one index per leading entry."""
+    emb = weights["emb"][rows]
+    emb = emb[..., None, :].expand(*z.shape[:-1], -1)
+    h = torch.cat([z, emb], dim=-1)
+    for i in range(2):
+        h = h + softplus(F.linear(h, weights[f"layers.{i}.weight"], weights[f"layers.{i}.bias"]))
+    return F.linear(h, weights["head.weight"], weights["head.bias"]) * weights["factor_sn"]
 
 
 def _net_at_all_points(weights: dict, traj, nbridges: int):
     """The geffner net at every stored point: traj (K + 1, N, dim) ->
     (K + 1, N, dim), point j with embedding row min(j, K - 1)."""
     rows = torch.arange(nbridges + 1, device=traj.device).clamp(max=nbridges - 1)
-    emb = weights["emb"][rows][:, None, :].expand(-1, traj.shape[1], -1)
-    h = torch.cat([traj, emb], dim=-1)
-    for i in range(2):
-        h = h + softplus(F.linear(h, weights[f"layers.{i}.weight"], weights[f"layers.{i}.bias"]))
-    return F.linear(h, weights["head.weight"], weights["head.bias"]) * weights["factor_sn"]
+    return geffner_from_weights(weights, traj, rows)
 
 
 def evolve_vargrad_bwd_replay_plain(
@@ -128,11 +185,12 @@ def evolve_vargrad_bwd_replay_plain(
     grad_clipping: bool = False,
 ):
     """The kernel's function in plain torch: the point loss over the whole
-    (K + 1, N) array, differentiated by autograd. All states are data."""
+    (K + 1, N) array, differentiated by autograd, in traj's dtype (float64
+    to arbitrate between float32 summation orders). All states are data."""
     clip_t = spec.clip_target if grad_clipping else None
     clip_q = spec.clip_vd if grad_clipping else None
-    leaf = lambda t: torch.as_tensor(t, dtype=torch.float32, device=traj.device) \
-        .detach().clone().requires_grad_(True)
+    leaf = lambda t: torch.as_tensor(t, device=traj.device).detach().to(traj.dtype) \
+        .clone().requires_grad_(True)
     theta = {"eps": leaf(eps), "betas": leaf(betas), "vd_mean": leaf(vd_mean),
              "vd_logdiag": leaf(vd_logdiag)}
     weights = {name: leaf(p) for name, p in sn.named_parameters()}
@@ -160,11 +218,61 @@ def evolve_vargrad_bwd_replay_plain(
                     - 0.5 * dim * (torch.log(2.0 * e[..., 0]) + LOG_2PI))
 
         deltas = torch.sum(log_prob(z, bk_mean) - log_prob(z_next, fk_mean), dim=0)
-        loss = torch.sum(cot.detach() * deltas)
+        loss = torch.sum(cot.detach().to(traj.dtype) * deltas)
         names = list(theta) + list(weights)
         grads = torch.autograd.grad(loss, [*theta.values(), *weights.values()])
     out = dict(zip(names, grads))
     return {**{k: out[k] for k in theta}, "sn": {k: out[k] for k in weights}}
+
+
+def evolve_vargrad_bwd_reroll_plain(
+    z0, cot, betas, eps, vd_mean, vd_logdiag, grad_logp, spec: OverdampedSpec,
+    *, dim: int, nbridges: int, sn=None, eps_schedule: str = "",
+    grad_clipping: bool = False, seed=0, noise=None,
+):
+    """The re-rolling kernel's function in plain torch: roll the trajectory
+    again (ops/overdamped's plain rollout under the same injected noise, or
+    under torch.randn draws from `seed`, which agree with the kernel's Philox
+    draws in distribution only), then the replay's plain version on it."""
+    kwargs = dict(dim=dim, nbridges=nbridges, sn=sn, eps_schedule=eps_schedule,
+                  grad_clipping=grad_clipping)
+    _, _, traj = evolve_overdamped_fused_plain(
+        z0, torch.zeros_like(cot), betas, eps, vd_mean, vd_logdiag, grad_logp, spec,
+        seed=seed, noise=noise, return_trajectory=True, **kwargs)
+    return evolve_vargrad_bwd_replay_plain(
+        traj, cot, betas, eps, vd_mean, vd_logdiag, grad_logp, spec, **kwargs)
+
+
+def declare_limits(lib, prefix: str, extra, what: str):
+    """Declare the limit queries of a backward kernel's library and check the
+    module's formula (with the kernel's `extra`) against them: shared memory
+    at both group counts, and what fits at the edges of the threads (160 /
+    161 features), the shared memory (144 / 145) and the score's lanes."""
+    i = ctypes.c_int
+    get = lambda name: getattr(lib, f"cmcd_{prefix}_{name}")
+    lib.cmcd_error_string.argtypes = [i]
+    lib.cmcd_error_string.restype = ctypes.c_char_p
+    get("chains_per_group").restype = i
+    get("fits").argtypes = [i, i]
+    get("fits").restype = i
+    get("smem_bytes").argtypes = [i, i, i]
+    get("smem_bytes").restype = ctypes.c_longlong
+    for fn in (get("len_a"), get("len_b")):
+        fn.argtypes = [i]
+        fn.restype = i
+    if get("chains_per_group")() != CHAINS_PER_GROUP:
+        raise RuntimeError(f"{what} and its wrapper disagree on the chains of a group")
+    for in_dim, n_mix in ((0, 40), (18, 1), (132, 40), (144, 64), (145, 40), (160, 65),
+                          (161, 40), (132, 0)):
+        if (bool(get("fits")(in_dim, n_mix)) != kernel_fits(in_dim, n_mix, extra)
+                or any(get("smem_bytes")(g, in_dim, n_mix) != smem_bytes(in_dim, n_mix, g, extra)
+                       for g in (2, 4))
+                or get("len_a")(in_dim) != _len_a(in_dim)
+                or get("len_b")(in_dim) != _len_b(in_dim)):
+            raise RuntimeError(
+                f"{what} and its wrapper disagree on what fits one block at "
+                f"in_dim {in_dim}, {n_mix} components"
+            )
 
 
 @functools.lru_cache(maxsize=None)
@@ -173,73 +281,50 @@ def _library() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.cmcd_vargrad_replay.argtypes = [p] * 18 + [i] * 7 + [f] * 3 + [p]
     lib.cmcd_vargrad_replay.restype = ctypes.c_int
-    lib.cmcd_error_string.argtypes = [ctypes.c_int]
-    lib.cmcd_error_string.restype = ctypes.c_char_p
-    lib.cmcd_vargrad_chains_per_tile.restype = ctypes.c_int
-    lib.cmcd_vargrad_fits.argtypes = [i, i]
-    lib.cmcd_vargrad_fits.restype = ctypes.c_int
-    lib.cmcd_vargrad_smem_bytes.argtypes = [i, i]
-    lib.cmcd_vargrad_smem_bytes.restype = ctypes.c_longlong
-    for fn in (lib.cmcd_vargrad_len_a, lib.cmcd_vargrad_len_b):
-        fn.argtypes = [i]
-        fn.restype = ctypes.c_int
-    if lib.cmcd_vargrad_chains_per_tile() != CHAINS_PER_TILE:
-        raise RuntimeError("csrc/vargrad.cu and ops/vargrad.py disagree on the chain tile")
-    # Every edge of the limits: shared memory (144/145 features), threads
-    # (160/161) and the score's lanes (0, 1, 64, 65 components).
-    for in_dim in (0, 1, 3, 18, 132, 144, 145, 148, 160, 161, 302):
-        for n_mix in (0, 1, 40, 64, 65):
-            if (bool(lib.cmcd_vargrad_fits(in_dim, n_mix)) != kernel_fits(in_dim, n_mix)
-                    or lib.cmcd_vargrad_smem_bytes(in_dim, n_mix) != smem_bytes(in_dim, n_mix)
-                    or lib.cmcd_vargrad_len_a(in_dim) != _len_a(in_dim)
-                    or lib.cmcd_vargrad_len_b(in_dim) != _len_b(in_dim)):
-                raise RuntimeError(
-                    "csrc/vargrad.cu and ops/vargrad.py disagree on what fits one "
-                    f"block at in_dim {in_dim}, {n_mix} components"
-                )
+    lib.cmcd_vargrad_reroll.argtypes = [p] * 20 + [i] * 8 + [f] * 3 + [p]
+    lib.cmcd_vargrad_reroll.restype = ctypes.c_int
+    declare_limits(lib, "vargrad", EXTRA_FLOATS, "csrc/vargrad.cu")
     return lib
 
 
-def _launch(lib, traj, cot, betas, eps, vd_mean, vd_logdiag, grad_logp, spec, *,
-            dim, nbridges, sn, eps_schedule, grad_clipping, splits, stream):
-    """Marshal the arguments, launch, and assemble the gradient dict."""
-    dev = traj.device
+def ptr(t):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def marshal(what, sn, dim, eps, grad_logp, dev, blocks, points, splits):
+    """What every backward launch passes besides its own data: ([eps0,
+    factor_sn], the net as the kernels see it, the means, the scratch and
+    result buffers (part_a, part_b, out_a, out_b))."""
     f32 = lambda t: torch.as_tensor(t, dtype=torch.float32, device=dev).contiguous()
     w1z, c1, emb, w2, b2, headw, headb, factor = pack_geffner(sn, dim)
     scal = torch.stack([f32(eps).reshape(()), factor.to(dev, torch.float32)])
-    means = f32(grad_logp.means)
     weights = [w1z, c1, emb, w2, b2, headw, headb]
     for t in weights:
         if t.device != dev or t.dtype != torch.float32:
-            raise ValueError(f"replay backward: net weights must be f32 on {dev}")
-    n, in_dim, points = cot.shape[0], sn.in_dim, nbridges + 1
-    la, lb = _len_a(in_dim), _len_b(in_dim)
-    part_a = torch.empty((points * splits, la), dtype=torch.float32, device=dev)
-    part_b = torch.empty((points, splits, lb), dtype=torch.float32, device=dev)
-    out_a = torch.empty(la, dtype=torch.float32, device=dev)
-    out_b = torch.empty((points, lb), dtype=torch.float32, device=dev)
+            raise ValueError(f"{what}: net weights must be f32 on {dev}")
+    la, lb = _len_a(sn.in_dim), _len_b(sn.in_dim)
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    buffers = [new(blocks, la), new(points, splits, lb), new(la), new(points, lb)]
+    return scal, weights, f32(grad_logp.means), buffers
+
+
+def clips(spec, grad_clipping):
     clip_t = spec.clip_target if grad_clipping else None
     clip_q = spec.clip_vd if grad_clipping else None
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-    err = lib.cmcd_vargrad_replay(
-        ptr(traj), ptr(cot), ptr(betas), ptr(scal),
-        *(ptr(t) for t in weights),
-        ptr(means), ptr(vd_mean), ptr(vd_logdiag),
-        ptr(part_a), ptr(part_b), ptr(out_a), ptr(out_b),
-        n, nbridges, in_dim, sn.emb_dim, means.shape[0],
-        EPS_SCHEDULES[eps_schedule], splits,
-        grad_logp.inv_var,
-        math.inf if clip_t is None else clip_t,
-        math.inf if clip_q is None else clip_q,
-        ctypes.c_void_p(stream),
-    )
-    if err != 0:
-        msg = lib.cmcd_error_string(err).decode()
-        raise RuntimeError(f"vargrad replay kernel failed: {msg} ({err})")
+    return (math.inf if clip_t is None else clip_t, math.inf if clip_q is None else clip_q)
 
-    # out_a: dW2 (in x out), dheadW, db2, dW1[:dim], then eps, mean, logdiag,
-    # factor, headb. out_b per point: G1 = sum_n g_a1, GH1 = sum_n g_h1,
-    # dbeta_j (forward term), dbeta_{j-1} (backward term).
+
+def raise_on(err, lib, what):
+    if err != 0:
+        raise RuntimeError(f"{what} kernel failed: {lib.cmcd_error_string(err).decode()} ({err})")
+
+
+def assemble_grads(out_a, out_b, sn, dim, nbridges):
+    """The gradient dict from a backward kernel's sums. out_a: dW2 (in x
+    out), dheadW, db2, dW1[:dim], then eps, mean, logdiag, factor, headb.
+    out_b per point: G1 = sum_n g_a1, GH1 = sum_n g_h1, dbeta_j (the point's
+    forward term), dbeta_{j-1} (its backward term)."""
+    in_dim = sn.in_dim
     sq = in_dim * in_dim
     g_w2 = out_a[:sq].view(in_dim, in_dim)
     g_headw = out_a[sq:sq + 2 * in_dim].view(2, in_dim)
@@ -268,6 +353,48 @@ def _launch(lib, traj, cot, betas, eps, vd_mean, vd_logdiag, grad_logp, spec, *,
     }
 
 
+def _launch(lib, traj, cot, betas, eps, vd_mean, vd_logdiag, grad_logp, spec, *,
+            dim, nbridges, sn, eps_schedule, grad_clipping, splits, stream):
+    """Marshal the arguments, launch the replay kernel, assemble the dict."""
+    points = nbridges + 1
+    scal, weights, means, buffers = marshal(
+        "replay backward", sn, dim, eps, grad_logp, traj.device, points * splits, points, splits)
+    err = lib.cmcd_vargrad_replay(
+        ptr(traj), ptr(cot), ptr(betas), ptr(scal),
+        *(ptr(t) for t in weights),
+        ptr(means), ptr(vd_mean), ptr(vd_logdiag),
+        *(ptr(t) for t in buffers),
+        cot.shape[0], nbridges, sn.in_dim, sn.emb_dim, means.shape[0],
+        EPS_SCHEDULES[eps_schedule], splits,
+        grad_logp.inv_var, *clips(spec, grad_clipping),
+        ctypes.c_void_p(stream),
+    )
+    raise_on(err, lib, "vargrad replay")
+    return assemble_grads(buffers[2], buffers[3], sn, dim, nbridges)
+
+
+def _launch_reroll(lib, z0, cot, betas, eps, vd_mean, vd_logdiag, grad_logp, spec, *,
+                   dim, nbridges, sn, eps_schedule, grad_clipping, seed, noise, groups, blocks,
+                   stream):
+    """Marshal the arguments, launch the re-rolling kernel, assemble the dict."""
+    points = nbridges + 1
+    scal, weights, means, buffers = marshal(
+        "reroll backward", sn, dim, eps, grad_logp, z0.device, blocks, points, blocks)
+    seed_t = torch.as_tensor(seed, dtype=torch.int64, device=z0.device).reshape(1)
+    err = lib.cmcd_vargrad_reroll(
+        ptr(z0), ptr(cot), ptr(betas), ptr(noise), ptr(scal), ptr(seed_t),
+        *(ptr(t) for t in weights),
+        ptr(means), ptr(vd_mean), ptr(vd_logdiag),
+        *(ptr(t) for t in buffers),
+        cot.shape[0], nbridges, sn.in_dim, sn.emb_dim, means.shape[0],
+        EPS_SCHEDULES[eps_schedule], blocks, groups,
+        grad_logp.inv_var, *clips(spec, grad_clipping),
+        ctypes.c_void_p(stream),
+    )
+    raise_on(err, lib, "vargrad reroll")
+    return assemble_grads(buffers[2], buffers[3], sn, dim, nbridges)
+
+
 @torch.no_grad()
 def evolve_vargrad_bwd_replay(
     traj, cot, betas, eps, vd_mean, vd_logdiag, grad_logp, spec: OverdampedSpec,
@@ -292,12 +419,7 @@ def evolve_vargrad_bwd_replay(
     if traj.device.type != "cuda":
         raise ValueError(f"replay backward: no kernel for device {traj.device}")
     dev = traj.device
-    for t in (traj, cot, betas, vd_mean, vd_logdiag):
-        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(
-                "replay backward: traj, cot, betas and vd params must be "
-                f"contiguous f32 on {dev}"
-            )
+    check_device_tensors("replay backward", dev, (traj, cot, betas, vd_mean, vd_logdiag))
     # Enough blocks to fill the card once: one per point, times chain splits.
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     tiles = -(-cot.shape[0] // CHAINS_PER_TILE)
@@ -311,3 +433,48 @@ def evolve_vargrad_bwd_replay(
 
 
 evolve_vargrad_bwd_replay.launches = 0
+
+
+@torch.no_grad()
+def evolve_vargrad_bwd_reroll(
+    z0, cot, betas, eps, vd_mean, vd_logdiag, grad_logp, spec: OverdampedSpec,
+    *, dim: int, nbridges: int, sn=None, eps_schedule: str = "",
+    grad_clipping: bool = False, seed=0, noise=None,
+):
+    """VarGrad gradient with the trajectory rolled again from z0 inside the
+    kernel, in one launch and one of its reduction; nothing but z0 is kept
+    from the forward.
+
+    z0: (N, dim) f32, the rollout's start; seed: the rollout's seed (int or
+    one-element integer tensor), whose Philox draws the kernel makes again;
+    noise: the rollout's injected (K, N, dim) normals instead. The rest as
+    evolve_vargrad_bwd_replay, and the same gradient dict.
+    """
+    n = cot.shape[0]
+    check_backward_config("reroll backward", betas, grad_logp, spec, dim, nbridges, sn,
+                          eps_schedule)
+    if z0.shape != (n, dim) or cot.shape != (n,) or (
+            noise is not None and noise.shape != (nbridges, n, dim)):
+        raise ValueError(f"reroll backward: shapes do not match N={n}, dim={dim}, K={nbridges}")
+    kwargs = dict(dim=dim, nbridges=nbridges, sn=sn, eps_schedule=eps_schedule,
+                  grad_clipping=grad_clipping, seed=seed, noise=noise)
+    if z0.device.type == "cpu":
+        return evolve_vargrad_bwd_reroll_plain(
+            z0, cot, betas, eps, vd_mean, vd_logdiag, grad_logp, spec, **kwargs
+        )
+    if z0.device.type != "cuda":
+        raise ValueError(f"reroll backward: no kernel for device {z0.device}")
+    dev = z0.device
+    check_device_tensors("reroll backward", dev, [z0, cot, betas, vd_mean, vd_logdiag]
+                         + ([noise] if noise is not None else []))
+    groups, blocks = sweep_grid(n, dev)
+    grads = _launch_reroll(
+        _library(), z0, cot, betas, eps, vd_mean, vd_logdiag, grad_logp, spec,
+        groups=groups, blocks=blocks, stream=torch.cuda.current_stream(dev).cuda_stream,
+        **kwargs,
+    )
+    evolve_vargrad_bwd_reroll.launches += 1
+    return grads
+
+
+evolve_vargrad_bwd_reroll.launches = 0

@@ -37,12 +37,32 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_leaf_names(tree, prefix: str = "") -> list:
+    """A name for each tensor of tree_leaves(tree), in its order: the dict
+    keys and a module's parameter names, joined by dots."""
+    if isinstance(tree, nn.Module):
+        return [prefix + name for name, _ in tree.named_parameters()]
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in tree_leaf_names(tree[k], f"{prefix}{k}.")]
+    return [prefix.rstrip(".")]
+
+
 def _copy_tree(tree):
     if isinstance(tree, nn.Module):
         return copy.deepcopy(tree)
     if isinstance(tree, dict):
         return {k: _copy_tree(v) for k, v in tree.items()}
     return tree.detach().clone()
+
+
+def double_tree(tree):
+    """A detached float64 copy of a parameter tree, the net module included:
+    the reference that arbitrates between two float32 paths."""
+    if isinstance(tree, nn.Module):
+        return copy.deepcopy(tree).double()
+    if isinstance(tree, dict):
+        return {k: double_tree(v) for k, v in tree.items()}
+    return tree.detach().double()
 
 
 def _finite_check(losses, leaves) -> torch.Tensor:

@@ -147,3 +147,24 @@ def test_wrapper_counts_no_launch_on_cpu():
                                    dim=2, nbridges=K, sn=sn, grad_clipping=True, seed=3)
     assert evolve_overdamped_fused.launches == before
     assert z.shape == (N, 2) and w.shape == (N,) and torch.isfinite(w).all()
+
+
+@pytest.mark.parametrize("with_trajectory", [True, False])
+def test_noise_stack_is_what_the_rollout_used(with_trajectory):
+    """return_noise hands back the draws: from a seed, the stack injected
+    again gives the same z and w; injected noise is handed on as it is."""
+    (z0, w0, betas, eps, mean, logdiag, score), sn = _args()
+    kw = dict(dim=2, nbridges=K, sn=sn, grad_clipping=True,
+              return_trajectory=with_trajectory, return_noise=True)
+    out = evolve_overdamped_fused(z0, w0, betas, eps, mean, logdiag, score, tod.CAIS,
+                                  seed=3, **kw)
+    assert len(out) == 3 + with_trajectory
+    draws = out[-1]
+    assert draws.shape == (K, N, 2) and 0.8 < float(draws.std()) < 1.2
+    again = evolve_overdamped_fused(z0, w0, betas, eps, mean, logdiag, score, tod.CAIS,
+                                    noise=draws, **kw)
+    assert again[-1] is draws
+    for a, b in zip(out[:-1], again[:-1]):
+        assert torch.equal(a, b)
+    if with_trajectory:
+        assert out[2].shape == (K + 1, N, 2) and torch.equal(out[2][K], out[0])

@@ -134,6 +134,70 @@ def test_run_experiment_trains_and_logs_on_cpu(tmp_path, capsys, fused):
     assert "final_ln_Z" in records[-1]
 
 
+KL_TINY = ("--config.model many_gmm --config.boundmode MCD_CAIS_sn --config.nbridges 4 "
+           "--config.emb_dim 8 --config.N 64 --config.n_samples 32 "
+           "--config.n_input_dist_seeds 2 --config.init_eps 0.1 --config.init_sigma 15 "
+           "--config.grad_clipping True --config.lr 0.01 --config.iters 60 "
+           "--config.log.every 1 --noconfig.pretrain_mfvi").split()
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_run_experiment_kl_training_lowers_the_loss_on_cpu(capsys, fused):
+    """MCD_CAIS_sn through the CLI's phases on the CPU: the fused KL loss
+    (plain versions of the rollout and the reverse sweep) or the eager one,
+    whose autograd gradient is the full backprop through time."""
+    flags = KL_TINY + ["--config.remat_steps", "--config.bf16_residuals"]
+    if not fused:
+        flags += ["--noconfig.use_pallas_train"]
+    out = run_experiment(parse_flags(flags), device="cpu")
+    printed = capsys.readouterr().out
+    assert ("kl_bound_fused, KL reverse sweep" in printed) == fused
+    for field in ("remat_steps", "bf16_residuals", "bf16_fused_net"):
+        assert (f"{field} is ignored" in printed) == fused
+    result = out["train"]
+    assert result.steps_done == 60 and not result.diverged
+    losses = result.losses.double()
+    assert len(losses) == 60 and torch.isfinite(losses).all()
+    assert float(losses[-15:].mean()) < float(losses[:15].mean())
+    assert np.isfinite(out["final_ln_Z"]) and np.isfinite(out["final_elbo"])
+
+
+def test_run_experiment_names_the_vargrad_backward_it_takes(capsys, monkeypatch):
+    from cmcd_tpu_torch.ops import fused_train
+
+    run_experiment(parse_flags(TINY + ["--config.iters", "2"]), device="cpu")
+    assert "var_bound_fused, VarGrad replay backward" in capsys.readouterr().out
+    monkeypatch.setattr(fused_train, "_REPLAY_BYTES_BUDGET", 64)
+    out = run_experiment(parse_flags(TINY + ["--config.iters", "2"]), device="cpu")
+    assert "var_bound_fused, VarGrad reroll backward" in capsys.readouterr().out
+    assert out["train"].steps_done == 2 and not out["train"].diverged
+
+
+@pytest.mark.parametrize("mode,path", [("MCD_CAIS_sn", "kl_bound_fused, KL reverse sweep"),
+                                       ("MCD_CAIS_var_sn", "VarGrad replay backward")])
+def test_recipe_trace_reports_checkpoints_and_a_gradient_check_on_cpu(capsys, mode, path):
+    """tools/recipe_trace: an evaluation line per checkpoint, and at the
+    gradient check the step through the wrappers and through plain=True
+    (both the plain versions on the CPU) within rounding of the float64 step."""
+    from cmcd_tpu_torch.tools import recipe_trace
+
+    flags = [f.replace("MCD_CAIS_sn", mode) for f in KL_TINY]
+    flags = flags[:flags.index("--config.iters")] + flags[flags.index("--config.iters") + 2:]
+    recipe_trace.main(["--device", "cpu", "--seeds", "3", "--checkpoints", "0,5,10",
+                       "--grad-checks", "10", *flags, "--config.iters", "10",
+                       "--config.n_samples", "50", "--config.n_input_dist_seeds", "3"])
+    lines = capsys.readouterr().out.splitlines()
+    assert any(path in ln for ln in lines)
+    traces = [json.loads(ln[len("[trace] "):]) for ln in lines if ln.startswith("[trace] ")]
+    assert [t["step"] for t in traces] == [0, 5, 10] and all(t["seed"] == 3 for t in traces)
+    assert all(np.isfinite(t["final_elbo"]) and len(t["ln_Z_by_group"]) == 3 for t in traces)
+    assert traces[0]["modes"]["n"] == 40 and "train_loss_last_100" in traces[-1]
+    (check,) = [json.loads(ln[len("[gradient] "):]) for ln in lines if ln.startswith("[gradient] ")]
+    assert check["step"] == 10 and check["loss"]["kernel"] == check["loss"]["plain"]
+    assert all(row["kernel_vs_plain"] == 0.0 for row in check["leaves"])
+    assert check["worst_plain_vs_f64"] < 1e-3 and check["cosine_kernel_f64"] > 0.999999
+
+
 def test_run_experiment_pretrains_mfvi_on_cpu(capsys):
     flags = [f for f in TINY if f != "--noconfig.pretrain_mfvi"]
     flags += ["--config.pretrain_mfvi", "--config.mfvi_iters", "50", "--config.iters", "4"]

@@ -1,7 +1,8 @@
 """The port's VarGrad gradient against the JAX package, on the CPU, under
 the same base normals and injected noise.
 
-Four layers, each held to the next: the eager var_bound under torch.autograd
+Four layers, each held to the next (and the re-rolling backward beside the
+replay at each of them): the eager var_bound under torch.autograd
 (the oracle) against jax.grad of the scan loss; the replay backward's plain
 version against the Pallas kernel evolve_vargrad_bwd_replay in interpret
 mode on the same trajectory and cotangent; the rollout's stored trajectory
@@ -26,17 +27,21 @@ from cmcd_tpu.integrators import overdamped as jod
 from cmcd_tpu.ops.fused import _dim_pad
 from cmcd_tpu.ops.fused_train import var_bound_pallas
 from cmcd_tpu.ops.pallas_overdamped import evolve_overdamped_pallas, pack_geffner_t
+from cmcd_tpu.ops.pallas_vargrad import evolve_vargrad_bwd_pallas as j_reroll
 from cmcd_tpu.ops.pallas_vargrad import evolve_vargrad_bwd_replay as j_replay
 from cmcd_tpu.ops.target_grads import grad_t_for_target
 from cmcd_tpu.schedules import betas_from_grid as j_betas_from_grid
 from cmcd_tpu_torch import bounds as tb
 from cmcd_tpu_torch.integrators import overdamped as tod
+from cmcd_tpu_torch.ops import fused_train
 from cmcd_tpu_torch.ops.fused_train import supports_fused_train, var_bound_fused
 from cmcd_tpu_torch.ops.overdamped import evolve_overdamped_fused
 from cmcd_tpu_torch.ops.target_grads import make_many_gmm_score
 from cmcd_tpu_torch.ops.vargrad import (
     evolve_vargrad_bwd_replay,
     evolve_vargrad_bwd_replay_plain,
+    evolve_vargrad_bwd_reroll,
+    evolve_vargrad_bwd_reroll_plain,
     kernel_fits,
 )
 from cmcd_tpu_torch.schedules import betas_from_grid
@@ -48,15 +53,17 @@ torch.set_num_threads(1)
 K, N, EMB = 6, 128, 16
 
 
-def make_case(eps_schedule="", grad_clipping=True, n=N, k=K):
+def make_case(eps_schedule="", grad_clipping=True, n=N, k=K, mode="MCD_CAIS_var_sn",
+              eps=0.2, init_sigma=15.0):
     """One problem in both packages: every leaf trainable, factor_sn 0.3 and
-    a random head so the whole net VJP is live, non-uniform beta knots."""
+    a random head so the whole net VJP is live, non-uniform beta knots, an
+    off-centre variational mean."""
     jt = cmcd_tpu.load_target("many_gmm")
-    kw = dict(mode="MCD_CAIS_var_sn", dim=2, nbridges=k, emb_dim=EMB,
+    kw = dict(mode=mode, dim=2, nbridges=k, emb_dim=EMB,
               grad_clipping=grad_clipping, eps_schedule=eps_schedule)
     jsetup = jb.CMCDSetup(**kw)
     trainable = jb.default_trainable(jsetup.mode)
-    params, jctx = jb.initialize(jsetup, jt.log_prob, eps=0.2, init_sigma=15.0,
+    params, jctx = jb.initialize(jsetup, jt.log_prob, eps=eps, init_sigma=init_sigma,
                                  trainable=trainable)
     sn = params["train"]["sn"]
     sn["factor_sn"] = jnp.asarray(0.3)
@@ -80,23 +87,29 @@ def make_case(eps_schedule="", grad_clipping=True, n=N, k=K):
     }
 
 
-def scan_loss(case):
-    """The JAX scan loss of tests/test_pallas_vargrad.py as a function of
-    the trainable tree."""
+def scan_neg_elbos(case, spec):
+    """The negative ELBOs of the JAX scan integrator under `spec`, as a
+    function of the trainable tree."""
     params, ctx, key, n = case["jparams"], case["jctx"], case["key"], case["n"]
 
-    def loss(train):
+    def neg_elbos(train):
         p = jb.merged_params({"train": train, "notrain": params["notrain"]})
         z_key, evolve_key = jax.random.split(key)
         z = p["vd"]["mean"] + jnp.exp(p["vd"]["logdiag"]) * jax.random.normal(z_key, (n, 2))
         w = -j_log_prob(p["vd"], z)
         betas = j_betas_from_grid(p["mgridref_y"], p["gridref_x"], p["target_x"])
-        z, wd, _ = jod.evolve_overdamped(evolve_key, z, betas, p, ctx, jod.CAIS_VAR,
+        z, wd, _ = jod.evolve_overdamped(evolve_key, z, betas, p, ctx, spec,
                                          noise=case["jnoise"])
-        w = w + wd + ctx.target_log_prob(z)
-        return jnp.clip(jnp.var(-w, ddof=0), -1e7, 1e7)
+        return -(w + wd + ctx.target_log_prob(z))
 
-    return loss
+    return neg_elbos
+
+
+def scan_loss(case):
+    """The JAX scan loss of tests/test_pallas_vargrad.py as a function of
+    the trainable tree."""
+    neg_elbos = scan_neg_elbos(case, jod.CAIS_VAR)
+    return lambda train: jnp.clip(jnp.var(neg_elbos(train), ddof=0), -1e7, 1e7)
 
 
 def torch_value_and_grad(case, loss_fn):
@@ -140,9 +153,9 @@ def test_eager_var_bound_grad_matches_jax_scan(eps_schedule, grad_clipping):
     assert_grads_close(got_g, want_g)
 
 
-def _jax_forward_with_trajectory(case):
-    """JAX's fused rollout in interpret mode, storing the transposed
-    trajectory: (z, w, traj_t, the kernel arguments)."""
+def _jax_forward_with_trajectory(case, spec=jod.CAIS_VAR):
+    """JAX's fused rollout under `spec` in interpret mode, storing the
+    transposed trajectory: (z0, z, w, traj_t, the kernel arguments)."""
     p = jb.merged_params(case["jparams"])
     s = case["jsetup"]
     dim_pad = _dim_pad(2)
@@ -151,7 +164,7 @@ def _jax_forward_with_trajectory(case):
         case["draws"]["base_normals"].numpy())
     sn_w, sn_meta = pack_geffner_t(p["sn"], 2, dim_pad)
     args = (betas, p["eps"], p["vd"]["mean"], p["vd"]["logdiag"],
-            grad_t_for_target(case["jt"], dim_pad), jod.CAIS_VAR)
+            grad_t_for_target(case["jt"], dim_pad), spec)
     kw = dict(dim=2, nbridges=case["k"], sn_weights=sn_w, sn_meta=sn_meta,
               eps_schedule=s.eps_schedule, grad_clipping=s.grad_clipping, block=128,
               interpret=True)
@@ -160,11 +173,11 @@ def _jax_forward_with_trajectory(case):
     return z0, z, w, traj_t, args, kw
 
 
-def _port_rollout_args(case):
+def _port_rollout_args(case, spec=tod.CAIS_VAR):
     p = tb.merged_params(case["params"])
     betas = betas_from_grid(p["mgridref_y"], p["gridref_x"], p["target_x"]).detach()
     args = (betas, p["eps"].detach(), p["vd"]["mean"].detach(), p["vd"]["logdiag"].detach(),
-            make_many_gmm_score("cpu"), tod.CAIS_VAR)
+            make_many_gmm_score("cpu"), spec)
     s = case["setup"]
     kw = dict(dim=2, nbridges=case["k"], sn=p["sn"], eps_schedule=s.eps_schedule,
               grad_clipping=s.grad_clipping)
@@ -267,9 +280,12 @@ def test_supports_fused_train_gate():
     target = load_target("many_gmm", device="cpu")
     assert supports_fused_train(
         tb.CMCDSetup(mode="MCD_CAIS_var_sn", dim=2, nbridges=256, emb_dim=130), target)
-    # The KL twin has a rollout kernel but no fused backward yet.
-    assert not supports_fused_train(
+    # The KL twin trains through the reverse-sweep kernel; a KL mode without
+    # the CAIS structure has no fused backward yet.
+    assert supports_fused_train(
         tb.CMCDSetup(mode="MCD_CAIS_sn", dim=2, nbridges=8), target)
+    assert not supports_fused_train(
+        tb.CMCDSetup(mode="MCD_ULA_sn", dim=2, nbridges=8), target)
     # in_dim 162 fits the rollout's block but not the backward's.
     assert kernel_fits(132, 40) and kernel_fits(144, 40) and not kernel_fits(148, 40)
     assert not supports_fused_train(
@@ -309,3 +325,82 @@ def test_replay_plain_has_only_the_factor_gradient_at_factor_zero():
     for name, grad in g["sn"].items():
         if name != "factor_sn":
             assert float(grad.abs().max()) == 0.0, name
+
+
+@pytest.mark.parametrize("eps_schedule,grad_clipping",
+                         [("", True), ("cos_sq", True), ("linear", True), ("", False)])
+def test_reroll_plain_matches_jax_reroll_kernel(eps_schedule, grad_clipping):
+    case = make_case(eps_schedule, grad_clipping)
+    z0_j, _, _, _, j_args, j_kw = _jax_forward_with_trajectory(case)
+    cot = case["rng"].standard_normal(N).astype(np.float32)
+    want = j_reroll(z0_j, jnp.asarray(cot), *j_args, noise=case["jnoise"], **j_kw)
+    args, kw = _port_rollout_args(case)
+    got = evolve_vargrad_bwd_reroll_plain(
+        torch.from_numpy(np.array(z0_j)), torch.from_numpy(cot), *args,
+        noise=case["draws"]["noise"], **kw)
+    got = _port_replay_to_jax_layout(case, got)
+    if eps_schedule == "linear":
+        # As in the replay kernel: the Pallas kernel's d eps is NaN under
+        # "linear" (the masked point j = K); the port's is the oracle's.
+        want = dict(jax.device_get(want))
+        assert np.isnan(want["eps"]) and np.isfinite(got["eps"])
+        want["eps"] = got["eps"]
+    assert_grads_close(got, want)
+
+
+@pytest.mark.parametrize("eps_schedule", ["", "linear"])
+def test_reroll_equals_replay_on_the_trajectory_the_same_noise_gives(eps_schedule):
+    case = make_case(eps_schedule)
+    args, kw = _port_rollout_args(case)
+    z0 = 15.0 * case["draws"]["base_normals"]
+    noise, cot = case["draws"]["noise"], torch.from_numpy(
+        case["rng"].standard_normal(N).astype(np.float32))
+    _, _, traj = evolve_overdamped_fused(z0, torch.zeros(N), *args, noise=noise,
+                                         return_trajectory=True, **kw)
+    before = evolve_vargrad_bwd_reroll.launches
+    got = evolve_vargrad_bwd_reroll(z0, cot, *args, noise=noise, **kw)
+    assert evolve_vargrad_bwd_reroll.launches == before  # no kernel on a CPU tensor
+    want = evolve_vargrad_bwd_replay(traj, cot, *args, **kw)
+    for name in ("eps", "betas", "vd_mean", "vd_logdiag"):
+        assert torch.equal(got[name], want[name]), name
+    for name, grad in want["sn"].items():
+        assert torch.equal(got["sn"][name], grad), name
+    # From a seed the plain version draws its own normals (torch.randn, not
+    # the kernel's Philox): the same seed gives the same gradient again.
+    a = evolve_vargrad_bwd_reroll(z0, cot, *args, seed=5, **kw)
+    b = evolve_vargrad_bwd_reroll(z0, cot, *args, seed=torch.tensor([5]), **kw)
+    c = evolve_vargrad_bwd_reroll(z0, cot, *args, seed=6, **kw)
+    assert torch.equal(a["betas"], b["betas"]) and not torch.equal(a["betas"], c["betas"])
+
+
+@pytest.mark.parametrize("n,eps_schedule", [(N, ""), (100, "cos_sq"), (N, "linear")])
+def test_var_bound_fused_reroll_matches_oracle(n, eps_schedule):
+    case = make_case(eps_schedule, n=n)
+    fused = lambda p, n_, c, s, **d: var_bound_fused(p, n_, c, s, case["target"],
+                                                     backward="reroll", **d)
+    got_l, got_g = torch_value_and_grad(case, fused)
+    oracle_l, oracle_g = torch_value_and_grad(case, tb.var_bound)
+    np.testing.assert_allclose(got_l, oracle_l, rtol=1e-4)
+    assert_grads_close(got_g, oracle_g)
+
+
+@pytest.mark.parametrize("budget,want", [(None, "replay"), ((K + 1) * N * 2 * 4, "replay"),
+                                         ((K + 1) * N * 2 * 4 - 1, "reroll")])
+def test_backward_auto_picks_by_the_trajectory_byte_budget(monkeypatch, budget, want):
+    case = make_case()
+    ran = []
+    for name in ("replay", "reroll"):
+        real = getattr(fused_train, f"evolve_vargrad_bwd_{name}")
+        monkeypatch.setattr(fused_train, f"evolve_vargrad_bwd_{name}",
+                            lambda *a, _n=name, _f=real, **k: (ran.append(_n), _f(*a, **k))[1])
+    if budget is None:
+        assert fused_train._REPLAY_BYTES_BUDGET == 256 * 1024 * 1024
+    else:
+        monkeypatch.setattr(fused_train, "_REPLAY_BYTES_BUDGET", budget)
+    loss, _ = var_bound_fused(case["params"], N, case["ctx"], case["setup"], case["target"],
+                              **case["draws"])
+    torch.autograd.grad(loss, case["params"]["train"]["sn"].factor_sn)
+    assert ran == [want]
+    with pytest.raises(ValueError, match="auto, replay or reroll"):
+        var_bound_fused(case["params"], N, case["ctx"], case["setup"], case["target"],
+                        backward="rewind", **case["draws"])
