@@ -6,8 +6,9 @@
 
 Phases, one line each; any failure exits non-zero:
   1. device: needs CUDA (no CPU run); prints the card's name and power limit.
-  2. build: compiles csrc/overdamped.cu, csrc/vargrad.cu and csrc/kl.cu with
-     nvcc for sm_90a, all at once (ptxas report per kernel).
+  2. build: compiles csrc/overdamped.cu, csrc/vargrad.cu, csrc/kl.cu,
+     csrc/underdamped.cu and csrc/kl_underdamped.cu with nvcc for sm_90a, all
+     at once (ptxas report per kernel).
   3. kernels vs their plain versions. The rollout under injected noise, at
      the CPU tests' size and at full width (K=256, emb_dim 130, grad clipping,
      factor_sn 0.3, random embedding) for N=2000 and for the evaluation's
@@ -66,6 +67,29 @@ Phases, one line each; any failure exits non-zero:
      KL reverse sweep and the re-rolling backward (CUDA events), the rollout
      and the re-rolling backward at N=REROLL_N, and one KL optimizer step
      through the kernels over 50 steps against the eager step.
+ 12. the underdamped kernels against their plain versions. The underdamped
+     rollout under injected noise ((K + 1, N, 2): the initial momentum, then
+     one refresh draw per step) for all seven specs at the test size and for
+     LDVI (MCD_U_a-lp-sn) at full width (K=256, emb_dim 130: in_dim 134) for
+     N=2000 and N=500: z, w and both stored paths, with and without the
+     stores; its noise stack, injected again, gives the same bits. The
+     underdamped KL sweep for the three approximate-refresh specs at the test
+     size and for LDVI at full width (float64 arbiter where a leaf misses
+     the limit), and one whole LDVI KL training step through the kernels
+     against the plain versions.
+ 13. LDVI evaluation path: run_experiment with the LDVI flags (iters 0) and
+     the 30 x 500 evaluation: the underdamped rollout launched 30 times,
+     ELBO and ln Z finite.
+ 14. LDVI KL training path: run_experiment with the LDVI flags and
+     TRAIN_ITERS steps at N=2000, then the evaluation: the underdamped rollout
+     launched TRAIN_ITERS + 30 times, its sweep TRAIN_ITERS times and no
+     overdamped kernel at all; no NaN loss, no divergence, the ELBO after
+     training above phase 13's.
+ 15. timing of the LDVI path at N=2000, K=256, in the order plain, kernel,
+     kernel, plain: the underdamped rollout with and without its stores (and
+     at the evaluation's N=500) and the sweep (CUDA events), and one LDVI
+     optimizer step through the kernels over 50 steps against the eager
+     step, with its device busy share under torch.profiler.
 Then a JSON line with each kernel's launches, error, times and bound, and as
 the last line {"ok": true, "device": {...}}.
 """
@@ -104,6 +128,17 @@ KL_FLAGS = (
     "--config.train_eps False --config.train_vi False --config.lr 0.005 "
     "--noconfig.pretrain_mfvi --config.n_samples 500 --config.n_input_dist_seeds 30 "
     "--config.log.every 1"
+).split()
+
+# LDVI: the underdamped mode whose score net sees [z, rho'] (in_dim 2 + 2 +
+# 130), gamma eps = 0.25 (tests/test_pallas_kl.py:283-284), KL loss.
+LDVI_FLAGS = (
+    "--config.model many_gmm --config.boundmode MCD_U_a-lp-sn "
+    "--config.N 2000 --config.nbridges 256 --config.emb_dim 130 "
+    "--config.init_eps 0.05 --config.init_gamma 5.0 --config.init_sigma 15 "
+    "--config.grad_clipping True --config.train_eps False --config.train_vi False "
+    "--config.lr 0.005 --noconfig.pretrain_mfvi --config.n_samples 500 "
+    "--config.n_input_dist_seeds 30 --config.log.every 1"
 ).split()
 
 # Where (K + 1) * N * 2 * 4 bytes of trajectory pass the 256 MiB budget at
@@ -163,32 +198,34 @@ def phase_device() -> str:
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
-    from cmcd_tpu_torch.ops import build, kl, overdamped, vargrad
+    from cmcd_tpu_torch.ops import build, kl, kl_underdamped, overdamped, underdamped, vargrad
 
+    sources = ("overdamped", "vargrad", "kl", "underdamped", "kl_underdamped")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, started together
-        libs = list(pool.map(build.build, ("overdamped", "vargrad", "kl")))
-    overdamped._library()
-    vargrad._library()
-    kl._library()
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, started together
+        libs = list(pool.map(build.build, sources))
+    for module in (overdamped, vargrad, kl, underdamped, kl_underdamped):
+        module._library()
     secs = time.perf_counter() - t0
     for so in libs:
         with open(so[:-3] + ".log") as f:
             ptxas = [ln.strip() for ln in f
                      if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
         print(f"[2 build] {os.path.relpath(so)} | " + " | ".join(ptxas), flush=True)
-    print(f"[2 build] all three sources in {secs:.2f} s", flush=True)
+    print(f"[2 build] all {len(sources)} sources in {secs:.2f} s", flush=True)
 
 
-def make_problem(n, k, emb_dim, *, seed, factor_sn=0.3, sigma=3.0, eps=0.1):
-    """Inputs from a numpy seed: net weights (JAX layout, converted), z0, w0,
-    non-uniform betas, noise."""
+def make_problem(n, k, emb_dim, *, seed, factor_sn=0.3, sigma=3.0, eps=0.1, din=2,
+                 noise_rows=None):
+    """Inputs from a numpy seed: net weights on din input columns ahead of
+    the embedding (JAX layout, converted; din 0: no net), z0, w0, non-uniform
+    betas, noise (noise_rows, default K, x N x 2)."""
     from cmcd_tpu_torch.ops.target_grads import make_many_gmm_score
     from cmcd_tpu_torch.schedules import betas_from_grid, make_beta_grid_params
     from cmcd_tpu_torch.utils.convert import geffner_from_jax
 
     rng = np.random.default_rng(seed)
-    in_dim = 2 + emb_dim
+    in_dim = din + emb_dim
     dense = lambda i, o: {"w": rng.normal(0, math.sqrt(2 / (i + o)), (i, o)),
                           "b": rng.normal(0, 1e-2, o)}
     tree = {"layers": [dense(in_dim, in_dim), dense(in_dim, in_dim)],
@@ -206,8 +243,8 @@ def make_problem(n, k, emb_dim, *, seed, factor_sn=0.3, sigma=3.0, eps=0.1):
         vd_mean=f32([0.5, -0.5]),
         vd_logdiag=f32([math.log(sigma)] * 2),
         grad_logp=make_many_gmm_score(dev),
-        sn=geffner_from_jax(tree, dev),
-        noise=f32(rng.standard_normal((k, n, 2))),
+        sn=geffner_from_jax(tree, dev) if din else None,
+        noise=f32(rng.standard_normal((noise_rows or k, n, 2))),
         dim=2,
         nbridges=k,
     )
@@ -266,8 +303,8 @@ def compare(case, spec, tol, **kw):
 
 
 def _flat(grads):
-    """A gradient dict of the replay backward as {leaf name: tensor}."""
-    return {**{k: v for k, v in grads.items() if k != "sn"}, **grads["sn"]}
+    """A backward kernel's gradient dict as {leaf name: tensor}."""
+    return {**{k: v for k, v in grads.items() if k != "sn"}, **grads.get("sn", {})}
 
 
 def _grad_errors(got, want, tol):
@@ -359,16 +396,25 @@ def compare_sweep(case, tol, arbitrate=False, **kw):
     if arbitrate:
         ref = tree(evolve_kl_bwd_plain(traj.double(), noise.double(), cot, g_zf, *pos[2:], CAIS,
                                        **args, **kw))
-        e_k, e_p, e_kp = _norm_errors(got, ref), _norm_errors(want, ref), _norm_errors(got, want)
-        rel, floor = tol
-        needed = [name for name in ref
-                  if e_kp[name] > rel * float(want[name].double().norm()) + floor]
-        ok = all(bool(torch.isfinite(g).all()) for g in got.values()) and all(
-            e_k[name] <= F64_SLACK * e_p[name] for name in needed)
-        rel64 = lambda e: max(e[name] / max(float(ref[name].norm()), 1e-30) for name in ref)
-        line += (f"; against float64: kernel {rel64(e_k):.3e}, float32 plain {rel64(e_p):.3e} "
-                 f"(worst leaf each); leaves that needed the float64 arbiter: {needed or 'none'}")
+        ok, more = _arbitrate(got, want, ref, tol)
+        line += more
     return worst, line, ok
+
+
+def _arbitrate(got, want, ref, tol):
+    """A float32 kernel result `got` against its float32 plain version
+    `want`, per leaf, with the plain version in float64 (`ref`) as arbiter:
+    a leaf beyond `tol` passes if the kernel is at most F64_SLACK times as
+    far from the float64 value as the float32 plain version is. Returns (ok,
+    the words for the report)."""
+    e_k, e_p, e_kp = _norm_errors(got, ref), _norm_errors(want, ref), _norm_errors(got, want)
+    rel, floor = tol
+    needed = [name for name in ref if e_kp[name] > rel * float(want[name].double().norm()) + floor]
+    ok = all(bool(torch.isfinite(g).all()) for g in got.values()) and all(
+        e_k[name] <= F64_SLACK * e_p[name] for name in needed)
+    rel64 = lambda e: max(e[name] / max(float(ref[name].norm()), 1e-30) for name in ref)
+    return ok, (f"; against float64: kernel {rel64(e_k):.3e}, float32 plain {rel64(e_p):.3e} "
+                f"(worst leaf each); leaves that needed the float64 arbiter: {needed or 'none'}")
 
 
 def compare_reroll(case, tol, **kw):
@@ -497,7 +543,7 @@ def compare_reroll_with_replay(case, **kw):
     return _grad_errors(_flat(g_reroll), _flat(g_replay), REROLL_VS_REPLAY_TOL)
 
 
-def compare_training_step(flags=None, name="VarGrad", arbitrate=False):
+def compare_training_step(flags=None, name="VarGrad", arbitrate=False, tag="3 compare"):
     """One whole training step at the flagship size with factor_sn 0.3, a
     head of scale 0.05 (as the CPU tests) and injected draws: the mode's
     fused loss through the kernels against the same call through the plain
@@ -505,14 +551,18 @@ def compare_training_step(flags=None, name="VarGrad", arbitrate=False):
     from cmcd_tpu_torch.ops.fused_train import fused_training_path
     from cmcd_tpu_torch.train.trainer import double_tree, tree_leaf_names, tree_leaves
 
+    from cmcd_tpu_torch.integrators import UNDERDAMPED
+
     cfg, setup, target, params, ctx = flagship(flags)
     loss_fn, _ = fused_training_path(setup, cfg.N)
     gen = torch.Generator(device="cuda").manual_seed(23)
     with torch.no_grad():  # a live net that leaves the chains inside the target's support
         params["train"]["sn"].factor_sn.fill_(0.3)
         params["train"]["sn"].head.weight.normal_(0.0, 0.05, generator=gen)
+    # An underdamped rollout draws the initial momentum too: K + 1 rows.
+    rows = cfg.nbridges + (cfg.boundmode in UNDERDAMPED)
     draws = dict(base_normals=torch.randn(cfg.N, 2, generator=gen, device="cuda"),
-                 noise=torch.randn(cfg.nbridges, cfg.N, 2, generator=gen, device="cuda"))
+                 noise=torch.randn(rows, cfg.N, 2, generator=gen, device="cuda"))
     names = tree_leaf_names(params["train"])
     plain = dict(plain=True)
 
@@ -545,7 +595,7 @@ def compare_training_step(flags=None, name="VarGrad", arbitrate=False):
                 f"{rel64(e_p):.3e} (worst leaf each); leaves that needed the float64 arbiter "
                 f"(kernels at most {F64_SLACK} times as far): "
                 f"{[(n, e_k[n] / max(e_p[n], 1e-30)) for n in needed] or 'none'}")
-    print(f"[3 compare] {name} training step N={cfg.N} K={cfg.nbridges}: loss kernel {l_k!r} "
+    print(f"[{tag}] {name} training step N={cfg.N} K={cfg.nbridges}: loss kernel {l_k!r} "
           f"plain {l_p!r} (rel {loss_rel:.3e}, limit 1e-4), {len(g_p)} gradient leaves, worst "
           f"relative error {worst:.3e} (leaf {leaf}, limit {GRAD_TOL_FULL[0]}){line}", flush=True)
     # Below the VarGrad loss's clamp at 1e7, where the gradient would be zero.
@@ -892,13 +942,18 @@ def _work(n, k, in_dim, n_mix=40):
     # per point serves both); reads z0 instead of the trajectory.
     reroll_flops = bwd_flops + 2 * points * 8
     reroll_bytes = bwd_bytes - 8 * points + 8 * n + 8
-    bound = lambda flops, nbytes: {
+    return (_bound(fwd_flops, fwd_bytes), _bound(bwd_flops, bwd_bytes),
+            _bound(kl_flops, kl_bytes), _bound(reroll_flops, reroll_bytes))
+
+
+def _bound(flops, nbytes):
+    """The least time for `flops` FP32 operations and `nbytes` of device
+    memory traffic at the card's published peaks, and which of the two sets it."""
+    return {
         "bound_ms": 1e3 * max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES),
         "bound_by": "operations" if flops / PEAK_FLOPS >= nbytes / PEAK_BYTES else "bytes",
         "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
     }
-    return (bound(fwd_flops, fwd_bytes), bound(bwd_flops, bwd_bytes), bound(kl_flops, kl_bytes),
-            bound(reroll_flops, reroll_bytes))
 
 
 def phase_training_timing():
@@ -1138,10 +1193,327 @@ def phase_kl_timing():
           flush=True)
     return {**times, **{f"{name}_big": ms for name, ms in big_ms.items()}}, step_ms
 
+def make_ud_problem(n, k, emb_dim, spec, *, seed, sigma=3.0, eps=0.05, gamma=5.0, eta=0.5):
+    """make_problem for an underdamped spec: a net on the spec's input ([z],
+    [z, rho] or none), gamma and eta, noise (K + 1, N, 2)."""
+    from cmcd_tpu_torch.ops.underdamped import net_input_width
+
+    case = make_problem(n, k, emb_dim, seed=seed, sigma=sigma, eps=eps,
+                        din=net_input_width(spec, 2), noise_rows=k + 1)
+    case["gamma"], case["eta"] = (torch.tensor(v, device="cuda") for v in (gamma, eta))
+    return case
+
+
+def _ud_split(case):
+    """An underdamped problem as (the wrappers' positional arguments from z0
+    to grad_logp, their keyword arguments, the injected noise)."""
+    kw = dict(case)
+    noise = kw.pop("noise")
+    names = ("z0", "w0", "betas", "eps", "gamma", "eta", "vd_mean", "vd_logdiag", "grad_logp")
+    return [kw.pop(a) for a in names], kw, noise
+
+
+def compare_ud(case, spec, tol):
+    """The underdamped rollout kernel against its plain version under the
+    same injected noise: z, w and both stored paths (held as B1's path)."""
+    from cmcd_tpu_torch.ops.underdamped import (
+        evolve_underdamped_fused,
+        evolve_underdamped_fused_plain,
+    )
+
+    pos, kw, noise = _ud_split(case)
+    z_k, w_k, zt_k, rt_k, d_k = evolve_underdamped_fused(*pos, spec, **kw, noise=noise,
+                                                         return_state=True)
+    z_p, w_p, zt_p, rt_p, _ = evolve_underdamped_fused_plain(*pos, spec, **kw, noise=noise,
+                                                             return_state=True)
+    z_n, w_n = evolve_underdamped_fused(*pos, spec, **kw, noise=noise)
+    torch.cuda.synchronize()
+    dz, dw = (z_k - z_p).abs(), (w_k - w_p).abs()
+    bad_z = dz > tol["z_atol"] + tol["z_rtol"] * z_p.abs()
+    bad_w = dw > tol["w_atol"] + tol["w_rtol"] * w_p.abs()
+    stats = {"z_max_abs": float(dz.max()), "w_max_abs": float(dw.max()),
+             "w_max_rel": float((dw / w_p.abs().clamp_min(1e-6)).max()),
+             "z_bad": int(bad_z.any(-1).sum()), "w_bad": int(bad_w.sum())}
+    paths_ok = True
+    for name, t_k, t_p in (("ztraj", zt_k, zt_p), ("rtraj", rt_k, rt_p)):
+        dt = (t_k - t_p).abs()
+        beyond = float((dt > tol["z_atol"] + tol["z_rtol"] * t_p.abs()).float().mean())
+        stats[f"{name}_max_abs"] = float(dt.max())
+        stats[f"{name}_share_beyond_z_tol"] = beyond
+        paths_ok &= float(dt.max()) <= TRAJ_ATOL and beyond <= TRAJ_SHARE
+    # Storing changes nothing else; the stores' ends are exact; injected
+    # noise is handed on as it is.
+    stats["stores_ok"] = paths_ok
+    stats["ends_exact_outputs_unchanged_noise_handed_on"] = bool(
+        torch.equal(z_n, z_k) and torch.equal(w_n, w_k) and d_k is noise
+        and torch.equal(zt_k[0], pos[0]) and torch.equal(zt_k[-1], z_k)
+        and torch.equal(rt_k[0], noise[0]))
+    stats["finite"] = bool(torch.isfinite(z_k).all() and torch.isfinite(w_k).all())
+    good = (not (stats["z_bad"] or stats["w_bad"]) and paths_ok and stats["finite"]
+            and stats["ends_exact_outputs_unchanged_noise_handed_on"])
+    return stats, good
+
+
+def compare_ud_noise_stack(case, spec):
+    """The underdamped rollout's noise stack is what the kernel used: its
+    Philox draws (row 0 the initial momentum), injected again, give the same
+    z, w and stores bit for bit."""
+    from cmcd_tpu_torch.ops.underdamped import evolve_underdamped_fused
+
+    pos, kw, _ = _ud_split(case)
+    seed = torch.tensor([31], device="cuda")
+    first = evolve_underdamped_fused(*pos, spec, **kw, seed=seed, return_state=True)
+    again = evolve_underdamped_fused(*pos, spec, **kw, noise=first[4], return_state=True)
+    torch.cuda.synchronize()
+    draws = first[4]
+    stats = {"same_bits": [bool(torch.equal(a, b)) for a, b in zip(first[:4], again[:4])],
+             "mean": float(draws.mean()), "std": float(draws.std())}
+    good = (all(stats["same_bits"]) and abs(stats["mean"]) < 0.01
+            and abs(stats["std"] - 1.0) < 0.01)
+    return stats, good
+
+
+def compare_ud_sweep(case, spec, tol, arbitrate=False):
+    """The underdamped KL sweep kernel against its plain version, from the
+    plain rollout's stores and random cotangents: every gradient leaf and
+    dL/dz0, with the plain version in float64 as arbiter if asked."""
+    from cmcd_tpu_torch.ops.kl_underdamped import (
+        evolve_kl_bwd_underdamped,
+        evolve_kl_bwd_underdamped_plain,
+    )
+    from cmcd_tpu_torch.ops.underdamped import evolve_underdamped_fused_plain
+
+    pos, kw, noise = _ud_split(case)
+    _, _, zt, rt, dr = evolve_underdamped_fused_plain(*pos, spec, **kw, noise=noise,
+                                                      return_state=True)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    n = pos[0].shape[0]
+    cot = torch.randn(n, generator=gen, device="cuda")
+    g_zf = torch.randn(n, 2, generator=gen, device="cuda")
+    tree = lambda out: {**_flat(out[0]), "g_z0": out[1]}
+    got = tree(evolve_kl_bwd_underdamped(zt, rt, dr, cot, g_zf, *pos[2:], spec, **kw))
+    want = tree(evolve_kl_bwd_underdamped_plain(zt, rt, dr, cot, g_zf, *pos[2:], spec, **kw))
+    torch.cuda.synchronize()
+    worst, leaf, ok = _grad_errors(got, want, tol)
+    line = f"worst relative error {worst:.3e} (leaf {leaf}), limit {tol}"
+    if arbitrate:
+        ref = tree(evolve_kl_bwd_underdamped_plain(zt.double(), rt.double(), dr.double(), cot,
+                                                   g_zf, *pos[2:], spec, **kw))
+        ok, more = _arbitrate(got, want, ref, tol)
+        line += more
+    return worst, line, ok
+
+
+def phase_ud_compare():
+    from cmcd_tpu_torch.integrators import UNDERDAMPED
+
+    ldvi = UNDERDAMPED["MCD_U_a-lp-sn"]
+    ok, max_err, sweep_err = True, 0.0, 0.0
+    for mode, spec in UNDERDAMPED.items():
+        stats, good = compare_ud(make_ud_problem(256, 8, 16, spec, seed=0, sigma=8.0), spec,
+                                 TOL_SMALL)
+        ok &= good
+        print(f"[12 compare] underdamped rollout small N=256 K=8 emb16 {mode}: "
+              f"{json.dumps(stats)}", flush=True)
+    for n, seed in ((2000, 1), (500, 5)):
+        full = make_ud_problem(n, 256, 130, ldvi, seed=seed, sigma=15.0)
+        stats, good = compare_ud(full, ldvi, TOL_FULL)
+        ok &= good
+        max_err = max(max_err, stats["z_max_abs"], stats["w_max_abs"], stats["ztraj_max_abs"],
+                      stats["rtraj_max_abs"])
+        print(f"[12 compare] underdamped rollout full N={n} K=256 emb130 LDVI: "
+              f"{json.dumps(stats)} tol {json.dumps(TOL_FULL)}", flush=True)
+    stats, good = compare_ud_noise_stack(make_ud_problem(2000, 256, 130, ldvi, seed=8,
+                                                         sigma=15.0), ldvi)
+    ok &= good
+    print(f"[12 compare] underdamped noise stack N=2000 K=256 emb130 LDVI: {json.dumps(stats)}",
+          flush=True)
+    for mode in ("MCD_U_a-lp", "MCD_U_a-lp-sna", "MCD_U_a-lp-sn"):
+        spec = UNDERDAMPED[mode]
+        _, line, good = compare_ud_sweep(make_ud_problem(128, 6, 16, spec, seed=3, sigma=8.0),
+                                         spec, GRAD_TOL_SMALL)
+        ok &= good
+        print(f"[12 compare] underdamped KL sweep small N=128 K=6 emb16 {mode}: {line}, "
+              f"ok {good}", flush=True)
+    for n, seed in ((2000, 6), (1001, 7)):
+        worst, line, good = compare_ud_sweep(make_ud_problem(n, 256, 130, ldvi, seed=seed,
+                                                             sigma=15.0),
+                                             ldvi, GRAD_TOL_FULL, arbitrate=True)
+        ok &= good
+        sweep_err = max(sweep_err, worst)
+        print(f"[12 compare] underdamped KL sweep full N={n} K=256 emb130 LDVI: {line}, "
+              f"ok {good}", flush=True)
+    ok &= compare_training_step(LDVI_FLAGS + ["--config.iters", "0"], "LDVI KL", arbitrate=True,
+                                tag="12 compare")
+    if not ok:
+        fail("an underdamped kernel and its plain version disagree beyond tolerance")
+    return max_err, sweep_err
+
+
+def phase_ud_eval_path():
+    from cmcd_tpu_torch.main import parse_flags, run_experiment
+    from cmcd_tpu_torch.ops.underdamped import evolve_underdamped_fused
+
+    cfg = parse_flags(LDVI_FLAGS + ["--config.iters", "0"])
+    evolve_underdamped_fused.launches = 0
+    t0 = time.perf_counter()
+    out = run_experiment(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = evolve_underdamped_fused.launches
+    print(f"[13 LDVI evaluation path] ELBO {out['final_elbo']!r} +- {out['final_elbo_std']!r} "
+          f"ln Z {out['final_ln_Z']!r} +- {out['final_ln_Z_std']!r} launches {launches} "
+          f"wall {wall:.3f} s", flush=True)
+    if launches != cfg.n_input_dist_seeds:
+        fail(f"LDVI evaluation launched the underdamped rollout {launches} times, expected "
+             f"{cfg.n_input_dist_seeds}")
+    if not (math.isfinite(out["final_elbo"]) and math.isfinite(out["final_ln_Z"])):
+        fail("LDVI evaluation ELBO / ln Z not finite")
+    if out["neg_elbos"].shape != (30, 500) or not np.isfinite(out["samples"]).all():
+        fail("LDVI evaluation output malformed")
+    return launches, out
+
+
+def phase_ud_training_path(init):
+    from cmcd_tpu_torch.main import parse_flags, run_experiment
+    from cmcd_tpu_torch.ops.kl import evolve_kl_bwd
+    from cmcd_tpu_torch.ops.kl_underdamped import evolve_kl_bwd_underdamped
+    from cmcd_tpu_torch.ops.overdamped import evolve_overdamped_fused
+    from cmcd_tpu_torch.ops.underdamped import evolve_underdamped_fused
+
+    cfg = parse_flags(LDVI_FLAGS + ["--config.iters", str(TRAIN_ITERS)])
+    counters = (evolve_underdamped_fused, evolve_kl_bwd_underdamped, evolve_overdamped_fused,
+                evolve_kl_bwd)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = run_experiment(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd, od_fwd, od_bwd = (fn.launches for fn in counters)
+    result = out["train"]
+    losses = result.losses.double()
+    first, last = float(losses[:100].mean()), float(losses[-100:].mean())
+    print(f"[14 LDVI KL training path] {cfg.iters} steps N={cfg.N} K={cfg.nbridges} "
+          f"{cfg.boundmode}: underdamped rollout launches {fwd} underdamped sweep launches {bwd} "
+          f"(overdamped kernels {od_fwd + od_bwd}) wall {wall:.3f} s "
+          f"({1e3 * wall / cfg.iters:.3f} ms per step, evaluation and init included) | loss "
+          f"mean first 100 {first!r} last 100 {last!r} | ELBO {init['final_elbo']!r} -> "
+          f"{out['final_elbo']!r} +- {out['final_elbo_std']!r} ln Z {init['final_ln_Z']!r} -> "
+          f"{out['final_ln_Z']!r} +- {out['final_ln_Z_std']!r} diverged {result.diverged} "
+          f"steps_done {result.steps_done}", flush=True)
+    if fwd != cfg.iters + cfg.n_input_dist_seeds or bwd != cfg.iters or od_fwd or od_bwd:
+        fail(f"LDVI training path launched the underdamped rollout {fwd}, its sweep {bwd}, "
+             f"overdamped kernels {od_fwd + od_bwd} times, expected "
+             f"{cfg.iters + cfg.n_input_dist_seeds}, {cfg.iters}, 0")
+    if len(losses) != cfg.iters or bool(torch.isnan(losses).any()):
+        fail(f"LDVI training path logged {len(losses)} losses, NaN among them: "
+             f"{bool(torch.isnan(losses).any())}")
+    if result.diverged or result.steps_done != cfg.iters:
+        fail("LDVI training path diverged")
+    if not (math.isfinite(out["final_elbo"]) and math.isfinite(out["final_ln_Z"])):
+        fail("LDVI training path ELBO / ln Z not finite")
+    if not out["final_elbo"] > init["final_elbo"]:
+        fail(f"LDVI training did not raise the ELBO: {init['final_elbo']} -> {out['final_elbo']}")
+    if out["neg_elbos"].shape != (30, 500) or not np.isfinite(out["samples"]).all():
+        fail("LDVI training path evaluation output malformed")
+    return fwd, bwd
+
+
+def _work_ud(n, k, in_dim, n_mix=40):
+    """Least time the card could take for one call of each underdamped
+    kernel at these shapes (the rule of _work): (rollout without stores,
+    rollout with stores, sweep). in_dim: the net on [z, rho'] (din 4)."""
+    score = 6 * n_mix
+    net_apply = in_dim * in_dim + 6 * in_dim        # FMAs: layer 2, layer 1's x part, head
+    steps = k * n
+    weights = 4 * (4 * in_dim + k * in_dim + k * (in_dim - 4) + in_dim * in_dim + 3 * in_dim
+                   + 2 + 2 * n_mix)
+    fwd_flops = 2 * steps * (net_apply + score) + 2 * n * score
+    fwd_bytes = 4 * (3 * n + k) + weights + 4 * (3 * n)  # z0, w0, betas; z, w
+    stores = 3 * 8 * (k + 1) * n                          # z, rho and draws
+    # The sweep: per step the apply, W2 g_a2 and the dW2 outer product; per
+    # point the score and its Hessian product. Reads the three stacks, cot and
+    # g_zfinal; writes dL/dz0 and the per-block and per-point sums.
+    bwd_flops = 2 * steps * (3 * in_dim * in_dim + 10 * in_dim) + 2 * (k + 1) * n * 16 * n_mix
+    bwd_bytes = (stores + 4 * (3 * n + k) + weights + 8 * n
+                 + 4 * (in_dim * in_dim + 7 * in_dim + 9 + (k + 1) * (2 * in_dim + 2)))
+    return (_bound(fwd_flops, fwd_bytes), _bound(fwd_flops, fwd_bytes + stores),
+            _bound(bwd_flops, bwd_bytes))
+
+
+def phase_ud_timing():
+    from cmcd_tpu_torch import bounds
+    from cmcd_tpu_torch.integrators import UNDERDAMPED
+    from cmcd_tpu_torch.ops.fused_train import kl_bound_fused
+    from cmcd_tpu_torch.ops.kl_underdamped import (
+        evolve_kl_bwd_underdamped,
+        evolve_kl_bwd_underdamped_plain,
+    )
+    from cmcd_tpu_torch.ops.underdamped import (
+        evolve_underdamped_fused,
+        evolve_underdamped_fused_plain,
+    )
+    from cmcd_tpu_torch.train import train
+
+    ldvi = UNDERDAMPED["MCD_U_a-lp-sn"]
+    seed = torch.tensor([7], device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cot = torch.randn(2000, generator=gen, device="cuda")
+    g_zf = torch.randn(2000, 2, generator=gen, device="cuda")
+    pos, kw, _ = _ud_split(make_ud_problem(2000, 256, 130, ldvi, seed=2, sigma=15.0))
+    pos5, kw5, _ = _ud_split(make_ud_problem(500, 256, 130, ldvi, seed=3, sigma=15.0))
+    _, _, zt, rt, dr = evolve_underdamped_fused(*pos, ldvi, **kw, seed=seed, return_state=True)
+    fns = {
+        "rollout": (lambda: evolve_underdamped_fused(*pos, ldvi, **kw, seed=seed), 20),
+        "rollout_stores": (lambda: evolve_underdamped_fused(*pos, ldvi, **kw, seed=seed,
+                                                            return_state=True), 20),
+        "rollout_n500": (lambda: evolve_underdamped_fused(*pos5, ldvi, **kw5, seed=seed), 20),
+        "rollout_stores_plain": (lambda: evolve_underdamped_fused_plain(
+            *pos, ldvi, **kw, seed=7, return_state=True), 2),
+        "sweep": (lambda: evolve_kl_bwd_underdamped(zt, rt, dr, cot, g_zf, *pos[2:], ldvi, **kw),
+                  10),
+        "sweep_plain": (lambda: evolve_kl_bwd_underdamped_plain(zt, rt, dr, cot, g_zf, *pos[2:],
+                                                                ldvi, **kw), 1),
+    }
+    times = {name: [] for name in fns}
+    for name in ("rollout_stores_plain", "sweep_plain", "rollout", "rollout_stores",
+                 "rollout_n500", "sweep", "sweep", "rollout_n500", "rollout_stores", "rollout",
+                 "sweep_plain", "rollout_stores_plain"):
+        fn, reps = fns[name]
+        times[name].append(_event_ms(fn, reps))
+    print(f"[15 timing] underdamped kernels N=2000 K=256 emb130 (N=500 where named) ms "
+          f"{json.dumps(times)}", flush=True)
+
+    cfg, setup, target, params, ctx = flagship(LDVI_FLAGS + ["--config.iters", "0"])
+    trainable = bounds.default_trainable(setup.mode, cfg.train_eps, cfg.train_vi, cfg.train_betas)
+    fused = lambda p, n, c, s, generator: kl_bound_fused(p, n, c, s, target, generator=generator)
+
+    def steps(loss_fn, iters):
+        g = torch.Generator(device="cuda").manual_seed(1)
+        return lambda: train(setup, params, ctx, lr=0.005, iters=iters, batch_size=cfg.N,
+                             generator=g, trainable=trainable, loss_fn=loss_fn,
+                             steps_per_call=iters, nan_check_every=10**9)
+
+    steps(fused, 5)()
+    step_ms = {"eager": [], "kernel": []}
+    for name in ("eager", "kernel", "kernel", "eager"):
+        loss_fn, iters = (bounds.kl_bound, 1) if name == "eager" else (fused, 50)
+        step_ms[name].append(_wall_ms(steps(loss_fn, iters)) / iters)
+    print(f"[15 timing] LDVI optimizer step N=2000 K=256 ms per step {json.dumps(step_ms)} "
+          f"(kernel: 50 steps, eager: 1 step per reading)", flush=True)
+    prof_wall, prof_dev, top = _profile(steps(fused, 10))
+    print(f"[15 profile] 10 fused LDVI steps: wall {prof_wall!r} ms under the profiler, device "
+          f"busy {prof_dev!r} ms ({100 * prof_dev / prof_wall!r}%), per step busy "
+          f"{prof_dev / 10!r} ms, device records [name, ms, count] {json.dumps(top)}; busy over "
+          f"the fastest unprofiled step {100 * prof_dev / 10 / min(step_ms['kernel'])!r}%",
+          flush=True)
+    return times, step_ms
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    everything = "1,2,3,4,5,6,7,8,9,10,11"
+    everything = "1,2,3,4,5,6,7,8,9,10,11,12,13,14,15"
     ap.add_argument("--phases", default=everything,
                     help="comma-separated phases to run (default: all)")
     phases = {int(p) for p in ap.parse_args(argv).phases.split(",")}
@@ -1157,6 +1529,12 @@ def main(argv=None):
     kl_launches = phase_kl_training_path() if 9 in phases else None
     reroll = phase_reroll_path() if 10 in phases else None
     kl_timing = phase_kl_timing() if 11 in phases else None
+    ud_errors = phase_ud_compare() if 12 in phases else None
+    ud_eval_launches, ud_init = phase_ud_eval_path() if 13 in phases else (None, None)
+    if 14 in phases and ud_init is None:  # the ELBO at init that phase 14 must beat
+        ud_init = phase_ud_eval_path()[1]
+    ud_launches = phase_ud_training_path(ud_init) if 14 in phases else None
+    ud_timing = phase_ud_timing() if 15 in phases else None
     if phases != {int(p) for p in everything.split(",")}:
         print(f"partial run (phases {sorted(phases)}): no result line")
         return 1
@@ -1172,11 +1550,18 @@ def main(argv=None):
           f"{json.dumps(kl_step_ms)}")
     big_bound = _work(REROLL_N, 256, 132)[3]
     print(f"[bounds] N={REROLL_N} K=256 in_dim 132: reroll {json.dumps(big_bound)}")
+    ud_times, ud_step_ms = ud_timing
+    ud_bound, ud_stores_bound, ud_sweep_bound = _work_ud(2000, 256, 134)
+    ud_bound_500 = _work_ud(500, 256, 134)[0]
+    print(f"[bounds] N=2000 K=256 in_dim 134 (LDVI): underdamped rollout {json.dumps(ud_bound)} "
+          f"with stores {json.dumps(ud_stores_bound)} (N=500: {json.dumps(ud_bound_500)}) "
+          f"sweep {json.dumps(ud_sweep_bound)}; LDVI optimizer step ms {json.dumps(ud_step_ms)}")
     print(smi)
     # launches: of each kernel's own main path, counted from 0 just before it
     # (phase 7: VarGrad training and the 30 x 500 evaluation; phase 9: the KL
-    # twin; phase 10: the re-rolling steps); times, plain times and bounds at
-    # N=2000, K=256. No single PyTorch call computes any of the four functions.
+    # twin; phase 10: the re-rolling steps; phase 14: LDVI training and its
+    # evaluation); times, plain times and bounds at N=2000, K=256. No single
+    # PyTorch call computes any of the six functions.
     err_is = "worst per-leaf |g_kernel - g_plain| / |g_plain| at full width"
     print(json.dumps({"kernels": [{
         "name": "overdamped_rollout",
@@ -1235,6 +1620,34 @@ def main(argv=None):
         "ms_at_path_n": min(kl_times["reroll_big"]),
         "plain_ms_at_path_n": errors[4][1],
         "bound_ms_at_path_n": big_bound["bound_ms"],
+    }, {
+        "name": "underdamped_rollout",
+        "route": "cuda",
+        "source": "cmcd_tpu_torch/csrc/underdamped.cu",
+        "replaces": "cmcd_tpu/ops/pallas_underdamped.py:67",
+        "launches": ud_launches[0],
+        "launches_evaluation_path": ud_eval_launches,
+        "max_abs_err": ud_errors[0],
+        "ms": min(ud_times["rollout_stores"]),
+        "ms_without_stores": min(ud_times["rollout"]),
+        "ms_at_n500": min(ud_times["rollout_n500"]),
+        "plain_ms": min(ud_times["rollout_stores_plain"]),
+        **keep(ud_stores_bound),
+        "bound_ms_without_stores": ud_bound["bound_ms"],
+        "bound_ms_at_n500": ud_bound_500["bound_ms"],
+        "library_ms": None,
+    }, {
+        "name": "kl_underdamped_sweep",
+        "route": "cuda",
+        "source": "cmcd_tpu_torch/csrc/kl_underdamped.cu",
+        "replaces": "cmcd_tpu/ops/pallas_kl.py:983",
+        "launches": ud_launches[1],
+        "max_abs_err": ud_errors[1],
+        "max_abs_err_is": err_is,
+        "ms": min(ud_times["sweep"]),
+        "plain_ms": min(ud_times["sweep_plain"]),
+        **keep(ud_sweep_bound),
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

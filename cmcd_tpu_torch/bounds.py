@@ -110,6 +110,7 @@ def initialize(
         train["sn"], apply_sn = build_score_network(
             setup.dim, setup.emb_dim, setup.nbridges, nlayers=setup.nlayers,
             arch=setup.nn_arch, generator=gen, device=device,
+            rho_dim=integrators.mode_sn_rho_dim(setup.mode, setup.dim),
         )
 
     mg, gridref_x, target_x = make_beta_grid_params(
@@ -161,7 +162,9 @@ def kl_bound(params, n_chains: int, ctx, setup, **draws):
     """Mean negative ELBO (the KL training loss). Exact under autograd at
     any nbridges: the eager target score stays differentiable in the state
     (integrators/base.target_grad), so the gradient is the full backprop
-    through time that jax.grad of the scan loss gives."""
+    through time that jax.grad of the scan loss gives. Every underdamped mode
+    trains on it (no "var" in their names); in the approximate-refresh modes
+    eta is unused and gets no gradient (JAX: zeros)."""
     neg_elbos, z = compute_elbos(params, n_chains, ctx, setup, **draws)
     return torch.mean(neg_elbos), (neg_elbos, z)
 

@@ -1,9 +1,12 @@
-// What the CMCD kernels for NVIDIA Hopper (sm_90a) share: the overdamped
-// CAIS step's pieces, stated once. Included by overdamped.cu (the rollout)
-// and, through cmcd_tile.cuh, by vargrad.cu and kl.cu (the backward kernels).
+// What the CMCD kernels for NVIDIA Hopper (sm_90a) share: the pieces of a
+// step, stated once. Included by overdamped.cu and underdamped.cu (the
+// rollouts) and, through cmcd_tile.cuh, by vargrad.cu, kl.cu and
+// kl_underdamped.cu (the backward kernels).
 //
-// The score net is the two-layer geffner net on h0 = [z, emb_i]:
-//   a1 = z @ W1[:2] + c1[i]          c1 = emb @ W1[2:] + b1 (per call, wrapper)
+// The score net is the two-layer geffner net on h0 = [x, emb_i], where x is
+// the state z (DIN = 2 columns) or, for the underdamped modes whose net sees
+// the momentum too, [z, rho'] (DIN = 4); the head has 2 outputs either way:
+//   a1 = x @ W1[:DIN] + c1[i]        c1 = emb @ W1[DIN:] + b1 (per call, wrapper)
 //   h1 = h0 + softplus(a1)
 //   a2 = h1 @ W2 + b2,  h2 = h1 + softplus(a2)
 //   sn = (h2 @ headW^T + headb) * factor_sn
@@ -24,13 +27,13 @@
 namespace cmcd {
 
 constexpr int TC = 8;         // chains one feature thread carries through a layer
-constexpr int DIM = 2;        // state dimension (many_gmm)
+constexpr int DIM = 2;        // state dimension (many_gmm); the head's outputs
 constexpr int MAX_MIX = 64;   // score components: two per lane
 constexpr size_t MAX_SMEM = 232448;  // 227 KiB a block may use on sm_90
 
 // The net and the target as a kernel sees them (device pointers, f32).
 struct NetArgs {
-  const float* w1z;    // (2, in): rows of layer-1 W (in x out) for z
+  const float* w1z;    // (DIN, in): rows of layer-1 W (in x out) for x
   const float* c1;     // (K, in): emb_i @ W1[2:] + b1
   const float* emb;    // (K, emb_dim)
   const float* w2;     // (in, in): layer-2 W, row k = input feature k
@@ -124,18 +127,31 @@ __device__ __forceinline__ void load_w2(const NetArgs& net, float* w2s, int ws) 
   }
 }
 
+// Row f of W1[:DIN] (this thread's feature), zero past in_dim.
+template <int DIN>
+__device__ __forceinline__ void load_w1x(const NetArgs& net, int f, float w1x[DIN]) {
+#pragma unroll
+  for (int d = 0; d < DIN; ++d) w1x[d] = f < net.in_dim ? net.w1z[d * net.in_dim + f] : 0.f;
+}
+
 // Layer 1 for feature f of TC chains at bridge row idx: a1 and
-// h1 = h0 + softplus(a1), h0 = [z, emb_idx]. zs: TC x DIM positions.
+// h1 = h0 + softplus(a1), h0 = [x, emb_idx]. xs: TC x DIN inputs.
+template <int DIN>
 __device__ __forceinline__ void layer1_feature(const NetArgs& net, int idx, int f,
-                                               float w1z0, float w1z1, const float* zs,
+                                               const float w1x[DIN], const float* xs,
                                                float a1[TC], float h1[TC]) {
   const float cf = net.c1[(size_t)idx * net.in_dim + f];
-  const float e = f >= DIM ? net.emb[(size_t)idx * net.emb_dim + f - DIM] : 0.f;
+  const float e = f >= DIN ? net.emb[(size_t)idx * net.emb_dim + f - DIN] : 0.f;
 #pragma unroll
   for (int c = 0; c < TC; ++c) {
-    const float x0 = zs[c * DIM], x1 = zs[c * DIM + 1];
-    a1[c] = fmaf(x1, w1z1, fmaf(x0, w1z0, cf));
-    const float h0 = f == 0 ? x0 : (f == 1 ? x1 : e);
+    float acc = cf, h0 = e;
+#pragma unroll
+    for (int d = 0; d < DIN; ++d) {
+      const float x = xs[c * DIN + d];
+      acc = fmaf(x, w1x[d], acc);
+      if (f == d) h0 = x;
+    }
+    a1[c] = acc;
     h1[c] = h0 + softplus_f(a1[c]);
   }
 }
@@ -255,22 +271,41 @@ __device__ __forceinline__ void head_and_score(const NetArgs& net, const float* 
   many_gmm_score(net, mus, x0, x1, gt);
 }
 
-// Target score and net output at the TC points in zn_s, bridge row idx, by a
-// block of round_up(in_dim, 32) threads; writes gt_s and sn_s (TC x DIM
-// each). w2s has row stride in_pad; h1s, h2s are TC x in_pad tiles. Every
-// thread of the block must call it.
-__device__ __forceinline__ void point_eval(const NetArgs& net, int idx, float w1z0,
-                                           float w1z1, float b2f, float factor,
+// One warp per chain: the target score at the TC points in zs into gt_s
+// (TC x DIM). Every thread of the block must call it; ends with a barrier.
+__device__ __forceinline__ void score_eval(const NetArgs& net, const float* mus, const float* zs,
+                                           float* gt_s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarp = blockDim.x >> 5;
+  for (int c = warp; c < TC; c += nwarp) {
+    float gt[DIM];
+    many_gmm_score(net, mus, zs[c * DIM], zs[c * DIM + 1], gt);
+    if (lane == 0) {
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) gt_s[c * DIM + d] = gt[d];
+    }
+  }
+  __syncthreads();
+}
+
+// Net output at the TC inputs in xin_s (TC x DIN), bridge row idx, and,
+// unless zs is null, the target score at the TC points in zs (TC x DIM),
+// by a block of round_up(in_dim, 32) threads; writes sn_s and gt_s (TC x
+// DIM each). w2s has row stride in_pad; h1s, h2s are TC x in_pad tiles.
+// Every thread of the block must call it.
+template <int DIN>
+__device__ __forceinline__ void point_eval(const NetArgs& net, int idx, const float w1x[DIN],
+                                           float b2f, float factor,
                                            const float* w2s, float* h1s, float* h2s,
                                            const float* hws, const float* mus,
-                                           const float* zn_s, float* gt_s, float* sn_s) {
+                                           const float* xin_s, const float* zs, float* gt_s,
+                                           float* sn_s) {
   const int tid = threadIdx.x, ip = net.in_pad;
   const int lane = tid & 31, warp = tid >> 5, nwarp = blockDim.x >> 5;
   const bool feat = tid < net.in_dim;
 
   if (feat) {
     float a1[TC], h1[TC];
-    layer1_feature(net, idx, tid, w1z0, w1z1, zn_s, a1, h1);
+    layer1_feature<DIN>(net, idx, tid, w1x, xin_s, a1, h1);
 #pragma unroll
     for (int c = 0; c < TC; ++c) h1s[c * ip + tid] = h1[c];
   }
@@ -287,12 +322,13 @@ __device__ __forceinline__ void point_eval(const NetArgs& net, int idx, float w1
 
   for (int c = warp; c < TC; c += nwarp) {
     float out[DIM], gt[DIM];
-    head_and_score(net, h2s + c * ip, hws, mus, zn_s[c * DIM], zn_s[c * DIM + 1], out, gt);
+    head_raw(net, h2s + c * ip, hws, out);
+    if (zs != nullptr) many_gmm_score(net, mus, zs[c * DIM], zs[c * DIM + 1], gt);
     if (lane == 0) {
 #pragma unroll
       for (int d = 0; d < DIM; ++d) {
         sn_s[c * DIM + d] = (out[d] + net.headb[d]) * factor;
-        gt_s[c * DIM + d] = gt[d];
+        if (zs != nullptr) gt_s[c * DIM + d] = gt[d];
       }
     }
   }

@@ -1,15 +1,17 @@
-// What the backward kernels (vargrad.cu, kl.cu) share: the score net's apply
-// and its hand-written VJP on a tile of chains, the per-block partial sums
-// and the kernel that reduces them.
+// What the backward kernels (vargrad.cu, kl.cu, kl_underdamped.cu) share:
+// the score net's apply and its hand-written VJP on a tile of chains, the
+// per-block partial sums and the kernel that reduces them.
 //
-// With out = h2 @ headW^T + headb, sn = out * factor_sn and g_out the
-// cotangent of out (the caller's, one per chain):
+// The net's input x is DIN columns wide (the state z, or [z, rho'] for the
+// underdamped modes whose net sees the momentum). With out = h2 @ headW^T +
+// headb, sn = out * factor_sn and g_out the cotangent of out (the caller's,
+// one per chain):
 //   dheadW[d] = g_out[d] h2;  g_h2 = g_out @ headW
 //   g_a2 = g_h2 * sigmoid(a2);  db2 = g_a2;  dW2 = h1 (x) g_a2
-//   g_h1 = g_h2 + W2 g_a2;  g_a1 = g_h1 * sigmoid(a1);  dW1[:2] = z (x) g_a1
-//   g_z  = g_h1[:2] + W1[:2] g_a1          (the identity path counts)
+//   g_h1 = g_h2 + W2 g_a2;  g_a1 = g_h1 * sigmoid(a1);  dW1[:DIN] = x (x) g_a1
+//   g_x  = g_h1[:DIN] + W1[:DIN] g_a1      (the identity path counts)
 // each summed over the chains a block sees. The embedding half of layer 1
-// is a product of the wrapper (c1 = emb @ W1[2:] + b1, once per call), so
+// is a product of the wrapper (c1 = emb @ W1[DIN:] + b1, once per call), so
 // its transpose is the wrapper's too: a block returns the per-point sums
 // over chains G1[j] = sum_n g_a1 and GH1[j] = sum_n g_h1, from which two
 // small products give demb, dW1[2:], db1.
@@ -32,12 +34,22 @@
 namespace cmcd {
 
 constexpr int FW_MAX = 160;  // feature threads of one group: in_dim <= 160
-constexpr int NSCAL = 10;    // eps, mean x2, logdiag x2, factor, headb x2, beta_fk, beta_bk
-constexpr int NFEAT = 7;     // headW x2, b2, W1z x2, G1, GH1
+// Per-warp scalars: eps, mean x2, logdiag x2, factor, headb x2 (slots 0-7,
+// summed over the block), beta_fk, beta_bk (8, 9, per point), gamma (10,
+// summed over the block; the underdamped sweep's, zero elsewhere).
+constexpr int NSCAL = 11;
+constexpr int SC_GAMMA = 10;
+constexpr int NSC_BLOCK = 9;  // scalars of len_a: slots 0-7 and gamma
+
+// Per-feature sums of a thread: headW x2, b2, W1[:DIN] xDIN, G1, GH1.
+__host__ __device__ constexpr int nfeat(int din) { return 5 + din; }
+constexpr int NFEAT = nfeat(DIM);
 
 // Partials summed over every block: dW2 (in x in), dheadW (2 x in), db2,
-// dW1[:2] (2 x in), then eps, mean x2, logdiag x2, factor, headb x2.
-__host__ __device__ inline int len_a(int in_dim) { return in_dim * in_dim + 5 * in_dim + 8; }
+// dW1[:DIN] (DIN x in), then eps, mean x2, logdiag x2, factor, headb x2, gamma.
+__host__ __device__ inline int len_a(int in_dim, int din = DIM) {
+  return in_dim * in_dim + (3 + din) * in_dim + NSC_BLOCK;
+}
 // Partials of one point: G1 (in), GH1 (in), dbeta_j, dbeta_{j-1}.
 __host__ __device__ inline int len_b(int in_dim) { return 2 * in_dim + 2; }
 
@@ -73,18 +85,18 @@ struct Tile {
 };
 
 // A thread's place among the feature threads and the weights it keeps.
+template <int DIN>
 struct FeatThread {
   int g, f;      // group, feature
   bool feat;     // f < in_dim
-  float w1z0, w1z1, b2f, hw0, hw1;
+  float w1x[DIN > 0 ? DIN : 1], b2f, hw0, hw1;
 
   __device__ FeatThread(const NetArgs& net, int ng) {
     const int fw = blockDim.x / ng;
     g = threadIdx.x / fw;
     f = threadIdx.x - g * fw;
     feat = f < net.in_dim;
-    w1z0 = feat ? net.w1z[f] : 0.f;
-    w1z1 = feat ? net.w1z[net.in_dim + f] : 0.f;
+    if constexpr (DIN > 0) load_w1x<DIN>(net, f, w1x);
     b2f = feat ? net.b2[f] : 0.f;
     hw0 = feat ? net.headw[f] : 0.f;
     hw1 = feat ? net.headw[net.in_dim + f] : 0.f;
@@ -112,18 +124,18 @@ __device__ __forceinline__ void tile_init(const Tile<NG>& t, const NetArgs& net)
   for (int i = tid; i < (nthr >> 5) * NSCAL; i += nthr) t.sc_s[i] = 0.f;
 }
 
-// The net's two layers at the TB points in zc_s (TB x DIM), bridge row idx:
+// The net's two layers at the TB inputs in xc_s (TB x DIN), bridge row idx:
 // h1 into h1s and (transposed) h1t, h2 into xs; the sigmoids and h2 of this
 // thread's feature stay in r. Ends with a barrier.
-template <int NG>
+template <int NG, int DIN>
 __device__ __forceinline__ void tile_layers(const Tile<NG>& t, const NetArgs& net,
-                                            const FeatThread& th, int idx, const float* zc_s,
-                                            FeatRegs& r) {
+                                            const FeatThread<DIN>& th, int idx,
+                                            const float* xc_s, FeatRegs& r) {
   const int ip = net.in_pad, g = th.g, f = th.f;
   float h1v[TC];
   if (th.feat) {
     float a1[TC];
-    layer1_feature(net, idx, f, th.w1z0, th.w1z1, zc_s + g * TC * DIM, a1, h1v);
+    layer1_feature<DIN>(net, idx, f, th.w1x, xc_s + g * TC * DIN, a1, h1v);
 #pragma unroll
     for (int c = 0; c < TC; ++c) {
       r.sig1[c] = sigmoid_f(a1[c]);
@@ -149,17 +161,18 @@ __device__ __forceinline__ void tile_layers(const Tile<NG>& t, const NetArgs& ne
   __syncthreads();
 }
 
-// The net's VJP at the tile's points from go_s (TB x DIM), the cotangent of
-// the head's raw output per chain: adds this thread's sums into ft (dheadW
-// x2, db2, dW1[:2] x2, G1, GH1) and the tile's dW2 into gw2s. With gz_s
-// (warps x TC x DIM) each warp also leaves its share of g_z = g_h1[:2] +
-// W1[:2] g_a1 for its group's chains there. Every thread of the block calls
-// it after the block has synchronized on go_s; ends with a barrier.
-template <int NG>
+// The net's VJP at the tile's inputs xc_s (TB x DIN) from go_s (TB x DIM),
+// the cotangent of the head's raw output per chain: adds this thread's sums
+// into ft (dheadW x2, db2, dW1[:DIN] xDIN, G1, GH1) and the tile's dW2 into
+// gw2s. With gz_s (warps x TC x DIN) each warp also leaves its share of
+// g_x = g_h1[:DIN] + W1[:DIN] g_a1 for its group's chains there. Every
+// thread of the block calls it after the block has synchronized on go_s;
+// ends with a barrier.
+template <int NG, int DIN>
 __device__ __forceinline__ void tile_vjp(const Tile<NG>& t, const NetArgs& net,
-                                         const FeatThread& th, const float* zc_s,
+                                         const FeatThread<DIN>& th, const float* xc_s,
                                          const float* go_s, const FeatRegs& r,
-                                         float ft[NFEAT], float* gz_s) {
+                                         float ft[nfeat(DIN)], float* gz_s) {
   constexpr int TB = NG * TC;
   const int ip = net.in_pad, in = net.in_dim, g = th.g, f = th.f, ws = t.ws;
   // Head backward and g_a2 = g_h2 * sigmoid(a2); g_a2 replaces h2 in xs.
@@ -179,9 +192,12 @@ __device__ __forceinline__ void tile_vjp(const Tile<NG>& t, const NetArgs& net,
   }
   __syncthreads();
 
-  float gz0[TC], gz1[TC];
+  float gz[TC][DIN];
 #pragma unroll
-  for (int c = 0; c < TC; ++c) gz0[c] = gz1[c] = 0.f;
+  for (int c = 0; c < TC; ++c) {
+#pragma unroll
+    for (int d = 0; d < DIN; ++d) gz[c][d] = 0.f;
+  }
   if (th.feat) {
     // g_h1[c][f] = g_h2[c][f] + sum_k W2[f][k] g_a2[c][k]: row f of W2.
     float acc[TC];
@@ -206,22 +222,23 @@ __device__ __forceinline__ void tile_vjp(const Tile<NG>& t, const NetArgs& net,
       const int cc = g * TC + c;
       const float gh1 = gh2[c] + acc[c];
       const float ga1 = gh1 * r.sig1[c];
-      ft[3] = fmaf(zc_s[cc * DIM], ga1, ft[3]);
-      ft[4] = fmaf(zc_s[cc * DIM + 1], ga1, ft[4]);
-      ft[5] += ga1;
-      ft[6] += gh1;
-      gz0[c] = fmaf(ga1, th.w1z0, f == 0 ? gh1 : 0.f);
-      gz1[c] = fmaf(ga1, th.w1z1, f == 1 ? gh1 : 0.f);
+#pragma unroll
+      for (int d = 0; d < DIN; ++d) {
+        ft[3 + d] = fmaf(xc_s[cc * DIN + d], ga1, ft[3 + d]);
+        gz[c][d] = fmaf(ga1, th.w1x[d], f == d ? gh1 : 0.f);
+      }
+      ft[3 + DIN] += ga1;
+      ft[4 + DIN] += gh1;
     }
   }
   if (gz_s != nullptr) {  // uniform over the block
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
     for (int c = 0; c < TC; ++c) {
-      const float s0 = warp_sum(gz0[c]), s1 = warp_sum(gz1[c]);
-      if (lane == 0) {
-        gz_s[(warp * TC + c) * DIM] = s0;
-        gz_s[(warp * TC + c) * DIM + 1] = s1;
+#pragma unroll
+      for (int d = 0; d < DIN; ++d) {
+        const float sd = warp_sum(gz[c][d]);
+        if (lane == 0) gz_s[(warp * TC + c) * DIN + d] = sd;
       }
     }
   }
@@ -251,14 +268,14 @@ __device__ __forceinline__ void tile_vjp(const Tile<NG>& t, const NetArgs& net,
   __syncthreads();
 }
 
-// One chain's g_z from the shares tile_vjp left in gz_s: the warps of the
-// chain's group, in order.
-template <int NG>
+// Column d of one chain's g_x from the shares tile_vjp left in gz_s: the
+// warps of the chain's group, in order.
+template <int NG, int DIN>
 __device__ __forceinline__ float tile_gz(const float* gz_s, int chain_in_tile, int d) {
   const int wpg = (blockDim.x >> 5) / NG;
   const int g = chain_in_tile / TC, c = chain_in_tile - g * TC;
   float s = 0.f;
-  for (int w = g * wpg; w < (g + 1) * wpg; ++w) s += gz_s[(w * TC + c) * DIM + d];
+  for (int w = g * wpg; w < (g + 1) * wpg; ++w) s += gz_s[(w * TC + c) * DIN + d];
   return s;
 }
 
@@ -266,17 +283,17 @@ __device__ __forceinline__ float tile_gz(const float* gz_s, int chain_in_tile, i
 // into pb (len_b floats): written, or added to what an earlier tile of the
 // same block left there. Zeroes them for the next point. Every thread calls
 // it after a barrier; it ends with one.
-template <int NG>
+template <int NG, int DIN>
 __device__ __forceinline__ void flush_point(const Tile<NG>& t, const NetArgs& net,
-                                            const FeatThread& th, float ft[NFEAT], float* pb,
-                                            bool add) {
+                                            const FeatThread<DIN>& th, float ft[nfeat(DIN)],
+                                            float* pb, bool add) {
   const int ip = net.in_pad, in = net.in_dim, tid = threadIdx.x, nthr = blockDim.x;
   const int nwarp = nthr >> 5;
   if (th.feat) {
-    t.xs[(th.g * 2) * ip + th.f] = ft[5];
-    t.xs[(th.g * 2 + 1) * ip + th.f] = ft[6];
+    t.xs[(th.g * 2) * ip + th.f] = ft[3 + DIN];
+    t.xs[(th.g * 2 + 1) * ip + th.f] = ft[4 + DIN];
   }
-  ft[5] = ft[6] = 0.f;
+  ft[3 + DIN] = ft[4 + DIN] = 0.f;
   __syncthreads();
   for (int i = tid; i < 2 * in; i += nthr) {
     const int q = i / in, c = i - q * in;
@@ -299,10 +316,11 @@ __device__ __forceinline__ void flush_point(const Tile<NG>& t, const NetArgs& ne
 // dW2 from shared memory; the per-feature sums across the NG groups and the
 // scalars across the warps, in fixed order. Every thread calls it after a
 // barrier; it ends with one.
-template <int NG>
+template <int NG, int DIN>
 __device__ __forceinline__ void flush_block(const Tile<NG>& t, const NetArgs& net,
-                                            const FeatThread& th, const float ft[NFEAT],
-                                            float* pa) {
+                                            const FeatThread<DIN>& th,
+                                            const float ft[nfeat(DIN)], float* pa) {
+  constexpr int NQ = 3 + DIN;  // dheadW (2 x in), db2, dW1[:DIN] (DIN x in)
   const int ip = net.in_pad, in = net.in_dim, tid = threadIdx.x, nthr = blockDim.x;
   const int nwarp = nthr >> 5;
   for (int i = tid; i < in * in; i += nthr) {
@@ -311,19 +329,20 @@ __device__ __forceinline__ void flush_block(const Tile<NG>& t, const NetArgs& ne
   }
   if (th.feat) {
 #pragma unroll
-    for (int q = 0; q < 5; ++q) t.xs[(th.g * 5 + q) * ip + th.f] = ft[q];
+    for (int q = 0; q < NQ; ++q) t.xs[(th.g * NQ + q) * ip + th.f] = ft[q];
   }
   __syncthreads();
-  for (int i = tid; i < 5 * in; i += nthr) {  // dheadW (2 x in), db2, dW1[:2] (2 x in)
+  for (int i = tid; i < NQ * in; i += nthr) {
     const int q = i / in, c = i - q * in;
     float s = 0.f;
-    for (int gg = 0; gg < NG; ++gg) s += t.xs[(gg * 5 + q) * ip + c];
+    for (int gg = 0; gg < NG; ++gg) s += t.xs[(gg * NQ + q) * ip + c];
     pa[in * in + i] = s;
   }
-  if (tid < 8) {
+  if (tid < NSC_BLOCK) {
+    const int slot = tid < 8 ? tid : SC_GAMMA;
     float s = 0.f;
-    for (int w = 0; w < nwarp; ++w) s += t.sc_s[w * NSCAL + tid];
-    pa[in * in + 5 * in + tid] = s;
+    for (int w = 0; w < nwarp; ++w) s += t.sc_s[w * NSCAL + slot];
+    pa[in * in + NQ * in + tid] = s;
   }
   __syncthreads();
 }
@@ -350,8 +369,8 @@ __global__ void partials_reduce(const float* part_a, const float* part_b, float*
 // splits, lb) on `stream`.
 inline cudaError_t launch_reduce(const float* part_a, const float* part_b, float* out_a,
                                  float* out_b, int nblocks, int npoints, int splits,
-                                 int in_dim, cudaStream_t stream) {
-  const int la = len_a(in_dim), lb = len_b(in_dim), total = la + npoints * lb;
+                                 int in_dim, cudaStream_t stream, int din = DIM) {
+  const int la = len_a(in_dim, din), lb = len_b(in_dim), total = la + npoints * lb;
   partials_reduce<<<(total + 255) / 256, 256, 0, stream>>>(part_a, part_b, out_a, out_b,
                                                            nblocks, la, npoints, splits, lb);
   return cudaGetLastError();

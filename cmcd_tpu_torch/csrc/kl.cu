@@ -121,7 +121,7 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_reverse_sweep(const KlArgs a) {
   float* gz_s = cot_s + TB;        // warps x TC x 2
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarp = blockDim.x >> 5;
-  const FeatThread th(net, NG);
+  const FeatThread<DIM> th(net, NG);
   const float eps0 = a.scal[0], factor = a.scal[1];
   float vm[DIM], viv[DIM], hb[DIM];
 #pragma unroll
@@ -246,7 +246,7 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_reverse_sweep(const KlArgs a) {
         if (lane < TB) {
 #pragma unroll
           for (int d = 0; d < DIM; ++d) {
-            const float tot = tz_s[lane * DIM + d] + tile_gz<NG>(gz_s, lane, d);
+            const float tot = tz_s[lane * DIM + d] + tile_gz<NG, DIM>(gz_s, lane, d);
             if (m_bk) {
               ge = fmaf(tot, xi_s[lane * DIM + d], ge);
               fc_s[lane * DIM + d] = tot;

@@ -120,8 +120,8 @@ __global__ void __launch_bounds__(MAX_THREADS) overdamped_rollout(const RolloutA
   for (int idx = tid; idx < 2 * net.n_mix; idx += nthr) mus[idx] = net.means[idx];
 
   const bool feat = tid < in;
-  const float w1z0 = feat ? net.w1z[tid] : 0.f;
-  const float w1z1 = feat ? net.w1z[in + tid] : 0.f;
+  float w1z[DIM];
+  load_w1x<DIM>(net, tid, w1z);
   const float b2f = feat ? net.b2[tid] : 0.f;
   const float eps0 = a.scal[0], factor = a.scal[1];
   const unsigned long long seed = (unsigned long long)a.seed[0];
@@ -146,7 +146,7 @@ __global__ void __launch_bounds__(MAX_THREADS) overdamped_rollout(const RolloutA
   }
   __syncthreads();
 
-  point_eval(net, 0, w1z0, w1z1, b2f, factor, w2s, h1s, h2s, hws, mus, zn_s, gt_s, sn_s);
+  point_eval<DIM>(net, 0, w1z, b2f, factor, w2s, h1s, h2s, hws, mus, zn_s, zn_s, gt_s, sn_s);
   if (owner) {
 #pragma unroll
     for (int d = 0; d < DIM; ++d) {
@@ -186,8 +186,8 @@ __global__ void __launch_bounds__(MAX_THREADS) overdamped_rollout(const RolloutA
       }
     }
     __syncthreads();
-    point_eval(net, min(i + 1, K - 1), w1z0, w1z1, b2f, factor, w2s, h1s, h2s, hws, mus, zn_s,
-               gt_s, sn_s);
+    point_eval<DIM>(net, min(i + 1, K - 1), w1z, b2f, factor, w2s, h1s, h2s, hws, mus, zn_s,
+                    zn_s, gt_s, sn_s);
     if (owner) {
       float r2 = 0.f;
 #pragma unroll

@@ -1,0 +1,351 @@
+// Fused underdamped (leapfrog) CMCD rollout for NVIDIA Hopper (sm_90a), all
+// seven specs of the underdamped family.
+//
+// Replaces cmcd_tpu/ops/pallas_underdamped.py::evolve_underdamped_pallas
+// (the TPU kernel "B6") on the many_gmm target (dim 2) with the two-layer
+// geffner net; the TPU-only time chunking of the stored windows is not
+// ported. The Python wrapper is
+// cmcd_tpu_torch/ops/underdamped.py::evolve_underdamped_fused; its plain
+// PyTorch version evolve_underdamped_fused_plain states the same math step
+// by step. Net layers, head, score, schedule and Philox are cmcd_common.cuh's.
+//
+// One launch runs all K steps for every chain. Per step i, for one chain
+// (e = eps0, or eps0 cos^2 of the schedule for CAIS_UHA; a = gamma e, or
+// gamma eps0 for exact_fwd):
+//   refresh   approx:    fk = rho (1 - a),   s_f = s_b = sqrt(2 a)
+//             exact:     fk = eta rho,       s_f = s_b = sqrt(1 - eta^2)
+//             exact_fwd: fk = exp(-a) rho,   s_f = sqrt(1 - exp(-2a)), s_b = sqrt(2 a)
+//             fwd_sn (CAIS_UHA): fk -= 2 a sn([z, rho], i)
+//   rho'      = fk + s_f xi_{i+1}
+//   leapfrog  rho'' = rho' - e gradU(z) / 2;  z' = z + e rho'';  rho_new = rho'' - e gradU(z') / 2
+//             gradU(x) = -(beta_i clip(gt(x), ct) + (1 - beta_i) gq(x)), ct = 1e2 for
+//             CAIS_UHA, else none
+//   bk        = rho' (1 - a) [eta rho' for exact] + gain sn_b,  gain = 2 a [2 (1 - eta)],
+//             sn_b = sn(z, i) (state net), sn([z, rho'], i) (full net) or 0
+//   w        += log N(rho; bk, s_b^2) - log N(rho'; fk, s_f^2)
+// with -log N(rho_0; 0, I) before the first step and +log N(rho_K; 0, I)
+// after the last. The score at z' is carried into step i + 1, where it is
+// gt(z_{i+1}) under beta_{i+1}: each step evaluates the target score once.
+//
+// What bounds it on the H100. Per chain-step one net apply (two for
+// CAIS_UHA; none for the plain modes), about in_dim^2 FMAs at in_dim 134, the
+// 40-component score, and O(1) bytes of chain state: bound by arithmetic and
+// on-chip bandwidth, not by device memory.
+//
+// What the design does about it (B1's design, overdamped.cu):
+//  * One launch, chain state in the owner thread's registers, W2 in shared
+//    memory for the whole rollout, thread f owns net feature f for the TC
+//    chains of a block, one warp per chain for the head and the score.
+//  * The net's input is [z, rho'] (DIN = 4, full net), z (DIN = 2, state
+//    net) or nothing (DIN = 0): a template parameter, so the modes without a
+//    net carry no net code. The net apply at [z, rho'] and the score at z'
+//    share one pass (both points are known once rho' is), so a step costs
+//    three barriers.
+//  * Layer 1's embedding half (emb_i @ W1[DIN:] + b1) is the wrapper's
+//    product, once per call, as in B1.
+//  * Noise is Philox4x32-10 keyed by the seed with counter (chain, j):
+//    j = 0 the initial momentum, j = i + 1 the refresh of step i. An injected
+//    (K + 1, N, 2) stack in the same layout replaces it.
+//  * KL training needs the path: with store pointers the owner thread also
+//    writes z_0..z_K and rho_0..rho_K (each (K + 1, N, 2), entry j the state
+//    before step j) and the draws (K + 1, N, 2) that the reverse sweep
+//    (kl_underdamped.cu) reads.
+//  * f32 throughout, no tensor cores: wgmma, TMA and bf16 are later work.
+
+#include "cmcd_common.cuh"
+
+namespace {
+
+using namespace cmcd;
+
+constexpr int MAX_THREADS = 256;
+constexpr int XIN = 4;  // floats of one chain's net input buffer: [z, rho']
+constexpr float LOG_2PI_F = 1.8378770664093453f;
+
+struct UdArgs {
+  const float* z0;          // (n, 2)
+  const float* w0;          // (n,)
+  const float* betas;       // (K,)
+  const float* noise;       // (K + 1, n, 2) or nullptr: in-kernel Philox
+  const float* scal;        // [eps0, factor_sn, gamma, eta]
+  const long long* seed;    // one int64
+  NetArgs net;
+  const float* vd_mean;     // (2,)
+  const float* vd_inv_var;  // (2,): exp(-2 logdiag)
+  float* z_out;             // (n, 2)
+  float* w_out;             // (n,)
+  float* ztraj;             // (K + 1, n, 2) or nullptr: z_0..z_K
+  float* rtraj;             // (K + 1, n, 2) or nullptr: rho_0..rho_K
+  float* noise_out;         // (K + 1, n, 2) or nullptr: the Philox draws as used
+  int n, nbridges, refresh, fwd_sn, cais;
+  float clip_t;
+};
+
+// Dynamic shared memory of one block: W2, the two hidden tiles, the head,
+// the means and the per-chain exchange (net input, score point, score, net
+// output). Without a net (in_dim 0) only the means and the exchange.
+__host__ inline size_t smem_bytes(int in_dim, int n_mix) {
+  const int in_pad = round_up(in_dim, 4);
+  size_t floats = (size_t)in_pad * in_pad + 2 * TC * in_pad + 2 * in_pad +
+                  round_up(2 * n_mix, 4) + TC * (XIN + 3 * DIM);
+  return floats * sizeof(float);
+}
+
+__host__ inline bool fits(int in_dim, int n_mix) {
+  return in_dim >= 0 && round_up(in_dim, 32) <= MAX_THREADS && n_mix >= 1 &&
+         n_mix <= MAX_MIX && smem_bytes(in_dim, n_mix) <= MAX_SMEM;
+}
+
+__device__ __forceinline__ void store2(float* dst, size_t row, int n, int chain, const float v[DIM]) {
+  dst[(row * n + chain) * DIM] = v[0];
+  dst[(row * n + chain) * DIM + 1] = v[1];
+}
+
+// Draw j of a live chain: injected, or Philox (stored when asked).
+__device__ __forceinline__ void draw(const UdArgs& a, unsigned long long seed, int chain,
+                                     bool live, int j, float xi[DIM]) {
+  if (a.noise != nullptr) {
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) xi[d] = live ? a.noise[((size_t)j * a.n + chain) * DIM + d] : 0.f;
+  } else {
+    const float2 g = philox_normal2(seed, (uint32_t)chain, (uint32_t)j);
+    xi[0] = g.x;
+    xi[1] = g.y;
+    if (live && a.noise_out != nullptr) store2(a.noise_out, j, a.n, chain, xi);
+  }
+}
+
+template <int DIN>
+__global__ void __launch_bounds__(MAX_THREADS) underdamped_rollout(const UdArgs a) {
+  extern __shared__ float4 smem4[];
+  float* w2s = reinterpret_cast<float*>(smem4);  // in_pad x in_pad
+  const NetArgs& net = a.net;
+  const int ip = net.in_pad, in = net.in_dim, K = a.nbridges;
+  float* h1s = w2s + ip * ip;                       // TC x in_pad
+  float* h2s = h1s + TC * ip;                       // TC x in_pad
+  float* hws = h2s + TC * ip;                       // 2 x in_pad
+  float* mus = hws + 2 * ip;                        // n_mix x 2 (padded to 4)
+  float* xin_s = mus + round_up(2 * net.n_mix, 4);  // TC x DIN: the net's input
+  float* zn_s = xin_s + TC * XIN;                   // TC x 2: where the score is wanted
+  float* gt_s = zn_s + TC * DIM;                    // TC x 2
+  float* sn_s = gt_s + TC * DIM;                    // TC x 2
+
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  float w1x[DIN > 0 ? DIN : 1];
+  float b2f = 0.f;
+  if constexpr (DIN > 0) {
+    load_w2(net, w2s, ip);
+    for (int idx = tid; idx < 2 * TC * ip; idx += nthr) h1s[idx] = 0.f;  // h1s and h2s
+    for (int idx = tid; idx < 2 * ip; idx += nthr) {
+      const int j = idx / ip, k = idx - j * ip;
+      hws[idx] = k < in ? net.headw[j * in + k] : 0.f;
+    }
+    load_w1x<DIN>(net, tid, w1x);
+    b2f = tid < in ? net.b2[tid] : 0.f;
+  }
+  for (int idx = tid; idx < 2 * net.n_mix; idx += nthr) mus[idx] = net.means[idx];
+  const float eps0 = a.scal[0], factor = a.scal[1], gamma = a.scal[2], eta = a.scal[3];
+  const unsigned long long seed = (unsigned long long)a.seed[0];
+
+  // Thread c < TC owns chain blockIdx.x * TC + c; tiles past n run on zeros
+  // and store nothing.
+  const bool owner = tid < TC;
+  const int chain = blockIdx.x * TC + tid;
+  const bool live = owner && chain < a.n;
+  float z[DIM] = {0.f, 0.f}, rho[DIM] = {0.f, 0.f}, gt[DIM] = {0.f, 0.f};
+  float vm[DIM] = {0.f, 0.f}, viv[DIM] = {0.f, 0.f}, wd = 0.f;
+  if (owner) {
+    draw(a, seed, chain, live, 0, rho);
+    float r2 = 0.f;
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) {
+      vm[d] = a.vd_mean[d];
+      viv[d] = a.vd_inv_var[d];
+      if (live) z[d] = a.z0[chain * DIM + d];
+      zn_s[tid * DIM + d] = z[d];
+      r2 += rho[d] * rho[d];
+    }
+    wd = 0.5f * r2 + 0.5f * (float)DIM * LOG_2PI_F;  // -log N(rho_0; 0, I)
+    if (live && a.ztraj != nullptr) {
+      store2(a.ztraj, 0, a.n, chain, z);
+      store2(a.rtraj, 0, a.n, chain, rho);
+    }
+  }
+  __syncthreads();
+  score_eval(net, mus, zn_s, gt_s);
+  if (owner) {
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) gt[d] = gt_s[tid * DIM + d];
+  }
+
+  for (int i = 0; i < K; ++i) {
+    // The step's scalars (uniform over the block) and the owner's draw.
+    const float e = a.cais ? eps0 * eps_slope(i, K, 2) : eps0;
+    float cf, sf, sb, cb, gain, aux = 0.f;
+    if (a.refresh == 1) {  // exact
+      cf = eta;
+      sf = sqrtf(1.0f - eta * eta);
+      sb = sf;
+      cb = eta;
+      gain = 2.0f * (1.0f - eta);
+    } else if (a.refresh == 2) {  // exact_fwd: eta = exp(-gamma eps0)
+      aux = gamma * eps0;
+      const float ee = expf(-aux);
+      cf = ee;
+      sf = sqrtf(1.0f - ee * ee);
+      sb = sqrtf(2.0f * aux);
+      cb = 1.0f - aux;
+      gain = 2.0f * aux;
+    } else {  // approx
+      aux = gamma * e;
+      cf = 1.0f - aux;
+      sf = sqrtf(2.0f * aux);
+      sb = sf;
+      cb = cf;
+      gain = 2.0f * aux;
+    }
+    const float beta = a.betas[i];
+    float xi[DIM] = {0.f, 0.f}, fk[DIM] = {0.f, 0.f};
+    if (owner) {
+      draw(a, seed, chain, live, i + 1, xi);
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) fk[d] = rho[d] * cf;
+    }
+
+    // CAIS_UHA: the net in the forward refresh, at [z, rho], row i.
+    if constexpr (DIN == XIN) {
+      if (a.fwd_sn) {
+        if (owner) {
+#pragma unroll
+          for (int d = 0; d < DIM; ++d) {
+            xin_s[tid * XIN + d] = z[d];
+            xin_s[tid * XIN + DIM + d] = rho[d];
+          }
+        }
+        __syncthreads();
+        point_eval<DIN>(net, i, w1x, b2f, factor, w2s, h1s, h2s, hws, mus, xin_s, nullptr,
+                        gt_s, sn_s);
+        if (owner) {
+#pragma unroll
+          for (int d = 0; d < DIM; ++d) fk[d] = fk[d] - 2.0f * aux * sn_s[tid * DIM + d];
+        }
+      }
+    }
+
+    // Refresh, the first half-kick and the drift; the net's input and the
+    // score point of the step's pass.
+    float rp[DIM] = {0.f, 0.f}, rpp[DIM] = {0.f, 0.f}, xi2 = 0.f;
+    if (owner) {
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) {
+        rp[d] = fk[d] + sf * xi[d];
+        const float gq = -(z[d] - vm[d]) * viv[d];
+        const float gu = -(beta * clip_f(gt[d], a.clip_t) + (1.0f - beta) * gq);
+        rpp[d] = rp[d] - e * gu / 2.0f;
+        zn_s[tid * DIM + d] = z[d] + e * rpp[d];
+        if constexpr (DIN > 0) xin_s[tid * DIN + d] = z[d];
+        if constexpr (DIN == XIN) xin_s[tid * XIN + DIM + d] = rp[d];
+        xi2 += xi[d] * xi[d];
+      }
+    }
+    __syncthreads();
+    if constexpr (DIN > 0) {
+      point_eval<DIN>(net, i, w1x, b2f, factor, w2s, h1s, h2s, hws, mus, xin_s, zn_s, gt_s,
+                      sn_s);
+    } else {
+      score_eval(net, mus, zn_s, gt_s);
+    }
+
+    // The second half-kick at z' and the step's log-weight increment.
+    if (owner) {
+      float r2 = 0.f;
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) {
+        const float zn = zn_s[tid * DIM + d], gtn = gt_s[tid * DIM + d];
+        const float gq = -(zn - vm[d]) * viv[d];
+        const float gu = -(beta * clip_f(gtn, a.clip_t) + (1.0f - beta) * gq);
+        float bk = rp[d] * cb;
+        if constexpr (DIN > 0) bk = bk + gain * sn_s[tid * DIM + d];
+        const float r = (rho[d] - bk) / sb;
+        r2 += r * r;
+        rho[d] = rpp[d] - e * gu / 2.0f;
+        z[d] = zn;
+        gt[d] = gtn;
+      }
+      const float fk_lp = -0.5f * xi2 - (float)DIM * (0.5f * LOG_2PI_F + logf(sf));
+      const float bk_lp = -0.5f * r2 - (float)DIM * (0.5f * LOG_2PI_F + logf(sb));
+      wd = wd + (bk_lp - fk_lp);
+      if (live && a.ztraj != nullptr) {
+        store2(a.ztraj, i + 1, a.n, chain, z);
+        store2(a.rtraj, i + 1, a.n, chain, rho);
+      }
+    }
+  }
+
+  if (live) {
+    const float r2 = rho[0] * rho[0] + rho[1] * rho[1];
+    wd = wd - 0.5f * r2 - 0.5f * (float)DIM * LOG_2PI_F;  // +log N(rho_K; 0, I)
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) a.z_out[chain * DIM + d] = z[d];
+    a.w_out[chain] = a.w0[chain] + wd;
+  }
+}
+
+template <int DIN>
+cudaError_t launch(const UdArgs& a, cudaStream_t stream) {
+  const size_t smem = smem_bytes(a.net.in_dim, a.net.n_mix);
+  cudaError_t err = cudaFuncSetAttribute(underdamped_rollout<DIN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  // One thread per net feature; without a net one warp per chain.
+  const int threads = DIN > 0 ? round_up(a.net.in_dim, 32) : TC * 32;
+  const int blocks = (a.n + TC - 1) / TC;
+  underdamped_rollout<DIN><<<blocks, threads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches the rollout on `stream`. din: the net's input columns ahead of
+// the embedding (0: no net, in_dim and emb_dim 0 and the weights null; 2:
+// the state; 4: [z, rho']). refresh: 0 approx, 1 exact, 2 exact_fwd. The
+// three stores are all null or all set. Returns a cudaError_t (0 on success).
+int cmcd_underdamped_rollout(const float* z0, const float* w0, const float* betas,
+                             const float* noise, const float* scal, const long long* seed,
+                             const float* w1x, const float* c1, const float* emb,
+                             const float* w2, const float* b2, const float* headw,
+                             const float* headb, const float* means, const float* vd_mean,
+                             const float* vd_inv_var, float* z_out, float* w_out, float* ztraj,
+                             float* rtraj, float* noise_out, int n, int nbridges, int din,
+                             int in_dim, int emb_dim, int n_mix, int refresh, int fwd_sn,
+                             int cais, float inv_var_t, float clip_t, void* stream) {
+  if (n <= 0 || nbridges <= 0) return (int)cudaSuccess;
+  if (din != 0 && din != DIM && din != XIN) return (int)cudaErrorInvalidValue;
+  if (in_dim != (din > 0 ? din + emb_dim : 0) || !fits(in_dim, n_mix))
+    return (int)cudaErrorInvalidValue;
+  if (refresh < 0 || refresh > 2 || (fwd_sn && din != XIN)) return (int)cudaErrorInvalidValue;
+  if ((ztraj == nullptr) != (rtraj == nullptr)) return (int)cudaErrorInvalidValue;
+  const NetArgs net{w1x, c1, emb, w2, b2, headw, headb, means,
+                    in_dim, round_up(in_dim, 4), emb_dim, n_mix, inv_var_t};
+  const UdArgs a{z0, w0, betas, noise, scal, seed, net, vd_mean, vd_inv_var, z_out, w_out,
+                 ztraj, rtraj, noise_out, n, nbridges, refresh, fwd_sn, cais, clip_t};
+  const cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t err = din == XIN ? launch<XIN>(a, s) : din == DIM ? launch<DIM>(a, s)
+                                                                      : launch<0>(a, s);
+  return (int)err;
+}
+
+const char* cmcd_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+int cmcd_underdamped_chains_per_block() { return TC; }
+
+// The launch's own limits, for the wrapper to check its copy against.
+int cmcd_underdamped_fits(int in_dim, int n_mix) { return fits(in_dim, n_mix) ? 1 : 0; }
+
+long long cmcd_underdamped_smem_bytes(int in_dim, int n_mix) {
+  return (long long)smem_bytes(in_dim, n_mix);
+}
+
+}  // extern "C"

@@ -201,7 +201,7 @@ __global__ void __launch_bounds__(NG_REPLAY* FW_MAX) vargrad_replay(const Vargra
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarp = blockDim.x >> 5;
   const int j = blockIdx.x / a.splits, split = blockIdx.x - j * a.splits;
-  const FeatThread th(net, NG);
+  const FeatThread<DIM> th(net, NG);
   const PointArgs p = make_point(j, K, a.eps_schedule, a.scal, a.betas, a.vd_mean,
                                  a.vd_logdiag, net, a.clip_t, a.clip_q);
   tile_init(t, net);
@@ -261,7 +261,7 @@ __global__ void __launch_bounds__(NG* FW_MAX) vargrad_reroll(const RerollArgs a)
   float* cot_s = go_s + TB * DIM;  // TB
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarp = blockDim.x >> 5;
-  const FeatThread th(net, NG);
+  const FeatThread<DIM> th(net, NG);
   const unsigned long long seed = (unsigned long long)a.seed[0];
   tile_init(t, net);
   float ft[NFEAT];

@@ -54,3 +54,8 @@ def kernel_log_prob(x, mean, scale):
     y = (x - mean) / scale
     log_scale = torch.log(scale).expand(x.shape)
     return -0.5 * torch.sum(y * y + LOG_2PI, dim=-1) - torch.sum(log_scale, dim=-1)
+
+
+def std_normal_log_prob(x):
+    """log N(x; 0, I) summed over the last axis: (N, dim) -> (N,)."""
+    return -0.5 * torch.sum(x * x + LOG_2PI, dim=-1)

@@ -1,12 +1,13 @@
 """Integrator mode registry (cmcd_tpu/integrators/__init__.py).
 
-Serves the overdamped modes ported so far; every other mode (DNF, the
-underdamped family, UHA) raises NotImplementedError naming ROADMAP.
+Serves the overdamped modes ported so far and the seven underdamped modes;
+every other mode (DNF, UHA) raises NotImplementedError naming ROADMAP.
 """
 
 from __future__ import annotations
 
 from cmcd_tpu_torch.integrators import overdamped as od
+from cmcd_tpu_torch.integrators import underdamped as ud
 from cmcd_tpu_torch.integrators.base import IntegratorContext
 
 OVERDAMPED = {
@@ -16,16 +17,34 @@ OVERDAMPED = {
     "MCD_CAIS_var_sn": od.CAIS_VAR,
 }
 
-MODES_WITH_STATE_SN = ["MCD_ULA_sn", "MCD_CAIS_sn", "MCD_CAIS_var_sn"]
+UNDERDAMPED = {
+    "MCD_U_a-lp": ud.U_A_LP,
+    "MCD_U_a-lp-sna": ud.U_A_LP_SNA,
+    "MCD_U_a-lp-sn": ud.U_A_LP_SN,
+    "MCD_U_e-lp": ud.U_E_LP,
+    "MCD_U_e-lp-sna": ud.U_E_LP_SNA,
+    "MCD_U_ea-lp-sn": ud.U_EA_LP_SN,
+    "MCD_CAIS_UHA_sn": ud.CAIS_UHA,
+}
+
+# Modes whose score net sees the state only, and those whose net sees
+# [z, rho] (rho_dim = dim).
+MODES_WITH_STATE_SN = ["MCD_ULA_sn", "MCD_U_e-lp-sna", "MCD_U_a-lp-sna", "MCD_CAIS_sn",
+                       "MCD_CAIS_var_sn"]
+MODES_WITH_FULL_SN = ["MCD_U_a-lp-sn", "MCD_U_ea-lp-sn", "MCD_CAIS_UHA_sn"]
 
 
 def mode_uses_score_network(mode: str) -> bool:
-    return mode in MODES_WITH_STATE_SN
+    return mode in MODES_WITH_STATE_SN or mode in MODES_WITH_FULL_SN
+
+
+def mode_sn_rho_dim(mode: str, dim: int) -> int:
+    return dim if mode in MODES_WITH_FULL_SN else 0
 
 
 def check_mode(mode: str) -> None:
     """Raise NotImplementedError unless `mode` is served here."""
-    if mode not in OVERDAMPED:
+    if mode not in OVERDAMPED and mode not in UNDERDAMPED:
         raise NotImplementedError(
             f"mode {mode!r} is not ported yet: see ROADMAP queue A"
         )
@@ -33,8 +52,14 @@ def check_mode(mode: str) -> None:
 
 def evolve(z, betas, params, ctx: IntegratorContext, mode: str, *,
            noise=None, generator=None):
-    """Dispatch to the stepper family of `mode`."""
+    """Dispatch to the stepper family of `mode`. noise: (K, N, dim) for an
+    overdamped mode, (K + 1, N, dim) for an underdamped one (row 0 the
+    initial momentum)."""
     check_mode(mode)
+    if mode in UNDERDAMPED:
+        return ud.evolve_underdamped(
+            z, betas, params, ctx, UNDERDAMPED[mode], noise=noise, generator=generator
+        )
     return od.evolve_overdamped(
         z, betas, params, ctx, OVERDAMPED[mode], noise=noise, generator=generator
     )

@@ -17,7 +17,10 @@ evaluation (and the EMA parameters' when use_ema), JSONL metrics
 (ops/fused_train: var_bound_fused for MCD_CAIS_var_sn, the rollout kernel
 with its trajectory and the replay or re-rolling backward kernel;
 kl_bound_fused for MCD_CAIS_sn, the rollout kernel with trajectory and noise
-and the reverse-sweep kernel) and evaluation through the fused rollout, one
+and the reverse-sweep kernel, and for the approximate-refresh underdamped
+modes MCD_U_a-lp, -sna and -sn (LDVI), the underdamped rollout kernel with
+its stores and the underdamped sweep) and evaluation through the fused
+rollout of the mode's family (the seven underdamped modes included), one
 launch per seed group; a configuration the kernels do not cover, or
 use_pallas_train / use_pallas_eval off, raises there instead of running
 eagerly. On the CPU the two switches pick the kernels' plain versions or

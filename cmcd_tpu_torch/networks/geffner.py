@@ -6,7 +6,9 @@ x_dim, an embedding table emb[nbridges, emb_dim] and an output scale
 factor_sn that starts at 0, so the net starts as an exact zero correction.
 The bridge index is clamped to [0, nbridges - 1]: the CAIS backward kernel
 asks for i + 1 = nbridges at the last step, where torch indexing would
-raise (and an unchecked CUDA load would read past the table).
+raise (and an unchecked CUDA load would read past the table). With
+rho_dim > 0 (the underdamped modes whose net sees [z, rho']) the input is
+x_dim + rho_dim wide and the head still returns x_dim values.
 
 Weights are torch's own glorot-normal with a Generator; they do not match
 JAX's bits, so tests share weights through utils/convert.py.
@@ -27,10 +29,11 @@ def softplus(x):
 
 class GeffnerNet(nn.Module):
     def __init__(self, x_dim, emb_dim, nbridges, nlayers=2,
-                 generator=None, device=None):
+                 generator=None, device=None, rho_dim=0):
         super().__init__()
-        in_dim = x_dim + emb_dim
+        in_dim = x_dim + rho_dim + emb_dim
         self.x_dim, self.emb_dim, self.nbridges = x_dim, emb_dim, nbridges
+        self.rho_dim = rho_dim
         self.in_dim = in_dim
         self.layers = nn.ModuleList(
             nn.Linear(in_dim, in_dim, device=device) for _ in range(nlayers)
@@ -53,7 +56,7 @@ class GeffnerNet(nn.Module):
         self.factor_sn.zero_()
 
     def forward(self, x, i: int):
-        """x: (N, x_dim), i: bridge index -> (N, x_dim)."""
+        """x: (N, x_dim + rho_dim), i: bridge index -> (N, x_dim)."""
         i = min(max(int(i), 0), self.nbridges - 1)
         emb = self.emb[i].expand(x.shape[0], self.emb_dim)
         h = torch.cat([x, emb], dim=-1)
@@ -63,8 +66,8 @@ class GeffnerNet(nn.Module):
 
 
 def build_geffner_network(x_dim, emb_dim, nbridges, nlayers=2,
-                          generator=None, device=None):
+                          generator=None, device=None, rho_dim=0):
     """Returns (net, apply_fn) with apply_fn(net, x, i) = net(x, i)."""
     net = GeffnerNet(x_dim, emb_dim, nbridges, nlayers,
-                     generator=generator, device=device)
+                     generator=generator, device=device, rho_dim=rho_dim)
     return net, lambda net_, x, i: net_(x, i)

@@ -4,6 +4,7 @@ a kernel is built by ops/build.py the first time its wrapper launches it."""
 from cmcd_tpu_torch.ops.fused import compute_elbos_fused, supports_fused
 from cmcd_tpu_torch.ops.fused_train import (
     KL_FUSED_MODES,
+    UD_KL_FUSED_MODES,
     fused_training_path,
     kl_bound_fused,
     neg_elbos_fused,
@@ -12,11 +13,19 @@ from cmcd_tpu_torch.ops.fused_train import (
     var_bound_fused,
 )
 from cmcd_tpu_torch.ops.kl import evolve_kl_bwd, evolve_kl_bwd_plain
+from cmcd_tpu_torch.ops.kl_underdamped import (
+    evolve_kl_bwd_underdamped,
+    evolve_kl_bwd_underdamped_plain,
+)
 from cmcd_tpu_torch.ops.overdamped import (
     evolve_overdamped_fused,
     evolve_overdamped_fused_plain,
 )
 from cmcd_tpu_torch.ops.target_grads import score_for_target
+from cmcd_tpu_torch.ops.underdamped import (
+    evolve_underdamped_fused,
+    evolve_underdamped_fused_plain,
+)
 from cmcd_tpu_torch.ops.vargrad import (
     evolve_vargrad_bwd_replay,
     evolve_vargrad_bwd_replay_plain,
@@ -26,11 +35,16 @@ from cmcd_tpu_torch.ops.vargrad import (
 
 __all__ = [
     "KL_FUSED_MODES",
+    "UD_KL_FUSED_MODES",
     "compute_elbos_fused",
     "evolve_kl_bwd",
     "evolve_kl_bwd_plain",
+    "evolve_kl_bwd_underdamped",
+    "evolve_kl_bwd_underdamped_plain",
     "evolve_overdamped_fused",
     "evolve_overdamped_fused_plain",
+    "evolve_underdamped_fused",
+    "evolve_underdamped_fused_plain",
     "evolve_vargrad_bwd_replay",
     "evolve_vargrad_bwd_replay_plain",
     "evolve_vargrad_bwd_reroll",

@@ -1,9 +1,11 @@
-"""The evaluation entry through the fused rollout
+"""The evaluation entry through the fused rollouts
 (cmcd_tpu/ops/fused.py::compute_elbos_fused and supports_fused).
 
 The variational draw, the initial and final log-prob terms and the beta grid
-stay in plain torch; the K-step loop runs in one launch of the CUDA kernel
-(ops/overdamped.py). Forward only: evaluation, sampling, ln Z.
+stay in plain torch; the K-step loop runs in one launch of a CUDA kernel:
+the overdamped rollout (ops/overdamped.py) for the CAIS modes, the
+underdamped rollout (ops/underdamped.py) for the seven underdamped modes.
+Forward only: evaluation, sampling, ln Z.
 """
 
 from __future__ import annotations
@@ -12,43 +14,56 @@ import torch
 
 from cmcd_tpu_torch import bounds
 from cmcd_tpu_torch.distributions import diag_gaussian_log_prob, diag_gaussian_sample
+from cmcd_tpu_torch.integrators import UNDERDAMPED
 from cmcd_tpu_torch.integrators import overdamped as od
-from cmcd_tpu_torch.ops.overdamped import evolve_overdamped_fused, kernel_fits
+from cmcd_tpu_torch.ops import overdamped, underdamped
 from cmcd_tpu_torch.ops.target_grads import score_for_target
 from cmcd_tpu_torch.schedules import betas_from_grid
 
 KERNEL_SPECS = {"MCD_CAIS_sn": od.CAIS, "MCD_CAIS_var_sn": od.CAIS_VAR}
 
 
+def net_width(setup: bounds.CMCDSetup) -> int:
+    """The score net's in_dim in the mode of `setup` (0 without a net)."""
+    if setup.mode in UNDERDAMPED:
+        din = underdamped.net_input_width(UNDERDAMPED[setup.mode], setup.dim)
+        return din + setup.emb_dim if din else 0
+    return setup.dim + setup.emb_dim
+
+
 def supports_fused(setup: bounds.CMCDSetup, target) -> bool:
-    """True if the kernel implements (mode, target score, net) at this size:
-    a CAIS-family mode, the default many_gmm, the two-layer geffner net on
-    the state, and a net width that fits one block's threads and shared
-    memory (ops/overdamped.kernel_fits)."""
+    """True if a kernel implements (mode, target score, net) at this size:
+    a CAIS-family or underdamped mode, the default many_gmm, the two-layer
+    geffner net, and a net width that fits one block's threads and shared
+    memory (the rollout's kernel_fits)."""
     score = score_for_target(target)
+    if setup.mode in KERNEL_SPECS:
+        fits = overdamped.kernel_fits
+    elif setup.mode in UNDERDAMPED:
+        fits = underdamped.kernel_fits
+    else:
+        return False
     return (
-        setup.mode in KERNEL_SPECS
-        and score is not None
+        score is not None
         and setup.dim == 2
         and setup.nn_arch == "geffner"
         and setup.nlayers == 2
         and setup.nbridges >= 1
-        and kernel_fits(setup.dim + setup.emb_dim, score.means.shape[0])
+        and fits(net_width(setup), score.means.shape[0])
     )
 
 
 @torch.no_grad()
 def compute_elbos_fused(params, n_chains: int, setup: bounds.CMCDSetup, target,
-                        *, generator=None, base_normals=None, noise=None,
-                        rollout=evolve_overdamped_fused):
+                        *, generator=None, base_normals=None, noise=None, rollout=None):
     """Per-chain negative ELBOs via the fused rollout: (neg_elbos (N,), z (N, dim)).
 
     Same contract as bounds.compute_elbos. The kernel's Philox seed is drawn
     from `generator` on the device, so consecutive calls need no host sync.
-    base_normals (N, dim) / noise (K, N, dim): optional draws standing in
-    for the generator's. rollout: the kernel's wrapper, or its plain twin
-    (ops/overdamped.evolve_overdamped_fused_plain) when the two are compared
-    on the card.
+    base_normals (N, dim) / noise ((K, N, dim) overdamped, (K + 1, N, dim)
+    underdamped): optional draws standing in for the generator's. rollout:
+    None for the kernel's wrapper of the mode's family, or a stand-in with
+    its signature (the plain version, when the two are compared on the card).
     """
     if not supports_fused(setup, target):
         raise NotImplementedError(
@@ -63,13 +78,20 @@ def compute_elbos_fused(params, n_chains: int, setup: bounds.CMCDSetup, target,
     w0 = -diag_gaussian_log_prob(vd, z0)
     betas = betas_from_grid(p["mgridref_y"], p["gridref_x"], p["target_x"])
     seed = torch.randint(2**31 - 1, (1,), generator=generator, device=dev)
-    z, w = rollout(
-        z0.contiguous(), w0.contiguous(), betas.contiguous(), p["eps"],
-        vd["mean"].contiguous(), vd["logdiag"].contiguous(),
-        score_for_target(target, dev), KERNEL_SPECS[setup.mode],
-        dim=setup.dim, nbridges=setup.nbridges, sn=p["sn"],
-        eps_schedule=setup.eps_schedule, grad_clipping=setup.grad_clipping,
-        seed=seed, noise=noise,
-    )
+    score = score_for_target(target, dev)
+    common = dict(dim=setup.dim, nbridges=setup.nbridges, sn=p.get("sn"), seed=seed, noise=noise)
+    if setup.mode in UNDERDAMPED:
+        z, w = (rollout or underdamped.evolve_underdamped_fused)(
+            z0.contiguous(), w0.contiguous(), betas.contiguous(), p["eps"], p["gamma"],
+            p["eta"], vd["mean"].contiguous(), vd["logdiag"].contiguous(), score,
+            UNDERDAMPED[setup.mode], **common,
+        )
+    else:
+        z, w = (rollout or overdamped.evolve_overdamped_fused)(
+            z0.contiguous(), w0.contiguous(), betas.contiguous(), p["eps"],
+            vd["mean"].contiguous(), vd["logdiag"].contiguous(), score,
+            KERNEL_SPECS[setup.mode], eps_schedule=setup.eps_schedule,
+            grad_clipping=setup.grad_clipping, **common,
+        )
     w = w + target.log_prob(z)
     return -w, z

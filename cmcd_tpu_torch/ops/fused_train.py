@@ -1,12 +1,15 @@
 """The fused training losses: kernel forward, kernel backward
 (cmcd_tpu/ops/fused_train.py: _make_evolve, neg_elbos_pallas,
-var_bound_pallas; _make_evolve_kl, neg_elbos_pallas_kl, kl_bound_pallas).
+var_bound_pallas; _make_evolve_kl, _make_evolve_kl_ud, neg_elbos_pallas_kl,
+kl_bound_pallas).
 
 var_bound_fused stands in for bounds.var_bound on MCD_CAIS_var_sn and
-kl_bound_fused for bounds.kl_bound on MCD_CAIS_sn: the same (loss,
-(neg_elbos, z)) contract and the same math, but the K-step rollout runs in
-the fused rollout kernel (ops/overdamped.py) and the gradient in a backward
-kernel, joined by a torch.autograd.Function.
+kl_bound_fused for bounds.kl_bound on MCD_CAIS_sn and the three
+approximate-refresh underdamped modes (UD_KL_FUSED_MODES; LDVI is
+MCD_U_a-lp-sn): the same (loss, (neg_elbos, z)) contract and the same math,
+but the K-step rollout runs in a fused rollout kernel (ops/overdamped.py,
+ops/underdamped.py) and the gradient in a backward kernel, joined by a
+torch.autograd.Function.
 
 Everything outside the bridge loop stays plain autograd, as in JAX: the
 reparameterised initial term -log q(z0(theta)), the chain rule from
@@ -23,10 +26,12 @@ again from (z0, seed); "auto" replays unless the stored trajectory,
 (K + 1) * N * dim * 4 bytes, would exceed _REPLAY_BYTES_BUDGET.
 
 KL cuts nothing: z0 and z_final carry real cotangents. The rollout stores
-trajectory and noise, autograd gives the final target term's gradient in
-z_final, and the reverse-sweep kernel (ops/kl.py) chains it back through
-every step to theta and to z0, from where autograd goes on through the
-reparameterised draw.
+trajectory and noise (the underdamped one also the momenta), autograd gives
+the final target term's gradient in z_final, and the reverse-sweep kernel
+(ops/kl.py, ops/kl_underdamped.py) chains it back through every step to
+theta and to z0, from where autograd goes on through the reparameterised
+draw. The underdamped sweep also returns gamma's gradient, and eta's, which
+is zero in these modes (the JAX package gives zeros too).
 
 On CPU tensors the Functions run the plain versions; on CUDA tensors they
 launch the kernels or raise. plain=True runs the plain versions wherever the
@@ -42,12 +47,21 @@ import torch
 
 from cmcd_tpu_torch import bounds
 from cmcd_tpu_torch.distributions import diag_gaussian_log_prob, diag_gaussian_sample
+from cmcd_tpu_torch.integrators import UNDERDAMPED
 from cmcd_tpu_torch.integrators import overdamped as od
-from cmcd_tpu_torch.ops import kl, vargrad
-from cmcd_tpu_torch.ops.fused import supports_fused
+from cmcd_tpu_torch.ops import kl, kl_underdamped, vargrad
+from cmcd_tpu_torch.ops.fused import net_width, supports_fused
 from cmcd_tpu_torch.ops.kl import evolve_kl_bwd, evolve_kl_bwd_plain
+from cmcd_tpu_torch.ops.kl_underdamped import (
+    evolve_kl_bwd_underdamped,
+    evolve_kl_bwd_underdamped_plain,
+)
 from cmcd_tpu_torch.ops.overdamped import evolve_overdamped_fused, evolve_overdamped_fused_plain
 from cmcd_tpu_torch.ops.target_grads import score_for_target
+from cmcd_tpu_torch.ops.underdamped import (
+    evolve_underdamped_fused,
+    evolve_underdamped_fused_plain,
+)
 from cmcd_tpu_torch.ops.vargrad import (
     evolve_vargrad_bwd_replay,
     evolve_vargrad_bwd_replay_plain,
@@ -56,9 +70,14 @@ from cmcd_tpu_torch.ops.vargrad import (
 )
 from cmcd_tpu_torch.schedules import betas_from_grid
 
+# The underdamped modes whose KL loss has a fused backward: the
+# approximate-refresh ones (B7's kernel covers them). Still to port: the
+# exact and exact_fwd refreshes and MCD_CAIS_UHA_sn.
+UD_KL_FUSED_MODES = frozenset({"MCD_U_a-lp", "MCD_U_a-lp-sna", "MCD_U_a-lp-sn"})
 # The modes whose KL loss has a fused backward. Still to port: MCD_ULA,
-# MCD_ULA_sn and MCD_DNF (the per-point sweep), UHA and the underdamped family.
-KL_FUSED_MODES = frozenset({"MCD_CAIS_sn"})
+# MCD_ULA_sn and MCD_DNF (the per-point sweep), UHA and the rest of the
+# underdamped family.
+KL_FUSED_MODES = frozenset({"MCD_CAIS_sn"}) | UD_KL_FUSED_MODES
 
 # The stored trajectory costs (K + 1) * N * dim * 4 bytes between the forward
 # and the backward kernel; past this budget "auto" takes the re-rolling
@@ -72,10 +91,10 @@ def supports_fused_train(setup: bounds.CMCDSetup, target) -> bool:
     also fits one block of that mode's backward kernel."""
     if not supports_fused(setup, target):
         return False
-    fits = {"MCD_CAIS_var_sn": vargrad.kernel_fits}
-    fits.update(dict.fromkeys(KL_FUSED_MODES, kl.kernel_fits))
+    fits = {"MCD_CAIS_var_sn": vargrad.kernel_fits, "MCD_CAIS_sn": kl.kernel_fits}
+    fits.update(dict.fromkeys(UD_KL_FUSED_MODES, kl_underdamped.kernel_fits))
     return setup.mode in fits and fits[setup.mode](
-        setup.dim + setup.emb_dim, score_for_target(target).means.shape[0])
+        net_width(setup), score_for_target(target).means.shape[0])
 
 
 def choose_backward(backward: str, setup: bounds.CMCDSetup, n_chains: int) -> str:
@@ -92,7 +111,8 @@ def choose_backward(backward: str, setup: bounds.CMCDSetup, n_chains: int) -> st
 def _theta_grads(call, g, eps):
     """A backward kernel's gradient dict in the order of the Functions' theta
     inputs: eps, betas, vd_mean, vd_logdiag, the net's parameters."""
-    g_weights = [g["sn"][name] for name, _ in call["static"]["sn"].named_parameters()]
+    sn = call["static"]["sn"]
+    g_weights = [] if sn is None else [g["sn"][name] for name, _ in sn.named_parameters()]
     return (g["eps"].reshape(eps.shape), g["betas"], g["vd_mean"], g["vd_logdiag"], *g_weights)
 
 
@@ -165,10 +185,49 @@ class _EvolveKL(torch.autograd.Function):
         return (None, g_z0, None, None, *_theta_grads(call, g, eps))
 
 
+class _EvolveKLUD(torch.autograd.Function):
+    """(theta, z0; seed, noise) -> (deltas, z_final) for an approximate-refresh
+    underdamped mode, nothing cut.
+
+    Forward: the fused underdamped rollout, storing positions, momenta and
+    draws. Backward: the underdamped reverse-sweep kernel with the cotangents
+    of deltas and of z_final; returns the gradients of theta (eps, gamma,
+    eta, betas, vd_mean, vd_logdiag, the net's parameters if the mode has a
+    net) and of z0.
+    """
+
+    @staticmethod
+    def forward(ctx, call, z0, seed, noise, eps, gamma, eta, betas, vd_mean, vd_logdiag,
+                *weights):
+        z, deltas, ztraj, rtraj, draws = call["rollout"](
+            z0, torch.zeros(z0.shape[0], dtype=z0.dtype, device=z0.device),
+            betas.contiguous(), eps, gamma, eta, vd_mean.contiguous(), vd_logdiag.contiguous(),
+            call["score"], call["spec"], seed=seed, noise=noise, return_state=True,
+            **call["static"],
+        )
+        ctx.call = call
+        ctx.save_for_backward(ztraj, rtraj, draws, eps, gamma, eta, betas, vd_mean, vd_logdiag)
+        return deltas, z
+
+    @staticmethod
+    def backward(ctx, g_deltas, g_z):
+        call = ctx.call
+        ztraj, rtraj, draws, eps, gamma, eta, betas, vd_mean, vd_logdiag = ctx.saved_tensors
+        g, g_z0 = call["backward"](
+            ztraj, rtraj, draws, g_deltas.contiguous(), g_z.contiguous(), betas.contiguous(),
+            eps, gamma, eta, vd_mean.contiguous(), vd_logdiag.contiguous(), call["score"],
+            call["spec"], **call["static"],
+        )
+        g_eps, g_betas, g_mu, g_ld, *g_weights = _theta_grads(call, g, eps)
+        return (None, g_z0, None, None, g_eps, g["gamma"].reshape(gamma.shape),
+                g["eta"].reshape(eta.shape), g_betas, g_mu, g_ld, *g_weights)
+
+
 def _prepare(params, n_chains, setup, target, generator, base_normals, plain, backward):
     """What both losses do before the rollout: (p, z0, w0, betas, seed, call).
-    call["backward"] is the wrapper named `backward` ("replay", "reroll" or
-    "kl"), call["rollout"] the rollout's, or with `plain` their plain versions."""
+    call["backward"] is the wrapper named `backward` ("replay", "reroll",
+    "kl" or "kl_ud"), call["rollout"] the rollout's of the mode's family, or
+    with `plain` their plain versions."""
     if not supports_fused_train(setup, target):
         raise NotImplementedError(
             f"no fused training kernels for mode {setup.mode} on {target.name} "
@@ -187,15 +246,21 @@ def _prepare(params, n_chains, setup, target, generator, base_normals, plain, ba
         "replay": (evolve_vargrad_bwd_replay, evolve_vargrad_bwd_replay_plain),
         "reroll": (evolve_vargrad_bwd_reroll, evolve_vargrad_bwd_reroll_plain),
         "kl": (evolve_kl_bwd, evolve_kl_bwd_plain),
+        "kl_ud": (evolve_kl_bwd_underdamped, evolve_kl_bwd_underdamped_plain),
     }
     call = {
-        "rollout": evolve_overdamped_fused_plain if plain else evolve_overdamped_fused,
         "backward": wrappers[backward][plain],
         "replay": backward == "replay",
         "score": score_for_target(target, dev),
-        "static": dict(dim=setup.dim, nbridges=setup.nbridges, sn=p["sn"],
-                       eps_schedule=setup.eps_schedule, grad_clipping=setup.grad_clipping),
     }
+    if setup.mode in UNDERDAMPED:
+        call["rollout"] = evolve_underdamped_fused_plain if plain else evolve_underdamped_fused
+        call["spec"] = UNDERDAMPED[setup.mode]
+        call["static"] = dict(dim=setup.dim, nbridges=setup.nbridges, sn=p.get("sn"))
+    else:
+        call["rollout"] = evolve_overdamped_fused_plain if plain else evolve_overdamped_fused
+        call["static"] = dict(dim=setup.dim, nbridges=setup.nbridges, sn=p["sn"],
+                              eps_schedule=setup.eps_schedule, grad_clipping=setup.grad_clipping)
     return p, z0, w0, betas, seed, call
 
 
@@ -239,20 +304,30 @@ def neg_elbos_fused_kl(params, n_chains: int, ctx, setup: bounds.CMCDSetup, targ
     state cotangent chains through every step, the final target term and the
     reparameterised initial draw): (neg_elbos, z).
 
-    The draws and plain as in neg_elbos_fused.
+    The draws and plain as in neg_elbos_fused; an underdamped mode's noise is
+    (K + 1, N, dim), row 0 the initial momentum.
     """
     if setup.mode not in KL_FUSED_MODES:
         raise NotImplementedError(
             f"the fused KL loss implements {sorted(KL_FUSED_MODES)}, not {setup.mode}; "
             "see ROADMAP queue B"
         )
+    ud = setup.mode in UD_KL_FUSED_MODES
     p, z0, w0, betas, seed, call = _prepare(params, n_chains, setup, target, generator,
-                                            base_normals, plain, "kl")
+                                            base_normals, plain, "kl_ud" if ud else "kl")
     vd = p["vd"]
-    deltas, z = _EvolveKL.apply(
-        call, z0.contiguous(), seed, noise, torch.as_tensor(p["eps"], device=z0.device),
-        betas, vd["mean"], vd["logdiag"], *p["sn"].parameters(),
-    )
+    scalar = lambda name: torch.as_tensor(p[name], device=z0.device)
+    weights = p["sn"].parameters() if "sn" in p else ()
+    if ud:
+        deltas, z = _EvolveKLUD.apply(
+            call, z0.contiguous(), seed, noise, scalar("eps"), scalar("gamma"), scalar("eta"),
+            betas, vd["mean"], vd["logdiag"], *weights,
+        )
+    else:
+        deltas, z = _EvolveKL.apply(
+            call, z0.contiguous(), seed, noise, scalar("eps"), betas, vd["mean"],
+            vd["logdiag"], *weights,
+        )
     # The floored eager log-prob: its gradient in z is the sweep's g_zfinal.
     w = w0 + deltas + ctx.target_log_prob(z)
     return -w, z
@@ -273,4 +348,6 @@ def fused_training_path(setup: bounds.CMCDSetup, n_chains: int) -> tuple:
         backward = choose_backward("auto", setup, n_chains)
         return (functools.partial(var_bound_fused, backward=backward),
                 f"var_bound_fused, VarGrad {backward} backward")
+    if setup.mode in UD_KL_FUSED_MODES:
+        return kl_bound_fused, "kl_bound_fused, underdamped rollout and KL reverse sweep"
     return kl_bound_fused, "kl_bound_fused, KL reverse sweep"

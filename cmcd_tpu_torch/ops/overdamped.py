@@ -190,18 +190,21 @@ def _f32(t, device):
 
 
 @torch.no_grad()
-def pack_geffner(sn: GeffnerNet, dim: int):
-    """The kernel's view of the net: (w1z (dim, in), c1 (K, in), emb,
-    w2 (in, in) as input x output, b2, headw (dim, in), headb, factor).
+def pack_geffner(sn: GeffnerNet):
+    """The kernel's view of the net: (w1x (din, in), c1 (K, in), emb,
+    w2 (in, in) as input x output, b2, headw (x_dim, in), headb, factor),
+    din = x_dim + rho_dim the columns of the net's input ahead of the
+    embedding.
 
-    c1 = emb @ W1[dim:] + b1 is the embedding half of layer 1, the same for
+    c1 = emb @ W1[din:] + b1 is the embedding half of layer 1, the same for
     every chain; it is formed in float64 so that the TF32 setting of the
     card cannot round it."""
+    din = sn.x_dim + sn.rho_dim
     l1, l2 = sn.layers
     w1 = l1.weight.t()                                   # (in, in): input x output
-    c1 = (sn.emb.double() @ w1[dim:].double() + l1.bias.double()).float()
+    c1 = (sn.emb.double() @ w1[din:].double() + l1.bias.double()).float()
     return (
-        w1[:dim].contiguous(), c1.contiguous(), sn.emb.detach().contiguous(),
+        w1[:din].contiguous(), c1.contiguous(), sn.emb.detach().contiguous(),
         l2.weight.t().contiguous(), l2.bias.detach().contiguous(),
         sn.head.weight.detach().contiguous(), sn.head.bias.detach().contiguous(),
         sn.factor_sn.detach().reshape(()),
@@ -245,7 +248,7 @@ def evolve_overdamped_fused(
                 f"contiguous f32 on {dev}"
             )
 
-    w1z, c1, emb, w2, b2, headw, headb, factor = pack_geffner(sn, dim)
+    w1z, c1, emb, w2, b2, headw, headb, factor = pack_geffner(sn)
     scal = torch.stack([_f32(eps, dev).reshape(()), factor.to(dev, torch.float32)])
     seed_t = torch.as_tensor(seed, dtype=torch.int64, device=dev).reshape(1)
     means = _f32(grad_logp.means, dev)

@@ -53,6 +53,7 @@ GROUPS = 4                # NG of the replay kernel: groups of feature threads
 CHAINS_PER_GROUP = 8      # TC
 CHAINS_PER_TILE = GROUPS * CHAINS_PER_GROUP
 GROUP_THREADS = 160       # FW_MAX: feature threads of one group
+WARP_SCALARS = 11         # NSCAL: the per-warp sums of the scalar gradients
 
 
 def _round_up(x: int, m: int) -> int:
@@ -65,7 +66,7 @@ def tile_floats(groups: int, in_dim: int, n_mix: int) -> int:
     the h2 / g_a2 tile, head, means and the per-warp scalars)."""
     ip, tb = _round_up(in_dim, 4), groups * CHAINS_PER_GROUP
     return (2 * ip * (ip + 1) + 2 * tb * ip + ip * (tb + 4) + 2 * ip
-            + _round_up(2 * n_mix, 4) + 10 * (groups * GROUP_THREADS // 32))
+            + _round_up(2 * n_mix, 4) + WARP_SCALARS * (groups * GROUP_THREADS // 32))
 
 
 # Floats of shared memory beside the tile: (per chain of the tile, per warp
@@ -103,11 +104,14 @@ def sweep_grid(n: int, device) -> tuple:
     return groups, min(-(-n // (groups * CHAINS_PER_GROUP)), sms)
 
 
-def _len_a(in_dim: int) -> int:
-    return in_dim * in_dim + 5 * in_dim + 8
+def len_a(in_dim: int, din: int = 2) -> int:
+    """Floats of a block's sums over its points (csrc/cmcd_tile.cuh): dW2,
+    dheadW, db2, dW1[:din], and nine scalars (eps, vd mean and logdiag,
+    factor_sn, head bias, gamma)."""
+    return in_dim * in_dim + (3 + din) * in_dim + 9
 
 
-def _len_b(in_dim: int) -> int:
+def len_b(in_dim: int) -> int:
     return 2 * in_dim + 2
 
 
@@ -267,8 +271,8 @@ def declare_limits(lib, prefix: str, extra, what: str):
         if (bool(get("fits")(in_dim, n_mix)) != kernel_fits(in_dim, n_mix, extra)
                 or any(get("smem_bytes")(g, in_dim, n_mix) != smem_bytes(in_dim, n_mix, g, extra)
                        for g in (2, 4))
-                or get("len_a")(in_dim) != _len_a(in_dim)
-                or get("len_b")(in_dim) != _len_b(in_dim)):
+                or get("len_a")(in_dim) != len_a(in_dim)
+                or get("len_b")(in_dim) != len_b(in_dim)):
             raise RuntimeError(
                 f"{what} and its wrapper disagree on what fits one block at "
                 f"in_dim {in_dim}, {n_mix} components"
@@ -296,13 +300,13 @@ def marshal(what, sn, dim, eps, grad_logp, dev, blocks, points, splits):
     factor_sn], the net as the kernels see it, the means, the scratch and
     result buffers (part_a, part_b, out_a, out_b))."""
     f32 = lambda t: torch.as_tensor(t, dtype=torch.float32, device=dev).contiguous()
-    w1z, c1, emb, w2, b2, headw, headb, factor = pack_geffner(sn, dim)
+    w1z, c1, emb, w2, b2, headw, headb, factor = pack_geffner(sn)
     scal = torch.stack([f32(eps).reshape(()), factor.to(dev, torch.float32)])
     weights = [w1z, c1, emb, w2, b2, headw, headb]
     for t in weights:
         if t.device != dev or t.dtype != torch.float32:
             raise ValueError(f"{what}: net weights must be f32 on {dev}")
-    la, lb = _len_a(sn.in_dim), _len_b(sn.in_dim)
+    la, lb = len_a(sn.in_dim), len_b(sn.in_dim)
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
     buffers = [new(blocks, la), new(points, splits, lb), new(la), new(points, lb)]
     return scal, weights, f32(grad_logp.means), buffers
@@ -321,27 +325,29 @@ def raise_on(err, lib, what):
 
 def assemble_grads(out_a, out_b, sn, dim, nbridges):
     """The gradient dict from a backward kernel's sums. out_a: dW2 (in x
-    out), dheadW, db2, dW1[:dim], then eps, mean, logdiag, factor, headb.
-    out_b per point: G1 = sum_n g_a1, GH1 = sum_n g_h1, dbeta_j (the point's
-    forward term), dbeta_{j-1} (its backward term)."""
-    in_dim = sn.in_dim
+    out), dheadW, db2, dW1[:din] (din = dim + the net's rho_dim), then eps,
+    mean, logdiag, factor, headb, gamma (left out here: only the underdamped
+    sweep has it, ops/kl_underdamped.py). out_b per point: G1 = sum_n g_a1,
+    GH1 = sum_n g_h1, dbeta_j (the point's forward term), dbeta_{j-1} (its
+    backward term)."""
+    in_dim, din = sn.in_dim, dim + sn.rho_dim
     sq = in_dim * in_dim
     g_w2 = out_a[:sq].view(in_dim, in_dim)
     g_headw = out_a[sq:sq + 2 * in_dim].view(2, in_dim)
     g_b2 = out_a[sq + 2 * in_dim:sq + 3 * in_dim]
-    g_w1z = out_a[sq + 3 * in_dim:sq + 5 * in_dim].view(2, in_dim)
-    s = out_a[sq + 5 * in_dim:]
+    g_w1x = out_a[sq + 3 * in_dim:sq + (3 + din) * in_dim].view(din, in_dim)
+    s = out_a[sq + (3 + din) * in_dim:]
     g1, gh1 = out_b[:, :in_dim], out_b[:, in_dim:2 * in_dim]
     g_betas = out_b[:nbridges, 2 * in_dim] + out_b[1:, 2 * in_dim + 1]
     # Point K used embedding row K - 1: fold it in, then transpose c1's
-    # product: d c1 -> d emb, d W1[dim:], d b1; emb also feeds h0 directly.
+    # product: d c1 -> d emb, d W1[din:], d b1; emb also feeds h0 directly.
     d_c1 = g1[:nbridges].clone()
     d_c1[nbridges - 1] += g1[nbridges]
-    d_emb = gh1[:nbridges, dim:].clone()
-    d_emb[nbridges - 1] += gh1[nbridges, dim:]
+    d_emb = gh1[:nbridges, din:].clone()
+    d_emb[nbridges - 1] += gh1[nbridges, din:]
     w1 = sn.layers[0].weight.detach().t()            # (in, out)
-    d_emb = d_emb + d_c1 @ w1[dim:].t()
-    g_w1 = torch.cat([g_w1z, sn.emb.detach().t() @ d_c1])  # (in, out)
+    d_emb = d_emb + d_c1 @ w1[din:].t()
+    g_w1 = torch.cat([g_w1x, sn.emb.detach().t() @ d_c1])  # (in, out)
     return {
         "eps": s[0], "betas": g_betas, "vd_mean": s[1:3], "vd_logdiag": s[3:5],
         "sn": {

@@ -38,9 +38,12 @@ def geffner_from_jax(sn, device=None) -> GeffnerNet:
     emb = np.asarray(sn["emb"])
     nbridges, emb_dim = emb.shape
     in_dim, x_dim = np.asarray(sn["head"]["w"]).shape
-    if in_dim != x_dim + emb_dim:
-        raise NotImplementedError("geffner nets on [z, rho] are not ported yet")
-    net = GeffnerNet(x_dim, emb_dim, nbridges, nlayers=len(sn["layers"]), device=device)
+    rho_dim = in_dim - x_dim - emb_dim  # the net of the full-sn underdamped modes sees [z, rho]
+    if rho_dim not in (0, x_dim):
+        raise ValueError(f"geffner net of in_dim {in_dim}: neither [z] nor [z, rho] with "
+                         f"x_dim {x_dim} and emb_dim {emb_dim}")
+    net = GeffnerNet(x_dim, emb_dim, nbridges, nlayers=len(sn["layers"]), device=device,
+                     rho_dim=rho_dim)
     for lin, layer in zip([*net.layers, net.head], [*sn["layers"], sn["head"]]):
         lin.weight.copy_(_t(layer["w"], device).t())
         lin.bias.copy_(_t(layer["b"], device))
