@@ -7,8 +7,9 @@
 Phases, one line each; any failure exits non-zero:
   1. device: needs CUDA (no CPU run); prints the card's name and power limit.
   2. build: compiles csrc/overdamped.cu, csrc/vargrad.cu, csrc/kl.cu,
-     csrc/underdamped.cu and csrc/kl_underdamped.cu with nvcc for sm_90a, all
-     at once (ptxas report per kernel).
+     csrc/underdamped.cu, csrc/kl_underdamped.cu, csrc/uha.cu and
+     csrc/kl_uha.cu with nvcc for sm_90a, all at once (ptxas report per
+     kernel).
   3. kernels vs their plain versions. The rollout under injected noise, at
      the CPU tests' size and at full width (K=256, emb_dim 130, grad clipping,
      factor_sn 0.3, random embedding) for N=2000 and for the evaluation's
@@ -90,6 +91,28 @@ Phases, one line each; any failure exits non-zero:
      at the evaluation's N=500) and the sweep (CUDA events), and one LDVI
      optimizer step through the kernels over 50 steps against the eager
      step, with its device busy share under torch.profiler.
+ 16. the UHA kernels against their plain versions. The UHA rollout under
+     injected noise ((K + 1, N, 2): the initial momentum's base draw, then one
+     refresh draw per bridge) on many_gmm and the 3-mode gmm with lfsteps 1
+     and 3 at the test size (N=256, K=8) and on many_gmm at full width (K=256)
+     for N=2000 and N=500: z, w and both stored paths, with and without the
+     stores; its noise stack, injected again, gives the same bits. The UHA
+     sweep at the same sizes (float64 arbiter at full width where a leaf
+     misses the limit), and one whole UHA KL training step through the
+     kernels against the plain versions.
+ 17. UHA evaluation path: run_experiment with the UHA flags (iters 0) and the
+     30 x 500 evaluation: the UHA rollout launched 30 times, ELBO and ln Z
+     finite; the same flags on the funnel (not ported) and with lfsteps past
+     the kernels' limit raise NotImplementedError and launch nothing.
+ 18. UHA KL training path: run_experiment with the UHA flags and TRAIN_ITERS
+     steps at N=2000, then the evaluation: the UHA rollout launched
+     TRAIN_ITERS + 30 times, its sweep TRAIN_ITERS times and no other kernel;
+     no NaN loss, no divergence, the ELBO after training above phase 17's.
+ 19. timing of the UHA path at N=2000, K=256, in the order plain, kernel,
+     kernel, plain: the UHA rollout with and without its stores (and at the
+     evaluation's N=500) and the sweep (CUDA events), and one UHA optimizer
+     step through the kernels over 50 steps against the eager step, with its
+     device busy share under torch.profiler.
 Then a JSON line with each kernel's launches, error, times and bound, and as
 the last line {"ok": true, "device": {...}}.
 """
@@ -139,6 +162,17 @@ LDVI_FLAGS = (
     "--config.grad_clipping True --config.train_eps False --config.train_vi False "
     "--config.lr 0.005 --noconfig.pretrain_mfvi --config.n_samples 500 "
     "--config.n_input_dist_seeds 30 --config.log.every 1"
+).split()
+
+# UHA, the default boundmode: no net; md (the momentum log-scale) is not
+# trained, eps and eta are, from eps 0.05 and eta 0.5.
+UHA_FLAGS = (
+    "--config.model many_gmm --config.boundmode UHA "
+    "--config.N 2000 --config.nbridges 256 --config.lfsteps 1 "
+    "--config.init_eps 0.05 --config.init_eta 0.5 --config.init_sigma 15 "
+    "--config.train_eps True --config.train_vi False --config.lr 0.005 "
+    "--noconfig.pretrain_mfvi --config.n_samples 500 --config.n_input_dist_seeds 30 "
+    "--config.log.every 1"
 ).split()
 
 # Where (K + 1) * N * 2 * 4 bytes of trajectory pass the 256 MiB budget at
@@ -198,13 +232,22 @@ def phase_device() -> str:
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
-    from cmcd_tpu_torch.ops import build, kl, kl_underdamped, overdamped, underdamped, vargrad
+    from cmcd_tpu_torch.ops import (
+        build,
+        kl,
+        kl_uha,
+        kl_underdamped,
+        overdamped,
+        uha,
+        underdamped,
+        vargrad,
+    )
 
-    sources = ("overdamped", "vargrad", "kl", "underdamped", "kl_underdamped")
+    sources = ("overdamped", "vargrad", "kl", "underdamped", "kl_underdamped", "uha", "kl_uha")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, started together
         libs = list(pool.map(build.build, sources))
-    for module in (overdamped, vargrad, kl, underdamped, kl_underdamped):
+    for module in (overdamped, vargrad, kl, underdamped, kl_underdamped, uha, kl_uha):
         module._library()
     secs = time.perf_counter() - t0
     for so in libs:
@@ -556,11 +599,12 @@ def compare_training_step(flags=None, name="VarGrad", arbitrate=False, tag="3 co
     cfg, setup, target, params, ctx = flagship(flags)
     loss_fn, _ = fused_training_path(setup, cfg.N)
     gen = torch.Generator(device="cuda").manual_seed(23)
-    with torch.no_grad():  # a live net that leaves the chains inside the target's support
-        params["train"]["sn"].factor_sn.fill_(0.3)
-        params["train"]["sn"].head.weight.normal_(0.0, 0.05, generator=gen)
-    # An underdamped rollout draws the initial momentum too: K + 1 rows.
-    rows = cfg.nbridges + (cfg.boundmode in UNDERDAMPED)
+    if "sn" in params["train"]:
+        with torch.no_grad():  # a live net that leaves the chains inside the target's support
+            params["train"]["sn"].factor_sn.fill_(0.3)
+            params["train"]["sn"].head.weight.normal_(0.0, 0.05, generator=gen)
+    # An underdamped or UHA rollout draws the initial momentum too: K + 1 rows.
+    rows = cfg.nbridges + (cfg.boundmode in UNDERDAMPED or cfg.boundmode == "UHA")
     draws = dict(base_normals=torch.randn(cfg.N, 2, generator=gen, device="cuda"),
                  noise=torch.randn(rows, cfg.N, 2, generator=gen, device="cuda"))
     names = tree_leaf_names(params["train"])
@@ -1511,9 +1555,333 @@ def phase_ud_timing():
     return times, step_ms
 
 
+def make_uha_problem(n, k, target_name, *, seed, sigma=3.0, eps=0.05, eta=0.5, lfsteps=1):
+    """Inputs of the UHA kernels from a numpy seed: z0, non-uniform betas, eps,
+    eta, a momentum log-scale md away from zero, vd params, the target's score
+    and noise (K + 1, N, 2)."""
+    from cmcd_tpu_torch.ops.target_grads import score_for_target
+    from cmcd_tpu_torch.schedules import betas_from_grid, make_beta_grid_params
+    from cmcd_tpu_torch.targets import load_target
+
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    mg, gx, tx = make_beta_grid_params(k, device=dev)
+    mg = f32(rng.uniform(0.5, 1.5, mg.shape[0]))
+    return dict(
+        z0=f32(sigma * rng.standard_normal((n, 2))),
+        betas=betas_from_grid(mg, gx, tx).contiguous(),
+        eps=f32(eps),
+        eta=f32(eta),
+        md=f32([0.1, -0.2]),
+        vd_mean=f32([0.5, -0.5]),
+        vd_logdiag=f32([math.log(sigma)] * 2),
+        grad_logp=score_for_target(load_target(target_name, device=dev), dev),
+        noise=f32(rng.standard_normal((k + 1, n, 2))),
+        dim=2,
+        nbridges=k,
+        lfsteps=lfsteps,
+    )
+
+
+def _uha_split(case):
+    """A UHA problem as (the wrappers' positional arguments from z0 to
+    grad_logp, their keyword arguments, the injected noise)."""
+    kw = dict(case)
+    noise = kw.pop("noise")
+    names = ("z0", "betas", "eps", "eta", "md", "vd_mean", "vd_logdiag", "grad_logp")
+    return [kw.pop(a) for a in names], kw, noise
+
+
+def compare_uha(case, tol):
+    """The UHA rollout kernel against its plain version under the same
+    injected noise: z, w and both stored paths (held as B1's path)."""
+    from cmcd_tpu_torch.ops.uha import evolve_uha_fused, evolve_uha_fused_plain
+
+    pos, kw, noise = _uha_split(case)
+    z_k, w_k, zt_k, rt_k, d_k = evolve_uha_fused(*pos, **kw, noise=noise, return_state=True)
+    z_p, w_p, zt_p, rt_p, _ = evolve_uha_fused_plain(*pos, **kw, noise=noise, return_state=True)
+    z_n, w_n = evolve_uha_fused(*pos, **kw, noise=noise)
+    torch.cuda.synchronize()
+    dz, dw = (z_k - z_p).abs(), (w_k - w_p).abs()
+    bad_z = dz > tol["z_atol"] + tol["z_rtol"] * z_p.abs()
+    bad_w = dw > tol["w_atol"] + tol["w_rtol"] * w_p.abs()
+    stats = {"z_max_abs": float(dz.max()), "w_max_abs": float(dw.max()),
+             "w_max_rel": float((dw / w_p.abs().clamp_min(1e-6)).max()),
+             "w_abs_max": float(w_p.abs().max()),
+             "z_bad": int(bad_z.any(-1).sum()), "w_bad": int(bad_w.sum())}
+    paths_ok = True
+    for name, t_k, t_p in (("ztraj", zt_k, zt_p), ("rtraj", rt_k, rt_p)):
+        dt = (t_k - t_p).abs()
+        beyond = float((dt > tol["z_atol"] + tol["z_rtol"] * t_p.abs()).float().mean())
+        stats[f"{name}_max_abs"] = float(dt.max())
+        stats[f"{name}_share_beyond_z_tol"] = beyond
+        paths_ok &= float(dt.max()) <= TRAJ_ATOL and beyond <= TRAJ_SHARE
+    # Storing changes nothing else; the stores' ends are exact; injected
+    # noise is handed on as it is.
+    stats["stores_ok"] = paths_ok
+    stats["ends_exact_outputs_unchanged_noise_handed_on"] = bool(
+        torch.equal(z_n, z_k) and torch.equal(w_n, w_k) and d_k is noise
+        and torch.equal(zt_k[0], pos[0]) and torch.equal(zt_k[-1], z_k))
+    stats["finite"] = bool(torch.isfinite(z_k).all() and torch.isfinite(w_k).all())
+    good = (not (stats["z_bad"] or stats["w_bad"]) and paths_ok and stats["finite"]
+            and stats["ends_exact_outputs_unchanged_noise_handed_on"])
+    return stats, good
+
+
+def compare_uha_noise_stack(case):
+    """The UHA rollout's noise stack is what the kernel used: its Philox draws
+    (row 0 the initial momentum's), injected again, give the same z, w and
+    stores bit for bit."""
+    from cmcd_tpu_torch.ops.uha import evolve_uha_fused
+
+    pos, kw, _ = _uha_split(case)
+    seed = torch.tensor([37], device="cuda")
+    first = evolve_uha_fused(*pos, **kw, seed=seed, return_state=True)
+    again = evolve_uha_fused(*pos, **kw, noise=first[4], return_state=True)
+    torch.cuda.synchronize()
+    draws = first[4]
+    stats = {"same_bits": [bool(torch.equal(a, b)) for a, b in zip(first[:4], again[:4])],
+             "mean": float(draws.mean()), "std": float(draws.std())}
+    good = (all(stats["same_bits"]) and abs(stats["mean"]) < 0.01
+            and abs(stats["std"] - 1.0) < 0.01)
+    return stats, good
+
+
+def compare_uha_sweep(case, tol, arbitrate=False):
+    """The UHA sweep kernel against its plain version, from the plain
+    rollout's stores and random cotangents: every gradient leaf and dL/dz0,
+    with the plain version in float64 as arbiter if asked."""
+    from cmcd_tpu_torch.ops.kl_uha import evolve_kl_bwd_uha, evolve_kl_bwd_uha_plain
+    from cmcd_tpu_torch.ops.uha import evolve_uha_fused_plain
+
+    pos, kw, noise = _uha_split(case)
+    _, _, zt, rt, dr = evolve_uha_fused_plain(*pos, **kw, noise=noise, return_state=True)
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    n = pos[0].shape[0]
+    cot = torch.randn(n, generator=gen, device="cuda")
+    g_zf = torch.randn(n, 2, generator=gen, device="cuda")
+    tree = lambda out: {**out[0], "g_z0": out[1]}
+    got = tree(evolve_kl_bwd_uha(zt, rt, dr, cot, g_zf, *pos[1:], **kw))
+    want = tree(evolve_kl_bwd_uha_plain(zt, rt, dr, cot, g_zf, *pos[1:], **kw))
+    torch.cuda.synchronize()
+    worst, leaf, ok = _grad_errors(got, want, tol)
+    line = f"worst relative error {worst:.3e} (leaf {leaf}), limit {tol}"
+    if arbitrate:
+        ref = tree(evolve_kl_bwd_uha_plain(zt.double(), rt.double(), dr.double(), cot, g_zf,
+                                           *pos[1:], **kw))
+        ok, more = _arbitrate(got, want, ref, tol)
+        line += more
+    return worst, line, ok
+
+
+def phase_uha_compare():
+    ok, max_err, sweep_err = True, 0.0, 0.0
+    for name, sigma in (("many_gmm", 8.0), ("gmm", 3.0)):
+        for lf in (1, 3):
+            stats, good = compare_uha(make_uha_problem(256, 8, name, seed=0, sigma=sigma,
+                                                       lfsteps=lf), TOL_SMALL)
+            ok &= good
+            print(f"[16 compare] UHA rollout small N=256 K=8 {name} lfsteps {lf}: "
+                  f"{json.dumps(stats)}", flush=True)
+            _, line, good = compare_uha_sweep(make_uha_problem(256, 8, name, seed=3, sigma=sigma,
+                                                               lfsteps=lf), GRAD_TOL_SMALL)
+            ok &= good
+            print(f"[16 compare] UHA sweep small N=256 K=8 {name} lfsteps {lf}: {line}, ok {good}",
+                  flush=True)
+    for n, seed in ((2000, 1), (500, 5)):
+        stats, good = compare_uha(make_uha_problem(n, 256, "many_gmm", seed=seed, sigma=15.0),
+                                  TOL_FULL)
+        ok &= good
+        max_err = max(max_err, stats["z_max_abs"], stats["w_max_abs"], stats["ztraj_max_abs"],
+                      stats["rtraj_max_abs"])
+        print(f"[16 compare] UHA rollout full N={n} K=256 many_gmm: {json.dumps(stats)} "
+              f"tol {json.dumps(TOL_FULL)}", flush=True)
+        worst, line, good = compare_uha_sweep(
+            make_uha_problem(n, 256, "many_gmm", seed=seed + 1, sigma=15.0), GRAD_TOL_FULL,
+            arbitrate=True)
+        ok &= good
+        sweep_err = max(sweep_err, worst)
+        print(f"[16 compare] UHA sweep full N={n} K=256 many_gmm: {line}, ok {good}", flush=True)
+    stats, good = compare_uha_noise_stack(make_uha_problem(2000, 256, "many_gmm", seed=8,
+                                                           sigma=15.0))
+    ok &= good
+    print(f"[16 compare] UHA noise stack N=2000 K=256 many_gmm: {json.dumps(stats)}", flush=True)
+    ok &= compare_training_step(UHA_FLAGS + ["--config.iters", "0"], "UHA KL", arbitrate=True,
+                                tag="16 compare")
+    if not ok:
+        fail("a UHA kernel and its plain version disagree beyond tolerance")
+    return max_err, sweep_err
+
+
+def phase_uha_eval_path():
+    from cmcd_tpu_torch.main import parse_flags, run_experiment
+    from cmcd_tpu_torch.ops.uha import MAX_LFSTEPS, evolve_uha_fused
+
+    cfg = parse_flags(UHA_FLAGS + ["--config.iters", "0"])
+    evolve_uha_fused.launches = 0
+    t0 = time.perf_counter()
+    out = run_experiment(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = evolve_uha_fused.launches
+    print(f"[17 UHA evaluation path] ELBO {out['final_elbo']!r} +- {out['final_elbo_std']!r} "
+          f"ln Z {out['final_ln_Z']!r} +- {out['final_ln_Z_std']!r} launches {launches} "
+          f"wall {wall:.3f} s", flush=True)
+    if launches != cfg.n_input_dist_seeds:
+        fail(f"UHA evaluation launched the UHA rollout {launches} times, expected "
+             f"{cfg.n_input_dist_seeds}")
+    if not (math.isfinite(out["final_elbo"]) and math.isfinite(out["final_ln_Z"])):
+        fail("UHA evaluation ELBO / ln Z not finite")
+    if out["neg_elbos"].shape != (30, 500) or not np.isfinite(out["samples"]).all():
+        fail("UHA evaluation output malformed")
+    # What no kernel covers raises on the card instead of running eagerly: a
+    # target that is not ported, a leapfrog longer than the kernels take.
+    for extra in (["--config.model", "funnel"], ["--config.lfsteps", str(MAX_LFSTEPS + 1)]):
+        try:
+            run_experiment(parse_flags(UHA_FLAGS + ["--config.iters", "0"] + extra))
+        except NotImplementedError as err:
+            print(f"[17 UHA evaluation path] {' '.join(extra)}: refused ({err})", flush=True)
+        else:
+            fail(f"UHA with {' '.join(extra)} ran on the card without a kernel")
+    if evolve_uha_fused.launches != launches:
+        fail("a refused UHA configuration launched the UHA rollout")
+    return launches, out
+
+
+def phase_uha_training_path(init):
+    from cmcd_tpu_torch.main import parse_flags, run_experiment
+    from cmcd_tpu_torch.ops.kl import evolve_kl_bwd
+    from cmcd_tpu_torch.ops.kl_uha import evolve_kl_bwd_uha
+    from cmcd_tpu_torch.ops.kl_underdamped import evolve_kl_bwd_underdamped
+    from cmcd_tpu_torch.ops.overdamped import evolve_overdamped_fused
+    from cmcd_tpu_torch.ops.uha import evolve_uha_fused
+    from cmcd_tpu_torch.ops.underdamped import evolve_underdamped_fused
+    from cmcd_tpu_torch.ops.vargrad import evolve_vargrad_bwd_replay, evolve_vargrad_bwd_reroll
+
+    cfg = parse_flags(UHA_FLAGS + ["--config.iters", str(TRAIN_ITERS)])
+    counters = (evolve_uha_fused, evolve_kl_bwd_uha)
+    others = (evolve_overdamped_fused, evolve_vargrad_bwd_replay, evolve_vargrad_bwd_reroll,
+              evolve_kl_bwd, evolve_underdamped_fused, evolve_kl_bwd_underdamped)
+    for fn in counters + others:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = run_experiment(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = (fn.launches for fn in counters)
+    other = sum(fn.launches for fn in others)
+    result = out["train"]
+    losses = result.losses.double()
+    first, last = float(losses[:100].mean()), float(losses[-100:].mean())
+    eps, eta = (float(result.params["train"][k]) for k in ("eps", "eta"))
+    print(f"[18 UHA KL training path] {cfg.iters} steps N={cfg.N} K={cfg.nbridges} "
+          f"lfsteps {cfg.lfsteps}: UHA rollout launches {fwd} UHA sweep launches {bwd} (other "
+          f"kernels {other}) wall {wall:.3f} s ({1e3 * wall / cfg.iters:.3f} ms per step, "
+          f"evaluation and init included) | loss mean first 100 {first!r} last 100 {last!r} | "
+          f"eps {eps!r} eta {eta!r} | ELBO {init['final_elbo']!r} -> {out['final_elbo']!r} +- "
+          f"{out['final_elbo_std']!r} ln Z {init['final_ln_Z']!r} -> {out['final_ln_Z']!r} +- "
+          f"{out['final_ln_Z_std']!r} diverged {result.diverged} steps_done "
+          f"{result.steps_done}", flush=True)
+    if fwd != cfg.iters + cfg.n_input_dist_seeds or bwd != cfg.iters or other:
+        fail(f"UHA training path launched the UHA rollout {fwd}, its sweep {bwd}, other kernels "
+             f"{other} times, expected {cfg.iters + cfg.n_input_dist_seeds}, {cfg.iters}, 0")
+    if len(losses) != cfg.iters or bool(torch.isnan(losses).any()):
+        fail(f"UHA training path logged {len(losses)} losses, NaN among them: "
+             f"{bool(torch.isnan(losses).any())}")
+    if result.diverged or result.steps_done != cfg.iters:
+        fail("UHA training path diverged")
+    if not (math.isfinite(out["final_elbo"]) and math.isfinite(out["final_ln_Z"])):
+        fail("UHA training path ELBO / ln Z not finite")
+    if not out["final_elbo"] > init["final_elbo"]:
+        fail(f"UHA training did not raise the ELBO: {init['final_elbo']} -> {out['final_elbo']}")
+    if out["neg_elbos"].shape != (30, 500) or not np.isfinite(out["samples"]).all():
+        fail("UHA training path evaluation output malformed")
+    return fwd, bwd
+
+
+def _work_uha(n, k, lfsteps=1, n_mix=40):
+    """Least time the card could take for one call of each UHA kernel at
+    these shapes (the rule of _work): (rollout without stores, rollout with
+    stores, sweep)."""
+    score = 6 * n_mix                         # FMAs per score: distances, exp, sums
+    hvp = 10 * n_mix                          # FMAs per Hessian product
+    state = 12                                # FMAs per bridge: refresh, kicks, drifts, weight
+    fwd_flops = 2 * n * (k * (lfsteps * score + lfsteps * state) + score)
+    fwd_bytes = 4 * (2 * n + k + 6 + 2 * n_mix) + 4 * (3 * n)  # z0, betas, params; z, w
+    stores = 3 * 8 * (k + 1) * n                                # z, rho and draws
+    # The sweep: per bridge 2 L - 1 scores and L Hessian products, per point
+    # the score again; reads the three stacks, cot and g_zfinal; writes
+    # dL/dz0 and the sums.
+    bwd_flops = 2 * n * (k * ((2 * lfsteps - 1) * score + lfsteps * hvp + 40) + score + hvp)
+    bwd_bytes = stores + 4 * (3 * n + k + 6 + 2 * n_mix) + 8 * n + 4 * (8 + k)
+    return (_bound(fwd_flops, fwd_bytes), _bound(fwd_flops, fwd_bytes + stores),
+            _bound(bwd_flops, bwd_bytes))
+
+
+def phase_uha_timing():
+    from cmcd_tpu_torch import bounds
+    from cmcd_tpu_torch.ops.fused_train import kl_bound_fused
+    from cmcd_tpu_torch.ops.kl_uha import evolve_kl_bwd_uha, evolve_kl_bwd_uha_plain
+    from cmcd_tpu_torch.ops.uha import evolve_uha_fused, evolve_uha_fused_plain
+    from cmcd_tpu_torch.train import train
+
+    seed = torch.tensor([7], device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cot = torch.randn(2000, generator=gen, device="cuda")
+    g_zf = torch.randn(2000, 2, generator=gen, device="cuda")
+    pos, kw, _ = _uha_split(make_uha_problem(2000, 256, "many_gmm", seed=2, sigma=15.0))
+    pos5, kw5, _ = _uha_split(make_uha_problem(500, 256, "many_gmm", seed=3, sigma=15.0))
+    _, _, zt, rt, dr = evolve_uha_fused(*pos, **kw, seed=seed, return_state=True)
+    fns = {
+        "rollout": (lambda: evolve_uha_fused(*pos, **kw, seed=seed), 50),
+        "rollout_stores": (lambda: evolve_uha_fused(*pos, **kw, seed=seed, return_state=True),
+                           50),
+        "rollout_n500": (lambda: evolve_uha_fused(*pos5, **kw5, seed=seed), 50),
+        "rollout_stores_plain": (lambda: evolve_uha_fused_plain(*pos, **kw, seed=7,
+                                                                return_state=True), 2),
+        "sweep": (lambda: evolve_kl_bwd_uha(zt, rt, dr, cot, g_zf, *pos[1:], **kw), 20),
+        "sweep_plain": (lambda: evolve_kl_bwd_uha_plain(zt, rt, dr, cot, g_zf, *pos[1:], **kw),
+                        1),
+    }
+    times = {name: [] for name in fns}
+    for name in ("rollout_stores_plain", "sweep_plain", "rollout", "rollout_stores",
+                 "rollout_n500", "sweep", "sweep", "rollout_n500", "rollout_stores", "rollout",
+                 "sweep_plain", "rollout_stores_plain"):
+        fn, reps = fns[name]
+        times[name].append(_event_ms(fn, reps))
+    print(f"[19 timing] UHA kernels N=2000 K=256 lfsteps 1 many_gmm (N=500 where named) ms "
+          f"{json.dumps(times)}", flush=True)
+
+    cfg, setup, target, params, ctx = flagship(UHA_FLAGS + ["--config.iters", "0"])
+    trainable = bounds.default_trainable(setup.mode, cfg.train_eps, cfg.train_vi, cfg.train_betas)
+    fused = lambda p, n, c, s, generator: kl_bound_fused(p, n, c, s, target, generator=generator)
+
+    def steps(loss_fn, iters):
+        g = torch.Generator(device="cuda").manual_seed(1)
+        return lambda: train(setup, params, ctx, lr=0.005, iters=iters, batch_size=cfg.N,
+                             generator=g, trainable=trainable, loss_fn=loss_fn,
+                             steps_per_call=iters, nan_check_every=10**9)
+
+    steps(fused, 5)()
+    step_ms = {"eager": [], "kernel": []}
+    for name in ("eager", "kernel", "kernel", "eager"):
+        loss_fn, iters = (bounds.kl_bound, 1) if name == "eager" else (fused, 50)
+        step_ms[name].append(_wall_ms(steps(loss_fn, iters)) / iters)
+    print(f"[19 timing] UHA optimizer step N=2000 K=256 ms per step {json.dumps(step_ms)} "
+          f"(kernel: 50 steps, eager: 1 step per reading)", flush=True)
+    prof_wall, prof_dev, top = _profile(steps(fused, 10))
+    print(f"[19 profile] 10 fused UHA steps: wall {prof_wall!r} ms under the profiler, device "
+          f"busy {prof_dev!r} ms ({100 * prof_dev / prof_wall!r}%), per step busy "
+          f"{prof_dev / 10!r} ms, device records [name, ms, count] {json.dumps(top)}; busy over "
+          f"the fastest unprofiled step {100 * prof_dev / 10 / min(step_ms['kernel'])!r}%",
+          flush=True)
+    return times, step_ms
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    everything = "1,2,3,4,5,6,7,8,9,10,11,12,13,14,15"
+    everything = "1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19"
     ap.add_argument("--phases", default=everything,
                     help="comma-separated phases to run (default: all)")
     phases = {int(p) for p in ap.parse_args(argv).phases.split(",")}
@@ -1535,6 +1903,12 @@ def main(argv=None):
         ud_init = phase_ud_eval_path()[1]
     ud_launches = phase_ud_training_path(ud_init) if 14 in phases else None
     ud_timing = phase_ud_timing() if 15 in phases else None
+    uha_errors = phase_uha_compare() if 16 in phases else None
+    uha_eval_launches, uha_init = phase_uha_eval_path() if 17 in phases else (None, None)
+    if 18 in phases and uha_init is None:  # the ELBO at init that phase 18 must beat
+        uha_init = phase_uha_eval_path()[1]
+    uha_launches = phase_uha_training_path(uha_init) if 18 in phases else None
+    uha_timing = phase_uha_timing() if 19 in phases else None
     if phases != {int(p) for p in everything.split(",")}:
         print(f"partial run (phases {sorted(phases)}): no result line")
         return 1
@@ -1556,12 +1930,19 @@ def main(argv=None):
     print(f"[bounds] N=2000 K=256 in_dim 134 (LDVI): underdamped rollout {json.dumps(ud_bound)} "
           f"with stores {json.dumps(ud_stores_bound)} (N=500: {json.dumps(ud_bound_500)}) "
           f"sweep {json.dumps(ud_sweep_bound)}; LDVI optimizer step ms {json.dumps(ud_step_ms)}")
+    uha_times, uha_step_ms = uha_timing
+    uha_bound, uha_stores_bound, uha_sweep_bound = _work_uha(2000, 256)
+    uha_bound_500 = _work_uha(500, 256)[0]
+    print(f"[bounds] N=2000 K=256 lfsteps 1 many_gmm (UHA): UHA rollout {json.dumps(uha_bound)} "
+          f"with stores {json.dumps(uha_stores_bound)} (N=500: {json.dumps(uha_bound_500)}) "
+          f"sweep {json.dumps(uha_sweep_bound)}; UHA optimizer step ms {json.dumps(uha_step_ms)}")
     print(smi)
     # launches: of each kernel's own main path, counted from 0 just before it
     # (phase 7: VarGrad training and the 30 x 500 evaluation; phase 9: the KL
     # twin; phase 10: the re-rolling steps; phase 14: LDVI training and its
-    # evaluation); times, plain times and bounds at N=2000, K=256. No single
-    # PyTorch call computes any of the six functions.
+    # evaluation; phase 18: UHA training and its evaluation); times, plain
+    # times and bounds at N=2000, K=256. No single PyTorch call computes any
+    # of the eight functions.
     err_is = "worst per-leaf |g_kernel - g_plain| / |g_plain| at full width"
     print(json.dumps({"kernels": [{
         "name": "overdamped_rollout",
@@ -1647,6 +2028,34 @@ def main(argv=None):
         "ms": min(ud_times["sweep"]),
         "plain_ms": min(ud_times["sweep_plain"]),
         **keep(ud_sweep_bound),
+        "library_ms": None,
+    }, {
+        "name": "uha_rollout",
+        "route": "cuda",
+        "source": "cmcd_tpu_torch/csrc/uha.cu",
+        "replaces": "cmcd_tpu/ops/pallas_uha.py:31",
+        "launches": uha_launches[0],
+        "launches_evaluation_path": uha_eval_launches,
+        "max_abs_err": uha_errors[0],
+        "ms": min(uha_times["rollout_stores"]),
+        "ms_without_stores": min(uha_times["rollout"]),
+        "ms_at_n500": min(uha_times["rollout_n500"]),
+        "plain_ms": min(uha_times["rollout_stores_plain"]),
+        **keep(uha_stores_bound),
+        "bound_ms_without_stores": uha_bound["bound_ms"],
+        "bound_ms_at_n500": uha_bound_500["bound_ms"],
+        "library_ms": None,
+    }, {
+        "name": "kl_uha_sweep",
+        "route": "cuda",
+        "source": "cmcd_tpu_torch/csrc/kl_uha.cu",
+        "replaces": "cmcd_tpu/ops/pallas_kl.py:1438",
+        "launches": uha_launches[1],
+        "max_abs_err": uha_errors[1],
+        "max_abs_err_is": err_is,
+        "ms": min(uha_times["sweep"]),
+        "plain_ms": min(uha_times["sweep_plain"]),
+        **keep(uha_sweep_bound),
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,7 @@ from cmcd_tpu_torch.distributions import (
     diag_gaussian_init,
     diag_gaussian_log_prob,
     diag_gaussian_sample,
+    momentum_init,
 )
 from cmcd_tpu_torch.integrators.base import IntegratorContext
 from cmcd_tpu_torch.networks import build_score_network
@@ -42,6 +43,7 @@ class CMCDSetup:
     emb_dim: int = 20
     nlayers: int = 2
     nn_arch: str = "geffner"
+    lfsteps: int = 1
 
     def __post_init__(self):
         if self.eps_schedule and self.mode not in _EPS_SCHEDULE_MODES:
@@ -55,6 +57,7 @@ class CMCDSetup:
             apply_sn=apply_sn,
             eps_schedule=self.eps_schedule,
             grad_clipping=self.grad_clipping,
+            lfsteps=self.lfsteps,
         )
 
 
@@ -112,6 +115,10 @@ def initialize(
             arch=setup.nn_arch, generator=gen, device=device,
             rho_dim=integrators.mode_sn_rho_dim(setup.mode, setup.dim),
         )
+
+    if setup.mode == "UHA":
+        # default_trainable never names md: it stays where it starts.
+        place("md", momentum_init(setup.dim, device))
 
     mg, gridref_x, target_x = make_beta_grid_params(
         setup.nbridges, ngridb, mgridref_y, device=device

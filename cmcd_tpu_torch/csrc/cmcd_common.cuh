@@ -1,7 +1,7 @@
 // What the CMCD kernels for NVIDIA Hopper (sm_90a) share: the pieces of a
-// step, stated once. Included by overdamped.cu and underdamped.cu (the
-// rollouts) and, through cmcd_tile.cuh, by vargrad.cu, kl.cu and
-// kl_underdamped.cu (the backward kernels).
+// step, stated once. Included by overdamped.cu, underdamped.cu and uha.cu
+// (the rollouts) and, through cmcd_tile.cuh, by vargrad.cu, kl.cu,
+// kl_underdamped.cu and kl_uha.cu (the backward kernels).
 //
 // The score net is the two-layer geffner net on h0 = [x, emb_i], where x is
 // the state z (DIN = 2 columns) or, for the underdamped modes whose net sees
@@ -11,7 +11,8 @@
 //   a2 = h1 @ W2 + b2,  h2 = h1 + softplus(a2)
 //   sn = (h2 @ headW^T + headb) * factor_sn
 // and the target score is the isotropic, equally weighted many_gmm's
-//   gt = inv_var * (sum_k r_k(z) m_k - z),  r = softmax_k(-inv_var/2 |z - m_k|^2).
+//   gt = inv_var * (sum_k r_k(z) m_k - z),  r = softmax_k(-inv_var/2 |z - m_k|^2),
+// or, in the UHA kernels only, the symmetrised 3-mode gmm's (gmm3_score).
 //
 // Work split of one block. Thread f owns net feature f for a tile of TC
 // chains (so each W2 element read from shared memory feeds TC FMAs and the
@@ -105,9 +106,11 @@ __device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0, uint32
 }
 
 // The two standard normals of (chain, step): Box-Muller on two Philox words.
+// `pair` (the third counter word) numbers further pairs of one draw beyond
+// two dimensions.
 __device__ __forceinline__ float2 philox_normal2(unsigned long long seed, uint32_t chain,
-                                                 uint32_t step) {
-  uint32_t c[4] = {chain, step, 0u, 0u};
+                                                 uint32_t step, uint32_t pair = 0u) {
+  uint32_t c[4] = {chain, step, pair, 0u};
   philox4x32_10(c, (uint32_t)seed, (uint32_t)(seed >> 32));
   const float u1 = (float)((c[0] >> 8) + 1u) * (1.0f / 16777216.0f);  // (0, 1]
   const float u2 = (float)(c[1] >> 8) * (1.0f / 16777216.0f);         // [0, 1)
@@ -262,6 +265,111 @@ __device__ __forceinline__ void many_gmm_hvp(const NetArgs& net, const ScoreLane
   hv[0] = a * (a * tx - v[0]);
   hv[1] = a * (a * ty - v[1]);
 }
+
+// What a lane keeps of the 3-mode gmm score for the Hessian product: its
+// (component, branch) pair's responsibility r and gradient g (x's
+// coordinates), the pair's number and the score gt itself.
+struct Gmm3Lanes {
+  float r, g[2], gt[2];
+  int b;
+};
+
+// The constants of the 3-mode gmm in `par` (18 floats): the means (3 x 2),
+// the precisions (p11, p12, p22) per component, the log-normalisers (3).
+// Pair b < 3 is component b at x, pair b >= 3 component b - 3 at the swapped
+// point S x; its precision in x's coordinates is S P S, its gradient the
+// component's swapped back.
+__device__ __forceinline__ void gmm3_pair(const float* par, int b, float x0, float x1,
+                                          float* logp, float g[2]) {
+  const int k = b % 3;
+  const bool sw = b >= 3;
+  const float u0 = sw ? x1 : x0, u1 = sw ? x0 : x1;
+  const float p11 = par[6 + 3 * k], p12 = par[7 + 3 * k], p22 = par[8 + 3 * k];
+  const float d0 = u0 - par[2 * k], d1 = u1 - par[2 * k + 1];
+  const float y0 = p11 * d0 + p12 * d1, y1 = p12 * d0 + p22 * d1;
+  *logp = -0.5f * (d0 * y0 + d1 * y1) + par[15 + k];
+  g[0] = sw ? -y1 : -y0;
+  g[1] = sw ? -y0 : -y1;
+}
+
+// One warp, one chain: the 3-mode gmm score at (x0, x1), lanes 0..5 one
+// (component, branch) pair each: gt = sum_b r_b g_b with r the softmax of the
+// pairs' log-densities (their equal weights cancel). All lanes return the
+// same gt; with `sl` each lane also returns its pair.
+__device__ __forceinline__ void gmm3_score(const float* par, float x0, float x1, float gt[2],
+                                           Gmm3Lanes* sl = nullptr) {
+  const int lane = threadIdx.x & 31;
+  const bool on = lane < 6;
+  float l = -INFINITY, g[2] = {0.f, 0.f};
+  if (on) gmm3_pair(par, lane, x0, x1, &l, g);
+  const float m = warp_max(l);
+  const float e = on ? expf(l - m) : 0.f;
+  const float sum = warp_sum(e);
+  gt[0] = warp_sum(e * g[0]) / sum;
+  gt[1] = warp_sum(e * g[1]) / sum;
+  if (sl != nullptr) {
+    sl->r = e / sum;
+    sl->g[0] = g[0], sl->g[1] = g[1];
+    sl->gt[0] = gt[0], sl->gt[1] = gt[1];
+    sl->b = lane;
+  }
+}
+
+// One warp, one chain: the gmm score's Jacobian applied to v at the point
+// whose lanes are in sl (the Hessian of log p is symmetric),
+//   H v = sum_b r_b (c_b (c_b . v) - P_b v),  c_b = g_b - gt,
+// the centred form of sum_b r_b (g_b g_b^T - P_b) v - gt (gt . v). All lanes
+// return the same hv.
+__device__ __forceinline__ void gmm3_hvp(const float* par, const Gmm3Lanes& sl,
+                                         const float v[2], float hv[2]) {
+  float tx = 0.f, ty = 0.f;
+  if (sl.b < 6) {
+    const int k = sl.b % 3;
+    const bool sw = sl.b >= 3;
+    const float p11 = par[6 + 3 * k], p12 = par[7 + 3 * k], p22 = par[8 + 3 * k];
+    const float q11 = sw ? p22 : p11, q22 = sw ? p11 : p22;
+    const float cx = sl.g[0] - sl.gt[0], cy = sl.g[1] - sl.gt[1];
+    const float cv = cx * v[0] + cy * v[1];
+    tx = sl.r * (cv * cx - (q11 * v[0] + p12 * v[1]));
+    ty = sl.r * (cv * cy - (p12 * v[0] + q22 * v[1]));
+  }
+  hv[0] = warp_sum(tx);
+  hv[1] = warp_sum(ty);
+}
+
+// The targets of the UHA kernels (uha.cu, kl_uha.cu) as template
+// parameters: the state dimension D, what a lane keeps for the Hessian
+// product (Lanes), the score and its Hessian product for one chain per warp.
+// `par` holds the target's constants (many_gmm: the n_par / 2 means).
+struct ManyGmmTarget {
+  static constexpr int D = 2;
+  using Lanes = ScoreLanes;
+  NetArgs net;
+  const float* par;
+  __device__ ManyGmmTarget(const float* p, int n_par, float inv_var) : net{}, par(p) {
+    net.n_mix = n_par / 2;
+    net.inv_var_t = inv_var;
+  }
+  __device__ void score(const float x[D], float gt[D], Lanes* sl = nullptr) const {
+    many_gmm_score(net, par, x[0], x[1], gt, sl);
+  }
+  __device__ void hvp(const Lanes& sl, const float v[D], float hv[D]) const {
+    many_gmm_hvp(net, sl, v, hv);
+  }
+};
+
+struct Gmm3Target {
+  static constexpr int D = 2;
+  using Lanes = Gmm3Lanes;
+  const float* par;
+  __device__ Gmm3Target(const float* p, int, float) : par(p) {}
+  __device__ void score(const float x[D], float gt[D], Lanes* sl = nullptr) const {
+    gmm3_score(par, x[0], x[1], gt, sl);
+  }
+  __device__ void hvp(const Lanes& sl, const float v[D], float hv[D]) const {
+    gmm3_hvp(par, sl, v, hv);
+  }
+};
 
 // One warp, one chain: head_raw and many_gmm_score together.
 __device__ __forceinline__ void head_and_score(const NetArgs& net, const float* h2,

@@ -1,7 +1,7 @@
 """Batched elementary distributions (counterpart of cmcd_tpu/distributions.py).
 
 Batch-first: `z` is (N, dim) and log-probs return (N,). The momentum
-distribution of UHA is not ported yet (ROADMAP queue A).
+distribution of UHA is a zero-mean diagonal Gaussian with log-scale `md`.
 """
 
 from __future__ import annotations
@@ -54,6 +54,23 @@ def kernel_log_prob(x, mean, scale):
     y = (x - mean) / scale
     log_scale = torch.log(scale).expand(x.shape)
     return -0.5 * torch.sum(y * y + LOG_2PI, dim=-1) - torch.sum(log_scale, dim=-1)
+
+
+def momentum_init(dim: int, device=None):
+    """The momentum log-scale md of UHA: zeros of dim (unit scale)."""
+    return torch.zeros(dim, device=device)
+
+
+def momentum_sample_fresh(logscale, n: int, *, generator=None):
+    """A fresh momentum draw exp(md) * xi for n chains: (n, dim)."""
+    xi = torch.randn((n, logscale.shape[0]), generator=generator, device=logscale.device)
+    return torch.exp(logscale) * xi
+
+
+def momentum_log_prob(rho, logscale):
+    """log N(rho; 0, exp(logscale)^2) summed over dim. rho: (N, dim) -> (N,)."""
+    y = rho * torch.exp(-logscale)
+    return -0.5 * torch.sum(y * y + LOG_2PI, dim=-1) - torch.sum(logscale)
 
 
 def std_normal_log_prob(x):

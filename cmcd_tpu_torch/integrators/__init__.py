@@ -1,13 +1,14 @@
 """Integrator mode registry (cmcd_tpu/integrators/__init__.py).
 
-Serves the overdamped modes ported so far and the seven underdamped modes;
-every other mode (DNF, UHA) raises NotImplementedError naming ROADMAP.
+Serves the overdamped modes ported so far, the seven underdamped modes and
+UHA; every other mode (DNF) raises NotImplementedError naming ROADMAP.
 """
 
 from __future__ import annotations
 
 from cmcd_tpu_torch.integrators import overdamped as od
 from cmcd_tpu_torch.integrators import underdamped as ud
+from cmcd_tpu_torch.integrators import uha
 from cmcd_tpu_torch.integrators.base import IntegratorContext
 
 OVERDAMPED = {
@@ -27,6 +28,8 @@ UNDERDAMPED = {
     "MCD_CAIS_UHA_sn": ud.CAIS_UHA,
 }
 
+ALL_MODES = ["UHA"] + list(OVERDAMPED) + list(UNDERDAMPED)
+
 # Modes whose score net sees the state only, and those whose net sees
 # [z, rho] (rho_dim = dim).
 MODES_WITH_STATE_SN = ["MCD_ULA_sn", "MCD_U_e-lp-sna", "MCD_U_a-lp-sna", "MCD_CAIS_sn",
@@ -44,7 +47,7 @@ def mode_sn_rho_dim(mode: str, dim: int) -> int:
 
 def check_mode(mode: str) -> None:
     """Raise NotImplementedError unless `mode` is served here."""
-    if mode not in OVERDAMPED and mode not in UNDERDAMPED:
+    if mode not in ALL_MODES:
         raise NotImplementedError(
             f"mode {mode!r} is not ported yet: see ROADMAP queue A"
         )
@@ -53,9 +56,11 @@ def check_mode(mode: str) -> None:
 def evolve(z, betas, params, ctx: IntegratorContext, mode: str, *,
            noise=None, generator=None):
     """Dispatch to the stepper family of `mode`. noise: (K, N, dim) for an
-    overdamped mode, (K + 1, N, dim) for an underdamped one (row 0 the
+    overdamped mode, (K + 1, N, dim) for an underdamped one or UHA (row 0 the
     initial momentum)."""
     check_mode(mode)
+    if mode == "UHA":
+        return uha.evolve_uha(z, betas, params, ctx, noise=noise, generator=generator)
     if mode in UNDERDAMPED:
         return ud.evolve_underdamped(
             z, betas, params, ctx, UNDERDAMPED[mode], noise=noise, generator=generator

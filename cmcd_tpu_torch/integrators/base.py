@@ -28,6 +28,7 @@ class IntegratorContext:
     apply_sn: Optional[Callable] = None
     eps_schedule: str = ""
     grad_clipping: bool = False
+    lfsteps: int = 1  # leapfrog steps per UHA bridge
 
 
 def target_grad(ctx: IntegratorContext, differentiable: bool = True):

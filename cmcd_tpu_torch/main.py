@@ -19,11 +19,12 @@ with its trajectory and the replay or re-rolling backward kernel;
 kl_bound_fused for MCD_CAIS_sn, the rollout kernel with trajectory and noise
 and the reverse-sweep kernel, and for the approximate-refresh underdamped
 modes MCD_U_a-lp, -sna and -sn (LDVI), the underdamped rollout kernel with
-its stores and the underdamped sweep) and evaluation through the fused
-rollout of the mode's family (the seven underdamped modes included), one
-launch per seed group; a configuration the kernels do not cover, or
-use_pallas_train / use_pallas_eval off, raises there instead of running
-eagerly. On the CPU the two switches pick the kernels' plain versions or
+its stores and the underdamped sweep, and for UHA, the default boundmode, on
+many_gmm or the 3-mode gmm, the UHA rollout kernel with its stores and the
+UHA sweep) and evaluation through the fused rollout of the mode's family
+(the seven underdamped modes and UHA included), one launch per seed group;
+a configuration the kernels do not cover, or use_pallas_train /
+use_pallas_eval off, raises there instead of running eagerly. On the CPU the two switches pick the kernels' plain versions or
 the eager integrator. The fields in IGNORED are accepted and ignored with
 one printed line each. A non-default value of a field in NOT_PORTED raises.
 """
@@ -128,6 +129,7 @@ def init_experiment(config: Config, device, target=None, vdparams=None) -> tuple
         emb_dim=config.emb_dim,
         nlayers=config.nlayers,
         nn_arch=config.nn_arch,
+        lfsteps=config.lfsteps,
     )
     trainable = bounds.default_trainable(
         setup.mode, config.train_eps, config.train_vi, config.train_betas

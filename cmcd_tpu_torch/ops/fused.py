@@ -4,8 +4,9 @@
 The variational draw, the initial and final log-prob terms and the beta grid
 stay in plain torch; the K-step loop runs in one launch of a CUDA kernel:
 the overdamped rollout (ops/overdamped.py) for the CAIS modes, the
-underdamped rollout (ops/underdamped.py) for the seven underdamped modes.
-Forward only: evaluation, sampling, ln Z.
+underdamped rollout (ops/underdamped.py) for the seven underdamped modes,
+the UHA rollout (ops/uha.py) for UHA. Forward only: evaluation, sampling,
+ln Z.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from cmcd_tpu_torch import bounds
 from cmcd_tpu_torch.distributions import diag_gaussian_log_prob, diag_gaussian_sample
 from cmcd_tpu_torch.integrators import UNDERDAMPED
 from cmcd_tpu_torch.integrators import overdamped as od
-from cmcd_tpu_torch.ops import overdamped, underdamped
+from cmcd_tpu_torch.ops import overdamped, uha, underdamped
 from cmcd_tpu_torch.ops.target_grads import score_for_target
 from cmcd_tpu_torch.schedules import betas_from_grid
 
@@ -35,8 +36,15 @@ def supports_fused(setup: bounds.CMCDSetup, target) -> bool:
     """True if a kernel implements (mode, target score, net) at this size:
     a CAIS-family or underdamped mode, the default many_gmm, the two-layer
     geffner net, and a net width that fits one block's threads and shared
-    memory (the rollout's kernel_fits)."""
+    memory (the rollout's kernel_fits); or UHA on many_gmm or gmm with
+    lfsteps the kernel takes (ops/uha.kernel_covers)."""
     score = score_for_target(target)
+    if score is None:
+        return False
+    if setup.mode == "UHA":
+        return uha.kernel_covers(score, setup.dim, setup.nbridges, setup.lfsteps)
+    if score.kernel_name != "many_gmm":
+        return False
     if setup.mode in KERNEL_SPECS:
         fits = overdamped.kernel_fits
     elif setup.mode in UNDERDAMPED:
@@ -44,8 +52,7 @@ def supports_fused(setup: bounds.CMCDSetup, target) -> bool:
     else:
         return False
     return (
-        score is not None
-        and setup.dim == 2
+        setup.dim == 2
         and setup.nn_arch == "geffner"
         and setup.nlayers == 2
         and setup.nbridges >= 1
@@ -61,7 +68,7 @@ def compute_elbos_fused(params, n_chains: int, setup: bounds.CMCDSetup, target,
     Same contract as bounds.compute_elbos. The kernel's Philox seed is drawn
     from `generator` on the device, so consecutive calls need no host sync.
     base_normals (N, dim) / noise ((K, N, dim) overdamped, (K + 1, N, dim)
-    underdamped): optional draws standing in for the generator's. rollout:
+    underdamped or UHA): optional draws standing in for the generator's. rollout:
     None for the kernel's wrapper of the mode's family, or a stand-in with
     its signature (the plain version, when the two are compared on the card).
     """
@@ -79,19 +86,26 @@ def compute_elbos_fused(params, n_chains: int, setup: bounds.CMCDSetup, target,
     betas = betas_from_grid(p["mgridref_y"], p["gridref_x"], p["target_x"])
     seed = torch.randint(2**31 - 1, (1,), generator=generator, device=dev)
     score = score_for_target(target, dev)
-    common = dict(dim=setup.dim, nbridges=setup.nbridges, sn=p.get("sn"), seed=seed, noise=noise)
-    if setup.mode in UNDERDAMPED:
+    common = dict(dim=setup.dim, nbridges=setup.nbridges, seed=seed, noise=noise)
+    if setup.mode == "UHA":
+        z, w_delta = (rollout or uha.evolve_uha_fused)(
+            z0.contiguous(), betas.contiguous(), p["eps"], p["eta"], p["md"].contiguous(),
+            vd["mean"].contiguous(), vd["logdiag"].contiguous(), score,
+            lfsteps=setup.lfsteps, **common,
+        )
+        w = w0 + w_delta
+    elif setup.mode in UNDERDAMPED:
         z, w = (rollout or underdamped.evolve_underdamped_fused)(
             z0.contiguous(), w0.contiguous(), betas.contiguous(), p["eps"], p["gamma"],
             p["eta"], vd["mean"].contiguous(), vd["logdiag"].contiguous(), score,
-            UNDERDAMPED[setup.mode], **common,
+            UNDERDAMPED[setup.mode], sn=p.get("sn"), **common,
         )
     else:
         z, w = (rollout or overdamped.evolve_overdamped_fused)(
             z0.contiguous(), w0.contiguous(), betas.contiguous(), p["eps"],
             vd["mean"].contiguous(), vd["logdiag"].contiguous(), score,
             KERNEL_SPECS[setup.mode], eps_schedule=setup.eps_schedule,
-            grad_clipping=setup.grad_clipping, **common,
+            grad_clipping=setup.grad_clipping, sn=p["sn"], **common,
         )
     w = w + target.log_prob(z)
     return -w, z

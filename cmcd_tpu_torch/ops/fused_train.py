@@ -1,15 +1,15 @@
 """The fused training losses: kernel forward, kernel backward
 (cmcd_tpu/ops/fused_train.py: _make_evolve, neg_elbos_pallas,
-var_bound_pallas; _make_evolve_kl, _make_evolve_kl_ud, neg_elbos_pallas_kl,
-kl_bound_pallas).
+var_bound_pallas; _make_evolve_kl, _make_evolve_kl_ud, _make_evolve_kl_uha,
+neg_elbos_pallas_kl, kl_bound_pallas).
 
 var_bound_fused stands in for bounds.var_bound on MCD_CAIS_var_sn and
-kl_bound_fused for bounds.kl_bound on MCD_CAIS_sn and the three
+kl_bound_fused for bounds.kl_bound on MCD_CAIS_sn, the three
 approximate-refresh underdamped modes (UD_KL_FUSED_MODES; LDVI is
-MCD_U_a-lp-sn): the same (loss, (neg_elbos, z)) contract and the same math,
-but the K-step rollout runs in a fused rollout kernel (ops/overdamped.py,
-ops/underdamped.py) and the gradient in a backward kernel, joined by a
-torch.autograd.Function.
+MCD_U_a-lp-sn) and UHA: the same (loss, (neg_elbos, z)) contract and the
+same math, but the K-step rollout runs in a fused rollout kernel
+(ops/overdamped.py, ops/underdamped.py, ops/uha.py) and the gradient in a
+backward kernel, joined by a torch.autograd.Function.
 
 Everything outside the bridge loop stays plain autograd, as in JAX: the
 reparameterised initial term -log q(z0(theta)), the chain rule from
@@ -26,12 +26,14 @@ again from (z0, seed); "auto" replays unless the stored trajectory,
 (K + 1) * N * dim * 4 bytes, would exceed _REPLAY_BYTES_BUDGET.
 
 KL cuts nothing: z0 and z_final carry real cotangents. The rollout stores
-trajectory and noise (the underdamped one also the momenta), autograd gives
-the final target term's gradient in z_final, and the reverse-sweep kernel
-(ops/kl.py, ops/kl_underdamped.py) chains it back through every step to
-theta and to z0, from where autograd goes on through the reparameterised
-draw. The underdamped sweep also returns gamma's gradient, and eta's, which
-is zero in these modes (the JAX package gives zeros too).
+trajectory and noise (the underdamped and UHA ones also the momenta),
+autograd gives the final target term's gradient in z_final, and the
+reverse-sweep kernel (ops/kl.py, ops/kl_underdamped.py, ops/kl_uha.py) chains
+it back through every step to theta and to z0, from where autograd goes on
+through the reparameterised draw. The underdamped sweep also returns gamma's
+gradient, and eta's, which is zero in these modes (the JAX package gives
+zeros too); the UHA sweep returns eta's and md's (md is not trained: the
+trainable set never names it, as in the JAX package).
 
 On CPU tensors the Functions run the plain versions; on CUDA tensors they
 launch the kernels or raise. plain=True runs the plain versions wherever the
@@ -42,6 +44,7 @@ same step without them.
 from __future__ import annotations
 
 import functools
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -49,9 +52,10 @@ from cmcd_tpu_torch import bounds
 from cmcd_tpu_torch.distributions import diag_gaussian_log_prob, diag_gaussian_sample
 from cmcd_tpu_torch.integrators import UNDERDAMPED
 from cmcd_tpu_torch.integrators import overdamped as od
-from cmcd_tpu_torch.ops import kl, kl_underdamped, vargrad
+from cmcd_tpu_torch.ops import kl, kl_underdamped, uha, vargrad
 from cmcd_tpu_torch.ops.fused import net_width, supports_fused
 from cmcd_tpu_torch.ops.kl import evolve_kl_bwd, evolve_kl_bwd_plain
+from cmcd_tpu_torch.ops.kl_uha import evolve_kl_bwd_uha, evolve_kl_bwd_uha_plain
 from cmcd_tpu_torch.ops.kl_underdamped import (
     evolve_kl_bwd_underdamped,
     evolve_kl_bwd_underdamped_plain,
@@ -74,10 +78,8 @@ from cmcd_tpu_torch.schedules import betas_from_grid
 # approximate-refresh ones (B7's kernel covers them). Still to port: the
 # exact and exact_fwd refreshes and MCD_CAIS_UHA_sn.
 UD_KL_FUSED_MODES = frozenset({"MCD_U_a-lp", "MCD_U_a-lp-sna", "MCD_U_a-lp-sn"})
-# The modes whose KL loss has a fused backward. Still to port: MCD_ULA,
-# MCD_ULA_sn and MCD_DNF (the per-point sweep), UHA and the rest of the
-# underdamped family.
-KL_FUSED_MODES = frozenset({"MCD_CAIS_sn"}) | UD_KL_FUSED_MODES
+# UHA: the UHA rollout (B8) and its sweep (B9).
+UHA_KL_FUSED_MODES = frozenset({"UHA"})
 
 # The stored trajectory costs (K + 1) * N * dim * 4 bytes between the forward
 # and the backward kernel; past this budget "auto" takes the re-rolling
@@ -88,13 +90,17 @@ _REPLAY_BYTES_BUDGET = 256 * 1024 * 1024
 def supports_fused_train(setup: bounds.CMCDSetup, target) -> bool:
     """True if a fused training loss can run: what supports_fused asks of
     the rollout, the VarGrad mode or a mode of KL_FUSED_MODES, and a net that
-    also fits one block of that mode's backward kernel."""
+    also fits one block of that mode's backward kernel (UHA has no net: its
+    sweep takes whatever its rollout takes)."""
     if not supports_fused(setup, target):
         return False
-    fits = {"MCD_CAIS_var_sn": vargrad.kernel_fits, "MCD_CAIS_sn": kl.kernel_fits}
-    fits.update(dict.fromkeys(UD_KL_FUSED_MODES, kl_underdamped.kernel_fits))
-    return setup.mode in fits and fits[setup.mode](
-        net_width(setup), score_for_target(target).means.shape[0])
+    if setup.mode == "MCD_CAIS_var_sn":
+        fits = vargrad.kernel_fits
+    elif setup.mode in KL_FUSED_MODES:
+        fits = _kl_family(setup.mode).fits
+    else:
+        return False
+    return fits is None or fits(net_width(setup), score_for_target(target).means.shape[0])
 
 
 def choose_backward(backward: str, setup: bounds.CMCDSetup, n_chains: int) -> str:
@@ -223,11 +229,102 @@ class _EvolveKLUD(torch.autograd.Function):
                 g["eta"].reshape(eta.shape), g_betas, g_mu, g_ld, *g_weights)
 
 
-def _prepare(params, n_chains, setup, target, generator, base_normals, plain, backward):
-    """What both losses do before the rollout: (p, z0, w0, betas, seed, call).
-    call["backward"] is the wrapper named `backward` ("replay", "reroll",
-    "kl" or "kl_ud"), call["rollout"] the rollout's of the mode's family, or
-    with `plain` their plain versions."""
+class _EvolveKLUHA(torch.autograd.Function):
+    """(theta, z0; seed, noise) -> (deltas, z_final) for UHA, nothing cut.
+
+    Forward: the fused UHA rollout, storing positions, momenta and draws.
+    Backward: the UHA reverse-sweep kernel with the cotangents of deltas and
+    of z_final; returns the gradients of theta (eps, eta, md, betas,
+    vd_mean, vd_logdiag) and of z0.
+    """
+
+    @staticmethod
+    def forward(ctx, call, z0, seed, noise, eps, eta, md, betas, vd_mean, vd_logdiag):
+        z, deltas, ztraj, rtraj, draws = call["rollout"](
+            z0, betas.contiguous(), eps, eta, md.contiguous(), vd_mean.contiguous(),
+            vd_logdiag.contiguous(), call["score"], seed=seed, noise=noise, return_state=True,
+            **call["static"],
+        )
+        ctx.call = call
+        ctx.save_for_backward(ztraj, rtraj, draws, eps, eta, md, betas, vd_mean, vd_logdiag)
+        return deltas, z
+
+    @staticmethod
+    def backward(ctx, g_deltas, g_z):
+        call = ctx.call
+        ztraj, rtraj, draws, eps, eta, md, betas, vd_mean, vd_logdiag = ctx.saved_tensors
+        g, g_z0 = call["backward"](
+            ztraj, rtraj, draws, g_deltas.contiguous(), g_z.contiguous(), betas.contiguous(),
+            eps, eta, md.contiguous(), vd_mean.contiguous(), vd_logdiag.contiguous(),
+            call["score"], **call["static"],
+        )
+        return (None, g_z0, None, None, g["eps"].reshape(eps.shape), g["eta"].reshape(eta.shape),
+                g["md"], g["betas"], g["vd_mean"], g["vd_logdiag"])
+
+
+def _overdamped_static(setup, p):
+    return dict(dim=setup.dim, nbridges=setup.nbridges, sn=p["sn"],
+                eps_schedule=setup.eps_schedule, grad_clipping=setup.grad_clipping)
+
+
+class _KLFamily(NamedTuple):
+    """One family of KL_FUSED_MODES: its rollout and its sweep, each as
+    (kernel wrapper, plain version); the Function joining them; the leaves
+    of the merged params it takes before betas; the rollout's fixed keyword
+    arguments; the backward kernel's kernel_fits (None: no net, the sweep
+    takes what the rollout takes); and the words fused_training_path prints."""
+
+    modes: frozenset
+    rollout: tuple
+    sweep: tuple
+    function: type
+    leaves: tuple
+    static: Callable
+    fits: Callable | None
+    words: str
+
+
+def _kl_families() -> tuple:
+    """The rows, built at the call so that each names the wrappers the
+    modules hold then."""
+    return (
+        _KLFamily(
+            frozenset({"MCD_CAIS_sn"}),
+            (evolve_overdamped_fused, evolve_overdamped_fused_plain),
+            (evolve_kl_bwd, evolve_kl_bwd_plain),
+            _EvolveKL, ("eps",), _overdamped_static, kl.kernel_fits, "KL reverse sweep",
+        ),
+        _KLFamily(
+            UD_KL_FUSED_MODES,
+            (evolve_underdamped_fused, evolve_underdamped_fused_plain),
+            (evolve_kl_bwd_underdamped, evolve_kl_bwd_underdamped_plain),
+            _EvolveKLUD, ("eps", "gamma", "eta"),
+            lambda setup, p: dict(dim=setup.dim, nbridges=setup.nbridges, sn=p.get("sn")),
+            kl_underdamped.kernel_fits, "underdamped rollout and KL reverse sweep",
+        ),
+        _KLFamily(
+            UHA_KL_FUSED_MODES,
+            (uha.evolve_uha_fused, uha.evolve_uha_fused_plain),
+            (evolve_kl_bwd_uha, evolve_kl_bwd_uha_plain),
+            _EvolveKLUHA, ("eps", "eta", "md"),
+            lambda setup, p: dict(dim=setup.dim, nbridges=setup.nbridges, lfsteps=setup.lfsteps),
+            None, "UHA rollout and UHA reverse sweep",
+        ),
+    )
+
+
+# The modes whose KL loss has a fused backward. Still to port: MCD_ULA,
+# MCD_ULA_sn and MCD_DNF (the per-point sweep) and the rest of the
+# underdamped family.
+KL_FUSED_MODES = frozenset().union(*(f.modes for f in _kl_families()))
+
+
+def _kl_family(mode: str) -> _KLFamily:
+    return next(f for f in _kl_families() if mode in f.modes)
+
+
+def _prepare(params, n_chains, setup, target, generator, base_normals):
+    """What both losses do before the rollout: (p, z0, w0, betas, seed, score)."""
     if not supports_fused_train(setup, target):
         raise NotImplementedError(
             f"no fused training kernels for mode {setup.mode} on {target.name} "
@@ -242,26 +339,7 @@ def _prepare(params, n_chains, setup, target, generator, base_normals, plain, ba
     w0 = -diag_gaussian_log_prob(vd, z0)
     betas = betas_from_grid(p["mgridref_y"], p["gridref_x"], p["target_x"])
     seed = torch.randint(2**31 - 1, (1,), generator=generator, device=dev)
-    wrappers = {
-        "replay": (evolve_vargrad_bwd_replay, evolve_vargrad_bwd_replay_plain),
-        "reroll": (evolve_vargrad_bwd_reroll, evolve_vargrad_bwd_reroll_plain),
-        "kl": (evolve_kl_bwd, evolve_kl_bwd_plain),
-        "kl_ud": (evolve_kl_bwd_underdamped, evolve_kl_bwd_underdamped_plain),
-    }
-    call = {
-        "backward": wrappers[backward][plain],
-        "replay": backward == "replay",
-        "score": score_for_target(target, dev),
-    }
-    if setup.mode in UNDERDAMPED:
-        call["rollout"] = evolve_underdamped_fused_plain if plain else evolve_underdamped_fused
-        call["spec"] = UNDERDAMPED[setup.mode]
-        call["static"] = dict(dim=setup.dim, nbridges=setup.nbridges, sn=p.get("sn"))
-    else:
-        call["rollout"] = evolve_overdamped_fused_plain if plain else evolve_overdamped_fused
-        call["static"] = dict(dim=setup.dim, nbridges=setup.nbridges, sn=p["sn"],
-                              eps_schedule=setup.eps_schedule, grad_clipping=setup.grad_clipping)
-    return p, z0, w0, betas, seed, call
+    return p, z0, w0, betas, seed, score_for_target(target, dev)
 
 
 def neg_elbos_fused(params, n_chains: int, ctx, setup: bounds.CMCDSetup, target,
@@ -276,9 +354,18 @@ def neg_elbos_fused(params, n_chains: int, ctx, setup: bounds.CMCDSetup, target,
     """
     if setup.mode != "MCD_CAIS_var_sn":
         raise NotImplementedError(f"the fused VarGrad loss is for MCD_CAIS_var_sn, not {setup.mode}")
-    p, z0, w0, betas, seed, call = _prepare(
-        params, n_chains, setup, target, generator, base_normals, plain,
-        choose_backward(backward, setup, n_chains))
+    p, z0, w0, betas, seed, score = _prepare(
+        params, n_chains, setup, target, generator, base_normals)
+    replay = choose_backward(backward, setup, n_chains) == "replay"
+    wrappers = ((evolve_vargrad_bwd_replay, evolve_vargrad_bwd_replay_plain) if replay
+                else (evolve_vargrad_bwd_reroll, evolve_vargrad_bwd_reroll_plain))
+    call = {
+        "rollout": (evolve_overdamped_fused, evolve_overdamped_fused_plain)[plain],
+        "backward": wrappers[plain],
+        "replay": replay,
+        "score": score,
+        "static": _overdamped_static(setup, p),
+    }
     vd = p["vd"]
     # The rollout sees z0 as data.
     deltas, z = _Evolve.apply(
@@ -304,30 +391,30 @@ def neg_elbos_fused_kl(params, n_chains: int, ctx, setup: bounds.CMCDSetup, targ
     state cotangent chains through every step, the final target term and the
     reparameterised initial draw): (neg_elbos, z).
 
-    The draws and plain as in neg_elbos_fused; an underdamped mode's noise is
-    (K + 1, N, dim), row 0 the initial momentum.
+    The draws and plain as in neg_elbos_fused; the noise of an underdamped
+    mode or UHA is (K + 1, N, dim), row 0 the initial momentum.
     """
     if setup.mode not in KL_FUSED_MODES:
         raise NotImplementedError(
             f"the fused KL loss implements {sorted(KL_FUSED_MODES)}, not {setup.mode}; "
             "see ROADMAP queue B"
         )
-    ud = setup.mode in UD_KL_FUSED_MODES
-    p, z0, w0, betas, seed, call = _prepare(params, n_chains, setup, target, generator,
-                                            base_normals, plain, "kl_ud" if ud else "kl")
+    family = _kl_family(setup.mode)
+    p, z0, w0, betas, seed, score = _prepare(params, n_chains, setup, target, generator,
+                                             base_normals)
+    call = {
+        "rollout": family.rollout[plain],
+        "backward": family.sweep[plain],
+        "score": score,
+        "static": family.static(setup, p),
+        "spec": UNDERDAMPED.get(setup.mode),
+    }
     vd = p["vd"]
-    scalar = lambda name: torch.as_tensor(p[name], device=z0.device)
+    leaves = (torch.as_tensor(p[name], device=z0.device) for name in family.leaves)
     weights = p["sn"].parameters() if "sn" in p else ()
-    if ud:
-        deltas, z = _EvolveKLUD.apply(
-            call, z0.contiguous(), seed, noise, scalar("eps"), scalar("gamma"), scalar("eta"),
-            betas, vd["mean"], vd["logdiag"], *weights,
-        )
-    else:
-        deltas, z = _EvolveKL.apply(
-            call, z0.contiguous(), seed, noise, scalar("eps"), betas, vd["mean"],
-            vd["logdiag"], *weights,
-        )
+    deltas, z = family.function.apply(
+        call, z0.contiguous(), seed, noise, *leaves, betas, vd["mean"], vd["logdiag"], *weights,
+    )
     # The floored eager log-prob: its gradient in z is the sweep's g_zfinal.
     w = w0 + deltas + ctx.target_log_prob(z)
     return -w, z
@@ -348,6 +435,6 @@ def fused_training_path(setup: bounds.CMCDSetup, n_chains: int) -> tuple:
         backward = choose_backward("auto", setup, n_chains)
         return (functools.partial(var_bound_fused, backward=backward),
                 f"var_bound_fused, VarGrad {backward} backward")
-    if setup.mode in UD_KL_FUSED_MODES:
-        return kl_bound_fused, "kl_bound_fused, underdamped rollout and KL reverse sweep"
-    return kl_bound_fused, "kl_bound_fused, KL reverse sweep"
+    if setup.mode not in KL_FUSED_MODES:
+        raise NotImplementedError(f"no fused training loss for {setup.mode}")
+    return kl_bound_fused, f"kl_bound_fused, {_kl_family(setup.mode).words}"

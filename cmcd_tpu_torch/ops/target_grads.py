@@ -1,9 +1,11 @@
 """Target scores in the form the fused rollout computes them
 (cmcd_tpu/ops/target_grads.py).
 
-The CUDA kernel (csrc/overdamped.cu) inlines the many_gmm score; this module
-holds its plain twin and the registry that tells the wrapper which targets
-the kernel can integrate. Like the TPU kernel, the score ignores the -1e4
+The CUDA kernels inline the many_gmm score (csrc/cmcd_common.cuh), and the
+UHA kernels (csrc/uha.cu, csrc/kl_uha.cu) the 3-mode gmm's too; this module
+holds their plain twins, with the Hessian products the reverse sweeps need,
+and the registry that tells a wrapper which target its kernel integrates
+(`kernel_name`). Like the TPU kernel, the many_gmm score ignores the -1e4
 floor of the batched log_prob: inside the support the two agree, outside it
 the floored log_prob has a zero gradient and this score does not.
 """
@@ -13,9 +15,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
-from cmcd_tpu_torch.targets.gmm import many_gmm_means, many_gmm_scale
+from cmcd_tpu_torch.targets.gmm import gmm_constants, many_gmm_means, many_gmm_scale
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,14 +58,68 @@ class ManyGMMScore:
         return -a * v + a * a * torch.sum((r * cv)[..., None] * c, dim=1)
 
 
+@dataclasses.dataclass(frozen=True)
+class GMMScore:
+    """grad log p for the symmetrised 3-mode mixture p = (f(x) + f(S x)) / 2,
+    S the coordinate swap: a softmax over the 6 (component, branch) pairs b
+    of their log-densities l_b (the equal weights cancel) weighting the
+    pairs' Gaussian gradients g_b = -P_b (x - m_b), where the swapped branch
+    has m_b = S m_k and P_b = S P_k S. The constants are float32 (the
+    kernels'), cast to the input's dtype."""
+
+    means: torch.Tensor     # (3, 2)
+    precs: torch.Tensor     # (3, 2, 2): the components' inverse covariances
+    log_norm: torch.Tensor  # (3,)
+
+    kernel_name = "gmm"
+
+    def _branches(self, x):
+        """Per pair b (component-major, the unswapped three first): the
+        responsibilities r (N, 6), the gradients g (N, 6, 2) and the
+        precisions P (6, 2, 2), all in x's coordinates and dtype."""
+        means, precs, log_norm = (t.to(x.device, x.dtype) for t in
+                                  (self.means, self.precs, self.log_norm))
+        means = torch.cat([means, means.flip(-1)])                   # (6, 2): S m_k
+        precs = torch.cat([precs, precs.flip(-1, -2)])               # (6, 2, 2): S P_k S
+        d = x[:, None, :] - means[None]                              # (N, 6, 2)
+        y = torch.einsum("bij,nbj->nbi", precs, d)
+        logp = -0.5 * torch.sum(d * y, dim=-1) + torch.cat([log_norm, log_norm])
+        return torch.softmax(logp, dim=-1), -y, precs
+
+    def __call__(self, x):
+        """x: (N, 2) -> (N, 2)."""
+        r, g, _ = self._branches(x)
+        return torch.sum(r[..., None] * g, dim=1)
+
+    def hvp(self, x, v):
+        """The score's Jacobian applied to v (the Hessian of log p is
+        symmetric), both (N, 2) -> (N, 2), written out:
+          H v = sum_b r_b (c_b (c_b . v) - P_b v),  c_b = g_b - sum_i r_i g_i,
+        the centred form of sum_b r_b (g_b g_b^T - P_b) v - g (g . v)."""
+        r, g, precs = self._branches(x)
+        c = g - torch.sum(r[..., None] * g, dim=1, keepdim=True)     # (N, 6, 2)
+        cv = torch.sum(c * v[:, None, :], dim=-1)                    # (N, 6)
+        pv = torch.einsum("bij,nj->nbi", precs, v)                   # (N, 6, 2)
+        return torch.sum(r[..., None] * (cv[..., None] * c - pv), dim=1)
+
+
+def make_gmm_score(device=None) -> GMMScore:
+    means, chols, _, log_norm = gmm_constants()
+    precs = np.linalg.inv(chols @ np.swapaxes(chols, -1, -2))
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    return GMMScore(means=f32(means), precs=f32(precs), log_norm=f32(log_norm))
+
+
 def make_many_gmm_score(device=None, log_var_scaling: float = 0.1) -> ManyGMMScore:
     scale = many_gmm_scale(log_var_scaling)
     return ManyGMMScore(means=many_gmm_means(device), inv_var=1.0 / (scale * scale))
 
 
-def score_for_target(target, device=None) -> Optional[ManyGMMScore]:
-    """The kernel-form score of `target`, or None where the kernel has none
-    (see ROADMAP queue B, B11)."""
+def score_for_target(target, device=None) -> Optional[ManyGMMScore | GMMScore]:
+    """The kernel-form score of `target`, or None where no kernel has one
+    (see ROADMAP queue B, B11). Which kernels take it: its kernel_name."""
+    if target.name == "gmm":
+        return make_gmm_score(device)
     if target.name != "many_gmm":
         return None
     p = target.params

@@ -1,7 +1,8 @@
 """Target registry: name -> Target (cmcd_tpu/targets/__init__.py).
 
-Only many_gmm is ported; every other name raises NotImplementedError and
-names the ROADMAP queue that holds it.
+many_gmm and the 3-mode gmm are ported; every other name raises
+NotImplementedError and names the ROADMAP queue that holds it. Names are
+matched as the JAX package matches them: "many_gmm" is tested before "gmm".
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ def load_target(name: str, config=None, device=None) -> Target:
     """Load a target density by name; config attributes as in cmcd_tpu.
     device=None is the card (utils/device.resolve_device)."""
     device = resolve_device(device)
-    if name == "many_gmm":
+    if "many_gmm" in name:
         from cmcd_tpu_torch.targets.gmm import make_many_gmm
 
         get = lambda attr, default: getattr(config, attr, default)
@@ -23,6 +24,10 @@ def load_target(name: str, config=None, device=None) -> Target:
             loc_scaling=get("loc_scaling", 40.0),
             device=device,
         )
+    if "gmm" in name:
+        from cmcd_tpu_torch.targets.gmm import make_gmm
+
+        return make_gmm(device=device)
     raise NotImplementedError(
         f"target {name!r} is not ported yet: see ROADMAP queue A "
         "(remaining overdamped targets)"

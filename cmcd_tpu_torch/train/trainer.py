@@ -165,7 +165,7 @@ def train(
     with 0 on the parameters' device.
 
     callback(step, info, z) is invoked every callback_every steps with host
-    scalars (loss, grad_mean, var_loss, steps_per_sec, eps, gamma). The NaN
+    scalars (loss, grad_mean, var_loss, steps_per_sec, eps, gamma, eta). The NaN
     guard checks every nan_check_every steps and at the end, at chunk
     granularity, and stops early, returning the last parameters that passed
     it with steps_done set to the start of the failing chunk.
@@ -294,8 +294,9 @@ def train(
                     "steps_per_sec": chunk_rate,
                     "eps": float(merged["eps"].detach()),
                 }
-                if "gamma" in merged:
-                    info["gamma"] = float(merged["gamma"].detach())
+                for name in ("gamma", "eta"):
+                    if name in merged:
+                        info[name] = float(merged[name].detach())
                 callback(i, info, z)
 
     for leaf in leaves + (ema_leaves or []):

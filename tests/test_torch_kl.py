@@ -29,6 +29,7 @@ from cmcd_tpu_torch.ops import kl
 from cmcd_tpu_torch.ops.fused_train import (
     KL_FUSED_MODES,
     UD_KL_FUSED_MODES,
+    UHA_KL_FUSED_MODES,
     kl_bound_fused,
     supports_fused_train,
     var_bound_fused,
@@ -209,9 +210,10 @@ def test_kl_bound_fused_carries_the_state_gradient_to_the_draw():
 
 def test_fused_kl_gate_and_mode_checks():
     target = load_target("many_gmm", device="cpu")
-    # The overdamped member; the approximate-refresh underdamped modes joined it
-    # with their own sweep (tests/test_torch_kl_underdamped.py).
-    assert KL_FUSED_MODES - UD_KL_FUSED_MODES == {"MCD_CAIS_sn"}
+    # The overdamped member; the approximate-refresh underdamped modes and UHA
+    # joined it with their own sweeps (tests/test_torch_kl_underdamped.py,
+    # tests/test_torch_uha.py).
+    assert KL_FUSED_MODES - UD_KL_FUSED_MODES - UHA_KL_FUSED_MODES == {"MCD_CAIS_sn"}
     assert supports_fused_train(
         tb.CMCDSetup(mode="MCD_CAIS_sn", dim=2, nbridges=256, emb_dim=130), target)
     assert kl.kernel_fits(132, 40) and not kl.kernel_fits(148, 40)

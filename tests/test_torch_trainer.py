@@ -250,7 +250,7 @@ def test_cadences_callback_keys_and_ring():
     assert [i for i, _, _ in infos] == [0, 10, 20]
     for i, info, z_shape in infos:
         assert set(info) == {"step", "loss", "grad_mean", "var_loss", "steps_per_sec", "eps",
-                             "gamma"}
+                             "gamma", "eta"}
         assert info["step"] == i and z_shape == (4, 2)
         assert all(isinstance(v, (int, float)) for v in info.values())
     # The ring holds the last 8 per-iteration losses (steps 22..29), slot i % 8.
