@@ -113,6 +113,33 @@ Phases, one line each; any failure exits non-zero:
      evaluation's N=500) and the sweep (CUDA events), and one UHA optimizer
      step through the kernels over 50 steps against the eager step, with its
      device busy share under torch.profiler.
+ 20. the overdamped kernels' forms of the 3-mode gmm, ULA_sn and plain ULA
+     against their plain versions. The rollout under injected noise at the
+     test size (N=256, K=8, emb 16) for CAIS, CAIS_VAR, ULA and ULA_sn on
+     many_gmm and gmm, each with its noise stack injected again (the same
+     bits); the KL sweep for CAIS, ULA and ULA_sn on both targets at N=128,
+     K=6 (three schedules; float64 reported, and the arbiter of the eps
+     leaf of gmm under cos_sq only, whose terms cancel); the VarGrad replay and
+     re-rolling backward on
+     gmm; at full width ULA and ULA_sn on many_gmm (N=2000 and 500, K=256,
+     emb 130 for ULA_sn) and the gmm CAIS recipes' shapes (N=300 and 500,
+     K=256, cos_sq, emb 20; N=300, K=8), the sweeps with the float64 arbiter;
+     one whole KL step with the variational draw trained for the gmm_cais,
+     gmm_cais_tuned and gmm_ula flags and for ULA_sn on many_gmm.
+ 21. the paths of those forms through the CLI, each form's launches counted
+     from 0 just before its run and no other kernel launched: gmm_cais's and
+     gmm_ula's flags for OD_PATH_ITERS steps (rollout OD_PATH_ITERS + 30,
+     sweep OD_PATH_ITERS; ELBO above its value at init), ULA_sn and ULA on
+     many_gmm at N=2000, K=256 for OD_WIDE_ITERS steps, the VarGrad loss on
+     gmm (replay at N=300; the re-rolling backward at N=REROLL_N, K=256),
+     each followed by the 30 x 500 evaluation; no NaN loss, no divergence;
+     LDVI on gmm is refused with no launch.
+ 22. timing (CUDA events, in the order plain, kernel, kernel, plain) of the
+     new forms at N=2000, K=256 on many_gmm and at the gmm recipes' shapes,
+     each beside its bound (_work_od) and the kernel's device time per
+     launch under torch.profiler, and the gmm_cais, gmm_ula and ULA_sn
+     optimizer steps over 50 steps against the eager step (the gmm steps
+     also over 500 steps, and train()'s set-up alone).
 Then a JSON line with each kernel's launches, error, times and bound, and as
 the last line {"ok": true, "device": {...}}.
 """
@@ -259,12 +286,14 @@ def phase_build():
 
 
 def make_problem(n, k, emb_dim, *, seed, factor_sn=0.3, sigma=3.0, eps=0.1, din=2,
-                 noise_rows=None):
+                 noise_rows=None, target="many_gmm"):
     """Inputs from a numpy seed: net weights on din input columns ahead of
     the embedding (JAX layout, converted; din 0: no net), z0, w0, non-uniform
-    betas, noise (noise_rows, default K, x N x 2)."""
-    from cmcd_tpu_torch.ops.target_grads import make_many_gmm_score
+    betas, noise (noise_rows, default K, x N x 2), the target's kernel-form
+    score (many_gmm or the 3-mode gmm)."""
+    from cmcd_tpu_torch.ops.target_grads import score_for_target
     from cmcd_tpu_torch.schedules import betas_from_grid, make_beta_grid_params
+    from cmcd_tpu_torch.targets import load_target
     from cmcd_tpu_torch.utils.convert import geffner_from_jax
 
     rng = np.random.default_rng(seed)
@@ -285,7 +314,7 @@ def make_problem(n, k, emb_dim, *, seed, factor_sn=0.3, sigma=3.0, eps=0.1, din=
         eps=f32(eps),
         vd_mean=f32([0.5, -0.5]),
         vd_logdiag=f32([math.log(sigma)] * 2),
-        grad_logp=make_many_gmm_score(dev),
+        grad_logp=score_for_target(load_target(target, device=dev), dev),
         sn=geffner_from_jax(tree, dev) if din else None,
         noise=f32(rng.standard_normal((noise_rows or k, n, 2))),
         dim=2,
@@ -388,24 +417,29 @@ def compare_backward(case, tol, **kw):
     return _grad_errors(_flat(g_k), _flat(g_p), tol)
 
 
-def compare_noise_stack(case, **kw):
+def compare_noise_stack(case, spec=None, **kw):
     """The rollout's noise stack is what the kernel used: its Philox draws,
-    injected again, give the same z, w and trajectory bit for bit."""
+    injected again, give the same z, w and trajectory bit for bit (spec
+    default CAIS)."""
     from cmcd_tpu_torch.integrators.overdamped import CAIS
     from cmcd_tpu_torch.ops.overdamped import evolve_overdamped_fused
 
+    spec = spec or CAIS
     pos, args, _ = _split(case)
     seed = torch.tensor([13], device="cuda")
-    z, w, traj, draws = evolve_overdamped_fused(*pos, CAIS, **args, seed=seed,
+    z, w, traj, draws = evolve_overdamped_fused(*pos, spec, **args, seed=seed,
                                                 return_trajectory=True, return_noise=True, **kw)
-    z2, w2, traj2, same = evolve_overdamped_fused(*pos, CAIS, **args, noise=draws,
+    z2, w2, traj2, same = evolve_overdamped_fused(*pos, spec, **args, noise=draws,
                                                   return_trajectory=True, return_noise=True, **kw)
     torch.cuda.synchronize()
     stats = {"z_equal": bool(torch.equal(z, z2)), "w_equal": bool(torch.equal(w, w2)),
              "traj_equal": bool(torch.equal(traj, traj2)), "injected_handed_on": same is draws,
              "mean": float(draws.mean()), "std": float(draws.std())}
+    # The draws' moments within 0.01, or 5 standard errors of so few draws.
+    m = draws.numel()
     good = (all(stats[k] for k in ("z_equal", "w_equal", "traj_equal", "injected_handed_on"))
-            and abs(stats["mean"]) < 0.01 and abs(stats["std"] - 1.0) < 0.01)
+            and abs(stats["mean"]) < max(0.01, 5 / math.sqrt(m))
+            and abs(stats["std"] - 1.0) < max(0.01, 5 / math.sqrt(2 * m)))
     return stats, good
 
 
@@ -413,48 +447,52 @@ def _norm_errors(got, ref):
     return {name: float((got[name].double() - r.double()).norm()) for name, r in ref.items()}
 
 
-def compare_sweep(case, tol, arbitrate=False, **kw):
-    """The KL reverse-sweep kernel against its plain version, from the plain
-    rollout's trajectory, its noise and random cotangents: every gradient
-    leaf and dL/dz0. With arbitrate also the plain version in float64: a
-    leaf beyond `tol` still passes if the kernel is at most F64_SLACK times
-    as far from the float64 value as the float32 plain version is."""
+def compare_sweep(case, tol, arbitrate=False, spec=None, **kw):
+    """The KL reverse-sweep kernel (spec default CAIS, the carry form)
+    against its plain version, from the plain rollout's trajectory, its noise
+    and random cotangents: every gradient leaf and dL/dz0. arbitrate: False,
+    or True (every leaf) or a tuple of leaf names, for which the plain
+    version in float64 is computed too: a leaf so named beyond `tol` still
+    passes if the kernel is at most F64_SLACK times as far from the float64
+    value as the float32 plain version is (an empty tuple only reports)."""
     from cmcd_tpu_torch.integrators.overdamped import CAIS
     from cmcd_tpu_torch.ops.kl import evolve_kl_bwd, evolve_kl_bwd_plain
     from cmcd_tpu_torch.ops.overdamped import evolve_overdamped_fused_plain
 
+    spec = spec or CAIS
     pos, args, noise = _split(case)
-    _, _, traj = evolve_overdamped_fused_plain(*pos, CAIS, **args, noise=noise,
+    _, _, traj = evolve_overdamped_fused_plain(*pos, spec, **args, noise=noise,
                                                return_trajectory=True, **kw)
     gen = torch.Generator(device="cuda").manual_seed(19)
     n = pos[0].shape[0]
     cot = torch.randn(n, generator=gen, device="cuda")
     g_zf = torch.randn(n, 2, generator=gen, device="cuda")
     tree = lambda out: {**_flat(out[0]), "g_z0": out[1]}
-    got = tree(evolve_kl_bwd(traj, noise, cot, g_zf, *pos[2:], CAIS, **args, **kw))
-    want = tree(evolve_kl_bwd_plain(traj, noise, cot, g_zf, *pos[2:], CAIS, **args, **kw))
+    got = tree(evolve_kl_bwd(traj, noise, cot, g_zf, *pos[2:], spec, **args, **kw))
+    want = tree(evolve_kl_bwd_plain(traj, noise, cot, g_zf, *pos[2:], spec, **args, **kw))
     torch.cuda.synchronize()
     worst, leaf, ok = _grad_errors(got, want, tol)
     line = f"worst relative error {worst:.3e} (leaf {leaf}), limit {tol}"
-    if arbitrate:
-        ref = tree(evolve_kl_bwd_plain(traj.double(), noise.double(), cot, g_zf, *pos[2:], CAIS,
+    if arbitrate is not False:
+        ref = tree(evolve_kl_bwd_plain(traj.double(), noise.double(), cot, g_zf, *pos[2:], spec,
                                        **args, **kw))
-        ok, more = _arbitrate(got, want, ref, tol)
+        ok, more = _arbitrate(got, want, ref, tol, None if arbitrate is True else arbitrate)
         line += more
     return worst, line, ok
 
 
-def _arbitrate(got, want, ref, tol):
+def _arbitrate(got, want, ref, tol, leaves=None):
     """A float32 kernel result `got` against its float32 plain version
     `want`, per leaf, with the plain version in float64 (`ref`) as arbiter:
-    a leaf beyond `tol` passes if the kernel is at most F64_SLACK times as
-    far from the float64 value as the float32 plain version is. Returns (ok,
-    the words for the report)."""
+    a leaf beyond `tol` passes if it is one of `leaves` (default all) and
+    the kernel is at most F64_SLACK times as far from the float64 value as
+    the float32 plain version is. Returns (ok, the words for the report)."""
     e_k, e_p, e_kp = _norm_errors(got, ref), _norm_errors(want, ref), _norm_errors(got, want)
     rel, floor = tol
     needed = [name for name in ref if e_kp[name] > rel * float(want[name].double().norm()) + floor]
     ok = all(bool(torch.isfinite(g).all()) for g in got.values()) and all(
-        e_k[name] <= F64_SLACK * e_p[name] for name in needed)
+        (leaves is None or name in leaves) and e_k[name] <= F64_SLACK * e_p[name]
+        for name in needed)
     rel64 = lambda e: max(e[name] / max(float(ref[name].norm()), 1e-30) for name in ref)
     return ok, (f"; against float64: kernel {rel64(e_k):.3e}, float32 plain {rel64(e_p):.3e} "
                 f"(worst leaf each); leaves that needed the float64 arbiter: {needed or 'none'}")
@@ -884,6 +922,25 @@ def _profile(fn):
     top = top[:6] + [["all device records", sum(ms for ms, _ in by_name.values()),
                       sum(c for _, c in by_name.values())]]
     return wall, busy_us / 1e3, top
+
+
+def _device_ms(fn, reps, kernel):
+    """Device time per launch of the kernel named `kernel` over reps calls
+    of fn, from torch.profiler's records of that kernel alone (the wrapper's
+    host work and any other device record left out); None if the profiler
+    recorded none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and f"::{kernel}<" in e.name]
+    return sum(spans) / 1e3 / len(spans) if spans else None
 
 
 def phase_timing():
@@ -1879,9 +1936,460 @@ def phase_uha_timing():
     return times, step_ms
 
 
+# The overdamped forms of this slice: the 3-mode gmm recipes
+# (experiments/recipes.py: gmm_cais, gmm_cais_tuned, gmm_ula) and ULA / ULA_sn
+# on many_gmm at the flagship's width.
+GMM_CAIS_FLAGS = (
+    "--config.model gmm --config.boundmode MCD_CAIS_sn --config.N 300 --config.nbridges 8 "
+    "--config.emb_dim 20 --config.init_eps 0.01 --config.init_sigma 1 --config.train_vi True "
+    "--config.train_eps False --config.lr 0.001 --noconfig.pretrain_mfvi --config.n_samples 500 "
+    "--config.n_input_dist_seeds 30 --config.log.every 1"
+).split()
+GMM_CAIS_TUNED_FLAGS = GMM_CAIS_FLAGS + (
+    "--config.nbridges 256 --config.init_eps 0.00125 --config.eps_schedule cos_sq").split()
+GMM_ULA_FLAGS = (
+    "--config.model gmm --config.boundmode MCD_ULA --config.N 300 --config.nbridges 8 "
+    "--config.init_eps 0.05 --config.init_sigma 3 --config.lr 0.01 --noconfig.pretrain_mfvi "
+    "--config.n_samples 500 --config.n_input_dist_seeds 30 --config.log.every 1"
+).split()
+# ULA_sn and ULA at the KL recipe's width and step size (KL_FLAGS' mode swapped).
+ULA_SN_FLAGS = [f if f != "MCD_CAIS_sn" else "MCD_ULA_sn" for f in KL_FLAGS]
+ULA_MG_FLAGS = [f if f != "MCD_CAIS_sn" else "MCD_ULA" for f in KL_FLAGS]
+# The VarGrad kernels' gmm forms: the gmm CAIS recipe's shape in VarGrad, and
+# at REROLL_N chains and K=256, where "auto" takes the re-rolling backward.
+GMM_VAR_FLAGS = [f if f != "MCD_CAIS_sn" else "MCD_CAIS_var_sn" for f in GMM_CAIS_FLAGS]
+OD_PATH_ITERS, OD_WIDE_ITERS = 2000, 200
+
+
+def _od_wrappers():
+    """Every kernel wrapper of the port, for the launch counts of a path."""
+    from cmcd_tpu_torch.ops import kl, kl_uha, kl_underdamped, overdamped, uha, underdamped, vargrad
+
+    return (overdamped.evolve_overdamped_fused, kl.evolve_kl_bwd,
+            vargrad.evolve_vargrad_bwd_replay, vargrad.evolve_vargrad_bwd_reroll,
+            underdamped.evolve_underdamped_fused, kl_underdamped.evolve_kl_bwd_underdamped,
+            uha.evolve_uha_fused, kl_uha.evolve_kl_bwd_uha)
+
+
+def _reset_launches():
+    for fn in _od_wrappers():
+        fn.launches = 0
+        if hasattr(fn, "form_launches"):
+            fn.form_launches = {}
+
+
+def _launch_table():
+    """{wrapper name: (launches, {form: launches})} of every wrapper with a launch."""
+    return {fn.__name__: (fn.launches, dict(getattr(fn, "form_launches", {})))
+            for fn in _od_wrappers() if fn.launches}
+
+
+def phase_od_compare():
+    """The overdamped kernels' new forms against their plain versions (phase 20)."""
+    from cmcd_tpu_torch.integrators.overdamped import CAIS, CAIS_VAR, ULA, ULA_SN
+
+    ok, errors = True, {}
+
+    def keep(key, value):
+        errors[key] = max(errors.get(key, 0.0), value)
+
+    specs = (("CAIS", CAIS), ("CAIS_VAR", CAIS_VAR), ("ULA", ULA), ("ULA_sn", ULA_SN))
+    for target in ("many_gmm", "gmm"):
+        sigma = 8.0 if target == "many_gmm" else 3.0
+        for name, spec in specs:
+            case = make_problem(256, 8, 16, seed=0, sigma=sigma, target=target)
+            stats, good = compare(case, spec, TOL_SMALL, grad_clipping=True)
+            ok &= good
+            keep(f"rollout {name}/{target}", max(stats["z_max_abs"], stats["w_max_abs"]))
+            print(f"[20 compare] rollout small N=256 K=8 emb16 {name} {target}: "
+                  f"{json.dumps(stats)}", flush=True)
+            stats, good = compare_noise_stack(case, spec, grad_clipping=True)
+            ok &= good
+            print(f"[20 compare] rollout noise stack N=256 K=8 {name} {target}: "
+                  f"{json.dumps(stats)}", flush=True)
+        for name, spec in (("CAIS", CAIS), ("ULA", ULA), ("ULA_sn", ULA_SN)):
+            for sched, clip in (("", True), ("cos_sq", False), ("linear", True)):
+                # Float64 is reported for every case; it arbitrates only the
+                # eps leaf of gmm under cos_sq, whose terms cancel (PERF.md §2).
+                arbiter = ("eps",) if (target, sched) == ("gmm", "cos_sq") else ()
+                worst, line, good = compare_sweep(
+                    make_problem(128, 6, 16, seed=3, sigma=sigma, target=target),
+                    GRAD_TOL_SMALL, arbitrate=arbiter, spec=spec, grad_clipping=clip,
+                    eps_schedule=sched)
+                ok &= good
+                keep(f"sweep {name}/{target}", worst)
+                print(f"[20 compare] KL sweep small N=128 K=6 emb16 {name} {target} "
+                      f"{sched or 'constant'} clip {clip}: {line}, ok {good}", flush=True)
+    # The VarGrad kernels' gmm instances.
+    for sched in ("", "cos_sq"):
+        case = make_problem(250, 8, 16, seed=3, target="gmm")
+        worst, leaf, good = compare_backward(case, GRAD_TOL_SMALL, grad_clipping=True,
+                                             eps_schedule=sched)
+        ok &= good
+        keep("replay/gmm", worst)
+        print(f"[20 compare] backward small N=250 K=8 emb16 gmm {sched or 'constant'}: worst "
+              f"relative error {worst:.3e} (leaf {leaf}), limit {GRAD_TOL_SMALL}, ok {good}",
+              flush=True)
+        worst, leaf, good = compare_reroll(case, GRAD_TOL_SMALL, grad_clipping=True,
+                                           eps_schedule=sched)
+        ok &= good
+        keep("reroll/gmm", worst)
+        print(f"[20 compare] reroll small N=250 K=8 emb16 gmm {sched or 'constant'}: worst "
+              f"relative error {worst:.3e} (leaf {leaf}), limit {GRAD_TOL_SMALL}, ok {good}",
+              flush=True)
+        worst, leaf, good = compare_reroll_with_replay(case, grad_clipping=True,
+                                                       eps_schedule=sched)
+        ok &= good
+        print(f"[20 compare] reroll small N=250 K=8 emb16 gmm (seed, vs the replay kernel): "
+              f"worst relative error {worst:.3e} (leaf {leaf}), limit {REROLL_VS_REPLAY_TOL}, "
+              f"ok {good}", flush=True)
+    # Full width: ULA and ULA_sn on many_gmm at the KL recipe's step size, and
+    # the gmm CAIS recipes' shapes (K=8 and the tuned K=256 with cos_sq).
+    wide = [("ULA", ULA, "many_gmm", 2000, 256, 130, 0.1, 15.0, ""),
+            ("ULA", ULA, "many_gmm", 500, 256, 130, 0.1, 15.0, ""),
+            ("ULA_sn", ULA_SN, "many_gmm", 2000, 256, 130, 0.1, 15.0, ""),
+            ("ULA_sn", ULA_SN, "many_gmm", 500, 256, 130, 0.1, 15.0, ""),
+            ("CAIS", CAIS, "gmm", 300, 256, 20, 0.00125, 1.0, "cos_sq"),
+            ("CAIS", CAIS, "gmm", 500, 256, 20, 0.00125, 1.0, "cos_sq"),
+            ("CAIS", CAIS, "gmm", 300, 8, 20, 0.01, 1.0, "")]
+    for i, (name, spec, target, n, k, emb, eps, sigma, sched) in enumerate(wide):
+        case = make_problem(n, k, emb, seed=30 + i, sigma=sigma, eps=eps, target=target)
+        stats, good = compare(case, spec, TOL_FULL, grad_clipping=True, eps_schedule=sched)
+        ok &= good
+        keep(f"rollout {name}/{target}", max(stats["z_max_abs"], stats["w_max_abs"]))
+        print(f"[20 compare] rollout full N={n} K={k} emb{emb} {name} {target} "
+              f"{sched or 'constant'} eps {eps}: {json.dumps(stats)} tol {json.dumps(TOL_FULL)}",
+              flush=True)
+        if n == 500:
+            continue  # the evaluation's N: the rollout only
+        worst, line, good = compare_sweep(case, GRAD_TOL_FULL, arbitrate=True, spec=spec,
+                                          grad_clipping=True, eps_schedule=sched)
+        ok &= good
+        keep(f"sweep {name}/{target}", worst)
+        print(f"[20 compare] KL sweep full N={n} K={k} emb{emb} {name} {target} "
+              f"{sched or 'constant'}: {line}, ok {good}", flush=True)
+    # Whole KL steps with the variational draw trained (train_vi), through the
+    # kernels against the plain versions.
+    for flags, name in ((GMM_CAIS_FLAGS, "gmm_cais KL (train_vi)"),
+                        (GMM_CAIS_TUNED_FLAGS, "gmm_cais_tuned KL (train_vi)"),
+                        (GMM_ULA_FLAGS, "gmm_ula KL (train_vi)"),
+                        (ULA_SN_FLAGS, "ULA_sn many_gmm KL")):
+        ok &= compare_training_step(flags + ["--config.iters", "0"], name, arbitrate=True,
+                                    tag="20 compare")
+    if not ok:
+        fail("an overdamped kernel form and its plain version disagree beyond tolerance")
+    return errors
+
+
+def _od_path(flags, iters, tag, expect, elbo_must_rise=True):
+    """run_experiment with `flags` for `iters` steps (and the 30 x 500
+    evaluation) after the same evaluation at the initial parameters; the
+    launches of every kernel wrapper must be exactly `expect` ({wrapper:
+    {form: count}}), no loss NaN, no divergence, and (if asked: the 2000-step
+    recipe paths) the ELBO above its value at init. Returns (launch table,
+    output, wall s)."""
+    from cmcd_tpu_torch.main import parse_flags, run_experiment
+
+    init = run_experiment(parse_flags(flags + ["--config.iters", "0"]))
+    cfg = parse_flags(flags + ["--config.iters", str(iters)])
+    _reset_launches()
+    t0 = time.perf_counter()
+    out = run_experiment(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    table = _launch_table()
+    result = out["train"]
+    losses = result.losses.double()
+    first, last = float(losses[:100].mean()), float(losses[-100:].mean())
+    p = result.params["train"]
+    eps = float(p["eps"]) if "eps" in p else float(result.params["notrain"]["eps"])
+    print(f"[{tag}] {cfg.boundmode} {cfg.model} {cfg.iters} steps N={cfg.N} K={cfg.nbridges}: "
+          f"launches {json.dumps(table)} wall {wall:.3f} s ({1e3 * wall / cfg.iters:.3f} ms per "
+          f"step, evaluation and init included) | loss mean first 100 {first!r} last 100 "
+          f"{last!r} | eps {eps!r} | ELBO {init['final_elbo']!r} -> {out['final_elbo']!r} +- "
+          f"{out['final_elbo_std']!r} ln Z {init['final_ln_Z']!r} -> {out['final_ln_Z']!r} +- "
+          f"{out['final_ln_Z_std']!r} diverged {result.diverged} steps_done {result.steps_done}",
+          flush=True)
+    want = {name: (sum(forms.values()), forms) for name, forms in expect.items()}
+    if table != want:
+        fail(f"{tag}: launches {table}, expected {want}")
+    if len(losses) != cfg.iters or bool(torch.isnan(losses).any()):
+        fail(f"{tag}: {len(losses)} losses logged, NaN among them: "
+             f"{bool(torch.isnan(losses).any())}")
+    if result.diverged or result.steps_done != cfg.iters:
+        fail(f"{tag}: training diverged")
+    if not (math.isfinite(out["final_elbo"]) and math.isfinite(out["final_ln_Z"])):
+        fail(f"{tag}: ELBO / ln Z not finite")
+    if elbo_must_rise and not out["final_elbo"] > init["final_elbo"]:
+        fail(f"{tag}: training did not raise the ELBO: {init['final_elbo']} -> "
+             f"{out['final_elbo']}")
+    if out["neg_elbos"].shape != (30, 500) or not np.isfinite(out["samples"]).all():
+        fail(f"{tag}: evaluation output malformed")
+    return table, out, wall
+
+
+def phase_od_paths():
+    """The gmm recipes' paths and ULA / ULA_sn on many_gmm through the CLI
+    (phase 21): each form's launches, counted from 0 just before its run."""
+    rollout, sweep = "evolve_overdamped_fused", "evolve_kl_bwd"
+    replay, reroll = "evolve_vargrad_bwd_replay", "evolve_vargrad_bwd_reroll"
+    seeds = 30
+    runs = {}
+    for key, flags, iters in (("CAIS/gmm", GMM_CAIS_FLAGS, OD_PATH_ITERS),
+                              ("ULA/gmm", GMM_ULA_FLAGS, OD_PATH_ITERS),
+                              ("ULA_sn/many_gmm", ULA_SN_FLAGS, OD_WIDE_ITERS),
+                              ("ULA/many_gmm", ULA_MG_FLAGS, OD_WIDE_ITERS)):
+        expect = {rollout: {key: iters + seeds}, sweep: {key: iters}}
+        runs[key] = _od_path(flags, iters, "21 path", expect,
+                             elbo_must_rise=iters == OD_PATH_ITERS)
+    # The VarGrad kernels' gmm forms: replay at the recipe's shape, reroll
+    # past the trajectory budget (K=256, REROLL_N chains; a few steps, the
+    # ELBO not gated).
+    runs["replay/gmm"] = _od_path(GMM_VAR_FLAGS, OD_WIDE_ITERS, "21 path", {
+        rollout: {"CAIS/gmm": OD_WIDE_ITERS + seeds}, replay: {"gmm": OD_WIDE_ITERS}},
+        elbo_must_rise=False)
+    big = GMM_VAR_FLAGS + ["--config.nbridges", "256", "--config.N", str(REROLL_N)]
+    runs["reroll/gmm"] = _od_path(big, REROLL_ITERS, "21 path", {
+        rollout: {"CAIS/gmm": REROLL_ITERS + seeds}, reroll: {"gmm": REROLL_ITERS}},
+        elbo_must_rise=False)
+    # What no kernel covers raises on the card: the underdamped modes on gmm.
+    from cmcd_tpu_torch.main import parse_flags, run_experiment
+
+    _reset_launches()
+    bad = [f if f != "MCD_CAIS_sn" else "MCD_U_a-lp-sn" for f in GMM_CAIS_FLAGS]
+    try:
+        run_experiment(parse_flags(bad + ["--config.iters", "0"]))
+    except NotImplementedError as err:
+        print(f"[21 path] MCD_U_a-lp-sn on gmm: refused ({err})", flush=True)
+    else:
+        fail("MCD_U_a-lp-sn on gmm ran on the card without a kernel")
+    if _launch_table():
+        fail("a refused configuration launched a kernel")
+    return {key: table for key, (table, _, _) in runs.items()}
+
+
+def _work_od(n, k, in_dim, target="many_gmm", net_fwd=True):
+    """Least time the card could take for one call of an overdamped form at
+    these shapes (the rule of _work): {"rollout" (with trajectory and noise
+    stores), "sweep" (KL), "replay", "reroll" (VarGrad)}. in_dim 0: no net
+    (ULA); net_fwd False: the net in the backward kernel only (ULA_sn: K
+    applies, not K + 1)."""
+    score, hvp, n_par = (6 * 40, 10 * 40, 80) if target == "many_gmm" else (120, 80, 18)
+    points = (k + 1) * n
+    state = 20                                             # per point: means, clips, weight
+    applies = (points if net_fwd else k * n) if in_dim else 0
+    net_apply = in_dim * in_dim + 4 * in_dim
+    weights = 4 * (2 * in_dim + k * in_dim + k * max(in_dim - 2, 0) + in_dim * in_dim
+                   + 3 * in_dim + 2) if in_dim else 0
+    fwd_flops = 2 * (applies * net_apply + points * (score + state))
+    stores = 8 * points + 8 * k * n                         # trajectory, noise
+    fwd_bytes = 4 * (3 * n + k + n_par + 6) + weights + 4 * (3 * n) + stores
+    bwd_flops = 2 * (applies * (3 * in_dim * in_dim + 8 * in_dim) + points * (score + hvp + 40))
+    sums = 4 * (in_dim * in_dim + 5 * in_dim + 8 + (k + 1) * (2 * in_dim + 2)) if in_dim \
+        else 4 * (5 + k)
+    bwd_bytes = stores + 4 * (n + k + n_par) + weights + 8 * n + 8 * n + sums
+    # VarGrad: the apply again, W2 g_a2 and the outer product per point, no
+    # Hessian product; replay reads the trajectory, reroll makes it again.
+    var_flops = 2 * (applies * (3 * in_dim * in_dim + 8 * in_dim) + points * (score + state))
+    var_bytes = 8 * points + 4 * (n + k + n_par) + weights + sums
+    return {"rollout": _bound(fwd_flops, fwd_bytes), "sweep": _bound(bwd_flops, bwd_bytes),
+            "replay": _bound(var_flops, var_bytes),
+            "reroll": _bound(var_flops + 2 * points * 8, var_bytes - 8 * points + 8 * n + 8)}
+
+
+def phase_od_timing():
+    """CUDA-event times of the new forms beside their bounds, and the gmm
+    recipes' optimizer steps (phase 22)."""
+    from cmcd_tpu_torch import bounds
+    from cmcd_tpu_torch.integrators.overdamped import CAIS, ULA, ULA_SN
+    from cmcd_tpu_torch.ops.fused_train import fused_training_path
+    from cmcd_tpu_torch.ops.kl import evolve_kl_bwd, evolve_kl_bwd_plain
+    from cmcd_tpu_torch.ops.overdamped import (
+        evolve_overdamped_fused,
+        evolve_overdamped_fused_plain,
+    )
+    from cmcd_tpu_torch.train import train
+
+    seed = torch.tensor([7], device="cuda")
+    shapes = {  # form: (spec, target, N, K, emb, eps, sigma, schedule)
+        "ULA/many_gmm": (ULA, "many_gmm", 2000, 256, 130, 0.1, 15.0, ""),
+        "ULA_sn/many_gmm": (ULA_SN, "many_gmm", 2000, 256, 130, 0.1, 15.0, ""),
+        "ULA/gmm": (ULA, "gmm", 300, 8, 20, 0.05, 3.0, ""),
+        "CAIS/gmm": (CAIS, "gmm", 300, 8, 20, 0.01, 1.0, ""),
+        "CAIS/gmm K=256 cos_sq": (CAIS, "gmm", 300, 256, 20, 0.00125, 1.0, "cos_sq"),
+    }
+    times, bounds_ = {}, {}
+    for form, (spec, target, n, k, emb, eps, sigma, sched) in shapes.items():
+        pos, kw, _ = _split(make_problem(n, k, emb, seed=2, sigma=sigma, eps=eps, target=target))
+        kw = dict(kw, grad_clipping=True, eps_schedule=sched)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        cot = torch.randn(n, generator=gen, device="cuda")
+        g_zf = torch.randn(n, 2, generator=gen, device="cuda")
+        _, _, traj, noise = evolve_overdamped_fused(*pos, spec, **kw, seed=seed,
+                                                    return_trajectory=True, return_noise=True)
+        plain_reps = 2 if k <= 8 else 1
+        fns = {
+            "rollout": (lambda: evolve_overdamped_fused(
+                *pos, spec, **kw, seed=seed, return_trajectory=True, return_noise=True), 20),
+            "rollout_plain": (lambda: evolve_overdamped_fused_plain(
+                *pos, spec, **kw, seed=7, return_trajectory=True, return_noise=True), plain_reps),
+            "sweep": (lambda: evolve_kl_bwd(traj, noise, cot, g_zf, *pos[2:], spec, **kw), 10),
+            "sweep_plain": (lambda: evolve_kl_bwd_plain(traj, noise, cot, g_zf, *pos[2:], spec,
+                                                        **kw), plain_reps),
+        }
+        t = times[form] = {name: [] for name in fns}
+        for name in ("rollout_plain", "sweep_plain", "rollout", "sweep", "sweep", "rollout",
+                     "sweep_plain", "rollout_plain"):
+            fn, reps = fns[name]
+            t[name].append(_event_ms(fn, reps))
+        # The event times above include each call's host work; the kernels'
+        # own device time per launch beside them.
+        kernels = ("ula_rollout", "kl_ula_sweep") if spec == ULA else (
+            "overdamped_rollout", "kl_reverse_sweep")
+        t["rollout_device"] = _device_ms(fns["rollout"][0], 10, kernels[0])
+        t["sweep_device"] = _device_ms(fns["sweep"][0], 10, kernels[1])
+        in_dim = 0 if spec == ULA else 2 + emb
+        bounds_[form] = _work_od(n, k, in_dim, target, net_fwd=spec.fwd_sn)
+        print(f"[22 timing] {form} N={n} K={k} emb{emb if in_dim else '-'} ms {json.dumps(t)}; "
+              f"bounds rollout {json.dumps(bounds_[form]['rollout'])} sweep "
+              f"{json.dumps(bounds_[form]['sweep'])}", flush=True)
+    # The VarGrad kernels' gmm instances at the gmm CAIS recipe's shape.
+    from cmcd_tpu_torch.integrators.overdamped import CAIS_VAR
+    from cmcd_tpu_torch.ops.vargrad import (
+        evolve_vargrad_bwd_replay,
+        evolve_vargrad_bwd_replay_plain,
+        evolve_vargrad_bwd_reroll,
+        evolve_vargrad_bwd_reroll_plain,
+    )
+
+    pos, kw, _ = _split(make_problem(300, 8, 20, seed=4, sigma=1.0, eps=0.01, target="gmm"))
+    kw = dict(kw, grad_clipping=True)
+    cot = torch.randn(300, generator=torch.Generator(device="cuda").manual_seed(6), device="cuda")
+    _, _, traj = evolve_overdamped_fused(*pos, CAIS_VAR, **kw, seed=seed, return_trajectory=True)
+    fns = {
+        "replay": (lambda: evolve_vargrad_bwd_replay(traj, cot, *pos[2:], CAIS_VAR, **kw), 20),
+        "replay_plain": (lambda: evolve_vargrad_bwd_replay_plain(traj, cot, *pos[2:], CAIS_VAR,
+                                                                 **kw), 2),
+        "reroll": (lambda: evolve_vargrad_bwd_reroll(pos[0], cot, *pos[2:], CAIS_VAR, **kw,
+                                                     seed=seed), 20),
+        "reroll_plain": (lambda: evolve_vargrad_bwd_reroll_plain(pos[0], cot, *pos[2:], CAIS_VAR,
+                                                                 **kw, seed=7), 2),
+    }
+    t = times["VarGrad/gmm"] = {name: [] for name in fns}
+    for name in ("replay_plain", "reroll_plain", "replay", "reroll", "reroll", "replay",
+                 "reroll_plain", "replay_plain"):
+        fn, reps = fns[name]
+        t[name].append(_event_ms(fn, reps))
+    for kind in ("replay", "reroll"):
+        t[f"{kind}_device"] = _device_ms(fns[kind][0], 10, f"vargrad_{kind}")
+    bounds_["VarGrad/gmm"] = _work_od(300, 8, 22, "gmm")
+    print(f"[22 timing] VarGrad gmm N=300 K=8 emb20 ms {json.dumps(t)}; bounds replay "
+          f"{json.dumps(bounds_['VarGrad/gmm']['replay'])} reroll "
+          f"{json.dumps(bounds_['VarGrad/gmm']['reroll'])}", flush=True)
+    # The evaluation's N=500 rollouts of the many_gmm forms.
+    for form in ("ULA/many_gmm", "ULA_sn/many_gmm"):
+        spec = shapes[form][0]
+        pos, kw, _ = _split(make_problem(500, 256, 130, seed=3, sigma=15.0, eps=0.1))
+        times[form]["rollout_n500"] = [_event_ms(lambda: evolve_overdamped_fused(
+            *pos, spec, **kw, grad_clipping=True, seed=seed), 20) for _ in range(2)]
+
+    step_ms = {}
+    for name, flags in (("gmm_cais", GMM_CAIS_FLAGS), ("gmm_ula", GMM_ULA_FLAGS),
+                        ("ULA_sn many_gmm", ULA_SN_FLAGS)):
+        cfg, setup, target, params, ctx = flagship(flags + ["--config.iters", "0"])
+        trainable = bounds.default_trainable(setup.mode, cfg.train_eps, cfg.train_vi,
+                                             cfg.train_betas)
+        fused_loss, _ = fused_training_path(setup, cfg.N)
+        fused = lambda p, n, c, s, generator: fused_loss(p, n, c, s, target, generator=generator)
+
+        def steps(loss_fn, iters):
+            g = torch.Generator(device="cuda").manual_seed(1)
+            return lambda: train(setup, params, ctx, lr=cfg.lr, iters=iters, batch_size=cfg.N,
+                                 generator=g, trainable=trainable, loss_fn=loss_fn,
+                                 steps_per_call=iters, nan_check_every=10**9)
+
+        steps(fused, 5)()
+        eager_iters = 3 if cfg.nbridges <= 8 else 1
+        ms = step_ms[name] = {"eager": [], "kernel": []}
+        for which in ("eager", "kernel", "kernel", "eager"):
+            loss_fn, iters = (bounds.kl_bound, eager_iters) if which == "eager" else (fused, 50)
+            ms[which].append(_wall_ms(steps(loss_fn, iters)) / iters)
+        if cfg.nbridges <= 8:
+            # A host-bound step: train()'s set-up alone (0 steps), and the
+            # step over a window ten times as long, to hold the 50-step
+            # reading against the CLI log's median.
+            ms["setup_ms"] = [_wall_ms(steps(fused, 0)) for _ in range(2)]
+            ms["kernel_500"] = [_wall_ms(steps(fused, 500)) / 500 for _ in range(2)]
+        prof_wall, prof_dev, top = _profile(steps(fused, 10))
+        print(f"[22 timing] {name} optimizer step N={cfg.N} K={cfg.nbridges} ms per step "
+              f"{json.dumps(ms)} (kernel: 50 steps, kernel_500: 500, eager: {eager_iters} per "
+              f"reading; setup_ms: train() with 0 steps, ms per call); 10 fused "
+              f"steps under the profiler: wall {prof_wall!r} ms, device busy {prof_dev!r} ms, per "
+              f"step {prof_dev / 10!r} ms ({100 * prof_dev / 10 / min(ms['kernel'])!r}% of the "
+              f"fastest unprofiled step), device records {json.dumps(top)}", flush=True)
+    return times, bounds_, step_ms
+
+
+def _od_kernel_entries(errors, paths, times, bounds_, err_is):
+    """The kernels line's entries of the overdamped forms of phases 20-22:
+    each form's launches on its own path (phase 21), its worst error against
+    the plain version (phase 20), its times (phase 22) and bound."""
+    keep = lambda b: {k: b[k] for k in ("bound_ms", "bound_by")}
+    rollout, sweep = "evolve_overdamped_fused", "evolve_kl_bwd"
+    entries = []
+    for form, (r_name, s_name) in {
+            "ULA/many_gmm": ("ula_rollout<ManyGmmTarget>", "kl_ula_sweep<ManyGmmTarget>"),
+            "ULA/gmm": ("ula_rollout<Gmm3Target>", "kl_ula_sweep<Gmm3Target>"),
+            "ULA_sn/many_gmm": ("overdamped_rollout<ManyGmmTarget, false, 0>",
+                                "kl_reverse_sweep<NG, ManyGmmTarget, false>"),
+            "CAIS/gmm": ("overdamped_rollout<Gmm3Target, true, 1>",
+                         "kl_reverse_sweep<NG, Gmm3Target, true>")}.items():
+        name, target = form.split("/")
+        t, b, table = times[form], bounds_[form], paths[form]
+        entries.append({
+            "name": r_name, "route": "cuda", "source": "cmcd_tpu_torch/csrc/overdamped.cu",
+            "replaces": "cmcd_tpu/ops/pallas_overdamped.py:102", "form": form,
+            "launches": table[rollout][1][form],
+            "max_abs_err": errors[f"rollout {name}/{target}"],
+            "ms": min(t["rollout"]), "device_ms": t["rollout_device"],
+            "plain_ms": min(t["rollout_plain"]), **keep(b["rollout"]), "library_ms": None,
+            **({"ms_at_n500": min(t["rollout_n500"])} if "rollout_n500" in t else {}),
+            **({"ms_at_k256_cos_sq": min(times["CAIS/gmm K=256 cos_sq"]["rollout"]),
+                "bound_ms_at_k256_cos_sq": bounds_["CAIS/gmm K=256 cos_sq"]["rollout"][
+                    "bound_ms"]} if form == "CAIS/gmm" else {}),
+        })
+        entries.append({
+            "name": s_name, "route": "cuda", "source": "cmcd_tpu_torch/csrc/kl.cu",
+            "replaces": "cmcd_tpu/ops/pallas_kl.py:49", "form": form,
+            "launches": table[sweep][1][form],
+            "max_abs_err": errors[f"sweep {name}/{target}"], "max_abs_err_is": err_is,
+            "ms": min(t["sweep"]), "device_ms": t["sweep_device"],
+            "plain_ms": min(t["sweep_plain"]), **keep(b["sweep"]), "library_ms": None,
+            **({"ms_at_k256_cos_sq": min(times["CAIS/gmm K=256 cos_sq"]["sweep"]),
+                "bound_ms_at_k256_cos_sq": bounds_["CAIS/gmm K=256 cos_sq"]["sweep"][
+                    "bound_ms"]} if form == "CAIS/gmm" else {}),
+        })
+    t, b = times["VarGrad/gmm"], bounds_["VarGrad/gmm"]
+    for kind, wrapper, replaces, path in (
+            ("replay", "evolve_vargrad_bwd_replay", "cmcd_tpu/ops/pallas_vargrad.py:67",
+             "replay/gmm"),
+            ("reroll", "evolve_vargrad_bwd_reroll", "cmcd_tpu/ops/pallas_vargrad.py:385",
+             "reroll/gmm")):
+        entries.append({
+            "name": f"vargrad_{kind}<Gmm3Target>", "route": "cuda",
+            "source": "cmcd_tpu_torch/csrc/vargrad.cu", "replaces": replaces, "form": "gmm",
+            "launches": paths[path][wrapper][1]["gmm"],
+            "max_abs_err": errors[f"{kind}/gmm"], "max_abs_err_is": err_is,
+            "ms": min(t[kind]), "device_ms": t[f"{kind}_device"],
+            "plain_ms": min(t[f"{kind}_plain"]), **keep(b[kind]), "library_ms": None,
+        })
+    return entries
+
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    everything = "1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19"
+    everything = "1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,22"
     ap.add_argument("--phases", default=everything,
                     help="comma-separated phases to run (default: all)")
     phases = {int(p) for p in ap.parse_args(argv).phases.split(",")}
@@ -1909,6 +2417,9 @@ def main(argv=None):
         uha_init = phase_uha_eval_path()[1]
     uha_launches = phase_uha_training_path(uha_init) if 18 in phases else None
     uha_timing = phase_uha_timing() if 19 in phases else None
+    od_errors = phase_od_compare() if 20 in phases else None
+    od_paths = phase_od_paths() if 21 in phases else None
+    od_timing = phase_od_timing() if 22 in phases else None
     if phases != {int(p) for p in everything.split(",")}:
         print(f"partial run (phases {sorted(phases)}): no result line")
         return 1
@@ -1936,13 +2447,18 @@ def main(argv=None):
     print(f"[bounds] N=2000 K=256 lfsteps 1 many_gmm (UHA): UHA rollout {json.dumps(uha_bound)} "
           f"with stores {json.dumps(uha_stores_bound)} (N=500: {json.dumps(uha_bound_500)}) "
           f"sweep {json.dumps(uha_sweep_bound)}; UHA optimizer step ms {json.dumps(uha_step_ms)}")
+    od_times, od_bounds, od_step_ms = od_timing
+    print(f"[bounds] overdamped forms (phase 22 shapes): "
+          f"{json.dumps({f: {k: keep(b) for k, b in v.items()} for f, v in od_bounds.items()})}; "
+          f"optimizer step ms {json.dumps(od_step_ms)}")
     print(smi)
     # launches: of each kernel's own main path, counted from 0 just before it
     # (phase 7: VarGrad training and the 30 x 500 evaluation; phase 9: the KL
     # twin; phase 10: the re-rolling steps; phase 14: LDVI training and its
-    # evaluation; phase 18: UHA training and its evaluation); times, plain
-    # times and bounds at N=2000, K=256. No single PyTorch call computes any
-    # of the eight functions.
+    # evaluation; phase 18: UHA training and its evaluation; phase 21: each
+    # overdamped form's path); times, plain times and bounds at N=2000, K=256
+    # (the gmm forms at their recipes' shapes). No single PyTorch call
+    # computes any of these functions.
     err_is = "worst per-leaf |g_kernel - g_plain| / |g_plain| at full width"
     print(json.dumps({"kernels": [{
         "name": "overdamped_rollout",
@@ -2057,7 +2573,7 @@ def main(argv=None):
         "plain_ms": min(uha_times["sweep_plain"]),
         **keep(uha_sweep_bound),
         "library_ms": None,
-    }]}))
+    }] + _od_kernel_entries(od_errors, od_paths, od_times, od_bounds, err_is)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -10,9 +10,13 @@
 //   h1 = h0 + softplus(a1)
 //   a2 = h1 @ W2 + b2,  h2 = h1 + softplus(a2)
 //   sn = (h2 @ headW^T + headb) * factor_sn
-// and the target score is the isotropic, equally weighted many_gmm's
-//   gt = inv_var * (sum_k r_k(z) m_k - z),  r = softmax_k(-inv_var/2 |z - m_k|^2),
-// or, in the UHA kernels only, the symmetrised 3-mode gmm's (gmm3_score).
+// and the target is a template parameter of every kernel (ManyGmmTarget,
+// Gmm3Target below): its score and the Hessian product the sweeps need, one
+// warp per chain, from a vector of n_par constants the kernel keeps in
+// shared memory (many_gmm: its n_par / 2 means, the isotropic, equally
+// weighted mixture's score gt = inv_var * (sum_k r_k(z) m_k - z),
+// r = softmax_k(-inv_var/2 |z - m_k|^2); the 3-mode gmm: its 18 constants,
+// gmm3_score).
 //
 // Work split of one block. Thread f owns net feature f for a tile of TC
 // chains (so each W2 element read from shared memory feeds TC FMAs and the
@@ -29,7 +33,8 @@ namespace cmcd {
 
 constexpr int TC = 8;         // chains one feature thread carries through a layer
 constexpr int DIM = 2;        // state dimension (many_gmm); the head's outputs
-constexpr int MAX_MIX = 64;   // score components: two per lane
+constexpr int MAX_MIX = 64;   // many_gmm components: two per lane
+constexpr int MAX_PAR = 2 * MAX_MIX;  // floats of a target's constants
 constexpr size_t MAX_SMEM = 232448;  // 227 KiB a block may use on sm_90
 
 // The net and the target as a kernel sees them (device pointers, f32).
@@ -41,12 +46,19 @@ struct NetArgs {
   const float* b2;     // (in,)
   const float* headw;  // (2, in)
   const float* headb;  // (2,)
-  const float* means;  // (n_mix, 2)
-  int in_dim, in_pad, emb_dim, n_mix;
-  float inv_var_t;
+  const float* tpar;   // (n_par,): the target's constants
+  int in_dim, in_pad, emb_dim, n_par;
+  float inv_var_t;     // many_gmm's 1 / scale^2 (unused by the 3-mode gmm)
 };
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// The constants a launch's target takes (ops/target_grads.TARGETS): many_gmm
+// (0) an even count of at most MAX_PAR, its means; the 3-mode gmm (1) its 18.
+__host__ inline bool target_ok(int target, int n_par) {
+  if (target == 0) return n_par >= 2 && n_par <= MAX_PAR && n_par % 2 == 0;
+  return target == 1 && n_par == 18;
+}
 
 __device__ __forceinline__ float softplus_f(float x) {
   return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
@@ -205,35 +217,35 @@ struct ScoreLanes {
 };
 
 // One warp, one chain: the many_gmm score at (x0, x1) from the n_mix x 2
-// means in mus, two components per lane. All lanes return the same gt; with
-// `sl` each lane also returns its own two components.
-__device__ __forceinline__ void many_gmm_score(const NetArgs& net, const float* mus, float x0,
+// means in mus, two components per lane, a = inv_var. All lanes return the
+// same gt; with `sl` each lane also returns its own two components.
+__device__ __forceinline__ void many_gmm_score(const float* mus, int n_mix, float a, float x0,
                                                float x1, float gt[DIM],
                                                ScoreLanes* sl = nullptr) {
   const int lane = threadIdx.x & 31;
   float l0 = -INFINITY, l1 = -INFINITY;
   float dx0 = 0.f, dy0 = 0.f, dx1 = 0.f, dy1 = 0.f;
   const int j0 = lane, j1 = lane + 32;
-  if (j0 < net.n_mix) {
+  if (j0 < n_mix) {
     dx0 = x0 - mus[2 * j0], dy0 = x1 - mus[2 * j0 + 1];
-    l0 = -0.5f * net.inv_var_t * (dx0 * dx0 + dy0 * dy0);
+    l0 = -0.5f * a * (dx0 * dx0 + dy0 * dy0);
   }
-  if (j1 < net.n_mix) {
+  if (j1 < n_mix) {
     dx1 = x0 - mus[2 * j1], dy1 = x1 - mus[2 * j1 + 1];
-    l1 = -0.5f * net.inv_var_t * (dx1 * dx1 + dy1 * dy1);
+    l1 = -0.5f * a * (dx1 * dx1 + dy1 * dy1);
   }
   const float m = warp_max(fmaxf(l0, l1));
-  const float e0 = j0 < net.n_mix ? expf(l0 - m) : 0.f;
-  const float e1 = j1 < net.n_mix ? expf(l1 - m) : 0.f;
+  const float e0 = j0 < n_mix ? expf(l0 - m) : 0.f;
+  const float e1 = j1 < n_mix ? expf(l1 - m) : 0.f;
   float sum = e0 + e1;
-  float a0 = (j0 < net.n_mix ? e0 * mus[2 * j0] : 0.f) + (j1 < net.n_mix ? e1 * mus[2 * j1] : 0.f);
-  float a1 = (j0 < net.n_mix ? e0 * mus[2 * j0 + 1] : 0.f) +
-             (j1 < net.n_mix ? e1 * mus[2 * j1 + 1] : 0.f);
+  float a0 = (j0 < n_mix ? e0 * mus[2 * j0] : 0.f) + (j1 < n_mix ? e1 * mus[2 * j1] : 0.f);
+  float a1 = (j0 < n_mix ? e0 * mus[2 * j0 + 1] : 0.f) +
+             (j1 < n_mix ? e1 * mus[2 * j1 + 1] : 0.f);
   sum = warp_sum(sum);
   a0 = warp_sum(a0);
   a1 = warp_sum(a1);
-  gt[0] = net.inv_var_t * (a0 / sum - x0);
-  gt[1] = net.inv_var_t * (a1 / sum - x1);
+  gt[0] = a * (a0 / sum - x0);
+  gt[1] = a * (a1 / sum - x1);
   if (sl != nullptr) {
     sl->r[0] = e0 / sum, sl->r[1] = e1 / sum;
     sl->dx[0] = -dx0, sl->dy[0] = -dy0;
@@ -247,8 +259,8 @@ __device__ __forceinline__ void many_gmm_score(const NetArgs& net, const float* 
 // the centred form of sum r d d^T - (sum r d)(sum r d)^T: between modes
 // |d_k| reaches 40 sqrt(2) and the uncentred sums cancel. All lanes return
 // the same hv.
-__device__ __forceinline__ void many_gmm_hvp(const NetArgs& net, const ScoreLanes& sl,
-                                             const float v[DIM], float hv[DIM]) {
+__device__ __forceinline__ void many_gmm_hvp(float a, const ScoreLanes& sl, const float v[DIM],
+                                             float hv[DIM]) {
   const float sx = warp_sum(sl.r[0] * sl.dx[0] + sl.r[1] * sl.dx[1]);
   const float sy = warp_sum(sl.r[0] * sl.dy[0] + sl.r[1] * sl.dy[1]);
   float tx = 0.f, ty = 0.f;
@@ -261,7 +273,6 @@ __device__ __forceinline__ void many_gmm_hvp(const NetArgs& net, const ScoreLane
   }
   tx = warp_sum(tx);
   ty = warp_sum(ty);
-  const float a = net.inv_var_t;
   hv[0] = a * (a * tx - v[0]);
   hv[1] = a * (a * ty - v[1]);
 }
@@ -337,24 +348,23 @@ __device__ __forceinline__ void gmm3_hvp(const float* par, const Gmm3Lanes& sl,
   hv[1] = warp_sum(ty);
 }
 
-// The targets of the UHA kernels (uha.cu, kl_uha.cu) as template
-// parameters: the state dimension D, what a lane keeps for the Hessian
-// product (Lanes), the score and its Hessian product for one chain per warp.
-// `par` holds the target's constants (many_gmm: the n_par / 2 means).
+// The targets as template parameters of every kernel: the state dimension
+// D, what a lane keeps for the Hessian product (Lanes), the score and its
+// Hessian product for one chain per warp. `par` holds the target's n_par
+// constants (many_gmm: the n_par / 2 means), inv_var many_gmm's 1 / scale^2.
 struct ManyGmmTarget {
   static constexpr int D = 2;
   using Lanes = ScoreLanes;
-  NetArgs net;
   const float* par;
-  __device__ ManyGmmTarget(const float* p, int n_par, float inv_var) : net{}, par(p) {
-    net.n_mix = n_par / 2;
-    net.inv_var_t = inv_var;
-  }
+  int n_mix;
+  float inv_var;
+  __device__ ManyGmmTarget(const float* p, int n_par, float iv)
+      : par(p), n_mix(n_par / 2), inv_var(iv) {}
   __device__ void score(const float x[D], float gt[D], Lanes* sl = nullptr) const {
-    many_gmm_score(net, par, x[0], x[1], gt, sl);
+    many_gmm_score(par, n_mix, inv_var, x[0], x[1], gt, sl);
   }
   __device__ void hvp(const Lanes& sl, const float v[D], float hv[D]) const {
-    many_gmm_hvp(net, sl, v, hv);
+    many_gmm_hvp(inv_var, sl, v, hv);
   }
 };
 
@@ -371,22 +381,14 @@ struct Gmm3Target {
   }
 };
 
-// One warp, one chain: head_raw and many_gmm_score together.
-__device__ __forceinline__ void head_and_score(const NetArgs& net, const float* h2,
-                                               const float* hws, const float* mus, float x0,
-                                               float x1, float out[DIM], float gt[DIM]) {
-  head_raw(net, h2, hws, out);
-  many_gmm_score(net, mus, x0, x1, gt);
-}
-
 // One warp per chain: the target score at the TC points in zs into gt_s
 // (TC x DIM). Every thread of the block must call it; ends with a barrier.
-__device__ __forceinline__ void score_eval(const NetArgs& net, const float* mus, const float* zs,
-                                           float* gt_s) {
+template <class T>
+__device__ __forceinline__ void score_eval(const T& target, const float* zs, float* gt_s) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarp = blockDim.x >> 5;
   for (int c = warp; c < TC; c += nwarp) {
     float gt[DIM];
-    many_gmm_score(net, mus, zs[c * DIM], zs[c * DIM + 1], gt);
+    target.score(zs + c * DIM, gt);
     if (lane == 0) {
 #pragma unroll
       for (int d = 0; d < DIM; ++d) gt_s[c * DIM + d] = gt[d];
@@ -400,11 +402,11 @@ __device__ __forceinline__ void score_eval(const NetArgs& net, const float* mus,
 // by a block of round_up(in_dim, 32) threads; writes sn_s and gt_s (TC x
 // DIM each). w2s has row stride in_pad; h1s, h2s are TC x in_pad tiles.
 // Every thread of the block must call it.
-template <int DIN>
+template <int DIN, class T>
 __device__ __forceinline__ void point_eval(const NetArgs& net, int idx, const float w1x[DIN],
                                            float b2f, float factor,
                                            const float* w2s, float* h1s, float* h2s,
-                                           const float* hws, const float* mus,
+                                           const float* hws, const T& target,
                                            const float* xin_s, const float* zs, float* gt_s,
                                            float* sn_s) {
   const int tid = threadIdx.x, ip = net.in_pad;
@@ -431,7 +433,7 @@ __device__ __forceinline__ void point_eval(const NetArgs& net, int idx, const fl
   for (int c = warp; c < TC; c += nwarp) {
     float out[DIM], gt[DIM];
     head_raw(net, h2s + c * ip, hws, out);
-    if (zs != nullptr) many_gmm_score(net, mus, zs[c * DIM], zs[c * DIM + 1], gt);
+    if (zs != nullptr) target.score(zs + c * DIM, gt);
     if (lane == 0) {
 #pragma unroll
       for (int d = 0; d < DIM; ++d) {

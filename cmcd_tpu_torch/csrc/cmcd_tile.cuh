@@ -54,10 +54,10 @@ __host__ __device__ inline int len_a(int in_dim, int din = DIM) {
 __host__ __device__ inline int len_b(int in_dim) { return 2 * in_dim + 2; }
 
 // Floats of shared memory the tile itself takes (the layout in Tile).
-__host__ __device__ inline size_t tile_floats(int ng, int in_dim, int n_mix) {
+__host__ __device__ inline size_t tile_floats(int ng, int in_dim, int n_par) {
   const int ip = round_up(in_dim, 4), tb = ng * TC;
   return (size_t)2 * ip * (ip + 1) + 2 * tb * ip + (size_t)ip * (tb + 4) + 2 * ip +
-         round_up(2 * n_mix, 4) + NSCAL * (ng * FW_MAX / 32);
+         round_up(n_par, 4) + NSCAL * (ng * FW_MAX / 32);
 }
 
 // The tile's shared memory, carved from `base`; `rest` is the first float
@@ -66,7 +66,7 @@ template <int NG>
 struct Tile {
   static constexpr int TB = NG * TC;   // chains per tile
   static constexpr int TBP = TB + 4;   // row stride of the transposed hidden tile
-  float *w2s, *gw2s, *h1s, *xs, *h1t, *hws, *mus, *sc_s, *rest;
+  float *w2s, *gw2s, *h1s, *xs, *h1t, *hws, *par, *sc_s, *rest;
   int ws;
 
   __device__ Tile(float* base, const NetArgs& net) {
@@ -78,8 +78,8 @@ struct Tile {
     xs = h1s + TB * ip;                        // TB x in_pad: h2, then g_a2
     h1t = xs + TB * ip;                        // in_pad x TBP: h1 transposed
     hws = h1t + ip * TBP;                      // 2 x in_pad
-    mus = hws + 2 * ip;                        // n_mix x 2 (padded to 4)
-    sc_s = mus + round_up(2 * net.n_mix, 4);   // warps x NSCAL
+    par = hws + 2 * ip;                        // the target's n_par constants
+    sc_s = par + round_up(net.n_par, 4);       // warps x NSCAL
     rest = sc_s + NSCAL * (NG * FW_MAX / 32);
   }
 };
@@ -120,7 +120,7 @@ __device__ __forceinline__ void tile_init(const Tile<NG>& t, const NetArgs& net)
     const int d = i / ip, k = i - d * ip;
     t.hws[i] = k < in ? net.headw[d * in + k] : 0.f;
   }
-  for (int i = tid; i < 2 * net.n_mix; i += nthr) t.mus[i] = net.means[i];
+  for (int i = tid; i < net.n_par; i += nthr) t.par[i] = net.tpar[i];
   for (int i = tid; i < (nthr >> 5) * NSCAL; i += nthr) t.sc_s[i] = 0.f;
 }
 

@@ -1,12 +1,20 @@
 // KL reverse sweep for NVIDIA Hopper (sm_90a): backprop through time of the
-// CAIS log-weight increments from the stored trajectory and noise.
+// overdamped log-weight increments from the stored trajectory and noise.
 //
 // Replaces cmcd_tpu/ops/pallas_kl.py::evolve_kl_bwd_pallas (the TPU kernel
-// "B3") in its carry form (one net, in both kernels, backward net at i + 1:
-// MCD_CAIS_sn) on the many_gmm target (dim 2) with the two-layer geffner
-// net. The Python wrapper is cmcd_tpu_torch/ops/kl.py::evolve_kl_bwd; its
-// plain PyTorch version evolve_kl_bwd_plain walks the same sweep. The TPU
-// kernel traces jax.vjp of the step; here every derivative is written out.
+// "B3") on the many_gmm and the 3-mode gmm targets (dim 2, the target a
+// template parameter, cmcd_common.cuh) in three forms:
+//  * kl_reverse_sweep<NG, T, true>, its carry form: one net, in both
+//    kernels, backward net at i + 1 (MCD_CAIS_sn);
+//  * kl_reverse_sweep<NG, T, false>: the net in the backward kernel only, at
+//    (z_{i+1}, i) (MCD_ULA_sn), the per-point case of the TPU kernel
+//    (pallas_kl.py point_fn, :320-333);
+//  * kl_ula_sweep<T>: no net (MCD_ULA), one warp per chain.
+// The net is the two-layer geffner net. The Python wrapper is
+// cmcd_tpu_torch/ops/kl.py::evolve_kl_bwd; its plain PyTorch version
+// evolve_kl_bwd_plain walks the same sweep. The TPU kernel traces jax.vjp of
+// the step (twice per point in its per-point form); here every derivative is
+// written out, once per point.
 //
 // What it computes. With z_0..z_K and the draws xi_0..xi_{K-1} data, c_n the
 // cotangent of chain n's summed increments and g_K that of its final state,
@@ -35,13 +43,19 @@
 //   clips          g_gt, g_gq pass nothing where their score was clipped
 //   vd             g_mu += g_gq exp(-2 logdiag);  g_logdiag += g_gq (-2 gq)
 //   state          T = Z_p + B - exp(-2 logdiag) g_gq + H(z_p) g_gt + J_sn(z_p)^T g_sn
-//                  (H: the many_gmm Hessian product of cmcd_common.cuh; J_sn^T:
+//                  (H: the target's Hessian product, cmcd_common.cuh; J_sn^T:
 //                  the net's input VJP of cmcd_tile.cuh, which also sums the
 //                  net's weight gradients from g_sn)
 //   p >= 1         T is the cotangent of z_p = fk_mean_{p-1} + sqrt(2 e') xi_{p-1}:
 //                  g_e_p-1 += T . xi_{p-1} / sqrt(2 e');  F_{p-1} = T;  Z_{p-1} = T - B
 //   p = 0          dL/dz_0 = T
 //   g_eps0 = sum_j g_e_j s_j with s_j = d eps_j / d eps0 of the schedule.
+// ULA_sn: the forward mean has no net (fk_mean_j = z_j + e_j D_j(z_j)) and
+// the backward mean's net is sn(z_{j+1}, j). The same walk holds with two
+// changes: the forward role has no net term (no -sn in g_e_p, no g_sn), and
+// the point's net application is sn(z_p, p - 1), serving the backward role
+// of step p - 1 only (none at p = 0). ULA: no net at all; what is left per
+// point is one score, one Hessian product and the scalar derivatives.
 //
 // What bounds it on the H100. Per point and chain one net apply, W2 g_a2 and
 // the dW2 outer product, 3 x in_dim^2 FMAs (52k at in_dim 132), and the
@@ -49,6 +63,9 @@
 // bound by FP32 arithmetic and shared-memory bandwidth, not device memory.
 // But the sweep is sequential along a chain, so only the chains run side by
 // side.
+//
+// Without the net (ULA) a point is the score, its Hessian product and O(1)
+// state: latency along the chain, as the UHA sweep (kl_uha.cu).
 //
 // What the design does about it:
 //  * A block owns chain tiles b, b + B, ... and walks each from point K to
@@ -63,6 +80,13 @@
 //  * Per-point sums (the betas, G1, GH1) leave the block after every point;
 //    everything else is summed over the block's whole walk. partials_reduce
 //    adds the blocks' partials in block order: no atomics.
+//  * Both the score and its Hessian product serve the two steps that meet at
+//    a point, under the two steps' betas: their cotangents are summed before
+//    one Hessian product per point.
+//  * ULA has no net, so no tile: kl_ula_sweep gives each chain a warp (lanes
+//    over the target's components), keeps the carries and the chain's sums
+//    in registers and meets the block once a point, for the betas' sum
+//    (the layout of kl_uha.cu).
 //  * f32 throughout, no tensor cores: wgmma, TMA and bf16 are later work.
 
 #include "cmcd_tile.cuh"
@@ -91,25 +115,28 @@ struct KlArgs {
 // Shared memory of one block of NG groups: the tile; per chain z_p, z_{p-1},
 // xi_{p-1}, g_out, the state cotangent so far, the carries F and Z, the
 // cotangent c; and the warps' shares of the net's input VJP.
-__host__ inline size_t smem_bytes(int ng, int in_dim, int n_mix) {
+__host__ inline size_t smem_bytes(int ng, int in_dim, int n_par) {
   const int tb = ng * TC;
-  return (tile_floats(ng, in_dim, n_mix) + 7 * tb * DIM + tb +
+  return (tile_floats(ng, in_dim, n_par) + 7 * tb * DIM + tb +
           (ng * FW_MAX / 32) * TC * DIM) * sizeof(float);
 }
 
 // What one block holds (NG = 4, the larger of the two forms).
-__host__ inline bool fits(int in_dim, int n_mix) {
-  return in_dim >= 1 && round_up(in_dim, 32) <= FW_MAX && n_mix >= 1 && n_mix <= MAX_MIX &&
-         smem_bytes(4, in_dim, n_mix) <= MAX_SMEM;
+__host__ inline bool fits(int in_dim, int n_par) {
+  return in_dim >= 1 && round_up(in_dim, 32) <= FW_MAX && n_par >= 1 && n_par <= MAX_PAR &&
+         smem_bytes(4, in_dim, n_par) <= MAX_SMEM;
 }
 
-template <int NG>
+// CAIS: the net in both kernels at (z_p, min(p, K - 1)); else (ULA_sn) in the
+// backward kernel only, at (z_p, p - 1).
+template <int NG, class T, bool CAIS>
 __global__ void __launch_bounds__(NG* FW_MAX) kl_reverse_sweep(const KlArgs a) {
   constexpr int TB = NG * TC;
   extern __shared__ float4 smem4[];
   const NetArgs& net = a.net;
   const int ip = net.in_pad, in = net.in_dim, K = a.nbridges, sched = a.eps_schedule;
   const Tile<NG> t(reinterpret_cast<float*>(smem4), net);
+  const T target(t.par, net.n_par, net.inv_var_t);
   float* zc_s = t.rest;            // TB x 2: z_p
   float* zp_s = zc_s + TB * DIM;   // TB x 2: z_{p-1}
   float* xi_s = zp_s + TB * DIM;   // TB x 2: xi_{p-1}
@@ -165,16 +192,18 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_reverse_sweep(const KlArgs a) {
       }
       __syncthreads();
 
+      // ULA_sn applies no net at point 0 (block-uniform).
+      const bool net_on = CAIS || p >= 1;
       FeatRegs r;
-      tile_layers(t, net, th, min(p, K - 1), zc_s, r);
+      if (net_on) tile_layers(t, net, th, CAIS ? min(p, K - 1) : p - 1, zc_s, r);
 
       // Head, score, Hessian product and the scalar derivatives: one warp
       // per chain, every lane the same scalars, lane 0 keeps the sums.
       for (int c = warp; c < TB; c += nwarp) {
-        float out[DIM], gt[DIM], g_gt[DIM], hv[DIM], bk[DIM], g_gq[DIM];
-        ScoreLanes sl;
-        head_raw(net, t.xs + c * ip, t.hws, out);
-        many_gmm_score(net, t.mus, zc_s[c * DIM], zc_s[c * DIM + 1], gt, &sl);
+        float out[DIM] = {0.f, 0.f}, gt[DIM], g_gt[DIM], hv[DIM], bk[DIM], g_gq[DIM];
+        typename T::Lanes sl;
+        if (net_on) head_raw(net, t.xs + c * ip, t.hws, out);
+        target.score(zc_s + c * DIM, gt, &sl);
         const float cn = cot_s[c];
         float ge_f = 0.f, ge_b = 0.f, gb_f = 0.f, gb_b = 0.f, r2 = 0.f;
         float g_factor = 0.f, g_sn[DIM], g_mu[DIM], g_ld[DIM];
@@ -189,10 +218,10 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_reverse_sweep(const KlArgs a) {
           bk[d] = 0.f;
           if (m_fk) {
             const float f = fc_s[c * DIM + d], ef = e_f * f;
-            ge_f += f * ((b_f * gtc + (1.0f - b_f) * gqc) - sn);
+            ge_f += f * ((b_f * gtc + (1.0f - b_f) * gqc) - (CAIS ? sn : 0.f));
             gb_f += ef * diff;
             ggt += b_f * ef;
-            gsn -= ef;
+            if (CAIS) gsn -= ef;
             ggq += (1.0f - b_f) * ef;
           }
           if (m_bk) {
@@ -214,7 +243,7 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_reverse_sweep(const KlArgs a) {
           g_sn[d] = gsn;
           g_factor += gsn * o;
         }
-        many_gmm_hvp(net, sl, g_gt, hv);
+        target.hvp(sl, g_gt, hv);
         if (lane == 0) {
           if (m_bk) {
             const float is2 = 1.0f / (2.0f * e_b);
@@ -237,7 +266,7 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_reverse_sweep(const KlArgs a) {
       }
       __syncthreads();
 
-      tile_vjp(t, net, th, zc_s, go_s, r, ft, gz_s);
+      if (net_on) tile_vjp(t, net, th, zc_s, go_s, r, ft, gz_s);
 
       // T complete: the next carries, the noise scale's share of d eps, or
       // dL/dz_0. One thread per chain, all in the first warp.
@@ -246,7 +275,8 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_reverse_sweep(const KlArgs a) {
         if (lane < TB) {
 #pragma unroll
           for (int d = 0; d < DIM; ++d) {
-            const float tot = tz_s[lane * DIM + d] + tile_gz<NG, DIM>(gz_s, lane, d);
+            const float tot =
+                tz_s[lane * DIM + d] + (net_on ? tile_gz<NG, DIM>(gz_s, lane, d) : 0.f);
             if (m_bk) {
               ge = fmaf(tot, xi_s[lane * DIM + d], ge);
               fc_s[lane * DIM + d] = tot;
@@ -268,47 +298,222 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_reverse_sweep(const KlArgs a) {
   flush_block(t, net, th, ft, a.part_a + (size_t)blockIdx.x * len_a(in));
 }
 
-template <int NG>
+template <int NG, class T, bool CAIS>
 cudaError_t launch_sweep(const KlArgs& a, int blocks, cudaStream_t stream) {
-  const size_t smem = smem_bytes(NG, a.net.in_dim, a.net.n_mix);
-  cudaError_t err = cudaFuncSetAttribute(kl_reverse_sweep<NG>,
+  const size_t smem = smem_bytes(NG, a.net.in_dim, a.net.n_par);
+  cudaError_t err = cudaFuncSetAttribute(kl_reverse_sweep<NG, T, CAIS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kl_reverse_sweep<NG><<<blocks, NG * round_up(a.net.in_dim, 32), smem, stream>>>(a);
+  kl_reverse_sweep<NG, T, CAIS><<<blocks, NG * round_up(a.net.in_dim, 32), smem, stream>>>(a);
   return cudaGetLastError();
 }
+
+template <class T>
+cudaError_t launch_tiles(const KlArgs& a, int blocks, int groups, bool cais, cudaStream_t s) {
+  if (cais) {
+    return groups == 2 ? launch_sweep<2, T, true>(a, blocks, s)
+                       : launch_sweep<4, T, true>(a, blocks, s);
+  }
+  return groups == 2 ? launch_sweep<2, T, false>(a, blocks, s)
+                     : launch_sweep<4, T, false>(a, blocks, s);
+}
+
+// The net-free sweep (ULA).
+constexpr int ULA_CPB = 8;                                  // chains (warps) per block
+__host__ __device__ constexpr int ula_len_sums() { return 1 + 2 * DIM; }  // eps, vd mean, logdiag
+
+// One warp per chain, every lane the carries F, Z and the chain's sums;
+// point p's betas share (step p's forward role plus step p's backward role,
+// met at point p + 1) leaves the block once a point.
+template <class T>
+__global__ void __launch_bounds__(ULA_CPB * 32) kl_ula_sweep(const KlArgs a) {
+  constexpr int LA = ula_len_sums();
+  __shared__ float par_s[MAX_PAR];
+  __shared__ float beta_s[2][ULA_CPB];
+  __shared__ float sums_s[ULA_CPB][LA];
+  for (int idx = threadIdx.x; idx < a.net.n_par; idx += blockDim.x) par_s[idx] = a.net.tpar[idx];
+  __syncthreads();
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const bool lead = (tid & 31) == 0;
+  const int chain = blockIdx.x * ULA_CPB + warp;
+  const bool live = chain < a.n;  // a warp past n walks zeros and adds nothing
+  const T target(par_s, a.net.n_par, a.net.inv_var_t);
+  const int K = a.nbridges, sched = a.eps_schedule;
+  const float eps0 = a.scal[0];
+  const size_t row = (size_t)a.n * DIM, at = (size_t)chain * DIM;
+  const float cn = live ? a.cot[chain] : 0.f;
+
+  float vm[DIM], viv[DIM], fc[DIM], zd[DIM], g_mu[DIM], g_ld[DIM];
+#pragma unroll
+  for (int d = 0; d < DIM; ++d) {
+    vm[d] = a.vd_mean[d];
+    viv[d] = expf(-2.0f * a.vd_logdiag[d]);
+    fc[d] = 0.f;
+    zd[d] = live ? a.g_zfinal[at + d] : 0.f;
+    g_mu[d] = g_ld[d] = 0.f;
+  }
+  float g_eps = 0.f, gb_pend = 0.f;
+
+  for (int p = K; p >= 0; --p) {
+    const bool m_fk = p <= K - 1, m_bk = p >= 1;
+    const float e_f = m_fk ? eps_at(eps0, p, K, sched) : 1.f;
+    const float e_b = m_bk ? eps_at(eps0, p - 1, K, sched) : 1.f;
+    const float s_f = eps_slope(p, K, sched), s_b = eps_slope(p - 1, K, sched);
+    const float b_f = m_fk ? a.betas[p] : 0.f;
+    const float b_b = m_bk ? a.betas[p - 1] : 0.f;
+    float z[DIM], zp[DIM], xi[DIM], gt[DIM], g_gt[DIM], g_gq[DIM], bk[DIM], hv[DIM];
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) {
+      z[d] = live ? a.traj[p * row + at + d] : 0.f;
+      zp[d] = live && m_bk ? a.traj[(p - 1) * row + at + d] : 0.f;
+      xi[d] = live && m_bk ? a.noise[(p - 1) * row + at + d] : 0.f;
+    }
+    typename T::Lanes sl;
+    target.score(z, gt, &sl);
+    float ge_f = 0.f, ge_b = 0.f, gb_f = 0.f, gb_b = 0.f, r2 = 0.f;
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) {
+      const float gq = -(z[d] - vm[d]) * viv[d];
+      const float gtc = clip_f(gt[d], a.clip_t), gqc = clip_f(gq, a.clip_q);
+      const float diff = gtc - gqc;
+      float ggt = 0.f, ggq = 0.f;
+      bk[d] = 0.f;
+      if (m_fk) {
+        const float ef = e_f * fc[d];
+        ge_f += fc[d] * (b_f * gtc + (1.0f - b_f) * gqc);
+        gb_f += ef * diff;
+        ggt += b_f * ef;
+        ggq += (1.0f - b_f) * ef;
+      }
+      if (m_bk) {
+        const float drift = b_b * gtc + (1.0f - b_b) * gqc;
+        const float rb = zp[d] - (z[d] + e_b * drift);
+        const float gd = 0.5f * cn * rb;  // e' B
+        bk[d] = gd / e_b;
+        ge_b += bk[d] * drift;
+        r2 += rb * rb;
+        gb_b += gd * diff;
+        ggt += b_b * gd;
+        ggq += (1.0f - b_b) * gd;
+      }
+      g_gt[d] = gt[d] == gtc ? ggt : 0.f;
+      g_gq[d] = gq == gqc ? ggq : 0.f;
+      g_mu[d] += g_gq[d] * viv[d];
+      g_ld[d] += g_gq[d] * (-2.0f * gq);
+    }
+    target.hvp(sl, g_gt, hv);
+    if (m_bk) {
+      const float is2 = 1.0f / (2.0f * e_b);
+      ge_b += cn * r2 * is2 * is2;
+    }
+    float ge_xi = 0.f;
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) {
+      const float tot = ((zd[d] + bk[d]) - viv[d] * g_gq[d]) + hv[d];
+      if (m_bk) {
+        ge_xi = fmaf(tot, xi[d], ge_xi);
+        fc[d] = tot;
+        zd[d] = tot - bk[d];
+      } else if (lead && live) {
+        a.g_z0[at + d] = tot;
+      }
+    }
+    g_eps += s_f * ge_f + s_b * ge_b;
+    if (m_bk) g_eps += s_b * ge_xi * (1.0f / sqrtf(2.0f * e_b));
+    if (m_fk && lead) beta_s[p & 1][warp] = live ? gb_f + gb_pend : 0.f;
+    gb_pend = gb_b;
+    __syncthreads();
+    if (m_fk && tid == 0) {
+      float sum = 0.f;
+      for (int w = 0; w < ULA_CPB; ++w) sum += beta_s[p & 1][w];
+      a.part_b[(size_t)p * gridDim.x + blockIdx.x] = sum;
+    }
+  }
+
+  if (lead) {
+    float* out = sums_s[warp];
+    out[0] = live ? g_eps : 0.f;
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) {
+      out[1 + d] = live ? g_mu[d] : 0.f;
+      out[1 + DIM + d] = live ? g_ld[d] : 0.f;
+    }
+  }
+  __syncthreads();
+  if (tid < LA) {
+    float sum = 0.f;
+    for (int w = 0; w < ULA_CPB; ++w) sum += sums_s[w][tid];
+    a.part_a[(size_t)blockIdx.x * LA + tid] = sum;
+  }
+}
+
 
 }  // namespace
 
 extern "C" {
 
-// Launches the reverse sweep and its reduction on `stream`: `blocks` blocks
-// of `groups` (2 or 4) groups of feature threads, blocks <= the number of
-// chain tiles of 8 x groups chains. part_a: (blocks, len_a) and part_b:
-// (points, blocks, len_b) are scratch; out_a: (len_a,), out_b: (points,
-// len_b) and g_z0: (n, 2) receive the results. Returns a cudaError_t.
+// Launches the reverse sweep with a net and its reduction on `stream`:
+// `blocks` blocks of `groups` (2 or 4) groups of feature threads, blocks <=
+// the number of chain tiles of 8 x groups chains. cais: 1 the carry form
+// (MCD_CAIS_sn), 0 the backward net at i (MCD_ULA_sn). target as in
+// cmcd_overdamped_rollout (overdamped.cu). part_a: (blocks, len_a) and
+// part_b: (points, blocks, len_b) are scratch; out_a: (len_a,), out_b:
+// (points, len_b) and g_z0: (n, 2) receive the results. Returns a cudaError_t.
 int cmcd_kl_reverse_sweep(const float* traj, const float* noise, const float* cot,
                           const float* g_zfinal, const float* betas, const float* scal,
                           const float* w1z, const float* c1, const float* emb, const float* w2,
                           const float* b2, const float* headw, const float* headb,
-                          const float* means, const float* vd_mean, const float* vd_logdiag,
+                          const float* tpar, const float* vd_mean, const float* vd_logdiag,
                           float* part_a, float* part_b, float* out_a, float* out_b, float* g_z0,
-                          int n, int nbridges, int in_dim, int emb_dim, int n_mix,
-                          int eps_schedule, int blocks, int groups, float inv_var_t,
-                          float clip_t, float clip_q, void* stream) {
+                          int n, int nbridges, int in_dim, int emb_dim, int n_par,
+                          int eps_schedule, int blocks, int groups, int cais, int target,
+                          float inv_var_t, float clip_t, float clip_q, void* stream) {
   if (n <= 0 || nbridges <= 0 || (groups != 2 && groups != 4)) return (int)cudaErrorInvalidValue;
   if (blocks <= 0 || blocks > (n + groups * TC - 1) / (groups * TC))
     return (int)cudaErrorInvalidValue;
-  if (in_dim != DIM + emb_dim || !fits(in_dim, n_mix)) return (int)cudaErrorInvalidValue;
-  const NetArgs net{w1z, c1, emb, w2, b2, headw, headb, means,
-                    in_dim, round_up(in_dim, 4), emb_dim, n_mix, inv_var_t};
+  if (in_dim != DIM + emb_dim || !fits(in_dim, n_par) || !target_ok(target, n_par))
+    return (int)cudaErrorInvalidValue;
+  const NetArgs net{w1z, c1, emb, w2, b2, headw, headb, tpar,
+                    in_dim, round_up(in_dim, 4), emb_dim, n_par, inv_var_t};
   const KlArgs a{traj, noise, cot, g_zfinal, betas, scal, net, vd_mean, vd_logdiag,
                  part_a, part_b, g_z0, n, nbridges, eps_schedule, clip_t, clip_q};
-  const cudaError_t err = groups == 2 ? launch_sweep<2>(a, blocks, (cudaStream_t)stream)
-                                      : launch_sweep<4>(a, blocks, (cudaStream_t)stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t err = target == 0 ? launch_tiles<ManyGmmTarget>(a, blocks, groups, cais, s)
+                                      : launch_tiles<Gmm3Target>(a, blocks, groups, cais, s);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_reduce(part_a, part_b, out_a, out_b, blocks, nbridges + 1, blocks, in_dim,
-                            (cudaStream_t)stream);
+                            s);
+}
+
+// Launches the net-free sweep (MCD_ULA) and its reduction on `stream`, one
+// block per 8 chains. part_a: (blocks, ula_len_sums) and part_b: (K, blocks)
+// are scratch; out_a: (ula_len_sums,) receives eps, vd mean (2), vd logdiag
+// (2); out_b: (K,) betas; g_z0: (n, 2). Returns a cudaError_t.
+int cmcd_kl_ula_sweep(const float* traj, const float* noise, const float* cot,
+                      const float* g_zfinal, const float* betas, const float* scal,
+                      const float* tpar, const float* vd_mean, const float* vd_logdiag,
+                      float* part_a, float* part_b, float* out_a, float* out_b, float* g_z0,
+                      int n, int nbridges, int n_par, int eps_schedule, int target,
+                      float inv_var_t, float clip_t, float clip_q, void* stream) {
+  if (n <= 0 || nbridges <= 0 || !target_ok(target, n_par)) return (int)cudaErrorInvalidValue;
+  const NetArgs net{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, tpar,
+                    0, 0, 0, n_par, inv_var_t};
+  const KlArgs a{traj, noise, cot, g_zfinal, betas, scal, net, vd_mean, vd_logdiag,
+                 part_a, part_b, g_z0, n, nbridges, eps_schedule, clip_t, clip_q};
+  const int blocks = (n + ULA_CPB - 1) / ULA_CPB;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (target == 0) {
+    kl_ula_sweep<ManyGmmTarget><<<blocks, ULA_CPB * 32, 0, s>>>(a);
+  } else {
+    kl_ula_sweep<Gmm3Target><<<blocks, ULA_CPB * 32, 0, s>>>(a);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int la = ula_len_sums(), total = la + nbridges;
+  partials_reduce<<<(total + 255) / 256, 256, 0, s>>>(part_a, part_b, out_a, out_b, blocks, la,
+                                                      nbridges, blocks, 1);
+  return (int)cudaGetLastError();
 }
 
 const char* cmcd_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
@@ -317,14 +522,18 @@ int cmcd_kl_chains_per_group() { return TC; }
 
 // The launch's own limits and buffer lengths, for the wrapper to check its
 // copy against.
-int cmcd_kl_fits(int in_dim, int n_mix) { return fits(in_dim, n_mix) ? 1 : 0; }
+int cmcd_kl_fits(int in_dim, int n_par) { return fits(in_dim, n_par) ? 1 : 0; }
 
-long long cmcd_kl_smem_bytes(int groups, int in_dim, int n_mix) {
-  return (long long)smem_bytes(groups, in_dim, n_mix);
+long long cmcd_kl_smem_bytes(int groups, int in_dim, int n_par) {
+  return (long long)smem_bytes(groups, in_dim, n_par);
 }
 
 int cmcd_kl_len_a(int in_dim) { return len_a(in_dim); }
 
 int cmcd_kl_len_b(int in_dim) { return len_b(in_dim); }
+
+int cmcd_kl_ula_chains_per_block() { return ULA_CPB; }
+
+int cmcd_kl_ula_len_sums() { return ula_len_sums(); }
 
 }  // extern "C"

@@ -76,7 +76,6 @@ using namespace cmcd;
 
 constexpr int CPB = 8;              // chains (warps) per block
 constexpr int MAX_LFSTEPS = 8;
-constexpr int MAX_PAR = 2 * MAX_MIX;
 
 // The per-chain sums a block hands on, for D dimensions: eps, eta, md (D),
 // vd mean (D), vd logdiag (D).
@@ -306,9 +305,8 @@ int cmcd_kl_uha_sweep(const float* ztraj, const float* rtraj, const float* noise
                       float* out_a, float* out_b, float* g_z0, int n, int nbridges, int lfsteps,
                       int target, int n_par, float inv_var, void* stream) {
   if (n <= 0 || nbridges <= 0) return (int)cudaErrorInvalidValue;
-  if (lfsteps < 1 || lfsteps > MAX_LFSTEPS || n_par < 1 || n_par > MAX_PAR)
+  if (lfsteps < 1 || lfsteps > MAX_LFSTEPS || !target_ok(target, n_par))
     return (int)cudaErrorInvalidValue;
-  if (target == 1 && n_par != 18) return (int)cudaErrorInvalidValue;
   const KlUhaArgs a{ztraj, rtraj, noise, cot, g_zfinal, betas, scal, md, vd_mean, vd_logdiag,
                     tpar, part_a, part_b, g_z0, n, nbridges, lfsteps, n_par, inv_var};
   const int blocks = (n + CPB - 1) / CPB;

@@ -99,16 +99,16 @@ struct UdKlArgs {
 // Shared memory of one block of NG groups: the tile; per chain z_p, rho_p,
 // xi_p, rho'_p, g_out, B and the carries GZ, GR (2-vectors), the net's input
 // and the cotangent c; and the warps' shares of the net's input VJP.
-__host__ inline size_t smem_bytes(int ng, int in_dim, int n_mix) {
+__host__ inline size_t smem_bytes(int ng, int in_dim, int n_par) {
   const int tb = ng * TC;
-  return (tile_floats(ng, in_dim, n_mix) + (8 * DIM + XIN + 1) * tb +
+  return (tile_floats(ng, in_dim, n_par) + (8 * DIM + XIN + 1) * tb +
           (ng * FW_MAX / 32) * TC * XIN) * sizeof(float);
 }
 
 // What one block holds (NG = 4, the larger of the two forms); in_dim 0: no net.
-__host__ inline bool fits(int in_dim, int n_mix) {
-  return in_dim >= 0 && round_up(in_dim, 32) <= FW_MAX && n_mix >= 1 && n_mix <= MAX_MIX &&
-         smem_bytes(4, in_dim, n_mix) <= MAX_SMEM;
+__host__ inline bool fits(int in_dim, int n_par) {
+  return in_dim >= 0 && round_up(in_dim, 32) <= FW_MAX && n_par >= 2 && n_par <= MAX_PAR &&
+         n_par % 2 == 0 && smem_bytes(4, in_dim, n_par) <= MAX_SMEM;
 }
 
 template <int NG, int DIN>
@@ -118,6 +118,7 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_ud_sweep(const UdKlArgs a) {
   const NetArgs& net = a.net;
   const int ip = net.in_pad, in = net.in_dim, K = a.nbridges;
   const Tile<NG> t(reinterpret_cast<float*>(smem4), net);
+  const ManyGmmTarget target(t.par, net.n_par, net.inv_var_t);
   float* zc_s = t.rest;             // TB x 2: z_p
   float* rc_s = zc_s + TB * DIM;    // TB x 2: rho_p
   float* xi_s = rc_s + TB * DIM;    // TB x 2: xi_p
@@ -229,7 +230,7 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_ud_sweep(const UdKlArgs a) {
       for (int c = warp; c < TB; c += nwarp) {
         float gt[DIM], gq[DIM], db[DIM], g_gt[DIM], g_gq[DIM], grho[DIM], tot[DIM], hv[DIM];
         ScoreLanes sl;
-        many_gmm_score(net, t.mus, zc_s[c * DIM], zc_s[c * DIM + 1], gt, &sl);
+        target.score(zc_s + c * DIM, gt, &sl);
         const float cn = cot_s[c];
         float ge = 0.f, ga = 0.f, gs = 0.f, gbf = 0.f, gbb = 0.f;
 #pragma unroll
@@ -264,7 +265,7 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_ud_sweep(const UdKlArgs a) {
             g_gq[d] += 0.5f * e * (1.0f - b_b) * grho[d];
           }
         }
-        many_gmm_hvp(net, sl, g_gt, hv);
+        target.hvp(sl, g_gt, hv);
 #pragma unroll
         for (int d = 0; d < DIM; ++d) {
           tot[d] = (tot[d] - viv[d] * g_gq[d]) + hv[d];
@@ -301,7 +302,7 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_ud_sweep(const UdKlArgs a) {
 
 template <int NG, int DIN>
 cudaError_t launch_sweep(const UdKlArgs& a, int blocks, cudaStream_t stream) {
-  const size_t smem = smem_bytes(NG, a.net.in_dim, a.net.n_mix);
+  const size_t smem = smem_bytes(NG, a.net.in_dim, a.net.n_par);
   cudaError_t err = cudaFuncSetAttribute(kl_ud_sweep<NG, DIN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -334,16 +335,16 @@ int cmcd_kl_ud_sweep(const float* ztraj, const float* rtraj, const float* noise,
                      const float* w2, const float* b2, const float* headw, const float* headb,
                      const float* means, const float* vd_mean, const float* vd_logdiag,
                      float* part_a, float* part_b, float* out_a, float* out_b, float* g_z0,
-                     int n, int nbridges, int din, int in_dim, int emb_dim, int n_mix,
+                     int n, int nbridges, int din, int in_dim, int emb_dim, int n_par,
                      int blocks, int groups, float inv_var_t, void* stream) {
   if (n <= 0 || nbridges <= 0 || (groups != 2 && groups != 4)) return (int)cudaErrorInvalidValue;
   if (blocks <= 0 || blocks > (n + groups * TC - 1) / (groups * TC))
     return (int)cudaErrorInvalidValue;
   if (din != 0 && din != DIM && din != XIN) return (int)cudaErrorInvalidValue;
-  if (in_dim != (din > 0 ? din + emb_dim : 0) || !fits(in_dim, n_mix))
+  if (in_dim != (din > 0 ? din + emb_dim : 0) || !fits(in_dim, n_par))
     return (int)cudaErrorInvalidValue;
   const NetArgs net{w1x, c1, emb, w2, b2, headw, headb, means,
-                    in_dim, round_up(in_dim, 4), emb_dim, n_mix, inv_var_t};
+                    in_dim, round_up(in_dim, 4), emb_dim, n_par, inv_var_t};
   const UdKlArgs a{ztraj, rtraj, noise, cot, g_zfinal, betas, scal, net, vd_mean, vd_logdiag,
                    part_a, part_b, g_z0, n, nbridges};
   const cudaStream_t s = (cudaStream_t)stream;
@@ -360,10 +361,10 @@ int cmcd_kl_ud_chains_per_group() { return TC; }
 
 // The launch's own limits and buffer lengths, for the wrapper to check its
 // copy against.
-int cmcd_kl_ud_fits(int in_dim, int n_mix) { return fits(in_dim, n_mix) ? 1 : 0; }
+int cmcd_kl_ud_fits(int in_dim, int n_par) { return fits(in_dim, n_par) ? 1 : 0; }
 
-long long cmcd_kl_ud_smem_bytes(int groups, int in_dim, int n_mix) {
-  return (long long)smem_bytes(groups, in_dim, n_mix);
+long long cmcd_kl_ud_smem_bytes(int groups, int in_dim, int n_par) {
+  return (long long)smem_bytes(groups, in_dim, n_par);
 }
 
 int cmcd_kl_ud_len_a(int in_dim, int din) { return len_a(in_dim, din); }

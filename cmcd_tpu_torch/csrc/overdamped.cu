@@ -1,32 +1,41 @@
-// Fused overdamped CMCD rollout for NVIDIA Hopper (sm_90a), CAIS / CAIS_VAR.
+// Fused overdamped CMCD rollout for NVIDIA Hopper (sm_90a): CAIS / CAIS_VAR,
+// ULA_sn and plain ULA.
 //
 // Replaces cmcd_tpu/ops/pallas_overdamped.py::evolve_overdamped_pallas (the
-// TPU kernel "B1") for the specs whose forward and backward kernels both use
-// the score net, with the backward net at i + 1 (CAIS, CAIS_VAR), on the
-// many_gmm target (dim 2) with the geffner net (two residual softplus layers,
-// a head, a per-bridge embedding table and factor_sn). The Python wrapper is
+// TPU kernel "B1") on the many_gmm and the 3-mode gmm targets (dim 2, the
+// target a template parameter, cmcd_common.cuh) in three forms:
+//  * overdamped_rollout<T, true, 1>: the net in both kernels, the backward
+//    net at i + 1 (CAIS, CAIS_VAR; the clip constants are the spec's);
+//  * overdamped_rollout<T, false, 0>: the net in the backward kernel only, at
+//    (z_{i+1}, i) (ULA_sn); step i's forward mean has no net;
+//  * ula_rollout<T>: no net at all (ULA), one warp per chain.
+// The score net is the geffner net (two residual softplus layers, a head, a
+// per-bridge embedding table and factor_sn). The Python wrapper is
 // cmcd_tpu_torch/ops/overdamped.py::evolve_overdamped_fused; its plain
 // PyTorch twin evolve_overdamped_fused_plain states the same math step by
 // step. The step's pieces (net layers, head, score, schedule, Philox) are
-// in cmcd_common.cuh, shared with vargrad.cu.
+// in cmcd_common.cuh, shared with the other kernels.
 //
 // One launch runs all K steps for every chain. Per step, for one chain:
 //   eps_i    = eps schedule at i; scale = sqrt(2 eps_i)
 //   gradU    = -(beta_i * clip(gt, ct) + (1 - beta_i) * clip(gq, cq)),
 //              gq = -(z - vd_mean) * exp(-2 vd_logdiag)
-//   fk_mean  = z - eps_i * gradU(gt, z) - eps_i * sn(z, i)
+//   fk_mean  = z - eps_i * gradU(gt, z) [- eps_i * sn(z, i)]          (CAIS)
 //   z'       = fk_mean + scale * xi
-//   gt', sn' = many_gmm score at z', net output at (z', min(i + 1, K - 1))
-//   bk_mean  = z' - eps_i * gradU(gt', z') + eps_i * sn'
+//   gt'      = the target's score at z'; sn' = net output at
+//              (z', min(i + off, K - 1)), off 1 (CAIS) or 0 (ULA_sn)
+//   bk_mean  = z' - eps_i * gradU(gt', z') [+ eps_i * sn']           (CAIS, ULA_sn)
 //   w       += -0.5 * (|(z - bk_mean) / scale|^2 - |xi|^2)
-// and (gt', sn') are carried into step i + 1 (the CAIS carry), so each step
-// costs one net apply and one score evaluation.
+// and gt' (and for CAIS sn') is carried into step i + 1, so each step costs
+// one score evaluation and, with a net, one net apply. ULA's spec has no
+// clip constants: it never clips, under grad_clipping too.
 //
-// What bounds it on the H100. Per chain-step the net costs about
-// 2 x 132^2 FMAs at emb_dim 130 (in_dim 132), the score 40 components with one
-// exp each, and the chain state is O(1) bytes: the kernel is bound by
+// What bounds it on the H100. With the net, per chain-step about
+// 2 x 132^2 FMAs at emb_dim 130 (in_dim 132), the score 40 components with
+// one exp each, and the chain state is O(1) bytes: the kernel is bound by
 // arithmetic and by on-chip (shared memory) bandwidth, not by device memory.
-// N = 2000 chains x K = 256 steps is ~9e9 FMAs.
+// N = 2000 chains x K = 256 steps is ~9e9 FMAs. Without the net (ULA) the
+// step is one score, a chain of warp reductions: latency along the chain.
 //
 // What the design does about it:
 //  * The whole rollout runs in one launch; chain state (z, w, the carried
@@ -42,17 +51,24 @@
 //    Thread f computes output feature f of layer 2 for all TC chains, so
 //    each W2 element read from shared memory feeds TC FMAs and the hidden
 //    states are read as broadcast float4s.
-//  * The head and the 40-component score are reductions: one warp per chain,
-//    lanes over features or components, warp shuffles to reduce.
+//  * The head and the score are reductions: one warp per chain, lanes over
+//    features or components, warp shuffles to reduce.
+//  * ULA has no net, so no tile: ula_rollout gives each chain a warp (lanes
+//    over the target's components, as uha.cu) and keeps the chain's state in
+//    every lane's registers, with no barrier in the loop and no shared
+//    memory but the target's constants. (A score-only branch of the tile
+//    kernel, as underdamped.cu runs its net-free specs, would pay the tile's
+//    block barriers and shared exchange every step for nothing.)
 //  * Noise is a counter-based Philox4x32-10 keyed by (seed) with counter
 //    (chain, step, 0, 0), so a later kernel can regenerate any step's draw;
 //    Box-Muller turns two words into the two normals of a step. An injected
-//    (K, N, 2) noise array replaces it for exact comparisons.
+//    (K, N, 2) noise array replaces it for exact comparisons. All forms use
+//    the same counter: one seed gives every form the same draws.
 //  * Training needs the path, not only its end: with a trajectory pointer
-//    the owner thread also stores z_0..z_K as (K + 1, N, 2), 8 bytes per
+//    the kernel also stores z_0..z_K as (K + 1, N, 2), 8 bytes per
 //    chain-step, for the VarGrad replay backward (vargrad.cu) to read; with
 //    a noise pointer also the Philox draws xi_0..xi_{K-1} as (K, N, 2), which
-//    the KL reverse sweep (kl.cu) reads beside the path.
+//    the KL reverse sweeps (kl.cu) read beside the path.
 //  * f32 throughout, no tensor cores: wgmma, TMA and bf16 are later work.
 
 #include "cmcd_common.cuh"
@@ -62,6 +78,7 @@ namespace {
 using namespace cmcd;
 
 constexpr int MAX_THREADS = 256;
+constexpr int ULA_CPB = 8;  // chains (warps) per block of ula_rollout
 
 struct RolloutArgs {
   const float* z0;          // (n, 2)
@@ -70,7 +87,7 @@ struct RolloutArgs {
   const float* noise;       // (K, n, 2) or nullptr: in-kernel Philox
   const float* scal;        // [eps0, factor_sn]
   const long long* seed;    // one int64
-  NetArgs net;
+  NetArgs net;              // net pointers null for ULA
   const float* vd_mean;     // (2,)
   const float* vd_inv_var;  // (2,): exp(-2 logdiag)
   float* z_out;             // (n, 2)
@@ -82,21 +99,43 @@ struct RolloutArgs {
 };
 
 // Dynamic shared memory of one block: W2, the two hidden tiles, the head,
-// the means and the per-chain exchange (the layout in overdamped_rollout).
-__host__ inline size_t smem_bytes(int in_dim, int n_mix) {
+// the target's constants and the per-chain exchange (the layout in
+// overdamped_rollout).
+__host__ inline size_t smem_bytes(int in_dim, int n_par) {
   const int in_pad = round_up(in_dim, 4);
   size_t floats = (size_t)in_pad * in_pad + 2 * TC * in_pad + 2 * in_pad +
-                  round_up(2 * n_mix, 4) + 3 * TC * DIM;
+                  round_up(n_par, 4) + 3 * TC * DIM;
   return floats * sizeof(float);
 }
 
-// What one block holds: one thread per net feature, two score components
-// per lane, and the shared memory above.
-__host__ inline bool fits(int in_dim, int n_mix) {
-  return in_dim >= 1 && round_up(in_dim, 32) <= MAX_THREADS && n_mix >= 1 &&
-         n_mix <= MAX_MIX && smem_bytes(in_dim, n_mix) <= MAX_SMEM;
+// What one block holds: one thread per net feature, the target's constants
+// and the shared memory above.
+__host__ inline bool fits(int in_dim, int n_par) {
+  return in_dim >= 1 && round_up(in_dim, 32) <= MAX_THREADS && n_par >= 1 &&
+         n_par <= MAX_PAR && smem_bytes(in_dim, n_par) <= MAX_SMEM;
 }
 
+// The draws of step i of a chain: injected, or Philox (stored when asked).
+__device__ __forceinline__ void draw(const RolloutArgs& a, unsigned long long seed, int chain,
+                                     bool live, bool store, int i, float xi[DIM]) {
+  if (a.noise != nullptr) {
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) xi[d] = live ? a.noise[((size_t)i * a.n + chain) * DIM + d] : 0.f;
+    return;
+  }
+  const float2 g = philox_normal2(seed, (uint32_t)chain, (uint32_t)i);
+  xi[0] = g.x;
+  xi[1] = g.y;
+  if (live && store && a.noise_out != nullptr) {
+    a.noise_out[((size_t)i * a.n + chain) * DIM] = g.x;
+    a.noise_out[((size_t)i * a.n + chain) * DIM + 1] = g.y;
+  }
+}
+
+// FWD_SN: the net in the forward mean at (z_i, i), carried from the step
+// before; BWD_OFF: the backward net's row offset (1 with FWD_SN, CAIS; 0
+// without, ULA_sn).
+template <class T, bool FWD_SN, int BWD_OFF>
 __global__ void __launch_bounds__(MAX_THREADS) overdamped_rollout(const RolloutArgs a) {
   extern __shared__ float4 smem4[];
   float* w2s = reinterpret_cast<float*>(smem4);  // in_pad x in_pad
@@ -105,8 +144,8 @@ __global__ void __launch_bounds__(MAX_THREADS) overdamped_rollout(const RolloutA
   float* h1s = w2s + ip * ip;                    // TC x in_pad
   float* h2s = h1s + TC * ip;                    // TC x in_pad
   float* hws = h2s + TC * ip;                    // 2 x in_pad
-  float* mus = hws + 2 * ip;                     // n_mix x 2 (padded to 4)
-  float* zn_s = mus + round_up(2 * net.n_mix, 4);  // TC x 2
+  float* par = hws + 2 * ip;                     // the target's n_par constants
+  float* zn_s = par + round_up(net.n_par, 4);    // TC x 2
   float* gt_s = zn_s + TC * DIM;                 // TC x 2
   float* sn_s = gt_s + TC * DIM;                 // TC x 2
 
@@ -117,7 +156,8 @@ __global__ void __launch_bounds__(MAX_THREADS) overdamped_rollout(const RolloutA
     const int j = idx / ip, k = idx - j * ip;
     hws[idx] = k < in ? net.headw[j * in + k] : 0.f;
   }
-  for (int idx = tid; idx < 2 * net.n_mix; idx += nthr) mus[idx] = net.means[idx];
+  for (int idx = tid; idx < net.n_par; idx += nthr) par[idx] = net.tpar[idx];
+  const T target(par, net.n_par, net.inv_var_t);
 
   const bool feat = tid < in;
   float w1z[DIM];
@@ -146,12 +186,17 @@ __global__ void __launch_bounds__(MAX_THREADS) overdamped_rollout(const RolloutA
   }
   __syncthreads();
 
-  point_eval<DIM>(net, 0, w1z, b2f, factor, w2s, h1s, h2s, hws, mus, zn_s, zn_s, gt_s, sn_s);
+  if constexpr (FWD_SN) {
+    point_eval<DIM>(net, 0, w1z, b2f, factor, w2s, h1s, h2s, hws, target, zn_s, zn_s, gt_s,
+                    sn_s);
+  } else {
+    score_eval(target, zn_s, gt_s);
+  }
   if (owner) {
 #pragma unroll
     for (int d = 0; d < DIM; ++d) {
       gt[d] = gt_s[tid * DIM + d];
-      sn[d] = sn_s[tid * DIM + d];
+      if constexpr (FWD_SN) sn[d] = sn_s[tid * DIM + d];
     }
   }
 
@@ -163,31 +208,20 @@ __global__ void __launch_bounds__(MAX_THREADS) overdamped_rollout(const RolloutA
       inv_scale = 1.0f / scale;
       beta = a.betas[i];
       float xi[DIM];
-      if (a.noise != nullptr) {
-#pragma unroll
-        for (int d = 0; d < DIM; ++d)
-          xi[d] = live ? a.noise[((size_t)i * a.n + chain) * DIM + d] : 0.f;
-      } else {
-        const float2 g = philox_normal2(seed, (uint32_t)chain, (uint32_t)i);
-        xi[0] = g.x;
-        xi[1] = g.y;
-        if (live && a.noise_out != nullptr) {
-          a.noise_out[((size_t)i * a.n + chain) * DIM] = g.x;
-          a.noise_out[((size_t)i * a.n + chain) * DIM + 1] = g.y;
-        }
-      }
+      draw(a, seed, chain, live, true, i, xi);
 #pragma unroll
       for (int d = 0; d < DIM; ++d) {
         const float gq = -(z[d] - vm[d]) * viv[d];
         const float gu = -(beta * clip_f(gt[d], a.clip_t) + (1.0f - beta) * clip_f(gq, a.clip_q));
-        const float fk = (z[d] - eps_i * gu) - eps_i * sn[d];
+        float fk = z[d] - eps_i * gu;
+        if constexpr (FWD_SN) fk = fk - eps_i * sn[d];
         zn_s[tid * DIM + d] = fk + scale * xi[d];
         xi2 += xi[d] * xi[d];
       }
     }
     __syncthreads();
-    point_eval<DIM>(net, min(i + 1, K - 1), w1z, b2f, factor, w2s, h1s, h2s, hws, mus, zn_s,
-                    zn_s, gt_s, sn_s);
+    point_eval<DIM>(net, min(i + BWD_OFF, K - 1), w1z, b2f, factor, w2s, h1s, h2s, hws, target,
+                    zn_s, zn_s, gt_s, sn_s);
     if (owner) {
       float r2 = 0.f;
 #pragma unroll
@@ -201,7 +235,7 @@ __global__ void __launch_bounds__(MAX_THREADS) overdamped_rollout(const RolloutA
         r2 += r * r;
         z[d] = zn;
         gt[d] = gtn;
-        sn[d] = snn;
+        if constexpr (FWD_SN) sn[d] = snn;
         if (live && a.traj != nullptr)
           a.traj[((size_t)(i + 1) * a.n + chain) * DIM + d] = zn;
       }
@@ -216,36 +250,115 @@ __global__ void __launch_bounds__(MAX_THREADS) overdamped_rollout(const RolloutA
   }
 }
 
+// Plain ULA: one warp per chain, every lane the chain's state, no barrier in
+// the loop; lane 0 stores.
+template <class T>
+__global__ void __launch_bounds__(ULA_CPB * 32) ula_rollout(const RolloutArgs a) {
+  __shared__ float par_s[MAX_PAR];
+  for (int idx = threadIdx.x; idx < a.net.n_par; idx += blockDim.x) par_s[idx] = a.net.tpar[idx];
+  __syncthreads();
+  const int chain = blockIdx.x * ULA_CPB + (threadIdx.x >> 5);
+  if (chain >= a.n) return;  // a whole warp: no barrier follows
+  const bool lead = (threadIdx.x & 31) == 0;
+  const T target(par_s, a.net.n_par, a.net.inv_var_t);
+  const int K = a.nbridges;
+  const float eps0 = a.scal[0];
+  const unsigned long long seed = (unsigned long long)a.seed[0];
+
+  float z[DIM], gt[DIM], vm[DIM], viv[DIM];
+#pragma unroll
+  for (int d = 0; d < DIM; ++d) {
+    vm[d] = a.vd_mean[d];
+    viv[d] = a.vd_inv_var[d];
+    z[d] = a.z0[(size_t)chain * DIM + d];
+    if (lead && a.traj != nullptr) a.traj[(size_t)chain * DIM + d] = z[d];
+  }
+  float w = a.w0[chain];
+  target.score(z, gt);
+
+  for (int i = 0; i < K; ++i) {
+    const float eps_i = eps_at(eps0, i, K, a.eps_schedule);
+    const float scale = sqrtf(2.0f * eps_i), inv_scale = 1.0f / scale;
+    const float beta = a.betas[i];
+    float xi[DIM], zn[DIM], gtn[DIM], xi2 = 0.f, r2 = 0.f;
+    draw(a, seed, chain, true, lead, i, xi);
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) {
+      const float gq = -(z[d] - vm[d]) * viv[d];
+      const float gu = -(beta * clip_f(gt[d], a.clip_t) + (1.0f - beta) * clip_f(gq, a.clip_q));
+      zn[d] = (z[d] - eps_i * gu) + scale * xi[d];
+      xi2 += xi[d] * xi[d];
+    }
+    target.score(zn, gtn);
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) {
+      const float gq = -(zn[d] - vm[d]) * viv[d];
+      const float gu = -(beta * clip_f(gtn[d], a.clip_t) + (1.0f - beta) * clip_f(gq, a.clip_q));
+      const float r = (z[d] - (zn[d] - eps_i * gu)) * inv_scale;
+      r2 += r * r;
+      z[d] = zn[d];
+      gt[d] = gtn[d];
+      if (lead && a.traj != nullptr) a.traj[((size_t)(i + 1) * a.n + chain) * DIM + d] = z[d];
+    }
+    w += -0.5f * (r2 - xi2);
+  }
+  if (lead) {
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) a.z_out[(size_t)chain * DIM + d] = z[d];
+    a.w_out[chain] = w;
+  }
+}
+
+template <class T, bool FWD_SN, int BWD_OFF>
+cudaError_t launch_tile(const RolloutArgs& a, cudaStream_t stream) {
+  const size_t smem = smem_bytes(a.net.in_dim, a.net.n_par);
+  cudaError_t err = cudaFuncSetAttribute(overdamped_rollout<T, FWD_SN, BWD_OFF>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (a.n + TC - 1) / TC;
+  overdamped_rollout<T, FWD_SN, BWD_OFF>
+      <<<blocks, round_up(a.net.in_dim, 32), smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <class T>
+cudaError_t launch_form(const RolloutArgs& a, int form, cudaStream_t stream) {
+  if (form == 0) return launch_tile<T, true, 1>(a, stream);
+  if (form == 1) return launch_tile<T, false, 0>(a, stream);
+  ula_rollout<T><<<(a.n + ULA_CPB - 1) / ULA_CPB, ULA_CPB * 32, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches the rollout on `stream`; traj and noise_out may be null (nothing
-// stored).
-// Returns a cudaError_t (0 on success).
+// Launches the rollout on `stream`. form: 0 CAIS (net in both kernels,
+// backward net at i + 1), 1 ULA_sn (net in the backward kernel only, at i),
+// 2 ULA (no net: the net pointers may be null, in_dim and emb_dim 0).
+// target: 0 many_gmm (tpar its n_par / 2 means, inv_var_t its 1 / scale^2),
+// 1 the 3-mode gmm (tpar its 18 constants). traj and noise_out may be null
+// (nothing stored). Returns a cudaError_t (0 on success).
 int cmcd_overdamped_rollout(const float* z0, const float* w0, const float* betas,
                             const float* noise, const float* scal, const long long* seed,
                             const float* w1z, const float* c1, const float* emb,
                             const float* w2, const float* b2, const float* headw,
-                            const float* headb, const float* means, const float* vd_mean,
+                            const float* headb, const float* tpar, const float* vd_mean,
                             const float* vd_inv_var, float* z_out, float* w_out, float* traj,
-                            float* noise_out, int n, int nbridges, int in_dim, int emb_dim, int n_mix, int eps_schedule,
-                            float inv_var_t, float clip_t, float clip_q, void* stream) {
+                            float* noise_out, int n, int nbridges, int in_dim, int emb_dim,
+                            int n_par, int eps_schedule, int form, int target, float inv_var_t,
+                            float clip_t, float clip_q, void* stream) {
   if (n <= 0 || nbridges <= 0) return (int)cudaSuccess;
-  if (in_dim != DIM + emb_dim || !fits(in_dim, n_mix)) return (int)cudaErrorInvalidValue;
-  const int threads = round_up(in_dim, 32);
-  const int in_pad = round_up(in_dim, 4);
-  const size_t smem = smem_bytes(in_dim, n_mix);
-  cudaError_t err = cudaFuncSetAttribute(
-      overdamped_rollout, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const NetArgs net{w1z, c1, emb, w2, b2, headw, headb, means,
-                    in_dim, in_pad, emb_dim, n_mix, inv_var_t};
-  RolloutArgs a{z0, w0, betas, noise, scal, seed, net, vd_mean, vd_inv_var, z_out, w_out, traj,
-                noise_out, n, nbridges, eps_schedule, clip_t, clip_q};
-  const int blocks = (n + TC - 1) / TC;
-  overdamped_rollout<<<blocks, threads, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  if (form < 0 || form > 2 || !target_ok(target, n_par)) return (int)cudaErrorInvalidValue;
+  if (form < 2 && (in_dim != DIM + emb_dim || !fits(in_dim, n_par)))
+    return (int)cudaErrorInvalidValue;
+  const NetArgs net{w1z, c1, emb, w2, b2, headw, headb, tpar,
+                    in_dim, round_up(in_dim, 4), emb_dim, n_par, inv_var_t};
+  const RolloutArgs a{z0, w0, betas, noise, scal, seed, net, vd_mean, vd_inv_var, z_out, w_out,
+                      traj, noise_out, n, nbridges, eps_schedule, clip_t, clip_q};
+  const cudaStream_t s = (cudaStream_t)stream;
+  return (int)(target == 0 ? launch_form<ManyGmmTarget>(a, form, s)
+                           : launch_form<Gmm3Target>(a, form, s));
 }
 
 const char* cmcd_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
@@ -253,10 +366,10 @@ const char* cmcd_error_string(int code) { return cudaGetErrorString((cudaError_t
 int cmcd_overdamped_chains_per_block() { return TC; }
 
 // The launch's own limits, for the wrapper to check its copy against.
-int cmcd_overdamped_fits(int in_dim, int n_mix) { return fits(in_dim, n_mix) ? 1 : 0; }
+int cmcd_overdamped_fits(int in_dim, int n_par) { return fits(in_dim, n_par) ? 1 : 0; }
 
-long long cmcd_overdamped_smem_bytes(int in_dim, int n_mix) {
-  return (long long)smem_bytes(in_dim, n_mix);
+long long cmcd_overdamped_smem_bytes(int in_dim, int n_par) {
+  return (long long)smem_bytes(in_dim, n_par);
 }
 
 }  // extern "C"

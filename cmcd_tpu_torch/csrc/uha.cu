@@ -56,7 +56,6 @@ using namespace cmcd;
 
 constexpr int CPB = 8;              // chains (warps) per block
 constexpr int MAX_LFSTEPS = 8;      // the sweep's limit (kl_uha.cu); the rollout keeps it too
-constexpr int MAX_PAR = 2 * MAX_MIX;  // floats of the target's constants
 
 struct UhaArgs {
   const float* z0;          // (n, D)
@@ -200,10 +199,9 @@ int cmcd_uha_rollout(const float* z0, const float* betas, const float* noise, co
                      float* ztraj, float* rtraj, float* noise_out, int n, int nbridges,
                      int lfsteps, int target, int n_par, float inv_var, void* stream) {
   if (n <= 0 || nbridges <= 0) return (int)cudaErrorInvalidValue;
-  if (lfsteps < 1 || lfsteps > MAX_LFSTEPS || n_par < 1 || n_par > MAX_PAR)
+  if (lfsteps < 1 || lfsteps > MAX_LFSTEPS || !target_ok(target, n_par))
     return (int)cudaErrorInvalidValue;
   if ((ztraj == nullptr) != (rtraj == nullptr)) return (int)cudaErrorInvalidValue;
-  if (target == 1 && n_par != 18) return (int)cudaErrorInvalidValue;
   const UhaArgs a{z0, betas, noise, scal, seed, md, vd_mean, vd_logdiag, tpar, z_out, w_out,
                   ztraj, rtraj, noise_out, n, nbridges, lfsteps, n_par, inv_var};
   const cudaStream_t s = (cudaStream_t)stream;

@@ -82,18 +82,19 @@ struct UdArgs {
 };
 
 // Dynamic shared memory of one block: W2, the two hidden tiles, the head,
-// the means and the per-chain exchange (net input, score point, score, net
-// output). Without a net (in_dim 0) only the means and the exchange.
-__host__ inline size_t smem_bytes(int in_dim, int n_mix) {
+// the target's constants and the per-chain exchange (net input, score point,
+// score, net output). Without a net (in_dim 0) only the constants and the
+// exchange.
+__host__ inline size_t smem_bytes(int in_dim, int n_par) {
   const int in_pad = round_up(in_dim, 4);
   size_t floats = (size_t)in_pad * in_pad + 2 * TC * in_pad + 2 * in_pad +
-                  round_up(2 * n_mix, 4) + TC * (XIN + 3 * DIM);
+                  round_up(n_par, 4) + TC * (XIN + 3 * DIM);
   return floats * sizeof(float);
 }
 
-__host__ inline bool fits(int in_dim, int n_mix) {
-  return in_dim >= 0 && round_up(in_dim, 32) <= MAX_THREADS && n_mix >= 1 &&
-         n_mix <= MAX_MIX && smem_bytes(in_dim, n_mix) <= MAX_SMEM;
+__host__ inline bool fits(int in_dim, int n_par) {
+  return in_dim >= 0 && round_up(in_dim, 32) <= MAX_THREADS && n_par >= 2 &&
+         n_par <= MAX_PAR && n_par % 2 == 0 && smem_bytes(in_dim, n_par) <= MAX_SMEM;
 }
 
 __device__ __forceinline__ void store2(float* dst, size_t row, int n, int chain, const float v[DIM]) {
@@ -124,8 +125,8 @@ __global__ void __launch_bounds__(MAX_THREADS) underdamped_rollout(const UdArgs 
   float* h1s = w2s + ip * ip;                       // TC x in_pad
   float* h2s = h1s + TC * ip;                       // TC x in_pad
   float* hws = h2s + TC * ip;                       // 2 x in_pad
-  float* mus = hws + 2 * ip;                        // n_mix x 2 (padded to 4)
-  float* xin_s = mus + round_up(2 * net.n_mix, 4);  // TC x DIN: the net's input
+  float* par = hws + 2 * ip;                        // the means (n_par, padded to 4)
+  float* xin_s = par + round_up(net.n_par, 4);      // TC x DIN: the net's input
   float* zn_s = xin_s + TC * XIN;                   // TC x 2: where the score is wanted
   float* gt_s = zn_s + TC * DIM;                    // TC x 2
   float* sn_s = gt_s + TC * DIM;                    // TC x 2
@@ -143,7 +144,8 @@ __global__ void __launch_bounds__(MAX_THREADS) underdamped_rollout(const UdArgs 
     load_w1x<DIN>(net, tid, w1x);
     b2f = tid < in ? net.b2[tid] : 0.f;
   }
-  for (int idx = tid; idx < 2 * net.n_mix; idx += nthr) mus[idx] = net.means[idx];
+  for (int idx = tid; idx < net.n_par; idx += nthr) par[idx] = net.tpar[idx];
+  const ManyGmmTarget target(par, net.n_par, net.inv_var_t);
   const float eps0 = a.scal[0], factor = a.scal[1], gamma = a.scal[2], eta = a.scal[3];
   const unsigned long long seed = (unsigned long long)a.seed[0];
 
@@ -172,7 +174,7 @@ __global__ void __launch_bounds__(MAX_THREADS) underdamped_rollout(const UdArgs 
     }
   }
   __syncthreads();
-  score_eval(net, mus, zn_s, gt_s);
+  score_eval(target, zn_s, gt_s);
   if (owner) {
 #pragma unroll
     for (int d = 0; d < DIM; ++d) gt[d] = gt_s[tid * DIM + d];
@@ -223,7 +225,7 @@ __global__ void __launch_bounds__(MAX_THREADS) underdamped_rollout(const UdArgs 
           }
         }
         __syncthreads();
-        point_eval<DIN>(net, i, w1x, b2f, factor, w2s, h1s, h2s, hws, mus, xin_s, nullptr,
+        point_eval<DIN>(net, i, w1x, b2f, factor, w2s, h1s, h2s, hws, target, xin_s, nullptr,
                         gt_s, sn_s);
         if (owner) {
 #pragma unroll
@@ -250,10 +252,10 @@ __global__ void __launch_bounds__(MAX_THREADS) underdamped_rollout(const UdArgs 
     }
     __syncthreads();
     if constexpr (DIN > 0) {
-      point_eval<DIN>(net, i, w1x, b2f, factor, w2s, h1s, h2s, hws, mus, xin_s, zn_s, gt_s,
+      point_eval<DIN>(net, i, w1x, b2f, factor, w2s, h1s, h2s, hws, target, xin_s, zn_s, gt_s,
                       sn_s);
     } else {
-      score_eval(net, mus, zn_s, gt_s);
+      score_eval(target, zn_s, gt_s);
     }
 
     // The second half-kick at z' and the step's log-weight increment.
@@ -293,7 +295,7 @@ __global__ void __launch_bounds__(MAX_THREADS) underdamped_rollout(const UdArgs 
 
 template <int DIN>
 cudaError_t launch(const UdArgs& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a.net.in_dim, a.net.n_mix);
+  const size_t smem = smem_bytes(a.net.in_dim, a.net.n_par);
   cudaError_t err = cudaFuncSetAttribute(underdamped_rollout<DIN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -319,16 +321,16 @@ int cmcd_underdamped_rollout(const float* z0, const float* w0, const float* beta
                              const float* headb, const float* means, const float* vd_mean,
                              const float* vd_inv_var, float* z_out, float* w_out, float* ztraj,
                              float* rtraj, float* noise_out, int n, int nbridges, int din,
-                             int in_dim, int emb_dim, int n_mix, int refresh, int fwd_sn,
+                             int in_dim, int emb_dim, int n_par, int refresh, int fwd_sn,
                              int cais, float inv_var_t, float clip_t, void* stream) {
   if (n <= 0 || nbridges <= 0) return (int)cudaSuccess;
   if (din != 0 && din != DIM && din != XIN) return (int)cudaErrorInvalidValue;
-  if (in_dim != (din > 0 ? din + emb_dim : 0) || !fits(in_dim, n_mix))
+  if (in_dim != (din > 0 ? din + emb_dim : 0) || !fits(in_dim, n_par))
     return (int)cudaErrorInvalidValue;
   if (refresh < 0 || refresh > 2 || (fwd_sn && din != XIN)) return (int)cudaErrorInvalidValue;
   if ((ztraj == nullptr) != (rtraj == nullptr)) return (int)cudaErrorInvalidValue;
   const NetArgs net{w1x, c1, emb, w2, b2, headw, headb, means,
-                    in_dim, round_up(in_dim, 4), emb_dim, n_mix, inv_var_t};
+                    in_dim, round_up(in_dim, 4), emb_dim, n_par, inv_var_t};
   const UdArgs a{z0, w0, betas, noise, scal, seed, net, vd_mean, vd_inv_var, z_out, w_out,
                  ztraj, rtraj, noise_out, n, nbridges, refresh, fwd_sn, cais, clip_t};
   const cudaStream_t s = (cudaStream_t)stream;
@@ -342,10 +344,10 @@ const char* cmcd_error_string(int code) { return cudaGetErrorString((cudaError_t
 int cmcd_underdamped_chains_per_block() { return TC; }
 
 // The launch's own limits, for the wrapper to check its copy against.
-int cmcd_underdamped_fits(int in_dim, int n_mix) { return fits(in_dim, n_mix) ? 1 : 0; }
+int cmcd_underdamped_fits(int in_dim, int n_par) { return fits(in_dim, n_par) ? 1 : 0; }
 
-long long cmcd_underdamped_smem_bytes(int in_dim, int n_mix) {
-  return (long long)smem_bytes(in_dim, n_mix);
+long long cmcd_underdamped_smem_bytes(int in_dim, int n_par) {
+  return (long long)smem_bytes(in_dim, n_par);
 }
 
 }  // extern "C"

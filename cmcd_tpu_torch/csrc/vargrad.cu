@@ -3,8 +3,9 @@
 // trajectory rolled again inside the kernel (reroll).
 //
 // Replaces cmcd_tpu/ops/pallas_vargrad.py::evolve_vargrad_bwd_replay (the TPU
-// kernel "B2") and ::evolve_vargrad_bwd_pallas ("B5") on the many_gmm target
-// (dim 2) with the two-layer geffner net. The Python wrappers are
+// kernel "B2") and ::evolve_vargrad_bwd_pallas ("B5") on the many_gmm and
+// the 3-mode gmm targets (dim 2, the target a template parameter,
+// cmcd_common.cuh) with the two-layer geffner net. The Python wrappers are
 // cmcd_tpu_torch/ops/vargrad.py::evolve_vargrad_bwd_replay and
 // ::evolve_vargrad_bwd_reroll; their plain PyTorch versions state the same
 // point loss and let autograd differentiate it. The TPU kernels trace
@@ -98,16 +99,17 @@ struct RerollArgs {
 
 // Shared memory of one block of NG groups: the tile and, per chain, z_j,
 // z_{j-1}, z_{j+1}, g_out and the cotangent.
-__host__ inline size_t smem_bytes(int ng, int in_dim, int n_mix) {
+__host__ inline size_t smem_bytes(int ng, int in_dim, int n_par) {
   const int tb = ng * TC;
-  return (tile_floats(ng, in_dim, n_mix) + 4 * tb * DIM + tb) * sizeof(float);
+  return (tile_floats(ng, in_dim, n_par) + 4 * tb * DIM + tb) * sizeof(float);
 }
 
 // What one block holds (NG = 4, the larger of the two forms).
-__host__ inline bool fits(int in_dim, int n_mix) {
-  return in_dim >= 1 && round_up(in_dim, 32) <= FW_MAX && n_mix >= 1 && n_mix <= MAX_MIX &&
-         smem_bytes(NG_REPLAY, in_dim, n_mix) <= MAX_SMEM;
+__host__ inline bool fits(int in_dim, int n_par) {
+  return in_dim >= 1 && round_up(in_dim, 32) <= FW_MAX && n_par >= 1 && n_par <= MAX_PAR &&
+         smem_bytes(NG_REPLAY, in_dim, n_par) <= MAX_SMEM;
 }
+
 
 // What every chain of a block shares at trajectory point j.
 struct PointArgs {
@@ -187,12 +189,14 @@ __device__ __forceinline__ void vargrad_chain(const PointArgs& p, const float ou
   }
 }
 
+template <class T>
 __global__ void __launch_bounds__(NG_REPLAY* FW_MAX) vargrad_replay(const VargradArgs a) {
   constexpr int NG = NG_REPLAY, TB = NG * TC;
   extern __shared__ float4 smem4[];
   const NetArgs& net = a.net;
   const int ip = net.in_pad, in = net.in_dim, K = a.nbridges;
   const Tile<NG> t(reinterpret_cast<float*>(smem4), net);
+  const T target(t.par, net.n_par, net.inv_var_t);
   float* zc_s = t.rest;            // TB x 2: z_j
   float* zp_s = zc_s + TB * DIM;   // TB x 2: z_{j-1}
   float* zn_s = zp_s + TB * DIM;   // TB x 2: z_{j+1}
@@ -232,8 +236,8 @@ __global__ void __launch_bounds__(NG_REPLAY* FW_MAX) vargrad_replay(const Vargra
     // Head, score and the scalar derivatives: one warp per chain.
     for (int c = warp; c < TB; c += nwarp) {
       float out[DIM], gt[DIM];
-      head_and_score(net, t.xs + c * ip, t.hws, t.mus, zc_s[c * DIM], zc_s[c * DIM + 1], out,
-                     gt);
+      head_raw(net, t.xs + c * ip, t.hws, out);
+      target.score(zc_s + c * DIM, gt);
       if (lane == 0)
         vargrad_chain(p, out, gt, zc_s + c * DIM, zp_s + c * DIM, zn_s + c * DIM, cot_s[c],
                       go_s + c * DIM, sc);
@@ -247,13 +251,14 @@ __global__ void __launch_bounds__(NG_REPLAY* FW_MAX) vargrad_replay(const Vargra
   flush_point(t, net, th, ft, a.part_b + (size_t)blockIdx.x * len_b(in), false);
 }
 
-template <int NG>
+template <int NG, class T>
 __global__ void __launch_bounds__(NG* FW_MAX) vargrad_reroll(const RerollArgs a) {
   constexpr int TB = NG * TC;
   extern __shared__ float4 smem4[];
   const NetArgs& net = a.net;
   const int ip = net.in_pad, in = net.in_dim, K = a.nbridges;
   const Tile<NG> t(reinterpret_cast<float*>(smem4), net);
+  const T target(t.par, net.n_par, net.inv_var_t);
   float* zc_s = t.rest;            // TB x 2: z_j
   float* zp_s = zc_s + TB * DIM;   // TB x 2: z_{j-1}
   float* zn_s = zp_s + TB * DIM;   // TB x 2: z_{j+1}, made here
@@ -290,8 +295,8 @@ __global__ void __launch_bounds__(NG* FW_MAX) vargrad_reroll(const RerollArgs a)
 
       for (int c = warp; c < TB; c += nwarp) {
         float out[DIM], gt[DIM];
-        head_and_score(net, t.xs + c * ip, t.hws, t.mus, zc_s[c * DIM], zc_s[c * DIM + 1],
-                       out, gt);
+        head_raw(net, t.xs + c * ip, t.hws, out);
+        target.score(zc_s + c * DIM, gt);
         if (lane == 0) {
           const int chain = base + c;
           if (p.m_fk) {  // the rollout's step, operation for operation
@@ -338,14 +343,30 @@ __global__ void __launch_bounds__(NG* FW_MAX) vargrad_reroll(const RerollArgs a)
   flush_block(t, net, th, ft, a.part_a + (size_t)blockIdx.x * len_a(in));
 }
 
-template <int NG>
-cudaError_t launch_reroll(const RerollArgs& a, int blocks, cudaStream_t stream) {
-  const size_t smem = smem_bytes(NG, a.net.in_dim, a.net.n_mix);
-  cudaError_t err = cudaFuncSetAttribute(vargrad_reroll<NG>,
+template <class T>
+cudaError_t launch_replay(const VargradArgs& a, cudaStream_t stream) {
+  const size_t smem = smem_bytes(NG_REPLAY, a.net.in_dim, a.net.n_par);
+  cudaError_t err = cudaFuncSetAttribute(vargrad_replay<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  vargrad_reroll<NG><<<blocks, NG * round_up(a.net.in_dim, 32), smem, stream>>>(a);
+  const int blocks = (a.nbridges + 1) * a.splits;
+  vargrad_replay<T><<<blocks, NG_REPLAY * round_up(a.net.in_dim, 32), smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int NG, class T>
+cudaError_t launch_reroll(const RerollArgs& a, int blocks, cudaStream_t stream) {
+  const size_t smem = smem_bytes(NG, a.net.in_dim, a.net.n_par);
+  cudaError_t err = cudaFuncSetAttribute(vargrad_reroll<NG, T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  vargrad_reroll<NG, T><<<blocks, NG * round_up(a.net.in_dim, 32), smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <class T>
+cudaError_t launch_reroll_groups(const RerollArgs& a, int blocks, int groups, cudaStream_t s) {
+  return groups == 2 ? launch_reroll<2, T>(a, blocks, s) : launch_reroll<4, T>(a, blocks, s);
 }
 
 }  // namespace
@@ -354,63 +375,63 @@ extern "C" {
 
 // Launches the replay backward and its reduction on `stream`. part_a:
 // (points x splits, len_a) and part_b: (points, splits, len_b) are scratch;
-// out_a: (len_a,) and out_b: (points, len_b) receive the sums. Returns a
-// cudaError_t.
+// out_a: (len_a,) and out_b: (points, len_b) receive the sums. target as in
+// cmcd_overdamped_rollout (overdamped.cu): 0 many_gmm, 1 the 3-mode gmm, tpar
+// its n_par constants. Returns a cudaError_t.
 int cmcd_vargrad_replay(const float* traj, const float* cot, const float* betas,
                         const float* scal, const float* w1z, const float* c1,
                         const float* emb, const float* w2, const float* b2,
-                        const float* headw, const float* headb, const float* means,
+                        const float* headw, const float* headb, const float* tpar,
                         const float* vd_mean, const float* vd_logdiag, float* part_a,
                         float* part_b, float* out_a, float* out_b, int n, int nbridges,
-                        int in_dim, int emb_dim, int n_mix, int eps_schedule, int splits,
-                        float inv_var_t, float clip_t, float clip_q, void* stream) {
+                        int in_dim, int emb_dim, int n_par, int eps_schedule, int splits,
+                        int target, float inv_var_t, float clip_t, float clip_q, void* stream) {
   if (n <= 0 || nbridges <= 0 || splits <= 0) return (int)cudaErrorInvalidValue;
-  if (in_dim != DIM + emb_dim || !fits(in_dim, n_mix)) return (int)cudaErrorInvalidValue;
-  const int threads = NG_REPLAY * round_up(in_dim, 32);
-  const int in_pad = round_up(in_dim, 4);
-  const size_t smem = smem_bytes(NG_REPLAY, in_dim, n_mix);
-  cudaError_t err = cudaFuncSetAttribute(
-      vargrad_replay, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const NetArgs net{w1z, c1, emb, w2, b2, headw, headb, means,
-                    in_dim, in_pad, emb_dim, n_mix, inv_var_t};
+  if (in_dim != DIM + emb_dim || !fits(in_dim, n_par) || !target_ok(target, n_par))
+    return (int)cudaErrorInvalidValue;
+  const NetArgs net{w1z, c1, emb, w2, b2, headw, headb, tpar,
+                    in_dim, round_up(in_dim, 4), emb_dim, n_par, inv_var_t};
   const VargradArgs a{traj, cot, betas, scal, net, vd_mean, vd_logdiag, part_a, part_b,
                       n, nbridges, splits, eps_schedule, clip_t, clip_q};
-  const int points = nbridges + 1, blocks = points * splits;
-  vargrad_replay<<<blocks, threads, smem, (cudaStream_t)stream>>>(a);
-  err = cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t err = target == 0 ? launch_replay<ManyGmmTarget>(a, s)
+                                      : launch_replay<Gmm3Target>(a, s);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_reduce(part_a, part_b, out_a, out_b, blocks, points, splits, in_dim,
-                            (cudaStream_t)stream);
+  const int points = nbridges + 1;
+  return (int)launch_reduce(part_a, part_b, out_a, out_b, points * splits, points, splits,
+                            in_dim, s);
 }
 
 // Launches the re-rolling backward and its reduction on `stream`: `blocks`
 // blocks of `groups` (2 or 4) groups of feature threads, blocks <= the
 // number of chain tiles of 8 x groups chains. noise may be null (Philox from
 // seed). part_a: (blocks, len_a) and part_b: (points, blocks, len_b) are
-// scratch; out_a and out_b as above. Returns a cudaError_t.
+// scratch; out_a and out_b as above; target and tpar as above. Returns a
+// cudaError_t.
 int cmcd_vargrad_reroll(const float* z0, const float* cot, const float* betas,
                         const float* noise, const float* scal, const long long* seed,
                         const float* w1z, const float* c1, const float* emb, const float* w2,
                         const float* b2, const float* headw, const float* headb,
-                        const float* means, const float* vd_mean, const float* vd_logdiag,
+                        const float* tpar, const float* vd_mean, const float* vd_logdiag,
                         float* part_a, float* part_b, float* out_a, float* out_b, int n,
-                        int nbridges, int in_dim, int emb_dim, int n_mix, int eps_schedule,
-                        int blocks, int groups, float inv_var_t, float clip_t, float clip_q,
-                        void* stream) {
+                        int nbridges, int in_dim, int emb_dim, int n_par, int eps_schedule,
+                        int blocks, int groups, int target, float inv_var_t, float clip_t,
+                        float clip_q, void* stream) {
   if (n <= 0 || nbridges <= 0 || (groups != 2 && groups != 4)) return (int)cudaErrorInvalidValue;
   if (blocks <= 0 || blocks > (n + groups * TC - 1) / (groups * TC))
     return (int)cudaErrorInvalidValue;
-  if (in_dim != DIM + emb_dim || !fits(in_dim, n_mix)) return (int)cudaErrorInvalidValue;
-  const NetArgs net{w1z, c1, emb, w2, b2, headw, headb, means,
-                    in_dim, round_up(in_dim, 4), emb_dim, n_mix, inv_var_t};
+  if (in_dim != DIM + emb_dim || !fits(in_dim, n_par) || !target_ok(target, n_par))
+    return (int)cudaErrorInvalidValue;
+  const NetArgs net{w1z, c1, emb, w2, b2, headw, headb, tpar,
+                    in_dim, round_up(in_dim, 4), emb_dim, n_par, inv_var_t};
   const RerollArgs a{z0, cot, betas, noise, scal, seed, net, vd_mean, vd_logdiag, part_a,
                      part_b, n, nbridges, eps_schedule, clip_t, clip_q};
-  const cudaError_t err = groups == 2 ? launch_reroll<2>(a, blocks, (cudaStream_t)stream)
-                                      : launch_reroll<4>(a, blocks, (cudaStream_t)stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t err = target == 0 ? launch_reroll_groups<ManyGmmTarget>(a, blocks, groups, s)
+                                      : launch_reroll_groups<Gmm3Target>(a, blocks, groups, s);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_reduce(part_a, part_b, out_a, out_b, blocks, nbridges + 1, blocks, in_dim,
-                            (cudaStream_t)stream);
+                            s);
 }
 
 const char* cmcd_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
@@ -419,10 +440,10 @@ int cmcd_vargrad_chains_per_group() { return TC; }
 
 // The launch's own limits and buffer lengths, for the wrapper to check its
 // copy against.
-int cmcd_vargrad_fits(int in_dim, int n_mix) { return fits(in_dim, n_mix) ? 1 : 0; }
+int cmcd_vargrad_fits(int in_dim, int n_par) { return fits(in_dim, n_par) ? 1 : 0; }
 
-long long cmcd_vargrad_smem_bytes(int groups, int in_dim, int n_mix) {
-  return (long long)smem_bytes(groups, in_dim, n_mix);
+long long cmcd_vargrad_smem_bytes(int groups, int in_dim, int n_par) {
+  return (long long)smem_bytes(groups, in_dim, n_par);
 }
 
 int cmcd_vargrad_len_a(int in_dim) { return len_a(in_dim); }

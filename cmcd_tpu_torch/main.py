@@ -16,13 +16,17 @@ evaluation (and the EMA parameters' when use_ema), JSONL metrics
 (log.jsonl). On a CUDA device training runs through a fused loss
 (ops/fused_train: var_bound_fused for MCD_CAIS_var_sn, the rollout kernel
 with its trajectory and the replay or re-rolling backward kernel;
-kl_bound_fused for MCD_CAIS_sn, the rollout kernel with trajectory and noise
-and the reverse-sweep kernel, and for the approximate-refresh underdamped
-modes MCD_U_a-lp, -sna and -sn (LDVI), the underdamped rollout kernel with
-its stores and the underdamped sweep, and for UHA, the default boundmode, on
-many_gmm or the 3-mode gmm, the UHA rollout kernel with its stores and the
-UHA sweep) and evaluation through the fused rollout of the mode's family
-(the seven underdamped modes and UHA included), one launch per seed group;
+kl_bound_fused for MCD_CAIS_sn, MCD_ULA_sn and plain MCD_ULA, the rollout
+kernel with trajectory and noise and the reverse-sweep kernel of the mode's
+form (the net in both kernels, in the backward kernel only, or none); for
+the approximate-refresh underdamped modes MCD_U_a-lp, -sna and -sn (LDVI),
+the underdamped rollout kernel with its stores and the underdamped sweep;
+for UHA, the default boundmode, the UHA rollout kernel with its stores and
+the UHA sweep) and evaluation through the fused rollout of the mode's family
+(the seven underdamped modes and UHA included), one launch per seed group.
+The overdamped modes and UHA run on many_gmm and the 3-mode gmm (the gmm
+recipes of experiments/recipes.py: gmm_cais, gmm_cais_tuned, gmm_ula), the
+underdamped modes on many_gmm;
 a configuration the kernels do not cover, or use_pallas_train /
 use_pallas_eval off, raises there instead of running eagerly. On the CPU the two switches pick the kernels' plain versions or
 the eager integrator. The fields in IGNORED are accepted and ignored with
@@ -243,7 +247,7 @@ def _run_phases(config: Config, device, logger: MetricLogger) -> dict:
     meter = ThroughputMeter(config.N, config.nbridges)
 
     def callback(step, info, z):
-        info["chain_steps_per_sec"] = meter.chain_rate(info.pop("steps_per_sec", 0.0))
+        info["chain_steps_per_sec"] = meter.chain_rate(info["steps_per_sec"])
         logger.log(info, step=step)
 
     result = train(

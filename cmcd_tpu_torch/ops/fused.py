@@ -3,7 +3,7 @@
 
 The variational draw, the initial and final log-prob terms and the beta grid
 stay in plain torch; the K-step loop runs in one launch of a CUDA kernel:
-the overdamped rollout (ops/overdamped.py) for the CAIS modes, the
+the overdamped rollout (ops/overdamped.py) for the CAIS, ULA_sn and ULA modes, the
 underdamped rollout (ops/underdamped.py) for the seven underdamped modes,
 the UHA rollout (ops/uha.py) for UHA. Forward only: evaluation, sampling,
 ln Z.
@@ -15,13 +15,10 @@ import torch
 
 from cmcd_tpu_torch import bounds
 from cmcd_tpu_torch.distributions import diag_gaussian_log_prob, diag_gaussian_sample
-from cmcd_tpu_torch.integrators import UNDERDAMPED
-from cmcd_tpu_torch.integrators import overdamped as od
+from cmcd_tpu_torch.integrators import OVERDAMPED, UNDERDAMPED
 from cmcd_tpu_torch.ops import overdamped, uha, underdamped
-from cmcd_tpu_torch.ops.target_grads import score_for_target
+from cmcd_tpu_torch.ops.target_grads import n_target_floats, score_for_target
 from cmcd_tpu_torch.schedules import betas_from_grid
-
-KERNEL_SPECS = {"MCD_CAIS_sn": od.CAIS, "MCD_CAIS_var_sn": od.CAIS_VAR}
 
 
 def net_width(setup: bounds.CMCDSetup) -> int:
@@ -29,35 +26,36 @@ def net_width(setup: bounds.CMCDSetup) -> int:
     if setup.mode in UNDERDAMPED:
         din = underdamped.net_input_width(UNDERDAMPED[setup.mode], setup.dim)
         return din + setup.emb_dim if din else 0
+    if setup.mode in OVERDAMPED and not overdamped.uses_net(OVERDAMPED[setup.mode]):
+        return 0
     return setup.dim + setup.emb_dim
 
 
 def supports_fused(setup: bounds.CMCDSetup, target) -> bool:
     """True if a kernel implements (mode, target score, net) at this size:
-    a CAIS-family or underdamped mode, the default many_gmm, the two-layer
-    geffner net, and a net width that fits one block's threads and shared
-    memory (the rollout's kernel_fits); or UHA on many_gmm or gmm with
+    an overdamped mode (all four) on many_gmm or the 3-mode gmm, or an
+    underdamped mode on many_gmm, with (where the mode has a net) the
+    two-layer geffner net of a width that fits one block's threads and
+    shared memory (the rollout's kernel_fits); or UHA on many_gmm or gmm with
     lfsteps the kernel takes (ops/uha.kernel_covers)."""
     score = score_for_target(target)
     if score is None:
         return False
     if setup.mode == "UHA":
         return uha.kernel_covers(score, setup.dim, setup.nbridges, setup.lfsteps)
-    if score.kernel_name != "many_gmm":
-        return False
-    if setup.mode in KERNEL_SPECS:
+    if setup.mode in OVERDAMPED:
         fits = overdamped.kernel_fits
-    elif setup.mode in UNDERDAMPED:
+    elif setup.mode in UNDERDAMPED and score.kernel_name == "many_gmm":
         fits = underdamped.kernel_fits
     else:
         return False
-    return (
-        setup.dim == 2
-        and setup.nn_arch == "geffner"
-        and setup.nlayers == 2
-        and setup.nbridges >= 1
-        and fits(net_width(setup), score.means.shape[0])
-    )
+    if setup.dim != 2 or setup.nbridges < 1:
+        return False
+    width = net_width(setup)
+    if width == 0:  # no net: the target alone decides
+        return n_target_floats(score) <= overdamped.MAX_TARGET_FLOATS
+    return (setup.nn_arch == "geffner" and setup.nlayers == 2
+            and fits(width, n_target_floats(score)))
 
 
 @torch.no_grad()
@@ -104,8 +102,8 @@ def compute_elbos_fused(params, n_chains: int, setup: bounds.CMCDSetup, target,
         z, w = (rollout or overdamped.evolve_overdamped_fused)(
             z0.contiguous(), w0.contiguous(), betas.contiguous(), p["eps"],
             vd["mean"].contiguous(), vd["logdiag"].contiguous(), score,
-            KERNEL_SPECS[setup.mode], eps_schedule=setup.eps_schedule,
-            grad_clipping=setup.grad_clipping, sn=p["sn"], **common,
+            OVERDAMPED[setup.mode], eps_schedule=setup.eps_schedule,
+            grad_clipping=setup.grad_clipping, sn=p.get("sn"), **common,
         )
     w = w + target.log_prob(z)
     return -w, z

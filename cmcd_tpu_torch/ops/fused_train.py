@@ -4,8 +4,9 @@ var_bound_pallas; _make_evolve_kl, _make_evolve_kl_ud, _make_evolve_kl_uha,
 neg_elbos_pallas_kl, kl_bound_pallas).
 
 var_bound_fused stands in for bounds.var_bound on MCD_CAIS_var_sn and
-kl_bound_fused for bounds.kl_bound on MCD_CAIS_sn, the three
-approximate-refresh underdamped modes (UD_KL_FUSED_MODES; LDVI is
+kl_bound_fused for bounds.kl_bound on the overdamped modes that keep the
+state in the graph (OD_KL_FUSED_MODES: MCD_CAIS_sn, MCD_ULA_sn, MCD_ULA), the
+three approximate-refresh underdamped modes (UD_KL_FUSED_MODES; LDVI is
 MCD_U_a-lp-sn) and UHA: the same (loss, (neg_elbos, z)) contract and the
 same math, but the K-step rollout runs in a fused rollout kernel
 (ops/overdamped.py, ops/underdamped.py, ops/uha.py) and the gradient in a
@@ -50,7 +51,7 @@ import torch
 
 from cmcd_tpu_torch import bounds
 from cmcd_tpu_torch.distributions import diag_gaussian_log_prob, diag_gaussian_sample
-from cmcd_tpu_torch.integrators import UNDERDAMPED
+from cmcd_tpu_torch.integrators import OVERDAMPED, UNDERDAMPED
 from cmcd_tpu_torch.integrators import overdamped as od
 from cmcd_tpu_torch.ops import kl, kl_underdamped, uha, vargrad
 from cmcd_tpu_torch.ops.fused import net_width, supports_fused
@@ -61,7 +62,7 @@ from cmcd_tpu_torch.ops.kl_underdamped import (
     evolve_kl_bwd_underdamped_plain,
 )
 from cmcd_tpu_torch.ops.overdamped import evolve_overdamped_fused, evolve_overdamped_fused_plain
-from cmcd_tpu_torch.ops.target_grads import score_for_target
+from cmcd_tpu_torch.ops.target_grads import n_target_floats, score_for_target
 from cmcd_tpu_torch.ops.underdamped import (
     evolve_underdamped_fused,
     evolve_underdamped_fused_plain,
@@ -74,6 +75,9 @@ from cmcd_tpu_torch.ops.vargrad import (
 )
 from cmcd_tpu_torch.schedules import betas_from_grid
 
+# The overdamped modes whose KL loss has a fused backward: the sweep's three
+# forms (ops/kl.SWEEP_SPECS). Still to port: MCD_DNF.
+OD_KL_FUSED_MODES = frozenset({"MCD_CAIS_sn", "MCD_ULA_sn", "MCD_ULA"})
 # The underdamped modes whose KL loss has a fused backward: the
 # approximate-refresh ones (B7's kernel covers them). Still to port: the
 # exact and exact_fwd refreshes and MCD_CAIS_UHA_sn.
@@ -90,8 +94,8 @@ _REPLAY_BYTES_BUDGET = 256 * 1024 * 1024
 def supports_fused_train(setup: bounds.CMCDSetup, target) -> bool:
     """True if a fused training loss can run: what supports_fused asks of
     the rollout, the VarGrad mode or a mode of KL_FUSED_MODES, and a net that
-    also fits one block of that mode's backward kernel (UHA has no net: its
-    sweep takes whatever its rollout takes)."""
+    also fits one block of that mode's backward kernel (a mode without a net,
+    ULA or UHA: its sweep takes whatever its rollout takes)."""
     if not supports_fused(setup, target):
         return False
     if setup.mode == "MCD_CAIS_var_sn":
@@ -100,7 +104,8 @@ def supports_fused_train(setup: bounds.CMCDSetup, target) -> bool:
         fits = _kl_family(setup.mode).fits
     else:
         return False
-    return fits is None or fits(net_width(setup), score_for_target(target).means.shape[0])
+    width = net_width(setup)
+    return fits is None or width == 0 or fits(width, n_target_floats(score_for_target(target)))
 
 
 def choose_backward(backward: str, setup: bounds.CMCDSetup, n_chains: int) -> str:
@@ -160,7 +165,8 @@ class _Evolve(torch.autograd.Function):
 
 
 class _EvolveKL(torch.autograd.Function):
-    """(theta, z0; seed, noise) -> (deltas, z_final) for CAIS, nothing cut.
+    """(theta, z0; seed, noise) -> (deltas, z_final) for an overdamped spec
+    of the sweep (CAIS, ULA_SN, ULA: call["spec"]), nothing cut.
 
     Forward: the fused rollout, storing trajectory and noise. Backward: the
     reverse-sweep kernel with the cotangents of deltas and of z_final;
@@ -172,7 +178,7 @@ class _EvolveKL(torch.autograd.Function):
         z, deltas, traj, draws = call["rollout"](
             z0, torch.zeros(z0.shape[0], dtype=z0.dtype, device=z0.device),
             betas.contiguous(), eps, vd_mean.contiguous(), vd_logdiag.contiguous(),
-            call["score"], od.CAIS, seed=seed, noise=noise, return_trajectory=True,
+            call["score"], call["spec"], seed=seed, noise=noise, return_trajectory=True,
             return_noise=True, **call["static"],
         )
         ctx.call = call
@@ -185,7 +191,7 @@ class _EvolveKL(torch.autograd.Function):
         traj, draws, eps, betas, vd_mean, vd_logdiag = ctx.saved_tensors
         g, g_z0 = call["backward"](
             traj, draws, g_deltas.contiguous(), g_z.contiguous(), betas.contiguous(), eps,
-            vd_mean.contiguous(), vd_logdiag.contiguous(), call["score"], od.CAIS,
+            vd_mean.contiguous(), vd_logdiag.contiguous(), call["score"], call["spec"],
             **call["static"],
         )
         return (None, g_z0, None, None, *_theta_grads(call, g, eps))
@@ -263,7 +269,7 @@ class _EvolveKLUHA(torch.autograd.Function):
 
 
 def _overdamped_static(setup, p):
-    return dict(dim=setup.dim, nbridges=setup.nbridges, sn=p["sn"],
+    return dict(dim=setup.dim, nbridges=setup.nbridges, sn=p.get("sn"),
                 eps_schedule=setup.eps_schedule, grad_clipping=setup.grad_clipping)
 
 
@@ -289,7 +295,7 @@ def _kl_families() -> tuple:
     modules hold then."""
     return (
         _KLFamily(
-            frozenset({"MCD_CAIS_sn"}),
+            OD_KL_FUSED_MODES,
             (evolve_overdamped_fused, evolve_overdamped_fused_plain),
             (evolve_kl_bwd, evolve_kl_bwd_plain),
             _EvolveKL, ("eps",), _overdamped_static, kl.kernel_fits, "KL reverse sweep",
@@ -313,9 +319,8 @@ def _kl_families() -> tuple:
     )
 
 
-# The modes whose KL loss has a fused backward. Still to port: MCD_ULA,
-# MCD_ULA_sn and MCD_DNF (the per-point sweep) and the rest of the
-# underdamped family.
+# The modes whose KL loss has a fused backward. Still to port: MCD_DNF and
+# the rest of the underdamped family.
 KL_FUSED_MODES = frozenset().union(*(f.modes for f in _kl_families()))
 
 
@@ -407,7 +412,7 @@ def neg_elbos_fused_kl(params, n_chains: int, ctx, setup: bounds.CMCDSetup, targ
         "backward": family.sweep[plain],
         "score": score,
         "static": family.static(setup, p),
-        "spec": UNDERDAMPED.get(setup.mode),
+        "spec": {**OVERDAMPED, **UNDERDAMPED}.get(setup.mode),
     }
     vd = p["vd"]
     leaves = (torch.as_tensor(p[name], device=z0.device) for name in family.leaves)

@@ -1,32 +1,35 @@
-"""The KL reverse sweep: wrapper of the CUDA kernel (csrc/kl.cu) and its
+"""The KL reverse sweep: wrapper of the CUDA kernels (csrc/kl.cu) and their
 plain PyTorch version.
 
-Counterpart of cmcd_tpu/ops/pallas_kl.py::evolve_kl_bwd_pallas in its carry
-form (the CAIS structure: one net in both kernels, backward net at i + 1),
-with the port's layout: traj (K + 1, N, dim) and noise (K, N, dim) as the
-fused rollout stored them (ops/overdamped.py, return_trajectory and
-return_noise), cot (N,) the cotangent of each chain's summed log-weight
-increments, g_zfinal (N, dim) that of its final state. Nothing is stopped:
-the KL loss differentiates through the whole rollout, so the state
-cotangent chains backward through every step, through the target score's
-Jacobian and the net's. Returns (grads, g_z0): the gradient of
+Counterpart of cmcd_tpu/ops/pallas_kl.py::evolve_kl_bwd_pallas for the
+overdamped specs that differentiate through the state (SWEEP_SPECS: CAIS,
+with one net in both kernels and the backward net at i + 1; ULA_SN, with the
+net in the backward kernel at i; ULA, with no net), on the many_gmm and the
+3-mode gmm scores, with the port's layout: traj (K + 1, N, dim) and noise
+(K, N, dim) as the fused rollout stored them (ops/overdamped.py,
+return_trajectory and return_noise), cot (N,) the cotangent of each chain's
+summed log-weight increments, g_zfinal (N, dim) that of its final state.
+Nothing is stopped: the KL loss differentiates through the whole rollout, so
+the state cotangent chains backward through every step, through the target
+score's Jacobian and the net's. Returns (grads, g_z0): the gradient of
   sum_n [ cot_n * sum_i (bk_lp_i - fk_lp_i) + g_zfinal_n . z_K ]
 in theta as the dict of ops/vargrad.py,
   {"eps": (), "betas": (K,), "vd_mean": (dim,), "vd_logdiag": (dim,),
-   "sn": {parameter name of the GeffnerNet: gradient in that parameter's shape}},
-and in the initial state, g_z0 (N, dim), for the reparameterised draw.
+   "sn": {parameter name of the GeffnerNet: gradient in that parameter's shape}}
+("sn" empty for ULA), and in the initial state, g_z0 (N, dim), for the
+reparameterised draw.
 
 The sweep visits each stored point once, from z_K down to z_0 (the
-derivation is the header of csrc/kl.cu): the point's score and net output
+derivation is the header of csrc/kl.cu): the point's score (and net output)
 serve both the step that ends there and the step that starts there, so each
-is applied and transposed once. The kernel writes every derivative out; the
+is applied and transposed once. The kernels write every derivative out; the
 plain version walks the same sweep with torch ops, the score's Hessian
-product from ops/target_grads.ManyGMMScore.hvp and the net's VJP from
-torch.autograd, in the dtype of `traj` (float64 to arbitrate between two
-float32 summation orders).
+product from ops/target_grads (ManyGMMScore.hvp, GMMScore.hvp) and the net's
+VJP from torch.autograd, in the dtype of `traj` (float64 to arbitrate
+between two float32 summation orders).
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises, never falling back.
+launches a kernel or raises, never falling back.
 """
 
 from __future__ import annotations
@@ -36,12 +39,19 @@ import functools
 
 import torch
 
-from cmcd_tpu_torch.integrators.overdamped import OverdampedSpec
+from cmcd_tpu_torch.integrators.overdamped import CAIS, ULA, ULA_SN, OverdampedSpec
 from cmcd_tpu_torch.ops import build
 from cmcd_tpu_torch.ops import vargrad as vg
-from cmcd_tpu_torch.ops.overdamped import EPS_SCHEDULES
+from cmcd_tpu_torch.ops.overdamped import EPS_SCHEDULES, count_launch, form_key
+from cmcd_tpu_torch.ops.target_grads import kernel_target
 from cmcd_tpu_torch.schedules import eps_at_step
 
+# The specs the sweep takes: those that keep the state in the graph.
+SWEEP_SPECS = (CAIS, ULA, ULA_SN)
+# The net-free sweep (kl_ula_sweep): chains per block, floats of a block's
+# sums (eps, vd mean, vd logdiag).
+ULA_CHAINS_PER_BLOCK = 8
+ULA_LEN_SUMS = 5
 
 # Floats of shared memory beside the tile (ops/vargrad.smem_bytes). Per chain:
 # three states, g_out, the state cotangent and the two carries (2-vectors),
@@ -55,9 +65,7 @@ kernel_fits.__doc__ = "ops/vargrad.kernel_fits for one block of the sweep kernel
 def _check(traj, noise, cot, g_zfinal, betas, grad_logp, spec, dim, nbridges, sn, eps_schedule):
     n = cot.shape[0]
     vg.check_backward_config("KL reverse sweep", betas, grad_logp, spec, dim, nbridges, sn,
-                             eps_schedule, fits=kernel_fits)
-    if spec.stop_grad_state:
-        raise NotImplementedError("KL reverse sweep: the spec stops the state gradient (VarGrad)")
+                             eps_schedule, fits=kernel_fits, specs=SWEEP_SPECS)
     if (traj.shape != (nbridges + 1, n, dim) or noise.shape != (nbridges, n, dim)
             or cot.shape != (n,) or g_zfinal.shape != (n, dim)):
         raise ValueError(
@@ -73,10 +81,13 @@ def evolve_kl_bwd_plain(
     spec: OverdampedSpec, *, dim: int, nbridges: int, sn=None, eps_schedule: str = "",
     grad_clipping: bool = False,
 ):
-    """The kernel's function in plain torch, point by point from z_K to z_0,
-    in traj's dtype. Carried between points: fk, the cotangent of the forward
-    mean of the step that starts at the point, and direct, what the point's
-    state gets from that step besides (g_zfinal at z_K)."""
+    """The kernels' function in plain torch, point by point from z_K to z_0,
+    in traj's dtype, for every spec of SWEEP_SPECS. Carried between points:
+    fk, the cotangent of the forward mean of the step that starts at the
+    point, and direct, what the point's state gets from that step besides
+    (g_zfinal at z_K). Point p's net output is sn(z_p, min(p, K - 1)) for
+    CAIS, serving both steps, and sn(z_p, p - 1) for ULA_SN, serving the
+    backward mean of step p - 1 only (none at p = 0)."""
     K, dt, dev = nbridges, traj.dtype, traj.device
     as_t = lambda t: torch.as_tensor(t, device=dev).detach().to(dt)
     clip_t = spec.clip_target if grad_clipping else None
@@ -88,7 +99,9 @@ def evolve_kl_bwd_plain(
     slope = [eps_at_step(1.0, j, K, eps_schedule) - eps_at_step(0.0, j, K, eps_schedule)
              for j in range(K)]
     viv = torch.exp(-2.0 * logdiag)
-    weights = {name: as_t(p).requires_grad_(True) for name, p in sn.named_parameters()}
+    net = spec.bwd_sn
+    weights = {name: as_t(p).requires_grad_(True) for name, p in sn.named_parameters()} if net \
+        else {}
     g_w = {name: torch.zeros_like(w) for name, w in weights.items()}
     g_eps = torch.zeros((), dtype=dt, device=dev)
     g_betas, g_mu, g_ld = torch.zeros_like(betas), torch.zeros_like(mu), torch.zeros_like(mu)
@@ -97,10 +110,14 @@ def evolve_kl_bwd_plain(
     fk, direct = None, as_t(g_zfinal)
     for p in range(K, -1, -1):
         z = traj[p].detach()
-        with torch.enable_grad():
-            z_in = z.clone().requires_grad_(True)
-            sn_graph = vg.geffner_from_weights(weights, z_in, min(p, K - 1))
-        sn_out = sn_graph.detach()
+        net_on = net and (spec.fwd_sn or p >= 1)
+        sn_out = torch.zeros_like(z)
+        if net_on:
+            with torch.enable_grad():
+                z_in = z.clone().requires_grad_(True)
+                row = min(p, K - 1) if spec.fwd_sn else p - 1
+                sn_graph = vg.geffner_from_weights(weights, z_in, row)
+            sn_out = sn_graph.detach()
         gt = grad_logp(z)
         gq = -(z - mu) * viv
         gtc = gt if clip_t is None else torch.clamp(gt, -clip_t, clip_t)
@@ -109,9 +126,12 @@ def evolve_kl_bwd_plain(
         total = direct
         if p <= K - 1:  # z_p starts step p
             b, e = betas[p], step[p]
-            g_eps = g_eps + slope[p] * torch.sum(fk * ((b * gtc + (1.0 - b) * gqc) - sn_out))
+            fwd_sn = sn_out if spec.fwd_sn else 0.0
+            g_eps = g_eps + slope[p] * torch.sum(fk * ((b * gtc + (1.0 - b) * gqc) - fwd_sn))
             g_betas[p] += torch.sum(e * fk * (gtc - gqc))
-            g_gt, g_sn, g_gq = g_gt + b * e * fk, g_sn - e * fk, g_gq + (1.0 - b) * e * fk
+            g_gt, g_gq = g_gt + b * e * fk, g_gq + (1.0 - b) * e * fk
+            if spec.fwd_sn:
+                g_sn = g_sn - e * fk
         if p >= 1:  # z_p is where step p - 1's backward mean is formed
             b, e = betas[p - 1], step[p - 1]
             drift = b * gtc + (1.0 - b) * gqc
@@ -126,10 +146,12 @@ def evolve_kl_bwd_plain(
         g_gq = torch.where(gq == gqc, g_gq, torch.zeros_like(g_gq))   # passes nothing
         g_mu += torch.sum(g_gq * viv, dim=0)
         g_ld += torch.sum(g_gq * (-2.0 * gq), dim=0)
-        g_zin, *g_wp = torch.autograd.grad(sn_graph, [z_in, *weights.values()], g_sn)
-        for name, g in zip(g_w, g_wp):
-            g_w[name] += g
-        total = total - viv * g_gq + grad_logp.hvp(z, g_gt) + g_zin
+        total = total - viv * g_gq + grad_logp.hvp(z, g_gt)
+        if net_on:
+            g_zin, *g_wp = torch.autograd.grad(sn_graph, [z_in, *weights.values()], g_sn)
+            for name, g in zip(g_w, g_wp):
+                g_w[name] += g
+            total = total + g_zin
         if p >= 1:  # z_p = fk_mean_{p-1} + sqrt(2 e) xi_{p-1}
             g_e = g_e + torch.sum(total * noise[p - 1]) / torch.sqrt(2.0 * e)
             g_eps = g_eps + slope[p - 1] * g_e
@@ -142,32 +164,66 @@ def evolve_kl_bwd_plain(
 def _library() -> ctypes.CDLL:
     lib = build.load("kl")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.cmcd_kl_reverse_sweep.argtypes = [p] * 21 + [i] * 8 + [f] * 3 + [p]
-    lib.cmcd_kl_reverse_sweep.restype = ctypes.c_int
+    lib.cmcd_kl_reverse_sweep.argtypes = [p] * 21 + [i] * 10 + [f] * 3 + [p]
+    lib.cmcd_kl_reverse_sweep.restype = i
+    lib.cmcd_kl_ula_sweep.argtypes = [p] * 14 + [i] * 5 + [f] * 3 + [p]
+    lib.cmcd_kl_ula_sweep.restype = i
+    lib.cmcd_kl_ula_chains_per_block.restype = i
+    lib.cmcd_kl_ula_len_sums.restype = i
     vg.declare_limits(lib, "kl", EXTRA_FLOATS, "csrc/kl.cu")
+    if (lib.cmcd_kl_ula_chains_per_block(), lib.cmcd_kl_ula_len_sums()) != (
+            ULA_CHAINS_PER_BLOCK, ULA_LEN_SUMS):
+        raise RuntimeError("csrc/kl.cu and ops/kl.py disagree on the net-free sweep's layout")
     return lib
 
 
 def _launch(lib, traj, noise, cot, g_zfinal, betas, eps, vd_mean, vd_logdiag, grad_logp, spec, *,
             dim, nbridges, sn, eps_schedule, grad_clipping, groups, blocks, stream):
-    """Marshal the arguments, launch, and assemble (grads, g_z0)."""
+    """Marshal the arguments, launch the sweep with a net, and assemble
+    (grads, g_z0)."""
     points = nbridges + 1
-    scal, weights, means, buffers = vg.marshal(
+    scal, weights, (code, tpar, inv_var), buffers = vg.marshal(
         "KL reverse sweep", sn, dim, eps, grad_logp, traj.device, blocks, points, blocks)
     g_z0 = torch.empty_like(g_zfinal)
     ptr = vg.ptr
     err = lib.cmcd_kl_reverse_sweep(
         ptr(traj), ptr(noise), ptr(cot), ptr(g_zfinal), ptr(betas), ptr(scal),
         *(ptr(t) for t in weights),
-        ptr(means), ptr(vd_mean), ptr(vd_logdiag),
+        ptr(tpar), ptr(vd_mean), ptr(vd_logdiag),
         *(ptr(t) for t in buffers), ptr(g_z0),
-        cot.shape[0], nbridges, sn.in_dim, sn.emb_dim, means.shape[0],
-        EPS_SCHEDULES[eps_schedule], blocks, groups,
-        grad_logp.inv_var, *vg.clips(spec, grad_clipping),
+        cot.shape[0], nbridges, sn.in_dim, sn.emb_dim, tpar.numel(),
+        EPS_SCHEDULES[eps_schedule], blocks, groups, int(spec.fwd_sn), code,
+        inv_var, *vg.clips(spec, grad_clipping),
         ctypes.c_void_p(stream),
     )
     vg.raise_on(err, lib, "KL reverse sweep")
-    return vg.assemble_grads(buffers[2], buffers[3], sn, dim, nbridges), g_z0
+    grads = vg.assemble_grads(buffers[2], buffers[3], sn, dim, nbridges,
+                              row_shift=not spec.fwd_sn)
+    return grads, g_z0
+
+
+def _launch_ula(lib, traj, noise, cot, g_zfinal, betas, eps, vd_mean, vd_logdiag, grad_logp,
+                spec, *, dim, nbridges, eps_schedule, grad_clipping, stream):
+    """Marshal the arguments, launch the net-free sweep, and assemble
+    (grads, g_z0)."""
+    dev, n = traj.device, cot.shape[0]
+    code, tpar, inv_var = kernel_target(grad_logp, dev)
+    blocks = -(-n // ULA_CHAINS_PER_BLOCK)
+    scal = torch.as_tensor(eps, dtype=torch.float32, device=dev).reshape(1).contiguous()
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    part_a, part_b = new(blocks, ULA_LEN_SUMS), new(nbridges, blocks)
+    out_a, out_b, g_z0 = new(ULA_LEN_SUMS), new(nbridges), torch.empty_like(g_zfinal)
+    ptr = vg.ptr
+    err = lib.cmcd_kl_ula_sweep(
+        ptr(traj), ptr(noise), ptr(cot), ptr(g_zfinal), ptr(betas), ptr(scal), ptr(tpar),
+        ptr(vd_mean), ptr(vd_logdiag), ptr(part_a), ptr(part_b), ptr(out_a), ptr(out_b),
+        ptr(g_z0), n, nbridges, tpar.numel(), EPS_SCHEDULES[eps_schedule], code,
+        inv_var, *vg.clips(spec, grad_clipping), ctypes.c_void_p(stream),
+    )
+    vg.raise_on(err, lib, "KL reverse sweep (no net)")
+    grads = {"eps": out_a[0], "betas": out_b, "vd_mean": out_a[1:1 + dim],
+             "vd_logdiag": out_a[1 + dim:1 + 2 * dim], "sn": {}}
+    return grads, g_z0
 
 
 @torch.no_grad()
@@ -177,32 +233,39 @@ def evolve_kl_bwd(
     grad_clipping: bool = False,
 ):
     """KL (backprop-through-time) gradient from the stored trajectory and
-    noise, in one launch of the sweep kernel and one of its reduction.
+    noise, in one launch of a sweep kernel and one of its reduction.
 
     traj: (K + 1, N, dim) f32; noise: (K, N, dim) f32; cot: (N,); g_zfinal:
     (N, dim); betas: (K,); eps: scalar tensor or float; vd_mean / vd_logdiag:
-    (dim,); grad_logp: ops/target_grads.ManyGMMScore; sn: the GeffnerNet.
-    Returns (the gradient dict of the module docstring, g_z0 (N, dim)).
+    (dim,); grad_logp: ops/target_grads.ManyGMMScore or GMMScore; spec: one
+    of SWEEP_SPECS; sn: the GeffnerNet (None for ULA). Returns (the gradient
+    dict of the module docstring, g_z0 (N, dim)).
     """
     _check(traj, noise, cot, g_zfinal, betas, grad_logp, spec, dim, nbridges, sn, eps_schedule)
-    kwargs = dict(dim=dim, nbridges=nbridges, sn=sn, eps_schedule=eps_schedule,
+    kwargs = dict(dim=dim, nbridges=nbridges, eps_schedule=eps_schedule,
                   grad_clipping=grad_clipping)
     if traj.device.type == "cpu":
         return evolve_kl_bwd_plain(
-            traj, noise, cot, g_zfinal, betas, eps, vd_mean, vd_logdiag, grad_logp, spec, **kwargs
+            traj, noise, cot, g_zfinal, betas, eps, vd_mean, vd_logdiag, grad_logp, spec,
+            sn=sn, **kwargs
         )
     if traj.device.type != "cuda":
         raise ValueError(f"KL reverse sweep: no kernel for device {traj.device}")
     dev = traj.device
     vg.check_device_tensors("KL reverse sweep", dev,
                             (traj, noise, cot, g_zfinal, betas, vd_mean, vd_logdiag))
-    groups, blocks = vg.sweep_grid(cot.shape[0], dev)
-    out = _launch(
-        _library(), traj, noise, cot, g_zfinal, betas, eps, vd_mean, vd_logdiag, grad_logp, spec,
-        groups=groups, blocks=blocks, stream=torch.cuda.current_stream(dev).cuda_stream, **kwargs,
-    )
-    evolve_kl_bwd.launches += 1
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (traj, noise, cot, g_zfinal, betas, eps, vd_mean, vd_logdiag, grad_logp, spec)
+    if spec == ULA:
+        out = _launch_ula(_library(), *args, stream=stream, **kwargs)
+    else:
+        groups, blocks = vg.sweep_grid(cot.shape[0], dev)
+        out = _launch(_library(), *args, sn=sn, groups=groups, blocks=blocks, stream=stream,
+                      **kwargs)
+    count_launch(evolve_kl_bwd, form_key(spec, grad_logp))
     return out
 
 
+# Launches in all, and by form ("<CAIS|ULA_sn|ULA>/<target>", ops/overdamped.form_key).
 evolve_kl_bwd.launches = 0
+evolve_kl_bwd.form_launches = {}

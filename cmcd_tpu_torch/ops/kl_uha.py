@@ -33,14 +33,8 @@ import functools
 import torch
 
 from cmcd_tpu_torch.ops import build
-from cmcd_tpu_torch.ops.uha import (
-    CHAINS_PER_BLOCK,
-    MAX_LFSTEPS,
-    TARGETS,
-    check_config,
-    eps_eta,
-    target_floats,
-)
+from cmcd_tpu_torch.ops.target_grads import kernel_target
+from cmcd_tpu_torch.ops.uha import CHAINS_PER_BLOCK, MAX_LFSTEPS, check_config, eps_eta
 from cmcd_tpu_torch.ops.vargrad import check_device_tensors, ptr, raise_on
 
 LEN_SUMS = 2 + 3 * 2  # per block: eps, eta, md, vd mean, vd logdiag (dim 2)
@@ -162,17 +156,17 @@ def _launch(lib, ztraj, rtraj, noise, cot, g_zfinal, betas, eps, eta, md, vd_mea
     `stream`, and assemble (grads, g_z0)."""
     dev, n = ztraj.device, cot.shape[0]
     blocks = -(-n // CHAINS_PER_BLOCK)
-    tpar = target_floats(grad_logp).to(dev)
+    code, tpar, inv_var = kernel_target(grad_logp, dev)
+    scal = eps_eta(dev, eps, eta)  # a name keeps it alive through the call
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
     part_a, part_b, out_a, out_b = new(blocks, LEN_SUMS), new(nbridges, blocks), new(LEN_SUMS), \
         new(nbridges)
     g_z0 = torch.empty_like(g_zfinal)
     err = lib.cmcd_kl_uha_sweep(
         ptr(ztraj), ptr(rtraj), ptr(noise), ptr(cot), ptr(g_zfinal), ptr(betas),
-        ptr(eps_eta(dev, eps, eta)), ptr(md), ptr(vd_mean), ptr(vd_logdiag), ptr(tpar),
+        ptr(scal), ptr(md), ptr(vd_mean), ptr(vd_logdiag), ptr(tpar),
         ptr(part_a), ptr(part_b), ptr(out_a), ptr(out_b), ptr(g_z0),
-        n, nbridges, lfsteps, TARGETS[grad_logp.kernel_name], tpar.numel(),
-        float(getattr(grad_logp, "inv_var", 0.0)), ctypes.c_void_p(stream),
+        n, nbridges, lfsteps, code, tpar.numel(), inv_var, ctypes.c_void_p(stream),
     )
     raise_on(err, lib, "UHA KL sweep")
     grads = {"eps": out_a[0], "eta": out_a[1], "md": out_a[2:4], "betas": out_b,

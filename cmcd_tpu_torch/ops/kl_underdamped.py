@@ -41,7 +41,8 @@ import torch
 from cmcd_tpu_torch.integrators import underdamped as ud
 from cmcd_tpu_torch.ops import build
 from cmcd_tpu_torch.ops import vargrad as vg
-from cmcd_tpu_torch.ops.overdamped import MAX_MIX, MAX_SMEM, pack_geffner
+from cmcd_tpu_torch.ops.overdamped import MAX_SMEM, pack_geffner
+from cmcd_tpu_torch.ops.target_grads import MAX_TARGET_FLOATS
 from cmcd_tpu_torch.ops.underdamped import check_config, net_input_width, uses_net
 
 # The approximate-refresh specs; the exact, exact_fwd and CAIS_UHA forms of
@@ -56,15 +57,17 @@ XIN = 4  # floats of a chain's net input buffer: [z, rho']
 EXTRA_FLOATS = (8 * 2 + XIN + 1, vg.CHAINS_PER_GROUP * XIN)
 
 
-def smem_bytes(in_dim: int, n_mix: int, groups: int = vg.GROUPS) -> int:
-    return vg.smem_bytes(in_dim, n_mix, groups, EXTRA_FLOATS)
+def smem_bytes(in_dim: int, n_par: int, groups: int = vg.GROUPS) -> int:
+    return vg.smem_bytes(in_dim, n_par, groups, EXTRA_FLOATS)
 
 
-def kernel_fits(in_dim: int, n_mix: int) -> bool:
-    """True if a net of width in_dim (0: no net) and a score of n_mix
-    components fit one block of the sweep at four groups."""
+def kernel_fits(in_dim: int, n_par: int) -> bool:
+    """True if a net of width in_dim (0: no net) and the many_gmm's n_par
+    constants (its means, an even count) fit one block of the sweep at four
+    groups."""
     return (0 <= in_dim and vg._round_up(in_dim, 32) <= vg.GROUP_THREADS
-            and 1 <= n_mix <= MAX_MIX and smem_bytes(in_dim, n_mix) <= MAX_SMEM)
+            and 2 <= n_par <= MAX_TARGET_FLOATS and n_par % 2 == 0
+            and smem_bytes(in_dim, n_par) <= MAX_SMEM)
 
 
 def _check(ztraj, rtraj, noise, cot, g_zfinal, betas, grad_logp, spec, dim, nbridges, sn):
@@ -186,16 +189,16 @@ def _library() -> ctypes.CDLL:
     if lib.cmcd_kl_ud_chains_per_group() != vg.CHAINS_PER_GROUP:
         raise RuntimeError("csrc/kl_underdamped.cu and its wrapper disagree on the chains "
                            "of a group")
-    for in_dim, n_mix in ((0, 40), (18, 1), (134, 40), (144, 64), (145, 40), (160, 65),
-                          (161, 40), (134, 0)):
-        if (bool(lib.cmcd_kl_ud_fits(in_dim, n_mix)) != kernel_fits(in_dim, n_mix)
-                or any(lib.cmcd_kl_ud_smem_bytes(g, in_dim, n_mix) != smem_bytes(in_dim, n_mix, g)
+    for in_dim, n_par in ((0, 80), (18, 2), (134, 80), (144, 128), (145, 80), (160, 130),
+                          (161, 80), (134, 0), (134, 81)):
+        if (bool(lib.cmcd_kl_ud_fits(in_dim, n_par)) != kernel_fits(in_dim, n_par)
+                or any(lib.cmcd_kl_ud_smem_bytes(g, in_dim, n_par) != smem_bytes(in_dim, n_par, g)
                        for g in (2, 4))
                 or any(lib.cmcd_kl_ud_len_a(in_dim, din) != vg.len_a(in_dim, din)
                        for din in (0, 2, 4))):
             raise RuntimeError(
                 "csrc/kl_underdamped.cu and its wrapper disagree on what fits one block at "
-                f"in_dim {in_dim}, {n_mix} components")
+                f"in_dim {in_dim}, {n_par} target floats")
     return lib
 
 
@@ -228,7 +231,7 @@ def _launch(lib, ztraj, rtraj, noise, cot, g_zfinal, betas, eps, gamma, vd_mean,
         *weights, factor = pack_geffner(sn)
         in_dim, emb_dim = sn.in_dim, sn.emb_dim
     scal = torch.stack([f32(eps), factor.to(dev, torch.float32), f32(gamma)])
-    means = grad_logp.means.to(dev, torch.float32).contiguous()
+    means = grad_logp.means.to(dev, torch.float32).reshape(-1).contiguous()
     points = nbridges + 1
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
     la, lb = vg.len_a(in_dim, din), vg.len_b(in_dim)
@@ -239,7 +242,7 @@ def _launch(lib, ztraj, rtraj, noise, cot, g_zfinal, betas, eps, gamma, vd_mean,
         vg.ptr(betas), vg.ptr(scal), *(vg.ptr(t) for t in weights),
         vg.ptr(means), vg.ptr(vd_mean), vg.ptr(vd_logdiag),
         *(vg.ptr(t) for t in buffers), vg.ptr(g_z0),
-        cot.shape[0], nbridges, din, in_dim, emb_dim, means.shape[0], blocks, groups,
+        cot.shape[0], nbridges, din, in_dim, emb_dim, means.numel(), blocks, groups,
         grad_logp.inv_var, ctypes.c_void_p(stream),
     )
     vg.raise_on(err, lib, "underdamped KL sweep")

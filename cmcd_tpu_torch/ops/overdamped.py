@@ -6,9 +6,11 @@ with the port's layout: z0 (N, dim), w0 (N,), betas (K,), injected noise
 (K, N, dim), all f32; with return_trajectory=True also the stored path
 z_0..z_K as (K + 1, N, dim), which the VarGrad backward (ops/vargrad.py)
 reads, and with return_noise=True the draws xi_0..xi_{K-1} as (K, N, dim),
-which the KL reverse sweep (ops/kl.py) reads beside it. The kernel covers the CAIS and CAIS_VAR specs on the
-many_gmm score (ops/target_grads.py) with the two-layer geffner net; the
-wrapper raises on anything else.
+which the KL reverse sweep (ops/kl.py) reads beside it. The kernel covers
+every overdamped spec (FORMS: CAIS and CAIS_VAR, ULA_SN with the net in
+the backward kernel only, and ULA without a net) on the many_gmm and the 3-mode
+gmm scores (ops/target_grads.py) with the two-layer geffner net; the wrapper
+raises on anything else.
 
 On a CPU tensor the wrapper runs the plain twin; on a CUDA tensor it
 launches the kernel or raises, never falling back.
@@ -22,9 +24,15 @@ import math
 
 import torch
 
-from cmcd_tpu_torch.integrators.overdamped import CAIS, CAIS_VAR, OverdampedSpec
+from cmcd_tpu_torch.integrators.overdamped import CAIS, CAIS_VAR, ULA, ULA_SN, OverdampedSpec
 from cmcd_tpu_torch.networks.geffner import GeffnerNet
 from cmcd_tpu_torch.ops import build
+from cmcd_tpu_torch.ops.target_grads import (
+    MAX_TARGET_FLOATS,
+    TARGETS,
+    kernel_target,
+    n_target_floats,
+)
 from cmcd_tpu_torch.schedules import eps_at_step
 
 # The kernel's limits, mirrored from csrc/overdamped.cu so that the gate
@@ -32,68 +40,95 @@ from cmcd_tpu_torch.schedules import eps_at_step
 # this copy against the built kernel's own.
 CHAINS_PER_BLOCK = 8      # TC
 MAX_THREADS = 256         # one thread per net feature
-MAX_MIX = 64              # score components the kernel's warps cover
 MAX_SMEM = 232448         # bytes of shared memory a block may use on sm_90
 EPS_SCHEDULES = {"": 0, "linear": 1, "cos_sq": 2}
-KERNEL_SPECS = (CAIS, CAIS_VAR)
+# The kernel's form of each spec (csrc/overdamped.cu): 0 the net in both
+# kernels, backward net at i + 1; 1 the net in the backward kernel at i; 2 no
+# net. The words name a form in the launch counts (form_launches).
+FORMS = {CAIS: 0, CAIS_VAR: 0, ULA_SN: 1, ULA: 2}
+FORM_WORDS = ("CAIS", "ULA_sn", "ULA")
 
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def smem_bytes(in_dim: int, n_mix: int) -> int:
-    """Dynamic shared memory of one block (the kernel's layout: W2, two
-    hidden tiles, the head, the means and the per-chain exchange)."""
+def uses_net(spec: OverdampedSpec) -> bool:
+    """True if the spec applies the score net in either kernel (all but ULA)."""
+    return spec.fwd_sn or spec.bwd_sn
+
+
+def smem_bytes(in_dim: int, n_par: int) -> int:
+    """Dynamic shared memory of one block of the tile form (the kernel's
+    layout: W2, two hidden tiles, the head, the target's n_par constants and
+    the per-chain exchange)."""
     ip = _round_up(in_dim, 4)
     tc = CHAINS_PER_BLOCK
-    return 4 * (ip * ip + 2 * tc * ip + 2 * ip + _round_up(2 * n_mix, 4) + 3 * tc * 2)
+    return 4 * (ip * ip + 2 * tc * ip + 2 * ip + _round_up(n_par, 4) + 3 * tc * 2)
 
 
-def kernel_fits(in_dim: int, n_mix: int) -> bool:
-    """True if a net of width in_dim and a score of n_mix components fit
-    one block (threads, shared memory, warp lanes)."""
+def kernel_fits(in_dim: int, n_par: int) -> bool:
+    """True if a net of width in_dim and a target of n_par constants fit one
+    block of the tile form (threads, shared memory)."""
     return (
         in_dim >= 1
         and _round_up(in_dim, 32) <= MAX_THREADS
-        and 1 <= n_mix <= MAX_MIX
-        and smem_bytes(in_dim, n_mix) <= MAX_SMEM
+        and 1 <= n_par <= MAX_TARGET_FLOATS
+        and smem_bytes(in_dim, n_par) <= MAX_SMEM
     )
+
+
+def check_target(what, grad_logp, dim):
+    """Raise unless the kernels take the target: a kernel_name of TARGETS, dim 2."""
+    name = getattr(grad_logp, "kernel_name", None)
+    if name not in TARGETS:
+        raise NotImplementedError(
+            f"{what}: the kernel inlines the many_gmm and gmm scores only "
+            "(ops/target_grads.score_for_target)"
+        )
+    if dim != 2:
+        raise ValueError(f"{what}: dim must be 2 ({name}), got {dim}")
+    if n_target_floats(grad_logp) > MAX_TARGET_FLOATS:
+        raise NotImplementedError(f"{what}: more than {MAX_TARGET_FLOATS // 2} components")
+
+
+def form_key(spec: OverdampedSpec, grad_logp) -> str:
+    """The name of a launch's form in form_launches: "<form>/<target>"."""
+    return f"{FORM_WORDS[FORMS[spec]]}/{grad_logp.kernel_name}"
+
+
+def count_launch(wrapper, form: str):
+    """One launch of `wrapper`'s kernel in `form`: its count and its form's
+    (the wrapper's `launches` and `form_launches`)."""
+    wrapper.launches += 1
+    wrapper.form_launches[form] = wrapper.form_launches.get(form, 0) + 1
 
 
 def _check(z0, w0, betas, grad_logp, spec, dim, nbridges, sn, eps_schedule, noise):
     """Raise on what the kernel does not take (both devices)."""
-    if spec not in KERNEL_SPECS:
-        raise NotImplementedError(
-            f"fused rollout: spec {spec} has no kernel (CAIS and CAIS_VAR only)"
-        )
-    if getattr(grad_logp, "kernel_name", None) != "many_gmm":
-        raise NotImplementedError(
-            "fused rollout: the kernel inlines the many_gmm score only "
-            "(ops/target_grads.score_for_target)"
-        )
-    if dim != 2:
-        raise ValueError(f"fused rollout: dim must be 2 (many_gmm), got {dim}")
-    if not isinstance(sn, GeffnerNet) or len(sn.layers) != 2:
-        raise NotImplementedError(
-            "fused rollout: the kernel inlines the two-layer geffner net on the state"
-        )
-    if sn.nbridges != nbridges:
-        raise ValueError("fused rollout: net embedding rows != nbridges")
-    if not kernel_fits(sn.in_dim, grad_logp.means.shape[0]):
-        raise NotImplementedError(
-            f"fused rollout: in_dim {sn.in_dim} does not fit one block"
-        )
+    what = "fused rollout"
+    if spec not in FORMS:
+        raise NotImplementedError(f"{what}: spec {spec} has no kernel")
+    check_target(what, grad_logp, dim)
+    if uses_net(spec):
+        if not isinstance(sn, GeffnerNet) or len(sn.layers) != 2:
+            raise NotImplementedError(
+                f"{what}: the kernel inlines the two-layer geffner net on the state"
+            )
+        if sn.nbridges != nbridges:
+            raise ValueError(f"{what}: net embedding rows != nbridges")
+        if not kernel_fits(sn.in_dim, n_target_floats(grad_logp)):
+            raise NotImplementedError(f"{what}: in_dim {sn.in_dim} does not fit one block")
     if eps_schedule not in EPS_SCHEDULES:
         raise ValueError(f"unknown eps schedule {eps_schedule!r}")
     n = z0.shape[0]
     if z0.shape != (n, dim) or w0.shape != (n,) or betas.shape != (nbridges,):
         raise ValueError(
-            f"fused rollout: shapes z0 {tuple(z0.shape)}, w0 {tuple(w0.shape)}, "
+            f"{what}: shapes z0 {tuple(z0.shape)}, w0 {tuple(w0.shape)}, "
             f"betas {tuple(betas.shape)} do not match N={n}, dim={dim}, K={nbridges}"
         )
     if noise is not None and noise.shape != (nbridges, n, dim):
-        raise ValueError(f"fused rollout: noise must be {(nbridges, n, dim)}")
+        raise ValueError(f"{what}: noise must be {(nbridges, n, dim)}")
 
 
 @torch.no_grad()
@@ -104,7 +139,8 @@ def evolve_overdamped_fused_plain(
     return_trajectory: bool = False, return_noise: bool = False,
 ):
     """The kernel's math in eager torch, step by step: the same clips, the
-    same CAIS carry of (score, net output) and the same weight formula.
+    same carry of the score (and, for CAIS, of the net output) and the same
+    weight formula, for every spec of FORMS (sn unused by ULA).
     Without injected noise the draws come from `generator`, or from a
     generator seeded with `seed` on z0's device (not the kernel's Philox
     stream: the two agree in distribution only). Returns (z (N, dim), w (N,)),
@@ -127,13 +163,15 @@ def evolve_overdamped_fused_plain(
 
     z, w = z0, w0
     traj, draws = [z0], []
-    gt, sn_cur = grad_logp(z), sn(z, 0)
+    gt = grad_logp(z)
+    sn_cur = sn(z, 0) if spec.fwd_sn else None
     for i in range(nbridges):
         eps_i = eps_at_step(eps, i, nbridges, eps_schedule)
         scale = torch.sqrt(2.0 * torch.as_tensor(eps_i))
         beta = betas[i]
         fk_mean = z - eps_i * grad_u(gt, z, beta)
-        fk_mean = fk_mean - eps_i * sn_cur
+        if spec.fwd_sn:
+            fk_mean = fk_mean - eps_i * sn_cur
         if noise is None:
             xi = torch.randn(z.shape, generator=generator, device=z.device)
             if return_noise:
@@ -141,12 +179,16 @@ def evolve_overdamped_fused_plain(
         else:
             xi = noise[i]
         z_new = fk_mean + scale * xi
-        gt_new, sn_new = grad_logp(z_new), sn(z_new, i + spec.bwd_sn_offset)
+        gt_new = grad_logp(z_new)
         bk_mean = z_new - eps_i * grad_u(gt_new, z_new, beta)
-        bk_mean = bk_mean + eps_i * sn_new
+        if spec.bwd_sn:
+            sn_new = sn(z_new, i + spec.bwd_sn_offset)
+            bk_mean = bk_mean + eps_i * sn_new
         resid = (z - bk_mean) * (1.0 / scale)
         w = w - 0.5 * (torch.sum(resid * resid, -1) - torch.sum(xi * xi, -1))
-        z, gt, sn_cur = z_new, gt_new, sn_new
+        z, gt = z_new, gt_new
+        if spec.fwd_sn:
+            sn_cur = sn_new
         if return_trajectory:
             traj.append(z)
     out = (z, w)
@@ -161,7 +203,7 @@ def evolve_overdamped_fused_plain(
 def _library() -> ctypes.CDLL:
     lib = build.load("overdamped")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.cmcd_overdamped_rollout.argtypes = [p] * 20 + [i] * 6 + [f] * 3 + [p]
+    lib.cmcd_overdamped_rollout.argtypes = [p] * 20 + [i] * 8 + [f] * 3 + [p]
     lib.cmcd_overdamped_rollout.restype = ctypes.c_int
     lib.cmcd_error_string.argtypes = [ctypes.c_int]
     lib.cmcd_error_string.restype = ctypes.c_char_p
@@ -173,14 +215,14 @@ def _library() -> ctypes.CDLL:
     if lib.cmcd_overdamped_chains_per_block() != CHAINS_PER_BLOCK:
         raise RuntimeError("csrc/overdamped.cu and ops/overdamped.py disagree on TC")
     # Every edge of the limits: shared memory (228/229 features), threads
-    # (256/257) and the score's lanes (0, 1, 64, 65 components).
+    # (256/257) and the target's constants (0, 1, 18, 80, 128, 129 floats).
     for in_dim in (0, 1, 3, 18, 132, 224, 225, 228, 229, 256, 257, 302):
-        for n_mix in (0, 1, 40, 64, 65):
-            if (bool(lib.cmcd_overdamped_fits(in_dim, n_mix)) != kernel_fits(in_dim, n_mix)
-                    or lib.cmcd_overdamped_smem_bytes(in_dim, n_mix) != smem_bytes(in_dim, n_mix)):
+        for n_par in (0, 1, 18, 80, 128, 129):
+            if (bool(lib.cmcd_overdamped_fits(in_dim, n_par)) != kernel_fits(in_dim, n_par)
+                    or lib.cmcd_overdamped_smem_bytes(in_dim, n_par) != smem_bytes(in_dim, n_par)):
                 raise RuntimeError(
                     "csrc/overdamped.cu and ops/overdamped.py disagree on what fits "
-                    f"one block at in_dim {in_dim}, {n_mix} components"
+                    f"one block at in_dim {in_dim}, {n_par} target floats"
                 )
     return lib
 
@@ -218,24 +260,24 @@ def evolve_overdamped_fused(
     grad_clipping: bool = False, seed=0, noise=None, return_trajectory: bool = False,
     return_noise: bool = False,
 ):
-    """Run nbridges CAIS / CAIS_VAR steps for every chain in one launch.
+    """Run nbridges steps of `spec` (a key of FORMS) for every chain in one launch.
 
     z0: (N, dim) f32; w0: (N,) f32; betas: (K,); eps: scalar tensor or float;
-    vd_mean / vd_logdiag: (dim,); grad_logp: ops/target_grads.ManyGMMScore;
-    sn: the GeffnerNet; seed: int or one-element integer tensor (read on the
-    device, so no host sync); noise: optional (K, N, dim) standard normals.
-    Returns (z (N, dim), w (N,)); with return_trajectory also traj
-    (K + 1, N, dim): row 0 is z0, row K equals z; with return_noise also the
-    draws (K, N, dim) the kernel used: its Philox normals as it stored them,
-    or the injected tensor itself.
+    vd_mean / vd_logdiag: (dim,); grad_logp: ops/target_grads.ManyGMMScore or
+    GMMScore; sn: the GeffnerNet (None for ULA); seed: int or one-element
+    integer tensor (read on the device, so no host sync); noise: optional
+    (K, N, dim) standard normals. Returns (z (N, dim), w (N,)); with
+    return_trajectory also traj (K + 1, N, dim): row 0 is z0, row K equals z;
+    with return_noise also the draws (K, N, dim) the kernel used: its Philox
+    normals as it stored them, or the injected tensor itself.
     """
     _check(z0, w0, betas, grad_logp, spec, dim, nbridges, sn, eps_schedule, noise)
     kwargs = dict(dim=dim, nbridges=nbridges, sn=sn, eps_schedule=eps_schedule,
-                  grad_clipping=grad_clipping, seed=seed, noise=noise,
-                  return_trajectory=return_trajectory, return_noise=return_noise)
+                  grad_clipping=grad_clipping, seed=seed, noise=noise)
     if z0.device.type == "cpu":
         return evolve_overdamped_fused_plain(
-            z0, w0, betas, eps, vd_mean, vd_logdiag, grad_logp, spec, **kwargs
+            z0, w0, betas, eps, vd_mean, vd_logdiag, grad_logp, spec,
+            return_trajectory=return_trajectory, return_noise=return_noise, **kwargs
         )
     if z0.device.type != "cuda":
         raise ValueError(f"fused rollout: no kernel for device {z0.device}")
@@ -247,43 +289,55 @@ def evolve_overdamped_fused(
                 "fused rollout: z0, w0, betas, vd params and noise must be "
                 f"contiguous f32 on {dev}"
             )
+    out = _launch(_library(), z0, w0, betas, eps, vd_mean, vd_logdiag, grad_logp, spec,
+                  stored=(return_trajectory, return_noise),
+                  stream=torch.cuda.current_stream(dev).cuda_stream, **kwargs)
+    count_launch(evolve_overdamped_fused, form_key(spec, grad_logp))
+    return out
 
-    w1z, c1, emb, w2, b2, headw, headb, factor = pack_geffner(sn)
-    scal = torch.stack([_f32(eps, dev).reshape(()), factor.to(dev, torch.float32)])
+
+def _launch(lib, z0, w0, betas, eps, vd_mean, vd_logdiag, grad_logp, spec, *, dim, nbridges,
+            sn, eps_schedule, grad_clipping, seed, noise, stored, stream):
+    """Marshal the arguments and launch the rollout on `stream`: (z, w) and
+    the stores asked for (stored: trajectory, noise)."""
+    dev = z0.device
+    form = FORMS[spec]
+    if form < 2:
+        w1z, c1, emb, w2, b2, headw, headb, factor = pack_geffner(sn)
+        weights = [w1z, c1, emb, w2, b2, headw, headb]
+        for t in weights:
+            if t.device != dev or t.dtype != torch.float32:
+                raise ValueError(f"fused rollout: net weights must be f32 on {dev}")
+        in_dim, emb_dim = sn.in_dim, sn.emb_dim
+    else:
+        factor, weights, in_dim, emb_dim = 0.0, [None] * 7, 0, 0
+    scal = torch.stack([_f32(eps, dev).reshape(()), _f32(factor, dev).reshape(())])
     seed_t = torch.as_tensor(seed, dtype=torch.int64, device=dev).reshape(1)
-    means = _f32(grad_logp.means, dev)
+    code, tpar, inv_var = kernel_target(grad_logp, dev)
     vd_inv_var = torch.exp(-2.0 * vd_logdiag).contiguous()
-    weights = [w1z, c1, emb, w2, b2, headw, headb]
-    for t in weights:
-        if t.device != dev or t.dtype != torch.float32:
-            raise ValueError(f"fused rollout: net weights must be f32 on {dev}")
     n = z0.shape[0]
     z_out = torch.empty_like(z0)
     w_out = torch.empty_like(w0)
+    return_trajectory, return_noise = stored
     traj = z0.new_empty((nbridges + 1, n, dim)) if return_trajectory else None
     draws = z0.new_empty((nbridges, n, dim)) if return_noise and noise is None else None
     clip_t = spec.clip_target if grad_clipping else None
     clip_q = spec.clip_vd if grad_clipping else None
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-    err = _library().cmcd_overdamped_rollout(
-        ptr(z0), ptr(w0), ptr(betas),
-        None if noise is None else ptr(noise),
-        ptr(scal), ptr(seed_t),
+    ptr = lambda t: None if t is None else ctypes.c_void_p(t.data_ptr())
+    err = lib.cmcd_overdamped_rollout(
+        ptr(z0), ptr(w0), ptr(betas), ptr(noise), ptr(scal), ptr(seed_t),
         *(ptr(t) for t in weights),
-        ptr(means), ptr(vd_mean), ptr(vd_inv_var), ptr(z_out), ptr(w_out),
-        None if traj is None else ptr(traj),
-        None if draws is None else ptr(draws),
-        n, nbridges, sn.in_dim, sn.emb_dim, means.shape[0],
-        EPS_SCHEDULES[eps_schedule],
-        grad_logp.inv_var,
+        ptr(tpar), ptr(vd_mean), ptr(vd_inv_var), ptr(z_out), ptr(w_out),
+        ptr(traj), ptr(draws),
+        n, nbridges, in_dim, emb_dim, tpar.numel(), EPS_SCHEDULES[eps_schedule], form, code,
+        inv_var,
         math.inf if clip_t is None else clip_t,
         math.inf if clip_q is None else clip_q,
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        ctypes.c_void_p(stream),
     )
     if err != 0:
-        msg = _library().cmcd_error_string(err).decode()
-        raise RuntimeError(f"overdamped rollout kernel failed: {msg} ({err})")
-    evolve_overdamped_fused.launches += 1
+        raise RuntimeError(
+            f"overdamped rollout kernel failed: {lib.cmcd_error_string(err).decode()} ({err})")
     out = (z_out, w_out)
     if return_trajectory:
         out += (traj,)
@@ -292,4 +346,6 @@ def evolve_overdamped_fused(
     return out
 
 
+# Launches in all, and by form ("<CAIS|ULA_sn|ULA>/<target>", form_key).
 evolve_overdamped_fused.launches = 0
+evolve_overdamped_fused.form_launches = {}

@@ -1,11 +1,13 @@
 """Target scores in the form the fused rollout computes them
 (cmcd_tpu/ops/target_grads.py).
 
-The CUDA kernels inline the many_gmm score (csrc/cmcd_common.cuh), and the
-UHA kernels (csrc/uha.cu, csrc/kl_uha.cu) the 3-mode gmm's too; this module
+The CUDA kernels take the target as a template parameter
+(csrc/cmcd_common.cuh: ManyGmmTarget, Gmm3Target): the many_gmm score in
+every kernel, the 3-mode gmm's in all but the underdamped ones. This module
 holds their plain twins, with the Hessian products the reverse sweeps need,
-and the registry that tells a wrapper which target its kernel integrates
-(`kernel_name`). Like the TPU kernel, the many_gmm score ignores the -1e4
+the registry that tells a wrapper which target its kernel integrates
+(`kernel_name`, TARGETS) and the flat vector of constants every kernel
+reads its target from (target_floats). Like the TPU kernel, the many_gmm score ignores the -1e4
 floor of the batched log_prob: inside the support the two agree, outside it
 the floored log_prob has a zero gradient and this score does not.
 """
@@ -19,6 +21,11 @@ import numpy as np
 import torch
 
 from cmcd_tpu_torch.targets.gmm import gmm_constants, many_gmm_means, many_gmm_scale
+
+# The kernels' target template parameters (csrc/cmcd_common.cuh), both 2-D,
+# and how many constants a target may hand them (64 many_gmm components).
+TARGETS = {"many_gmm": 0, "gmm": 1}
+MAX_TARGET_FLOATS = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,3 +133,27 @@ def score_for_target(target, device=None) -> Optional[ManyGMMScore | GMMScore]:
     if (p.get("n_mixes"), float(p.get("loc_scaling", 0)), p.get("seed")) != (40, 40.0, 0):
         return None
     return make_many_gmm_score(device, p.get("log_var_scaling", 0.1))
+
+
+def target_floats(grad_logp) -> torch.Tensor:
+    """The constants a kernel's target reads, as one flat f32 tensor: the
+    many_gmm means (n_mix x 2), or the gmm means (3 x 2), the precisions'
+    (p11, p12, p22) per component and the log-normalisers (3)."""
+    if grad_logp.kernel_name == "many_gmm":
+        return grad_logp.means.reshape(-1).to(torch.float32).contiguous()
+    p = grad_logp.precs
+    parts = [grad_logp.means, torch.stack([p[:, 0, 0], p[:, 0, 1], p[:, 1, 1]], -1),
+             grad_logp.log_norm]
+    return torch.cat([t.reshape(-1).to(torch.float32) for t in parts])
+
+
+def kernel_target(grad_logp, device):
+    """What a launch passes for its target: (template code, the constants on
+    `device`, many_gmm's inverse variance or 0)."""
+    return (TARGETS[grad_logp.kernel_name], target_floats(grad_logp).to(device),
+            float(getattr(grad_logp, "inv_var", 0.0)))
+
+
+def n_target_floats(grad_logp) -> int:
+    """The count of target_floats(grad_logp), what kernel_fits asks."""
+    return target_floats(grad_logp).numel()

@@ -25,46 +25,25 @@ import functools
 import torch
 
 from cmcd_tpu_torch.ops import build
-from cmcd_tpu_torch.ops.overdamped import MAX_MIX, _f32
+from cmcd_tpu_torch.ops.overdamped import _f32, check_target
+from cmcd_tpu_torch.ops.target_grads import MAX_TARGET_FLOATS, kernel_target
 from cmcd_tpu_torch.ops.vargrad import check_device_tensors, ptr
 
 # The kernels' limits, mirrored from csrc/uha.cu and csrc/kl_uha.cu (checked
 # against the built kernels' own in _library()).
 CHAINS_PER_BLOCK = 8      # one warp per chain
 MAX_LFSTEPS = 8           # leapfrog steps a bridge; the sweep keeps them in registers
-TARGETS = {"many_gmm": 0, "gmm": 1}  # the kernels' target template parameters, both 2-D
-MAX_TARGET_FLOATS = 2 * MAX_MIX     # the target's constants, in shared memory
-
-
-def target_floats(grad_logp) -> torch.Tensor:
-    """The constants a kernel's target reads, as one flat f32 tensor: the
-    many_gmm means (n_mix x 2), or the gmm means (3 x 2), the precisions'
-    (p11, p12, p22) per component and the log-normalisers (3)."""
-    if grad_logp.kernel_name == "many_gmm":
-        return grad_logp.means.reshape(-1).to(torch.float32).contiguous()
-    p = grad_logp.precs
-    parts = [grad_logp.means, torch.stack([p[:, 0, 0], p[:, 0, 1], p[:, 1, 1]], -1),
-             grad_logp.log_norm]
-    return torch.cat([t.reshape(-1).to(torch.float32) for t in parts])
 
 
 def check_config(what, grad_logp, dim, nbridges, lfsteps):
     """Raise on what the UHA kernels do not take (both devices): another
-    score than many_gmm's or gmm's, a dim other than 2, lfsteps outside
-    1..MAX_LFSTEPS, no bridge, more than MAX_MIX components."""
-    name = getattr(grad_logp, "kernel_name", None)
-    if name not in TARGETS:
-        raise NotImplementedError(
-            f"{what}: the kernel inlines the many_gmm and gmm scores only "
-            "(ops/target_grads.score_for_target)")
-    if dim != 2:
-        raise ValueError(f"{what}: dim must be 2 ({name}), got {dim}")
+    score than many_gmm's or gmm's, a dim other than 2, more constants than
+    the kernels hold, lfsteps outside 1..MAX_LFSTEPS, no bridge."""
+    check_target(what, grad_logp, dim)
     if not 1 <= lfsteps <= MAX_LFSTEPS:
         raise NotImplementedError(f"{what}: lfsteps must lie in 1..{MAX_LFSTEPS}, got {lfsteps}")
     if nbridges < 1:
         raise ValueError(f"{what}: needs at least one bridge")
-    if grad_logp.means.shape[0] > MAX_MIX:
-        raise NotImplementedError(f"{what}: more than {MAX_MIX} components")
 
 
 def kernel_covers(grad_logp, dim: int, nbridges: int, lfsteps: int) -> bool:
@@ -172,7 +151,7 @@ def _launch(lib, z0, betas, eps, eta, md, vd_mean, vd_logdiag, grad_logp, *, nbr
     dev, (n, dim) = z0.device, z0.shape
     scal = eps_eta(dev, eps, eta)
     seed_t = torch.as_tensor(seed, dtype=torch.int64, device=dev).reshape(1)
-    tpar = target_floats(grad_logp).to(dev)
+    code, tpar, inv_var = kernel_target(grad_logp, dev)
     z_out = torch.empty_like(z0)
     w_out = z0.new_empty((n,))
     stores = [None] * 3
@@ -182,8 +161,7 @@ def _launch(lib, z0, betas, eps, eta, md, vd_mean, vd_logdiag, grad_logp, *, nbr
     err = lib.cmcd_uha_rollout(
         ptr(z0), ptr(betas), ptr(noise), ptr(scal), ptr(seed_t), ptr(md), ptr(vd_mean),
         ptr(vd_logdiag), ptr(tpar), ptr(z_out), ptr(w_out), *(ptr(t) for t in stores),
-        n, nbridges, lfsteps, TARGETS[grad_logp.kernel_name], tpar.numel(),
-        float(getattr(grad_logp, "inv_var", 0.0)), ctypes.c_void_p(stream),
+        n, nbridges, lfsteps, code, tpar.numel(), inv_var, ctypes.c_void_p(stream),
     )
     if err != 0:
         raise RuntimeError(f"UHA rollout kernel failed: {lib.cmcd_error_string(err).decode()} "

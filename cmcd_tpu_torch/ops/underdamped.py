@@ -28,7 +28,8 @@ import torch
 from cmcd_tpu_torch.integrators import underdamped as ud
 from cmcd_tpu_torch.networks.geffner import GeffnerNet
 from cmcd_tpu_torch.ops import build
-from cmcd_tpu_torch.ops.overdamped import MAX_MIX, MAX_SMEM, _f32, pack_geffner
+from cmcd_tpu_torch.ops.overdamped import MAX_SMEM, _f32, pack_geffner
+from cmcd_tpu_torch.ops.target_grads import MAX_TARGET_FLOATS, n_target_floats
 from cmcd_tpu_torch.schedules import eps_cosine_sq
 
 # The kernel's limits, mirrored from csrc/underdamped.cu (checked against the
@@ -45,18 +46,20 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def smem_bytes(in_dim: int, n_mix: int) -> int:
+def smem_bytes(in_dim: int, n_par: int) -> int:
     """Dynamic shared memory of one block (the kernel's layout: W2, two
-    hidden tiles, the head, the means and the per-chain exchange)."""
+    hidden tiles, the head, the target's n_par constants and the per-chain
+    exchange)."""
     ip, tc = _round_up(in_dim, 4), CHAINS_PER_BLOCK
-    return 4 * (ip * ip + 2 * tc * ip + 2 * ip + _round_up(2 * n_mix, 4) + tc * (XIN + 6))
+    return 4 * (ip * ip + 2 * tc * ip + 2 * ip + _round_up(n_par, 4) + tc * (XIN + 6))
 
 
-def kernel_fits(in_dim: int, n_mix: int) -> bool:
-    """True if a net of width in_dim (0: no net) and a score of n_mix
-    components fit one block."""
-    return (in_dim >= 0 and _round_up(in_dim, 32) <= MAX_THREADS and 1 <= n_mix <= MAX_MIX
-            and smem_bytes(in_dim, n_mix) <= MAX_SMEM)
+def kernel_fits(in_dim: int, n_par: int) -> bool:
+    """True if a net of width in_dim (0: no net) and the many_gmm's n_par
+    constants (its means, an even count) fit one block."""
+    return (in_dim >= 0 and _round_up(in_dim, 32) <= MAX_THREADS
+            and 2 <= n_par <= MAX_TARGET_FLOATS and n_par % 2 == 0
+            and smem_bytes(in_dim, n_par) <= MAX_SMEM)
 
 
 def uses_net(spec: ud.UnderdampedSpec) -> bool:
@@ -93,7 +96,7 @@ def check_config(what, specs, spec, grad_logp, dim, nbridges, sn, fits):
             raise ValueError(f"{what}: spec {spec} needs a net on "
                              f"{net_input_width(spec, dim)} input columns")
         in_dim = sn.in_dim
-    if not fits(in_dim, grad_logp.means.shape[0]):
+    if not fits(in_dim, n_target_floats(grad_logp)):
         raise NotImplementedError(f"{what}: in_dim {in_dim} does not fit one block")
 
 
@@ -213,12 +216,12 @@ def _library() -> ctypes.CDLL:
     if lib.cmcd_underdamped_chains_per_block() != CHAINS_PER_BLOCK:
         raise RuntimeError("csrc/underdamped.cu and ops/underdamped.py disagree on TC")
     for in_dim in (0, 1, 18, 132, 134, 224, 225, 256, 257):
-        for n_mix in (0, 1, 40, 64, 65):
-            if (bool(lib.cmcd_underdamped_fits(in_dim, n_mix)) != kernel_fits(in_dim, n_mix)
-                    or lib.cmcd_underdamped_smem_bytes(in_dim, n_mix) != smem_bytes(in_dim, n_mix)):
+        for n_par in (0, 1, 2, 80, 81, 128, 130):
+            if (bool(lib.cmcd_underdamped_fits(in_dim, n_par)) != kernel_fits(in_dim, n_par)
+                    or lib.cmcd_underdamped_smem_bytes(in_dim, n_par) != smem_bytes(in_dim, n_par)):
                 raise RuntimeError(
                     "csrc/underdamped.cu and ops/underdamped.py disagree on what fits one "
-                    f"block at in_dim {in_dim}, {n_mix} components")
+                    f"block at in_dim {in_dim}, {n_par} target floats")
     return lib
 
 
@@ -238,7 +241,7 @@ def _launch(lib, z0, w0, betas, eps, gamma, eta, vd_mean, vd_logdiag, grad_logp,
     scal = torch.stack([_f32(eps, dev).reshape(()), factor.to(dev, torch.float32),
                         _f32(gamma, dev).reshape(()), _f32(eta, dev).reshape(())])
     seed_t = torch.as_tensor(seed, dtype=torch.int64, device=dev).reshape(1)
-    means = _f32(grad_logp.means, dev)
+    means = _f32(grad_logp.means, dev).reshape(-1)
     vd_inv_var = torch.exp(-2.0 * vd_logdiag).contiguous()
     n = z0.shape[0]
     z_out, w_out = torch.empty_like(z0), torch.empty_like(w0)
@@ -252,7 +255,7 @@ def _launch(lib, z0, w0, betas, eps, gamma, eta, vd_mean, vd_logdiag, grad_logp,
         *(ptr(t) for t in weights),
         ptr(means), ptr(vd_mean), ptr(vd_inv_var), ptr(z_out), ptr(w_out),
         *(ptr(t) for t in stores),
-        n, nbridges, din, in_dim, emb_dim, means.shape[0], REFRESH[spec.refresh],
+        n, nbridges, din, in_dim, emb_dim, means.numel(), REFRESH[spec.refresh],
         int(spec.fwd_sn), int(spec.cais), grad_logp.inv_var,
         ud.CAIS_UHA_CLIP if spec.cais else math.inf, ctypes.c_void_p(stream),
     )

@@ -35,16 +35,18 @@ import torch
 import torch.nn.functional as F
 
 from cmcd_tpu_torch.distributions import LOG_2PI
-from cmcd_tpu_torch.integrators.overdamped import OverdampedSpec
+from cmcd_tpu_torch.integrators.overdamped import CAIS_VAR, OverdampedSpec
 from cmcd_tpu_torch.networks.geffner import GeffnerNet, softplus
 from cmcd_tpu_torch.ops import build
 from cmcd_tpu_torch.ops.overdamped import (
     EPS_SCHEDULES,
-    MAX_MIX,
     MAX_SMEM,
+    check_target,
+    count_launch,
     evolve_overdamped_fused_plain,
     pack_geffner,
 )
+from cmcd_tpu_torch.ops.target_grads import MAX_TARGET_FLOATS, kernel_target, n_target_floats
 from cmcd_tpu_torch.schedules import eps_per_step
 
 # The kernels' limits, mirrored from csrc/cmcd_tile.cuh and csrc/vargrad.cu
@@ -60,13 +62,14 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def tile_floats(groups: int, in_dim: int, n_mix: int) -> int:
+def tile_floats(groups: int, in_dim: int, n_par: int) -> int:
     """Floats of shared memory of the backward kernels' tile (csrc/
     cmcd_tile.cuh: W2 and the dW2 accumulator, the hidden tile both ways,
-    the h2 / g_a2 tile, head, means and the per-warp scalars)."""
+    the h2 / g_a2 tile, head, the target's n_par constants and the per-warp
+    scalars)."""
     ip, tb = _round_up(in_dim, 4), groups * CHAINS_PER_GROUP
     return (2 * ip * (ip + 1) + 2 * tb * ip + ip * (tb + 4) + 2 * ip
-            + _round_up(2 * n_mix, 4) + WARP_SCALARS * (groups * GROUP_THREADS // 32))
+            + _round_up(n_par, 4) + WARP_SCALARS * (groups * GROUP_THREADS // 32))
 
 
 # Floats of shared memory beside the tile: (per chain of the tile, per warp
@@ -74,23 +77,23 @@ def tile_floats(groups: int, in_dim: int, n_mix: int) -> int:
 EXTRA_FLOATS = (9, 0)
 
 
-def smem_bytes(in_dim: int, n_mix: int, groups: int = GROUPS, extra=EXTRA_FLOATS) -> int:
+def smem_bytes(in_dim: int, n_par: int, groups: int = GROUPS, extra=EXTRA_FLOATS) -> int:
     """Dynamic shared memory of one block of a backward kernel: the tile and
     the kernel's own `extra` floats per chain and per warp."""
     per_chain, per_warp = extra
-    return 4 * (tile_floats(groups, in_dim, n_mix) + per_chain * groups * CHAINS_PER_GROUP
+    return 4 * (tile_floats(groups, in_dim, n_par) + per_chain * groups * CHAINS_PER_GROUP
                 + per_warp * (groups * GROUP_THREADS // 32))
 
 
-def kernel_fits(in_dim: int, n_mix: int, extra=EXTRA_FLOATS) -> bool:
-    """True if a net of width in_dim and a score of n_mix components fit one
+def kernel_fits(in_dim: int, n_par: int, extra=EXTRA_FLOATS) -> bool:
+    """True if a net of width in_dim and a target of n_par constants fit one
     block of a backward kernel at four groups, the larger form: a group's
-    feature threads, two score components per lane, the shared memory."""
+    feature threads, the shared memory."""
     return (
         in_dim >= 1
         and _round_up(in_dim, 32) <= GROUP_THREADS
-        and 1 <= n_mix <= MAX_MIX
-        and smem_bytes(in_dim, n_mix, GROUPS, extra) <= MAX_SMEM
+        and 1 <= n_par <= MAX_TARGET_FLOATS
+        and smem_bytes(in_dim, n_par, GROUPS, extra) <= MAX_SMEM
     )
 
 
@@ -115,31 +118,28 @@ def len_b(in_dim: int) -> int:
     return 2 * in_dim + 2
 
 
+# The VarGrad kernels' spec: the point loss with every state held fixed.
+VARGRAD_SPECS = (CAIS_VAR,)
+
+
 def check_backward_config(what, betas, grad_logp, spec, dim, nbridges, sn, eps_schedule,
-                          fits=None):
-    """Raise on what the backward kernels do not take (both devices): the
-    CAIS structure, the many_gmm score, the two-layer geffner net, a width
-    that fits one block (`fits`, default this module's kernel_fits)."""
-    if not (spec.fwd_sn and spec.bwd_sn and spec.bwd_sn_offset == 1):
-        raise NotImplementedError(
-            f"{what}: the point-centric gradient needs the CAIS kernel "
-            f"structure (net in both kernels, backward net at i + 1), got {spec}"
-        )
-    if getattr(grad_logp, "kernel_name", None) != "many_gmm":
-        raise NotImplementedError(
-            f"{what}: the kernel inlines the many_gmm score only "
-            "(ops/target_grads.score_for_target)"
-        )
-    if dim != 2:
-        raise ValueError(f"{what}: dim must be 2 (many_gmm), got {dim}")
-    if not isinstance(sn, GeffnerNet) or len(sn.layers) != 2:
-        raise NotImplementedError(
-            f"{what}: the kernel inlines the two-layer geffner net on the state"
-        )
-    if sn.nbridges != nbridges:
-        raise ValueError(f"{what}: net embedding rows != nbridges")
-    if not (fits or kernel_fits)(sn.in_dim, grad_logp.means.shape[0]):
-        raise NotImplementedError(f"{what}: in_dim {sn.in_dim} does not fit one block")
+                          fits=None, specs=VARGRAD_SPECS):
+    """Raise on what the backward kernels do not take (both devices): a spec
+    outside `specs`, a target the kernels do not inline, and for a spec with
+    a net the two-layer geffner net and a width that fits one block (`fits`,
+    default this module's kernel_fits)."""
+    if spec not in specs:
+        raise NotImplementedError(f"{what}: no kernel for spec {spec}")
+    check_target(what, grad_logp, dim)
+    if spec.fwd_sn or spec.bwd_sn:
+        if not isinstance(sn, GeffnerNet) or len(sn.layers) != 2:
+            raise NotImplementedError(
+                f"{what}: the kernel inlines the two-layer geffner net on the state"
+            )
+        if sn.nbridges != nbridges:
+            raise ValueError(f"{what}: net embedding rows != nbridges")
+        if not (fits or kernel_fits)(sn.in_dim, n_target_floats(grad_logp)):
+            raise NotImplementedError(f"{what}: in_dim {sn.in_dim} does not fit one block")
     if eps_schedule not in EPS_SCHEDULES:
         raise ValueError(f"unknown eps schedule {eps_schedule!r}")
     if betas.shape != (nbridges,):
@@ -251,7 +251,7 @@ def declare_limits(lib, prefix: str, extra, what: str):
     """Declare the limit queries of a backward kernel's library and check the
     module's formula (with the kernel's `extra`) against them: shared memory
     at both group counts, and what fits at the edges of the threads (160 /
-    161 features), the shared memory (144 / 145) and the score's lanes."""
+    161 features), the shared memory (144 / 145) and the target's constants."""
     i = ctypes.c_int
     get = lambda name: getattr(lib, f"cmcd_{prefix}_{name}")
     lib.cmcd_error_string.argtypes = [i]
@@ -266,16 +266,16 @@ def declare_limits(lib, prefix: str, extra, what: str):
         fn.restype = i
     if get("chains_per_group")() != CHAINS_PER_GROUP:
         raise RuntimeError(f"{what} and its wrapper disagree on the chains of a group")
-    for in_dim, n_mix in ((0, 40), (18, 1), (132, 40), (144, 64), (145, 40), (160, 65),
-                          (161, 40), (132, 0)):
-        if (bool(get("fits")(in_dim, n_mix)) != kernel_fits(in_dim, n_mix, extra)
-                or any(get("smem_bytes")(g, in_dim, n_mix) != smem_bytes(in_dim, n_mix, g, extra)
+    for in_dim, n_par in ((0, 80), (18, 1), (22, 18), (132, 80), (144, 128), (145, 80),
+                          (160, 129), (161, 80), (132, 0)):
+        if (bool(get("fits")(in_dim, n_par)) != kernel_fits(in_dim, n_par, extra)
+                or any(get("smem_bytes")(g, in_dim, n_par) != smem_bytes(in_dim, n_par, g, extra)
                        for g in (2, 4))
                 or get("len_a")(in_dim) != len_a(in_dim)
                 or get("len_b")(in_dim) != len_b(in_dim)):
             raise RuntimeError(
                 f"{what} and its wrapper disagree on what fits one block at "
-                f"in_dim {in_dim}, {n_mix} components"
+                f"in_dim {in_dim}, {n_par} target floats"
             )
 
 
@@ -283,9 +283,9 @@ def declare_limits(lib, prefix: str, extra, what: str):
 def _library() -> ctypes.CDLL:
     lib = build.load("vargrad")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.cmcd_vargrad_replay.argtypes = [p] * 18 + [i] * 7 + [f] * 3 + [p]
+    lib.cmcd_vargrad_replay.argtypes = [p] * 18 + [i] * 8 + [f] * 3 + [p]
     lib.cmcd_vargrad_replay.restype = ctypes.c_int
-    lib.cmcd_vargrad_reroll.argtypes = [p] * 20 + [i] * 8 + [f] * 3 + [p]
+    lib.cmcd_vargrad_reroll.argtypes = [p] * 20 + [i] * 9 + [f] * 3 + [p]
     lib.cmcd_vargrad_reroll.restype = ctypes.c_int
     declare_limits(lib, "vargrad", EXTRA_FLOATS, "csrc/vargrad.cu")
     return lib
@@ -296,9 +296,10 @@ def ptr(t):
 
 
 def marshal(what, sn, dim, eps, grad_logp, dev, blocks, points, splits):
-    """What every backward launch passes besides its own data: ([eps0,
-    factor_sn], the net as the kernels see it, the means, the scratch and
-    result buffers (part_a, part_b, out_a, out_b))."""
+    """What every backward launch with a net passes besides its own data:
+    ([eps0, factor_sn], the net as the kernels see it, the target
+    (ops/target_grads.kernel_target: code, constants, inverse variance), the
+    scratch and result buffers (part_a, part_b, out_a, out_b))."""
     f32 = lambda t: torch.as_tensor(t, dtype=torch.float32, device=dev).contiguous()
     w1z, c1, emb, w2, b2, headw, headb, factor = pack_geffner(sn)
     scal = torch.stack([f32(eps).reshape(()), factor.to(dev, torch.float32)])
@@ -309,7 +310,7 @@ def marshal(what, sn, dim, eps, grad_logp, dev, blocks, points, splits):
     la, lb = len_a(sn.in_dim), len_b(sn.in_dim)
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
     buffers = [new(blocks, la), new(points, splits, lb), new(la), new(points, lb)]
-    return scal, weights, f32(grad_logp.means), buffers
+    return scal, weights, kernel_target(grad_logp, dev), buffers
 
 
 def clips(spec, grad_clipping):
@@ -323,13 +324,14 @@ def raise_on(err, lib, what):
         raise RuntimeError(f"{what} kernel failed: {lib.cmcd_error_string(err).decode()} ({err})")
 
 
-def assemble_grads(out_a, out_b, sn, dim, nbridges):
+def assemble_grads(out_a, out_b, sn, dim, nbridges, row_shift=False):
     """The gradient dict from a backward kernel's sums. out_a: dW2 (in x
     out), dheadW, db2, dW1[:din] (din = dim + the net's rho_dim), then eps,
     mean, logdiag, factor, headb, gamma (left out here: only the underdamped
     sweep has it, ops/kl_underdamped.py). out_b per point: G1 = sum_n g_a1,
     GH1 = sum_n g_h1, dbeta_j (the point's forward term), dbeta_{j-1} (its
-    backward term)."""
+    backward term). Point j's net used embedding row min(j, K - 1), or with
+    row_shift (the backward net at i, ULA_sn) row j - 1 and none at j = 0."""
     in_dim, din = sn.in_dim, dim + sn.rho_dim
     sq = in_dim * in_dim
     g_w2 = out_a[:sq].view(in_dim, in_dim)
@@ -339,12 +341,16 @@ def assemble_grads(out_a, out_b, sn, dim, nbridges):
     s = out_a[sq + (3 + din) * in_dim:]
     g1, gh1 = out_b[:, :in_dim], out_b[:, in_dim:2 * in_dim]
     g_betas = out_b[:nbridges, 2 * in_dim] + out_b[1:, 2 * in_dim + 1]
-    # Point K used embedding row K - 1: fold it in, then transpose c1's
-    # product: d c1 -> d emb, d W1[din:], d b1; emb also feeds h0 directly.
-    d_c1 = g1[:nbridges].clone()
-    d_c1[nbridges - 1] += g1[nbridges]
-    d_emb = gh1[:nbridges, din:].clone()
-    d_emb[nbridges - 1] += gh1[nbridges, din:]
+    # Point K used embedding row K - 1: fold it in (or shift every point one
+    # row down), then transpose c1's product: d c1 -> d emb, d W1[din:], d b1;
+    # emb also feeds h0 directly.
+    if row_shift:
+        d_c1, d_emb = g1[1:].clone(), gh1[1:, din:].clone()
+    else:
+        d_c1 = g1[:nbridges].clone()
+        d_c1[nbridges - 1] += g1[nbridges]
+        d_emb = gh1[:nbridges, din:].clone()
+        d_emb[nbridges - 1] += gh1[nbridges, din:]
     w1 = sn.layers[0].weight.detach().t()            # (in, out)
     d_emb = d_emb + d_c1 @ w1[din:].t()
     g_w1 = torch.cat([g_w1x, sn.emb.detach().t() @ d_c1])  # (in, out)
@@ -363,16 +369,16 @@ def _launch(lib, traj, cot, betas, eps, vd_mean, vd_logdiag, grad_logp, spec, *,
             dim, nbridges, sn, eps_schedule, grad_clipping, splits, stream):
     """Marshal the arguments, launch the replay kernel, assemble the dict."""
     points = nbridges + 1
-    scal, weights, means, buffers = marshal(
+    scal, weights, (code, tpar, inv_var), buffers = marshal(
         "replay backward", sn, dim, eps, grad_logp, traj.device, points * splits, points, splits)
     err = lib.cmcd_vargrad_replay(
         ptr(traj), ptr(cot), ptr(betas), ptr(scal),
         *(ptr(t) for t in weights),
-        ptr(means), ptr(vd_mean), ptr(vd_logdiag),
+        ptr(tpar), ptr(vd_mean), ptr(vd_logdiag),
         *(ptr(t) for t in buffers),
-        cot.shape[0], nbridges, sn.in_dim, sn.emb_dim, means.shape[0],
-        EPS_SCHEDULES[eps_schedule], splits,
-        grad_logp.inv_var, *clips(spec, grad_clipping),
+        cot.shape[0], nbridges, sn.in_dim, sn.emb_dim, tpar.numel(),
+        EPS_SCHEDULES[eps_schedule], splits, code,
+        inv_var, *clips(spec, grad_clipping),
         ctypes.c_void_p(stream),
     )
     raise_on(err, lib, "vargrad replay")
@@ -384,17 +390,17 @@ def _launch_reroll(lib, z0, cot, betas, eps, vd_mean, vd_logdiag, grad_logp, spe
                    stream):
     """Marshal the arguments, launch the re-rolling kernel, assemble the dict."""
     points = nbridges + 1
-    scal, weights, means, buffers = marshal(
+    scal, weights, (code, tpar, inv_var), buffers = marshal(
         "reroll backward", sn, dim, eps, grad_logp, z0.device, blocks, points, blocks)
     seed_t = torch.as_tensor(seed, dtype=torch.int64, device=z0.device).reshape(1)
     err = lib.cmcd_vargrad_reroll(
         ptr(z0), ptr(cot), ptr(betas), ptr(noise), ptr(scal), ptr(seed_t),
         *(ptr(t) for t in weights),
-        ptr(means), ptr(vd_mean), ptr(vd_logdiag),
+        ptr(tpar), ptr(vd_mean), ptr(vd_logdiag),
         *(ptr(t) for t in buffers),
-        cot.shape[0], nbridges, sn.in_dim, sn.emb_dim, means.shape[0],
-        EPS_SCHEDULES[eps_schedule], blocks, groups,
-        grad_logp.inv_var, *clips(spec, grad_clipping),
+        cot.shape[0], nbridges, sn.in_dim, sn.emb_dim, tpar.numel(),
+        EPS_SCHEDULES[eps_schedule], blocks, groups, code,
+        inv_var, *clips(spec, grad_clipping),
         ctypes.c_void_p(stream),
     )
     raise_on(err, lib, "vargrad reroll")
@@ -412,7 +418,7 @@ def evolve_vargrad_bwd_replay(
 
     traj: (K + 1, N, dim) f32; cot: (N,) f32; betas: (K,); eps: scalar tensor
     or float; vd_mean / vd_logdiag: (dim,); grad_logp:
-    ops/target_grads.ManyGMMScore; sn: the GeffnerNet. Returns the gradient
+    ops/target_grads.ManyGMMScore or GMMScore; sn: the GeffnerNet. Returns the gradient
     dict described in the module docstring.
     """
     _check(traj, cot, betas, grad_logp, spec, dim, nbridges, sn, eps_schedule)
@@ -434,11 +440,13 @@ def evolve_vargrad_bwd_replay(
         _library(), traj, cot, betas, eps, vd_mean, vd_logdiag, grad_logp, spec,
         splits=splits, stream=torch.cuda.current_stream(dev).cuda_stream, **kwargs,
     )
-    evolve_vargrad_bwd_replay.launches += 1
+    count_launch(evolve_vargrad_bwd_replay, grad_logp.kernel_name)
     return grads
 
 
+# Launches in all, and by target (form_launches).
 evolve_vargrad_bwd_replay.launches = 0
+evolve_vargrad_bwd_replay.form_launches = {}
 
 
 @torch.no_grad()
@@ -479,8 +487,9 @@ def evolve_vargrad_bwd_reroll(
         groups=groups, blocks=blocks, stream=torch.cuda.current_stream(dev).cuda_stream,
         **kwargs,
     )
-    evolve_vargrad_bwd_reroll.launches += 1
+    count_launch(evolve_vargrad_bwd_reroll, grad_logp.kernel_name)
     return grads
 
 
 evolve_vargrad_bwd_reroll.launches = 0
+evolve_vargrad_bwd_reroll.form_launches = {}

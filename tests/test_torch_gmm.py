@@ -6,7 +6,9 @@ hand-written Hessian product against float64 autograd, and the registry's
 dispatch ("many_gmm" is matched before "gmm", as in the JAX package).
 
 Tolerances: the log-density and the score to f32 (1e-5 relative); the
-Hessian product, whose constants are float32, to 1e-5 of its norm.
+Hessian product, whose constants are float32, to 1e-5 of its norm; the
+constants to 1e-6 relative (float32 of float64 values); the VarGrad loss
+rtol 1e-4 and its gradient 1e-4 |g| + 1e-4 (tests/test_pallas_vargrad.py).
 """
 
 import jax
@@ -16,9 +18,24 @@ import pytest
 import torch
 
 import cmcd_tpu
+from cmcd_tpu import bounds as jb
+from cmcd_tpu.distributions import diag_gaussian_log_prob as j_log_prob
+from cmcd_tpu.integrators import overdamped as jod
 from cmcd_tpu.ops.target_grads import make_gmm_grad_t
-from cmcd_tpu_torch.ops.target_grads import GMMScore, ManyGMMScore, score_for_target
+from cmcd_tpu.schedules import betas_from_grid as j_betas_from_grid
+from cmcd_tpu.targets.gmm import _COVS, _MEANS
+from cmcd_tpu_torch.ops.fused_train import var_bound_fused
+from cmcd_tpu_torch.ops.target_grads import (
+    TARGETS,
+    GMMScore,
+    ManyGMMScore,
+    kernel_target,
+    score_for_target,
+    target_floats,
+)
 from cmcd_tpu_torch.targets import load_target
+from test_torch_ula import make_case, torch_value_and_grad
+from test_torch_vargrad import assert_grads_close
 
 torch.set_num_threads(1)
 
@@ -81,3 +98,55 @@ def test_registry_matches_many_gmm_before_gmm():
     assert isinstance(score_for_target(load_target("many_gmm", device="cpu")), ManyGMMScore)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         load_target("funnel", device="cpu")
+
+
+def test_target_floats_match_the_jax_constants():
+    """The kernels' 18 gmm constants: the means, the precisions' (p11, p12,
+    p22) and the log-normalisers, as JAX's make_gmm_grad_t forms them from
+    the target's means and covariances."""
+    score = score_for_target(load_target("gmm", device="cpu"))
+    got = target_floats(score).numpy()
+    precs = np.linalg.inv(np.asarray(_COVS, np.float64))
+    chols = np.linalg.cholesky(np.asarray(_COVS, np.float64))
+    log_norm = -np.log(2 * np.pi) - np.sum(np.log(np.diagonal(chols, axis1=-2, axis2=-1)), -1)
+    want = np.concatenate([np.asarray(_MEANS, np.float64).ravel(),
+                           np.stack([precs[:, 0, 0], precs[:, 0, 1], precs[:, 1, 1]], -1).ravel(),
+                           log_norm])
+    assert got.dtype == np.float32 and got.shape == (18,)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    code, tpar, inv_var = kernel_target(score, "cpu")
+    assert (code, inv_var) == (TARGETS["gmm"], 0.0) and torch.equal(tpar, target_floats(score))
+    many = score_for_target(load_target("many_gmm", device="cpu"))
+    code, tpar, inv_var = kernel_target(many, "cpu")
+    assert code == TARGETS["many_gmm"] and tpar.shape == (80,) and inv_var == many.inv_var
+    assert torch.equal(tpar.view(40, 2), many.means)
+
+
+def jax_var_loss(case):
+    """JAX's scan VarGrad loss (the clipped variance of the negative ELBOs)
+    under the case's draws, as a function of the trainable tree."""
+    def loss(train):
+        p = jb.merged_params({"train": train, "notrain": case["jparams"]["notrain"]})
+        z = p["vd"]["mean"] + jnp.exp(p["vd"]["logdiag"]) * case["jbase"]
+        w = -j_log_prob(p["vd"], z)
+        betas = j_betas_from_grid(p["mgridref_y"], p["gridref_x"], p["target_x"])
+        z, wd, _ = jod.evolve_overdamped(case["key"], z, betas, p, case["jctx"], jod.CAIS_VAR,
+                                         noise=case["jnoise"])
+        neg = -(w + wd + case["jctx"].target_log_prob(z))
+        return jnp.clip(jnp.var(neg, ddof=0), -1e7, 1e7)
+
+    return loss
+
+
+@pytest.mark.parametrize("backward", ["replay", "reroll"])
+def test_var_bound_fused_on_gmm_matches_jax_scan(backward):
+    """MCD_CAIS_var_sn on the 3-mode gmm through the fused VarGrad loss (the
+    rollout's and both backward kernels' gmm forms, plain versions on the
+    CPU) against jax.grad of the scan loss."""
+    case = make_case("gmm", "MCD_CAIS_var_sn", eps=0.2)
+    fused = lambda p, n_, c, s, **d: var_bound_fused(p, n_, c, s, case["target"],
+                                                     backward=backward, **d)
+    got_l, got_g = torch_value_and_grad(case, fused)
+    want_l, want_g = jax.value_and_grad(jax_var_loss(case))(case["jparams"]["train"])
+    np.testing.assert_allclose(got_l, float(want_l), rtol=1e-4)
+    assert_grads_close(got_g, want_g, rel=1e-4)

@@ -30,6 +30,7 @@ from cmcd_tpu_torch.ops.fused_train import (
     KL_FUSED_MODES,
     UD_KL_FUSED_MODES,
     UHA_KL_FUSED_MODES,
+    fused_training_path,
     kl_bound_fused,
     supports_fused_train,
     var_bound_fused,
@@ -210,13 +211,15 @@ def test_kl_bound_fused_carries_the_state_gradient_to_the_draw():
 
 def test_fused_kl_gate_and_mode_checks():
     target = load_target("many_gmm", device="cpu")
-    # The overdamped member; the approximate-refresh underdamped modes and UHA
-    # joined it with their own sweeps (tests/test_torch_kl_underdamped.py,
-    # tests/test_torch_uha.py).
-    assert KL_FUSED_MODES - UD_KL_FUSED_MODES - UHA_KL_FUSED_MODES == {"MCD_CAIS_sn"}
+    # The overdamped members (the sweep's three forms); the approximate-refresh
+    # underdamped modes and UHA joined them with their own sweeps
+    # (tests/test_torch_kl_underdamped.py, tests/test_torch_uha.py); DNF has none.
+    assert (KL_FUSED_MODES - UD_KL_FUSED_MODES - UHA_KL_FUSED_MODES
+            == {"MCD_CAIS_sn", "MCD_ULA_sn", "MCD_ULA"})
+    assert "MCD_DNF" not in KL_FUSED_MODES
     assert supports_fused_train(
         tb.CMCDSetup(mode="MCD_CAIS_sn", dim=2, nbridges=256, emb_dim=130), target)
-    assert kl.kernel_fits(132, 40) and not kl.kernel_fits(148, 40)
+    assert kl.kernel_fits(132, 80) and not kl.kernel_fits(148, 80)
     assert not supports_fused_train(
         tb.CMCDSetup(mode="MCD_CAIS_sn", dim=2, nbridges=8, emb_dim=160), target)
     case = make_case()
@@ -225,6 +228,15 @@ def test_fused_kl_gate_and_mode_checks():
     var_setup = tb.CMCDSetup(mode="MCD_CAIS_var_sn", dim=2, nbridges=K, emb_dim=EMB)
     with pytest.raises(NotImplementedError, match="MCD_CAIS_sn"):
         kl_bound_fused(case["params"], N, case["ctx"], var_setup, case["target"])
+
+
+@pytest.mark.parametrize("mode", ["MCD_U_e-lp", "MCD_DNF"])
+def test_fused_training_path_refuses_a_mode_without_a_fused_loss(mode):
+    """An underdamped refresh without a sweep, and DNF: no fused loss to
+    hand the trainer, so the path raises instead of naming kl_bound_fused."""
+    setup = tb.CMCDSetup(mode=mode, dim=2, nbridges=8, emb_dim=16)
+    with pytest.raises(NotImplementedError, match=mode):
+        fused_training_path(setup, 256)
 
 
 @pytest.mark.parametrize("bad", ["spec", "score", "shape", "noise", "schedule"])

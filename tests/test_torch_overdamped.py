@@ -7,6 +7,7 @@ JAX side: the scan integrator and the Pallas kernel in interpret mode, as
 tests/test_pallas.py runs it. Tolerances as tests/test_pallas.py.
 """
 
+import dataclasses
 import math
 
 import jax
@@ -126,8 +127,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
     (z0, w0, betas, eps, mean, logdiag, score), sn = _args()
     kw = dict(dim=2, nbridges=K, sn=sn, grad_clipping=True)
     spec = tod.CAIS_VAR
-    if bad == "spec":
-        spec = tod.ULA_SN
+    if bad == "spec":  # the net in both kernels, the backward net at i: no mode, no form
+        spec = dataclasses.replace(tod.CAIS, bwd_sn_offset=0)
     elif bad == "score":
         score = lambda z: -z
     elif bad == "shape":

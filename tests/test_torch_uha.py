@@ -331,11 +331,14 @@ def test_coverage_and_the_training_path_words():
         assert not supports_fused(too_long, target) and not supports_fused_train(too_long, target)
         with pytest.raises(NotImplementedError):
             kl_bound_fused({}, 8, None, too_long, target)
-    # The other kernels inline many_gmm only: the 3-mode gmm stays eager there.
+    # The overdamped kernels take the 3-mode gmm too; the underdamped ones
+    # inline many_gmm only, so the underdamped modes stay eager on gmm.
     gmm = load_target("gmm", device="cpu")
-    for mode in ("MCD_CAIS_var_sn", "MCD_CAIS_sn", "MCD_U_a-lp-sn"):
+    for mode in ("MCD_CAIS_var_sn", "MCD_CAIS_sn"):
         setup = tb.CMCDSetup(mode=mode, dim=2, nbridges=8, emb_dim=16)
-        assert not supports_fused(setup, gmm) and not supports_fused_train(setup, gmm)
+        assert supports_fused(setup, gmm) and supports_fused_train(setup, gmm)
+    setup = tb.CMCDSetup(mode="MCD_U_a-lp-sn", dim=2, nbridges=8, emb_dim=16)
+    assert not supports_fused(setup, gmm) and not supports_fused_train(setup, gmm)
 
 
 @pytest.mark.parametrize("bad", ["score", "lfsteps", "shape", "noise", "dim"])
