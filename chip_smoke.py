@@ -9,7 +9,8 @@ Phases, one line each; any failure exits non-zero:
   2. build: compiles csrc/overdamped.cu, csrc/vargrad.cu, csrc/kl.cu,
      csrc/underdamped.cu, csrc/kl_underdamped.cu, csrc/uha.cu and
      csrc/kl_uha.cu with nvcc for sm_90a, all at once (ptxas report per
-     kernel).
+     kernel: every target instance, the D = 10 ones of the funnel and the
+     standard normal included).
   3. kernels vs their plain versions. The rollout under injected noise, at
      the CPU tests' size and at full width (K=256, emb_dim 130, grad clipping,
      factor_sn 0.3, random embedding) for N=2000 and for the evaluation's
@@ -140,6 +141,37 @@ Phases, one line each; any failure exits non-zero:
      launch under torch.profiler, and the gmm_cais, gmm_ula and ULA_sn
      optimizer steps over 50 steps against the eager step (the gmm steps
      also over 500 steps, and train()'s set-up alone).
+ 23. the D = 10 forms against their plain versions, on Neal's funnel and the
+     standard normal: the kernels' score and Hessian product through the
+     net-free forms at points with v from -20 to 8 (float64 reported, limit
+     1e-5 of the row's scale); at funnel_k8's shape (N=300, K=8, emb 48,
+     cos_sq) and at a stress shape (N=2000, K=256, init_eps 0.01) the
+     rollout of CAIS, CAIS_VAR, ULA_sn and ULA (TOL_SMALL at K=8, TOL_FULL at
+     K=256; the noise stack at funnel_k8's shape), the KL sweep of CAIS,
+     ULA_sn and ULA (GRAD_TOL_FULL with the float64 arbiter), the VarGrad
+     replay and re-rolling backward (and the reroll from a seed against the
+     replay kernel); at four groups of feature threads (N past 32 chains a
+     tile times the card's SMs, more tiles than blocks) the KL sweep's carry
+     and per-point forms and the re-rolling backward at N=8192, K=8, and the
+     funnel's re-rolling path's own shape (N=REROLL_N, K=256, init_eps 0.01:
+     the rollout and the reroll against the plain versions in slices of
+     PLAIN_CHUNK chains, and the reroll from a seed against the replay
+     kernel, with the replay's plain version in float64 the arbiter of a
+     leaf beyond the limit); CAIS with clipping; one whole funnel_k8 step with the
+     variational draw trained.
+ 24. the D = 10 paths through the CLI, each form's launches counted from 0
+     just before its run and no other kernel launched: funnel_k8's flags for
+     FUNNEL_PATH_ITERS steps (rollout FUNNEL_PATH_ITERS + 30, sweep
+     FUNNEL_PATH_ITERS; ELBO above its value at init), ULA_sn and ULA with
+     the same flags and the VarGrad loss (replay) for FUNNEL_SHORT_ITERS, the
+     re-rolling backward at N=REROLL_N, K=256 for REROLL_ITERS steps, each
+     followed by the 30 x 2000 evaluation; no NaN loss, no divergence; LDVI
+     and UHA on the funnel are refused with no launch.
+ 25. timing (CUDA events, plain, kernel, kernel, plain) of the D = 10 forms
+     on the funnel at funnel_k8's shape and the stress shape, each beside its
+     bound (_work_od at dim 10) and its device time per launch under
+     torch.profiler; funnel_k8's optimizer step over 50 and 500 steps
+     against the eager step, with its device busy share.
 Then a JSON line with each kernel's launches, error, times and bound, and as
 the last line {"ok": true, "device": {...}}.
 """
@@ -285,39 +317,45 @@ def phase_build():
     print(f"[2 build] all {len(sources)} sources in {secs:.2f} s", flush=True)
 
 
-def make_problem(n, k, emb_dim, *, seed, factor_sn=0.3, sigma=3.0, eps=0.1, din=2,
+def make_problem(n, k, emb_dim, *, seed, factor_sn=0.3, sigma=3.0, eps=0.1, din=None,
                  noise_rows=None, target="many_gmm"):
     """Inputs from a numpy seed: net weights on din input columns ahead of
-    the embedding (JAX layout, converted; din 0: no net), z0, w0, non-uniform
-    betas, noise (noise_rows, default K, x N x 2), the target's kernel-form
-    score (many_gmm or the 3-mode gmm)."""
-    from cmcd_tpu_torch.ops.target_grads import score_for_target
+    the embedding (default the target's dim; JAX layout, converted; din 0: no
+    net), z0, w0, non-uniform betas, noise (noise_rows, default K, x N x
+    dim), the target's kernel-form score (many_gmm or the 3-mode gmm, dim 2;
+    the funnel or the standard normal, dim 10)."""
+    from cmcd_tpu_torch.distributions import std_normal_log_prob
+    from cmcd_tpu_torch.ops.target_grads import KERNEL_DIMS, score_for_target
     from cmcd_tpu_torch.schedules import betas_from_grid, make_beta_grid_params
-    from cmcd_tpu_torch.targets import load_target
+    from cmcd_tpu_torch.targets import Target, load_target
     from cmcd_tpu_torch.utils.convert import geffner_from_jax
 
     rng = np.random.default_rng(seed)
+    dim = KERNEL_DIMS[target]
+    din = dim if din is None else din
     in_dim = din + emb_dim
     dense = lambda i, o: {"w": rng.normal(0, math.sqrt(2 / (i + o)), (i, o)),
                           "b": rng.normal(0, 1e-2, o)}
     tree = {"layers": [dense(in_dim, in_dim), dense(in_dim, in_dim)],
-            "head": dense(in_dim, 2), "emb": rng.normal(0, 1.0, (k, emb_dim)),
+            "head": dense(in_dim, dim), "emb": rng.normal(0, 1.0, (k, emb_dim)),
             "factor_sn": np.float32(factor_sn)}
     dev = torch.device("cuda")
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
     mg, gx, tx = make_beta_grid_params(k, device=dev)
     mg = f32(rng.uniform(0.5, 1.5, mg.shape[0]))
+    tgt = (Target("std_normal", dim, std_normal_log_prob) if target == "std_normal"
+           else load_target(target, device=dev))
     return dict(
-        z0=f32(sigma * rng.standard_normal((n, 2))),
+        z0=f32(sigma * rng.standard_normal((n, dim))),
         w0=f32(rng.standard_normal(n)),
         betas=betas_from_grid(mg, gx, tx).contiguous(),
         eps=f32(eps),
-        vd_mean=f32([0.5, -0.5]),
-        vd_logdiag=f32([math.log(sigma)] * 2),
-        grad_logp=score_for_target(load_target(target, device=dev), dev),
+        vd_mean=f32([0.5 * (-1) ** d for d in range(dim)]),
+        vd_logdiag=f32([math.log(sigma)] * dim),
+        grad_logp=score_for_target(tgt, dev),
         sn=geffner_from_jax(tree, dev) if din else None,
-        noise=f32(rng.standard_normal((noise_rows or k, n, 2))),
-        dim=2,
+        noise=f32(rng.standard_normal((noise_rows or k, n, dim))),
+        dim=dim,
         nbridges=k,
     )
 
@@ -466,7 +504,7 @@ def compare_sweep(case, tol, arbitrate=False, spec=None, **kw):
     gen = torch.Generator(device="cuda").manual_seed(19)
     n = pos[0].shape[0]
     cot = torch.randn(n, generator=gen, device="cuda")
-    g_zf = torch.randn(n, 2, generator=gen, device="cuda")
+    g_zf = torch.randn(n, pos[0].shape[1], generator=gen, device="cuda")
     tree = lambda out: {**_flat(out[0]), "g_z0": out[1]}
     got = tree(evolve_kl_bwd(traj, noise, cot, g_zf, *pos[2:], spec, **args, **kw))
     want = tree(evolve_kl_bwd_plain(traj, noise, cot, g_zf, *pos[2:], spec, **args, **kw))
@@ -604,10 +642,11 @@ def compare_reroll_chunked(case, tol, chunk, **kw):
     return (*_grad_errors(g_k, total, tol), plain_ms)
 
 
-def compare_reroll_with_replay(case, **kw):
+def _reroll_and_replay(case, **kw):
     """From one seed: the rollout kernel stores its trajectory and the replay
     kernel reads it; the re-rolling kernel makes the trajectory again from
-    (z0, seed). The two gradients agree if it draws the rollout's numbers."""
+    (z0, seed). Returns (the replay's gradient, the re-rolling kernel's, the
+    trajectory, the cotangent)."""
     from cmcd_tpu_torch.integrators.overdamped import CAIS_VAR
     from cmcd_tpu_torch.ops.overdamped import evolve_overdamped_fused
     from cmcd_tpu_torch.ops.vargrad import evolve_vargrad_bwd_replay, evolve_vargrad_bwd_reroll
@@ -621,7 +660,50 @@ def compare_reroll_with_replay(case, **kw):
     g_replay = evolve_vargrad_bwd_replay(traj, cot, *pos[2:], CAIS_VAR, **args, **kw)
     g_reroll = evolve_vargrad_bwd_reroll(pos[0], cot, *pos[2:], CAIS_VAR, **args, seed=seed, **kw)
     torch.cuda.synchronize()
-    return _grad_errors(_flat(g_reroll), _flat(g_replay), REROLL_VS_REPLAY_TOL)
+    return _flat(g_replay), _flat(g_reroll), traj, cot
+
+
+def compare_reroll_with_replay(case, **kw):
+    """The re-rolling kernel against the replay kernel from one seed: the two
+    gradients agree if it draws the rollout's numbers."""
+    g_replay, g_reroll, _, _ = _reroll_and_replay(case, **kw)
+    return _grad_errors(g_reroll, g_replay, REROLL_VS_REPLAY_TOL)
+
+
+def compare_reroll_with_replay_f64(case, chunk, **kw):
+    """compare_reroll_with_replay with an arbiter: the replay's plain version
+    on the stored trajectory in float32 and in float64 (in slices of `chunk`
+    chains, summed in float64). A leaf beyond REROLL_VS_REPLAY_TOL still
+    passes if the re-rolling kernel is at most F64_SLACK times as far from
+    the float64 gradient as the float32 plain version is. Returns (worst
+    error, its leaf, ok, the words for the report)."""
+    from cmcd_tpu_torch.integrators.overdamped import CAIS_VAR
+    from cmcd_tpu_torch.ops.vargrad import evolve_vargrad_bwd_replay_plain
+
+    g_replay, g_reroll, traj, cot = _reroll_and_replay(case, **kw)
+    worst, leaf, _ = _grad_errors(g_reroll, g_replay, REROLL_VS_REPLAY_TOL)
+    pos, args, _ = _split(case)
+    plain = {torch.float32: {}, torch.float64: {}}
+    for sl in _chain_chunks(cot.shape[0], chunk):
+        for dtype, total in plain.items():
+            part = _flat(evolve_vargrad_bwd_replay_plain(
+                traj[:, sl].to(dtype), cot[sl], *pos[2:], CAIS_VAR, **args, **kw))
+            for name, g in part.items():
+                total[name] = total.get(name, 0.0) + g.double()
+    ref = plain[torch.float64]
+    e_k, e_p, e_r = (_norm_errors(g, ref) for g in (g_reroll, plain[torch.float32], g_replay))
+    rel, floor = REROLL_VS_REPLAY_TOL
+    needed = [name for name, w in g_replay.items()
+              if float((g_reroll[name].double() - w.double()).norm())
+              > rel * float(w.double().norm()) + floor]
+    ok = all(bool(torch.isfinite(g).all()) for g in g_reroll.values()) and all(
+        e_k[name] <= F64_SLACK * e_p[name] for name in needed)
+    rel64 = lambda e: {name: e[name] / max(float(ref[name].norm()), 1e-30) for name in needed}
+    return worst, leaf, ok, (
+        f"; leaves that needed the float64 arbiter: {needed or 'none'}"
+        + (f", their distance from float64 (relative): re-rolling kernel "
+           f"{json.dumps(rel64(e_k))}, replay kernel {json.dumps(rel64(e_r))}, float32 plain "
+           f"{json.dumps(rel64(e_p))} (limit {F64_SLACK} times the plain's)" if needed else ""))
 
 
 def compare_training_step(flags=None, name="VarGrad", arbitrate=False, tag="3 compare"):
@@ -643,8 +725,8 @@ def compare_training_step(flags=None, name="VarGrad", arbitrate=False, tag="3 co
             params["train"]["sn"].head.weight.normal_(0.0, 0.05, generator=gen)
     # An underdamped or UHA rollout draws the initial momentum too: K + 1 rows.
     rows = cfg.nbridges + (cfg.boundmode in UNDERDAMPED or cfg.boundmode == "UHA")
-    draws = dict(base_normals=torch.randn(cfg.N, 2, generator=gen, device="cuda"),
-                 noise=torch.randn(rows, cfg.N, 2, generator=gen, device="cuda"))
+    draws = dict(base_normals=torch.randn(cfg.N, setup.dim, generator=gen, device="cuda"),
+                 noise=torch.randn(rows, cfg.N, setup.dim, generator=gen, device="cuda"))
     names = tree_leaf_names(params["train"])
     plain = dict(plain=True)
 
@@ -1987,11 +2069,16 @@ def _launch_table():
 def phase_od_compare():
     """The overdamped kernels' new forms against their plain versions (phase 20)."""
     from cmcd_tpu_torch.integrators.overdamped import CAIS, CAIS_VAR, ULA, ULA_SN
+    from cmcd_tpu_torch.ops.vargrad import sweep_grid
 
     ok, errors = True, {}
 
-    def keep(key, value):
-        errors[key] = max(errors.get(key, 0.0), value)
+    def keep(key, value, n=None):
+        """The worst error of a form on a target; with n, also under the
+        instance sweep_grid takes at n chains (key/NG=groups)."""
+        keys = [key] + ([f"{key}/NG={sweep_grid(n, 'cuda')[0]}"] if n else [])
+        for k in keys:
+            errors[k] = max(errors.get(k, 0.0), value)
 
     specs = (("CAIS", CAIS), ("CAIS_VAR", CAIS_VAR), ("ULA", ULA), ("ULA_sn", ULA_SN))
     for target in ("many_gmm", "gmm"):
@@ -2123,7 +2210,8 @@ def _od_path(flags, iters, tag, expect, elbo_must_rise=True):
     if elbo_must_rise and not out["final_elbo"] > init["final_elbo"]:
         fail(f"{tag}: training did not raise the ELBO: {init['final_elbo']} -> "
              f"{out['final_elbo']}")
-    if out["neg_elbos"].shape != (30, 500) or not np.isfinite(out["samples"]).all():
+    if (out["neg_elbos"].shape != (cfg.n_input_dist_seeds, cfg.n_samples)
+            or not np.isfinite(out["samples"]).all()):
         fail(f"{tag}: evaluation output malformed")
     return table, out, wall
 
@@ -2168,33 +2256,45 @@ def phase_od_paths():
     return {key: table for key, (table, _, _) in runs.items()}
 
 
-def _work_od(n, k, in_dim, target="many_gmm", net_fwd=True):
+# Per point, FP32 operations of a target's score and of its Hessian product
+# (the many_gmm mixture's 40 components, the 3-mode gmm's 6 pairs, the
+# funnel's O(D) sums at D = 10, the standard normal's negation) and its
+# constants (n_par floats), for the bounds of _work_od.
+TARGET_WORK = {"many_gmm": (6 * 40, 10 * 40, 80), "gmm": (120, 80, 18),
+               "funnel": (40, 60, 1), "std_normal": (10, 10, 1)}
+
+
+def _work_od(n, k, in_dim, target="many_gmm", net_fwd=True, dim=2):
     """Least time the card could take for one call of an overdamped form at
-    these shapes (the rule of _work): {"rollout" (with trajectory and noise
-    stores), "sweep" (KL), "replay", "reroll" (VarGrad)}. in_dim 0: no net
-    (ULA); net_fwd False: the net in the backward kernel only (ULA_sn: K
-    applies, not K + 1)."""
-    score, hvp, n_par = (6 * 40, 10 * 40, 80) if target == "many_gmm" else (120, 80, 18)
+    these shapes (the rule of _work) for a target of dimension dim:
+    {"rollout" (with trajectory and noise stores), "sweep" (KL), "replay",
+    "reroll" (VarGrad)}. in_dim 0: no net (ULA); net_fwd False: the net in
+    the backward kernel only (ULA_sn: K applies, not K + 1)."""
+    score, hvp, n_par = TARGET_WORK[target]
     points = (k + 1) * n
-    state = 20                                             # per point: means, clips, weight
+    state = 10 * dim                                       # per point: means, clips, weight
     applies = (points if net_fwd else k * n) if in_dim else 0
-    net_apply = in_dim * in_dim + 4 * in_dim
-    weights = 4 * (2 * in_dim + k * in_dim + k * max(in_dim - 2, 0) + in_dim * in_dim
-                   + 3 * in_dim + 2) if in_dim else 0
+    net_apply = in_dim * in_dim + 2 * dim * in_dim         # layer 2; layer 1's z part, head
+    weights = 4 * (dim * in_dim + k * in_dim + k * max(in_dim - dim, 0) + in_dim * in_dim
+                   + in_dim + dim * in_dim + dim) if in_dim else 0
     fwd_flops = 2 * (applies * net_apply + points * (score + state))
-    stores = 8 * points + 8 * k * n                         # trajectory, noise
-    fwd_bytes = 4 * (3 * n + k + n_par + 6) + weights + 4 * (3 * n) + stores
-    bwd_flops = 2 * (applies * (3 * in_dim * in_dim + 8 * in_dim) + points * (score + hvp + 40))
-    sums = 4 * (in_dim * in_dim + 5 * in_dim + 8 + (k + 1) * (2 * in_dim + 2)) if in_dim \
-        else 4 * (5 + k)
-    bwd_bytes = stores + 4 * (n + k + n_par) + weights + 8 * n + 8 * n + sums
+    stores = 4 * dim * points + 4 * dim * k * n             # trajectory, noise
+    fwd_bytes = (4 * ((dim + 1) * n + k + n_par + 3 * dim) + weights + 4 * ((dim + 1) * n)
+                 + stores)
+    bwd_flops = 2 * (applies * (3 * in_dim * in_dim + (4 + 2 * dim) * in_dim)
+                     + points * (score + hvp + 20 * dim))
+    sums = 4 * (in_dim * in_dim + (1 + 2 * dim) * in_dim + 3 * dim + 2
+                + (k + 1) * (2 * in_dim + 2)) if in_dim else 4 * (1 + 2 * dim + k)
+    bwd_bytes = stores + 4 * (n + k + n_par) + weights + 8 * dim * n + sums
     # VarGrad: the apply again, W2 g_a2 and the outer product per point, no
     # Hessian product; replay reads the trajectory, reroll makes it again.
-    var_flops = 2 * (applies * (3 * in_dim * in_dim + 8 * in_dim) + points * (score + state))
-    var_bytes = 8 * points + 4 * (n + k + n_par) + weights + sums
+    var_flops = 2 * (applies * (3 * in_dim * in_dim + (4 + 2 * dim) * in_dim)
+                     + points * (score + state))
+    var_bytes = 4 * dim * points + 4 * (n + k + n_par) + weights + sums
     return {"rollout": _bound(fwd_flops, fwd_bytes), "sweep": _bound(bwd_flops, bwd_bytes),
             "replay": _bound(var_flops, var_bytes),
-            "reroll": _bound(var_flops + 2 * points * 8, var_bytes - 8 * points + 8 * n + 8)}
+            "reroll": _bound(var_flops + 8 * dim * points,
+                             var_bytes - 4 * dim * points + 4 * dim * n + 8)}
 
 
 def phase_od_timing():
@@ -2387,9 +2487,422 @@ def _od_kernel_entries(errors, paths, times, bounds_, err_is):
 
 
 
+# Neal's funnel (dim 10) at funnel_k8's flags (experiments/recipes.py:31-50;
+# FUNNEL_EPS_DICT[8] sets init_eps 0.1 and lr 0.01), the same flags in the
+# other overdamped modes, and the compares' two shapes: funnel_k8's own and
+# a full-depth stress shape (K=256, FUNNEL_EPS_DICT[256]'s init_eps 0.01).
+FUNNEL_FLAGS = (
+    "--config.model funnel --config.boundmode MCD_CAIS_sn --config.N 300 --config.nbridges 8 "
+    "--config.emb_dim 48 --config.init_eps 0.1 --config.init_sigma 1 --config.train_vi True "
+    "--config.train_eps False --config.lr 0.01 --config.eps_schedule cos_sq "
+    "--noconfig.pretrain_mfvi --config.n_samples 2000 --config.n_input_dist_seeds 30 "
+    "--config.log.every 1"
+).split()
+FUNNEL_MODE_FLAGS = {mode: [f if f != "MCD_CAIS_sn" else mode for f in FUNNEL_FLAGS]
+                     for mode in ("MCD_CAIS_var_sn", "MCD_ULA_sn", "MCD_ULA")}
+FUNNEL_PATH_ITERS, FUNNEL_SHORT_ITERS = 2000, 200
+FUNNEL_SHAPES = {"funnel_k8": (300, 8, 48, 0.1), "stress": (2000, 256, 48, 0.01)}
+# A funnel_k8-like shape whose chain count passes 32 chains a tile times the
+# H100's 132 SMs: the sweeps and the reroll take four groups (sweep_grid).
+FUNNEL_NG4 = (8192, 8, 48, 0.1)
+
+
+def _score_and_hvp_through_kernels(target):
+    """The kernels' score and Hessian product of `target` (D = 10) against
+    the plain versions in float32 and float64, at 512 points whose v runs
+    from -20 to 8 (x at the funnel's own spread e^{v/2}), read through the
+    net-free forms at K = 1, eps 1, beta 1, no noise: the rollout's step is
+    z + score(z); the sweep's dL/dz0 for g_zfinal = u and no weight
+    cotangent on the path (z0, z0) is u + H(z0) u. Returns
+    ({what: worst row error relative to the row's scale}, ok)."""
+    from cmcd_tpu_torch.integrators.overdamped import ULA
+    from cmcd_tpu_torch.ops.kl import evolve_kl_bwd
+    from cmcd_tpu_torch.ops.overdamped import evolve_overdamped_fused
+
+    case = make_problem(512, 1, 4, seed=41, din=0, target=target)
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    n, dim = 512, case["dim"]
+    v = torch.linspace(-20.0, 8.0, n, device="cuda")
+    x = torch.randn(n, dim - 1, generator=gen, device="cuda") * torch.exp(v / 2)[:, None]
+    z0 = torch.cat([v[:, None], x], 1).contiguous()
+    u = torch.randn(n, dim, generator=gen, device="cuda")
+    score = case["grad_logp"]
+    kw = dict(dim=dim, nbridges=1, sn=None, eps_schedule="", grad_clipping=False)
+    args = (torch.ones(1, device="cuda"), torch.tensor(1.0, device="cuda"), case["vd_mean"],
+            case["vd_logdiag"], score, ULA)
+    z1, _ = evolve_overdamped_fused(z0, torch.zeros(n, device="cuda"), *args,
+                                    noise=torch.zeros(1, n, dim, device="cuda"), **kw)
+    traj = torch.stack([z0, z0]).contiguous()
+    g, g_z0 = evolve_kl_bwd(traj, torch.zeros(1, n, dim, device="cuda"),
+                            torch.zeros(n, device="cuda"), u, *args, **kw)
+    torch.cuda.synchronize()
+    got = {"score": (z1 - z0).double(), "hvp": (g_z0 - u).double()}
+    scale = {"score": z0.double().norm(dim=1), "hvp": u.double().norm(dim=1)}
+    want32 = {"score": score(z0).double(), "hvp": score.hvp(z0, u).double()}
+    want64 = {"score": score(z0.double()), "hvp": score.hvp(z0.double(), u.double())}
+    errs, ok = {}, True
+    for what in ("score", "hvp"):
+        row = scale[what] + want64[what].norm(dim=1)
+        e_k = float(((got[what] - want64[what]).norm(dim=1) / row).max())
+        e_p = float(((want32[what] - want64[what]).norm(dim=1) / row).max())
+        errs[what] = {"kernel_vs_float64": e_k, "float32_plain_vs_float64": e_p,
+                      "kernel_vs_float32_plain": float(
+                          ((got[what] - want32[what]).norm(dim=1) / row).max())}
+        ok &= bool(torch.isfinite(got[what]).all()) and e_k <= 1e-5
+    return errs, ok
+
+
+def phase_funnel_compare():
+    """Every D = 10 form against its plain version on the funnel and the
+    standard normal (phase 23)."""
+    from cmcd_tpu_torch.integrators.overdamped import CAIS, CAIS_VAR, ULA, ULA_SN
+    from cmcd_tpu_torch.ops.vargrad import sweep_grid
+
+    ok, errors = True, {}
+
+    def keep(key, value, n=None):
+        """The worst error of a form on a target; with n, also under the
+        instance sweep_grid takes at n chains (key/NG=groups)."""
+        keys = [key] + ([f"{key}/NG={sweep_grid(n, 'cuda')[0]}"] if n else [])
+        for k in keys:
+            errors[k] = max(errors.get(k, 0.0), value)
+
+    for target in ("funnel", "std_normal"):
+        errs, good = _score_and_hvp_through_kernels(target)
+        ok &= good
+        print(f"[23 compare] {target} score and Hessian product through the kernels, v in "
+              f"[-20, 8] (row error over the row's scale, limit 1e-5 against float64): "
+              f"{json.dumps(errs)}, ok {good}", flush=True)
+    specs = (("CAIS", CAIS), ("CAIS_VAR", CAIS_VAR), ("ULA_sn", ULA_SN), ("ULA", ULA))
+    for target in ("funnel", "std_normal"):
+        for shape, (n, k, emb, eps) in FUNNEL_SHAPES.items():
+            tol = TOL_SMALL if k <= 8 else TOL_FULL
+            for i, (name, spec) in enumerate(specs):
+                case = make_problem(n, k, emb, seed=50 + i, sigma=1.0, eps=eps, target=target)
+                kw = dict(eps_schedule="cos_sq")
+                stats, good = compare(case, spec, tol, **kw)
+                ok &= good
+                keep(f"rollout {name}/{target}", max(stats["z_max_abs"], stats["w_max_abs"]))
+                print(f"[23 compare] rollout {shape} N={n} K={k} emb{emb} {name} {target}: "
+                      f"{json.dumps(stats)} tol {json.dumps(tol)}", flush=True)
+                if shape == "funnel_k8":
+                    stats, good = compare_noise_stack(case, spec, **kw)
+                    ok &= good
+                    print(f"[23 compare] rollout noise stack {shape} {name} {target}: "
+                          f"{json.dumps(stats)}", flush=True)
+                if spec == CAIS_VAR:
+                    for kind, fn in (("replay", compare_backward), ("reroll", compare_reroll)):
+                        worst, leaf, good = fn(case, GRAD_TOL_FULL, **kw)
+                        ok &= good
+                        keep(f"{kind}/{target}", worst, n if kind == "reroll" else None)
+                        print(f"[23 compare] {kind} {shape} N={n} K={k} emb{emb} {target}: "
+                              f"worst relative error {worst:.3e} (leaf {leaf}), limit "
+                              f"{GRAD_TOL_FULL}, ok {good}", flush=True)
+                    worst, leaf, good = compare_reroll_with_replay(case, **kw)
+                    ok &= good
+                    print(f"[23 compare] reroll {shape} {target} (seed, vs the replay kernel): "
+                          f"worst relative error {worst:.3e} (leaf {leaf}), limit "
+                          f"{REROLL_VS_REPLAY_TOL}, ok {good}", flush=True)
+                    continue
+                worst, line, good = compare_sweep(case, GRAD_TOL_FULL, arbitrate=True, spec=spec,
+                                                  **kw)
+                ok &= good
+                keep(f"sweep {name}/{target}", worst, n if spec != ULA else None)
+                print(f"[23 compare] KL sweep {shape} N={n} K={k} emb{emb} {name} {target}: "
+                      f"{line}, ok {good}", flush=True)
+    # Four groups: the shapes above take two on the H100 (63 tiles or fewer),
+    # funnel_k8's re-rolling path at N=REROLL_N takes four.
+    n, k, emb, eps = FUNNEL_NG4
+    for big in (n, REROLL_N):
+        groups, blocks = sweep_grid(big, "cuda")
+        if groups != 4 or blocks >= -(-big // 32):
+            fail(f"N={big} does not take four groups with more tiles than blocks "
+                 f"({groups} groups, {blocks} blocks)")
+    kw = dict(eps_schedule="cos_sq")
+    for target in ("funnel", "std_normal"):
+        for i, (name, spec) in enumerate((("CAIS", CAIS), ("ULA_sn", ULA_SN))):
+            case = make_problem(n, k, emb, seed=70 + i, sigma=1.0, eps=eps, target=target)
+            worst, line, good = compare_sweep(case, GRAD_TOL_FULL, arbitrate=True, spec=spec,
+                                              **kw)
+            ok &= good
+            keep(f"sweep {name}/{target}", worst, n)
+            print(f"[23 compare] KL sweep four groups N={n} K={k} emb{emb} {name} {target}: "
+                  f"{line}, ok {good}", flush=True)
+        case = make_problem(n, k, emb, seed=72, sigma=1.0, eps=eps, target=target)
+        worst, leaf, good = compare_reroll(case, GRAD_TOL_FULL, **kw)
+        ok &= good
+        keep(f"reroll/{target}", worst, n)
+        print(f"[23 compare] reroll four groups N={n} K={k} emb{emb} {target}: worst relative "
+              f"error {worst:.3e} (leaf {leaf}), limit {GRAD_TOL_FULL}, ok {good}", flush=True)
+        worst, leaf, good = compare_reroll_with_replay(case, **kw)
+        ok &= good
+        print(f"[23 compare] reroll four groups N={n} {target} (seed, vs the replay kernel): "
+              f"worst relative error {worst:.3e} (leaf {leaf}), limit {REROLL_VS_REPLAY_TOL}, "
+              f"ok {good}", flush=True)
+    # The re-rolling path's own shape (phase 24's five steps): the plain
+    # versions in slices of PLAIN_CHUNK chains, as phase 3 for many_gmm.
+    eps = FUNNEL_SHAPES["stress"][3]
+    big = make_problem(REROLL_N, 256, emb, seed=73, sigma=1.0, eps=eps, target="funnel")
+    stats, good = compare_rollout_chunked(big, CAIS_VAR, TOL_FULL, PLAIN_CHUNK, **kw)
+    ok &= good
+    keep("rollout CAIS_VAR/funnel", max(stats["z_max_abs"], stats["w_max_abs"]))
+    print(f"[23 compare] rollout N={REROLL_N} K=256 emb{emb} CAIS_VAR funnel (plain version in "
+          f"slices of {PLAIN_CHUNK} chains): {json.dumps(stats)} tol {json.dumps(TOL_FULL)}",
+          flush=True)
+    worst, leaf, good, plain_ms = compare_reroll_chunked(big, GRAD_TOL_FULL, PLAIN_CHUNK, **kw)
+    ok &= good
+    keep("reroll/funnel", worst, REROLL_N)
+    errors["reroll/funnel/path_n"] = worst
+    print(f"[23 compare] reroll N={REROLL_N} K=256 emb{emb} funnel (injected noise, vs plain in "
+          f"slices of {PLAIN_CHUNK} chains, summed; {plain_ms:.1f} ms): worst relative error "
+          f"{worst:.3e} (leaf {leaf}), limit {GRAD_TOL_FULL}, ok {good}", flush=True)
+    # The eps leaf of this sum over 33 million (chain, point) terms is
+    # ill-conditioned at init_eps 0.01: every float32 order (the two kernels',
+    # the plain version's) lands a few 1e-4 from the float64 sum, so the
+    # float64 arbiter decides a leaf beyond the limit.
+    worst, leaf, good, more = compare_reroll_with_replay_f64(big, PLAIN_CHUNK, **kw)
+    ok &= good
+    print(f"[23 compare] reroll N={REROLL_N} K=256 emb{emb} funnel (seed, vs the replay kernel "
+          f"on the rollout's trajectory): worst relative error {worst:.3e} (leaf {leaf}), limit "
+          f"{REROLL_VS_REPLAY_TOL}{more}, ok {good}", flush=True)
+    del big
+    # The clips at D = 10 (funnel_k8 does not clip), and one whole funnel_k8
+    # step with the variational draw trained.
+    case = make_problem(300, 8, 48, seed=60, sigma=1.0, eps=0.1, target="funnel")
+    stats, good = compare(case, CAIS, TOL_SMALL, eps_schedule="cos_sq", grad_clipping=True)
+    ok &= good
+    worst, line, good2 = compare_sweep(case, GRAD_TOL_FULL, arbitrate=True, spec=CAIS,
+                                       eps_schedule="cos_sq", grad_clipping=True)
+    ok &= good2
+    print(f"[23 compare] funnel_k8 CAIS funnel with clipping: rollout {json.dumps(stats)}; KL "
+          f"sweep {line}, ok {good and good2}", flush=True)
+    ok &= compare_training_step(FUNNEL_FLAGS + ["--config.iters", "0"], "funnel_k8 KL (train_vi)",
+                                arbitrate=True, tag="23 compare")
+    if not ok:
+        fail("a D = 10 kernel form and its plain version disagree beyond tolerance")
+    return errors
+
+
+def phase_funnel_paths():
+    """funnel_k8's path through the CLI and the other D = 10 forms' (phase
+    24): each form's launches, counted from 0 just before its run."""
+    rollout, sweep = "evolve_overdamped_fused", "evolve_kl_bwd"
+    replay, reroll = "evolve_vargrad_bwd_replay", "evolve_vargrad_bwd_reroll"
+    seeds = 30
+    runs = {}
+    for key, flags, iters in (
+            ("CAIS/funnel", FUNNEL_FLAGS, FUNNEL_PATH_ITERS),
+            ("ULA_sn/funnel", FUNNEL_MODE_FLAGS["MCD_ULA_sn"], FUNNEL_SHORT_ITERS),
+            ("ULA/funnel", FUNNEL_MODE_FLAGS["MCD_ULA"], FUNNEL_SHORT_ITERS)):
+        expect = {rollout: {key: iters + seeds}, sweep: {key: iters}}
+        runs[key] = _od_path(flags, iters, "24 path", expect,
+                             elbo_must_rise=iters == FUNNEL_PATH_ITERS)
+    var = FUNNEL_MODE_FLAGS["MCD_CAIS_var_sn"]
+    runs["replay/funnel"] = _od_path(var, FUNNEL_SHORT_ITERS, "24 path", {
+        rollout: {"CAIS/funnel": FUNNEL_SHORT_ITERS + seeds}, replay: {"funnel": FUNNEL_SHORT_ITERS}},
+        elbo_must_rise=False)
+    # Past the trajectory budget "auto" takes the re-rolling backward: K=256
+    # (init_eps 0.01 from FUNNEL_EPS_DICT[256]) at REROLL_N chains.
+    big = var + ["--config.nbridges", "256", "--config.N", str(REROLL_N)]
+    runs["reroll/funnel"] = _od_path(big, REROLL_ITERS, "24 path", {
+        rollout: {"CAIS/funnel": REROLL_ITERS + seeds}, reroll: {"funnel": REROLL_ITERS}},
+        elbo_must_rise=False)
+    from cmcd_tpu_torch.main import parse_flags, run_experiment
+
+    _reset_launches()
+    for mode in ("MCD_U_a-lp-sn", "UHA"):
+        bad = [f if f != "MCD_CAIS_sn" else mode for f in FUNNEL_FLAGS]
+        try:
+            run_experiment(parse_flags(bad + ["--config.iters", "0"]))
+        except NotImplementedError as err:
+            print(f"[24 path] {mode} on the funnel: refused ({err})", flush=True)
+        else:
+            fail(f"{mode} on the funnel ran on the card without a kernel")
+    if _launch_table():
+        fail("a refused configuration launched a kernel")
+    return {key: table for key, (table, _, _) in runs.items()}
+
+
+def phase_funnel_timing():
+    """CUDA-event and device times of the D = 10 forms at funnel_k8's shape
+    and the stress shape beside their bounds, and funnel_k8's optimizer step
+    (phase 25)."""
+    from cmcd_tpu_torch import bounds
+    from cmcd_tpu_torch.integrators.overdamped import CAIS, CAIS_VAR, ULA, ULA_SN
+    from cmcd_tpu_torch.ops.fused_train import fused_training_path
+    from cmcd_tpu_torch.ops.kl import evolve_kl_bwd, evolve_kl_bwd_plain
+    from cmcd_tpu_torch.ops.overdamped import (
+        evolve_overdamped_fused,
+        evolve_overdamped_fused_plain,
+    )
+    from cmcd_tpu_torch.ops.vargrad import (
+        evolve_vargrad_bwd_replay,
+        evolve_vargrad_bwd_replay_plain,
+        evolve_vargrad_bwd_reroll,
+        evolve_vargrad_bwd_reroll_plain,
+    )
+    from cmcd_tpu_torch.train import train
+
+    seed = torch.tensor([7], device="cuda")
+    order = ("plain", "kernel", "kernel", "plain")
+    times, bounds_ = {}, {}
+    for shape, (n, k, emb, eps) in FUNNEL_SHAPES.items():
+        plain_reps = 2 if k <= 8 else 1
+        for name, spec in (("CAIS", CAIS), ("ULA_sn", ULA_SN), ("ULA", ULA)):
+            pos, kw, _ = _split(make_problem(n, k, emb, seed=2, sigma=1.0, eps=eps,
+                                             target="funnel"))
+            kw = dict(kw, eps_schedule="cos_sq")
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            cot = torch.randn(n, generator=gen, device="cuda")
+            g_zf = torch.randn(n, 10, generator=gen, device="cuda")
+            _, _, traj, noise = evolve_overdamped_fused(*pos, spec, **kw, seed=seed,
+                                                        return_trajectory=True, return_noise=True)
+            fns = {
+                "rollout": (lambda: evolve_overdamped_fused(
+                    *pos, spec, **kw, seed=seed, return_trajectory=True, return_noise=True), 20),
+                "rollout_plain": (lambda: evolve_overdamped_fused_plain(
+                    *pos, spec, **kw, seed=7, return_trajectory=True, return_noise=True),
+                    plain_reps),
+                "sweep": (lambda: evolve_kl_bwd(traj, noise, cot, g_zf, *pos[2:], spec, **kw), 10),
+                "sweep_plain": (lambda: evolve_kl_bwd_plain(traj, noise, cot, g_zf, *pos[2:],
+                                                            spec, **kw), plain_reps),
+            }
+            t = times[f"{name}/funnel {shape}"] = {key: [] for key in fns}
+            for which in order:
+                for kind in ("rollout", "sweep"):
+                    key = kind if which == "kernel" else f"{kind}_plain"
+                    fn, reps = fns[key]
+                    t[key].append(_event_ms(fn, reps))
+            kernels = ("ula_rollout", "kl_ula_sweep") if spec == ULA else (
+                "overdamped_rollout", "kl_reverse_sweep")
+            t["rollout_device"] = _device_ms(fns["rollout"][0], 10, kernels[0])
+            t["sweep_device"] = _device_ms(fns["sweep"][0], 10, kernels[1])
+            in_dim = 0 if spec == ULA else 10 + emb
+            b = bounds_[f"{name}/funnel {shape}"] = _work_od(n, k, in_dim, "funnel",
+                                                             net_fwd=spec.fwd_sn, dim=10)
+            print(f"[25 timing] {name} funnel {shape} N={n} K={k} emb"
+                  f"{emb if in_dim else '-'} ms {json.dumps(t)}; bounds rollout "
+                  f"{json.dumps(b['rollout'])} sweep {json.dumps(b['sweep'])}", flush=True)
+        pos, kw, _ = _split(make_problem(n, k, emb, seed=4, sigma=1.0, eps=eps, target="funnel"))
+        kw = dict(kw, eps_schedule="cos_sq")
+        cot = torch.randn(n, generator=torch.Generator(device="cuda").manual_seed(6),
+                          device="cuda")
+        _, _, traj = evolve_overdamped_fused(*pos, CAIS_VAR, **kw, seed=seed,
+                                             return_trajectory=True)
+        fns = {
+            "replay": (lambda: evolve_vargrad_bwd_replay(traj, cot, *pos[2:], CAIS_VAR, **kw),
+                       20),
+            "replay_plain": (lambda: evolve_vargrad_bwd_replay_plain(
+                traj, cot, *pos[2:], CAIS_VAR, **kw), plain_reps),
+            "reroll": (lambda: evolve_vargrad_bwd_reroll(pos[0], cot, *pos[2:], CAIS_VAR, **kw,
+                                                         seed=seed), 20),
+            "reroll_plain": (lambda: evolve_vargrad_bwd_reroll_plain(
+                pos[0], cot, *pos[2:], CAIS_VAR, **kw, seed=7), plain_reps),
+        }
+        t = times[f"VarGrad/funnel {shape}"] = {key: [] for key in fns}
+        for which in order:
+            for kind in ("replay", "reroll"):
+                key = kind if which == "kernel" else f"{kind}_plain"
+                fn, reps = fns[key]
+                t[key].append(_event_ms(fn, reps))
+        for kind in ("replay", "reroll"):
+            t[f"{kind}_device"] = _device_ms(fns[kind][0], 10, f"vargrad_{kind}")
+        b = bounds_[f"VarGrad/funnel {shape}"] = _work_od(n, k, 10 + emb, "funnel", dim=10)
+        print(f"[25 timing] VarGrad funnel {shape} N={n} K={k} emb{emb} ms {json.dumps(t)}; "
+              f"bounds replay {json.dumps(b['replay'])} reroll {json.dumps(b['reroll'])}",
+              flush=True)
+
+    cfg, setup, target, params, ctx = flagship(FUNNEL_FLAGS + ["--config.iters", "0"])
+    trainable = bounds.default_trainable(setup.mode, cfg.train_eps, cfg.train_vi, cfg.train_betas)
+    fused_loss, _ = fused_training_path(setup, cfg.N)
+    fused = lambda p, n_, c, s, generator: fused_loss(p, n_, c, s, target, generator=generator)
+
+    def steps(loss_fn, iters):
+        g = torch.Generator(device="cuda").manual_seed(1)
+        return lambda: train(setup, params, ctx, lr=cfg.lr, iters=iters, batch_size=cfg.N,
+                             generator=g, trainable=trainable, loss_fn=loss_fn,
+                             steps_per_call=max(iters, 1), nan_check_every=10**9)
+
+    steps(fused, 5)()
+    ms = {"eager": [], "kernel": []}
+    for which in order:
+        loss_fn, iters = (bounds.kl_bound, 3) if which == "plain" else (fused, 50)
+        ms["eager" if which == "plain" else "kernel"].append(_wall_ms(steps(loss_fn, iters))
+                                                             / iters)
+    ms["kernel_500"] = [_wall_ms(steps(fused, 500)) / 500]
+    prof_wall, prof_dev, top = _profile(steps(fused, 10))
+    ms["busy_ms"] = prof_dev / 10
+    # The 50-step readings of this host-bound step can differ 2x within a
+    # call; the share is taken against the 500-step window.
+    ms["busy_share_of_500"] = prof_dev / 10 / ms["kernel_500"][0]
+    print(f"[25 timing] funnel_k8 optimizer step N={cfg.N} K={cfg.nbridges} emb{cfg.emb_dim} ms "
+          f"per step {json.dumps(ms)} (kernel: 50 steps, kernel_500: 500, eager: 3 per reading); "
+          f"10 fused steps under the profiler: wall {prof_wall!r} ms, device busy {prof_dev!r} "
+          f"ms, device records {json.dumps(top)}", flush=True)
+    return times, bounds_, ms
+
+
+def _funnel_kernel_entries(errors, paths, times, bounds_, err_is):
+    """The kernels line's entries of the D = 10 forms (phases 23-25): each
+    form's launches on its funnel path (phase 24), its worst error against
+    the plain version on the funnel (and on the standard normal, phase 23)
+    over every instance, and for a form with a groups parameter each
+    instance's apart, its times and bound at funnel_k8's shape and at the
+    stress shape."""
+    keep = lambda b: {k: b[k] for k in ("bound_ms", "bound_by")}
+    rollout, sweep = "evolve_overdamped_fused", "evolve_kl_bwd"
+    entries = []
+
+    def entry(name, source, replaces, form, launches, err_key, t_key, kind, extra=None):
+        t = {shape: times[f"{t_key} {shape}"] for shape in FUNNEL_SHAPES}
+        b = {shape: bounds_[f"{t_key} {shape}"][kind] for shape in FUNNEL_SHAPES}
+        # A form with a groups parameter: the error of each instance (NG=2
+        # at the two shapes, NG=4 at N=8192 and, for the reroll, REROLL_N).
+        by_groups = {f"max_abs_err{sfx}_by_groups": {
+            g: errors.get(f"{err_key}/{tgt}/NG={g}") for g in (2, 4)}
+            for tgt, sfx in (("funnel", ""), ("std_normal", "_std_normal"))
+            if f"{err_key}/{tgt}/NG=4" in errors}
+        entries.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces, "form": form,
+            "launches": launches, "max_abs_err": errors[f"{err_key}/funnel"],
+            "max_abs_err_std_normal": errors[f"{err_key}/std_normal"], **by_groups,
+            **(extra or {}),
+            "ms": min(t["funnel_k8"][kind]), "device_ms": t["funnel_k8"][f"{kind}_device"],
+            "plain_ms": min(t["funnel_k8"][f"{kind}_plain"]), **keep(b["funnel_k8"]),
+            "library_ms": None,
+            "ms_at_stress": min(t["stress"][kind]),
+            "device_ms_at_stress": t["stress"][f"{kind}_device"],
+            "plain_ms_at_stress": min(t["stress"][f"{kind}_plain"]),
+            "bound_ms_at_stress": b["stress"]["bound_ms"],
+        })
+
+    for form, (r_name, s_name) in {
+            "CAIS": ("overdamped_rollout<FunnelTarget, true, 1>",
+                     "kl_reverse_sweep<NG, FunnelTarget, true>"),
+            "ULA_sn": ("overdamped_rollout<FunnelTarget, false, 0>",
+                       "kl_reverse_sweep<NG, FunnelTarget, false>"),
+            "ULA": ("ula_rollout<FunnelTarget>", "kl_ula_sweep<FunnelTarget>")}.items():
+        key, table = f"{form}/funnel", paths[f"{form}/funnel"]
+        entry(r_name, "cmcd_tpu_torch/csrc/overdamped.cu", "cmcd_tpu/ops/pallas_overdamped.py:102",
+              key, table[rollout][1][key], f"rollout {form}", form + "/funnel", "rollout")
+        entry(s_name, "cmcd_tpu_torch/csrc/kl.cu", "cmcd_tpu/ops/pallas_kl.py:49", key,
+              table[sweep][1][key], f"sweep {form}", form + "/funnel", "sweep",
+              {"max_abs_err_is": err_is})
+    for kind, wrapper, replaces in (
+            ("replay", "evolve_vargrad_bwd_replay", "cmcd_tpu/ops/pallas_vargrad.py:67"),
+            ("reroll", "evolve_vargrad_bwd_reroll", "cmcd_tpu/ops/pallas_vargrad.py:385")):
+        entry(f"vargrad_{kind}<{'NG, ' if kind == 'reroll' else ''}FunnelTarget>",
+              "cmcd_tpu_torch/csrc/vargrad.cu", replaces, "funnel",
+              paths[f"{kind}/funnel"][wrapper][1]["funnel"], kind, "VarGrad/funnel", kind,
+              {"max_abs_err_is": err_is, **({"path_n": REROLL_N, "max_abs_err_at_path_n":
+                                             errors["reroll/funnel/path_n"]}
+                                            if kind == "reroll" else {})})
+    return entries
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    everything = "1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,22"
+    everything = "1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,22,23,24,25"
     ap.add_argument("--phases", default=everything,
                     help="comma-separated phases to run (default: all)")
     phases = {int(p) for p in ap.parse_args(argv).phases.split(",")}
@@ -2420,6 +2933,9 @@ def main(argv=None):
     od_errors = phase_od_compare() if 20 in phases else None
     od_paths = phase_od_paths() if 21 in phases else None
     od_timing = phase_od_timing() if 22 in phases else None
+    funnel_errors = phase_funnel_compare() if 23 in phases else None
+    funnel_paths = phase_funnel_paths() if 24 in phases else None
+    funnel_timing = phase_funnel_timing() if 25 in phases else None
     if phases != {int(p) for p in everything.split(",")}:
         print(f"partial run (phases {sorted(phases)}): no result line")
         return 1
@@ -2451,14 +2967,19 @@ def main(argv=None):
     print(f"[bounds] overdamped forms (phase 22 shapes): "
           f"{json.dumps({f: {k: keep(b) for k, b in v.items()} for f, v in od_bounds.items()})}; "
           f"optimizer step ms {json.dumps(od_step_ms)}")
+    funnel_times, funnel_bounds, funnel_step_ms = funnel_timing
+    print(f"[bounds] D = 10 forms on the funnel (phase 25 shapes): "
+          f"{json.dumps({f: {k: keep(b) for k, b in v.items()} for f, v in funnel_bounds.items()})}"
+          f"; funnel_k8 optimizer step ms {json.dumps(funnel_step_ms)}")
     print(smi)
     # launches: of each kernel's own main path, counted from 0 just before it
     # (phase 7: VarGrad training and the 30 x 500 evaluation; phase 9: the KL
     # twin; phase 10: the re-rolling steps; phase 14: LDVI training and its
-    # evaluation; phase 18: UHA training and its evaluation; phase 21: each
-    # overdamped form's path); times, plain times and bounds at N=2000, K=256
-    # (the gmm forms at their recipes' shapes). No single PyTorch call
-    # computes any of these functions.
+    # evaluation; phase 18: UHA training and its evaluation; phases 21 and
+    # 24: each overdamped form's path); times, plain times and bounds at
+    # N=2000, K=256 (the gmm forms at their recipes' shapes, the funnel's at
+    # funnel_k8's and at the stress shape). No single PyTorch call computes
+    # any of these functions.
     err_is = "worst per-leaf |g_kernel - g_plain| / |g_plain| at full width"
     print(json.dumps({"kernels": [{
         "name": "overdamped_rollout",
@@ -2573,7 +3094,9 @@ def main(argv=None):
         "plain_ms": min(uha_times["sweep_plain"]),
         **keep(uha_sweep_bound),
         "library_ms": None,
-    }] + _od_kernel_entries(od_errors, od_paths, od_times, od_bounds, err_is)}))
+    }] + _od_kernel_entries(od_errors, od_paths, od_times, od_bounds, err_is)
+        + _funnel_kernel_entries(funnel_errors, funnel_paths, funnel_times, funnel_bounds,
+                                 err_is)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

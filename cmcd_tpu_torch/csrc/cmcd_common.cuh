@@ -4,19 +4,22 @@
 // kl_underdamped.cu and kl_uha.cu (the backward kernels).
 //
 // The score net is the two-layer geffner net on h0 = [x, emb_i], where x is
-// the state z (DIN = 2 columns) or, for the underdamped modes whose net sees
-// the momentum too, [z, rho'] (DIN = 4); the head has 2 outputs either way:
+// the state z (DIN = D columns, D the target's dimension) or, for the
+// underdamped modes whose net sees the momentum too, [z, rho'] (DIN = 2 D);
+// the head has D outputs either way:
 //   a1 = x @ W1[:DIN] + c1[i]        c1 = emb @ W1[DIN:] + b1 (per call, wrapper)
 //   h1 = h0 + softplus(a1)
 //   a2 = h1 @ W2 + b2,  h2 = h1 + softplus(a2)
 //   sn = (h2 @ headW^T + headb) * factor_sn
 // and the target is a template parameter of every kernel (ManyGmmTarget,
-// Gmm3Target below): its score and the Hessian product the sweeps need, one
-// warp per chain, from a vector of n_par constants the kernel keeps in
-// shared memory (many_gmm: its n_par / 2 means, the isotropic, equally
-// weighted mixture's score gt = inv_var * (sum_k r_k(z) m_k - z),
-// r = softmax_k(-inv_var/2 |z - m_k|^2); the 3-mode gmm: its 18 constants,
-// gmm3_score).
+// Gmm3Target, FunnelTarget, StdNormalTarget<D> below): its dimension D, its
+// score and the Hessian product the sweeps need, one warp per chain, from a
+// vector of n_par constants the kernel keeps in shared memory (many_gmm: its
+// n_par / 2 means, the isotropic, equally weighted mixture's score
+// gt = inv_var * (sum_k r_k(z) m_k - z), r = softmax_k(-inv_var/2 |z - m_k|^2);
+// the 3-mode gmm: its 18 constants, gmm3_score; the funnel: its sig; the
+// standard normal: its precision, 1). Every array of a chain's state is
+// sized by the target's D, a compile-time constant.
 //
 // Work split of one block. Thread f owns net feature f for a tile of TC
 // chains (so each W2 element read from shared memory feeds TC FMAs and the
@@ -32,7 +35,6 @@
 namespace cmcd {
 
 constexpr int TC = 8;         // chains one feature thread carries through a layer
-constexpr int DIM = 2;        // state dimension (many_gmm); the head's outputs
 constexpr int MAX_MIX = 64;   // many_gmm components: two per lane
 constexpr int MAX_PAR = 2 * MAX_MIX;  // floats of a target's constants
 constexpr size_t MAX_SMEM = 232448;  // 227 KiB a block may use on sm_90
@@ -40,12 +42,12 @@ constexpr size_t MAX_SMEM = 232448;  // 227 KiB a block may use on sm_90
 // The net and the target as a kernel sees them (device pointers, f32).
 struct NetArgs {
   const float* w1z;    // (DIN, in): rows of layer-1 W (in x out) for x
-  const float* c1;     // (K, in): emb_i @ W1[2:] + b1
+  const float* c1;     // (K, in): emb_i @ W1[DIN:] + b1
   const float* emb;    // (K, emb_dim)
   const float* w2;     // (in, in): layer-2 W, row k = input feature k
   const float* b2;     // (in,)
-  const float* headw;  // (2, in)
-  const float* headb;  // (2,)
+  const float* headw;  // (D, in)
+  const float* headb;  // (D,)
   const float* tpar;   // (n_par,): the target's constants
   int in_dim, in_pad, emb_dim, n_par;
   float inv_var_t;     // many_gmm's 1 / scale^2 (unused by the 3-mode gmm)
@@ -54,10 +56,12 @@ struct NetArgs {
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 // The constants a launch's target takes (ops/target_grads.TARGETS): many_gmm
-// (0) an even count of at most MAX_PAR, its means; the 3-mode gmm (1) its 18.
+// (0) an even count of at most MAX_PAR, its means; the 3-mode gmm (1) its 18;
+// the funnel (2) its sig; the standard normal (3) its precision.
 __host__ inline bool target_ok(int target, int n_par) {
   if (target == 0) return n_par >= 2 && n_par <= MAX_PAR && n_par % 2 == 0;
-  return target == 1 && n_par == 18;
+  if (target == 1) return n_par == 18;
+  return (target == 2 || target == 3) && n_par == 1;
 }
 
 __device__ __forceinline__ float softplus_f(float x) {
@@ -119,7 +123,7 @@ __device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0, uint32
 
 // The two standard normals of (chain, step): Box-Muller on two Philox words.
 // `pair` (the third counter word) numbers further pairs of one draw beyond
-// two dimensions.
+// two dimensions (philox_normals).
 __device__ __forceinline__ float2 philox_normal2(unsigned long long seed, uint32_t chain,
                                                  uint32_t step, uint32_t pair = 0u) {
   uint32_t c[4] = {chain, step, pair, 0u};
@@ -130,6 +134,20 @@ __device__ __forceinline__ float2 philox_normal2(unsigned long long seed, uint32
   float s, co;
   sincospif(2.0f * u2, &s, &co);
   return make_float2(r * co, r * s);
+}
+
+// The D standard normals of (chain, step): dimensions 2q and 2q + 1 from
+// pair q, so D = 2 takes pair 0 alone and every kernel that makes a step's
+// draw again (the rollouts, the re-rolling backward) gets the same numbers.
+template <int D>
+__device__ __forceinline__ void philox_normals(unsigned long long seed, uint32_t chain,
+                                               uint32_t step, float xi[D]) {
+#pragma unroll
+  for (int d = 0; d < D; d += 2) {
+    const float2 g = philox_normal2(seed, chain, step, (uint32_t)(d / 2));
+    xi[d] = g.x;
+    if (d + 1 < D) xi[d + 1] = g.y;
+  }
 }
 
 // Copies W2 (in x in, row k = input feature k) into shared memory with row
@@ -194,20 +212,23 @@ __device__ __forceinline__ void layer2_feature(const float* w2s, int ws, const f
   }
 }
 
-// One warp, one chain: the head's two raw outputs h2 . headW[d] (no bias, no
-// factor). h2: the chain's in_dim hidden values; hws: 2 x in_pad head rows.
+// One warp, one chain: the head's D raw outputs h2 . headW[d] (no bias, no
+// factor). h2: the chain's in_dim hidden values; hws: D x in_pad head rows.
 // All lanes return the same values.
+template <int D>
 __device__ __forceinline__ void head_raw(const NetArgs& net, const float* h2,
-                                         const float* hws, float out[DIM]) {
+                                         const float* hws, float out[D]) {
   const int lane = threadIdx.x & 31, ip = net.in_pad;
-  float s0 = 0.f, s1 = 0.f;
+  float s[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) s[d] = 0.f;
   for (int k = lane; k < net.in_dim; k += 32) {
     const float h = h2[k];
-    s0 = fmaf(h, hws[k], s0);
-    s1 = fmaf(h, hws[ip + k], s1);
+#pragma unroll
+    for (int d = 0; d < D; ++d) s[d] = fmaf(h, hws[d * ip + k], s[d]);
   }
-  out[0] = warp_sum(s0);
-  out[1] = warp_sum(s1);
+#pragma unroll
+  for (int d = 0; d < D; ++d) out[d] = warp_sum(s[d]);
 }
 
 // What a lane keeps of the score for the Hessian product: its two components'
@@ -220,7 +241,7 @@ struct ScoreLanes {
 // means in mus, two components per lane, a = inv_var. All lanes return the
 // same gt; with `sl` each lane also returns its own two components.
 __device__ __forceinline__ void many_gmm_score(const float* mus, int n_mix, float a, float x0,
-                                               float x1, float gt[DIM],
+                                               float x1, float gt[2],
                                                ScoreLanes* sl = nullptr) {
   const int lane = threadIdx.x & 31;
   float l0 = -INFINITY, l1 = -INFINITY;
@@ -259,8 +280,8 @@ __device__ __forceinline__ void many_gmm_score(const float* mus, int n_mix, floa
 // the centred form of sum r d d^T - (sum r d)(sum r d)^T: between modes
 // |d_k| reaches 40 sqrt(2) and the uncentred sums cancel. All lanes return
 // the same hv.
-__device__ __forceinline__ void many_gmm_hvp(float a, const ScoreLanes& sl, const float v[DIM],
-                                             float hv[DIM]) {
+__device__ __forceinline__ void many_gmm_hvp(float a, const ScoreLanes& sl, const float v[2],
+                                             float hv[2]) {
   const float sx = warp_sum(sl.r[0] * sl.dx[0] + sl.r[1] * sl.dx[1]);
   const float sy = warp_sum(sl.r[0] * sl.dy[0] + sl.r[1] * sl.dy[1]);
   float tx = 0.f, ty = 0.f;
@@ -348,6 +369,50 @@ __device__ __forceinline__ void gmm3_hvp(const float* par, const Gmm3Lanes& sl,
   hv[1] = warp_sum(ty);
 }
 
+// Neal's funnel, v = x[0], x[1:] | v ~ N(0, e^v I): what each lane keeps for
+// the Hessian product (every lane holds the whole point: a chain's score is
+// O(D) work, below the latency of a warp reduction, so the lanes compute it
+// alike and nothing is exchanged).
+template <int D>
+struct FunnelLanes {
+  float ev, sx2, x[D];  // e^{-v}, sum_{j>=1} x_j^2, the point
+};
+
+// One chain (each lane alike): the funnel's score at x, sig its v scale,
+//   d/dv = -v / sig^2 + e^{-v} sum x_j^2 / 2 - (D - 1) / 2,  d/dx_j = -x_j e^{-v},
+// e^{-v} unclipped (cmcd_tpu/ops/target_grads.py::make_funnel_grad_t).
+template <int D>
+__device__ __forceinline__ void funnel_score(float sig, const float x[D], float gt[D],
+                                             FunnelLanes<D>* sl) {
+  const float v = x[0], ev = expf(-v);
+  float sx2 = 0.f;
+#pragma unroll
+  for (int j = 1; j < D; ++j) sx2 += x[j] * x[j];
+  gt[0] = -v / (sig * sig) + 0.5f * ev * sx2 - 0.5f * (float)(D - 1);
+#pragma unroll
+  for (int j = 1; j < D; ++j) gt[j] = -x[j] * ev;
+  if (sl != nullptr) {
+    sl->ev = ev, sl->sx2 = sx2;
+#pragma unroll
+    for (int d = 0; d < D; ++d) sl->x[d] = x[d];
+  }
+}
+
+// The funnel's Hessian applied to u at the point of sl (the Pallas sweep
+// traces it with jax.vjp and never states it):
+//   (H u)_0 = (-1/sig^2 - e^{-v} sum x_j^2 / 2) u_0 + e^{-v} sum_j x_j u_j
+//   (H u)_j = e^{-v} (x_j u_0 - u_j)
+template <int D>
+__device__ __forceinline__ void funnel_hvp(float sig, const FunnelLanes<D>& sl, const float u[D],
+                                           float hu[D]) {
+  float xu = 0.f;
+#pragma unroll
+  for (int j = 1; j < D; ++j) xu += sl.x[j] * u[j];
+  hu[0] = (-1.0f / (sig * sig) - 0.5f * sl.ev * sl.sx2) * u[0] + sl.ev * xu;
+#pragma unroll
+  for (int j = 1; j < D; ++j) hu[j] = sl.ev * (sl.x[j] * u[0] - u[j]);
+}
+
 // The targets as template parameters of every kernel: the state dimension
 // D, what a lane keeps for the Hessian product (Lanes), the score and its
 // Hessian product for one chain per warp. `par` holds the target's n_par
@@ -381,27 +446,84 @@ struct Gmm3Target {
   }
 };
 
+// The funnel at the recipes' dimension (funnel_k8, config funnel_d 10). par
+// (its sig) is read at each use: a kernel builds its target before the
+// block has copied the constants into shared memory.
+struct FunnelTarget {
+  static constexpr int D = 10;
+  using Lanes = FunnelLanes<D>;
+  const float* par;
+  __device__ FunnelTarget(const float* p, int, float) : par(p) {}
+  __device__ void score(const float x[D], float gt[D], Lanes* sl = nullptr) const {
+    funnel_score<D>(par[0], x, gt, sl);
+  }
+  __device__ void hvp(const Lanes& sl, const float u[D], float hu[D]) const {
+    funnel_hvp<D>(par[0], sl, u, hu);
+  }
+};
+
+// The standard normal (par: its precision a, 1): score -a x, H u = -a u; the
+// closed-form check of the D-dimensional kernels.
+template <int DD>
+struct StdNormalTarget {
+  static constexpr int D = DD;
+  struct Lanes {};
+  const float* par;
+  __device__ StdNormalTarget(const float* p, int, float) : par(p) {}
+  __device__ void score(const float x[D], float gt[D], Lanes* = nullptr) const {
+#pragma unroll
+    for (int d = 0; d < D; ++d) gt[d] = -par[0] * x[d];
+  }
+  __device__ void hvp(const Lanes&, const float u[D], float hu[D]) const {
+#pragma unroll
+    for (int d = 0; d < D; ++d) hu[d] = -par[0] * u[d];
+  }
+};
+
+// The state dimension of a launch's target code (ops/target_grads.TARGETS).
+__host__ inline int target_dim(int target) {
+  return target == 0 || target == 1 ? ManyGmmTarget::D : FunnelTarget::D;
+}
+
+// Calls f(TargetTag<T>{}) with the template of target code `target`.
+template <class T>
+struct TargetTag {
+  using type = T;
+};
+
+template <class F>
+__host__ inline cudaError_t dispatch_target(int target, F f) {
+  switch (target) {
+    case 0: return f(TargetTag<ManyGmmTarget>{});
+    case 1: return f(TargetTag<Gmm3Target>{});
+    case 2: return f(TargetTag<FunnelTarget>{});
+    case 3: return f(TargetTag<StdNormalTarget<10>>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // One warp per chain: the target score at the TC points in zs into gt_s
-// (TC x DIM). Every thread of the block must call it; ends with a barrier.
+// (TC x D). Every thread of the block must call it; ends with a barrier.
 template <class T>
 __device__ __forceinline__ void score_eval(const T& target, const float* zs, float* gt_s) {
+  constexpr int D = T::D;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarp = blockDim.x >> 5;
   for (int c = warp; c < TC; c += nwarp) {
-    float gt[DIM];
-    target.score(zs + c * DIM, gt);
+    float gt[D];
+    target.score(zs + c * D, gt);
     if (lane == 0) {
 #pragma unroll
-      for (int d = 0; d < DIM; ++d) gt_s[c * DIM + d] = gt[d];
+      for (int d = 0; d < D; ++d) gt_s[c * D + d] = gt[d];
     }
   }
   __syncthreads();
 }
 
 // Net output at the TC inputs in xin_s (TC x DIN), bridge row idx, and,
-// unless zs is null, the target score at the TC points in zs (TC x DIM),
+// unless zs is null, the target score at the TC points in zs (TC x D),
 // by a block of round_up(in_dim, 32) threads; writes sn_s and gt_s (TC x
-// DIM each). w2s has row stride in_pad; h1s, h2s are TC x in_pad tiles.
-// Every thread of the block must call it.
+// D each). w2s has row stride in_pad; h1s, h2s are TC x in_pad tiles; hws
+// the D x in_pad head rows. Every thread of the block must call it.
 template <int DIN, class T>
 __device__ __forceinline__ void point_eval(const NetArgs& net, int idx, const float w1x[DIN],
                                            float b2f, float factor,
@@ -409,6 +531,7 @@ __device__ __forceinline__ void point_eval(const NetArgs& net, int idx, const fl
                                            const float* hws, const T& target,
                                            const float* xin_s, const float* zs, float* gt_s,
                                            float* sn_s) {
+  constexpr int D = T::D;
   const int tid = threadIdx.x, ip = net.in_pad;
   const int lane = tid & 31, warp = tid >> 5, nwarp = blockDim.x >> 5;
   const bool feat = tid < net.in_dim;
@@ -431,14 +554,14 @@ __device__ __forceinline__ void point_eval(const NetArgs& net, int idx, const fl
   __syncthreads();
 
   for (int c = warp; c < TC; c += nwarp) {
-    float out[DIM], gt[DIM];
-    head_raw(net, h2s + c * ip, hws, out);
-    if (zs != nullptr) target.score(zs + c * DIM, gt);
+    float out[D], gt[D];
+    head_raw<D>(net, h2s + c * ip, hws, out);
+    if (zs != nullptr) target.score(zs + c * D, gt);
     if (lane == 0) {
 #pragma unroll
-      for (int d = 0; d < DIM; ++d) {
-        sn_s[c * DIM + d] = (out[d] + net.headb[d]) * factor;
-        if (zs != nullptr) gt_s[c * DIM + d] = gt[d];
+      for (int d = 0; d < D; ++d) {
+        sn_s[c * D + d] = (out[d] + net.headb[d]) * factor;
+        if (zs != nullptr) gt_s[c * D + d] = gt[d];
       }
     }
   }

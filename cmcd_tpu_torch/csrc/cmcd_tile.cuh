@@ -3,9 +3,9 @@
 // per-block partial sums and the kernel that reduces them.
 //
 // The net's input x is DIN columns wide (the state z, or [z, rho'] for the
-// underdamped modes whose net sees the momentum). With out = h2 @ headW^T +
-// headb, sn = out * factor_sn and g_out the cotangent of out (the caller's,
-// one per chain):
+// underdamped modes whose net sees the momentum), its head D wide (the
+// target's dimension). With out = h2 @ headW^T + headb, sn = out * factor_sn
+// and g_out the cotangent of out (the caller's, D per chain):
 //   dheadW[d] = g_out[d] h2;  g_h2 = g_out @ headW
 //   g_a2 = g_h2 * sigmoid(a2);  db2 = g_a2;  dW2 = h1 (x) g_a2
 //   g_h1 = g_h2 + W2 g_a2;  g_a1 = g_h1 * sigmoid(a1);  dW1[:DIN] = x (x) g_a1
@@ -14,7 +14,7 @@
 // is a product of the wrapper (c1 = emb @ W1[DIN:] + b1, once per call), so
 // its transpose is the wrapper's too: a block returns the per-point sums
 // over chains G1[j] = sum_n g_a1 and GH1[j] = sum_n g_h1, from which two
-// small products give demb, dW1[2:], db1.
+// small products give demb, dW1[DIN:], db1.
 //
 // Work split of one block of NG groups of feature threads on a tile of
 // TB = NG * TC chains: thread (g, f) owns feature f for the TC chains of
@@ -23,9 +23,11 @@
 // the outer product, where it reads h1 transposed as broadcast float4s. W2
 // and the block's dW2 sit in shared memory with row stride in_pad + 1 (odd,
 // so both the column walk of the apply and the row walk of W2 g_a2 are free
-// of bank conflicts). Blocks run in no order, so nothing accumulates across
-// them: each block writes its partial sums to scratch and partials_reduce
-// adds them in block order. No atomics: the same inputs give the same bits.
+// of bank conflicts). A feature thread keeps its own g_a1 and g_h1 for its TC
+// chains and forms g_x one column at a time (at D = 10 the whole TC x DIN
+// block of it would be 80 more registers a thread). Blocks run in no order,
+// so nothing accumulates across them: each block writes its partial sums to
+// scratch and partials_reduce adds them in block order. No atomics: the same inputs give the same bits.
 
 #pragma once
 
@@ -34,35 +36,42 @@
 namespace cmcd {
 
 constexpr int FW_MAX = 160;  // feature threads of one group: in_dim <= 160
-// Per-warp scalars: eps, mean x2, logdiag x2, factor, headb x2 (slots 0-7,
-// summed over the block), beta_fk, beta_bk (8, 9, per point), gamma (10,
-// summed over the block; the underdamped sweep's, zero elsewhere).
-constexpr int NSCAL = 11;
-constexpr int SC_GAMMA = 10;
-constexpr int NSC_BLOCK = 9;  // scalars of len_a: slots 0-7 and gamma
+// Per-warp scalars for a D-dimensional state: eps, vd mean xD, vd logdiag xD,
+// factor, headb xD (summed over the block), beta_fk, beta_bk (per point),
+// gamma (summed over the block; the underdamped sweep's, zero elsewhere). At
+// D = 2 the slots are 0, 1-2, 3-4, 5, 6-7, 8, 9, 10. The scalars of len_a
+// are slots 0..HEADB+D-1 and gamma (ops/vargrad.scalar_slots).
+__host__ __device__ constexpr int nscal(int d) { return 5 + 3 * d; }      // slots a warp keeps
+__host__ __device__ constexpr int nsc_block(int d) { return 3 + 3 * d; }  // scalars of len_a
+template <int D>
+struct Slots {
+  static constexpr int EPS = 0, MEAN = 1, LOGDIAG = 1 + D, FACTOR = 1 + 2 * D,
+                       HEADB = 2 + 2 * D, BETA = 2 + 3 * D, GAMMA = 4 + 3 * D;
+  static constexpr int N = nscal(D), BLOCK = nsc_block(D);
+};
 
-// Per-feature sums of a thread: headW x2, b2, W1[:DIN] xDIN, G1, GH1.
-__host__ __device__ constexpr int nfeat(int din) { return 5 + din; }
-constexpr int NFEAT = nfeat(DIM);
+// Per-feature sums of a thread: headW xD, b2, W1[:DIN] xDIN, G1, GH1.
+__host__ __device__ constexpr int nfeat(int d, int din) { return 3 + d + din; }
 
-// Partials summed over every block: dW2 (in x in), dheadW (2 x in), db2,
-// dW1[:DIN] (DIN x in), then eps, mean x2, logdiag x2, factor, headb x2, gamma.
-__host__ __device__ inline int len_a(int in_dim, int din = DIM) {
-  return in_dim * in_dim + (3 + din) * in_dim + NSC_BLOCK;
+// Partials summed over every block: dW2 (in x in), dheadW (D x in), db2,
+// dW1[:DIN] (DIN x in), then eps, mean xD, logdiag xD, factor, headb xD, gamma.
+__host__ __device__ inline int len_a(int in_dim, int d, int din) {
+  return in_dim * in_dim + (1 + d + din) * in_dim + nsc_block(d);
 }
 // Partials of one point: G1 (in), GH1 (in), dbeta_j, dbeta_{j-1}.
 __host__ __device__ inline int len_b(int in_dim) { return 2 * in_dim + 2; }
 
-// Floats of shared memory the tile itself takes (the layout in Tile).
-__host__ __device__ inline size_t tile_floats(int ng, int in_dim, int n_par) {
+// Floats of shared memory the tile itself takes (the layout in Tile), for a
+// D-dimensional state.
+__host__ __device__ inline size_t tile_floats(int ng, int in_dim, int n_par, int d) {
   const int ip = round_up(in_dim, 4), tb = ng * TC;
-  return (size_t)2 * ip * (ip + 1) + 2 * tb * ip + (size_t)ip * (tb + 4) + 2 * ip +
-         round_up(n_par, 4) + NSCAL * (ng * FW_MAX / 32);
+  return (size_t)2 * ip * (ip + 1) + 2 * tb * ip + (size_t)ip * (tb + 4) + (size_t)d * ip +
+         round_up(n_par, 4) + nscal(d) * (ng * FW_MAX / 32);
 }
 
 // The tile's shared memory, carved from `base`; `rest` is the first float
 // past it, for the kernel's own per-chain buffers.
-template <int NG>
+template <int NG, int D>
 struct Tile {
   static constexpr int TB = NG * TC;   // chains per tile
   static constexpr int TBP = TB + 4;   // row stride of the transposed hidden tile
@@ -77,19 +86,19 @@ struct Tile {
     h1s = gw2s + ip * ws;                      // TB x in_pad
     xs = h1s + TB * ip;                        // TB x in_pad: h2, then g_a2
     h1t = xs + TB * ip;                        // in_pad x TBP: h1 transposed
-    hws = h1t + ip * TBP;                      // 2 x in_pad
-    par = hws + 2 * ip;                        // the target's n_par constants
-    sc_s = par + round_up(net.n_par, 4);       // warps x NSCAL
-    rest = sc_s + NSCAL * (NG * FW_MAX / 32);
+    hws = h1t + ip * TBP;                      // D x in_pad
+    par = hws + D * ip;                        // the target's n_par constants
+    sc_s = par + round_up(net.n_par, 4);       // warps x Slots<D>::N
+    rest = sc_s + Slots<D>::N * (NG * FW_MAX / 32);
   }
 };
 
 // A thread's place among the feature threads and the weights it keeps.
-template <int DIN>
+template <int D, int DIN>
 struct FeatThread {
   int g, f;      // group, feature
   bool feat;     // f < in_dim
-  float w1x[DIN > 0 ? DIN : 1], b2f, hw0, hw1;
+  float w1x[DIN > 0 ? DIN : 1], b2f, hw[D];
 
   __device__ FeatThread(const NetArgs& net, int ng) {
     const int fw = blockDim.x / ng;
@@ -98,8 +107,8 @@ struct FeatThread {
     feat = f < net.in_dim;
     if constexpr (DIN > 0) load_w1x<DIN>(net, f, w1x);
     b2f = feat ? net.b2[f] : 0.f;
-    hw0 = feat ? net.headw[f] : 0.f;
-    hw1 = feat ? net.headw[net.in_dim + f] : 0.f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) hw[d] = feat ? net.headw[d * net.in_dim + f] : 0.f;
   }
 };
 
@@ -110,26 +119,26 @@ struct FeatRegs {
 
 // Fills the tile's constants and zeroes its accumulators; every thread of
 // the block calls it, and the block synchronizes before the first use.
-template <int NG>
-__device__ __forceinline__ void tile_init(const Tile<NG>& t, const NetArgs& net) {
+template <int NG, int D>
+__device__ __forceinline__ void tile_init(const Tile<NG, D>& t, const NetArgs& net) {
   const int ip = net.in_pad, in = net.in_dim, tid = threadIdx.x, nthr = blockDim.x;
   load_w2(net, t.w2s, t.ws);
   // gw2s, h1s, xs and h1t follow w2s: zero them all (pad columns stay zero).
   for (int i = tid; i < ip * t.ws + 2 * t.TB * ip + ip * t.TBP; i += nthr) t.gw2s[i] = 0.f;
-  for (int i = tid; i < 2 * ip; i += nthr) {
+  for (int i = tid; i < D * ip; i += nthr) {
     const int d = i / ip, k = i - d * ip;
     t.hws[i] = k < in ? net.headw[d * in + k] : 0.f;
   }
   for (int i = tid; i < net.n_par; i += nthr) t.par[i] = net.tpar[i];
-  for (int i = tid; i < (nthr >> 5) * NSCAL; i += nthr) t.sc_s[i] = 0.f;
+  for (int i = tid; i < (nthr >> 5) * Slots<D>::N; i += nthr) t.sc_s[i] = 0.f;
 }
 
 // The net's two layers at the TB inputs in xc_s (TB x DIN), bridge row idx:
 // h1 into h1s and (transposed) h1t, h2 into xs; the sigmoids and h2 of this
 // thread's feature stay in r. Ends with a barrier.
-template <int NG, int DIN>
-__device__ __forceinline__ void tile_layers(const Tile<NG>& t, const NetArgs& net,
-                                            const FeatThread<DIN>& th, int idx,
+template <int NG, int D, int DIN>
+__device__ __forceinline__ void tile_layers(const Tile<NG, D>& t, const NetArgs& net,
+                                            const FeatThread<D, DIN>& th, int idx,
                                             const float* xc_s, FeatRegs& r) {
   const int ip = net.in_pad, g = th.g, f = th.f;
   float h1v[TC];
@@ -161,18 +170,18 @@ __device__ __forceinline__ void tile_layers(const Tile<NG>& t, const NetArgs& ne
   __syncthreads();
 }
 
-// The net's VJP at the tile's inputs xc_s (TB x DIN) from go_s (TB x DIM),
+// The net's VJP at the tile's inputs xc_s (TB x DIN) from go_s (TB x D),
 // the cotangent of the head's raw output per chain: adds this thread's sums
-// into ft (dheadW x2, db2, dW1[:DIN] xDIN, G1, GH1) and the tile's dW2 into
+// into ft (dheadW xD, db2, dW1[:DIN] xDIN, G1, GH1) and the tile's dW2 into
 // gw2s. With gz_s (warps x TC x DIN) each warp also leaves its share of
 // g_x = g_h1[:DIN] + W1[:DIN] g_a1 for its group's chains there. Every
 // thread of the block calls it after the block has synchronized on go_s;
 // ends with a barrier.
-template <int NG, int DIN>
-__device__ __forceinline__ void tile_vjp(const Tile<NG>& t, const NetArgs& net,
-                                         const FeatThread<DIN>& th, const float* xc_s,
+template <int NG, int D, int DIN>
+__device__ __forceinline__ void tile_vjp(const Tile<NG, D>& t, const NetArgs& net,
+                                         const FeatThread<D, DIN>& th, const float* xc_s,
                                          const float* go_s, const FeatRegs& r,
-                                         float ft[nfeat(DIN)], float* gz_s) {
+                                         float ft[nfeat(D, DIN)], float* gz_s) {
   constexpr int TB = NG * TC;
   const int ip = net.in_pad, in = net.in_dim, g = th.g, f = th.f, ws = t.ws;
   // Head backward and g_a2 = g_h2 * sigmoid(a2); g_a2 replaces h2 in xs.
@@ -181,23 +190,28 @@ __device__ __forceinline__ void tile_vjp(const Tile<NG>& t, const NetArgs& net,
 #pragma unroll
     for (int c = 0; c < TC; ++c) {
       const int cc = g * TC + c;
-      const float go0 = go_s[cc * DIM], go1 = go_s[cc * DIM + 1];
+      const float go0 = go_s[cc * D];
       ft[0] = fmaf(go0, r.h2v[c], ft[0]);
-      ft[1] = fmaf(go1, r.h2v[c], ft[1]);
-      gh2[c] = go0 * th.hw0 + go1 * th.hw1;
+      float gh = go0 * th.hw[0];
+#pragma unroll
+      for (int d = 1; d < D; ++d) {
+        const float god = go_s[cc * D + d];
+        ft[d] = fmaf(god, r.h2v[c], ft[d]);
+        gh = gh + god * th.hw[d];
+      }
+      gh2[c] = gh;
       const float ga2 = gh2[c] * r.sig2[c];
-      ft[2] += ga2;
+      ft[D] += ga2;
       t.xs[cc * ip + f] = ga2;
     }
   }
   __syncthreads();
 
-  float gz[TC][DIN];
+  // g_h1 and g_a1 of this thread's feature for its group's TC chains (zero
+  // for a thread past in_dim).
+  float gh1[TC], ga1[TC];
 #pragma unroll
-  for (int c = 0; c < TC; ++c) {
-#pragma unroll
-    for (int d = 0; d < DIN; ++d) gz[c][d] = 0.f;
-  }
+  for (int c = 0; c < TC; ++c) gh1[c] = ga1[c] = 0.f;
   if (th.feat) {
     // g_h1[c][f] = g_h2[c][f] + sum_k W2[f][k] g_a2[c][k]: row f of W2.
     float acc[TC];
@@ -220,24 +234,21 @@ __device__ __forceinline__ void tile_vjp(const Tile<NG>& t, const NetArgs& net,
 #pragma unroll
     for (int c = 0; c < TC; ++c) {
       const int cc = g * TC + c;
-      const float gh1 = gh2[c] + acc[c];
-      const float ga1 = gh1 * r.sig1[c];
+      gh1[c] = gh2[c] + acc[c];
+      ga1[c] = gh1[c] * r.sig1[c];
 #pragma unroll
-      for (int d = 0; d < DIN; ++d) {
-        ft[3 + d] = fmaf(xc_s[cc * DIN + d], ga1, ft[3 + d]);
-        gz[c][d] = fmaf(ga1, th.w1x[d], f == d ? gh1 : 0.f);
-      }
-      ft[3 + DIN] += ga1;
-      ft[4 + DIN] += gh1;
+      for (int d = 0; d < DIN; ++d) ft[D + 1 + d] = fmaf(xc_s[cc * DIN + d], ga1[c], ft[D + 1 + d]);
+      ft[D + 1 + DIN] += ga1[c];
+      ft[D + 2 + DIN] += gh1[c];
     }
   }
   if (gz_s != nullptr) {  // uniform over the block
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-    for (int c = 0; c < TC; ++c) {
+    for (int d = 0; d < DIN; ++d) {
 #pragma unroll
-      for (int d = 0; d < DIN; ++d) {
-        const float sd = warp_sum(gz[c][d]);
+      for (int c = 0; c < TC; ++c) {
+        const float sd = warp_sum(fmaf(ga1[c], th.w1x[d], f == d ? gh1[c] : 0.f));
         if (lane == 0) gz_s[(warp * TC + c) * DIN + d] = sd;
       }
     }
@@ -283,17 +294,18 @@ __device__ __forceinline__ float tile_gz(const float* gz_s, int chain_in_tile, i
 // into pb (len_b floats): written, or added to what an earlier tile of the
 // same block left there. Zeroes them for the next point. Every thread calls
 // it after a barrier; it ends with one.
-template <int NG, int DIN>
-__device__ __forceinline__ void flush_point(const Tile<NG>& t, const NetArgs& net,
-                                            const FeatThread<DIN>& th, float ft[nfeat(DIN)],
-                                            float* pb, bool add) {
+template <int NG, int D, int DIN>
+__device__ __forceinline__ void flush_point(const Tile<NG, D>& t, const NetArgs& net,
+                                            const FeatThread<D, DIN>& th,
+                                            float ft[nfeat(D, DIN)], float* pb, bool add) {
+  constexpr int NS = Slots<D>::N, BETA = Slots<D>::BETA;
   const int ip = net.in_pad, in = net.in_dim, tid = threadIdx.x, nthr = blockDim.x;
   const int nwarp = nthr >> 5;
   if (th.feat) {
-    t.xs[(th.g * 2) * ip + th.f] = ft[3 + DIN];
-    t.xs[(th.g * 2 + 1) * ip + th.f] = ft[4 + DIN];
+    t.xs[(th.g * 2) * ip + th.f] = ft[D + 1 + DIN];
+    t.xs[(th.g * 2 + 1) * ip + th.f] = ft[D + 2 + DIN];
   }
-  ft[3 + DIN] = ft[4 + DIN] = 0.f;
+  ft[D + 1 + DIN] = ft[D + 2 + DIN] = 0.f;
   __syncthreads();
   for (int i = tid; i < 2 * in; i += nthr) {
     const int q = i / in, c = i - q * in;
@@ -304,8 +316,8 @@ __device__ __forceinline__ void flush_point(const Tile<NG>& t, const NetArgs& ne
   if (tid < 2) {
     float s = 0.f;
     for (int w = 0; w < nwarp; ++w) {
-      s += t.sc_s[w * NSCAL + 8 + tid];
-      t.sc_s[w * NSCAL + 8 + tid] = 0.f;
+      s += t.sc_s[w * NS + BETA + tid];
+      t.sc_s[w * NS + BETA + tid] = 0.f;
     }
     pb[2 * in + tid] = add ? pb[2 * in + tid] + s : s;
   }
@@ -314,34 +326,42 @@ __device__ __forceinline__ void flush_point(const Tile<NG>& t, const NetArgs& ne
 
 // The partials this block sums over all its points into pa (len_a floats):
 // dW2 from shared memory; the per-feature sums across the NG groups and the
-// scalars across the warps, in fixed order. Every thread calls it after a
-// barrier; it ends with one.
-template <int NG, int DIN>
-__device__ __forceinline__ void flush_block(const Tile<NG>& t, const NetArgs& net,
-                                            const FeatThread<DIN>& th,
-                                            const float ft[nfeat(DIN)], float* pa) {
-  constexpr int NQ = 3 + DIN;  // dheadW (2 x in), db2, dW1[:DIN] (DIN x in)
+// scalars across the warps, in fixed order. The per-feature sums pass
+// through xs (TB = NG x TC rows) TC rows a group at a time: at D = 10 there
+// are 21 of them a feature. Every thread calls it after a barrier; it ends
+// with one.
+template <int NG, int D, int DIN>
+__device__ __forceinline__ void flush_block(const Tile<NG, D>& t, const NetArgs& net,
+                                            const FeatThread<D, DIN>& th,
+                                            const float ft[nfeat(D, DIN)], float* pa) {
+  constexpr int NQ = 1 + D + DIN;  // dheadW (D x in), db2, dW1[:DIN] (DIN x in)
+  constexpr int NS = Slots<D>::N, NB = Slots<D>::BLOCK;
   const int ip = net.in_pad, in = net.in_dim, tid = threadIdx.x, nthr = blockDim.x;
   const int nwarp = nthr >> 5;
   for (int i = tid; i < in * in; i += nthr) {
     const int k = i / in, c = i - k * in;
     pa[i] = t.gw2s[k * t.ws + c];
   }
-  if (th.feat) {
 #pragma unroll
-    for (int q = 0; q < NQ; ++q) t.xs[(th.g * NQ + q) * ip + th.f] = ft[q];
+  for (int q0 = 0; q0 < NQ; q0 += TC) {
+    const int nq = NQ - q0 < TC ? NQ - q0 : TC;
+    if (th.feat) {
+#pragma unroll
+      for (int q = q0; q < q0 + nq; ++q) t.xs[(th.g * TC + q - q0) * ip + th.f] = ft[q];
+    }
+    __syncthreads();
+    for (int i = tid; i < nq * in; i += nthr) {
+      const int q = i / in, c = i - q * in;
+      float s = 0.f;
+      for (int gg = 0; gg < NG; ++gg) s += t.xs[(gg * TC + q) * ip + c];
+      pa[in * in + q0 * in + i] = s;
+    }
+    __syncthreads();
   }
-  __syncthreads();
-  for (int i = tid; i < NQ * in; i += nthr) {
-    const int q = i / in, c = i - q * in;
+  if (tid < NB) {
+    const int slot = tid < NB - 1 ? tid : Slots<D>::GAMMA;
     float s = 0.f;
-    for (int gg = 0; gg < NG; ++gg) s += t.xs[(gg * NQ + q) * ip + c];
-    pa[in * in + i] = s;
-  }
-  if (tid < NSC_BLOCK) {
-    const int slot = tid < 8 ? tid : SC_GAMMA;
-    float s = 0.f;
-    for (int w = 0; w < nwarp; ++w) s += t.sc_s[w * NSCAL + slot];
+    for (int w = 0; w < nwarp; ++w) s += t.sc_s[w * NS + slot];
     pa[in * in + NQ * in + tid] = s;
   }
   __syncthreads();
@@ -365,12 +385,12 @@ __global__ void partials_reduce(const float* part_a, const float* part_b, float*
   }
 }
 
-// Launches partials_reduce for part_a (nblocks, la) and part_b (npoints,
-// splits, lb) on `stream`.
+// Launches partials_reduce for part_a (nblocks, len_a) and part_b (npoints,
+// splits, len_b) on `stream`; d, din: the state's and the net input's columns.
 inline cudaError_t launch_reduce(const float* part_a, const float* part_b, float* out_a,
                                  float* out_b, int nblocks, int npoints, int splits,
-                                 int in_dim, cudaStream_t stream, int din = DIM) {
-  const int la = len_a(in_dim, din), lb = len_b(in_dim), total = la + npoints * lb;
+                                 int in_dim, int d, int din, cudaStream_t stream) {
+  const int la = len_a(in_dim, d, din), lb = len_b(in_dim), total = la + npoints * lb;
   partials_reduce<<<(total + 255) / 256, 256, 0, stream>>>(part_a, part_b, out_a, out_b,
                                                            nblocks, la, npoints, splits, lb);
   return cudaGetLastError();

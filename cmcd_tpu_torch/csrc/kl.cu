@@ -2,8 +2,9 @@
 // overdamped log-weight increments from the stored trajectory and noise.
 //
 // Replaces cmcd_tpu/ops/pallas_kl.py::evolve_kl_bwd_pallas (the TPU kernel
-// "B3") on the many_gmm and the 3-mode gmm targets (dim 2, the target a
-// template parameter, cmcd_common.cuh) in three forms:
+// "B3") on the many_gmm and the 3-mode gmm targets (dim 2), Neal's funnel
+// and the standard normal (dim 10), the target a template parameter whose D
+// sizes every per-chain array (cmcd_common.cuh), in three forms:
 //  * kl_reverse_sweep<NG, T, true>, its carry form: one net, in both
 //    kernels, backward net at i + 1 (MCD_CAIS_sn);
 //  * kl_reverse_sweep<NG, T, false>: the net in the backward kernel only, at
@@ -58,8 +59,9 @@
 // point is one score, one Hessian product and the scalar derivatives.
 //
 // What bounds it on the H100. Per point and chain one net apply, W2 g_a2 and
-// the dW2 outer product, 3 x in_dim^2 FMAs (52k at in_dim 132), and the
-// 40-component Hessian product; trajectory and noise are 16 bytes per point:
+// the dW2 outer product, 3 x in_dim^2 FMAs (52k at in_dim 132, 10k at the
+// funnel's 58), and the target's Hessian product; trajectory and noise are
+// 8 D bytes per point:
 // bound by FP32 arithmetic and shared-memory bandwidth, not device memory.
 // But the sweep is sequential along a chain, so only the chains run side by
 // side.
@@ -69,8 +71,10 @@
 //
 // What the design does about it:
 //  * A block owns chain tiles b, b + B, ... and walks each from point K to
-//    point 0 with the carries (F, Z: four floats per chain) in shared
-//    memory. The tile is the VarGrad kernels' (cmcd_tile.cuh): W2 and the
+//    point 0 with the carries (F, Z: 2 D floats per chain) in shared
+//    memory; the per-chain loads are strided over the block's threads (at
+//    D = 10 a 16-chain tile holds 160 floats a vector, more than the 128
+//    threads of two groups at the funnel's in_dim 58). The tile is the VarGrad kernels' (cmcd_tile.cuh): W2 and the
 //    block's dW2 in shared memory, thread (g, f) owns feature f for eight
 //    chains. With fewer 32-chain tiles than SMs it runs NG = 2 groups on
 //    tiles of 16 chains, else NG = 4 on 32.
@@ -96,81 +100,84 @@ namespace {
 using namespace cmcd;
 
 struct KlArgs {
-  const float* traj;        // (K + 1, n, 2)
-  const float* noise;       // (K, n, 2)
+  const float* traj;        // (K + 1, n, D)
+  const float* noise;       // (K, n, D)
   const float* cot;         // (n,)
-  const float* g_zfinal;    // (n, 2)
+  const float* g_zfinal;    // (n, D)
   const float* betas;       // (K,)
   const float* scal;        // [eps0, factor_sn]
   NetArgs net;
-  const float* vd_mean;     // (2,)
-  const float* vd_logdiag;  // (2,)
+  const float* vd_mean;     // (D,)
+  const float* vd_logdiag;  // (D,)
   float* part_a;            // (blocks, len_a)
   float* part_b;            // (K + 1, blocks, len_b)
-  float* g_z0;              // (n, 2)
+  float* g_z0;              // (n, D)
   int n, nbridges, eps_schedule;
   float clip_t, clip_q;
 };
 
-// Shared memory of one block of NG groups: the tile; per chain z_p, z_{p-1},
-// xi_{p-1}, g_out, the state cotangent so far, the carries F and Z, the
-// cotangent c; and the warps' shares of the net's input VJP.
-__host__ inline size_t smem_bytes(int ng, int in_dim, int n_par) {
+// Shared memory of one block of NG groups at state dimension d: the tile;
+// per chain z_p, z_{p-1}, xi_{p-1}, g_out, the state cotangent so far, the
+// carries F and Z (d-vectors), the cotangent c; and the warps' shares of
+// the net's input VJP.
+__host__ inline size_t smem_bytes(int ng, int in_dim, int n_par, int d) {
   const int tb = ng * TC;
-  return (tile_floats(ng, in_dim, n_par) + 7 * tb * DIM + tb +
-          (ng * FW_MAX / 32) * TC * DIM) * sizeof(float);
+  return (tile_floats(ng, in_dim, n_par, d) + 7 * tb * d + tb +
+          (ng * FW_MAX / 32) * TC * d) * sizeof(float);
 }
 
 // What one block holds (NG = 4, the larger of the two forms).
-__host__ inline bool fits(int in_dim, int n_par) {
+__host__ inline bool fits(int in_dim, int n_par, int d) {
   return in_dim >= 1 && round_up(in_dim, 32) <= FW_MAX && n_par >= 1 && n_par <= MAX_PAR &&
-         smem_bytes(4, in_dim, n_par) <= MAX_SMEM;
+         smem_bytes(4, in_dim, n_par, d) <= MAX_SMEM;
 }
 
 // CAIS: the net in both kernels at (z_p, min(p, K - 1)); else (ULA_sn) in the
 // backward kernel only, at (z_p, p - 1).
 template <int NG, class T, bool CAIS>
 __global__ void __launch_bounds__(NG* FW_MAX) kl_reverse_sweep(const KlArgs a) {
-  constexpr int TB = NG * TC;
+  constexpr int TB = NG * TC, D = T::D;
+  using S = Slots<D>;
   extern __shared__ float4 smem4[];
   const NetArgs& net = a.net;
   const int ip = net.in_pad, in = net.in_dim, K = a.nbridges, sched = a.eps_schedule;
-  const Tile<NG> t(reinterpret_cast<float*>(smem4), net);
+  const Tile<NG, D> t(reinterpret_cast<float*>(smem4), net);
   const T target(t.par, net.n_par, net.inv_var_t);
-  float* zc_s = t.rest;            // TB x 2: z_p
-  float* zp_s = zc_s + TB * DIM;   // TB x 2: z_{p-1}
-  float* xi_s = zp_s + TB * DIM;   // TB x 2: xi_{p-1}
-  float* go_s = xi_s + TB * DIM;   // TB x 2: g_out
-  float* tz_s = go_s + TB * DIM;   // TB x 2: T without the net's share
-  float* fc_s = tz_s + TB * DIM;   // TB x 2: carry F
-  float* zd_s = fc_s + TB * DIM;   // TB x 2: carry Z (holds -B inside a point)
-  float* cot_s = zd_s + TB * DIM;  // TB
-  float* gz_s = cot_s + TB;        // warps x TC x 2
+  float* zc_s = t.rest;            // TB x D: z_p
+  float* zp_s = zc_s + TB * D;     // TB x D: z_{p-1}
+  float* xi_s = zp_s + TB * D;     // TB x D: xi_{p-1}
+  float* go_s = xi_s + TB * D;     // TB x D: g_out
+  float* tz_s = go_s + TB * D;     // TB x D: T without the net's share
+  float* fc_s = tz_s + TB * D;     // TB x D: carry F
+  float* zd_s = fc_s + TB * D;     // TB x D: carry Z (holds -B inside a point)
+  float* cot_s = zd_s + TB * D;    // TB
+  float* gz_s = cot_s + TB;        // warps x TC x D
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarp = blockDim.x >> 5;
-  const FeatThread<DIM> th(net, NG);
+  const int nthr = blockDim.x;
+  const FeatThread<D, D> th(net, NG);
   const float eps0 = a.scal[0], factor = a.scal[1];
-  float vm[DIM], viv[DIM], hb[DIM];
+  float vm[D], viv[D], hb[D];
 #pragma unroll
-  for (int d = 0; d < DIM; ++d) {
+  for (int d = 0; d < D; ++d) {
     vm[d] = a.vd_mean[d];
     viv[d] = expf(-2.0f * a.vd_logdiag[d]);
     hb[d] = net.headb[d];
   }
   tile_init(t, net);
-  float ft[NFEAT];
+  float ft[nfeat(D, D)];
 #pragma unroll
-  for (int q = 0; q < NFEAT; ++q) ft[q] = 0.f;
-  float* sc = t.sc_s + warp * NSCAL;
+  for (int q = 0; q < nfeat(D, D); ++q) ft[q] = 0.f;
+  float* sc = t.sc_s + warp * S::N;
   __syncthreads();
 
   const int ntiles = (a.n + TB - 1) / TB;
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const int base = tile * TB;
-    if (tid < TB * DIM) {
-      const bool live = base + tid / DIM < a.n;
-      zd_s[tid] = live ? a.g_zfinal[(size_t)base * DIM + tid] : 0.f;
-      fc_s[tid] = 0.f;
+    for (int i = tid; i < TB * D; i += nthr) {
+      const bool live = base + i / D < a.n;
+      zd_s[i] = live ? a.g_zfinal[(size_t)base * D + i] : 0.f;
+      fc_s[i] = 0.f;
     }
     if (tid < TB) cot_s[tid] = base + tid < a.n ? a.cot[base + tid] : 0.f;
 
@@ -183,12 +190,12 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_reverse_sweep(const KlArgs a) {
       const float s_f = eps_slope(p, K, sched), s_b = eps_slope(p - 1, K, sched);
       const float b_f = m_fk ? a.betas[p] : 0.f;
       const float b_b = m_bk ? a.betas[p - 1] : 0.f;
-      if (tid < TB * DIM) {
-        const bool live = base + tid / DIM < a.n;
-        const size_t at = (size_t)base * DIM + tid, row = (size_t)a.n * DIM;
-        zc_s[tid] = live ? a.traj[p * row + at] : 0.f;
-        zp_s[tid] = live && m_bk ? a.traj[(p - 1) * row + at] : 0.f;
-        xi_s[tid] = live && m_bk ? a.noise[(p - 1) * row + at] : 0.f;
+      for (int i = tid; i < TB * D; i += nthr) {
+        const bool live = base + i / D < a.n;
+        const size_t at = (size_t)base * D + i, row = (size_t)a.n * D;
+        zc_s[i] = live ? a.traj[p * row + at] : 0.f;
+        zp_s[i] = live && m_bk ? a.traj[(p - 1) * row + at] : 0.f;
+        xi_s[i] = live && m_bk ? a.noise[(p - 1) * row + at] : 0.f;
       }
       __syncthreads();
 
@@ -200,16 +207,18 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_reverse_sweep(const KlArgs a) {
       // Head, score, Hessian product and the scalar derivatives: one warp
       // per chain, every lane the same scalars, lane 0 keeps the sums.
       for (int c = warp; c < TB; c += nwarp) {
-        float out[DIM] = {0.f, 0.f}, gt[DIM], g_gt[DIM], hv[DIM], bk[DIM], g_gq[DIM];
+        float out[D], gt[D], g_gt[D], hv[D], bk[D], g_gq[D];
+#pragma unroll
+        for (int d = 0; d < D; ++d) out[d] = 0.f;
         typename T::Lanes sl;
-        if (net_on) head_raw(net, t.xs + c * ip, t.hws, out);
-        target.score(zc_s + c * DIM, gt, &sl);
+        if (net_on) head_raw<D>(net, t.xs + c * ip, t.hws, out);
+        target.score(zc_s + c * D, gt, &sl);
         const float cn = cot_s[c];
         float ge_f = 0.f, ge_b = 0.f, gb_f = 0.f, gb_b = 0.f, r2 = 0.f;
-        float g_factor = 0.f, g_sn[DIM], g_mu[DIM], g_ld[DIM];
+        float g_factor = 0.f, g_sn[D], g_mu[D], g_ld[D];
 #pragma unroll
-        for (int d = 0; d < DIM; ++d) {
-          const float z = zc_s[c * DIM + d];
+        for (int d = 0; d < D; ++d) {
+          const float z = zc_s[c * D + d];
           const float o = out[d] + hb[d], sn = o * factor;
           const float gq = -(z - vm[d]) * viv[d];
           const float gtc = clip_f(gt[d], a.clip_t), gqc = clip_f(gq, a.clip_q);
@@ -217,7 +226,7 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_reverse_sweep(const KlArgs a) {
           float ggt = 0.f, gsn = 0.f, ggq = 0.f;
           bk[d] = 0.f;
           if (m_fk) {
-            const float f = fc_s[c * DIM + d], ef = e_f * f;
+            const float f = fc_s[c * D + d], ef = e_f * f;
             ge_f += f * ((b_f * gtc + (1.0f - b_f) * gqc) - (CAIS ? sn : 0.f));
             gb_f += ef * diff;
             ggt += b_f * ef;
@@ -226,7 +235,7 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_reverse_sweep(const KlArgs a) {
           }
           if (m_bk) {
             const float drift = b_b * gtc + (1.0f - b_b) * gqc;
-            const float rb = zp_s[c * DIM + d] - ((z + e_b * drift) + e_b * sn);
+            const float rb = zp_s[c * D + d] - ((z + e_b * drift) + e_b * sn);
             const float gd = 0.5f * cn * rb;  // e' B
             bk[d] = gd / e_b;
             ge_b += bk[d] * (drift + sn);
@@ -249,18 +258,18 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_reverse_sweep(const KlArgs a) {
             const float is2 = 1.0f / (2.0f * e_b);
             ge_b += cn * r2 * is2 * is2;
           }
-          sc[0] += s_f * ge_f + s_b * ge_b;
-          sc[5] += g_factor;
-          sc[8] += gb_f;
-          sc[9] += gb_b;
+          sc[S::EPS] += s_f * ge_f + s_b * ge_b;
+          sc[S::FACTOR] += g_factor;
+          sc[S::BETA] += gb_f;
+          sc[S::BETA + 1] += gb_b;
 #pragma unroll
-          for (int d = 0; d < DIM; ++d) {
-            sc[1 + d] += g_mu[d];
-            sc[3 + d] += g_ld[d];
-            sc[6 + d] += g_sn[d] * factor;
-            go_s[c * DIM + d] = g_sn[d] * factor;
-            tz_s[c * DIM + d] = ((zd_s[c * DIM + d] + bk[d]) - viv[d] * g_gq[d]) + hv[d];
-            zd_s[c * DIM + d] = -bk[d];
+          for (int d = 0; d < D; ++d) {
+            sc[S::MEAN + d] += g_mu[d];
+            sc[S::LOGDIAG + d] += g_ld[d];
+            sc[S::HEADB + d] += g_sn[d] * factor;
+            go_s[c * D + d] = g_sn[d] * factor;
+            tz_s[c * D + d] = ((zd_s[c * D + d] + bk[d]) - viv[d] * g_gq[d]) + hv[d];
+            zd_s[c * D + d] = -bk[d];
           }
         }
       }
@@ -274,20 +283,20 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_reverse_sweep(const KlArgs a) {
         float ge = 0.f;
         if (lane < TB) {
 #pragma unroll
-          for (int d = 0; d < DIM; ++d) {
+          for (int d = 0; d < D; ++d) {
             const float tot =
-                tz_s[lane * DIM + d] + (net_on ? tile_gz<NG, DIM>(gz_s, lane, d) : 0.f);
+                tz_s[lane * D + d] + (net_on ? tile_gz<NG, D>(gz_s, lane, d) : 0.f);
             if (m_bk) {
-              ge = fmaf(tot, xi_s[lane * DIM + d], ge);
-              fc_s[lane * DIM + d] = tot;
-              zd_s[lane * DIM + d] += tot;
+              ge = fmaf(tot, xi_s[lane * D + d], ge);
+              fc_s[lane * D + d] = tot;
+              zd_s[lane * D + d] += tot;
             } else if (base + lane < a.n) {
-              a.g_z0[(size_t)(base + lane) * DIM + d] = tot;
+              a.g_z0[(size_t)(base + lane) * D + d] = tot;
             }
           }
         }
         ge = warp_sum(ge);
-        if (lane == 0 && m_bk) sc[0] += s_b * ge * (1.0f / sqrtf(2.0f * e_b));
+        if (lane == 0 && m_bk) sc[S::EPS] += s_b * ge * (1.0f / sqrtf(2.0f * e_b));
       }
       flush_point(t, net, th, ft,
                   a.part_b + ((size_t)p * gridDim.x + blockIdx.x) * len_b(in),
@@ -295,12 +304,12 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_reverse_sweep(const KlArgs a) {
     }
   }
 
-  flush_block(t, net, th, ft, a.part_a + (size_t)blockIdx.x * len_a(in));
+  flush_block(t, net, th, ft, a.part_a + (size_t)blockIdx.x * len_a(in, D, D));
 }
 
 template <int NG, class T, bool CAIS>
 cudaError_t launch_sweep(const KlArgs& a, int blocks, cudaStream_t stream) {
-  const size_t smem = smem_bytes(NG, a.net.in_dim, a.net.n_par);
+  const size_t smem = smem_bytes(NG, a.net.in_dim, a.net.n_par, T::D);
   cudaError_t err = cudaFuncSetAttribute(kl_reverse_sweep<NG, T, CAIS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -319,15 +328,16 @@ cudaError_t launch_tiles(const KlArgs& a, int blocks, int groups, bool cais, cud
 }
 
 // The net-free sweep (ULA).
-constexpr int ULA_CPB = 8;                                  // chains (warps) per block
-__host__ __device__ constexpr int ula_len_sums() { return 1 + 2 * DIM; }  // eps, vd mean, logdiag
+constexpr int ULA_CPB = 8;  // chains (warps) per block
+// Floats of a block's sums at state dimension d: eps, vd mean, vd logdiag.
+__host__ __device__ constexpr int ula_len_sums(int d) { return 1 + 2 * d; }
 
 // One warp per chain, every lane the carries F, Z and the chain's sums;
 // point p's betas share (step p's forward role plus step p's backward role,
 // met at point p + 1) leaves the block once a point.
 template <class T>
 __global__ void __launch_bounds__(ULA_CPB * 32) kl_ula_sweep(const KlArgs a) {
-  constexpr int LA = ula_len_sums();
+  constexpr int D = T::D, LA = ula_len_sums(D);
   __shared__ float par_s[MAX_PAR];
   __shared__ float beta_s[2][ULA_CPB];
   __shared__ float sums_s[ULA_CPB][LA];
@@ -341,12 +351,12 @@ __global__ void __launch_bounds__(ULA_CPB * 32) kl_ula_sweep(const KlArgs a) {
   const T target(par_s, a.net.n_par, a.net.inv_var_t);
   const int K = a.nbridges, sched = a.eps_schedule;
   const float eps0 = a.scal[0];
-  const size_t row = (size_t)a.n * DIM, at = (size_t)chain * DIM;
+  const size_t row = (size_t)a.n * D, at = (size_t)chain * D;
   const float cn = live ? a.cot[chain] : 0.f;
 
-  float vm[DIM], viv[DIM], fc[DIM], zd[DIM], g_mu[DIM], g_ld[DIM];
+  float vm[D], viv[D], fc[D], zd[D], g_mu[D], g_ld[D];
 #pragma unroll
-  for (int d = 0; d < DIM; ++d) {
+  for (int d = 0; d < D; ++d) {
     vm[d] = a.vd_mean[d];
     viv[d] = expf(-2.0f * a.vd_logdiag[d]);
     fc[d] = 0.f;
@@ -362,9 +372,9 @@ __global__ void __launch_bounds__(ULA_CPB * 32) kl_ula_sweep(const KlArgs a) {
     const float s_f = eps_slope(p, K, sched), s_b = eps_slope(p - 1, K, sched);
     const float b_f = m_fk ? a.betas[p] : 0.f;
     const float b_b = m_bk ? a.betas[p - 1] : 0.f;
-    float z[DIM], zp[DIM], xi[DIM], gt[DIM], g_gt[DIM], g_gq[DIM], bk[DIM], hv[DIM];
+    float z[D], zp[D], xi[D], gt[D], g_gt[D], g_gq[D], bk[D], hv[D];
 #pragma unroll
-    for (int d = 0; d < DIM; ++d) {
+    for (int d = 0; d < D; ++d) {
       z[d] = live ? a.traj[p * row + at + d] : 0.f;
       zp[d] = live && m_bk ? a.traj[(p - 1) * row + at + d] : 0.f;
       xi[d] = live && m_bk ? a.noise[(p - 1) * row + at + d] : 0.f;
@@ -373,7 +383,7 @@ __global__ void __launch_bounds__(ULA_CPB * 32) kl_ula_sweep(const KlArgs a) {
     target.score(z, gt, &sl);
     float ge_f = 0.f, ge_b = 0.f, gb_f = 0.f, gb_b = 0.f, r2 = 0.f;
 #pragma unroll
-    for (int d = 0; d < DIM; ++d) {
+    for (int d = 0; d < D; ++d) {
       const float gq = -(z[d] - vm[d]) * viv[d];
       const float gtc = clip_f(gt[d], a.clip_t), gqc = clip_f(gq, a.clip_q);
       const float diff = gtc - gqc;
@@ -409,7 +419,7 @@ __global__ void __launch_bounds__(ULA_CPB * 32) kl_ula_sweep(const KlArgs a) {
     }
     float ge_xi = 0.f;
 #pragma unroll
-    for (int d = 0; d < DIM; ++d) {
+    for (int d = 0; d < D; ++d) {
       const float tot = ((zd[d] + bk[d]) - viv[d] * g_gq[d]) + hv[d];
       if (m_bk) {
         ge_xi = fmaf(tot, xi[d], ge_xi);
@@ -435,9 +445,9 @@ __global__ void __launch_bounds__(ULA_CPB * 32) kl_ula_sweep(const KlArgs a) {
     float* out = sums_s[warp];
     out[0] = live ? g_eps : 0.f;
 #pragma unroll
-    for (int d = 0; d < DIM; ++d) {
+    for (int d = 0; d < D; ++d) {
       out[1 + d] = live ? g_mu[d] : 0.f;
-      out[1 + DIM + d] = live ? g_ld[d] : 0.f;
+      out[1 + D + d] = live ? g_ld[d] : 0.f;
     }
   }
   __syncthreads();
@@ -457,9 +467,10 @@ extern "C" {
 // `blocks` blocks of `groups` (2 or 4) groups of feature threads, blocks <=
 // the number of chain tiles of 8 x groups chains. cais: 1 the carry form
 // (MCD_CAIS_sn), 0 the backward net at i (MCD_ULA_sn). target as in
-// cmcd_overdamped_rollout (overdamped.cu). part_a: (blocks, len_a) and
-// part_b: (points, blocks, len_b) are scratch; out_a: (len_a,), out_b:
-// (points, len_b) and g_z0: (n, 2) receive the results. Returns a cudaError_t.
+// cmcd_overdamped_rollout (overdamped.cu), D its dimension. part_a: (blocks,
+// len_a) and part_b: (points, blocks, len_b) are scratch; out_a: (len_a,),
+// out_b: (points, len_b) and g_z0: (n, D) receive the results. Returns a
+// cudaError_t.
 int cmcd_kl_reverse_sweep(const float* traj, const float* noise, const float* cot,
                           const float* g_zfinal, const float* betas, const float* scal,
                           const float* w1z, const float* c1, const float* emb, const float* w2,
@@ -472,24 +483,27 @@ int cmcd_kl_reverse_sweep(const float* traj, const float* noise, const float* co
   if (n <= 0 || nbridges <= 0 || (groups != 2 && groups != 4)) return (int)cudaErrorInvalidValue;
   if (blocks <= 0 || blocks > (n + groups * TC - 1) / (groups * TC))
     return (int)cudaErrorInvalidValue;
-  if (in_dim != DIM + emb_dim || !fits(in_dim, n_par) || !target_ok(target, n_par))
-    return (int)cudaErrorInvalidValue;
+  if (!target_ok(target, n_par)) return (int)cudaErrorInvalidValue;
+  const int d = target_dim(target);
+  if (in_dim != d + emb_dim || !fits(in_dim, n_par, d)) return (int)cudaErrorInvalidValue;
   const NetArgs net{w1z, c1, emb, w2, b2, headw, headb, tpar,
                     in_dim, round_up(in_dim, 4), emb_dim, n_par, inv_var_t};
   const KlArgs a{traj, noise, cot, g_zfinal, betas, scal, net, vd_mean, vd_logdiag,
                  part_a, part_b, g_z0, n, nbridges, eps_schedule, clip_t, clip_q};
   const cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t err = target == 0 ? launch_tiles<ManyGmmTarget>(a, blocks, groups, cais, s)
-                                      : launch_tiles<Gmm3Target>(a, blocks, groups, cais, s);
+  const cudaError_t err = dispatch_target(target, [&](auto tag) {
+    return launch_tiles<typename decltype(tag)::type>(a, blocks, groups, cais != 0, s);
+  });
   if (err != cudaSuccess) return (int)err;
   return (int)launch_reduce(part_a, part_b, out_a, out_b, blocks, nbridges + 1, blocks, in_dim,
-                            s);
+                            d, d, s);
 }
 
 // Launches the net-free sweep (MCD_ULA) and its reduction on `stream`, one
-// block per 8 chains. part_a: (blocks, ula_len_sums) and part_b: (K, blocks)
-// are scratch; out_a: (ula_len_sums,) receives eps, vd mean (2), vd logdiag
-// (2); out_b: (K,) betas; g_z0: (n, 2). Returns a cudaError_t.
+// block per 8 chains; D the target's dimension. part_a: (blocks,
+// ula_len_sums(D)) and part_b: (K, blocks) are scratch; out_a:
+// (ula_len_sums(D),) receives eps, vd mean (D), vd logdiag (D); out_b: (K,)
+// betas; g_z0: (n, D). Returns a cudaError_t.
 int cmcd_kl_ula_sweep(const float* traj, const float* noise, const float* cot,
                       const float* g_zfinal, const float* betas, const float* scal,
                       const float* tpar, const float* vd_mean, const float* vd_logdiag,
@@ -503,14 +517,12 @@ int cmcd_kl_ula_sweep(const float* traj, const float* noise, const float* cot,
                  part_a, part_b, g_z0, n, nbridges, eps_schedule, clip_t, clip_q};
   const int blocks = (n + ULA_CPB - 1) / ULA_CPB;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (target == 0) {
-    kl_ula_sweep<ManyGmmTarget><<<blocks, ULA_CPB * 32, 0, s>>>(a);
-  } else {
-    kl_ula_sweep<Gmm3Target><<<blocks, ULA_CPB * 32, 0, s>>>(a);
-  }
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = dispatch_target(target, [&](auto tag) {
+    kl_ula_sweep<typename decltype(tag)::type><<<blocks, ULA_CPB * 32, 0, s>>>(a);
+    return cudaGetLastError();
+  });
   if (err != cudaSuccess) return (int)err;
-  const int la = ula_len_sums(), total = la + nbridges;
+  const int la = ula_len_sums(target_dim(target)), total = la + nbridges;
   partials_reduce<<<(total + 255) / 256, 256, 0, s>>>(part_a, part_b, out_a, out_b, blocks, la,
                                                       nbridges, blocks, 1);
   return (int)cudaGetLastError();
@@ -520,20 +532,20 @@ const char* cmcd_error_string(int code) { return cudaGetErrorString((cudaError_t
 
 int cmcd_kl_chains_per_group() { return TC; }
 
-// The launch's own limits and buffer lengths, for the wrapper to check its
-// copy against.
-int cmcd_kl_fits(int in_dim, int n_par) { return fits(in_dim, n_par) ? 1 : 0; }
+// The launch's own limits and buffer lengths at state dimension d, for the
+// wrapper to check its copy against.
+int cmcd_kl_fits(int in_dim, int n_par, int d) { return fits(in_dim, n_par, d) ? 1 : 0; }
 
-long long cmcd_kl_smem_bytes(int groups, int in_dim, int n_par) {
-  return (long long)smem_bytes(groups, in_dim, n_par);
+long long cmcd_kl_smem_bytes(int groups, int in_dim, int n_par, int d) {
+  return (long long)smem_bytes(groups, in_dim, n_par, d);
 }
 
-int cmcd_kl_len_a(int in_dim) { return len_a(in_dim); }
+int cmcd_kl_len_a(int in_dim, int d) { return len_a(in_dim, d, d); }
 
 int cmcd_kl_len_b(int in_dim) { return len_b(in_dim); }
 
 int cmcd_kl_ula_chains_per_block() { return ULA_CPB; }
 
-int cmcd_kl_ula_len_sums() { return ula_len_sums(); }
+int cmcd_kl_ula_len_sums(int d) { return ula_len_sums(d); }
 
 }  // extern "C"

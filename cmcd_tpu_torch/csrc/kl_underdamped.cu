@@ -77,7 +77,9 @@ namespace {
 
 using namespace cmcd;
 
+constexpr int DIM = ManyGmmTarget::D;  // the underdamped kernels take many_gmm only (2-D)
 constexpr int XIN = 4;  // floats of a chain's net input buffer: [z, rho']
+using S = Slots<DIM>;
 
 struct UdKlArgs {
   const float* ztraj;       // (K + 1, n, 2)
@@ -101,7 +103,7 @@ struct UdKlArgs {
 // and the cotangent c; and the warps' shares of the net's input VJP.
 __host__ inline size_t smem_bytes(int ng, int in_dim, int n_par) {
   const int tb = ng * TC;
-  return (tile_floats(ng, in_dim, n_par) + (8 * DIM + XIN + 1) * tb +
+  return (tile_floats(ng, in_dim, n_par, DIM) + (8 * DIM + XIN + 1) * tb +
           (ng * FW_MAX / 32) * TC * XIN) * sizeof(float);
 }
 
@@ -117,7 +119,7 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_ud_sweep(const UdKlArgs a) {
   extern __shared__ float4 smem4[];
   const NetArgs& net = a.net;
   const int ip = net.in_pad, in = net.in_dim, K = a.nbridges;
-  const Tile<NG> t(reinterpret_cast<float*>(smem4), net);
+  const Tile<NG, DIM> t(reinterpret_cast<float*>(smem4), net);
   const ManyGmmTarget target(t.par, net.n_par, net.inv_var_t);
   float* zc_s = t.rest;             // TB x 2: z_p
   float* rc_s = zc_s + TB * DIM;    // TB x 2: rho_p
@@ -132,7 +134,7 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_ud_sweep(const UdKlArgs a) {
   float* gx_s = cot_s + TB;         // warps x TC x DIN
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarp = blockDim.x >> 5;
-  const FeatThread<DIN> th(net, NG);
+  const FeatThread<DIM, DIN> th(net, NG);
   const float e = a.scal[0], factor = a.scal[1], gamma = a.scal[2];
   const float aux = gamma * e, s = sqrtf(2.0f * aux), cf = 1.0f - aux;
   float vm[DIM], viv[DIM], hb[DIM];
@@ -143,10 +145,10 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_ud_sweep(const UdKlArgs a) {
     hb[d] = DIN > 0 ? net.headb[d] : 0.f;
   }
   tile_init(t, net);
-  float ft[nfeat(DIN)];
+  float ft[nfeat(DIM, DIN)];
 #pragma unroll
-  for (int q = 0; q < nfeat(DIN); ++q) ft[q] = 0.f;
-  float* sc = t.sc_s + warp * NSCAL;
+  for (int q = 0; q < nfeat(DIM, DIN); ++q) ft[q] = 0.f;
+  float* sc = t.sc_s + warp * S::N;
   __syncthreads();
 
   const int ntiles = (a.n + TB - 1) / TB;
@@ -189,7 +191,7 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_ud_sweep(const UdKlArgs a) {
       if (m_f) {
         for (int c = warp; c < TB; c += nwarp) {
           float out[DIM] = {0.f, 0.f};
-          if constexpr (DIN > 0) head_raw(net, t.xs + c * ip, t.hws, out);
+          if constexpr (DIN > 0) head_raw<DIM>(net, t.xs + c * ip, t.hws, out);
           const float cn = cot_s[c];
           float ga = 0.f, gs = 0.f, g_factor = 0.f, go[DIM], gb[DIM];
 #pragma unroll
@@ -208,12 +210,12 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_ud_sweep(const UdKlArgs a) {
           }
           if (lane == 0) {
             const float gat = ga + gs / (s * s);  // g_a with s's share: g_s / s
-            sc[0] += gamma * gat;
-            sc[SC_GAMMA] += e * gat;
-            if constexpr (DIN > 0) sc[5] += g_factor;
+            sc[S::EPS] += gamma * gat;
+            sc[S::GAMMA] += e * gat;
+            if constexpr (DIN > 0) sc[S::FACTOR] += g_factor;
 #pragma unroll
             for (int d = 0; d < DIM; ++d) {
-              if constexpr (DIN > 0) sc[6 + d] += go[d];
+              if constexpr (DIN > 0) sc[S::HEADB + d] += go[d];
               go_s[c * DIM + d] = go[d];
               gb_s[c * DIM + d] = gb[d];
             }
@@ -273,14 +275,14 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_ud_sweep(const UdKlArgs a) {
         }
         if (lane == 0) {
           const float gat = ga + gs / s;
-          sc[0] += ge + gamma * gat;
-          sc[SC_GAMMA] += e * gat;
-          sc[8] += gbf;
-          sc[9] += gbb;
+          sc[S::EPS] += ge + gamma * gat;
+          sc[S::GAMMA] += e * gat;
+          sc[S::BETA] += gbf;
+          sc[S::BETA + 1] += gbb;
 #pragma unroll
           for (int d = 0; d < DIM; ++d) {
-            sc[1 + d] += g_gq[d] * viv[d];
-            sc[3 + d] += g_gq[d] * (-2.0f * gq[d]);
+            sc[S::MEAN + d] += g_gq[d] * viv[d];
+            sc[S::LOGDIAG + d] += g_gq[d] * (-2.0f * gq[d]);
             if (m_b) {
               gz_c[c * DIM + d] = tot[d];
               gr_c[c * DIM + d] = grho[d] + e * tot[d];
@@ -297,7 +299,7 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_ud_sweep(const UdKlArgs a) {
     }
   }
 
-  flush_block(t, net, th, ft, a.part_a + (size_t)blockIdx.x * len_a(in, DIN));
+  flush_block(t, net, th, ft, a.part_a + (size_t)blockIdx.x * len_a(in, DIM, DIN));
 }
 
 template <int NG, int DIN>
@@ -351,8 +353,8 @@ int cmcd_kl_ud_sweep(const float* ztraj, const float* rtraj, const float* noise,
   const cudaError_t err = groups == 2 ? launch_groups<2>(a, din, blocks, s)
                                       : launch_groups<4>(a, din, blocks, s);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_reduce(part_a, part_b, out_a, out_b, blocks, nbridges + 1, blocks, in_dim, s,
-                            din);
+  return (int)launch_reduce(part_a, part_b, out_a, out_b, blocks, nbridges + 1, blocks, in_dim,
+                            DIM, din, s);
 }
 
 const char* cmcd_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
@@ -367,6 +369,6 @@ long long cmcd_kl_ud_smem_bytes(int groups, int in_dim, int n_par) {
   return (long long)smem_bytes(groups, in_dim, n_par);
 }
 
-int cmcd_kl_ud_len_a(int in_dim, int din) { return len_a(in_dim, din); }
+int cmcd_kl_ud_len_a(int in_dim, int din) { return len_a(in_dim, DIM, din); }
 
 }  // extern "C"

@@ -2,8 +2,9 @@
 // ULA_sn and plain ULA.
 //
 // Replaces cmcd_tpu/ops/pallas_overdamped.py::evolve_overdamped_pallas (the
-// TPU kernel "B1") on the many_gmm and the 3-mode gmm targets (dim 2, the
-// target a template parameter, cmcd_common.cuh) in three forms:
+// TPU kernel "B1") on the many_gmm and the 3-mode gmm targets (dim 2), Neal's
+// funnel and the standard normal (dim 10), the target a template parameter
+// whose D sizes every per-chain array (cmcd_common.cuh), in three forms:
 //  * overdamped_rollout<T, true, 1>: the net in both kernels, the backward
 //    net at i + 1 (CAIS, CAIS_VAR; the clip constants are the spec's);
 //  * overdamped_rollout<T, false, 0>: the net in the backward kernel only, at
@@ -60,15 +61,19 @@
 //    kernel, as underdamped.cu runs its net-free specs, would pay the tile's
 //    block barriers and shared exchange every step for nothing.)
 //  * Noise is a counter-based Philox4x32-10 keyed by (seed) with counter
-//    (chain, step, 0, 0), so a later kernel can regenerate any step's draw;
-//    Box-Muller turns two words into the two normals of a step. An injected
-//    (K, N, 2) noise array replaces it for exact comparisons. All forms use
-//    the same counter: one seed gives every form the same draws.
+//    (chain, step, q, 0), so a later kernel can regenerate any step's draw;
+//    Box-Muller turns two words into dimensions 2q and 2q + 1 of a step's
+//    draw (philox_normals). An injected (K, N, D) noise array replaces it for
+//    exact comparisons. All forms use the same counter: one seed gives every
+//    form the same draws.
 //  * Training needs the path, not only its end: with a trajectory pointer
-//    the kernel also stores z_0..z_K as (K + 1, N, 2), 8 bytes per
+//    the kernel also stores z_0..z_K as (K + 1, N, D), 4 D bytes per
 //    chain-step, for the VarGrad replay backward (vargrad.cu) to read; with
-//    a noise pointer also the Philox draws xi_0..xi_{K-1} as (K, N, 2), which
+//    a noise pointer also the Philox draws xi_0..xi_{K-1} as (K, N, D), which
 //    the KL reverse sweeps (kl.cu) read beside the path.
+//  * The state's D (2 for the mixtures, 10 for the funnel) is the target's,
+//    a compile-time constant: an owner thread walks its chain's D-vectors in
+//    registers and the block exchanges TC x D floats through shared memory.
 //  * f32 throughout, no tensor cores: wgmma, TMA and bf16 are later work.
 
 #include "cmcd_common.cuh"
@@ -81,54 +86,53 @@ constexpr int MAX_THREADS = 256;
 constexpr int ULA_CPB = 8;  // chains (warps) per block of ula_rollout
 
 struct RolloutArgs {
-  const float* z0;          // (n, 2)
+  const float* z0;          // (n, D)
   const float* w0;          // (n,)
   const float* betas;       // (K,)
-  const float* noise;       // (K, n, 2) or nullptr: in-kernel Philox
+  const float* noise;       // (K, n, D) or nullptr: in-kernel Philox
   const float* scal;        // [eps0, factor_sn]
   const long long* seed;    // one int64
   NetArgs net;              // net pointers null for ULA
-  const float* vd_mean;     // (2,)
-  const float* vd_inv_var;  // (2,): exp(-2 logdiag)
-  float* z_out;             // (n, 2)
+  const float* vd_mean;     // (D,)
+  const float* vd_inv_var;  // (D,): exp(-2 logdiag)
+  float* z_out;             // (n, D)
   float* w_out;             // (n,)
-  float* traj;              // (K + 1, n, 2) or nullptr: z_0..z_K
-  float* noise_out;         // (K, n, 2) or nullptr: the Philox draws as used
+  float* traj;              // (K + 1, n, D) or nullptr: z_0..z_K
+  float* noise_out;         // (K, n, D) or nullptr: the Philox draws as used
   int n, nbridges, eps_schedule;
   float clip_t, clip_q;
 };
 
-// Dynamic shared memory of one block: W2, the two hidden tiles, the head,
-// the target's constants and the per-chain exchange (the layout in
-// overdamped_rollout).
-__host__ inline size_t smem_bytes(int in_dim, int n_par) {
+// Dynamic shared memory of one block for a d-dimensional target: W2, the
+// two hidden tiles, the head, the target's constants and the per-chain
+// exchange (the layout in overdamped_rollout).
+__host__ inline size_t smem_bytes(int in_dim, int n_par, int d) {
   const int in_pad = round_up(in_dim, 4);
-  size_t floats = (size_t)in_pad * in_pad + 2 * TC * in_pad + 2 * in_pad +
-                  round_up(n_par, 4) + 3 * TC * DIM;
+  size_t floats = (size_t)in_pad * in_pad + 2 * TC * in_pad + (size_t)d * in_pad +
+                  round_up(n_par, 4) + 3 * TC * d;
   return floats * sizeof(float);
 }
 
 // What one block holds: one thread per net feature, the target's constants
 // and the shared memory above.
-__host__ inline bool fits(int in_dim, int n_par) {
+__host__ inline bool fits(int in_dim, int n_par, int d) {
   return in_dim >= 1 && round_up(in_dim, 32) <= MAX_THREADS && n_par >= 1 &&
-         n_par <= MAX_PAR && smem_bytes(in_dim, n_par) <= MAX_SMEM;
+         n_par <= MAX_PAR && smem_bytes(in_dim, n_par, d) <= MAX_SMEM;
 }
 
 // The draws of step i of a chain: injected, or Philox (stored when asked).
+template <int D>
 __device__ __forceinline__ void draw(const RolloutArgs& a, unsigned long long seed, int chain,
-                                     bool live, bool store, int i, float xi[DIM]) {
+                                     bool live, bool store, int i, float xi[D]) {
   if (a.noise != nullptr) {
 #pragma unroll
-    for (int d = 0; d < DIM; ++d) xi[d] = live ? a.noise[((size_t)i * a.n + chain) * DIM + d] : 0.f;
+    for (int d = 0; d < D; ++d) xi[d] = live ? a.noise[((size_t)i * a.n + chain) * D + d] : 0.f;
     return;
   }
-  const float2 g = philox_normal2(seed, (uint32_t)chain, (uint32_t)i);
-  xi[0] = g.x;
-  xi[1] = g.y;
+  philox_normals<D>(seed, (uint32_t)chain, (uint32_t)i, xi);
   if (live && store && a.noise_out != nullptr) {
-    a.noise_out[((size_t)i * a.n + chain) * DIM] = g.x;
-    a.noise_out[((size_t)i * a.n + chain) * DIM + 1] = g.y;
+#pragma unroll
+    for (int d = 0; d < D; ++d) a.noise_out[((size_t)i * a.n + chain) * D + d] = xi[d];
   }
 }
 
@@ -137,22 +141,23 @@ __device__ __forceinline__ void draw(const RolloutArgs& a, unsigned long long se
 // without, ULA_sn).
 template <class T, bool FWD_SN, int BWD_OFF>
 __global__ void __launch_bounds__(MAX_THREADS) overdamped_rollout(const RolloutArgs a) {
+  constexpr int D = T::D;
   extern __shared__ float4 smem4[];
   float* w2s = reinterpret_cast<float*>(smem4);  // in_pad x in_pad
   const NetArgs& net = a.net;
   const int ip = net.in_pad, in = net.in_dim, K = a.nbridges;
   float* h1s = w2s + ip * ip;                    // TC x in_pad
   float* h2s = h1s + TC * ip;                    // TC x in_pad
-  float* hws = h2s + TC * ip;                    // 2 x in_pad
-  float* par = hws + 2 * ip;                     // the target's n_par constants
-  float* zn_s = par + round_up(net.n_par, 4);    // TC x 2
-  float* gt_s = zn_s + TC * DIM;                 // TC x 2
-  float* sn_s = gt_s + TC * DIM;                 // TC x 2
+  float* hws = h2s + TC * ip;                    // D x in_pad
+  float* par = hws + D * ip;                     // the target's n_par constants
+  float* zn_s = par + round_up(net.n_par, 4);    // TC x D
+  float* gt_s = zn_s + TC * D;                   // TC x D
+  float* sn_s = gt_s + TC * D;                   // TC x D
 
   const int tid = threadIdx.x, nthr = blockDim.x;
   load_w2(net, w2s, ip);
   for (int idx = tid; idx < 2 * TC * ip; idx += nthr) h1s[idx] = 0.f;  // h1s and h2s
-  for (int idx = tid; idx < 2 * ip; idx += nthr) {
+  for (int idx = tid; idx < D * ip; idx += nthr) {
     const int j = idx / ip, k = idx - j * ip;
     hws[idx] = k < in ? net.headw[j * in + k] : 0.f;
   }
@@ -160,8 +165,8 @@ __global__ void __launch_bounds__(MAX_THREADS) overdamped_rollout(const RolloutA
   const T target(par, net.n_par, net.inv_var_t);
 
   const bool feat = tid < in;
-  float w1z[DIM];
-  load_w1x<DIM>(net, tid, w1z);
+  float w1z[D];
+  load_w1x<D>(net, tid, w1z);
   const float b2f = feat ? net.b2[tid] : 0.f;
   const float eps0 = a.scal[0], factor = a.scal[1];
   const unsigned long long seed = (unsigned long long)a.seed[0];
@@ -171,32 +176,33 @@ __global__ void __launch_bounds__(MAX_THREADS) overdamped_rollout(const RolloutA
   const bool owner = tid < TC;
   const int chain = blockIdx.x * TC + tid;
   const bool live = owner && chain < a.n;
-  float z[DIM] = {0.f, 0.f}, gt[DIM] = {0.f, 0.f}, sn[DIM] = {0.f, 0.f};
-  float vm[DIM] = {0.f, 0.f}, viv[DIM] = {0.f, 0.f}, w = 0.f;
+  float z[D], gt[D], sn[D], vm[D], viv[D], w = 0.f;
+#pragma unroll
+  for (int d = 0; d < D; ++d) z[d] = gt[d] = sn[d] = vm[d] = viv[d] = 0.f;
   if (owner) {
 #pragma unroll
-    for (int d = 0; d < DIM; ++d) {
+    for (int d = 0; d < D; ++d) {
       vm[d] = a.vd_mean[d];
       viv[d] = a.vd_inv_var[d];
-      if (live) z[d] = a.z0[chain * DIM + d];
-      zn_s[tid * DIM + d] = z[d];
-      if (live && a.traj != nullptr) a.traj[(size_t)chain * DIM + d] = z[d];
+      if (live) z[d] = a.z0[(size_t)chain * D + d];
+      zn_s[tid * D + d] = z[d];
+      if (live && a.traj != nullptr) a.traj[(size_t)chain * D + d] = z[d];
     }
     if (live) w = a.w0[chain];
   }
   __syncthreads();
 
   if constexpr (FWD_SN) {
-    point_eval<DIM>(net, 0, w1z, b2f, factor, w2s, h1s, h2s, hws, target, zn_s, zn_s, gt_s,
-                    sn_s);
+    point_eval<D>(net, 0, w1z, b2f, factor, w2s, h1s, h2s, hws, target, zn_s, zn_s, gt_s,
+                  sn_s);
   } else {
     score_eval(target, zn_s, gt_s);
   }
   if (owner) {
 #pragma unroll
-    for (int d = 0; d < DIM; ++d) {
-      gt[d] = gt_s[tid * DIM + d];
-      if constexpr (FWD_SN) sn[d] = sn_s[tid * DIM + d];
+    for (int d = 0; d < D; ++d) {
+      gt[d] = gt_s[tid * D + d];
+      if constexpr (FWD_SN) sn[d] = sn_s[tid * D + d];
     }
   }
 
@@ -207,27 +213,27 @@ __global__ void __launch_bounds__(MAX_THREADS) overdamped_rollout(const RolloutA
       const float scale = sqrtf(2.0f * eps_i);
       inv_scale = 1.0f / scale;
       beta = a.betas[i];
-      float xi[DIM];
-      draw(a, seed, chain, live, true, i, xi);
+      float xi[D];
+      draw<D>(a, seed, chain, live, true, i, xi);
 #pragma unroll
-      for (int d = 0; d < DIM; ++d) {
+      for (int d = 0; d < D; ++d) {
         const float gq = -(z[d] - vm[d]) * viv[d];
         const float gu = -(beta * clip_f(gt[d], a.clip_t) + (1.0f - beta) * clip_f(gq, a.clip_q));
         float fk = z[d] - eps_i * gu;
         if constexpr (FWD_SN) fk = fk - eps_i * sn[d];
-        zn_s[tid * DIM + d] = fk + scale * xi[d];
+        zn_s[tid * D + d] = fk + scale * xi[d];
         xi2 += xi[d] * xi[d];
       }
     }
     __syncthreads();
-    point_eval<DIM>(net, min(i + BWD_OFF, K - 1), w1z, b2f, factor, w2s, h1s, h2s, hws, target,
-                    zn_s, zn_s, gt_s, sn_s);
+    point_eval<D>(net, min(i + BWD_OFF, K - 1), w1z, b2f, factor, w2s, h1s, h2s, hws, target,
+                  zn_s, zn_s, gt_s, sn_s);
     if (owner) {
       float r2 = 0.f;
 #pragma unroll
-      for (int d = 0; d < DIM; ++d) {
-        const float zn = zn_s[tid * DIM + d];
-        const float gtn = gt_s[tid * DIM + d], snn = sn_s[tid * DIM + d];
+      for (int d = 0; d < D; ++d) {
+        const float zn = zn_s[tid * D + d];
+        const float gtn = gt_s[tid * D + d], snn = sn_s[tid * D + d];
         const float gq = -(zn - vm[d]) * viv[d];
         const float gu = -(beta * clip_f(gtn, a.clip_t) + (1.0f - beta) * clip_f(gq, a.clip_q));
         const float bk = (zn - eps_i * gu) + eps_i * snn;
@@ -237,7 +243,7 @@ __global__ void __launch_bounds__(MAX_THREADS) overdamped_rollout(const RolloutA
         gt[d] = gtn;
         if constexpr (FWD_SN) sn[d] = snn;
         if (live && a.traj != nullptr)
-          a.traj[((size_t)(i + 1) * a.n + chain) * DIM + d] = zn;
+          a.traj[((size_t)(i + 1) * a.n + chain) * D + d] = zn;
       }
       w += -0.5f * (r2 - xi2);
     }
@@ -245,7 +251,7 @@ __global__ void __launch_bounds__(MAX_THREADS) overdamped_rollout(const RolloutA
 
   if (live) {
 #pragma unroll
-    for (int d = 0; d < DIM; ++d) a.z_out[chain * DIM + d] = z[d];
+    for (int d = 0; d < D; ++d) a.z_out[(size_t)chain * D + d] = z[d];
     a.w_out[chain] = w;
   }
 }
@@ -254,6 +260,7 @@ __global__ void __launch_bounds__(MAX_THREADS) overdamped_rollout(const RolloutA
 // the loop; lane 0 stores.
 template <class T>
 __global__ void __launch_bounds__(ULA_CPB * 32) ula_rollout(const RolloutArgs a) {
+  constexpr int D = T::D;
   __shared__ float par_s[MAX_PAR];
   for (int idx = threadIdx.x; idx < a.net.n_par; idx += blockDim.x) par_s[idx] = a.net.tpar[idx];
   __syncthreads();
@@ -265,13 +272,13 @@ __global__ void __launch_bounds__(ULA_CPB * 32) ula_rollout(const RolloutArgs a)
   const float eps0 = a.scal[0];
   const unsigned long long seed = (unsigned long long)a.seed[0];
 
-  float z[DIM], gt[DIM], vm[DIM], viv[DIM];
+  float z[D], gt[D], vm[D], viv[D];
 #pragma unroll
-  for (int d = 0; d < DIM; ++d) {
+  for (int d = 0; d < D; ++d) {
     vm[d] = a.vd_mean[d];
     viv[d] = a.vd_inv_var[d];
-    z[d] = a.z0[(size_t)chain * DIM + d];
-    if (lead && a.traj != nullptr) a.traj[(size_t)chain * DIM + d] = z[d];
+    z[d] = a.z0[(size_t)chain * D + d];
+    if (lead && a.traj != nullptr) a.traj[(size_t)chain * D + d] = z[d];
   }
   float w = a.w0[chain];
   target.score(z, gt);
@@ -280,10 +287,10 @@ __global__ void __launch_bounds__(ULA_CPB * 32) ula_rollout(const RolloutArgs a)
     const float eps_i = eps_at(eps0, i, K, a.eps_schedule);
     const float scale = sqrtf(2.0f * eps_i), inv_scale = 1.0f / scale;
     const float beta = a.betas[i];
-    float xi[DIM], zn[DIM], gtn[DIM], xi2 = 0.f, r2 = 0.f;
-    draw(a, seed, chain, true, lead, i, xi);
+    float xi[D], zn[D], gtn[D], xi2 = 0.f, r2 = 0.f;
+    draw<D>(a, seed, chain, true, lead, i, xi);
 #pragma unroll
-    for (int d = 0; d < DIM; ++d) {
+    for (int d = 0; d < D; ++d) {
       const float gq = -(z[d] - vm[d]) * viv[d];
       const float gu = -(beta * clip_f(gt[d], a.clip_t) + (1.0f - beta) * clip_f(gq, a.clip_q));
       zn[d] = (z[d] - eps_i * gu) + scale * xi[d];
@@ -291,27 +298,27 @@ __global__ void __launch_bounds__(ULA_CPB * 32) ula_rollout(const RolloutArgs a)
     }
     target.score(zn, gtn);
 #pragma unroll
-    for (int d = 0; d < DIM; ++d) {
+    for (int d = 0; d < D; ++d) {
       const float gq = -(zn[d] - vm[d]) * viv[d];
       const float gu = -(beta * clip_f(gtn[d], a.clip_t) + (1.0f - beta) * clip_f(gq, a.clip_q));
       const float r = (z[d] - (zn[d] - eps_i * gu)) * inv_scale;
       r2 += r * r;
       z[d] = zn[d];
       gt[d] = gtn[d];
-      if (lead && a.traj != nullptr) a.traj[((size_t)(i + 1) * a.n + chain) * DIM + d] = z[d];
+      if (lead && a.traj != nullptr) a.traj[((size_t)(i + 1) * a.n + chain) * D + d] = z[d];
     }
     w += -0.5f * (r2 - xi2);
   }
   if (lead) {
 #pragma unroll
-    for (int d = 0; d < DIM; ++d) a.z_out[(size_t)chain * DIM + d] = z[d];
+    for (int d = 0; d < D; ++d) a.z_out[(size_t)chain * D + d] = z[d];
     a.w_out[chain] = w;
   }
 }
 
 template <class T, bool FWD_SN, int BWD_OFF>
 cudaError_t launch_tile(const RolloutArgs& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a.net.in_dim, a.net.n_par);
+  const size_t smem = smem_bytes(a.net.in_dim, a.net.n_par, T::D);
   cudaError_t err = cudaFuncSetAttribute(overdamped_rollout<T, FWD_SN, BWD_OFF>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -337,7 +344,9 @@ extern "C" {
 // backward net at i + 1), 1 ULA_sn (net in the backward kernel only, at i),
 // 2 ULA (no net: the net pointers may be null, in_dim and emb_dim 0).
 // target: 0 many_gmm (tpar its n_par / 2 means, inv_var_t its 1 / scale^2),
-// 1 the 3-mode gmm (tpar its 18 constants). traj and noise_out may be null
+// 1 the 3-mode gmm (tpar its 18 constants), both 2-D; 2 the funnel (tpar its
+// sig), 3 the standard normal (tpar its precision), both 10-D; every
+// array's last axis is the target's D. traj and noise_out may be null
 // (nothing stored). Returns a cudaError_t (0 on success).
 int cmcd_overdamped_rollout(const float* z0, const float* w0, const float* betas,
                             const float* noise, const float* scal, const long long* seed,
@@ -350,26 +359,29 @@ int cmcd_overdamped_rollout(const float* z0, const float* w0, const float* betas
                             float clip_t, float clip_q, void* stream) {
   if (n <= 0 || nbridges <= 0) return (int)cudaSuccess;
   if (form < 0 || form > 2 || !target_ok(target, n_par)) return (int)cudaErrorInvalidValue;
-  if (form < 2 && (in_dim != DIM + emb_dim || !fits(in_dim, n_par)))
+  const int d = target_dim(target);
+  if (form < 2 && (in_dim != d + emb_dim || !fits(in_dim, n_par, d)))
     return (int)cudaErrorInvalidValue;
   const NetArgs net{w1z, c1, emb, w2, b2, headw, headb, tpar,
                     in_dim, round_up(in_dim, 4), emb_dim, n_par, inv_var_t};
   const RolloutArgs a{z0, w0, betas, noise, scal, seed, net, vd_mean, vd_inv_var, z_out, w_out,
                       traj, noise_out, n, nbridges, eps_schedule, clip_t, clip_q};
   const cudaStream_t s = (cudaStream_t)stream;
-  return (int)(target == 0 ? launch_form<ManyGmmTarget>(a, form, s)
-                           : launch_form<Gmm3Target>(a, form, s));
+  return (int)dispatch_target(target, [&](auto tag) {
+    return launch_form<typename decltype(tag)::type>(a, form, s);
+  });
 }
 
 const char* cmcd_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 int cmcd_overdamped_chains_per_block() { return TC; }
 
-// The launch's own limits, for the wrapper to check its copy against.
-int cmcd_overdamped_fits(int in_dim, int n_par) { return fits(in_dim, n_par) ? 1 : 0; }
+// The launch's own limits at state dimension d, for the wrapper to check its
+// copy against.
+int cmcd_overdamped_fits(int in_dim, int n_par, int d) { return fits(in_dim, n_par, d) ? 1 : 0; }
 
-long long cmcd_overdamped_smem_bytes(int in_dim, int n_par) {
-  return (long long)smem_bytes(in_dim, n_par);
+long long cmcd_overdamped_smem_bytes(int in_dim, int n_par, int d) {
+  return (long long)smem_bytes(in_dim, n_par, d);
 }
 
 }  // extern "C"

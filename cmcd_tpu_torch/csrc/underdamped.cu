@@ -58,6 +58,7 @@ namespace {
 
 using namespace cmcd;
 
+constexpr int DIM = ManyGmmTarget::D;  // the underdamped kernels take many_gmm only (2-D)
 constexpr int MAX_THREADS = 256;
 constexpr int XIN = 4;  // floats of one chain's net input buffer: [z, rho']
 constexpr float LOG_2PI_F = 1.8378770664093453f;

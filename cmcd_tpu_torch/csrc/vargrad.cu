@@ -4,8 +4,9 @@
 //
 // Replaces cmcd_tpu/ops/pallas_vargrad.py::evolve_vargrad_bwd_replay (the TPU
 // kernel "B2") and ::evolve_vargrad_bwd_pallas ("B5") on the many_gmm and
-// the 3-mode gmm targets (dim 2, the target a template parameter,
-// cmcd_common.cuh) with the two-layer geffner net. The Python wrappers are
+// the 3-mode gmm targets (dim 2), Neal's funnel and the standard normal
+// (dim 10), the target a template parameter whose D sizes every per-chain
+// array (cmcd_common.cuh), with the two-layer geffner net. The Python wrappers are
 // cmcd_tpu_torch/ops/vargrad.py::evolve_vargrad_bwd_replay and
 // ::evolve_vargrad_bwd_reroll; their plain PyTorch versions state the same
 // point loss and let autograd differentiate it. The TPU kernels trace
@@ -24,14 +25,14 @@
 //   backward term, live for j >= 1 (e' = eps_{j-1}, b' = beta_{j-1}):
 //     r_bk = z_{j-1} - (z_j + e' D(b') + e' sn), bk_lp likewise
 //   L_j = c_n (m_bk bk_lp - m_fk fk_lp).
-// The derivatives (dim = 2; e / (2e) = 1/2 removes eps from most of them):
+// The derivatives (dim D; e / (2e) = 1/2 removes eps from most of them):
 //   dL/dsn       = c/2 (m_bk r_bk + m_fk r_fk)                      =: G
 //   dL/dbeta_j   = -c/2 m_fk r_fk . (gtc - gqc)     (this point's forward term)
 //   dL/dbeta_j-1 = +c/2 m_bk r_bk . (gtc - gqc)     (this point's backward term)
 //   dL/dgqc      = c/2 (m_bk r_bk (1 - b') - m_fk r_fk (1 - b))     =: Gq
 //   dL/dmu       = Gq * exp(-2 logdiag),  dL/dlogdiag = Gq * (-2 gq), zero where gq is clipped
-//   dL/deps0     = -c m_fk s_j  [r_fk.(D(b) - sn)/(2e)  + |r_fk|^2/(2e)^2  - 2/(2e)]
-//                  +c m_bk s_j-1[r_bk.(D(b') + sn)/(2e') + |r_bk|^2/(2e')^2 - 2/(2e')]
+//   dL/deps0     = -c m_fk s_j  [r_fk.(D(b) - sn)/(2e)  + |r_fk|^2/(2e)^2  - D/(2e)]
+//                  +c m_bk s_j-1[r_bk.(D(b') + sn)/(2e') + |r_bk|^2/(2e')^2 - D/(2e')]
 //                  with s_i = d eps_i / d eps0 of the schedule (cmcd_common.cuh)
 //   dL/dout     = G * factor_sn, dfactor = G . out: the net's own VJP from
 //                  there is cmcd_tile.cuh's
@@ -40,7 +41,7 @@
 //
 // What bounds it on the H100. Per point and chain the layer-2 apply, the
 // product W2 g_a2 and the outer product h1 (x) g_a2 are 3 x in_dim^2 FMAs
-// (52k at in_dim 132); the trajectory is 8 bytes per point: bound by FP32
+// (52k at in_dim 132); the trajectory is 4 D bytes per point: bound by FP32
 // arithmetic and shared-memory bandwidth, not by device memory.
 //
 // The replay kernel. Block (j, s) takes trajectory point j and the chain
@@ -57,6 +58,9 @@
 // is sequential, so few chains leave SMs idle: with fewer 32-chain tiles
 // than SMs it runs NG = 2 groups on tiles of 16 chains. Per-point sums (the
 // betas, G1, GH1) leave the block after every point.
+//  * At D = 10 a tile's TB x D floats of a state can outnumber the block's
+//    threads (two groups of 64 at the funnel's in_dim 58): the per-chain
+//    loads and the step to the next point are strided loops.
 //  * f32 throughout, no tensor cores: wgmma, TMA and bf16 are later work.
 
 #include "cmcd_tile.cuh"
@@ -68,13 +72,13 @@ using namespace cmcd;
 constexpr int NG_REPLAY = 4;  // groups of feature threads of the replay kernel
 
 struct VargradArgs {
-  const float* traj;        // (K + 1, n, 2)
+  const float* traj;        // (K + 1, n, D)
   const float* cot;         // (n,)
   const float* betas;       // (K,)
   const float* scal;        // [eps0, factor_sn]
   NetArgs net;
-  const float* vd_mean;     // (2,)
-  const float* vd_logdiag;  // (2,)
+  const float* vd_mean;     // (D,)
+  const float* vd_logdiag;  // (D,)
   float* part_a;            // (blocks, len_a): summed over all blocks
   float* part_b;            // (K + 1, splits, len_b): summed over splits
   int n, nbridges, splits, eps_schedule;
@@ -82,47 +86,49 @@ struct VargradArgs {
 };
 
 struct RerollArgs {
-  const float* z0;          // (n, 2)
+  const float* z0;          // (n, D)
   const float* cot;         // (n,)
   const float* betas;       // (K,)
-  const float* noise;       // (K, n, 2) or nullptr: in-kernel Philox
+  const float* noise;       // (K, n, D) or nullptr: in-kernel Philox
   const float* scal;        // [eps0, factor_sn]
   const long long* seed;    // one int64
   NetArgs net;
-  const float* vd_mean;     // (2,)
-  const float* vd_logdiag;  // (2,)
+  const float* vd_mean;     // (D,)
+  const float* vd_logdiag;  // (D,)
   float* part_a;            // (blocks, len_a)
   float* part_b;            // (K + 1, blocks, len_b)
   int n, nbridges, eps_schedule;
   float clip_t, clip_q;
 };
 
-// Shared memory of one block of NG groups: the tile and, per chain, z_j,
-// z_{j-1}, z_{j+1}, g_out and the cotangent.
-__host__ inline size_t smem_bytes(int ng, int in_dim, int n_par) {
+// Shared memory of one block of NG groups at state dimension d: the tile
+// and, per chain, z_j, z_{j-1}, z_{j+1}, g_out (d-vectors) and the cotangent.
+__host__ inline size_t smem_bytes(int ng, int in_dim, int n_par, int d) {
   const int tb = ng * TC;
-  return (tile_floats(ng, in_dim, n_par) + 4 * tb * DIM + tb) * sizeof(float);
+  return (tile_floats(ng, in_dim, n_par, d) + 4 * tb * d + tb) * sizeof(float);
 }
 
 // What one block holds (NG = 4, the larger of the two forms).
-__host__ inline bool fits(int in_dim, int n_par) {
+__host__ inline bool fits(int in_dim, int n_par, int d) {
   return in_dim >= 1 && round_up(in_dim, 32) <= FW_MAX && n_par >= 1 && n_par <= MAX_PAR &&
-         smem_bytes(NG_REPLAY, in_dim, n_par) <= MAX_SMEM;
+         smem_bytes(NG_REPLAY, in_dim, n_par, d) <= MAX_SMEM;
 }
 
 
 // What every chain of a block shares at trajectory point j.
+template <int D>
 struct PointArgs {
   bool m_fk, m_bk;  // the point's forward term (j <= K - 1), backward term (j >= 1)
   float eps_j, eps_p, de_j, de_p, beta_j, beta_p, factor, clip_t, clip_q;
-  float vm[DIM], viv[DIM], hb[DIM];
+  float vm[D], viv[D], hb[D];
 };
 
-__device__ __forceinline__ PointArgs make_point(int j, int K, int sched, const float* scal,
-                                                const float* betas, const float* vd_mean,
-                                                const float* vd_logdiag, const NetArgs& net,
-                                                float clip_t, float clip_q) {
-  PointArgs p;
+template <int D>
+__device__ __forceinline__ PointArgs<D> make_point(int j, int K, int sched, const float* scal,
+                                                   const float* betas, const float* vd_mean,
+                                                   const float* vd_logdiag, const NetArgs& net,
+                                                   float clip_t, float clip_q) {
+  PointArgs<D> p;
   const float eps0 = scal[0];
   p.m_fk = j <= K - 1;
   p.m_bk = j >= 1;
@@ -136,7 +142,7 @@ __device__ __forceinline__ PointArgs make_point(int j, int K, int sched, const f
   p.clip_t = clip_t;
   p.clip_q = clip_q;
 #pragma unroll
-  for (int d = 0; d < DIM; ++d) {
+  for (int d = 0; d < D; ++d) {
     p.vm[d] = vd_mean[d];
     p.viv[d] = expf(-2.0f * vd_logdiag[d]);
     p.hb[d] = net.headb[d];
@@ -145,15 +151,18 @@ __device__ __forceinline__ PointArgs make_point(int j, int K, int sched, const f
 }
 
 // One chain at one point (lane 0 of the chain's warp): the scalar
-// derivatives into this warp's sums sc, the head's cotangent into go. out:
-// the head's raw output; gt: the score; zc, zp, zn: z_j, z_{j-1}, z_{j+1}.
-__device__ __forceinline__ void vargrad_chain(const PointArgs& p, const float out[DIM],
-                                              const float gt[DIM], const float* zc,
+// derivatives into this warp's sums sc (slots Slots<D>), the head's
+// cotangent into go. out: the head's raw output; gt: the score; zc, zp, zn:
+// z_j, z_{j-1}, z_{j+1}.
+template <int D>
+__device__ __forceinline__ void vargrad_chain(const PointArgs<D>& p, const float out[D],
+                                              const float gt[D], const float* zc,
                                               const float* zp, const float* zn, float cn,
                                               float* go, float* sc) {
+  using S = Slots<D>;
   float t_fk = 0.f, t_bk = 0.f, r2_fk = 0.f, r2_bk = 0.f;
 #pragma unroll
-  for (int d = 0; d < DIM; ++d) {
+  for (int d = 0; d < D; ++d) {
     const float z = zc[d];
     const float o = out[d] + p.hb[d], sn = o * p.factor;
     const float gq = -(z - p.vm[d]) * p.viv[d];
@@ -164,15 +173,15 @@ __device__ __forceinline__ void vargrad_chain(const PointArgs& p, const float ou
     const float r_bk = p.m_bk ? zp[d] - ((z + p.eps_p * dp) + p.eps_p * sn) : 0.f;
     const float gsn = 0.5f * cn * (r_bk + r_fk);
     go[d] = gsn * p.factor;
-    sc[5] += gsn * o;
-    sc[6 + d] += gsn * p.factor;
+    sc[S::FACTOR] += gsn * o;
+    sc[S::HEADB + d] += gsn * p.factor;
     const float diff = gtc - gqc;
-    sc[8] += -0.5f * cn * r_fk * diff;
-    sc[9] += 0.5f * cn * r_bk * diff;
+    sc[S::BETA] += -0.5f * cn * r_fk * diff;
+    sc[S::BETA + 1] += 0.5f * cn * r_bk * diff;
     if (gq == gqc) {  // not clipped
       const float g_gq = 0.5f * cn * (r_bk * (1.0f - p.beta_p) - r_fk * (1.0f - p.beta_j));
-      sc[1 + d] += g_gq * p.viv[d];
-      sc[3 + d] += g_gq * (-2.0f * gq);
+      sc[S::MEAN + d] += g_gq * p.viv[d];
+      sc[S::LOGDIAG + d] += g_gq * (-2.0f * gq);
     }
     t_fk += r_fk * (dj - sn);
     t_bk += r_bk * (dp + sn);
@@ -181,51 +190,52 @@ __device__ __forceinline__ void vargrad_chain(const PointArgs& p, const float ou
   }
   if (p.m_fk) {
     const float is2 = 1.0f / (2.0f * p.eps_j);
-    sc[0] -= cn * p.de_j * (t_fk * is2 + r2_fk * is2 * is2 - (float)DIM * is2);
+    sc[S::EPS] -= cn * p.de_j * (t_fk * is2 + r2_fk * is2 * is2 - (float)D * is2);
   }
   if (p.m_bk) {
     const float is2 = 1.0f / (2.0f * p.eps_p);
-    sc[0] += cn * p.de_p * (t_bk * is2 + r2_bk * is2 * is2 - (float)DIM * is2);
+    sc[S::EPS] += cn * p.de_p * (t_bk * is2 + r2_bk * is2 * is2 - (float)D * is2);
   }
 }
 
 template <class T>
 __global__ void __launch_bounds__(NG_REPLAY* FW_MAX) vargrad_replay(const VargradArgs a) {
-  constexpr int NG = NG_REPLAY, TB = NG * TC;
+  constexpr int NG = NG_REPLAY, TB = NG * TC, D = T::D;
   extern __shared__ float4 smem4[];
   const NetArgs& net = a.net;
   const int ip = net.in_pad, in = net.in_dim, K = a.nbridges;
-  const Tile<NG> t(reinterpret_cast<float*>(smem4), net);
+  const Tile<NG, D> t(reinterpret_cast<float*>(smem4), net);
   const T target(t.par, net.n_par, net.inv_var_t);
-  float* zc_s = t.rest;            // TB x 2: z_j
-  float* zp_s = zc_s + TB * DIM;   // TB x 2: z_{j-1}
-  float* zn_s = zp_s + TB * DIM;   // TB x 2: z_{j+1}
-  float* go_s = zn_s + TB * DIM;   // TB x 2: g_out
-  float* cot_s = go_s + TB * DIM;  // TB
+  float* zc_s = t.rest;            // TB x D: z_j
+  float* zp_s = zc_s + TB * D;     // TB x D: z_{j-1}
+  float* zn_s = zp_s + TB * D;     // TB x D: z_{j+1}
+  float* go_s = zn_s + TB * D;     // TB x D: g_out
+  float* cot_s = go_s + TB * D;    // TB
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarp = blockDim.x >> 5;
+  const int nthr = blockDim.x;
   const int j = blockIdx.x / a.splits, split = blockIdx.x - j * a.splits;
-  const FeatThread<DIM> th(net, NG);
-  const PointArgs p = make_point(j, K, a.eps_schedule, a.scal, a.betas, a.vd_mean,
-                                 a.vd_logdiag, net, a.clip_t, a.clip_q);
+  const FeatThread<D, D> th(net, NG);
+  const PointArgs<D> p = make_point<D>(j, K, a.eps_schedule, a.scal, a.betas, a.vd_mean,
+                                       a.vd_logdiag, net, a.clip_t, a.clip_q);
   tile_init(t, net);
   // Sums of this block. Per feature thread, in registers: ft. Per warp, in
-  // shared memory and touched by lane 0 only: the NSCAL scalars.
-  float ft[NFEAT];
+  // shared memory and touched by lane 0 only: the Slots<D>::N scalars.
+  float ft[nfeat(D, D)];
 #pragma unroll
-  for (int q = 0; q < NFEAT; ++q) ft[q] = 0.f;
-  float* sc = t.sc_s + warp * NSCAL;
+  for (int q = 0; q < nfeat(D, D); ++q) ft[q] = 0.f;
+  float* sc = t.sc_s + warp * Slots<D>::N;
   __syncthreads();
 
   const int ntiles = (a.n + TB - 1) / TB;
   for (int tile = split; tile < ntiles; tile += a.splits) {
     const int base = tile * TB;
-    if (tid < TB * DIM) {
-      const int chain = base + tid / DIM, d = tid - (tid / DIM) * DIM;
+    for (int i = tid; i < TB * D; i += nthr) {
+      const int chain = base + i / D, d = i - (i / D) * D;
       const bool live = chain < a.n;
-      zc_s[tid] = live ? a.traj[((size_t)j * a.n + chain) * DIM + d] : 0.f;
-      zp_s[tid] = live && p.m_bk ? a.traj[((size_t)(j - 1) * a.n + chain) * DIM + d] : 0.f;
-      zn_s[tid] = live && p.m_fk ? a.traj[((size_t)(j + 1) * a.n + chain) * DIM + d] : 0.f;
+      zc_s[i] = live ? a.traj[((size_t)j * a.n + chain) * D + d] : 0.f;
+      zp_s[i] = live && p.m_bk ? a.traj[((size_t)(j - 1) * a.n + chain) * D + d] : 0.f;
+      zn_s[i] = live && p.m_fk ? a.traj[((size_t)(j + 1) * a.n + chain) * D + d] : 0.f;
     }
     if (tid < TB) cot_s[tid] = base + tid < a.n ? a.cot[base + tid] : 0.f;
     __syncthreads();
@@ -235,104 +245,102 @@ __global__ void __launch_bounds__(NG_REPLAY* FW_MAX) vargrad_replay(const Vargra
 
     // Head, score and the scalar derivatives: one warp per chain.
     for (int c = warp; c < TB; c += nwarp) {
-      float out[DIM], gt[DIM];
-      head_raw(net, t.xs + c * ip, t.hws, out);
-      target.score(zc_s + c * DIM, gt);
+      float out[D], gt[D];
+      head_raw<D>(net, t.xs + c * ip, t.hws, out);
+      target.score(zc_s + c * D, gt);
       if (lane == 0)
-        vargrad_chain(p, out, gt, zc_s + c * DIM, zp_s + c * DIM, zn_s + c * DIM, cot_s[c],
-                      go_s + c * DIM, sc);
+        vargrad_chain<D>(p, out, gt, zc_s + c * D, zp_s + c * D, zn_s + c * D, cot_s[c],
+                         go_s + c * D, sc);
     }
     __syncthreads();
 
     tile_vjp(t, net, th, zc_s, go_s, r, ft, nullptr);
   }
 
-  flush_block(t, net, th, ft, a.part_a + (size_t)blockIdx.x * len_a(in));
+  flush_block(t, net, th, ft, a.part_a + (size_t)blockIdx.x * len_a(in, D, D));
   flush_point(t, net, th, ft, a.part_b + (size_t)blockIdx.x * len_b(in), false);
 }
 
 template <int NG, class T>
 __global__ void __launch_bounds__(NG* FW_MAX) vargrad_reroll(const RerollArgs a) {
-  constexpr int TB = NG * TC;
+  constexpr int TB = NG * TC, D = T::D;
   extern __shared__ float4 smem4[];
   const NetArgs& net = a.net;
   const int ip = net.in_pad, in = net.in_dim, K = a.nbridges;
-  const Tile<NG> t(reinterpret_cast<float*>(smem4), net);
+  const Tile<NG, D> t(reinterpret_cast<float*>(smem4), net);
   const T target(t.par, net.n_par, net.inv_var_t);
-  float* zc_s = t.rest;            // TB x 2: z_j
-  float* zp_s = zc_s + TB * DIM;   // TB x 2: z_{j-1}
-  float* zn_s = zp_s + TB * DIM;   // TB x 2: z_{j+1}, made here
-  float* go_s = zn_s + TB * DIM;   // TB x 2: g_out
-  float* cot_s = go_s + TB * DIM;  // TB
+  float* zc_s = t.rest;            // TB x D: z_j
+  float* zp_s = zc_s + TB * D;     // TB x D: z_{j-1}
+  float* zn_s = zp_s + TB * D;     // TB x D: z_{j+1}, made here
+  float* go_s = zn_s + TB * D;     // TB x D: g_out
+  float* cot_s = go_s + TB * D;    // TB
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarp = blockDim.x >> 5;
-  const FeatThread<DIM> th(net, NG);
+  const int nthr = blockDim.x;
+  const FeatThread<D, D> th(net, NG);
   const unsigned long long seed = (unsigned long long)a.seed[0];
   tile_init(t, net);
-  float ft[NFEAT];
+  float ft[nfeat(D, D)];
 #pragma unroll
-  for (int q = 0; q < NFEAT; ++q) ft[q] = 0.f;
-  float* sc = t.sc_s + warp * NSCAL;
+  for (int q = 0; q < nfeat(D, D); ++q) ft[q] = 0.f;
+  float* sc = t.sc_s + warp * Slots<D>::N;
   __syncthreads();
 
   const int ntiles = (a.n + TB - 1) / TB;
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const int base = tile * TB;
-    if (tid < TB * DIM) {
-      const int chain = base + tid / DIM;
-      zc_s[tid] = chain < a.n ? a.z0[(size_t)base * DIM + tid] : 0.f;
-      zp_s[tid] = 0.f;
-      zn_s[tid] = 0.f;
+    for (int i = tid; i < TB * D; i += nthr) {
+      const int chain = base + i / D;
+      zc_s[i] = chain < a.n ? a.z0[(size_t)base * D + i] : 0.f;
+      zp_s[i] = 0.f;
+      zn_s[i] = 0.f;
     }
     if (tid < TB) cot_s[tid] = base + tid < a.n ? a.cot[base + tid] : 0.f;
     __syncthreads();
 
     for (int j = 0; j <= K; ++j) {
-      const PointArgs p = make_point(j, K, a.eps_schedule, a.scal, a.betas, a.vd_mean,
-                                     a.vd_logdiag, net, a.clip_t, a.clip_q);
+      const PointArgs<D> p = make_point<D>(j, K, a.eps_schedule, a.scal, a.betas, a.vd_mean,
+                                           a.vd_logdiag, net, a.clip_t, a.clip_q);
       FeatRegs r;
       tile_layers(t, net, th, min(j, K - 1), zc_s, r);
 
       for (int c = warp; c < TB; c += nwarp) {
-        float out[DIM], gt[DIM];
-        head_raw(net, t.xs + c * ip, t.hws, out);
-        target.score(zc_s + c * DIM, gt);
+        float out[D], gt[D];
+        head_raw<D>(net, t.xs + c * ip, t.hws, out);
+        target.score(zc_s + c * D, gt);
         if (lane == 0) {
           const int chain = base + c;
           if (p.m_fk) {  // the rollout's step, operation for operation
-            float xi[DIM] = {0.f, 0.f};
+            float xi[D];
             if (a.noise != nullptr) {
-              if (chain < a.n) {
-                xi[0] = a.noise[((size_t)j * a.n + chain) * DIM];
-                xi[1] = a.noise[((size_t)j * a.n + chain) * DIM + 1];
-              }
+#pragma unroll
+              for (int d = 0; d < D; ++d)
+                xi[d] = chain < a.n ? a.noise[((size_t)j * a.n + chain) * D + d] : 0.f;
             } else {
-              const float2 g = philox_normal2(seed, (uint32_t)chain, (uint32_t)j);
-              xi[0] = g.x;
-              xi[1] = g.y;
+              philox_normals<D>(seed, (uint32_t)chain, (uint32_t)j, xi);
             }
             const float scale = sqrtf(2.0f * p.eps_j);
 #pragma unroll
-            for (int d = 0; d < DIM; ++d) {
-              const float z = zc_s[c * DIM + d];
+            for (int d = 0; d < D; ++d) {
+              const float z = zc_s[c * D + d];
               const float sn = (out[d] + p.hb[d]) * p.factor;
               const float gq = -(z - p.vm[d]) * p.viv[d];
               const float gu = -(p.beta_j * clip_f(gt[d], p.clip_t) +
                                  (1.0f - p.beta_j) * clip_f(gq, p.clip_q));
               const float fk = (z - p.eps_j * gu) - p.eps_j * sn;
-              zn_s[c * DIM + d] = fk + scale * xi[d];
+              zn_s[c * D + d] = fk + scale * xi[d];
             }
           }
-          vargrad_chain(p, out, gt, zc_s + c * DIM, zp_s + c * DIM, zn_s + c * DIM, cot_s[c],
-                        go_s + c * DIM, sc);
+          vargrad_chain<D>(p, out, gt, zc_s + c * D, zp_s + c * D, zn_s + c * D, cot_s[c],
+                           go_s + c * D, sc);
         }
       }
       __syncthreads();
 
       tile_vjp(t, net, th, zc_s, go_s, r, ft, nullptr);
-      if (tid < TB * DIM) {  // the next point
-        zp_s[tid] = zc_s[tid];
-        zc_s[tid] = zn_s[tid];
+      for (int i = tid; i < TB * D; i += nthr) {  // the next point
+        zp_s[i] = zc_s[i];
+        zc_s[i] = zn_s[i];
       }
       flush_point(t, net, th, ft,
                   a.part_b + ((size_t)j * gridDim.x + blockIdx.x) * len_b(in),
@@ -340,12 +348,12 @@ __global__ void __launch_bounds__(NG* FW_MAX) vargrad_reroll(const RerollArgs a)
     }
   }
 
-  flush_block(t, net, th, ft, a.part_a + (size_t)blockIdx.x * len_a(in));
+  flush_block(t, net, th, ft, a.part_a + (size_t)blockIdx.x * len_a(in, D, D));
 }
 
 template <class T>
 cudaError_t launch_replay(const VargradArgs& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes(NG_REPLAY, a.net.in_dim, a.net.n_par);
+  const size_t smem = smem_bytes(NG_REPLAY, a.net.in_dim, a.net.n_par, T::D);
   cudaError_t err = cudaFuncSetAttribute(vargrad_replay<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -356,7 +364,7 @@ cudaError_t launch_replay(const VargradArgs& a, cudaStream_t stream) {
 
 template <int NG, class T>
 cudaError_t launch_reroll(const RerollArgs& a, int blocks, cudaStream_t stream) {
-  const size_t smem = smem_bytes(NG, a.net.in_dim, a.net.n_par);
+  const size_t smem = smem_bytes(NG, a.net.in_dim, a.net.n_par, T::D);
   cudaError_t err = cudaFuncSetAttribute(vargrad_reroll<NG, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -376,8 +384,9 @@ extern "C" {
 // Launches the replay backward and its reduction on `stream`. part_a:
 // (points x splits, len_a) and part_b: (points, splits, len_b) are scratch;
 // out_a: (len_a,) and out_b: (points, len_b) receive the sums. target as in
-// cmcd_overdamped_rollout (overdamped.cu): 0 many_gmm, 1 the 3-mode gmm, tpar
-// its n_par constants. Returns a cudaError_t.
+// cmcd_overdamped_rollout (overdamped.cu): 0 many_gmm, 1 the 3-mode gmm (2-D),
+// 2 the funnel, 3 the standard normal (10-D), tpar its n_par constants.
+// Returns a cudaError_t.
 int cmcd_vargrad_replay(const float* traj, const float* cot, const float* betas,
                         const float* scal, const float* w1z, const float* c1,
                         const float* emb, const float* w2, const float* b2,
@@ -386,20 +395,22 @@ int cmcd_vargrad_replay(const float* traj, const float* cot, const float* betas,
                         float* part_b, float* out_a, float* out_b, int n, int nbridges,
                         int in_dim, int emb_dim, int n_par, int eps_schedule, int splits,
                         int target, float inv_var_t, float clip_t, float clip_q, void* stream) {
-  if (n <= 0 || nbridges <= 0 || splits <= 0) return (int)cudaErrorInvalidValue;
-  if (in_dim != DIM + emb_dim || !fits(in_dim, n_par) || !target_ok(target, n_par))
+  if (n <= 0 || nbridges <= 0 || splits <= 0 || !target_ok(target, n_par))
     return (int)cudaErrorInvalidValue;
+  const int d = target_dim(target);
+  if (in_dim != d + emb_dim || !fits(in_dim, n_par, d)) return (int)cudaErrorInvalidValue;
   const NetArgs net{w1z, c1, emb, w2, b2, headw, headb, tpar,
                     in_dim, round_up(in_dim, 4), emb_dim, n_par, inv_var_t};
   const VargradArgs a{traj, cot, betas, scal, net, vd_mean, vd_logdiag, part_a, part_b,
                       n, nbridges, splits, eps_schedule, clip_t, clip_q};
   const cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t err = target == 0 ? launch_replay<ManyGmmTarget>(a, s)
-                                      : launch_replay<Gmm3Target>(a, s);
+  const cudaError_t err = dispatch_target(target, [&](auto tag) {
+    return launch_replay<typename decltype(tag)::type>(a, s);
+  });
   if (err != cudaSuccess) return (int)err;
   const int points = nbridges + 1;
   return (int)launch_reduce(part_a, part_b, out_a, out_b, points * splits, points, splits,
-                            in_dim, s);
+                            in_dim, d, d, s);
 }
 
 // Launches the re-rolling backward and its reduction on `stream`: `blocks`
@@ -418,35 +429,36 @@ int cmcd_vargrad_reroll(const float* z0, const float* cot, const float* betas,
                         int blocks, int groups, int target, float inv_var_t, float clip_t,
                         float clip_q, void* stream) {
   if (n <= 0 || nbridges <= 0 || (groups != 2 && groups != 4)) return (int)cudaErrorInvalidValue;
-  if (blocks <= 0 || blocks > (n + groups * TC - 1) / (groups * TC))
+  if (blocks <= 0 || blocks > (n + groups * TC - 1) / (groups * TC) || !target_ok(target, n_par))
     return (int)cudaErrorInvalidValue;
-  if (in_dim != DIM + emb_dim || !fits(in_dim, n_par) || !target_ok(target, n_par))
-    return (int)cudaErrorInvalidValue;
+  const int d = target_dim(target);
+  if (in_dim != d + emb_dim || !fits(in_dim, n_par, d)) return (int)cudaErrorInvalidValue;
   const NetArgs net{w1z, c1, emb, w2, b2, headw, headb, tpar,
                     in_dim, round_up(in_dim, 4), emb_dim, n_par, inv_var_t};
   const RerollArgs a{z0, cot, betas, noise, scal, seed, net, vd_mean, vd_logdiag, part_a,
                      part_b, n, nbridges, eps_schedule, clip_t, clip_q};
   const cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t err = target == 0 ? launch_reroll_groups<ManyGmmTarget>(a, blocks, groups, s)
-                                      : launch_reroll_groups<Gmm3Target>(a, blocks, groups, s);
+  const cudaError_t err = dispatch_target(target, [&](auto tag) {
+    return launch_reroll_groups<typename decltype(tag)::type>(a, blocks, groups, s);
+  });
   if (err != cudaSuccess) return (int)err;
   return (int)launch_reduce(part_a, part_b, out_a, out_b, blocks, nbridges + 1, blocks, in_dim,
-                            s);
+                            d, d, s);
 }
 
 const char* cmcd_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 int cmcd_vargrad_chains_per_group() { return TC; }
 
-// The launch's own limits and buffer lengths, for the wrapper to check its
-// copy against.
-int cmcd_vargrad_fits(int in_dim, int n_par) { return fits(in_dim, n_par) ? 1 : 0; }
+// The launch's own limits and buffer lengths at state dimension d, for the
+// wrapper to check its copy against.
+int cmcd_vargrad_fits(int in_dim, int n_par, int d) { return fits(in_dim, n_par, d) ? 1 : 0; }
 
-long long cmcd_vargrad_smem_bytes(int groups, int in_dim, int n_par) {
-  return (long long)smem_bytes(groups, in_dim, n_par);
+long long cmcd_vargrad_smem_bytes(int groups, int in_dim, int n_par, int d) {
+  return (long long)smem_bytes(groups, in_dim, n_par, d);
 }
 
-int cmcd_vargrad_len_a(int in_dim) { return len_a(in_dim); }
+int cmcd_vargrad_len_a(int in_dim, int d) { return len_a(in_dim, d, d); }
 
 int cmcd_vargrad_len_b(int in_dim) { return len_b(in_dim); }
 

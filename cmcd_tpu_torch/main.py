@@ -24,9 +24,10 @@ the underdamped rollout kernel with its stores and the underdamped sweep;
 for UHA, the default boundmode, the UHA rollout kernel with its stores and
 the UHA sweep) and evaluation through the fused rollout of the mode's family
 (the seven underdamped modes and UHA included), one launch per seed group.
-The overdamped modes and UHA run on many_gmm and the 3-mode gmm (the gmm
-recipes of experiments/recipes.py: gmm_cais, gmm_cais_tuned, gmm_ula), the
-underdamped modes on many_gmm;
+The overdamped modes run on many_gmm and the 3-mode gmm (the gmm recipes of
+experiments/recipes.py: gmm_cais, gmm_cais_tuned, gmm_ula) and on Neal's
+funnel at funnel_d 10 (funnel_k8: MCD_CAIS_sn, n_samples 2000, so a 30 x 2000
+evaluation), UHA on many_gmm and gmm, the underdamped modes on many_gmm;
 a configuration the kernels do not cover, or use_pallas_train /
 use_pallas_eval off, raises there instead of running eagerly. On the CPU the two switches pick the kernels' plain versions or
 the eager integrator. The fields in IGNORED are accepted and ignored with

@@ -17,7 +17,7 @@ from cmcd_tpu_torch import bounds
 from cmcd_tpu_torch.distributions import diag_gaussian_log_prob, diag_gaussian_sample
 from cmcd_tpu_torch.integrators import OVERDAMPED, UNDERDAMPED
 from cmcd_tpu_torch.ops import overdamped, uha, underdamped
-from cmcd_tpu_torch.ops.target_grads import n_target_floats, score_for_target
+from cmcd_tpu_torch.ops.target_grads import KERNEL_DIMS, n_target_floats, score_for_target
 from cmcd_tpu_torch.schedules import betas_from_grid
 
 
@@ -33,11 +33,13 @@ def net_width(setup: bounds.CMCDSetup) -> int:
 
 def supports_fused(setup: bounds.CMCDSetup, target) -> bool:
     """True if a kernel implements (mode, target score, net) at this size:
-    an overdamped mode (all four) on many_gmm or the 3-mode gmm, or an
-    underdamped mode on many_gmm, with (where the mode has a net) the
-    two-layer geffner net of a width that fits one block's threads and
-    shared memory (the rollout's kernel_fits); or UHA on many_gmm or gmm with
-    lfsteps the kernel takes (ops/uha.kernel_covers)."""
+    an overdamped mode (all four) on a target whose template is instantiated
+    at the setup's dim (many_gmm, the 3-mode gmm: 2; the funnel: 10;
+    ops/target_grads.KERNEL_DIMS), or an underdamped mode on many_gmm, with
+    (where the mode has a net) the two-layer geffner net of a width that fits
+    one block's threads and shared memory (the rollout's kernel_fits); or
+    UHA on many_gmm or gmm with lfsteps the kernel takes
+    (ops/uha.kernel_covers)."""
     score = score_for_target(target)
     if score is None:
         return False
@@ -46,16 +48,18 @@ def supports_fused(setup: bounds.CMCDSetup, target) -> bool:
     if setup.mode in OVERDAMPED:
         fits = overdamped.kernel_fits
     elif setup.mode in UNDERDAMPED and score.kernel_name == "many_gmm":
-        fits = underdamped.kernel_fits
+        fits = lambda in_dim, n_par, dim: underdamped.kernel_fits(in_dim, n_par)
     else:
         return False
-    if setup.dim != 2 or setup.nbridges < 1:
+    if setup.dim != KERNEL_DIMS.get(score.kernel_name) or setup.nbridges < 1:
+        return False
+    if getattr(score, "dim", setup.dim) != setup.dim:
         return False
     width = net_width(setup)
     if width == 0:  # no net: the target alone decides
         return n_target_floats(score) <= overdamped.MAX_TARGET_FLOATS
     return (setup.nn_arch == "geffner" and setup.nlayers == 2
-            and fits(width, n_target_floats(score)))
+            and fits(width, n_target_floats(score), setup.dim))
 
 
 @torch.no_grad()

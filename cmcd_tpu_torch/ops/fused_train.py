@@ -76,7 +76,8 @@ from cmcd_tpu_torch.ops.vargrad import (
 from cmcd_tpu_torch.schedules import betas_from_grid
 
 # The overdamped modes whose KL loss has a fused backward: the sweep's three
-# forms (ops/kl.SWEEP_SPECS). Still to port: MCD_DNF.
+# forms (ops/kl.SWEEP_SPECS), on every target of the overdamped kernels (the
+# funnel included). Still to port: MCD_DNF.
 OD_KL_FUSED_MODES = frozenset({"MCD_CAIS_sn", "MCD_ULA_sn", "MCD_ULA"})
 # The underdamped modes whose KL loss has a fused backward: the
 # approximate-refresh ones (B7's kernel covers them). Still to port: the
@@ -105,7 +106,8 @@ def supports_fused_train(setup: bounds.CMCDSetup, target) -> bool:
     else:
         return False
     width = net_width(setup)
-    return fits is None or width == 0 or fits(width, n_target_floats(score_for_target(target)))
+    return (fits is None or width == 0
+            or fits(width, n_target_floats(score_for_target(target)), dim=setup.dim))
 
 
 def choose_backward(backward: str, setup: bounds.CMCDSetup, n_chains: int) -> str:
@@ -306,7 +308,8 @@ def _kl_families() -> tuple:
             (evolve_kl_bwd_underdamped, evolve_kl_bwd_underdamped_plain),
             _EvolveKLUD, ("eps", "gamma", "eta"),
             lambda setup, p: dict(dim=setup.dim, nbridges=setup.nbridges, sn=p.get("sn")),
-            kl_underdamped.kernel_fits, "underdamped rollout and KL reverse sweep",
+            lambda in_dim, n_par, dim: kl_underdamped.kernel_fits(in_dim, n_par),
+            "underdamped rollout and KL reverse sweep",
         ),
         _KLFamily(
             UHA_KL_FUSED_MODES,

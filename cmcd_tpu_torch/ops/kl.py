@@ -5,7 +5,8 @@ Counterpart of cmcd_tpu/ops/pallas_kl.py::evolve_kl_bwd_pallas for the
 overdamped specs that differentiate through the state (SWEEP_SPECS: CAIS,
 with one net in both kernels and the backward net at i + 1; ULA_SN, with the
 net in the backward kernel at i; ULA, with no net), on the many_gmm and the
-3-mode gmm scores, with the port's layout: traj (K + 1, N, dim) and noise
+3-mode gmm scores (dim 2) and the funnel's and the standard normal's (dim
+10), with the port's layout: traj (K + 1, N, dim) and noise
 (K, N, dim) as the fused rollout stored them (ops/overdamped.py,
 return_trajectory and return_noise), cot (N,) the cotangent of each chain's
 summed log-weight increments, g_zfinal (N, dim) that of its final state.
@@ -24,7 +25,7 @@ derivation is the header of csrc/kl.cu): the point's score (and net output)
 serve both the step that ends there and the step that starts there, so each
 is applied and transposed once. The kernels write every derivative out; the
 plain version walks the same sweep with torch ops, the score's Hessian
-product from ops/target_grads (ManyGMMScore.hvp, GMMScore.hvp) and the net's
+product from ops/target_grads (the scores' hvp methods) and the net's
 VJP from torch.autograd, in the dtype of `traj` (float64 to arbitrate
 between two float32 summation orders).
 
@@ -43,23 +44,31 @@ from cmcd_tpu_torch.integrators.overdamped import CAIS, ULA, ULA_SN, OverdampedS
 from cmcd_tpu_torch.ops import build
 from cmcd_tpu_torch.ops import vargrad as vg
 from cmcd_tpu_torch.ops.overdamped import EPS_SCHEDULES, count_launch, form_key
-from cmcd_tpu_torch.ops.target_grads import kernel_target
+from cmcd_tpu_torch.ops.target_grads import KERNEL_DIMS, kernel_target
 from cmcd_tpu_torch.schedules import eps_at_step
 
 # The specs the sweep takes: those that keep the state in the graph.
 SWEEP_SPECS = (CAIS, ULA, ULA_SN)
-# The net-free sweep (kl_ula_sweep): chains per block, floats of a block's
-# sums (eps, vd mean, vd logdiag).
+# The net-free sweep (kl_ula_sweep): chains per block.
 ULA_CHAINS_PER_BLOCK = 8
-ULA_LEN_SUMS = 5
 
-# Floats of shared memory beside the tile (ops/vargrad.smem_bytes). Per chain:
-# three states, g_out, the state cotangent and the two carries (2-vectors),
-# the cotangent; per warp: its share of the net's input VJP for a group's chains.
-EXTRA_FLOATS = (15, 2 * vg.CHAINS_PER_GROUP)
 
-kernel_fits = functools.partial(vg.kernel_fits, extra=EXTRA_FLOATS)
-kernel_fits.__doc__ = "ops/vargrad.kernel_fits for one block of the sweep kernel."
+def ula_len_sums(dim: int) -> int:
+    """Floats of a block's sums in the net-free sweep: eps, vd mean, vd logdiag."""
+    return 1 + 2 * dim
+
+
+def extra_floats(dim: int) -> tuple:
+    """Floats of shared memory beside the tile (ops/vargrad.smem_bytes). Per
+    chain: three states, g_out, the state cotangent and the two carries
+    (dim-vectors), the cotangent; per warp: its share of the net's input VJP
+    for a group's chains (TC dim-vectors)."""
+    return (7 * dim + 1, dim * vg.CHAINS_PER_GROUP)
+
+
+def kernel_fits(in_dim: int, n_par: int, dim: int) -> bool:
+    """ops/vargrad.kernel_fits for one block of the sweep kernel."""
+    return vg.kernel_fits(in_dim, n_par, dim, extra_floats(dim))
 
 
 def _check(traj, noise, cot, g_zfinal, betas, grad_logp, spec, dim, nbridges, sn, eps_schedule):
@@ -169,10 +178,11 @@ def _library() -> ctypes.CDLL:
     lib.cmcd_kl_ula_sweep.argtypes = [p] * 14 + [i] * 5 + [f] * 3 + [p]
     lib.cmcd_kl_ula_sweep.restype = i
     lib.cmcd_kl_ula_chains_per_block.restype = i
+    lib.cmcd_kl_ula_len_sums.argtypes = [i]
     lib.cmcd_kl_ula_len_sums.restype = i
-    vg.declare_limits(lib, "kl", EXTRA_FLOATS, "csrc/kl.cu")
-    if (lib.cmcd_kl_ula_chains_per_block(), lib.cmcd_kl_ula_len_sums()) != (
-            ULA_CHAINS_PER_BLOCK, ULA_LEN_SUMS):
+    vg.declare_limits(lib, "kl", extra_floats, "csrc/kl.cu")
+    if lib.cmcd_kl_ula_chains_per_block() != ULA_CHAINS_PER_BLOCK or any(
+            lib.cmcd_kl_ula_len_sums(d) != ula_len_sums(d) for d in set(KERNEL_DIMS.values())):
         raise RuntimeError("csrc/kl.cu and ops/kl.py disagree on the net-free sweep's layout")
     return lib
 
@@ -211,8 +221,9 @@ def _launch_ula(lib, traj, noise, cot, g_zfinal, betas, eps, vd_mean, vd_logdiag
     blocks = -(-n // ULA_CHAINS_PER_BLOCK)
     scal = torch.as_tensor(eps, dtype=torch.float32, device=dev).reshape(1).contiguous()
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
-    part_a, part_b = new(blocks, ULA_LEN_SUMS), new(nbridges, blocks)
-    out_a, out_b, g_z0 = new(ULA_LEN_SUMS), new(nbridges), torch.empty_like(g_zfinal)
+    la = ula_len_sums(dim)
+    part_a, part_b = new(blocks, la), new(nbridges, blocks)
+    out_a, out_b, g_z0 = new(la), new(nbridges), torch.empty_like(g_zfinal)
     ptr = vg.ptr
     err = lib.cmcd_kl_ula_sweep(
         ptr(traj), ptr(noise), ptr(cot), ptr(g_zfinal), ptr(betas), ptr(scal), ptr(tpar),
@@ -237,8 +248,9 @@ def evolve_kl_bwd(
 
     traj: (K + 1, N, dim) f32; noise: (K, N, dim) f32; cot: (N,); g_zfinal:
     (N, dim); betas: (K,); eps: scalar tensor or float; vd_mean / vd_logdiag:
-    (dim,); grad_logp: ops/target_grads.ManyGMMScore or GMMScore; spec: one
-    of SWEEP_SPECS; sn: the GeffnerNet (None for ULA). Returns (the gradient
+    (dim,); grad_logp: a kernel-form score of ops/target_grads at its
+    KERNEL_DIMS dim; spec: one of SWEEP_SPECS; sn: the GeffnerNet (None for
+    ULA). Returns (the gradient
     dict of the module docstring, g_z0 (N, dim)).
     """
     _check(traj, noise, cot, g_zfinal, betas, grad_logp, spec, dim, nbridges, sn, eps_schedule)

@@ -58,7 +58,7 @@ EXTRA_FLOATS = (8 * 2 + XIN + 1, vg.CHAINS_PER_GROUP * XIN)
 
 
 def smem_bytes(in_dim: int, n_par: int, groups: int = vg.GROUPS) -> int:
-    return vg.smem_bytes(in_dim, n_par, groups, EXTRA_FLOATS)
+    return vg.smem_bytes(in_dim, n_par, groups, EXTRA_FLOATS, dim=2)
 
 
 def kernel_fits(in_dim: int, n_par: int) -> bool:
@@ -194,7 +194,7 @@ def _library() -> ctypes.CDLL:
         if (bool(lib.cmcd_kl_ud_fits(in_dim, n_par)) != kernel_fits(in_dim, n_par)
                 or any(lib.cmcd_kl_ud_smem_bytes(g, in_dim, n_par) != smem_bytes(in_dim, n_par, g)
                        for g in (2, 4))
-                or any(lib.cmcd_kl_ud_len_a(in_dim, din) != vg.len_a(in_dim, din)
+                or any(lib.cmcd_kl_ud_len_a(in_dim, din) != vg.len_a(in_dim, 2, din)
                        for din in (0, 2, 4))):
             raise RuntimeError(
                 "csrc/kl_underdamped.cu and its wrapper disagree on what fits one block at "
@@ -204,17 +204,18 @@ def _library() -> ctypes.CDLL:
 
 def _assemble(out_a, out_b, sn, spec, dim, nbridges):
     """The gradient dict from the kernel's sums (the layout of
-    ops/vargrad.assemble_grads; the ninth scalar is gamma's)."""
+    ops/vargrad.assemble_grads, with gamma's scalar)."""
     if uses_net(spec):
         grads = vg.assemble_grads(out_a, out_b, sn, dim, nbridges)
         in_dim = sn.in_dim
     else:
         grads, in_dim = {}, 0
     s = out_a[in_dim * in_dim + (3 + net_input_width(spec, dim)) * in_dim:]
+    at = vg.scalar_slots(dim)
     grads.update({
-        "eps": s[0], "gamma": s[8], "eta": torch.zeros_like(s[0]),
+        "eps": s[at["eps"]], "gamma": s[at["gamma"]], "eta": torch.zeros_like(s[0]),
         "betas": out_b[:nbridges, 2 * in_dim] + out_b[1:, 2 * in_dim + 1],
-        "vd_mean": s[1:3], "vd_logdiag": s[3:5],
+        "vd_mean": s[at["vd_mean"]], "vd_logdiag": s[at["vd_logdiag"]],
     })
     return grads
 
@@ -234,7 +235,7 @@ def _launch(lib, ztraj, rtraj, noise, cot, g_zfinal, betas, eps, gamma, vd_mean,
     means = grad_logp.means.to(dev, torch.float32).reshape(-1).contiguous()
     points = nbridges + 1
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
-    la, lb = vg.len_a(in_dim, din), vg.len_b(in_dim)
+    la, lb = vg.len_a(in_dim, 2, din), vg.len_b(in_dim)
     buffers = [new(blocks, la), new(points, blocks, lb), new(la), new(points, lb)]
     g_z0 = torch.empty_like(g_zfinal)
     err = lib.cmcd_kl_ud_sweep(

@@ -8,9 +8,11 @@ z_0..z_K as (K + 1, N, dim), which the VarGrad backward (ops/vargrad.py)
 reads, and with return_noise=True the draws xi_0..xi_{K-1} as (K, N, dim),
 which the KL reverse sweep (ops/kl.py) reads beside it. The kernel covers
 every overdamped spec (FORMS: CAIS and CAIS_VAR, ULA_SN with the net in
-the backward kernel only, and ULA without a net) on the many_gmm and the 3-mode
-gmm scores (ops/target_grads.py) with the two-layer geffner net; the wrapper
-raises on anything else.
+the backward kernel only, and ULA without a net) on the many_gmm and the
+3-mode gmm scores (dim 2) and on the funnel's and the standard normal's
+(dim 10; ops/target_grads.py: TARGETS, KERNEL_DIMS) with the two-layer
+geffner net; the wrapper raises on anything else, a dim other than the
+target's instance included.
 
 On a CPU tensor the wrapper runs the plain twin; on a CUDA tensor it
 launches the kernel or raises, never falling back.
@@ -28,6 +30,7 @@ from cmcd_tpu_torch.integrators.overdamped import CAIS, CAIS_VAR, ULA, ULA_SN, O
 from cmcd_tpu_torch.networks.geffner import GeffnerNet
 from cmcd_tpu_torch.ops import build
 from cmcd_tpu_torch.ops.target_grads import (
+    KERNEL_DIMS,
     MAX_TARGET_FLOATS,
     TARGETS,
     kernel_target,
@@ -58,36 +61,39 @@ def uses_net(spec: OverdampedSpec) -> bool:
     return spec.fwd_sn or spec.bwd_sn
 
 
-def smem_bytes(in_dim: int, n_par: int) -> int:
-    """Dynamic shared memory of one block of the tile form (the kernel's
-    layout: W2, two hidden tiles, the head, the target's n_par constants and
-    the per-chain exchange)."""
+def smem_bytes(in_dim: int, n_par: int, dim: int) -> int:
+    """Dynamic shared memory of one block of the tile form for a target of
+    dimension dim (the kernel's layout: W2, two hidden tiles, the dim head
+    rows, the target's n_par constants and the per-chain exchange)."""
     ip = _round_up(in_dim, 4)
     tc = CHAINS_PER_BLOCK
-    return 4 * (ip * ip + 2 * tc * ip + 2 * ip + _round_up(n_par, 4) + 3 * tc * 2)
+    return 4 * (ip * ip + 2 * tc * ip + dim * ip + _round_up(n_par, 4) + 3 * tc * dim)
 
 
-def kernel_fits(in_dim: int, n_par: int) -> bool:
-    """True if a net of width in_dim and a target of n_par constants fit one
-    block of the tile form (threads, shared memory)."""
+def kernel_fits(in_dim: int, n_par: int, dim: int) -> bool:
+    """True if a net of width in_dim and a target of n_par constants and
+    dimension dim fit one block of the tile form (threads, shared memory)."""
     return (
         in_dim >= 1
         and _round_up(in_dim, 32) <= MAX_THREADS
         and 1 <= n_par <= MAX_TARGET_FLOATS
-        and smem_bytes(in_dim, n_par) <= MAX_SMEM
+        and smem_bytes(in_dim, n_par, dim) <= MAX_SMEM
     )
 
 
 def check_target(what, grad_logp, dim):
-    """Raise unless the kernels take the target: a kernel_name of TARGETS, dim 2."""
+    """Raise unless the kernels take the target: a kernel_name of TARGETS at
+    the dim its template is instantiated at (KERNEL_DIMS: 2 for the
+    mixtures, 10 for the funnel and the standard normal)."""
     name = getattr(grad_logp, "kernel_name", None)
     if name not in TARGETS:
         raise NotImplementedError(
-            f"{what}: the kernel inlines the many_gmm and gmm scores only "
-            "(ops/target_grads.score_for_target)"
+            f"{what}: the kernel inlines the many_gmm, gmm, funnel and standard normal "
+            "scores only (ops/target_grads.score_for_target)"
         )
-    if dim != 2:
-        raise ValueError(f"{what}: dim must be 2 ({name}), got {dim}")
+    want = KERNEL_DIMS[name]
+    if dim != want or getattr(grad_logp, "dim", want) != want:
+        raise ValueError(f"{what}: dim must be {want} ({name}), got {dim}")
     if n_target_floats(grad_logp) > MAX_TARGET_FLOATS:
         raise NotImplementedError(f"{what}: more than {MAX_TARGET_FLOATS // 2} components")
 
@@ -117,7 +123,7 @@ def _check(z0, w0, betas, grad_logp, spec, dim, nbridges, sn, eps_schedule, nois
             )
         if sn.nbridges != nbridges:
             raise ValueError(f"{what}: net embedding rows != nbridges")
-        if not kernel_fits(sn.in_dim, n_target_floats(grad_logp)):
+        if not kernel_fits(sn.in_dim, n_target_floats(grad_logp), dim):
             raise NotImplementedError(f"{what}: in_dim {sn.in_dim} does not fit one block")
     if eps_schedule not in EPS_SCHEDULES:
         raise ValueError(f"unknown eps schedule {eps_schedule!r}")
@@ -208,22 +214,26 @@ def _library() -> ctypes.CDLL:
     lib.cmcd_error_string.argtypes = [ctypes.c_int]
     lib.cmcd_error_string.restype = ctypes.c_char_p
     lib.cmcd_overdamped_chains_per_block.restype = ctypes.c_int
-    lib.cmcd_overdamped_fits.argtypes = [i, i]
+    lib.cmcd_overdamped_fits.argtypes = [i, i, i]
     lib.cmcd_overdamped_fits.restype = ctypes.c_int
-    lib.cmcd_overdamped_smem_bytes.argtypes = [i, i]
+    lib.cmcd_overdamped_smem_bytes.argtypes = [i, i, i]
     lib.cmcd_overdamped_smem_bytes.restype = ctypes.c_longlong
     if lib.cmcd_overdamped_chains_per_block() != CHAINS_PER_BLOCK:
         raise RuntimeError("csrc/overdamped.cu and ops/overdamped.py disagree on TC")
-    # Every edge of the limits: shared memory (228/229 features), threads
-    # (256/257) and the target's constants (0, 1, 18, 80, 128, 129 floats).
-    for in_dim in (0, 1, 3, 18, 132, 224, 225, 228, 229, 256, 257, 302):
-        for n_par in (0, 1, 18, 80, 128, 129):
-            if (bool(lib.cmcd_overdamped_fits(in_dim, n_par)) != kernel_fits(in_dim, n_par)
-                    or lib.cmcd_overdamped_smem_bytes(in_dim, n_par) != smem_bytes(in_dim, n_par)):
-                raise RuntimeError(
-                    "csrc/overdamped.cu and ops/overdamped.py disagree on what fits "
-                    f"one block at in_dim {in_dim}, {n_par} target floats"
-                )
+    # Every edge of the limits at both instantiated dims: shared memory
+    # (228/229 features at dim 2, 224/225 at dim 10), threads (256/257) and
+    # the target's constants (0, 1, 18, 80, 128, 129 floats).
+    for dim in sorted(set(KERNEL_DIMS.values())):
+        for in_dim in (0, 1, 3, 18, 58, 132, 224, 225, 228, 229, 256, 257, 302):
+            for n_par in (0, 1, 18, 80, 128, 129):
+                if (bool(lib.cmcd_overdamped_fits(in_dim, n_par, dim))
+                        != kernel_fits(in_dim, n_par, dim)
+                        or lib.cmcd_overdamped_smem_bytes(in_dim, n_par, dim)
+                        != smem_bytes(in_dim, n_par, dim)):
+                    raise RuntimeError(
+                        "csrc/overdamped.cu and ops/overdamped.py disagree on what fits "
+                        f"one block at in_dim {in_dim}, {n_par} target floats, dim {dim}"
+                    )
     return lib
 
 
@@ -263,8 +273,9 @@ def evolve_overdamped_fused(
     """Run nbridges steps of `spec` (a key of FORMS) for every chain in one launch.
 
     z0: (N, dim) f32; w0: (N,) f32; betas: (K,); eps: scalar tensor or float;
-    vd_mean / vd_logdiag: (dim,); grad_logp: ops/target_grads.ManyGMMScore or
-    GMMScore; sn: the GeffnerNet (None for ULA); seed: int or one-element
+    vd_mean / vd_logdiag: (dim,); grad_logp: a kernel-form score of
+    ops/target_grads (TARGETS) at its KERNEL_DIMS dim; sn: the GeffnerNet
+    (None for ULA); seed: int or one-element
     integer tensor (read on the device, so no host sync); noise: optional
     (K, N, dim) standard normals. Returns (z (N, dim), w (N,)); with
     return_trajectory also traj (K + 1, N, dim): row 0 is z0, row K equals z;

@@ -2,12 +2,15 @@
 (cmcd_tpu/ops/target_grads.py).
 
 The CUDA kernels take the target as a template parameter
-(csrc/cmcd_common.cuh: ManyGmmTarget, Gmm3Target): the many_gmm score in
-every kernel, the 3-mode gmm's in all but the underdamped ones. This module
-holds their plain twins, with the Hessian products the reverse sweeps need,
-the registry that tells a wrapper which target its kernel integrates
-(`kernel_name`, TARGETS) and the flat vector of constants every kernel
-reads its target from (target_floats). Like the TPU kernel, the many_gmm score ignores the -1e4
+(csrc/cmcd_common.cuh: ManyGmmTarget, Gmm3Target, FunnelTarget,
+StdNormalTarget<10>), whose dimension D sizes every per-chain array: the
+many_gmm score in every kernel, the 3-mode gmm's in all but the underdamped
+ones, the funnel's and the standard normal's (D = 10) in the overdamped
+ones. This module holds their plain twins, with the Hessian products the
+reverse sweeps need, the registry that tells a wrapper which target its
+kernel integrates and at which D (`kernel_name`, TARGETS, KERNEL_DIMS) and
+the flat vector of constants every kernel reads its target from
+(target_floats). Like the TPU kernel, the many_gmm score ignores the -1e4
 floor of the batched log_prob: inside the support the two agree, outside it
 the floored log_prob has a zero gradient and this score does not.
 """
@@ -22,9 +25,11 @@ import torch
 
 from cmcd_tpu_torch.targets.gmm import gmm_constants, many_gmm_means, many_gmm_scale
 
-# The kernels' target template parameters (csrc/cmcd_common.cuh), both 2-D,
-# and how many constants a target may hand them (64 many_gmm components).
-TARGETS = {"many_gmm": 0, "gmm": 1}
+# The kernels' target template parameters (csrc/cmcd_common.cuh), the state
+# dimension each is instantiated at (T::D), and how many constants a target
+# may hand them (64 many_gmm components).
+TARGETS = {"many_gmm": 0, "gmm": 1, "funnel": 2, "std_normal": 3}
+KERNEL_DIMS = {"many_gmm": 2, "gmm": 2, "funnel": 10, "std_normal": 10}
 MAX_TARGET_FLOATS = 128
 
 
@@ -110,6 +115,58 @@ class GMMScore:
         return torch.sum(r[..., None] * (cv[..., None] * c - pv), dim=1)
 
 
+@dataclasses.dataclass(frozen=True)
+class FunnelScore:
+    """grad log p for Neal's funnel, v = x[0], x[1:] | v ~ N(0, e^v I)
+    (cmcd_tpu/ops/target_grads.py::make_funnel_grad_t):
+      d/dv = -v / sig^2 + e^{-v} sum_j x_j^2 / 2 - (dim - 1) / 2
+      d/dx_j = -x_j e^{-v},
+    e^{-v} unclipped, in the input's dtype."""
+
+    dim: int
+    sig: float
+
+    kernel_name = "funnel"
+
+    def __call__(self, x):
+        """x: (N, dim) -> (N, dim)."""
+        v, xs = x[:, :1], x[:, 1:]
+        ev = torch.exp(-v)
+        dv = (-v / (self.sig * self.sig) + 0.5 * ev * torch.sum(xs * xs, -1, keepdim=True)
+              - 0.5 * (self.dim - 1))
+        return torch.cat([dv, -xs * ev], dim=-1)
+
+    def hvp(self, x, u):
+        """The score's Jacobian applied to u (the Hessian of log p is
+        symmetric), both (N, dim) -> (N, dim), written out (the Pallas sweep
+        traces it with jax.vjp and never states it):
+          (H u)_0 = (-1/sig^2 - e^{-v} sum_j x_j^2 / 2) u_0 + e^{-v} sum_j x_j u_j
+          (H u)_j = e^{-v} (x_j u_0 - u_j)."""
+        v, xs = x[:, :1], x[:, 1:]
+        u0, us = u[:, :1], u[:, 1:]
+        ev = torch.exp(-v)
+        h0 = ((-1.0 / (self.sig * self.sig) - 0.5 * ev * torch.sum(xs * xs, -1, keepdim=True))
+              * u0 + ev * torch.sum(xs * us, -1, keepdim=True))
+        return torch.cat([h0, ev * (xs * u0 - us)], dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class StdNormalScore:
+    """The standard normal at any dim: score -x, H u = -u
+    (cmcd_tpu/ops/target_grads.py::make_std_normal_grad_t); the closed-form
+    check of the kernels' D = 10 instances."""
+
+    dim: int
+
+    kernel_name = "std_normal"
+
+    def __call__(self, x):
+        return -x
+
+    def hvp(self, x, u):
+        return -u
+
+
 def make_gmm_score(device=None) -> GMMScore:
     means, chols, _, log_norm = gmm_constants()
     precs = np.linalg.inv(chols @ np.swapaxes(chols, -1, -2))
@@ -122,11 +179,18 @@ def make_many_gmm_score(device=None, log_var_scaling: float = 0.1) -> ManyGMMSco
     return ManyGMMScore(means=many_gmm_means(device), inv_var=1.0 / (scale * scale))
 
 
-def score_for_target(target, device=None) -> Optional[ManyGMMScore | GMMScore]:
-    """The kernel-form score of `target`, or None where no kernel has one
-    (see ROADMAP queue B, B11). Which kernels take it: its kernel_name."""
+def score_for_target(target, device=None) -> Optional[
+        ManyGMMScore | GMMScore | FunnelScore | StdNormalScore]:
+    """The kernel-form score of `target`, or None where no score is written
+    out (see ROADMAP queue B, B11). Which kernels take it, and at which
+    dimension: its kernel_name (KERNEL_DIMS; a funnel of another funnel_d
+    has a score but no kernel)."""
     if target.name == "gmm":
         return make_gmm_score(device)
+    if target.name == "funnel":
+        return FunnelScore(dim=target.dim, sig=float(target.params.get("sig", 3.0)))
+    if target.name == "std_normal":
+        return StdNormalScore(dim=target.dim)
     if target.name != "many_gmm":
         return None
     p = target.params
@@ -137,10 +201,15 @@ def score_for_target(target, device=None) -> Optional[ManyGMMScore | GMMScore]:
 
 def target_floats(grad_logp) -> torch.Tensor:
     """The constants a kernel's target reads, as one flat f32 tensor: the
-    many_gmm means (n_mix x 2), or the gmm means (3 x 2), the precisions'
-    (p11, p12, p22) per component and the log-normalisers (3)."""
-    if grad_logp.kernel_name == "many_gmm":
+    many_gmm means (n_mix x 2); the gmm means (3 x 2), the precisions'
+    (p11, p12, p22) per component and the log-normalisers (3); the funnel's
+    sig; the standard normal's precision, 1. Nothing dimension-sized: the
+    kernel's D is the template's."""
+    name = grad_logp.kernel_name
+    if name == "many_gmm":
         return grad_logp.means.reshape(-1).to(torch.float32).contiguous()
+    if name in ("funnel", "std_normal"):
+        return torch.tensor([grad_logp.sig if name == "funnel" else 1.0], dtype=torch.float32)
     p = grad_logp.precs
     parts = [grad_logp.means, torch.stack([p[:, 0, 0], p[:, 0, 1], p[:, 1, 1]], -1),
              grad_logp.log_norm]

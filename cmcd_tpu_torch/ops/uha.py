@@ -26,7 +26,7 @@ import torch
 
 from cmcd_tpu_torch.ops import build
 from cmcd_tpu_torch.ops.overdamped import _f32, check_target
-from cmcd_tpu_torch.ops.target_grads import MAX_TARGET_FLOATS, kernel_target
+from cmcd_tpu_torch.ops.target_grads import KERNEL_DIMS, MAX_TARGET_FLOATS, kernel_target
 from cmcd_tpu_torch.ops.vargrad import check_device_tensors, ptr
 
 # The kernels' limits, mirrored from csrc/uha.cu and csrc/kl_uha.cu (checked
@@ -35,10 +35,20 @@ CHAINS_PER_BLOCK = 8      # one warp per chain
 MAX_LFSTEPS = 8           # leapfrog steps a bridge; the sweep keeps them in registers
 
 
+# The targets the UHA kernels are instantiated for (csrc/uha.cu,
+# csrc/kl_uha.cu: templated on D, but the funnel's instance is ROADMAP A6b).
+UHA_TARGETS = ("many_gmm", "gmm")
+
+
 def check_config(what, grad_logp, dim, nbridges, lfsteps):
     """Raise on what the UHA kernels do not take (both devices): another
     score than many_gmm's or gmm's, a dim other than 2, more constants than
     the kernels hold, lfsteps outside 1..MAX_LFSTEPS, no bridge."""
+    name = getattr(grad_logp, "kernel_name", None)
+    if name in KERNEL_DIMS and name not in UHA_TARGETS:
+        raise NotImplementedError(
+            f"{what}: the UHA kernels take many_gmm and gmm only; {name} waits for ROADMAP "
+            "A6b")
     check_target(what, grad_logp, dim)
     if not 1 <= lfsteps <= MAX_LFSTEPS:
         raise NotImplementedError(f"{what}: lfsteps must lie in 1..{MAX_LFSTEPS}, got {lfsteps}")

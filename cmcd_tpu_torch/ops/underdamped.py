@@ -81,8 +81,8 @@ def check_config(what, specs, spec, grad_logp, dim, nbridges, sn, fits):
         raise NotImplementedError(f"{what}: no kernel for spec {spec}")
     if getattr(grad_logp, "kernel_name", None) != "many_gmm":
         raise NotImplementedError(
-            f"{what}: the kernel inlines the many_gmm score only "
-            "(ops/target_grads.score_for_target)")
+            f"{what}: the kernel inlines the many_gmm score only; the 3-mode gmm and the "
+            "funnel wait for ROADMAP A6b (ops/target_grads.score_for_target)")
     if dim != 2:
         raise ValueError(f"{what}: dim must be 2 (many_gmm), got {dim}")
     in_dim = 0

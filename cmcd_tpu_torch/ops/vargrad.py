@@ -46,7 +46,12 @@ from cmcd_tpu_torch.ops.overdamped import (
     evolve_overdamped_fused_plain,
     pack_geffner,
 )
-from cmcd_tpu_torch.ops.target_grads import MAX_TARGET_FLOATS, kernel_target, n_target_floats
+from cmcd_tpu_torch.ops.target_grads import (
+    KERNEL_DIMS,
+    MAX_TARGET_FLOATS,
+    kernel_target,
+    n_target_floats,
+)
 from cmcd_tpu_torch.schedules import eps_per_step
 
 # The kernels' limits, mirrored from csrc/cmcd_tile.cuh and csrc/vargrad.cu
@@ -55,45 +60,68 @@ GROUPS = 4                # NG of the replay kernel: groups of feature threads
 CHAINS_PER_GROUP = 8      # TC
 CHAINS_PER_TILE = GROUPS * CHAINS_PER_GROUP
 GROUP_THREADS = 160       # FW_MAX: feature threads of one group
-WARP_SCALARS = 11         # NSCAL: the per-warp sums of the scalar gradients
 
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def tile_floats(groups: int, in_dim: int, n_par: int) -> int:
+def scalar_slots(dim: int) -> dict:
+    """Slots<D> of csrc/cmcd_tile.cuh: where each scalar gradient sits among
+    the sums that close a block's len_a (eps, vd mean, vd logdiag, factor_sn,
+    head bias, gamma). A warp keeps the same slots with the two betas of its
+    point before gamma."""
+    return {"eps": 0, "vd_mean": slice(1, 1 + dim), "vd_logdiag": slice(1 + dim, 1 + 2 * dim),
+            "factor_sn": 1 + 2 * dim, "head.bias": slice(2 + 2 * dim, 2 + 3 * dim),
+            "gamma": 2 + 3 * dim}
+
+
+def block_scalars(dim: int) -> int:
+    """nsc_block(D): the scalar sums that close a block's len_a."""
+    return scalar_slots(dim)["gamma"] + 1
+
+
+def warp_scalars(dim: int) -> int:
+    """nscal(D): the scalar sums a warp keeps (a block's and the two betas)."""
+    return block_scalars(dim) + 2
+
+
+def tile_floats(groups: int, in_dim: int, n_par: int, dim: int) -> int:
     """Floats of shared memory of the backward kernels' tile (csrc/
     cmcd_tile.cuh: W2 and the dW2 accumulator, the hidden tile both ways,
-    the h2 / g_a2 tile, head, the target's n_par constants and the per-warp
-    scalars)."""
+    the h2 / g_a2 tile, the dim head rows, the target's n_par constants and
+    the per-warp scalars)."""
     ip, tb = _round_up(in_dim, 4), groups * CHAINS_PER_GROUP
-    return (2 * ip * (ip + 1) + 2 * tb * ip + ip * (tb + 4) + 2 * ip
-            + _round_up(n_par, 4) + WARP_SCALARS * (groups * GROUP_THREADS // 32))
+    return (2 * ip * (ip + 1) + 2 * tb * ip + ip * (tb + 4) + dim * ip
+            + _round_up(n_par, 4) + warp_scalars(dim) * (groups * GROUP_THREADS // 32))
 
 
-# Floats of shared memory beside the tile: (per chain of the tile, per warp
-# of the block). VarGrad kernels: three states, g_out (2-vectors), the cotangent.
-EXTRA_FLOATS = (9, 0)
+def extra_floats(dim: int) -> tuple:
+    """Floats of shared memory beside the tile: (per chain of the tile, per
+    warp of the block). VarGrad kernels: three states and g_out (dim-vectors),
+    the cotangent."""
+    return (4 * dim + 1, 0)
 
 
-def smem_bytes(in_dim: int, n_par: int, groups: int = GROUPS, extra=EXTRA_FLOATS) -> int:
-    """Dynamic shared memory of one block of a backward kernel: the tile and
-    the kernel's own `extra` floats per chain and per warp."""
-    per_chain, per_warp = extra
-    return 4 * (tile_floats(groups, in_dim, n_par) + per_chain * groups * CHAINS_PER_GROUP
+def smem_bytes(in_dim: int, n_par: int, groups: int = GROUPS, extra=None, *, dim: int) -> int:
+    """Dynamic shared memory of one block of a backward kernel for a target
+    of dimension dim: the tile and the kernel's own `extra` floats per chain
+    and per warp (default this module's extra_floats(dim))."""
+    per_chain, per_warp = extra_floats(dim) if extra is None else extra
+    return 4 * (tile_floats(groups, in_dim, n_par, dim) + per_chain * groups * CHAINS_PER_GROUP
                 + per_warp * (groups * GROUP_THREADS // 32))
 
 
-def kernel_fits(in_dim: int, n_par: int, extra=EXTRA_FLOATS) -> bool:
-    """True if a net of width in_dim and a target of n_par constants fit one
-    block of a backward kernel at four groups, the larger form: a group's
-    feature threads, the shared memory."""
+def kernel_fits(in_dim: int, n_par: int, dim: int, extra=None) -> bool:
+    """True if a net of width in_dim and a target of n_par constants and
+    dimension dim fit one block of a backward kernel at four groups, the
+    larger form: a group's feature threads, the shared memory (`extra` as
+    in smem_bytes)."""
     return (
         in_dim >= 1
         and _round_up(in_dim, 32) <= GROUP_THREADS
         and 1 <= n_par <= MAX_TARGET_FLOATS
-        and smem_bytes(in_dim, n_par, GROUPS, extra) <= MAX_SMEM
+        and smem_bytes(in_dim, n_par, GROUPS, extra, dim=dim) <= MAX_SMEM
     )
 
 
@@ -107,11 +135,12 @@ def sweep_grid(n: int, device) -> tuple:
     return groups, min(-(-n // (groups * CHAINS_PER_GROUP)), sms)
 
 
-def len_a(in_dim: int, din: int = 2) -> int:
+def len_a(in_dim: int, dim: int, din: int | None = None) -> int:
     """Floats of a block's sums over its points (csrc/cmcd_tile.cuh): dW2,
-    dheadW, db2, dW1[:din], and nine scalars (eps, vd mean and logdiag,
-    factor_sn, head bias, gamma)."""
-    return in_dim * in_dim + (3 + din) * in_dim + 9
+    dheadW (dim rows), db2, dW1[:din] (din default dim), and the scalar sums
+    of scalar_slots."""
+    din = dim if din is None else din
+    return in_dim * in_dim + (1 + dim + din) * in_dim + block_scalars(dim)
 
 
 def len_b(in_dim: int) -> int:
@@ -125,9 +154,9 @@ VARGRAD_SPECS = (CAIS_VAR,)
 def check_backward_config(what, betas, grad_logp, spec, dim, nbridges, sn, eps_schedule,
                           fits=None, specs=VARGRAD_SPECS):
     """Raise on what the backward kernels do not take (both devices): a spec
-    outside `specs`, a target the kernels do not inline, and for a spec with
-    a net the two-layer geffner net and a width that fits one block (`fits`,
-    default this module's kernel_fits)."""
+    outside `specs`, a target the kernels do not inline at this dim, and for
+    a spec with a net the two-layer geffner net and a width that fits one
+    block (`fits`(in_dim, n_par, dim), default this module's kernel_fits)."""
     if spec not in specs:
         raise NotImplementedError(f"{what}: no kernel for spec {spec}")
     check_target(what, grad_logp, dim)
@@ -138,7 +167,7 @@ def check_backward_config(what, betas, grad_logp, spec, dim, nbridges, sn, eps_s
             )
         if sn.nbridges != nbridges:
             raise ValueError(f"{what}: net embedding rows != nbridges")
-        if not (fits or kernel_fits)(sn.in_dim, n_target_floats(grad_logp)):
+        if not (fits or kernel_fits)(sn.in_dim, n_target_floats(grad_logp), dim):
             raise NotImplementedError(f"{what}: in_dim {sn.in_dim} does not fit one block")
     if eps_schedule not in EPS_SCHEDULES:
         raise ValueError(f"unknown eps schedule {eps_schedule!r}")
@@ -249,34 +278,39 @@ def evolve_vargrad_bwd_reroll_plain(
 
 def declare_limits(lib, prefix: str, extra, what: str):
     """Declare the limit queries of a backward kernel's library and check the
-    module's formula (with the kernel's `extra`) against them: shared memory
-    at both group counts, and what fits at the edges of the threads (160 /
-    161 features), the shared memory (144 / 145) and the target's constants."""
+    module's formula (with the kernel's `extra`, a function of the state's
+    dim) against them at every instantiated dim: shared memory at both group
+    counts, and what fits at the edges of the threads (160 / 161 features),
+    the shared memory (144 / 145 at dim 2; at dim 10 136 / 137 for the KL
+    sweep, 140 / 141 for the VarGrad kernels) and the target's constants."""
     i = ctypes.c_int
     get = lambda name: getattr(lib, f"cmcd_{prefix}_{name}")
     lib.cmcd_error_string.argtypes = [i]
     lib.cmcd_error_string.restype = ctypes.c_char_p
     get("chains_per_group").restype = i
-    get("fits").argtypes = [i, i]
+    get("fits").argtypes = [i, i, i]
     get("fits").restype = i
-    get("smem_bytes").argtypes = [i, i, i]
+    get("smem_bytes").argtypes = [i, i, i, i]
     get("smem_bytes").restype = ctypes.c_longlong
-    for fn in (get("len_a"), get("len_b")):
-        fn.argtypes = [i]
-        fn.restype = i
+    get("len_a").argtypes = [i, i]
+    get("len_b").argtypes = [i]
+    get("len_a").restype = get("len_b").restype = i
     if get("chains_per_group")() != CHAINS_PER_GROUP:
         raise RuntimeError(f"{what} and its wrapper disagree on the chains of a group")
-    for in_dim, n_par in ((0, 80), (18, 1), (22, 18), (132, 80), (144, 128), (145, 80),
-                          (160, 129), (161, 80), (132, 0)):
-        if (bool(get("fits")(in_dim, n_par)) != kernel_fits(in_dim, n_par, extra)
-                or any(get("smem_bytes")(g, in_dim, n_par) != smem_bytes(in_dim, n_par, g, extra)
-                       for g in (2, 4))
-                or get("len_a")(in_dim) != len_a(in_dim)
-                or get("len_b")(in_dim) != len_b(in_dim)):
-            raise RuntimeError(
-                f"{what} and its wrapper disagree on what fits one block at "
-                f"in_dim {in_dim}, {n_par} target floats"
-            )
+    for dim in sorted(set(KERNEL_DIMS.values())):
+        for in_dim, n_par in ((0, 80), (18, 1), (22, 18), (58, 1), (132, 80), (136, 1),
+                              (137, 1), (140, 1), (141, 1), (144, 128), (145, 80), (160, 129),
+                              (161, 80), (132, 0)):
+            if (bool(get("fits")(in_dim, n_par, dim)) != kernel_fits(in_dim, n_par, dim,
+                                                                      extra(dim))
+                    or any(get("smem_bytes")(g, in_dim, n_par, dim)
+                           != smem_bytes(in_dim, n_par, g, extra(dim), dim=dim) for g in (2, 4))
+                    or get("len_a")(in_dim, dim) != len_a(in_dim, dim)
+                    or get("len_b")(in_dim) != len_b(in_dim)):
+                raise RuntimeError(
+                    f"{what} and its wrapper disagree on what fits one block at "
+                    f"in_dim {in_dim}, {n_par} target floats, dim {dim}"
+                )
 
 
 @functools.lru_cache(maxsize=None)
@@ -287,7 +321,7 @@ def _library() -> ctypes.CDLL:
     lib.cmcd_vargrad_replay.restype = ctypes.c_int
     lib.cmcd_vargrad_reroll.argtypes = [p] * 20 + [i] * 9 + [f] * 3 + [p]
     lib.cmcd_vargrad_reroll.restype = ctypes.c_int
-    declare_limits(lib, "vargrad", EXTRA_FLOATS, "csrc/vargrad.cu")
+    declare_limits(lib, "vargrad", extra_floats, "csrc/vargrad.cu")
     return lib
 
 
@@ -307,7 +341,7 @@ def marshal(what, sn, dim, eps, grad_logp, dev, blocks, points, splits):
     for t in weights:
         if t.device != dev or t.dtype != torch.float32:
             raise ValueError(f"{what}: net weights must be f32 on {dev}")
-    la, lb = len_a(sn.in_dim), len_b(sn.in_dim)
+    la, lb = len_a(sn.in_dim, dim), len_b(sn.in_dim)
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
     buffers = [new(blocks, la), new(points, splits, lb), new(la), new(points, lb)]
     return scal, weights, kernel_target(grad_logp, dev), buffers
@@ -326,19 +360,19 @@ def raise_on(err, lib, what):
 
 def assemble_grads(out_a, out_b, sn, dim, nbridges, row_shift=False):
     """The gradient dict from a backward kernel's sums. out_a: dW2 (in x
-    out), dheadW, db2, dW1[:din] (din = dim + the net's rho_dim), then eps,
-    mean, logdiag, factor, headb, gamma (left out here: only the underdamped
-    sweep has it, ops/kl_underdamped.py). out_b per point: G1 = sum_n g_a1,
+    out), dheadW (dim x in), db2, dW1[:din] (din = dim + the net's rho_dim),
+    then eps, mean (dim), logdiag (dim), factor, headb (dim), gamma (left out
+    here: only the underdamped sweep has it, ops/kl_underdamped.py). out_b per point: G1 = sum_n g_a1,
     GH1 = sum_n g_h1, dbeta_j (the point's forward term), dbeta_{j-1} (its
     backward term). Point j's net used embedding row min(j, K - 1), or with
     row_shift (the backward net at i, ULA_sn) row j - 1 and none at j = 0."""
     in_dim, din = sn.in_dim, dim + sn.rho_dim
     sq = in_dim * in_dim
     g_w2 = out_a[:sq].view(in_dim, in_dim)
-    g_headw = out_a[sq:sq + 2 * in_dim].view(2, in_dim)
-    g_b2 = out_a[sq + 2 * in_dim:sq + 3 * in_dim]
-    g_w1x = out_a[sq + 3 * in_dim:sq + (3 + din) * in_dim].view(din, in_dim)
-    s = out_a[sq + (3 + din) * in_dim:]
+    g_headw = out_a[sq:sq + dim * in_dim].view(dim, in_dim)
+    g_b2 = out_a[sq + dim * in_dim:sq + (dim + 1) * in_dim]
+    g_w1x = out_a[sq + (dim + 1) * in_dim:sq + (dim + 1 + din) * in_dim].view(din, in_dim)
+    s, at = out_a[sq + (dim + 1 + din) * in_dim:], scalar_slots(dim)
     g1, gh1 = out_b[:, :in_dim], out_b[:, in_dim:2 * in_dim]
     g_betas = out_b[:nbridges, 2 * in_dim] + out_b[1:, 2 * in_dim + 1]
     # Point K used embedding row K - 1: fold it in (or shift every point one
@@ -355,12 +389,13 @@ def assemble_grads(out_a, out_b, sn, dim, nbridges, row_shift=False):
     d_emb = d_emb + d_c1 @ w1[din:].t()
     g_w1 = torch.cat([g_w1x, sn.emb.detach().t() @ d_c1])  # (in, out)
     return {
-        "eps": s[0], "betas": g_betas, "vd_mean": s[1:3], "vd_logdiag": s[3:5],
+        "eps": s[at["eps"]], "betas": g_betas, "vd_mean": s[at["vd_mean"]],
+        "vd_logdiag": s[at["vd_logdiag"]],
         "sn": {
             "layers.0.weight": g_w1.t(), "layers.0.bias": d_c1.sum(0),
             "layers.1.weight": g_w2.t(), "layers.1.bias": g_b2,
-            "head.weight": g_headw, "head.bias": s[6:8],
-            "emb": d_emb, "factor_sn": s[5],
+            "head.weight": g_headw, "head.bias": s[at["head.bias"]],
+            "emb": d_emb, "factor_sn": s[at["factor_sn"]],
         },
     }
 
@@ -417,9 +452,9 @@ def evolve_vargrad_bwd_replay(
     backward kernel and one of its reduction.
 
     traj: (K + 1, N, dim) f32; cot: (N,) f32; betas: (K,); eps: scalar tensor
-    or float; vd_mean / vd_logdiag: (dim,); grad_logp:
-    ops/target_grads.ManyGMMScore or GMMScore; sn: the GeffnerNet. Returns the gradient
-    dict described in the module docstring.
+    or float; vd_mean / vd_logdiag: (dim,); grad_logp: a kernel-form score of
+    ops/target_grads at its KERNEL_DIMS dim; sn: the GeffnerNet. Returns the
+    gradient dict described in the module docstring.
     """
     _check(traj, cot, betas, grad_logp, spec, dim, nbridges, sn, eps_schedule)
     kwargs = dict(dim=dim, nbridges=nbridges, sn=sn, eps_schedule=eps_schedule,

@@ -1,8 +1,9 @@
 """Target registry: name -> Target (cmcd_tpu/targets/__init__.py).
 
-many_gmm and the 3-mode gmm are ported; every other name raises
-NotImplementedError and names the ROADMAP queue that holds it. Names are
-matched as the JAX package matches them: "many_gmm" is tested before "gmm".
+many_gmm, the 3-mode gmm and Neal's funnel are ported; every other name
+raises NotImplementedError and names the ROADMAP queue that holds it. Names
+are matched as the JAX package matches them: "funnel" first, then
+"many_gmm" before "gmm".
 """
 
 from __future__ import annotations
@@ -15,10 +16,15 @@ def load_target(name: str, config=None, device=None) -> Target:
     """Load a target density by name; config attributes as in cmcd_tpu.
     device=None is the card (utils/device.resolve_device)."""
     device = resolve_device(device)
+    get = lambda attr, default: getattr(config, attr, default)
+    if "funnel" in name:
+        from cmcd_tpu_torch.targets.funnel import make_funnel
+
+        return make_funnel(d=get("funnel_d", 10), sig=get("funnel_sig", 3.0),
+                           clip_y=get("funnel_clipy", 11.0))
     if "many_gmm" in name:
         from cmcd_tpu_torch.targets.gmm import make_many_gmm
 
-        get = lambda attr, default: getattr(config, attr, default)
         return make_many_gmm(
             n_mixes=get("n_mixes", 40),
             loc_scaling=get("loc_scaling", 40.0),
@@ -30,7 +36,7 @@ def load_target(name: str, config=None, device=None) -> Target:
         return make_gmm(device=device)
     raise NotImplementedError(
         f"target {name!r} is not ported yet: see ROADMAP queue A "
-        "(remaining overdamped targets)"
+        "(A5c, the rest of the target zoo)"
     )
 
 

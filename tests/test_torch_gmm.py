@@ -97,7 +97,7 @@ def test_registry_matches_many_gmm_before_gmm():
     assert load_target("many_gmm", device="cpu").name == "many_gmm"
     assert isinstance(score_for_target(load_target("many_gmm", device="cpu")), ManyGMMScore)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_target("funnel", device="cpu")
+        load_target("banana", device="cpu")
 
 
 def test_target_floats_match_the_jax_constants():

@@ -219,7 +219,7 @@ def test_fused_kl_gate_and_mode_checks():
     assert "MCD_DNF" not in KL_FUSED_MODES
     assert supports_fused_train(
         tb.CMCDSetup(mode="MCD_CAIS_sn", dim=2, nbridges=256, emb_dim=130), target)
-    assert kl.kernel_fits(132, 80) and not kl.kernel_fits(148, 80)
+    assert kl.kernel_fits(132, 80, 2) and not kl.kernel_fits(148, 80, 2)
     assert not supports_fused_train(
         tb.CMCDSetup(mode="MCD_CAIS_sn", dim=2, nbridges=8, emb_dim=160), target)
     case = make_case()

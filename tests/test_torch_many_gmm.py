@@ -73,7 +73,7 @@ def test_kernel_score_matches_autograd_score():
 
 def test_registry_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_target("funnel", device="cpu")
+        load_target("banana", device="cpu")
     with pytest.raises(NotImplementedError):
         make_many_gmm(n_mixes=8, loc_scaling=10.0)
     assert score_for_target(load_target("many_gmm", device="cpu")) is not None

@@ -360,8 +360,8 @@ def test_gates_words_and_the_dropped_schedule():
 
 @pytest.mark.parametrize("bad", ["spec", "score", "dim"])
 def test_sweep_refuses_what_no_kernel_takes(bad):
-    """VarGrad's spec stops the state gradient; funnel has no kernel score;
-    dim 10 is the funnel's."""
+    """VarGrad's spec stops the state gradient; a plain callable is no
+    kernel score; gmm's template is instantiated at dim 2, not 10."""
     case = make_case("gmm", "MCD_ULA")
     z0, (betas, eps, mean, logdiag, score, spec), kw = port_args(case)
     traj, noise = torch.zeros(K + 1, N, 2), torch.zeros(K, N, 2)

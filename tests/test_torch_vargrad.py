@@ -290,7 +290,7 @@ def test_supports_fused_train_gate():
         tb.CMCDSetup(mode="MCD_DNF", dim=2, nbridges=8), target)
     # in_dim 162 fits the rollout's block but not the backward's (many_gmm:
     # 80 constants, its 40 means).
-    assert kernel_fits(132, 80) and kernel_fits(144, 80) and not kernel_fits(148, 80)
+    assert kernel_fits(132, 80, 2) and kernel_fits(144, 80, 2) and not kernel_fits(148, 80, 2)
     assert not supports_fused_train(
         tb.CMCDSetup(mode="MCD_CAIS_var_sn", dim=2, nbridges=8, emb_dim=160), target)
 
