@@ -103,8 +103,8 @@ Phases, one line each; any failure exits non-zero:
      kernels against the plain versions.
  17. UHA evaluation path: run_experiment with the UHA flags (iters 0) and the
      30 x 500 evaluation: the UHA rollout launched 30 times, ELBO and ln Z
-     finite; the same flags on the funnel (not ported) and with lfsteps past
-     the kernels' limit raise NotImplementedError and launch nothing.
+     finite; the same flags with lfsteps past the kernels' limit raise
+     NotImplementedError and launch nothing.
  18. UHA KL training path: run_experiment with the UHA flags and TRAIN_ITERS
      steps at N=2000, then the evaluation: the UHA rollout launched
      TRAIN_ITERS + 30 times, its sweep TRAIN_ITERS times and no other kernel;
@@ -133,8 +133,7 @@ Phases, one line each; any failure exits non-zero:
      sweep OD_PATH_ITERS; ELBO above its value at init), ULA_sn and ULA on
      many_gmm at N=2000, K=256 for OD_WIDE_ITERS steps, the VarGrad loss on
      gmm (replay at N=300; the re-rolling backward at N=REROLL_N, K=256),
-     each followed by the 30 x 500 evaluation; no NaN loss, no divergence;
-     LDVI on gmm is refused with no launch.
+     each followed by the 30 x 500 evaluation; no NaN loss, no divergence.
  22. timing (CUDA events, in the order plain, kernel, kernel, plain) of the
      new forms at N=2000, K=256 on many_gmm and at the gmm recipes' shapes,
      each beside its bound (_work_od) and the kernel's device time per
@@ -165,13 +164,38 @@ Phases, one line each; any failure exits non-zero:
      FUNNEL_PATH_ITERS; ELBO above its value at init), ULA_sn and ULA with
      the same flags and the VarGrad loss (replay) for FUNNEL_SHORT_ITERS, the
      re-rolling backward at N=REROLL_N, K=256 for REROLL_ITERS steps, each
-     followed by the 30 x 2000 evaluation; no NaN loss, no divergence; LDVI
-     and UHA on the funnel are refused with no launch.
+     followed by the 30 x 2000 evaluation; no NaN loss, no divergence.
  25. timing (CUDA events, plain, kernel, kernel, plain) of the D = 10 forms
      on the funnel at funnel_k8's shape and the stress shape, each beside its
      bound (_work_od at dim 10) and its device time per launch under
      torch.profiler; funnel_k8's optimizer step over 50 and 500 steps
      against the eager step, with its device busy share.
+ 26. the underdamped family's new forms against their plain versions: the
+     underdamped rollout and KL sweep of all seven specs on gmm and the
+     funnel at the test size (N=256 / 128, K=8 / 6, emb 16; the sweeps with
+     the float64 arbiter); at each new path's shapes (UD_NEW_SHAPES: the
+     exact and exact_fwd modes on many_gmm at N=2000, K=256, emb 130; LDVI
+     on gmm at N=300, K=8 and N=2000, K=256, emb 20; CAIS_UHA on the funnel
+     at N=300, K=32, emb 48 and N=2000, K=256) rollout and sweep; CAIS_UHA
+     with its target score clip engaged (init_sigma 3; the count of clipped
+     elements must be above 0) and its noise stack; the sweep at four groups
+     (N=8192, K=8); the UHA rollout and sweep on the funnel (lfsteps 1 and 3
+     at the test size, N=300, K=8 and N=2000, K=256) and its noise stack;
+     one whole step of each new path's flags.
+ 27. the new forms' paths through the CLI, each form's launches counted
+     from 0 just before its run and no other kernel launched: CAIS_UHA on
+     the funnel at K=32 (funnel_k8's other flags, FUNNEL_EPS_DICT[32]) for
+     CAIS_UHA_PATH_ITERS steps (underdamped rollout CAIS_UHA_PATH_ITERS +
+     30, sweep CAIS_UHA_PATH_ITERS; ELBO above its value at init), the exact
+     and exact_fwd modes on many_gmm with the LDVI flags, LDVI with the
+     gmm_cais flags and UHA with funnel_k8's for UD_SHORT_ITERS, each
+     followed by the evaluation; MCD_DNF, still unported, refused with no
+     launch.
+ 28. timing (CUDA events, plain, kernel, kernel, plain) of the new forms at
+     their paths' shapes, each beside its bound (_work_ud, _work_uha) and
+     its device time per launch under torch.profiler; the CAIS_UHA funnel
+     optimizer step over 50 and 500 steps against the eager step, with its
+     device busy share.
 Then a JSON line with each kernel's launches, error, times and bound, and as
 the last line {"ok": true, "device": {...}}.
 """
@@ -1376,13 +1400,16 @@ def phase_kl_timing():
           flush=True)
     return {**times, **{f"{name}_big": ms for name, ms in big_ms.items()}}, step_ms
 
-def make_ud_problem(n, k, emb_dim, spec, *, seed, sigma=3.0, eps=0.05, gamma=5.0, eta=0.5):
+def make_ud_problem(n, k, emb_dim, spec, *, seed, sigma=3.0, eps=0.05, gamma=5.0, eta=0.5,
+                    target="many_gmm"):
     """make_problem for an underdamped spec: a net on the spec's input ([z],
-    [z, rho] or none), gamma and eta, noise (K + 1, N, 2)."""
+    [z, rho] or none), gamma and eta, noise (K + 1, N, dim)."""
+    from cmcd_tpu_torch.ops.target_grads import KERNEL_DIMS
     from cmcd_tpu_torch.ops.underdamped import net_input_width
 
     case = make_problem(n, k, emb_dim, seed=seed, sigma=sigma, eps=eps,
-                        din=net_input_width(spec, 2), noise_rows=k + 1)
+                        din=net_input_width(spec, KERNEL_DIMS[target]), noise_rows=k + 1,
+                        target=target)
     case["gamma"], case["eta"] = (torch.tensor(v, device="cuda") for v in (gamma, eta))
     return case
 
@@ -1432,9 +1459,20 @@ def compare_ud(case, spec, tol):
         and torch.equal(zt_k[0], pos[0]) and torch.equal(zt_k[-1], z_k)
         and torch.equal(rt_k[0], noise[0]))
     stats["finite"] = bool(torch.isfinite(z_k).all() and torch.isfinite(w_k).all())
+    if spec.cais:  # the target score's elements past CAIS_UHA's clip along the path
+        stats["clipped_score_elements"] = clipped_elements(pos[-1], zt_p)
     good = (not (stats["z_bad"] or stats["w_bad"]) and paths_ok and stats["finite"]
             and stats["ends_exact_outputs_unchanged_noise_handed_on"])
     return stats, good
+
+
+def clipped_elements(score, ztraj):
+    """How many elements of the target score at the stored positions lie past
+    CAIS_UHA's clip (|gt| > 1e2): the clip and its VJP are only held to their
+    plain versions where this is not 0."""
+    from cmcd_tpu_torch.integrators.underdamped import CAIS_UHA_CLIP
+
+    return int((score(ztraj.reshape(-1, ztraj.shape[-1])).abs() > CAIS_UHA_CLIP).sum())
 
 
 def compare_ud_noise_stack(case, spec):
@@ -1470,15 +1508,17 @@ def compare_ud_sweep(case, spec, tol, arbitrate=False):
     _, _, zt, rt, dr = evolve_underdamped_fused_plain(*pos, spec, **kw, noise=noise,
                                                       return_state=True)
     gen = torch.Generator(device="cuda").manual_seed(19)
-    n = pos[0].shape[0]
+    n, dim = pos[0].shape
     cot = torch.randn(n, generator=gen, device="cuda")
-    g_zf = torch.randn(n, 2, generator=gen, device="cuda")
+    g_zf = torch.randn(n, dim, generator=gen, device="cuda")
     tree = lambda out: {**_flat(out[0]), "g_z0": out[1]}
     got = tree(evolve_kl_bwd_underdamped(zt, rt, dr, cot, g_zf, *pos[2:], spec, **kw))
     want = tree(evolve_kl_bwd_underdamped_plain(zt, rt, dr, cot, g_zf, *pos[2:], spec, **kw))
     torch.cuda.synchronize()
     worst, leaf, ok = _grad_errors(got, want, tol)
     line = f"worst relative error {worst:.3e} (leaf {leaf}), limit {tol}"
+    if spec.cais:
+        line += f", clipped score elements on the path {clipped_elements(pos[-1], zt)}"
     if arbitrate:
         ref = tree(evolve_kl_bwd_underdamped_plain(zt.double(), rt.double(), dr.double(), cot,
                                                    g_zf, *pos[2:], spec, **kw))
@@ -1603,24 +1643,30 @@ def phase_ud_training_path(init):
     return fwd, bwd
 
 
-def _work_ud(n, k, in_dim, n_mix=40):
+def _work_ud(n, k, in_dim, target="many_gmm", dim=2, din=4, fwd_net=False):
     """Least time the card could take for one call of each underdamped
-    kernel at these shapes (the rule of _work): (rollout without stores,
-    rollout with stores, sweep). in_dim: the net on [z, rho'] (din 4)."""
-    score = 6 * n_mix
-    net_apply = in_dim * in_dim + 6 * in_dim        # FMAs: layer 2, layer 1's x part, head
+    kernel at these shapes (the rule of _work) for a target of dimension
+    dim: (rollout without stores, rollout with stores, sweep). in_dim: the
+    net on din input columns (0: no net); fwd_net: CAIS_UHA's second apply
+    a step at [z, rho] (and its VJP in the sweep)."""
+    score, hvp, n_par = TARGET_WORK[target]
+    nets = (2 if fwd_net else 1) if in_dim else 0
+    net_apply = in_dim * in_dim + (din + dim) * in_dim   # FMAs: layer 2, layer 1's x part, head
     steps = k * n
-    weights = 4 * (4 * in_dim + k * in_dim + k * (in_dim - 4) + in_dim * in_dim + 3 * in_dim
-                   + 2 + 2 * n_mix)
-    fwd_flops = 2 * steps * (net_apply + score) + 2 * n * score
-    fwd_bytes = 4 * (3 * n + k) + weights + 4 * (3 * n)  # z0, w0, betas; z, w
-    stores = 3 * 8 * (k + 1) * n                          # z, rho and draws
-    # The sweep: per step the apply, W2 g_a2 and the dW2 outer product; per
-    # point the score and its Hessian product. Reads the three stacks, cot and
-    # g_zfinal; writes dL/dz0 and the per-block and per-point sums.
-    bwd_flops = 2 * steps * (3 * in_dim * in_dim + 10 * in_dim) + 2 * (k + 1) * n * 16 * n_mix
-    bwd_bytes = (stores + 4 * (3 * n + k) + weights + 8 * n
-                 + 4 * (in_dim * in_dim + 7 * in_dim + 9 + (k + 1) * (2 * in_dim + 2)))
+    weights = 4 * (din * in_dim + k * in_dim + k * (in_dim - din) + in_dim * in_dim
+                   + (2 + dim) * in_dim + dim) if in_dim else 0
+    fwd_flops = 2 * steps * (nets * net_apply + score + 12 * dim) + 2 * n * score
+    fwd_bytes = 4 * ((dim + 1) * n + k + n_par + 2 * dim) + weights + 4 * ((dim + 1) * n)
+    stores = 3 * 4 * dim * (k + 1) * n                    # z, rho and draws
+    # The sweep: per step and net the apply, W2 g_a2 and the dW2 outer
+    # product; per point the score and its Hessian product. Reads the three
+    # stacks, cot and g_zfinal; writes dL/dz0 and the per-block and per-point
+    # sums.
+    bwd_flops = (2 * steps * nets * (3 * in_dim * in_dim + (2 * din + 2 * dim) * in_dim)
+                 + 2 * (k + 1) * n * (score + hvp + 30 * dim))
+    sums = 4 * (in_dim * in_dim + (1 + dim + din) * in_dim + 3 + 3 * dim
+                + (k + 1) * (2 * in_dim + 2)) if in_dim else 4 * (3 + 2 * dim + 2 * (k + 1))
+    bwd_bytes = stores + 4 * (2 * n + k + n_par + 2 * dim) + weights + 8 * dim * n + sums
     return (_bound(fwd_flops, fwd_bytes), _bound(fwd_flops, fwd_bytes + stores),
             _bound(bwd_flops, bwd_bytes))
 
@@ -1697,8 +1743,8 @@ def phase_ud_timing():
 def make_uha_problem(n, k, target_name, *, seed, sigma=3.0, eps=0.05, eta=0.5, lfsteps=1):
     """Inputs of the UHA kernels from a numpy seed: z0, non-uniform betas, eps,
     eta, a momentum log-scale md away from zero, vd params, the target's score
-    and noise (K + 1, N, 2)."""
-    from cmcd_tpu_torch.ops.target_grads import score_for_target
+    and noise (K + 1, N, dim)."""
+    from cmcd_tpu_torch.ops.target_grads import KERNEL_DIMS, score_for_target
     from cmcd_tpu_torch.schedules import betas_from_grid, make_beta_grid_params
     from cmcd_tpu_torch.targets import load_target
 
@@ -1707,17 +1753,18 @@ def make_uha_problem(n, k, target_name, *, seed, sigma=3.0, eps=0.05, eta=0.5, l
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
     mg, gx, tx = make_beta_grid_params(k, device=dev)
     mg = f32(rng.uniform(0.5, 1.5, mg.shape[0]))
+    dim = KERNEL_DIMS[target_name]
     return dict(
-        z0=f32(sigma * rng.standard_normal((n, 2))),
+        z0=f32(sigma * rng.standard_normal((n, dim))),
         betas=betas_from_grid(mg, gx, tx).contiguous(),
         eps=f32(eps),
         eta=f32(eta),
-        md=f32([0.1, -0.2]),
-        vd_mean=f32([0.5, -0.5]),
-        vd_logdiag=f32([math.log(sigma)] * 2),
+        md=f32([(0.1, -0.2)[d % 2] for d in range(dim)]),
+        vd_mean=f32([0.5 * (-1) ** d for d in range(dim)]),
+        vd_logdiag=f32([math.log(sigma)] * dim),
         grad_logp=score_for_target(load_target(target_name, device=dev), dev),
-        noise=f32(rng.standard_normal((k + 1, n, 2))),
-        dim=2,
+        noise=f32(rng.standard_normal((k + 1, n, dim))),
+        dim=dim,
         nbridges=k,
         lfsteps=lfsteps,
     )
@@ -1797,9 +1844,9 @@ def compare_uha_sweep(case, tol, arbitrate=False):
     pos, kw, noise = _uha_split(case)
     _, _, zt, rt, dr = evolve_uha_fused_plain(*pos, **kw, noise=noise, return_state=True)
     gen = torch.Generator(device="cuda").manual_seed(29)
-    n = pos[0].shape[0]
+    n, dim = pos[0].shape
     cot = torch.randn(n, generator=gen, device="cuda")
-    g_zf = torch.randn(n, 2, generator=gen, device="cuda")
+    g_zf = torch.randn(n, dim, generator=gen, device="cuda")
     tree = lambda out: {**out[0], "g_z0": out[1]}
     got = tree(evolve_kl_bwd_uha(zt, rt, dr, cot, g_zf, *pos[1:], **kw))
     want = tree(evolve_kl_bwd_uha_plain(zt, rt, dr, cot, g_zf, *pos[1:], **kw))
@@ -1875,8 +1922,8 @@ def phase_uha_eval_path():
     if out["neg_elbos"].shape != (30, 500) or not np.isfinite(out["samples"]).all():
         fail("UHA evaluation output malformed")
     # What no kernel covers raises on the card instead of running eagerly: a
-    # target that is not ported, a leapfrog longer than the kernels take.
-    for extra in (["--config.model", "funnel"], ["--config.lfsteps", str(MAX_LFSTEPS + 1)]):
+    # leapfrog longer than the kernels take.
+    for extra in (["--config.lfsteps", str(MAX_LFSTEPS + 1)],):
         try:
             run_experiment(parse_flags(UHA_FLAGS + ["--config.iters", "0"] + extra))
         except NotImplementedError as err:
@@ -1939,21 +1986,22 @@ def phase_uha_training_path(init):
     return fwd, bwd
 
 
-def _work_uha(n, k, lfsteps=1, n_mix=40):
+def _work_uha(n, k, lfsteps=1, target="many_gmm", dim=2):
     """Least time the card could take for one call of each UHA kernel at
-    these shapes (the rule of _work): (rollout without stores, rollout with
-    stores, sweep)."""
-    score = 6 * n_mix                         # FMAs per score: distances, exp, sums
-    hvp = 10 * n_mix                          # FMAs per Hessian product
-    state = 12                                # FMAs per bridge: refresh, kicks, drifts, weight
+    these shapes (the rule of _work) for a target of dimension dim: (rollout
+    without stores, rollout with stores, sweep)."""
+    score, hvp, n_par = TARGET_WORK[target]   # FMAs per score, per Hessian product
+    state = 6 * dim                           # FMAs per bridge: refresh, kicks, drifts, weight
     fwd_flops = 2 * n * (k * (lfsteps * score + lfsteps * state) + score)
-    fwd_bytes = 4 * (2 * n + k + 6 + 2 * n_mix) + 4 * (3 * n)  # z0, betas, params; z, w
-    stores = 3 * 8 * (k + 1) * n                                # z, rho and draws
+    fwd_bytes = 4 * ((dim + 1) * n + k + 2 + 3 * dim + n_par) + 4 * ((dim + 1) * n)
+    stores = 3 * 4 * dim * (k + 1) * n        # z, rho and draws
     # The sweep: per bridge 2 L - 1 scores and L Hessian products, per point
     # the score again; reads the three stacks, cot and g_zfinal; writes
     # dL/dz0 and the sums.
-    bwd_flops = 2 * n * (k * ((2 * lfsteps - 1) * score + lfsteps * hvp + 40) + score + hvp)
-    bwd_bytes = stores + 4 * (3 * n + k + 6 + 2 * n_mix) + 8 * n + 4 * (8 + k)
+    bwd_flops = 2 * n * (k * ((2 * lfsteps - 1) * score + lfsteps * hvp + 20 * dim) + score
+                         + hvp)
+    bwd_bytes = (stores + 4 * ((dim + 1) * n + k + 2 + 3 * dim + n_par) + 4 * dim * n
+                 + 4 * (2 + 3 * dim + k))
     return (_bound(fwd_flops, fwd_bytes), _bound(fwd_flops, fwd_bytes + stores),
             _bound(bwd_flops, bwd_bytes))
 
@@ -2240,19 +2288,6 @@ def phase_od_paths():
     runs["reroll/gmm"] = _od_path(big, REROLL_ITERS, "21 path", {
         rollout: {"CAIS/gmm": REROLL_ITERS + seeds}, reroll: {"gmm": REROLL_ITERS}},
         elbo_must_rise=False)
-    # What no kernel covers raises on the card: the underdamped modes on gmm.
-    from cmcd_tpu_torch.main import parse_flags, run_experiment
-
-    _reset_launches()
-    bad = [f if f != "MCD_CAIS_sn" else "MCD_U_a-lp-sn" for f in GMM_CAIS_FLAGS]
-    try:
-        run_experiment(parse_flags(bad + ["--config.iters", "0"]))
-    except NotImplementedError as err:
-        print(f"[21 path] MCD_U_a-lp-sn on gmm: refused ({err})", flush=True)
-    else:
-        fail("MCD_U_a-lp-sn on gmm ran on the card without a kernel")
-    if _launch_table():
-        fail("a refused configuration launched a kernel")
     return {key: table for key, (table, _, _) in runs.items()}
 
 
@@ -2707,19 +2742,6 @@ def phase_funnel_paths():
     runs["reroll/funnel"] = _od_path(big, REROLL_ITERS, "24 path", {
         rollout: {"CAIS/funnel": REROLL_ITERS + seeds}, reroll: {"funnel": REROLL_ITERS}},
         elbo_must_rise=False)
-    from cmcd_tpu_torch.main import parse_flags, run_experiment
-
-    _reset_launches()
-    for mode in ("MCD_U_a-lp-sn", "UHA"):
-        bad = [f if f != "MCD_CAIS_sn" else mode for f in FUNNEL_FLAGS]
-        try:
-            run_experiment(parse_flags(bad + ["--config.iters", "0"]))
-        except NotImplementedError as err:
-            print(f"[24 path] {mode} on the funnel: refused ({err})", flush=True)
-        else:
-            fail(f"{mode} on the funnel ran on the card without a kernel")
-    if _launch_table():
-        fail("a refused configuration launched a kernel")
     return {key: table for key, (table, _, _) in runs.items()}
 
 
@@ -2900,9 +2922,359 @@ def _funnel_kernel_entries(errors, paths, times, bounds_, err_is):
     return entries
 
 
+# The underdamped family's new forms (phases 26-28): the exact refresh and
+# exact_fwd on many_gmm at the LDVI flags' shape, LDVI on the 3-mode gmm at
+# the gmm_cais recipe's, CAIS_UHA on the funnel at funnel_k8's flags with
+# K=32 (FUNNEL_EPS_DICT[32]: init_eps 0.1, lr 0.005; the JAX package's
+# record, RESULTS.md), UHA on the funnel at funnel_k8's.
+UD_MODE_FLAGS = {mode: [f if f != "MCD_U_a-lp-sn" else mode for f in LDVI_FLAGS]
+                 for mode in ("MCD_U_e-lp", "MCD_U_e-lp-sna", "MCD_U_ea-lp-sn")}
+GMM_LDVI_FLAGS = [f if f != "MCD_CAIS_sn" else "MCD_U_a-lp-sn" for f in GMM_CAIS_FLAGS]
+CAIS_UHA_FLAGS = ([f if f != "MCD_CAIS_sn" else "MCD_CAIS_UHA_sn" for f in FUNNEL_FLAGS]
+                  + ["--config.nbridges", "32"])
+FUNNEL_UHA_FLAGS = [f if f != "MCD_CAIS_sn" else "UHA" for f in FUNNEL_FLAGS]
+CAIS_UHA_PATH_ITERS, UD_SHORT_ITERS = 2000, 200
+# Each new form's shapes: (mode, target, N, K, emb, init_sigma, init_eps, init_gamma), the
+# path's own first.
+UD_NEW_SHAPES = {
+    "MCD_U_e-lp/many_gmm": [("MCD_U_e-lp", "many_gmm", 2000, 256, 130, 15.0, 0.05, 5.0)],
+    "MCD_U_e-lp-sna/many_gmm": [("MCD_U_e-lp-sna", "many_gmm", 2000, 256, 130, 15.0, 0.05, 5.0)],
+    "MCD_U_ea-lp-sn/many_gmm": [("MCD_U_ea-lp-sn", "many_gmm", 2000, 256, 130, 15.0, 0.05, 5.0)],
+    "MCD_U_a-lp-sn/gmm": [("MCD_U_a-lp-sn", "gmm", 300, 8, 20, 1.0, 0.01, 10.0),
+                          ("MCD_U_a-lp-sn", "gmm", 2000, 256, 20, 1.0, 0.01, 10.0)],
+    "MCD_CAIS_UHA_sn/funnel": [("MCD_CAIS_UHA_sn", "funnel", 300, 32, 48, 1.0, 0.1, 10.0),
+                               ("MCD_CAIS_UHA_sn", "funnel", 2000, 256, 48, 1.0, 0.01, 10.0)],
+}
+UHA_FUNNEL_SHAPES = [(300, 8, 0.1), (2000, 256, 0.01)]  # N, K, init_eps
+
+
+def _ud_case(mode, target, n, k, emb, sigma, eps, gamma, seed):
+    from cmcd_tpu_torch.integrators import UNDERDAMPED
+
+    spec = UNDERDAMPED[mode]
+    return spec, make_ud_problem(n, k, emb, spec, seed=seed, sigma=sigma, eps=eps, gamma=gamma,
+                                 target=target)
+
+
+def phase_ud_new_compare():
+    """The underdamped family's new forms against their plain versions
+    (phase 26): every spec of B6 and B7 on gmm and the funnel at the test
+    size, the exact and exact_fwd forms on many_gmm and each path's shapes
+    at full width, CAIS_UHA with its clip engaged and at four groups, B8 and
+    B9 on the funnel, and one whole step of each new path's flags."""
+    from cmcd_tpu_torch.integrators import UNDERDAMPED
+    from cmcd_tpu_torch.ops.vargrad import sweep_grid
+
+    ok, errors = True, {}
+
+    def keep(key, value, n=None):
+        keys = [key] + ([f"{key}/NG={sweep_grid(n, 'cuda')[0]}"] if n else [])
+        for k in keys:
+            errors[k] = max(errors.get(k, 0.0), value)
+
+    for target in ("gmm", "funnel"):
+        sigma = 1.0 if target == "funnel" else 3.0
+        for i, (mode, spec) in enumerate(UNDERDAMPED.items()):
+            case = make_ud_problem(256, 8, 16, spec, seed=90 + i, sigma=sigma, target=target)
+            stats, good = compare_ud(case, spec, TOL_SMALL)
+            ok &= good
+            keep(f"rollout {mode}/{target}", max(stats["z_max_abs"], stats["w_max_abs"]))
+            print(f"[26 compare] underdamped rollout small N=256 K=8 emb16 {mode} {target}: "
+                  f"{json.dumps(stats)}", flush=True)
+            case = make_ud_problem(128, 6, 16, spec, seed=100 + i, sigma=sigma, target=target)
+            worst, line, good = compare_ud_sweep(case, spec, GRAD_TOL_SMALL, arbitrate=True)
+            ok &= good
+            keep(f"sweep {mode}/{target}", worst)
+            print(f"[26 compare] underdamped KL sweep small N=128 K=6 emb16 {mode} {target}: "
+                  f"{line}, ok {good}", flush=True)
+    for key, shapes in UD_NEW_SHAPES.items():
+        for j, (mode, target, n, k, emb, sigma, eps, gamma) in enumerate(shapes):
+            spec, case = _ud_case(mode, target, n, k, emb, sigma, eps, gamma, seed=110 + j)
+            tol = TOL_SMALL if k <= 32 else TOL_FULL
+            stats, good = compare_ud(case, spec, tol)
+            ok &= good
+            keep(f"rollout {key}", max(stats["z_max_abs"], stats["w_max_abs"]))
+            print(f"[26 compare] underdamped rollout N={n} K={k} emb{emb} {key}: "
+                  f"{json.dumps(stats)} tol {json.dumps(tol)}", flush=True)
+            worst, line, good = compare_ud_sweep(case, spec, GRAD_TOL_FULL, arbitrate=True)
+            ok &= good
+            keep(f"sweep {key}", worst, n)
+            print(f"[26 compare] underdamped KL sweep N={n} K={k} emb{emb} {key}: {line}, ok "
+                  f"{good}", flush=True)
+    # CAIS_UHA's clip engaged (init_sigma 3: v below -4.6 on many chains)
+    # and its noise stack; four groups of feature threads at N=8192.
+    spec, case = _ud_case("MCD_CAIS_UHA_sn", "funnel", 300, 32, 48, 3.0, 0.1, 10.0, seed=120)
+    stats, good = compare_ud(case, spec, TOL_SMALL)
+    worst, line, good2 = compare_ud_sweep(case, spec, GRAD_TOL_FULL, arbitrate=True)
+    clipped = stats["clipped_score_elements"]
+    ok &= good and good2 and clipped > 0
+    keep("rollout MCD_CAIS_UHA_sn/funnel", max(stats["z_max_abs"], stats["w_max_abs"]))
+    keep("sweep MCD_CAIS_UHA_sn/funnel", worst, 300)
+    errors["clipped_score_elements"] = clipped
+    print(f"[26 compare] CAIS_UHA funnel with the clip engaged N=300 K=32 emb48 init_sigma 3: "
+          f"rollout {json.dumps(stats)}; KL sweep {line}, ok {good and good2 and clipped > 0}",
+          flush=True)
+    stats, good = compare_ud_noise_stack(case, spec)
+    ok &= good
+    print(f"[26 compare] underdamped noise stack N=300 K=32 CAIS_UHA funnel: {json.dumps(stats)}",
+          flush=True)
+    groups, blocks = sweep_grid(8192, "cuda")
+    if groups != 4 or blocks >= 8192 // 32:
+        fail(f"N=8192 does not take four groups with more tiles than blocks ({groups}, {blocks})")
+    for mode, target, emb in (("MCD_CAIS_UHA_sn", "funnel", 48), ("MCD_U_ea-lp-sn", "funnel", 48),
+                              ("MCD_U_e-lp-sna", "gmm", 20)):
+        spec, case = _ud_case(mode, target, 8192, 8, emb, 1.0, 0.1, 10.0, seed=121)
+        worst, line, good = compare_ud_sweep(case, spec, GRAD_TOL_FULL, arbitrate=True)
+        ok &= good
+        keep(f"sweep {mode}/{target}", worst, 8192)
+        print(f"[26 compare] underdamped KL sweep four groups N=8192 K=8 emb{emb} {mode} "
+              f"{target}: {line}, ok {good}", flush=True)
+    # B8 and B9 on the funnel.
+    for lf in (1, 3):
+        stats, good = compare_uha(make_uha_problem(256, 8, "funnel", seed=130, sigma=1.0,
+                                                   eps=0.1, lfsteps=lf), TOL_SMALL)
+        ok &= good
+        keep("uha_rollout/funnel", max(stats["z_max_abs"], stats["w_max_abs"]))
+        print(f"[26 compare] UHA rollout small N=256 K=8 funnel lfsteps {lf}: "
+              f"{json.dumps(stats)}", flush=True)
+        worst, line, good = compare_uha_sweep(make_uha_problem(256, 8, "funnel", seed=131,
+                                                               sigma=1.0, eps=0.1, lfsteps=lf),
+                                              GRAD_TOL_SMALL, arbitrate=True)
+        ok &= good
+        keep("uha_sweep/funnel", worst)
+        print(f"[26 compare] UHA sweep small N=256 K=8 funnel lfsteps {lf}: {line}, ok {good}",
+              flush=True)
+    for n, k, eps in UHA_FUNNEL_SHAPES:
+        tol = TOL_SMALL if k <= 32 else TOL_FULL
+        stats, good = compare_uha(make_uha_problem(n, k, "funnel", seed=132, sigma=1.0, eps=eps),
+                                  tol)
+        ok &= good
+        keep("uha_rollout/funnel", max(stats["z_max_abs"], stats["w_max_abs"]))
+        print(f"[26 compare] UHA rollout N={n} K={k} funnel: {json.dumps(stats)} tol "
+              f"{json.dumps(tol)}", flush=True)
+        worst, line, good = compare_uha_sweep(make_uha_problem(n, k, "funnel", seed=133,
+                                                               sigma=1.0, eps=eps),
+                                              GRAD_TOL_FULL, arbitrate=True)
+        ok &= good
+        keep("uha_sweep/funnel", worst)
+        print(f"[26 compare] UHA sweep N={n} K={k} funnel: {line}, ok {good}", flush=True)
+    stats, good = compare_uha_noise_stack(make_uha_problem(2000, 256, "funnel", seed=134,
+                                                           sigma=1.0, eps=0.01))
+    ok &= good
+    print(f"[26 compare] UHA noise stack N=2000 K=256 funnel: {json.dumps(stats)}", flush=True)
+    for name, flags in (("MCD_U_e-lp many_gmm", UD_MODE_FLAGS["MCD_U_e-lp"]),
+                        ("MCD_U_e-lp-sna many_gmm", UD_MODE_FLAGS["MCD_U_e-lp-sna"]),
+                        ("MCD_U_ea-lp-sn many_gmm", UD_MODE_FLAGS["MCD_U_ea-lp-sn"]),
+                        ("LDVI gmm (train_vi)", GMM_LDVI_FLAGS),
+                        ("CAIS_UHA funnel K=32 (train_vi)", CAIS_UHA_FLAGS),
+                        ("UHA funnel (train_vi)", FUNNEL_UHA_FLAGS)):
+        ok &= compare_training_step(flags + ["--config.iters", "0"], name, arbitrate=True,
+                                    tag="26 compare")
+    if not ok:
+        fail("a new underdamped or UHA kernel form and its plain version disagree beyond "
+             "tolerance")
+    return errors
+
+
+def phase_ud_new_paths():
+    """The new forms' paths through the CLI (phase 27), each form's launches
+    counted from 0 just before its run: CAIS_UHA on the funnel at K=32 for
+    CAIS_UHA_PATH_ITERS steps (ELBO above its value at init), the exact and
+    exact_fwd modes on many_gmm, LDVI on gmm and UHA on the funnel for
+    UD_SHORT_ITERS; then MCD_DNF, still unported, refused before any launch."""
+    rollout, sweep = "evolve_underdamped_fused", "evolve_kl_bwd_underdamped"
+    seeds = 30
+    runs = {}
+    for key, flags, iters in (
+            ("MCD_CAIS_UHA_sn/funnel", CAIS_UHA_FLAGS, CAIS_UHA_PATH_ITERS),
+            ("MCD_U_e-lp/many_gmm", UD_MODE_FLAGS["MCD_U_e-lp"], UD_SHORT_ITERS),
+            ("MCD_U_e-lp-sna/many_gmm", UD_MODE_FLAGS["MCD_U_e-lp-sna"], UD_SHORT_ITERS),
+            ("MCD_U_ea-lp-sn/many_gmm", UD_MODE_FLAGS["MCD_U_ea-lp-sn"], UD_SHORT_ITERS),
+            ("MCD_U_a-lp-sn/gmm", GMM_LDVI_FLAGS, UD_SHORT_ITERS)):
+        expect = {rollout: {key: iters + seeds}, sweep: {key: iters}}
+        runs[key] = _od_path(flags, iters, "27 path", expect,
+                             elbo_must_rise=iters == CAIS_UHA_PATH_ITERS)
+    runs["UHA/funnel"] = _od_path(FUNNEL_UHA_FLAGS, UD_SHORT_ITERS, "27 path", {
+        "evolve_uha_fused": {"funnel": UD_SHORT_ITERS + seeds},
+        "evolve_kl_bwd_uha": {"funnel": UD_SHORT_ITERS}}, elbo_must_rise=False)
+    from cmcd_tpu_torch.main import parse_flags, run_experiment
+
+    _reset_launches()
+    bad = [f if f != "MCD_CAIS_sn" else "MCD_DNF" for f in FUNNEL_FLAGS]
+    try:
+        run_experiment(parse_flags(bad + ["--config.iters", "0"]))
+    except NotImplementedError as err:
+        print(f"[27 path] MCD_DNF on the funnel: refused ({err})", flush=True)
+    else:
+        fail("MCD_DNF ran on the card without a kernel")
+    if _launch_table():
+        fail("a refused configuration launched a kernel")
+    return {key: table for key, (table, _, _) in runs.items()}
+
+
+def phase_ud_new_timing():
+    """CUDA-event and device times of the new forms at their paths' shapes
+    beside their bounds, and the CAIS_UHA funnel optimizer step (phase 28)."""
+    from cmcd_tpu_torch import bounds
+    from cmcd_tpu_torch.ops.fused_train import fused_training_path
+    from cmcd_tpu_torch.ops.kl_uha import evolve_kl_bwd_uha, evolve_kl_bwd_uha_plain
+    from cmcd_tpu_torch.ops.kl_underdamped import (
+        evolve_kl_bwd_underdamped,
+        evolve_kl_bwd_underdamped_plain,
+    )
+    from cmcd_tpu_torch.ops.uha import evolve_uha_fused, evolve_uha_fused_plain
+    from cmcd_tpu_torch.ops.underdamped import (
+        evolve_underdamped_fused,
+        evolve_underdamped_fused_plain,
+        net_input_width,
+    )
+    from cmcd_tpu_torch.train import train
+
+    seed = torch.tensor([7], device="cuda")
+    order = ("plain", "kernel", "kernel", "plain")
+    times, bounds_ = {}, {}
+
+    def timed(label, fns, kernels, bound):
+        t = times[label] = {key: [] for key in fns}
+        for which in order:
+            for kind in ("rollout", "sweep"):
+                key = kind if which == "kernel" else f"{kind}_plain"
+                fn, reps = fns[key]
+                t[key].append(_event_ms(fn, reps))
+        t["rollout_device"] = _device_ms(fns["rollout"][0], 10, kernels[0])
+        t["sweep_device"] = _device_ms(fns["sweep"][0], 10, kernels[1])
+        bounds_[label] = bound
+        print(f"[28 timing] {label} ms {json.dumps(t)}; bounds rollout with stores "
+              f"{json.dumps(bound[1])} sweep {json.dumps(bound[2])}", flush=True)
+
+    for key, shapes in UD_NEW_SHAPES.items():
+        for mode, target, n, k, emb, sigma, eps, gamma in shapes:
+            spec, case = _ud_case(mode, target, n, k, emb, sigma, eps, gamma, seed=140)
+            pos, kw, _ = _ud_split(case)
+            dim = pos[0].shape[1]
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            cot = torch.randn(n, generator=gen, device="cuda")
+            g_zf = torch.randn(n, dim, generator=gen, device="cuda")
+            _, _, zt, rt, dr = evolve_underdamped_fused(*pos, spec, **kw, seed=seed,
+                                                        return_state=True)
+            plain_reps = 2 if k <= 32 else 1
+            fns = {
+                "rollout": (lambda: evolve_underdamped_fused(*pos, spec, **kw, seed=seed,
+                                                             return_state=True), 20),
+                "rollout_plain": (lambda: evolve_underdamped_fused_plain(
+                    *pos, spec, **kw, seed=7, return_state=True), plain_reps),
+                "sweep": (lambda: evolve_kl_bwd_underdamped(zt, rt, dr, cot, g_zf, *pos[2:], spec,
+                                                            **kw), 10),
+                "sweep_plain": (lambda: evolve_kl_bwd_underdamped_plain(
+                    zt, rt, dr, cot, g_zf, *pos[2:], spec, **kw), 1),
+            }
+            din = net_input_width(spec, dim)
+            bound = _work_ud(n, k, din + emb if din else 0, target, dim, din, spec.fwd_sn)
+            timed(f"{key} N={n} K={k}", fns, ("underdamped_rollout", "kl_ud_sweep"), bound)
+    for n, k, eps in UHA_FUNNEL_SHAPES:
+        pos, kw, _ = _uha_split(make_uha_problem(n, k, "funnel", seed=141, sigma=1.0, eps=eps))
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        cot = torch.randn(n, generator=gen, device="cuda")
+        g_zf = torch.randn(n, 10, generator=gen, device="cuda")
+        _, _, zt, rt, dr = evolve_uha_fused(*pos, **kw, seed=seed, return_state=True)
+        fns = {
+            "rollout": (lambda: evolve_uha_fused(*pos, **kw, seed=seed, return_state=True), 20),
+            "rollout_plain": (lambda: evolve_uha_fused_plain(*pos, **kw, seed=7,
+                                                             return_state=True), 1),
+            "sweep": (lambda: evolve_kl_bwd_uha(zt, rt, dr, cot, g_zf, *pos[1:], **kw), 20),
+            "sweep_plain": (lambda: evolve_kl_bwd_uha_plain(zt, rt, dr, cot, g_zf, *pos[1:],
+                                                            **kw), 1),
+        }
+        timed(f"UHA/funnel N={n} K={k}", fns, ("uha_rollout", "kl_uha_sweep"),
+              _work_uha(n, k, 1, "funnel", 10))
+
+    cfg, setup, target, params, ctx = flagship(CAIS_UHA_FLAGS + ["--config.iters", "0"])
+    trainable = bounds.default_trainable(setup.mode, cfg.train_eps, cfg.train_vi, cfg.train_betas)
+    fused_loss, _ = fused_training_path(setup, cfg.N)
+    fused = lambda p, n_, c, s, generator: fused_loss(p, n_, c, s, target, generator=generator)
+
+    def steps(loss_fn, iters):
+        g = torch.Generator(device="cuda").manual_seed(1)
+        return lambda: train(setup, params, ctx, lr=cfg.lr, iters=iters, batch_size=cfg.N,
+                             generator=g, trainable=trainable, loss_fn=loss_fn,
+                             steps_per_call=max(iters, 1), nan_check_every=10**9)
+
+    steps(fused, 5)()
+    ms = {"eager": [], "kernel": []}
+    for which in order:
+        loss_fn, iters = (bounds.kl_bound, 2) if which == "plain" else (fused, 50)
+        ms["eager" if which == "plain" else "kernel"].append(_wall_ms(steps(loss_fn, iters))
+                                                             / iters)
+    ms["kernel_500"] = [_wall_ms(steps(fused, 500)) / 500]
+    prof_wall, prof_dev, top = _profile(steps(fused, 10))
+    ms["busy_ms"] = prof_dev / 10
+    ms["busy_share_of_500"] = prof_dev / 10 / ms["kernel_500"][0]
+    print(f"[28 timing] CAIS_UHA funnel optimizer step N={cfg.N} K={cfg.nbridges} "
+          f"emb{cfg.emb_dim} ms per step {json.dumps(ms)} (kernel: 50 steps, kernel_500: 500, "
+          f"eager: 2 per reading); 10 fused steps under the profiler: wall {prof_wall!r} ms, "
+          f"device busy {prof_dev!r} ms, device records {json.dumps(top)}", flush=True)
+    return times, bounds_, ms
+
+
+def _ud_new_kernel_entries(errors, paths, times, bounds_, err_is):
+    """The kernels line's entries of the new instances (phases 26-28): each
+    form's launches on its path (phase 27), its worst error against the plain
+    version over every shape (phase 26; a sweep's NG instances apart), its
+    times and bound at its path's shape and, where phase 28 has one, at a
+    second shape."""
+    keep = lambda b: {k: b[k] for k in ("bound_ms", "bound_by")}
+    entries = []
+    rollout, sweep = "evolve_underdamped_fused", "evolve_kl_bwd_underdamped"
+    instance = {"MCD_U_e-lp/many_gmm": ("ManyGmmTarget", 0, False),
+                "MCD_U_e-lp-sna/many_gmm": ("ManyGmmTarget", 2, False),
+                "MCD_U_ea-lp-sn/many_gmm": ("ManyGmmTarget", 4, False),
+                "MCD_U_a-lp-sn/gmm": ("Gmm3Target", 4, False),
+                "MCD_CAIS_UHA_sn/funnel": ("FunnelTarget", 20, True)}
+    labels = {key: [f"{key} N={n} K={k}" for _, _, n, k, *_ in shapes]
+              for key, shapes in UD_NEW_SHAPES.items()}
+    labels["UHA/funnel"] = [f"UHA/funnel N={n} K={k}" for n, k, _ in UHA_FUNNEL_SHAPES]
+
+    def entry(name, source, replaces, form, launches, err, label_list, kind, extra):
+        t0, b0 = times[label_list[0]], bounds_[label_list[0]][1 if kind == "rollout" else 2]
+        e = {"name": name, "route": "cuda", "source": source, "replaces": replaces, "form": form,
+             "launches": launches, "max_abs_err": err, **extra,
+             "ms": min(t0[kind]), "device_ms": t0[f"{kind}_device"],
+             "plain_ms": min(t0[f"{kind}_plain"]), **keep(b0), "library_ms": None,
+             "shape": label_list[0]}
+        if len(label_list) > 1:
+            t1, b1 = times[label_list[1]], bounds_[label_list[1]][1 if kind == "rollout" else 2]
+            e.update({"shape_2": label_list[1], "ms_2": min(t1[kind]),
+                      "device_ms_2": t1[f"{kind}_device"], "plain_ms_2": min(t1[f"{kind}_plain"]),
+                      "bound_ms_2": b1["bound_ms"]})
+        entries.append(e)
+
+    for key, (tname, din, cais) in instance.items():
+        table = paths[key]
+        by_groups = {"max_abs_err_by_groups": {g: errors.get(f"sweep {key}/NG={g}")
+                                               for g in (2, 4)}}
+        entry(f"underdamped_rollout<{tname}, {din}>", "cmcd_tpu_torch/csrc/underdamped.cu",
+              "cmcd_tpu/ops/pallas_underdamped.py:67", key, table[rollout][1][key],
+              errors[f"rollout {key}"], labels[key], "rollout", {})
+        extra = {"max_abs_err_is": err_is, **by_groups}
+        if cais:
+            extra["clipped_score_elements"] = errors["clipped_score_elements"]
+        entry(f"kl_ud_sweep<NG, {tname}, {din}, {str(cais).lower()}>",
+              "cmcd_tpu_torch/csrc/kl_underdamped.cu", "cmcd_tpu/ops/pallas_kl.py:983", key,
+              table[sweep][1][key], errors[f"sweep {key}"], labels[key], "sweep", extra)
+    table = paths["UHA/funnel"]
+    entry("uha_rollout<FunnelTarget>", "cmcd_tpu_torch/csrc/uha.cu",
+          "cmcd_tpu/ops/pallas_uha.py:31", "UHA/funnel", table["evolve_uha_fused"][1]["funnel"], errors["uha_rollout/funnel"],
+          labels["UHA/funnel"], "rollout", {})
+    entry("kl_uha_sweep<FunnelTarget, LMAX>", "cmcd_tpu_torch/csrc/kl_uha.cu",
+          "cmcd_tpu/ops/pallas_kl.py:1438", "UHA/funnel",
+          table["evolve_kl_bwd_uha"][1]["funnel"], errors["uha_sweep/funnel"],
+          labels["UHA/funnel"], "sweep", {"max_abs_err_is": err_is})
+    return entries
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    everything = "1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21,22,23,24,25"
+    everything = ",".join(str(p) for p in range(1, 29))
     ap.add_argument("--phases", default=everything,
                     help="comma-separated phases to run (default: all)")
     phases = {int(p) for p in ap.parse_args(argv).phases.split(",")}
@@ -2936,6 +3308,9 @@ def main(argv=None):
     funnel_errors = phase_funnel_compare() if 23 in phases else None
     funnel_paths = phase_funnel_paths() if 24 in phases else None
     funnel_timing = phase_funnel_timing() if 25 in phases else None
+    ud_new_errors = phase_ud_new_compare() if 26 in phases else None
+    ud_new_paths = phase_ud_new_paths() if 27 in phases else None
+    ud_new_timing = phase_ud_new_timing() if 28 in phases else None
     if phases != {int(p) for p in everything.split(",")}:
         print(f"partial run (phases {sorted(phases)}): no result line")
         return 1
@@ -2971,6 +3346,10 @@ def main(argv=None):
     print(f"[bounds] D = 10 forms on the funnel (phase 25 shapes): "
           f"{json.dumps({f: {k: keep(b) for k, b in v.items()} for f, v in funnel_bounds.items()})}"
           f"; funnel_k8 optimizer step ms {json.dumps(funnel_step_ms)}")
+    ud_new_times, ud_new_bounds, cais_uha_step_ms = ud_new_timing
+    print(f"[bounds] the new underdamped and UHA forms (phase 28 shapes; rollout with stores, "
+          f"sweep): {json.dumps({f: [keep(b[1]), keep(b[2])] for f, b in ud_new_bounds.items()})}"
+          f"; CAIS_UHA funnel K=32 optimizer step ms {json.dumps(cais_uha_step_ms)}")
     print(smi)
     # launches: of each kernel's own main path, counted from 0 just before it
     # (phase 7: VarGrad training and the 30 x 500 evaluation; phase 9: the KL
@@ -3096,6 +3475,8 @@ def main(argv=None):
         "library_ms": None,
     }] + _od_kernel_entries(od_errors, od_paths, od_times, od_bounds, err_is)
         + _funnel_kernel_entries(funnel_errors, funnel_paths, funnel_times, funnel_bounds,
+                                 err_is)
+        + _ud_new_kernel_entries(ud_new_errors, ud_new_paths, ud_new_times, ud_new_bounds,
                                  err_is)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

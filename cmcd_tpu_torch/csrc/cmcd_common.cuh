@@ -491,13 +491,17 @@ struct TargetTag {
   using type = T;
 };
 
-template <class F>
+// STD_NORMAL false: the kernels instantiated for the three targets of the
+// recipes only (the underdamped ones), code 3 refused.
+template <bool STD_NORMAL = true, class F>
 __host__ inline cudaError_t dispatch_target(int target, F f) {
   switch (target) {
     case 0: return f(TargetTag<ManyGmmTarget>{});
     case 1: return f(TargetTag<Gmm3Target>{});
     case 2: return f(TargetTag<FunnelTarget>{});
-    case 3: return f(TargetTag<StdNormalTarget<10>>{});
+    case 3:
+      if constexpr (STD_NORMAL) return f(TargetTag<StdNormalTarget<10>>{});
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }

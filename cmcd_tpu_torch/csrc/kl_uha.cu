@@ -3,7 +3,8 @@
 // positions, momenta and draws.
 //
 // Replaces cmcd_tpu/ops/pallas_kl.py::evolve_kl_bwd_uha (the TPU kernel
-// "B9") on the many_gmm and the 3-mode gmm targets (dim 2), for up to
+// "B9") on the many_gmm and the 3-mode gmm targets (D = 2) and Neal's funnel
+// (D = 10), for up to
 // MAX_LFSTEPS leapfrog steps a bridge; the TPU-only time chunking is not
 // ported. The Python wrapper is cmcd_tpu_torch/ops/kl_uha.py::evolve_kl_bwd_uha;
 // its plain PyTorch version evolve_kl_bwd_uha_plain walks the same sweep.
@@ -51,8 +52,9 @@
 // and at the end g_md = E g_E - 2 V g_V (+ the rho_0 term).
 //
 // What bounds it on the H100. Per chain and bridge 2L - 1 scores and L
-// Hessian products (warp reductions over 40 components or 6 pairs), O(D)
-// state; the three stacks are 24 bytes per chain and point. As the rollout
+// Hessian products (warp reductions over 40 components or 6 pairs; the
+// funnel's O(D) sums), O(D) state; the three stacks are 12 D bytes per chain
+// and point. As the rollout
 // (uha.cu): the bound is microseconds, the time the latency of the
 // dependent reductions along a chain.
 //
@@ -295,9 +297,9 @@ extern "C" {
 
 // Launches the sweep and its reduction on `stream`. target as in
 // cmcd_uha_rollout (uha.cu). part_a: (blocks, len_sums) and part_b: (K,
-// blocks) are scratch, blocks = ceil(n / 8); out_a: (len_sums,) receives
-// eps, eta, md (2), vd mean (2), vd logdiag (2); out_b: (K,) betas; g_z0:
-// (n, 2). Returns a cudaError_t.
+// blocks) are scratch, blocks = ceil(n / 8); out_a: (len_sums(D),) receives
+// eps, eta, md (D), vd mean (D), vd logdiag (D); out_b: (K,) betas; g_z0:
+// (n, D). Returns a cudaError_t.
 int cmcd_kl_uha_sweep(const float* ztraj, const float* rtraj, const float* noise,
                       const float* cot, const float* g_zfinal, const float* betas,
                       const float* scal, const float* md, const float* vd_mean,
@@ -311,11 +313,11 @@ int cmcd_kl_uha_sweep(const float* ztraj, const float* rtraj, const float* noise
                     tpar, part_a, part_b, g_z0, n, nbridges, lfsteps, n_par, inv_var};
   const int blocks = (n + CPB - 1) / CPB;
   const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (target == 0) err = launch_sweep<ManyGmmTarget>(a, blocks, s);
-  if (target == 1) err = launch_sweep<Gmm3Target>(a, blocks, s);
+  const cudaError_t err = dispatch_target<false>(target, [&](auto tag) {
+    return launch_sweep<typename decltype(tag)::type>(a, blocks, s);
+  });
   if (err != cudaSuccess) return (int)err;
-  const int la = len_sums(2), total = la + nbridges;
+  const int la = len_sums(target_dim(target)), total = la + nbridges;
   partials_reduce<<<(total + 255) / 256, 256, 0, s>>>(part_a, part_b, out_a, out_b, blocks, la,
                                                       nbridges, blocks, 1);
   return (int)cudaGetLastError();
@@ -329,6 +331,6 @@ int cmcd_kl_uha_chains_per_block() { return CPB; }
 
 int cmcd_kl_uha_max_lfsteps() { return MAX_LFSTEPS; }
 
-int cmcd_kl_uha_len_sums() { return len_sums(2); }
+int cmcd_kl_uha_len_sums(int d) { return len_sums(d); }
 
 }  // extern "C"

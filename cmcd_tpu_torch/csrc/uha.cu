@@ -2,7 +2,8 @@
 // (sm_90a).
 //
 // Replaces cmcd_tpu/ops/pallas_uha.py::evolve_uha_pallas (the TPU kernel
-// "B8") on the many_gmm and the 3-mode gmm targets (dim 2); the TPU-only
+// "B8") on the many_gmm and the 3-mode gmm targets (D = 2) and Neal's funnel
+// (D = 10); the TPU-only
 // time chunking of the stored windows is not ported. The Python wrapper is
 // cmcd_tpu_torch/ops/uha.py::evolve_uha_fused; its plain PyTorch version
 // evolve_uha_fused_plain states the same math step by step. The targets'
@@ -24,8 +25,9 @@
 // into the next bridge's first half-kick: L score evaluations a bridge.
 //
 // What bounds it on the H100. Per chain and bridge L scores (40 components,
-// or 6 pairs for gmm), each a few warp reductions, and O(D) state; the
-// stores are 24 bytes per chain and bridge. Neither operations nor bytes:
+// or 6 pairs for gmm, each a few warp reductions; the funnel's O(D) sums,
+// every lane alike), and O(D) state; the stores are 12 D bytes per chain and
+// bridge. Neither operations nor bytes:
 // the bound is a few microseconds, and the kernel's time is the latency of
 // K * L dependent score evaluations along a chain.
 //
@@ -37,9 +39,11 @@
 //  * Every lane keeps the chain's state in registers (the same values in
 //    all lanes), so no shared memory or barrier is needed after the target's
 //    constants are loaded; lane 0 stores.
-//  * The target is a template parameter (ManyGmmTarget, Gmm3Target), the
-//    state dimension its D.
-//  * Noise is Philox4x32-10 keyed by the seed with counter (chain, j): j = 0
+//  * The target is a template parameter (ManyGmmTarget, Gmm3Target,
+//    FunnelTarget), the state dimension its D. Draw j's D normals come from
+//    Philox pairs q = 0..D/2 - 1 (dimensions 2q, 2q + 1), the layout of the
+//    other kernels (philox_normals).
+//  * Noise is Philox4x32-10 keyed by the seed with counter (chain, j, q): j = 0
 //    the initial momentum, j = i + 1 the refresh of bridge i (B6's layout).
 //    An injected (K + 1, N, D) stack in the same layout replaces it.
 //  * KL training needs the path: with store pointers lane 0 also writes
@@ -190,7 +194,8 @@ cudaError_t launch(const UhaArgs& a, cudaStream_t stream) {
 extern "C" {
 
 // Launches the rollout on `stream`. target: 0 many_gmm (tpar the n_par / 2
-// means, inv_var its 1 / scale^2), 1 the 3-mode gmm (tpar its 18 constants).
+// means, inv_var its 1 / scale^2), 1 the 3-mode gmm (tpar its 18 constants),
+// both D = 2; 2 the funnel (tpar its sig), D = 10.
 // The three stores are all null or all set (noise_out null where noise is
 // injected). Returns a cudaError_t (0 on success).
 int cmcd_uha_rollout(const float* z0, const float* betas, const float* noise, const float* scal,
@@ -205,9 +210,9 @@ int cmcd_uha_rollout(const float* z0, const float* betas, const float* noise, co
   const UhaArgs a{z0, betas, noise, scal, seed, md, vd_mean, vd_logdiag, tpar, z_out, w_out,
                   ztraj, rtraj, noise_out, n, nbridges, lfsteps, n_par, inv_var};
   const cudaStream_t s = (cudaStream_t)stream;
-  if (target == 0) return (int)launch<ManyGmmTarget>(a, s);
-  if (target == 1) return (int)launch<Gmm3Target>(a, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)dispatch_target<false>(target, [&](auto tag) {
+    return launch<typename decltype(tag)::type>(a, s);
+  });
 }
 
 const char* cmcd_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

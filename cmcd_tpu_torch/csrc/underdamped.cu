@@ -2,12 +2,13 @@
 // seven specs of the underdamped family.
 //
 // Replaces cmcd_tpu/ops/pallas_underdamped.py::evolve_underdamped_pallas
-// (the TPU kernel "B6") on the many_gmm target (dim 2) with the two-layer
-// geffner net; the TPU-only time chunking of the stored windows is not
-// ported. The Python wrapper is
+// (the TPU kernel "B6") on the many_gmm and 3-mode gmm targets (D = 2) and
+// Neal's funnel (D = 10) with the two-layer geffner net; the TPU-only time
+// chunking of the stored windows is not ported. The Python wrapper is
 // cmcd_tpu_torch/ops/underdamped.py::evolve_underdamped_fused; its plain
 // PyTorch version evolve_underdamped_fused_plain states the same math step
-// by step. Net layers, head, score, schedule and Philox are cmcd_common.cuh's.
+// by step. Net layers, head, targets, schedule and Philox are
+// cmcd_common.cuh's.
 //
 // One launch runs all K steps for every chain. Per step i, for one chain
 // (e = eps0, or eps0 cos^2 of the schedule for CAIS_UHA; a = gamma e, or
@@ -29,26 +30,30 @@
 //
 // What bounds it on the H100. Per chain-step one net apply (two for
 // CAIS_UHA; none for the plain modes), about in_dim^2 FMAs at in_dim 134, the
-// 40-component score, and O(1) bytes of chain state: bound by arithmetic and
-// on-chip bandwidth, not by device memory.
+// target's score (40 components for many_gmm, O(D) for the funnel), and O(D)
+// bytes of chain state: bound by arithmetic and on-chip bandwidth, not by
+// device memory.
 //
 // What the design does about it (B1's design, overdamped.cu):
 //  * One launch, chain state in the owner thread's registers, W2 in shared
 //    memory for the whole rollout, thread f owns net feature f for the TC
 //    chains of a block, one warp per chain for the head and the score.
-//  * The net's input is [z, rho'] (DIN = 4, full net), z (DIN = 2, state
+//  * The target is a template parameter (ManyGmmTarget, Gmm3Target,
+//    FunnelTarget); its D sizes every per-chain array.
+//  * The net's input is [z, rho'] (DIN = 2 D, full net), z (DIN = D, state
 //    net) or nothing (DIN = 0): a template parameter, so the modes without a
 //    net carry no net code. The net apply at [z, rho'] and the score at z'
 //    share one pass (both points are known once rho' is), so a step costs
 //    three barriers.
 //  * Layer 1's embedding half (emb_i @ W1[DIN:] + b1) is the wrapper's
 //    product, once per call, as in B1.
-//  * Noise is Philox4x32-10 keyed by the seed with counter (chain, j):
-//    j = 0 the initial momentum, j = i + 1 the refresh of step i. An injected
-//    (K + 1, N, 2) stack in the same layout replaces it.
+//  * Noise is Philox4x32-10 keyed by the seed with counter (chain, j, q):
+//    j = 0 the initial momentum, j = i + 1 the refresh of step i, pair q
+//    dimensions 2q and 2q + 1 (philox_normals). An injected (K + 1, N, D)
+//    stack in the same layout replaces it.
 //  * KL training needs the path: with store pointers the owner thread also
-//    writes z_0..z_K and rho_0..rho_K (each (K + 1, N, 2), entry j the state
-//    before step j) and the draws (K + 1, N, 2) that the reverse sweep
+//    writes z_0..z_K and rho_0..rho_K (each (K + 1, N, D), entry j the state
+//    before step j) and the draws (K + 1, N, D) that the reverse sweep
 //    (kl_underdamped.cu) reads.
 //  * f32 throughout, no tensor cores: wgmma, TMA and bf16 are later work.
 
@@ -58,79 +63,79 @@ namespace {
 
 using namespace cmcd;
 
-constexpr int DIM = ManyGmmTarget::D;  // the underdamped kernels take many_gmm only (2-D)
 constexpr int MAX_THREADS = 256;
-constexpr int XIN = 4;  // floats of one chain's net input buffer: [z, rho']
 constexpr float LOG_2PI_F = 1.8378770664093453f;
 
 struct UdArgs {
-  const float* z0;          // (n, 2)
+  const float* z0;          // (n, D)
   const float* w0;          // (n,)
   const float* betas;       // (K,)
-  const float* noise;       // (K + 1, n, 2) or nullptr: in-kernel Philox
+  const float* noise;       // (K + 1, n, D) or nullptr: in-kernel Philox
   const float* scal;        // [eps0, factor_sn, gamma, eta]
   const long long* seed;    // one int64
   NetArgs net;
-  const float* vd_mean;     // (2,)
-  const float* vd_inv_var;  // (2,): exp(-2 logdiag)
-  float* z_out;             // (n, 2)
+  const float* vd_mean;     // (D,)
+  const float* vd_inv_var;  // (D,): exp(-2 logdiag)
+  float* z_out;             // (n, D)
   float* w_out;             // (n,)
-  float* ztraj;             // (K + 1, n, 2) or nullptr: z_0..z_K
-  float* rtraj;             // (K + 1, n, 2) or nullptr: rho_0..rho_K
-  float* noise_out;         // (K + 1, n, 2) or nullptr: the Philox draws as used
+  float* ztraj;             // (K + 1, n, D) or nullptr: z_0..z_K
+  float* rtraj;             // (K + 1, n, D) or nullptr: rho_0..rho_K
+  float* noise_out;         // (K + 1, n, D) or nullptr: the Philox draws as used
   int n, nbridges, refresh, fwd_sn, cais;
   float clip_t;
 };
 
-// Dynamic shared memory of one block: W2, the two hidden tiles, the head,
-// the target's constants and the per-chain exchange (net input, score point,
-// score, net output). Without a net (in_dim 0) only the constants and the
-// exchange.
-__host__ inline size_t smem_bytes(int in_dim, int n_par) {
+// Dynamic shared memory of one block for a d-dimensional target: W2, the
+// two hidden tiles, the d head rows, the target's constants and the
+// per-chain exchange (net input [z, rho'] of 2 d, score point, score, net
+// output). Without a net (in_dim 0) only the constants and the exchange.
+__host__ inline size_t smem_bytes(int in_dim, int n_par, int d) {
   const int in_pad = round_up(in_dim, 4);
-  size_t floats = (size_t)in_pad * in_pad + 2 * TC * in_pad + 2 * in_pad +
-                  round_up(n_par, 4) + TC * (XIN + 3 * DIM);
+  size_t floats = (size_t)in_pad * in_pad + 2 * TC * in_pad + (size_t)d * in_pad +
+                  round_up(n_par, 4) + (size_t)TC * 5 * d;
   return floats * sizeof(float);
 }
 
-__host__ inline bool fits(int in_dim, int n_par) {
-  return in_dim >= 0 && round_up(in_dim, 32) <= MAX_THREADS && n_par >= 2 &&
-         n_par <= MAX_PAR && n_par % 2 == 0 && smem_bytes(in_dim, n_par) <= MAX_SMEM;
+__host__ inline bool fits(int in_dim, int n_par, int d) {
+  return in_dim >= 0 && round_up(in_dim, 32) <= MAX_THREADS && n_par >= 1 &&
+         n_par <= MAX_PAR && smem_bytes(in_dim, n_par, d) <= MAX_SMEM;
 }
 
-__device__ __forceinline__ void store2(float* dst, size_t row, int n, int chain, const float v[DIM]) {
-  dst[(row * n + chain) * DIM] = v[0];
-  dst[(row * n + chain) * DIM + 1] = v[1];
+template <int D>
+__device__ __forceinline__ void store_row(float* dst, size_t row, int n, int chain,
+                                          const float v[D]) {
+#pragma unroll
+  for (int d = 0; d < D; ++d) dst[(row * n + chain) * D + d] = v[d];
 }
 
 // Draw j of a live chain: injected, or Philox (stored when asked).
+template <int D>
 __device__ __forceinline__ void draw(const UdArgs& a, unsigned long long seed, int chain,
-                                     bool live, int j, float xi[DIM]) {
+                                     bool live, int j, float xi[D]) {
   if (a.noise != nullptr) {
 #pragma unroll
-    for (int d = 0; d < DIM; ++d) xi[d] = live ? a.noise[((size_t)j * a.n + chain) * DIM + d] : 0.f;
+    for (int d = 0; d < D; ++d) xi[d] = live ? a.noise[((size_t)j * a.n + chain) * D + d] : 0.f;
   } else {
-    const float2 g = philox_normal2(seed, (uint32_t)chain, (uint32_t)j);
-    xi[0] = g.x;
-    xi[1] = g.y;
-    if (live && a.noise_out != nullptr) store2(a.noise_out, j, a.n, chain, xi);
+    philox_normals<D>(seed, (uint32_t)chain, (uint32_t)j, xi);
+    if (live && a.noise_out != nullptr) store_row<D>(a.noise_out, j, a.n, chain, xi);
   }
 }
 
-template <int DIN>
+template <class T, int DIN>
 __global__ void __launch_bounds__(MAX_THREADS) underdamped_rollout(const UdArgs a) {
+  constexpr int D = T::D, XIN = 2 * D;  // XIN: floats of a chain's net input [z, rho']
   extern __shared__ float4 smem4[];
   float* w2s = reinterpret_cast<float*>(smem4);  // in_pad x in_pad
   const NetArgs& net = a.net;
   const int ip = net.in_pad, in = net.in_dim, K = a.nbridges;
   float* h1s = w2s + ip * ip;                       // TC x in_pad
   float* h2s = h1s + TC * ip;                       // TC x in_pad
-  float* hws = h2s + TC * ip;                       // 2 x in_pad
-  float* par = hws + 2 * ip;                        // the means (n_par, padded to 4)
+  float* hws = h2s + TC * ip;                       // D x in_pad
+  float* par = hws + D * ip;                        // the target's constants (padded to 4)
   float* xin_s = par + round_up(net.n_par, 4);      // TC x DIN: the net's input
-  float* zn_s = xin_s + TC * XIN;                   // TC x 2: where the score is wanted
-  float* gt_s = zn_s + TC * DIM;                    // TC x 2
-  float* sn_s = gt_s + TC * DIM;                    // TC x 2
+  float* zn_s = xin_s + TC * XIN;                   // TC x D: where the score is wanted
+  float* gt_s = zn_s + TC * D;                      // TC x D
+  float* sn_s = gt_s + TC * D;                      // TC x D
 
   const int tid = threadIdx.x, nthr = blockDim.x;
   float w1x[DIN > 0 ? DIN : 1];
@@ -138,7 +143,7 @@ __global__ void __launch_bounds__(MAX_THREADS) underdamped_rollout(const UdArgs 
   if constexpr (DIN > 0) {
     load_w2(net, w2s, ip);
     for (int idx = tid; idx < 2 * TC * ip; idx += nthr) h1s[idx] = 0.f;  // h1s and h2s
-    for (int idx = tid; idx < 2 * ip; idx += nthr) {
+    for (int idx = tid; idx < D * ip; idx += nthr) {
       const int j = idx / ip, k = idx - j * ip;
       hws[idx] = k < in ? net.headw[j * in + k] : 0.f;
     }
@@ -146,7 +151,7 @@ __global__ void __launch_bounds__(MAX_THREADS) underdamped_rollout(const UdArgs 
     b2f = tid < in ? net.b2[tid] : 0.f;
   }
   for (int idx = tid; idx < net.n_par; idx += nthr) par[idx] = net.tpar[idx];
-  const ManyGmmTarget target(par, net.n_par, net.inv_var_t);
+  const T target(par, net.n_par, net.inv_var_t);
   const float eps0 = a.scal[0], factor = a.scal[1], gamma = a.scal[2], eta = a.scal[3];
   const unsigned long long seed = (unsigned long long)a.seed[0];
 
@@ -155,30 +160,31 @@ __global__ void __launch_bounds__(MAX_THREADS) underdamped_rollout(const UdArgs 
   const bool owner = tid < TC;
   const int chain = blockIdx.x * TC + tid;
   const bool live = owner && chain < a.n;
-  float z[DIM] = {0.f, 0.f}, rho[DIM] = {0.f, 0.f}, gt[DIM] = {0.f, 0.f};
-  float vm[DIM] = {0.f, 0.f}, viv[DIM] = {0.f, 0.f}, wd = 0.f;
+  float z[D], rho[D], gt[D], vm[D], viv[D], wd = 0.f;
+#pragma unroll
+  for (int d = 0; d < D; ++d) z[d] = rho[d] = gt[d] = vm[d] = viv[d] = 0.f;
   if (owner) {
-    draw(a, seed, chain, live, 0, rho);
+    draw<D>(a, seed, chain, live, 0, rho);
     float r2 = 0.f;
 #pragma unroll
-    for (int d = 0; d < DIM; ++d) {
+    for (int d = 0; d < D; ++d) {
       vm[d] = a.vd_mean[d];
       viv[d] = a.vd_inv_var[d];
-      if (live) z[d] = a.z0[chain * DIM + d];
-      zn_s[tid * DIM + d] = z[d];
+      if (live) z[d] = a.z0[(size_t)chain * D + d];
+      zn_s[tid * D + d] = z[d];
       r2 += rho[d] * rho[d];
     }
-    wd = 0.5f * r2 + 0.5f * (float)DIM * LOG_2PI_F;  // -log N(rho_0; 0, I)
+    wd = 0.5f * r2 + 0.5f * (float)D * LOG_2PI_F;  // -log N(rho_0; 0, I)
     if (live && a.ztraj != nullptr) {
-      store2(a.ztraj, 0, a.n, chain, z);
-      store2(a.rtraj, 0, a.n, chain, rho);
+      store_row<D>(a.ztraj, 0, a.n, chain, z);
+      store_row<D>(a.rtraj, 0, a.n, chain, rho);
     }
   }
   __syncthreads();
   score_eval(target, zn_s, gt_s);
   if (owner) {
 #pragma unroll
-    for (int d = 0; d < DIM; ++d) gt[d] = gt_s[tid * DIM + d];
+    for (int d = 0; d < D; ++d) gt[d] = gt_s[tid * D + d];
   }
 
   for (int i = 0; i < K; ++i) {
@@ -208,11 +214,13 @@ __global__ void __launch_bounds__(MAX_THREADS) underdamped_rollout(const UdArgs 
       gain = 2.0f * aux;
     }
     const float beta = a.betas[i];
-    float xi[DIM] = {0.f, 0.f}, fk[DIM] = {0.f, 0.f};
-    if (owner) {
-      draw(a, seed, chain, live, i + 1, xi);
+    float xi[D], fk[D];
 #pragma unroll
-      for (int d = 0; d < DIM; ++d) fk[d] = rho[d] * cf;
+    for (int d = 0; d < D; ++d) xi[d] = fk[d] = 0.f;
+    if (owner) {
+      draw<D>(a, seed, chain, live, i + 1, xi);
+#pragma unroll
+      for (int d = 0; d < D; ++d) fk[d] = rho[d] * cf;
     }
 
     // CAIS_UHA: the net in the forward refresh, at [z, rho], row i.
@@ -220,34 +228,36 @@ __global__ void __launch_bounds__(MAX_THREADS) underdamped_rollout(const UdArgs 
       if (a.fwd_sn) {
         if (owner) {
 #pragma unroll
-          for (int d = 0; d < DIM; ++d) {
+          for (int d = 0; d < D; ++d) {
             xin_s[tid * XIN + d] = z[d];
-            xin_s[tid * XIN + DIM + d] = rho[d];
+            xin_s[tid * XIN + D + d] = rho[d];
           }
         }
         __syncthreads();
-        point_eval<DIN>(net, i, w1x, b2f, factor, w2s, h1s, h2s, hws, target, xin_s, nullptr,
-                        gt_s, sn_s);
+        point_eval<DIN>(net, i, w1x, b2f, factor, w2s, h1s, h2s, hws, target, xin_s,
+                        (const float*)nullptr, gt_s, sn_s);
         if (owner) {
 #pragma unroll
-          for (int d = 0; d < DIM; ++d) fk[d] = fk[d] - 2.0f * aux * sn_s[tid * DIM + d];
+          for (int d = 0; d < D; ++d) fk[d] = fk[d] - 2.0f * aux * sn_s[tid * D + d];
         }
       }
     }
 
     // Refresh, the first half-kick and the drift; the net's input and the
     // score point of the step's pass.
-    float rp[DIM] = {0.f, 0.f}, rpp[DIM] = {0.f, 0.f}, xi2 = 0.f;
+    float rp[D], rpp[D], xi2 = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) rp[d] = rpp[d] = 0.f;
     if (owner) {
 #pragma unroll
-      for (int d = 0; d < DIM; ++d) {
+      for (int d = 0; d < D; ++d) {
         rp[d] = fk[d] + sf * xi[d];
         const float gq = -(z[d] - vm[d]) * viv[d];
         const float gu = -(beta * clip_f(gt[d], a.clip_t) + (1.0f - beta) * gq);
         rpp[d] = rp[d] - e * gu / 2.0f;
-        zn_s[tid * DIM + d] = z[d] + e * rpp[d];
+        zn_s[tid * D + d] = z[d] + e * rpp[d];
         if constexpr (DIN > 0) xin_s[tid * DIN + d] = z[d];
-        if constexpr (DIN == XIN) xin_s[tid * XIN + DIM + d] = rp[d];
+        if constexpr (DIN == XIN) xin_s[tid * XIN + D + d] = rp[d];
         xi2 += xi[d] * xi[d];
       }
     }
@@ -263,48 +273,58 @@ __global__ void __launch_bounds__(MAX_THREADS) underdamped_rollout(const UdArgs 
     if (owner) {
       float r2 = 0.f;
 #pragma unroll
-      for (int d = 0; d < DIM; ++d) {
-        const float zn = zn_s[tid * DIM + d], gtn = gt_s[tid * DIM + d];
+      for (int d = 0; d < D; ++d) {
+        const float zn = zn_s[tid * D + d], gtn = gt_s[tid * D + d];
         const float gq = -(zn - vm[d]) * viv[d];
         const float gu = -(beta * clip_f(gtn, a.clip_t) + (1.0f - beta) * gq);
         float bk = rp[d] * cb;
-        if constexpr (DIN > 0) bk = bk + gain * sn_s[tid * DIM + d];
+        if constexpr (DIN > 0) bk = bk + gain * sn_s[tid * D + d];
         const float r = (rho[d] - bk) / sb;
         r2 += r * r;
         rho[d] = rpp[d] - e * gu / 2.0f;
         z[d] = zn;
         gt[d] = gtn;
       }
-      const float fk_lp = -0.5f * xi2 - (float)DIM * (0.5f * LOG_2PI_F + logf(sf));
-      const float bk_lp = -0.5f * r2 - (float)DIM * (0.5f * LOG_2PI_F + logf(sb));
+      const float fk_lp = -0.5f * xi2 - (float)D * (0.5f * LOG_2PI_F + logf(sf));
+      const float bk_lp = -0.5f * r2 - (float)D * (0.5f * LOG_2PI_F + logf(sb));
       wd = wd + (bk_lp - fk_lp);
       if (live && a.ztraj != nullptr) {
-        store2(a.ztraj, i + 1, a.n, chain, z);
-        store2(a.rtraj, i + 1, a.n, chain, rho);
+        store_row<D>(a.ztraj, i + 1, a.n, chain, z);
+        store_row<D>(a.rtraj, i + 1, a.n, chain, rho);
       }
     }
   }
 
   if (live) {
-    const float r2 = rho[0] * rho[0] + rho[1] * rho[1];
-    wd = wd - 0.5f * r2 - 0.5f * (float)DIM * LOG_2PI_F;  // +log N(rho_K; 0, I)
+    float r2 = 0.f;
 #pragma unroll
-    for (int d = 0; d < DIM; ++d) a.z_out[chain * DIM + d] = z[d];
+    for (int d = 0; d < D; ++d) r2 += rho[d] * rho[d];
+    wd = wd - 0.5f * r2 - 0.5f * (float)D * LOG_2PI_F;  // +log N(rho_K; 0, I)
+#pragma unroll
+    for (int d = 0; d < D; ++d) a.z_out[(size_t)chain * D + d] = z[d];
     a.w_out[chain] = a.w0[chain] + wd;
   }
 }
 
-template <int DIN>
+template <class T, int DIN>
 cudaError_t launch(const UdArgs& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a.net.in_dim, a.net.n_par);
-  cudaError_t err = cudaFuncSetAttribute(underdamped_rollout<DIN>,
+  const size_t smem = smem_bytes(a.net.in_dim, a.net.n_par, T::D);
+  cudaError_t err = cudaFuncSetAttribute(underdamped_rollout<T, DIN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   // One thread per net feature; without a net one warp per chain.
   const int threads = DIN > 0 ? round_up(a.net.in_dim, 32) : TC * 32;
   const int blocks = (a.n + TC - 1) / TC;
-  underdamped_rollout<DIN><<<blocks, threads, smem, stream>>>(a);
+  underdamped_rollout<T, DIN><<<blocks, threads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <class T>
+cudaError_t launch_din(const UdArgs& a, int din, cudaStream_t stream) {
+  constexpr int D = T::D;
+  if (din == 2 * D) return launch<T, 2 * D>(a, stream);
+  if (din == D) return launch<T, D>(a, stream);
+  return launch<T, 0>(a, stream);
 }
 
 }  // namespace
@@ -312,9 +332,12 @@ cudaError_t launch(const UdArgs& a, cudaStream_t stream) {
 extern "C" {
 
 // Launches the rollout on `stream`. din: the net's input columns ahead of
-// the embedding (0: no net, in_dim and emb_dim 0 and the weights null; 2:
-// the state; 4: [z, rho']). refresh: 0 approx, 1 exact, 2 exact_fwd. The
-// three stores are all null or all set. Returns a cudaError_t (0 on success).
+// the embedding (0: no net, in_dim and emb_dim 0 and the weights null; D:
+// the state; 2 D: [z, rho']). target: 0 many_gmm (means the n_par / 2
+// means, inv_var_t its 1 / scale^2), 1 the 3-mode gmm (its 18 constants),
+// both D = 2; 2 the funnel (its sig), D = 10; every array's last axis is the
+// target's D. refresh: 0 approx, 1 exact, 2 exact_fwd. The three stores are
+// all null or all set. Returns a cudaError_t (0 on success).
 int cmcd_underdamped_rollout(const float* z0, const float* w0, const float* betas,
                              const float* noise, const float* scal, const long long* seed,
                              const float* w1x, const float* c1, const float* emb,
@@ -322,33 +345,36 @@ int cmcd_underdamped_rollout(const float* z0, const float* w0, const float* beta
                              const float* headb, const float* means, const float* vd_mean,
                              const float* vd_inv_var, float* z_out, float* w_out, float* ztraj,
                              float* rtraj, float* noise_out, int n, int nbridges, int din,
-                             int in_dim, int emb_dim, int n_par, int refresh, int fwd_sn,
-                             int cais, float inv_var_t, float clip_t, void* stream) {
+                             int in_dim, int emb_dim, int n_par, int target, int refresh,
+                             int fwd_sn, int cais, float inv_var_t, float clip_t, void* stream) {
   if (n <= 0 || nbridges <= 0) return (int)cudaSuccess;
-  if (din != 0 && din != DIM && din != XIN) return (int)cudaErrorInvalidValue;
-  if (in_dim != (din > 0 ? din + emb_dim : 0) || !fits(in_dim, n_par))
+  if (target < 0 || target > 2 || !target_ok(target, n_par)) return (int)cudaErrorInvalidValue;
+  const int d = target_dim(target);
+  if (din != 0 && din != d && din != 2 * d) return (int)cudaErrorInvalidValue;
+  if (in_dim != (din > 0 ? din + emb_dim : 0) || !fits(in_dim, n_par, d))
     return (int)cudaErrorInvalidValue;
-  if (refresh < 0 || refresh > 2 || (fwd_sn && din != XIN)) return (int)cudaErrorInvalidValue;
+  if (refresh < 0 || refresh > 2 || (fwd_sn && din != 2 * d)) return (int)cudaErrorInvalidValue;
   if ((ztraj == nullptr) != (rtraj == nullptr)) return (int)cudaErrorInvalidValue;
   const NetArgs net{w1x, c1, emb, w2, b2, headw, headb, means,
                     in_dim, round_up(in_dim, 4), emb_dim, n_par, inv_var_t};
   const UdArgs a{z0, w0, betas, noise, scal, seed, net, vd_mean, vd_inv_var, z_out, w_out,
                  ztraj, rtraj, noise_out, n, nbridges, refresh, fwd_sn, cais, clip_t};
   const cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t err = din == XIN ? launch<XIN>(a, s) : din == DIM ? launch<DIM>(a, s)
-                                                                      : launch<0>(a, s);
-  return (int)err;
+  return (int)dispatch_target<false>(target, [&](auto tag) {
+    return launch_din<typename decltype(tag)::type>(a, din, s);
+  });
 }
 
 const char* cmcd_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 int cmcd_underdamped_chains_per_block() { return TC; }
 
-// The launch's own limits, for the wrapper to check its copy against.
-int cmcd_underdamped_fits(int in_dim, int n_par) { return fits(in_dim, n_par) ? 1 : 0; }
+// The launch's own limits at state dimension d, for the wrapper to check its
+// copy against.
+int cmcd_underdamped_fits(int in_dim, int n_par, int d) { return fits(in_dim, n_par, d) ? 1 : 0; }
 
-long long cmcd_underdamped_smem_bytes(int in_dim, int n_par) {
-  return (long long)smem_bytes(in_dim, n_par);
+long long cmcd_underdamped_smem_bytes(int in_dim, int n_par, int d) {
+  return (long long)smem_bytes(in_dim, n_par, d);
 }
 
 }  // extern "C"

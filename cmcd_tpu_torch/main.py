@@ -19,18 +19,19 @@ with its trajectory and the replay or re-rolling backward kernel;
 kl_bound_fused for MCD_CAIS_sn, MCD_ULA_sn and plain MCD_ULA, the rollout
 kernel with trajectory and noise and the reverse-sweep kernel of the mode's
 form (the net in both kernels, in the backward kernel only, or none); for
-the approximate-refresh underdamped modes MCD_U_a-lp, -sna and -sn (LDVI),
-the underdamped rollout kernel with its stores and the underdamped sweep;
-for UHA, the default boundmode, the UHA rollout kernel with its stores and
-the UHA sweep) and evaluation through the fused rollout of the mode's family
-(the seven underdamped modes and UHA included), one launch per seed group.
-The overdamped modes run on many_gmm and the 3-mode gmm (the gmm recipes of
-experiments/recipes.py: gmm_cais, gmm_cais_tuned, gmm_ula) and on Neal's
-funnel at funnel_d 10 (funnel_k8: MCD_CAIS_sn, n_samples 2000, so a 30 x 2000
-evaluation), UHA on many_gmm and gmm, the underdamped modes on many_gmm;
-a configuration the kernels do not cover, or use_pallas_train /
-use_pallas_eval off, raises there instead of running eagerly. On the CPU the two switches pick the kernels' plain versions or
-the eager integrator. The fields in IGNORED are accepted and ignored with
+the seven underdamped modes (MCD_U_a-lp, -sna, -sn (LDVI), the exact
+refresh's MCD_U_e-lp and -sna, MCD_U_ea-lp-sn and MCD_CAIS_UHA_sn), the
+underdamped rollout kernel with its stores and the underdamped sweep; for
+UHA, the default boundmode, the UHA rollout kernel with its stores and the
+UHA sweep) and evaluation through the fused rollout of the mode's family,
+one launch per seed group. Every family runs on many_gmm, the 3-mode gmm
+(the gmm recipes of experiments/recipes.py: gmm_cais, gmm_cais_tuned,
+gmm_ula) and Neal's funnel at funnel_d 10 (funnel_k8: MCD_CAIS_sn,
+n_samples 2000, so a 30 x 2000 evaluation; with nbridges 32 and
+MCD_CAIS_UHA_sn the underdamped CAIS record); a configuration the kernels
+do not cover, or use_pallas_train / use_pallas_eval off, raises there
+instead of running eagerly. On the CPU the two switches pick the kernels'
+plain versions or the eager integrator. The fields in IGNORED are accepted and ignored with
 one printed line each. A non-default value of a field in NOT_PORTED raises.
 """
 

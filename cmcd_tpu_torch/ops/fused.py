@@ -35,10 +35,11 @@ def supports_fused(setup: bounds.CMCDSetup, target) -> bool:
     """True if a kernel implements (mode, target score, net) at this size:
     an overdamped mode (all four) on a target whose template is instantiated
     at the setup's dim (many_gmm, the 3-mode gmm: 2; the funnel: 10;
-    ops/target_grads.KERNEL_DIMS), or an underdamped mode on many_gmm, with
-    (where the mode has a net) the two-layer geffner net of a width that fits
-    one block's threads and shared memory (the rollout's kernel_fits); or
-    UHA on many_gmm or gmm with lfsteps the kernel takes
+    ops/target_grads.KERNEL_DIMS), or an underdamped mode on a target of
+    ops/underdamped.UD_TARGETS (the three), with (where the mode has a net)
+    the two-layer geffner net of a width that fits one block's threads and
+    shared memory (the rollout's kernel_fits); or UHA on a target of
+    ops/uha.UHA_TARGETS with lfsteps the kernel takes
     (ops/uha.kernel_covers)."""
     score = score_for_target(target)
     if score is None:
@@ -47,8 +48,8 @@ def supports_fused(setup: bounds.CMCDSetup, target) -> bool:
         return uha.kernel_covers(score, setup.dim, setup.nbridges, setup.lfsteps)
     if setup.mode in OVERDAMPED:
         fits = overdamped.kernel_fits
-    elif setup.mode in UNDERDAMPED and score.kernel_name == "many_gmm":
-        fits = lambda in_dim, n_par, dim: underdamped.kernel_fits(in_dim, n_par)
+    elif setup.mode in UNDERDAMPED and score.kernel_name in underdamped.UD_TARGETS:
+        fits = underdamped.kernel_fits
     else:
         return False
     if setup.dim != KERNEL_DIMS.get(score.kernel_name) or setup.nbridges < 1:

@@ -6,11 +6,11 @@ neg_elbos_pallas_kl, kl_bound_pallas).
 var_bound_fused stands in for bounds.var_bound on MCD_CAIS_var_sn and
 kl_bound_fused for bounds.kl_bound on the overdamped modes that keep the
 state in the graph (OD_KL_FUSED_MODES: MCD_CAIS_sn, MCD_ULA_sn, MCD_ULA), the
-three approximate-refresh underdamped modes (UD_KL_FUSED_MODES; LDVI is
-MCD_U_a-lp-sn) and UHA: the same (loss, (neg_elbos, z)) contract and the
-same math, but the K-step rollout runs in a fused rollout kernel
-(ops/overdamped.py, ops/underdamped.py, ops/uha.py) and the gradient in a
-backward kernel, joined by a torch.autograd.Function.
+seven underdamped modes (UD_KL_FUSED_MODES; LDVI is MCD_U_a-lp-sn) and UHA:
+the same (loss, (neg_elbos, z)) contract and the same math, but the K-step
+rollout runs in a fused rollout kernel (ops/overdamped.py,
+ops/underdamped.py, ops/uha.py) and the gradient in a backward kernel,
+joined by a torch.autograd.Function.
 
 Everything outside the bridge loop stays plain autograd, as in JAX: the
 reparameterised initial term -log q(z0(theta)), the chain rule from
@@ -32,8 +32,9 @@ autograd gives the final target term's gradient in z_final, and the
 reverse-sweep kernel (ops/kl.py, ops/kl_underdamped.py, ops/kl_uha.py) chains
 it back through every step to theta and to z0, from where autograd goes on
 through the reparameterised draw. The underdamped sweep also returns gamma's
-gradient, and eta's, which is zero in these modes (the JAX package gives
-zeros too); the UHA sweep returns eta's and md's (md is not trained: the
+gradient and eta's (one of the two is zero: the exact refresh reads eta and
+not gamma, the others gamma and not eta; the JAX package gives zeros too);
+the UHA sweep returns eta's and md's (md is not trained: the
 trainable set never names it, as in the JAX package).
 
 On CPU tensors the Functions run the plain versions; on CUDA tensors they
@@ -79,10 +80,10 @@ from cmcd_tpu_torch.schedules import betas_from_grid
 # forms (ops/kl.SWEEP_SPECS), on every target of the overdamped kernels (the
 # funnel included). Still to port: MCD_DNF.
 OD_KL_FUSED_MODES = frozenset({"MCD_CAIS_sn", "MCD_ULA_sn", "MCD_ULA"})
-# The underdamped modes whose KL loss has a fused backward: the
-# approximate-refresh ones (B7's kernel covers them). Still to port: the
-# exact and exact_fwd refreshes and MCD_CAIS_UHA_sn.
-UD_KL_FUSED_MODES = frozenset({"MCD_U_a-lp", "MCD_U_a-lp-sna", "MCD_U_a-lp-sn"})
+# The underdamped modes whose KL loss has a fused backward: all seven (B7's
+# kernel covers every refresh and CAIS_UHA's forward net), on the targets of
+# ops/underdamped.UD_TARGETS.
+UD_KL_FUSED_MODES = frozenset(UNDERDAMPED)
 # UHA: the UHA rollout (B8) and its sweep (B9).
 UHA_KL_FUSED_MODES = frozenset({"UHA"})
 
@@ -200,8 +201,8 @@ class _EvolveKL(torch.autograd.Function):
 
 
 class _EvolveKLUD(torch.autograd.Function):
-    """(theta, z0; seed, noise) -> (deltas, z_final) for an approximate-refresh
-    underdamped mode, nothing cut.
+    """(theta, z0; seed, noise) -> (deltas, z_final) for an underdamped mode,
+    nothing cut.
 
     Forward: the fused underdamped rollout, storing positions, momenta and
     draws. Backward: the underdamped reverse-sweep kernel with the cotangents
@@ -308,7 +309,7 @@ def _kl_families() -> tuple:
             (evolve_kl_bwd_underdamped, evolve_kl_bwd_underdamped_plain),
             _EvolveKLUD, ("eps", "gamma", "eta"),
             lambda setup, p: dict(dim=setup.dim, nbridges=setup.nbridges, sn=p.get("sn")),
-            lambda in_dim, n_par, dim: kl_underdamped.kernel_fits(in_dim, n_par),
+            kl_underdamped.kernel_fits,
             "underdamped rollout and KL reverse sweep",
         ),
         _KLFamily(
@@ -322,8 +323,7 @@ def _kl_families() -> tuple:
     )
 
 
-# The modes whose KL loss has a fused backward. Still to port: MCD_DNF and
-# the rest of the underdamped family.
+# The modes whose KL loss has a fused backward. Still to port: MCD_DNF.
 KL_FUSED_MODES = frozenset().union(*(f.modes for f in _kl_families()))
 
 

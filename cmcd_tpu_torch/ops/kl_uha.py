@@ -33,11 +33,21 @@ import functools
 import torch
 
 from cmcd_tpu_torch.ops import build
-from cmcd_tpu_torch.ops.target_grads import kernel_target
-from cmcd_tpu_torch.ops.uha import CHAINS_PER_BLOCK, MAX_LFSTEPS, check_config, eps_eta
+from cmcd_tpu_torch.ops.overdamped import count_launch
+from cmcd_tpu_torch.ops.target_grads import KERNEL_DIMS, kernel_target
+from cmcd_tpu_torch.ops.uha import (
+    CHAINS_PER_BLOCK,
+    MAX_LFSTEPS,
+    UHA_TARGETS,
+    check_config,
+    eps_eta,
+)
 from cmcd_tpu_torch.ops.vargrad import check_device_tensors, ptr, raise_on
 
-LEN_SUMS = 2 + 3 * 2  # per block: eps, eta, md, vd mean, vd logdiag (dim 2)
+
+def len_sums(dim: int) -> int:
+    """Floats of a block's sums: eps, eta, md, vd mean, vd logdiag."""
+    return 2 + 3 * dim
 
 
 def _check(ztraj, rtraj, noise, cot, g_zfinal, betas, grad_logp, dim, nbridges, lfsteps):
@@ -144,8 +154,12 @@ def _library() -> ctypes.CDLL:
     lib.cmcd_kl_uha_sweep.restype = i
     lib.cmcd_error_string.argtypes = [i]
     lib.cmcd_error_string.restype = ctypes.c_char_p
+    lib.cmcd_kl_uha_len_sums.argtypes = [i]
+    lib.cmcd_kl_uha_len_sums.restype = i
+    dims = sorted({KERNEL_DIMS[t] for t in UHA_TARGETS})
     if (lib.cmcd_kl_uha_chains_per_block(), lib.cmcd_kl_uha_max_lfsteps(),
-            lib.cmcd_kl_uha_len_sums()) != (CHAINS_PER_BLOCK, MAX_LFSTEPS, LEN_SUMS):
+            [lib.cmcd_kl_uha_len_sums(d) for d in dims]) != (
+                CHAINS_PER_BLOCK, MAX_LFSTEPS, [len_sums(d) for d in dims]):
         raise RuntimeError("csrc/kl_uha.cu and ops/kl_uha.py disagree on their limits")
     return lib
 
@@ -154,13 +168,12 @@ def _launch(lib, ztraj, rtraj, noise, cot, g_zfinal, betas, eps, eta, md, vd_mea
             grad_logp, *, nbridges, lfsteps, stream):
     """Marshal the arguments, launch the sweep and its reduction on
     `stream`, and assemble (grads, g_z0)."""
-    dev, n = ztraj.device, cot.shape[0]
-    blocks = -(-n // CHAINS_PER_BLOCK)
+    dev, n, dim = ztraj.device, cot.shape[0], ztraj.shape[-1]
+    blocks, la = -(-n // CHAINS_PER_BLOCK), len_sums(dim)
     code, tpar, inv_var = kernel_target(grad_logp, dev)
     scal = eps_eta(dev, eps, eta)  # a name keeps it alive through the call
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
-    part_a, part_b, out_a, out_b = new(blocks, LEN_SUMS), new(nbridges, blocks), new(LEN_SUMS), \
-        new(nbridges)
+    part_a, part_b, out_a, out_b = new(blocks, la), new(nbridges, blocks), new(la), new(nbridges)
     g_z0 = torch.empty_like(g_zfinal)
     err = lib.cmcd_kl_uha_sweep(
         ptr(ztraj), ptr(rtraj), ptr(noise), ptr(cot), ptr(g_zfinal), ptr(betas),
@@ -169,8 +182,8 @@ def _launch(lib, ztraj, rtraj, noise, cot, g_zfinal, betas, eps, eta, md, vd_mea
         n, nbridges, lfsteps, code, tpar.numel(), inv_var, ctypes.c_void_p(stream),
     )
     raise_on(err, lib, "UHA KL sweep")
-    grads = {"eps": out_a[0], "eta": out_a[1], "md": out_a[2:4], "betas": out_b,
-             "vd_mean": out_a[4:6], "vd_logdiag": out_a[6:8]}
+    grads = {"eps": out_a[0], "eta": out_a[1], "md": out_a[2:2 + dim], "betas": out_b,
+             "vd_mean": out_a[2 + dim:2 + 2 * dim], "vd_logdiag": out_a[2 + 2 * dim:]}
     return grads, g_z0
 
 
@@ -185,7 +198,8 @@ def evolve_kl_bwd_uha(
 
     ztraj, rtraj, noise: (K + 1, N, dim) f32; cot: (N,); g_zfinal: (N, dim);
     betas: (K,); eps, eta: scalar tensors or floats; md, vd_mean,
-    vd_logdiag: (dim,); grad_logp: ops/target_grads.ManyGMMScore or GMMScore.
+    vd_logdiag: (dim,); grad_logp: a kernel-form score of ops/target_grads on a
+    target of ops/uha.UHA_TARGETS.
     Returns (the gradient dict of the module docstring, g_z0 (N, dim)).
     """
     args = (ztraj, rtraj, noise, cot, g_zfinal, betas, eps, eta, md, vd_mean, vd_logdiag,
@@ -201,8 +215,10 @@ def evolve_kl_bwd_uha(
                                                vd_mean, vd_logdiag))
     out = _launch(_library(), *args, nbridges=nbridges, lfsteps=lfsteps,
                   stream=torch.cuda.current_stream(dev).cuda_stream)
-    evolve_kl_bwd_uha.launches += 1
+    count_launch(evolve_kl_bwd_uha, grad_logp.kernel_name)
     return out
 
 
+# Launches in all, and by target (form_launches).
 evolve_kl_bwd_uha.launches = 0
+evolve_kl_bwd_uha.form_launches = {}

@@ -10,8 +10,8 @@ metric e^{-2 md} of every bridge. With return_state=True also the stores the
 reverse sweep (ops/kl_uha.py) reads: z_0..z_K and rho_0..rho_K (each
 (K + 1, N, dim), entry j the state before bridge j) and the draws
 (K + 1, N, dim). The kernel covers the many_gmm and the 3-mode gmm scores
-(ops/target_grads.py) at dim 2 and up to MAX_LFSTEPS leapfrog steps a
-bridge; check_config raises on anything else.
+(ops/target_grads.py) at dim 2 and Neal's funnel's at dim 10, and up to
+MAX_LFSTEPS leapfrog steps a bridge; check_config raises on anything else.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises, never falling back.
@@ -25,7 +25,7 @@ import functools
 import torch
 
 from cmcd_tpu_torch.ops import build
-from cmcd_tpu_torch.ops.overdamped import _f32, check_target
+from cmcd_tpu_torch.ops.overdamped import _f32, check_target, count_launch
 from cmcd_tpu_torch.ops.target_grads import KERNEL_DIMS, MAX_TARGET_FLOATS, kernel_target
 from cmcd_tpu_torch.ops.vargrad import check_device_tensors, ptr
 
@@ -36,19 +36,20 @@ MAX_LFSTEPS = 8           # leapfrog steps a bridge; the sweep keeps them in reg
 
 
 # The targets the UHA kernels are instantiated for (csrc/uha.cu,
-# csrc/kl_uha.cu: templated on D, but the funnel's instance is ROADMAP A6b).
-UHA_TARGETS = ("many_gmm", "gmm")
+# csrc/kl_uha.cu: dispatch_target<false>, the target's D a template parameter).
+UHA_TARGETS = ("many_gmm", "gmm", "funnel")
 
 
 def check_config(what, grad_logp, dim, nbridges, lfsteps):
-    """Raise on what the UHA kernels do not take (both devices): another
-    score than many_gmm's or gmm's, a dim other than 2, more constants than
-    the kernels hold, lfsteps outside 1..MAX_LFSTEPS, no bridge."""
+    """Raise on what the UHA kernels do not take (both devices): a score
+    outside UHA_TARGETS, a dim other than the target's instance
+    (KERNEL_DIMS), more constants than the kernels hold, lfsteps outside
+    1..MAX_LFSTEPS, no bridge."""
     name = getattr(grad_logp, "kernel_name", None)
     if name in KERNEL_DIMS and name not in UHA_TARGETS:
         raise NotImplementedError(
-            f"{what}: the UHA kernels take many_gmm and gmm only; {name} waits for ROADMAP "
-            "A6b")
+            f"{what}: the UHA kernels take {', '.join(UHA_TARGETS)} only; {name} and the other "
+            "targets' scores wait for ROADMAP B11 (A5c, A9)")
     check_target(what, grad_logp, dim)
     if not 1 <= lfsteps <= MAX_LFSTEPS:
         raise NotImplementedError(f"{what}: lfsteps must lie in 1..{MAX_LFSTEPS}, got {lfsteps}")
@@ -189,12 +190,13 @@ def evolve_uha_fused(
     """Run nbridges UHA bridges for every chain in one launch.
 
     z0: (N, dim) f32; betas: (K,); eps, eta: scalar tensors or floats; md,
-    vd_mean, vd_logdiag: (dim,); grad_logp: ops/target_grads.ManyGMMScore or
-    GMMScore; seed: int or one-element integer tensor (read on the device,
-    so no host sync); noise: optional (K + 1, N, dim) standard normals.
-    Returns (z (N, dim), w_delta (N,)); with return_state also (z_0..z_K,
-    rho_0..rho_K, the draws), each (K + 1, N, dim): the kernel's Philox
-    normals as it used them, or the injected tensor itself.
+    vd_mean, vd_logdiag: (dim,); grad_logp: a kernel-form score of
+    ops/target_grads on a target of UHA_TARGETS; seed: int or one-element
+    integer tensor (read on the device, so no host sync); noise: optional
+    (K + 1, N, dim) standard normals. Returns (z (N, dim), w_delta (N,));
+    with return_state also (z_0..z_K, rho_0..rho_K, the draws), each
+    (K + 1, N, dim): the kernel's Philox normals as it used them, or the
+    injected tensor itself.
     """
     _check(z0, betas, grad_logp, dim, nbridges, lfsteps, noise)
     if z0.device.type == "cpu":
@@ -211,8 +213,10 @@ def evolve_uha_fused(
                   nbridges=nbridges, lfsteps=lfsteps, seed=seed, noise=noise,
                   return_state=return_state,
                   stream=torch.cuda.current_stream(dev).cuda_stream)
-    evolve_uha_fused.launches += 1
+    count_launch(evolve_uha_fused, grad_logp.kernel_name)
     return out
 
 
+# Launches in all, and by target (form_launches).
 evolve_uha_fused.launches = 0
+evolve_uha_fused.form_launches = {}

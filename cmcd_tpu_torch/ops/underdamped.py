@@ -9,9 +9,11 @@ gamma and eta scalars. w0 is added to the rollout's log-weight increments,
 which include the two endpoint momentum terms. With return_state=True also
 the stores the KL reverse sweep (ops/kl_underdamped.py) reads: z_0..z_K and
 rho_0..rho_K (each (K + 1, N, dim), entry j the state before step j) and the
-draws (K + 1, N, dim). The kernel covers the many_gmm score
-(ops/target_grads.py) with the two-layer geffner net on [z] or [z, rho'];
-the wrapper raises on anything else.
+draws (K + 1, N, dim). The kernel covers the many_gmm and 3-mode gmm
+scores (dim 2) and Neal's funnel's (dim 10; ops/target_grads.py: TARGETS,
+KERNEL_DIMS), the target a template parameter, with the two-layer geffner
+net on [z] or [z, rho']; the wrapper raises on anything else, a dim other
+than the target's instance included.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises, never falling back.
@@ -25,19 +27,33 @@ import math
 
 import torch
 
+from cmcd_tpu_torch.integrators import UNDERDAMPED
 from cmcd_tpu_torch.integrators import underdamped as ud
 from cmcd_tpu_torch.networks.geffner import GeffnerNet
 from cmcd_tpu_torch.ops import build
-from cmcd_tpu_torch.ops.overdamped import MAX_SMEM, _f32, pack_geffner
-from cmcd_tpu_torch.ops.target_grads import MAX_TARGET_FLOATS, n_target_floats
+from cmcd_tpu_torch.ops.overdamped import (
+    MAX_SMEM,
+    _f32,
+    check_target,
+    count_launch,
+    pack_geffner,
+)
+from cmcd_tpu_torch.ops.target_grads import (
+    KERNEL_DIMS,
+    MAX_TARGET_FLOATS,
+    kernel_target,
+    n_target_floats,
+)
 from cmcd_tpu_torch.schedules import eps_cosine_sq
 
 # The kernel's limits, mirrored from csrc/underdamped.cu (checked against the
 # built kernel's own in _library()).
 CHAINS_PER_BLOCK = 8      # TC
 MAX_THREADS = 256         # one thread per net feature
-XIN = 4                   # floats of a chain's net input buffer
 REFRESH = {"approx": 0, "exact": 1, "exact_fwd": 2}
+# The targets the underdamped kernels (B6, B7) are instantiated for
+# (csrc/underdamped.cu, csrc/kl_underdamped.cu: dispatch_target<false>).
+UD_TARGETS = ("many_gmm", "gmm", "funnel")
 KERNEL_SPECS = (ud.U_A_LP, ud.U_A_LP_SNA, ud.U_A_LP_SN, ud.U_E_LP, ud.U_E_LP_SNA,
                 ud.U_EA_LP_SN, ud.CAIS_UHA)
 
@@ -46,20 +62,27 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def smem_bytes(in_dim: int, n_par: int) -> int:
-    """Dynamic shared memory of one block (the kernel's layout: W2, two
-    hidden tiles, the head, the target's n_par constants and the per-chain
-    exchange)."""
+def smem_bytes(in_dim: int, n_par: int, dim: int) -> int:
+    """Dynamic shared memory of one block for a target of dimension dim
+    (the kernel's layout: W2, two hidden tiles, the dim head rows, the
+    target's n_par constants and the per-chain exchange: the net's input
+    [z, rho'] of 2 dim, the score point, the score and the net's output)."""
     ip, tc = _round_up(in_dim, 4), CHAINS_PER_BLOCK
-    return 4 * (ip * ip + 2 * tc * ip + 2 * ip + _round_up(n_par, 4) + tc * (XIN + 6))
+    return 4 * (ip * ip + 2 * tc * ip + dim * ip + _round_up(n_par, 4) + tc * 5 * dim)
 
 
-def kernel_fits(in_dim: int, n_par: int) -> bool:
-    """True if a net of width in_dim (0: no net) and the many_gmm's n_par
-    constants (its means, an even count) fit one block."""
+def kernel_fits(in_dim: int, n_par: int, dim: int) -> bool:
+    """True if a net of width in_dim (0: no net) and a target of n_par
+    constants and dimension dim fit one block."""
     return (in_dim >= 0 and _round_up(in_dim, 32) <= MAX_THREADS
-            and 2 <= n_par <= MAX_TARGET_FLOATS and n_par % 2 == 0
-            and smem_bytes(in_dim, n_par) <= MAX_SMEM)
+            and 1 <= n_par <= MAX_TARGET_FLOATS
+            and smem_bytes(in_dim, n_par, dim) <= MAX_SMEM)
+
+
+def form_key(spec: ud.UnderdampedSpec, grad_logp) -> str:
+    """The name of a launch's form in form_launches: "<mode>/<target>"."""
+    mode = next(m for m, s in UNDERDAMPED.items() if s == spec)
+    return f"{mode}/{grad_logp.kernel_name}"
 
 
 def uses_net(spec: ud.UnderdampedSpec) -> bool:
@@ -74,17 +97,18 @@ def net_input_width(spec: ud.UnderdampedSpec, dim: int) -> int:
 
 def check_config(what, specs, spec, grad_logp, dim, nbridges, sn, fits):
     """Raise on what an underdamped kernel does not take (both devices): a
-    spec outside `specs`, another score than many_gmm, a dim other than 2, a
-    net that is not the spec's two-layer geffner net on nbridges rows, a
-    width that does not fit one block (`fits`)."""
+    spec outside `specs`, a score outside UD_TARGETS, a dim other than the
+    target's instance (KERNEL_DIMS), a net that is not the spec's two-layer
+    geffner net on nbridges rows, a width that does not fit one block
+    (`fits(in_dim, n_par, dim)`)."""
     if spec not in specs:
         raise NotImplementedError(f"{what}: no kernel for spec {spec}")
-    if getattr(grad_logp, "kernel_name", None) != "many_gmm":
+    name = getattr(grad_logp, "kernel_name", None)
+    if name in KERNEL_DIMS and name not in UD_TARGETS:
         raise NotImplementedError(
-            f"{what}: the kernel inlines the many_gmm score only; the 3-mode gmm and the "
-            "funnel wait for ROADMAP A6b (ops/target_grads.score_for_target)")
-    if dim != 2:
-        raise ValueError(f"{what}: dim must be 2 (many_gmm), got {dim}")
+            f"{what}: the underdamped kernels take {', '.join(UD_TARGETS)} only; the other "
+            "targets' scores wait for ROADMAP B11 (A5c, A9)")
+    check_target(what, grad_logp, dim)
     in_dim = 0
     if uses_net(spec):
         if not isinstance(sn, GeffnerNet) or len(sn.layers) != 2:
@@ -96,7 +120,7 @@ def check_config(what, specs, spec, grad_logp, dim, nbridges, sn, fits):
             raise ValueError(f"{what}: spec {spec} needs a net on "
                              f"{net_input_width(spec, dim)} input columns")
         in_dim = sn.in_dim
-    if not fits(in_dim, n_target_floats(grad_logp)):
+    if not fits(in_dim, n_target_floats(grad_logp), dim):
         raise NotImplementedError(f"{what}: in_dim {in_dim} does not fit one block")
 
 
@@ -204,24 +228,27 @@ def evolve_underdamped_fused_plain(
 def _library() -> ctypes.CDLL:
     lib = build.load("underdamped")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.cmcd_underdamped_rollout.argtypes = [p] * 21 + [i] * 9 + [f] * 2 + [p]
+    lib.cmcd_underdamped_rollout.argtypes = [p] * 21 + [i] * 10 + [f] * 2 + [p]
     lib.cmcd_underdamped_rollout.restype = ctypes.c_int
     lib.cmcd_error_string.argtypes = [i]
     lib.cmcd_error_string.restype = ctypes.c_char_p
     lib.cmcd_underdamped_chains_per_block.restype = i
-    lib.cmcd_underdamped_fits.argtypes = [i, i]
+    lib.cmcd_underdamped_fits.argtypes = [i, i, i]
     lib.cmcd_underdamped_fits.restype = i
-    lib.cmcd_underdamped_smem_bytes.argtypes = [i, i]
+    lib.cmcd_underdamped_smem_bytes.argtypes = [i, i, i]
     lib.cmcd_underdamped_smem_bytes.restype = ctypes.c_longlong
     if lib.cmcd_underdamped_chains_per_block() != CHAINS_PER_BLOCK:
         raise RuntimeError("csrc/underdamped.cu and ops/underdamped.py disagree on TC")
-    for in_dim in (0, 1, 18, 132, 134, 224, 225, 256, 257):
-        for n_par in (0, 1, 2, 80, 81, 128, 130):
-            if (bool(lib.cmcd_underdamped_fits(in_dim, n_par)) != kernel_fits(in_dim, n_par)
-                    or lib.cmcd_underdamped_smem_bytes(in_dim, n_par) != smem_bytes(in_dim, n_par)):
-                raise RuntimeError(
-                    "csrc/underdamped.cu and ops/underdamped.py disagree on what fits one "
-                    f"block at in_dim {in_dim}, {n_par} target floats")
+    for dim in sorted({KERNEL_DIMS[t] for t in UD_TARGETS}):
+        for in_dim in (0, 1, 18, 68, 132, 134, 216, 224, 225, 228, 256, 257):
+            for n_par in (0, 1, 2, 18, 80, 81, 128, 130):
+                if (bool(lib.cmcd_underdamped_fits(in_dim, n_par, dim))
+                        != kernel_fits(in_dim, n_par, dim)
+                        or lib.cmcd_underdamped_smem_bytes(in_dim, n_par, dim)
+                        != smem_bytes(in_dim, n_par, dim)):
+                    raise RuntimeError(
+                        "csrc/underdamped.cu and ops/underdamped.py disagree on what fits one "
+                        f"block at in_dim {in_dim}, {n_par} target floats, dim {dim}")
     return lib
 
 
@@ -241,7 +268,7 @@ def _launch(lib, z0, w0, betas, eps, gamma, eta, vd_mean, vd_logdiag, grad_logp,
     scal = torch.stack([_f32(eps, dev).reshape(()), factor.to(dev, torch.float32),
                         _f32(gamma, dev).reshape(()), _f32(eta, dev).reshape(())])
     seed_t = torch.as_tensor(seed, dtype=torch.int64, device=dev).reshape(1)
-    means = _f32(grad_logp.means, dev).reshape(-1)
+    code, tpar, inv_var = kernel_target(grad_logp, dev)
     vd_inv_var = torch.exp(-2.0 * vd_logdiag).contiguous()
     n = z0.shape[0]
     z_out, w_out = torch.empty_like(z0), torch.empty_like(w0)
@@ -253,10 +280,10 @@ def _launch(lib, z0, w0, betas, eps, gamma, eta, vd_mean, vd_logdiag, grad_logp,
     err = lib.cmcd_underdamped_rollout(
         ptr(z0), ptr(w0), ptr(betas), ptr(noise), ptr(scal), ptr(seed_t),
         *(ptr(t) for t in weights),
-        ptr(means), ptr(vd_mean), ptr(vd_inv_var), ptr(z_out), ptr(w_out),
+        ptr(tpar), ptr(vd_mean), ptr(vd_inv_var), ptr(z_out), ptr(w_out),
         *(ptr(t) for t in stores),
-        n, nbridges, din, in_dim, emb_dim, means.numel(), REFRESH[spec.refresh],
-        int(spec.fwd_sn), int(spec.cais), grad_logp.inv_var,
+        n, nbridges, din, in_dim, emb_dim, tpar.numel(), code, REFRESH[spec.refresh],
+        int(spec.fwd_sn), int(spec.cais), inv_var,
         ud.CAIS_UHA_CLIP if spec.cais else math.inf, ctypes.c_void_p(stream),
     )
     if err != 0:
@@ -276,8 +303,9 @@ def evolve_underdamped_fused(
     """Run nbridges underdamped leapfrog steps for every chain in one launch.
 
     z0: (N, dim) f32; w0: (N,) f32; betas: (K,); eps, gamma, eta: scalar
-    tensors or floats; vd_mean / vd_logdiag: (dim,); grad_logp:
-    ops/target_grads.ManyGMMScore; sn: the GeffnerNet (on [z] for the state
+    tensors or floats; vd_mean / vd_logdiag: (dim,); grad_logp: a
+    kernel-form score of ops/target_grads on a target of UD_TARGETS at its
+    KERNEL_DIMS dim; sn: the GeffnerNet (on [z] for the state
     specs, [z, rho] for the full ones; None without a net); seed: int or
     one-element integer tensor (read on the device, so no host sync); noise:
     optional (K + 1, N, dim) standard normals. Returns (z (N, dim), w (N,));
@@ -302,8 +330,10 @@ def evolve_underdamped_fused(
                   spec, dim=dim, nbridges=nbridges, sn=sn, seed=seed, noise=noise,
                   return_state=return_state,
                   stream=torch.cuda.current_stream(dev).cuda_stream)
-    evolve_underdamped_fused.launches += 1
+    count_launch(evolve_underdamped_fused, form_key(spec, grad_logp))
     return out
 
 
+# Launches in all, and by form ("<mode>/<target>", form_key).
 evolve_underdamped_fused.launches = 0
+evolve_underdamped_fused.form_launches = {}

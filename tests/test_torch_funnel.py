@@ -11,7 +11,9 @@ interpret mode; the plain VarGrad replay and re-rolling backward against
 JAX's Pallas kernels in interpret mode; five funnel_k8-flag trainer steps
 against the JAX trainer; a short CPU run through the CLI; the host's
 shared-memory formulas at D = 10; and the refusals of what no kernel is
-instantiated for.
+instantiated for (the underdamped and UHA families on the funnel are held in
+tests/test_torch_underdamped.py, test_torch_kl_underdamped.py and
+test_torch_uha.py).
 
 Tolerances: the log-density and the score rtol 1e-5 (float32), float64 to
 1e-10; the rollout z to 1e-5 and w to 1e-4 absolute; gradients as
@@ -538,27 +540,35 @@ def test_assemble_grads_reads_the_dim_10_layout():
 
 
 def test_refusals_before_any_launch():
-    """No fused path on the funnel for LDVI or UHA (their instances are
-    ROADMAP A6b), none for gmm at dim 10 or a funnel of another funnel_d,
-    and the wrappers raise on both devices before anything launches; the
-    overdamped family takes the funnel."""
+    """Every family takes the funnel (the overdamped modes, the seven
+    underdamped ones and UHA); what stays refused, on both devices and
+    before anything launches: the standard normal in the underdamped and UHA
+    kernels (their instances are the recipes' three targets), gmm at dim 10,
+    a funnel of another funnel_d, MCD_DNF."""
     funnel = load_target("funnel", device="cpu")
-    for mode in ("MCD_CAIS_sn", "MCD_ULA_sn", "MCD_ULA", "MCD_CAIS_var_sn"):
+    for mode in ("MCD_CAIS_sn", "MCD_ULA_sn", "MCD_ULA", "MCD_CAIS_var_sn", "MCD_U_a-lp-sn",
+                 "MCD_U_e-lp", "MCD_U_ea-lp-sn", "MCD_CAIS_UHA_sn", "UHA"):
         setup = tb.CMCDSetup(mode=mode, dim=D, nbridges=8, emb_dim=48)
         assert supports_fused(setup, funnel) and supports_fused_train(setup, funnel)
     assert fused_training_path(tb.CMCDSetup(mode="MCD_CAIS_sn", dim=D, nbridges=8), 300)[1] \
         == "kl_bound_fused, KL reverse sweep"
-    for mode in ("MCD_U_a-lp-sn", "UHA"):
-        setup = tb.CMCDSetup(mode=mode, dim=D, nbridges=8, emb_dim=48)
-        assert not supports_fused(setup, funnel) and not supports_fused_train(setup, funnel)
-    score = FunnelScore(dim=D, sig=3.0)
+    assert not supports_fused(tb.CMCDSetup(mode="MCD_DNF", dim=D, nbridges=8), funnel)
+    score, normal = FunnelScore(dim=D, sig=3.0), StdNormalScore(dim=D)
     z = torch.zeros(4, D)
-    with pytest.raises(NotImplementedError, match="A6b"):
-        uha.check_config("UHA", score, D, 8, 1)
-    with pytest.raises(NotImplementedError, match="A6b"):
-        underdamped.evolve_underdamped_fused(
-            z, torch.zeros(4), torch.ones(8), 0.1, 1.0, 0.5, torch.zeros(D), torch.zeros(D),
-            score, UNDERDAMPED["MCD_U_a-lp-sn"], dim=D, nbridges=8)
+    with pytest.raises(NotImplementedError, match="B11"):
+        uha.check_config("UHA", normal, D, 8, 1)
+    before = underdamped.evolve_underdamped_fused.launches
+    for bad_score, err in ((normal, NotImplementedError), (FunnelScore(dim=12, sig=3.0),
+                                                           ValueError)):
+        with pytest.raises(err, match="B11|dim must be"):
+            underdamped.evolve_underdamped_fused(
+                torch.zeros(4, bad_score.dim), torch.zeros(4), torch.ones(8), 0.1, 1.0, 0.5,
+                torch.zeros(bad_score.dim), torch.zeros(bad_score.dim), bad_score,
+                UNDERDAMPED["MCD_U_a-lp-sn"], dim=bad_score.dim, nbridges=8)
+    assert underdamped.evolve_underdamped_fused.launches == before
+    underdamped.evolve_underdamped_fused(
+        z, torch.zeros(4), torch.ones(8), 0.1, 1.0, 0.5, torch.zeros(D), torch.zeros(D),
+        score, UNDERDAMPED["MCD_U_a-lp"], dim=D, nbridges=8)  # the funnel runs (plain, CPU)
     before = evolve_overdamped_fused.launches
     gmm = score_for_target(load_target("gmm", device="cpu"))
     for bad_score, bad_dim in ((gmm, D), (FunnelScore(dim=12, sig=3.0), 12), (score, 2)):

@@ -24,6 +24,7 @@ from cmcd_tpu.ops.fused import _dim_pad
 from cmcd_tpu.ops.fused_train import kl_bound_pallas
 from cmcd_tpu.ops.pallas_kl import evolve_kl_bwd_pallas
 from cmcd_tpu_torch import bounds as tb
+from cmcd_tpu_torch.distributions import std_normal_log_prob
 from cmcd_tpu_torch.integrators import overdamped as tod
 from cmcd_tpu_torch.ops import kl
 from cmcd_tpu_torch.ops.fused_train import (
@@ -38,7 +39,7 @@ from cmcd_tpu_torch.ops.fused_train import (
 from cmcd_tpu_torch.ops.kl import evolve_kl_bwd, evolve_kl_bwd_plain
 from cmcd_tpu_torch.ops.overdamped import evolve_overdamped_fused
 from cmcd_tpu_torch.ops.target_grads import make_many_gmm_score
-from cmcd_tpu_torch.targets import load_target
+from cmcd_tpu_torch.targets import Target, load_target
 from cmcd_tpu_torch.utils.convert import grads_to_numpy
 from test_torch_vargrad import (
     _jax_forward_with_trajectory,
@@ -232,11 +233,22 @@ def test_fused_kl_gate_and_mode_checks():
 
 @pytest.mark.parametrize("mode", ["MCD_U_e-lp", "MCD_DNF"])
 def test_fused_training_path_refuses_a_mode_without_a_fused_loss(mode):
-    """An underdamped refresh without a sweep, and DNF: no fused loss to
-    hand the trainer, so the path raises instead of naming kl_bound_fused."""
+    """DNF has no fused loss to hand the trainer, so the path raises instead
+    of naming kl_bound_fused. The exact refresh (MCD_U_e-lp) has one since
+    its sweep was ported; its refusal is now a target whose score no
+    underdamped kernel inlines (the standard normal at dim 10), before
+    anything runs."""
     setup = tb.CMCDSetup(mode=mode, dim=2, nbridges=8, emb_dim=16)
+    if mode == "MCD_DNF":
+        with pytest.raises(NotImplementedError, match=mode):
+            fused_training_path(setup, 256)
+        return
+    assert fused_training_path(setup, 256)[0] is kl_bound_fused
+    normal = Target("std_normal", 10, std_normal_log_prob)
+    setup = tb.CMCDSetup(mode=mode, dim=10, nbridges=8, emb_dim=16)
+    assert not supports_fused_train(setup, normal)
     with pytest.raises(NotImplementedError, match=mode):
-        fused_training_path(setup, 256)
+        kl_bound_fused({}, 8, None, setup, normal)
 
 
 @pytest.mark.parametrize("bad", ["spec", "score", "shape", "noise", "schedule"])

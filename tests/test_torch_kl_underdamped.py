@@ -1,19 +1,27 @@
 """The port's underdamped KL (backprop-through-time) gradient against the JAX
-package, on the CPU, under the same base normals and injected noise, for
-the approximate-refresh modes (MCD_U_a-lp, -sna, -sn; LDVI is the last).
+package, on the CPU, under the same base normals and injected noise, for all
+seven underdamped modes (the approximate refresh MCD_U_a-lp, -sna, -sn, LDVI
+the last; the exact refresh MCD_U_e-lp, -sna; MCD_U_ea-lp-sn;
+MCD_CAIS_UHA_sn) on many_gmm, the 3-mode gmm and Neal's funnel (dim 10;
+CAIS_UHA's with its target score clip engaged).
 
 Layers, each held to the next: the eager kl_bound under torch.autograd (the
 oracle) against jax.grad of the scan loss; the reverse sweep's plain version
 against the Pallas kernel evolve_kl_bwd_underdamped in interpret mode on the
-same stores and cotangents; the custom VJP kl_bound_fused (plain versions on
-a CPU tensor) against jax.grad of the scan loss and, for LDVI, against
-kl_bound_pallas; five optimizer steps of `train` against the JAX trainer;
-the CLI on the CPU.
+same stores and cotangents, and in float64 against float64 autograd through
+the eager stepper (exact_fwd's log-normalisers, CAIS_UHA's per-point step
+size, forward net and clip); the custom VJP kl_bound_fused (plain versions
+on a CPU tensor) against jax.grad of the scan loss and, for LDVI, against
+kl_bound_pallas; five optimizer steps of `train` against the JAX trainer
+(LDVI on many_gmm, CAIS_UHA on the funnel); the CLI on the CPU.
 
 Tolerances as tests/test_pallas_kl.py:233-248: loss rtol 1e-4, gradient
 |g_t - g_j| < 2e-4 |g_j| + 1e-4 over the flattened tree and per leaf (eps,
-gamma and vd trainable, so a wrong small leaf cannot hide behind the net).
+gamma, eta and vd trainable, so a wrong small leaf cannot hide behind the
+net); the float64 pair 1e-9 of each leaf's norm.
 """
+
+import copy
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +38,8 @@ from cmcd_tpu.ops.pallas_underdamped import evolve_underdamped_pallas
 from cmcd_tpu.schedules import betas_from_grid as j_betas_from_grid
 from cmcd_tpu.train import trainer as jtrainer
 from cmcd_tpu_torch import bounds as tb
+from cmcd_tpu_torch.integrators import UNDERDAMPED
+from cmcd_tpu_torch.integrators import underdamped as tud
 from cmcd_tpu_torch.main import parse_flags, run_experiment
 from cmcd_tpu_torch.ops.fused_train import (
     KL_FUSED_MODES,
@@ -42,11 +52,18 @@ from cmcd_tpu_torch.ops.kl_underdamped import (
     evolve_kl_bwd_underdamped,
     evolve_kl_bwd_underdamped_plain,
 )
-from cmcd_tpu_torch.ops.underdamped import evolve_underdamped_fused
-from cmcd_tpu_torch.targets import load_target
+from cmcd_tpu_torch.ops.target_grads import score_for_target
+from cmcd_tpu_torch.ops.underdamped import (
+    UD_TARGETS,
+    evolve_underdamped_fused,
+    evolve_underdamped_fused_plain,
+)
+from cmcd_tpu_torch.schedules import betas_from_grid
+from cmcd_tpu_torch.targets import Target, load_target
 from cmcd_tpu_torch.train import train
 from cmcd_tpu_torch.utils.convert import grads_to_numpy, params_to_numpy
 from test_torch_underdamped import (
+    TARGETS,
     from_t,
     jax_rollout_args,
     make_ud_case,
@@ -58,6 +75,14 @@ torch.set_num_threads(1)
 
 K, N = 4, 96
 APPROX = ["MCD_U_a-lp", "MCD_U_a-lp-sna", "MCD_U_a-lp-sn"]
+ALL = list(UNDERDAMPED)
+
+
+def clipped_elements(case, ztraj):
+    """Target score elements past CAIS_UHA's clip (1e2) at the stored
+    positions."""
+    score = score_for_target(case["target"])
+    return int((score(ztraj.reshape(-1, case["dim"])).abs() > tud.CAIS_UHA_CLIP).sum())
 
 
 def scan_neg_elbos(case):
@@ -68,7 +93,8 @@ def scan_neg_elbos(case):
     def neg_elbos(train):
         p = jb.merged_params({"train": train, "notrain": params["notrain"]})
         z_key, evolve_key = jax.random.split(key)
-        z = p["vd"]["mean"] + jnp.exp(p["vd"]["logdiag"]) * jax.random.normal(z_key, (n, 2))
+        z = p["vd"]["mean"] + jnp.exp(p["vd"]["logdiag"]) * jax.random.normal(
+            z_key, (n, case["dim"]))
         w = -j_log_prob(p["vd"], z)
         betas = j_betas_from_grid(p["mgridref_y"], p["gridref_x"], p["target_x"])
         z, wd, _ = jud.evolve_underdamped(evolve_key, z, betas, p, ctx, case["jspec"],
@@ -103,9 +129,10 @@ def fused(case):
     return lambda p, n, c, s, **d: kl_bound_fused(p, n, c, s, case["target"], **d)
 
 
-@pytest.mark.parametrize("mode", APPROX)
-def test_eager_kl_bound_grad_matches_jax_scan(mode):
-    case = make_ud_case(mode)
+@pytest.mark.parametrize("target", TARGETS)
+@pytest.mark.parametrize("mode", ALL)
+def test_eager_kl_bound_grad_matches_jax_scan(mode, target):
+    case = make_ud_case(mode, target=target)
     want_l, want_g = jax.value_and_grad(scan_loss(case))(case["jparams"]["train"])
     got_l, got_g = torch_value_and_grad(case, tb.kl_bound)
     np.testing.assert_allclose(got_l, float(want_l), rtol=1e-4)
@@ -123,25 +150,31 @@ def _to_jax_layout(case, g):
     return out
 
 
-@pytest.mark.parametrize("mode", APPROX)
-def test_sweep_plain_matches_jax_sweep_kernel(mode):
-    case = make_ud_case(mode)
+@pytest.mark.parametrize("target", TARGETS)
+@pytest.mark.parametrize("mode", ALL)
+def test_sweep_plain_matches_jax_sweep_kernel(mode, target):
+    case = make_ud_case(mode, target=target)
+    dim = case["dim"]
     z0_j, j_args, j_kw = jax_rollout_args(case)
     _, _, zt, rt, nt = evolve_underdamped_pallas(
         z0_j, *j_args, **j_kw, noise=case["jnoise"], block=128, interpret=True,
         return_state_t=True)
     cot = case["rng"].standard_normal(N).astype(np.float32)
-    g_zfinal = case["rng"].standard_normal((N, 2)).astype(np.float32)
+    g_zfinal = case["rng"].standard_normal((N, dim)).astype(np.float32)
     want, want_z0 = j_sweep(zt, rt, nt, jnp.asarray(cot), jnp.asarray(g_zfinal), *j_args,
                             n_chains=N, block=128, interpret=True, **j_kw)
     _, args, kw = port_rollout_args(case)
-    stack = lambda x_t: torch.from_numpy(np.ascontiguousarray(from_t(x_t, N)))
+    stack = lambda x_t: torch.from_numpy(np.ascontiguousarray(from_t(x_t, N, dim)))
     before = evolve_kl_bwd_underdamped.launches
     got, got_z0 = evolve_kl_bwd_underdamped(stack(zt), stack(rt), stack(nt),
                                             torch.from_numpy(cot), torch.from_numpy(g_zfinal),
                                             *args, **kw)
     assert evolve_kl_bwd_underdamped.launches == before  # no kernel on a CPU tensor
-    assert float(got["eta"]) == 0.0
+    # The exact refresh reads eta and never gamma, the others gamma and never eta.
+    unused = "gamma" if case["spec"].refresh == "exact" else "eta"
+    assert float(got[unused]) == 0.0 and float(want[unused]) == 0.0
+    if (mode, target) == ("MCD_CAIS_UHA_sn", "funnel"):  # the clip and its VJP are held
+        assert clipped_elements(case, stack(zt)) > 100
     assert_grads_close(_to_jax_layout(case, got), jax.device_get(want), rel=2e-4)
     want_z0 = np.asarray(want_z0)
     assert np.linalg.norm(got_z0.numpy() - want_z0) < 2e-4 * np.linalg.norm(want_z0) + 1e-4
@@ -167,9 +200,64 @@ def test_sweep_plain_in_float64_agrees_with_float32():
         assert err <= 1e-4 * float(want.norm()) + 1e-5, name
 
 
-@pytest.mark.parametrize("mode", APPROX)
-def test_kl_bound_fused_matches_jax_grad_of_scan(mode):
-    case = make_ud_case(mode)
+@pytest.mark.parametrize("mode", ["MCD_U_ea-lp-sn", "MCD_CAIS_UHA_sn", "MCD_U_e-lp-sna"])
+def test_sweep_plain_in_float64_matches_autograd_through_the_eager_stepper(mode):
+    """The hand-walked sweep where a written-out VJP goes wrong silently:
+    exact_fwd's log-normalisers D (log s_f - log s_b) with their own eps and
+    gamma gradient, CAIS_UHA's per-point step size eps0 cos^2, its forward
+    net feeding the backward net's input and its clipped score (engaged
+    here), the exact refresh's eta. Both sides in float64 on the funnel: the
+    plain sweep on the plain rollout's stores against torch.autograd of
+    sum_n [c_n w_n + g_n . z_K] through integrators/underdamped.py, every
+    leaf (eps, gamma, eta, betas, vd, z0, the net) within 1e-9 of its norm."""
+    case = make_ud_case(mode, target="funnel", n=64)
+    spec, dim, k, n = case["spec"], case["dim"], case["k"], case["n"]
+    p = tb.merged_params(case["params"])
+    d64 = lambda t: t.detach().double().clone().requires_grad_(True)
+    eps, gamma, eta = d64(p["eps"]), d64(p["gamma"]), d64(p["eta"])
+    betas = d64(betas_from_grid(p["mgridref_y"], p["gridref_x"], p["target_x"]))
+    mean, logdiag = d64(p["vd"]["mean"]), d64(p["vd"]["logdiag"])
+    z0 = d64(p["vd"]["mean"] + torch.exp(p["vd"]["logdiag"]) * case["draws"]["base_normals"])
+    sn = copy.deepcopy(p["sn"]).double() if "sn" in p else None
+    noise = case["draws"]["noise"].double()
+    rng = np.random.default_rng(5)
+    cot = torch.from_numpy(rng.standard_normal(n))
+    g_zf = torch.from_numpy(rng.standard_normal((n, dim)))
+    params = {"eps": eps, "gamma": gamma, "eta": eta, "vd": {"mean": mean, "logdiag": logdiag}}
+    weights = []
+    if sn is not None:
+        params["sn"], weights = sn, list(sn.parameters())
+    z_k, w, _ = tud.evolve_underdamped(z0, betas, params, case["ctx"], spec, noise=noise)
+    leaves = [eps, gamma, eta, betas, mean, logdiag, z0, *weights]
+    want = torch.autograd.grad(torch.sum(cot * w) + torch.sum(g_zf * z_k), leaves,
+                               allow_unused=True)
+    score = score_for_target(case["target"])
+    _, _, zt, rt, dr = evolve_underdamped_fused_plain(
+        z0.detach(), torch.zeros(n, dtype=torch.float64), betas.detach(), eps.detach(),
+        gamma.detach(), eta.detach(), mean.detach(), logdiag.detach(), score, spec, dim=dim,
+        nbridges=k, sn=sn, noise=noise, return_state=True)
+    assert zt.dtype == torch.float64
+    if spec.cais:
+        assert clipped_elements(case, zt) > 100
+    g, g_z0 = evolve_kl_bwd_underdamped_plain(
+        zt, rt, dr, cot, g_zf, betas.detach(), eps.detach(), gamma.detach(), eta.detach(),
+        mean.detach(), logdiag.detach(), score, spec, dim=dim, nbridges=k, sn=sn)
+    got = [g["eps"], g["gamma"], g["eta"], g["betas"], g["vd_mean"], g["vd_logdiag"], g_z0]
+    got += [g["sn"][name] for name, _ in sn.named_parameters()] if sn is not None else []
+    names = ["eps", "gamma", "eta", "betas", "vd_mean", "vd_logdiag", "z0"]
+    names += [name for name, _ in sn.named_parameters()] if sn is not None else []
+    for name, a, b in zip(names, got, want):
+        b = torch.zeros_like(a) if b is None else b
+        assert a.dtype == torch.float64, name
+        assert float((a - b).norm()) <= 1e-9 * float(b.norm()) + 1e-12, name
+    unused = 2 if spec.refresh != "exact" else 1  # eta, or gamma under the exact refresh
+    assert float(got[unused]) == 0.0 and float(got[3 - unused].norm()) > 1e-3
+
+
+@pytest.mark.parametrize("target", TARGETS)
+@pytest.mark.parametrize("mode", ALL)
+def test_kl_bound_fused_matches_jax_grad_of_scan(mode, target):
+    case = make_ud_case(mode, target=target)
     assert supports_fused_train(case["setup"], case["target"])
     want_l, want_g = jax.value_and_grad(scan_loss(case))(case["jparams"]["train"])
     got_l, got_g = torch_value_and_grad(case, fused(case))
@@ -193,15 +281,25 @@ def test_kl_bound_fused_ldvi_matches_kl_bound_pallas():
 
 
 def test_kl_modes_and_training_path_cover_the_approximate_refresh():
-    assert UD_KL_FUSED_MODES == set(APPROX) and UD_KL_FUSED_MODES <= KL_FUSED_MODES
-    target = load_target("many_gmm", device="cpu")
-    for mode in APPROX:
-        setup = tb.CMCDSetup(mode=mode, dim=2, nbridges=256, emb_dim=130)
-        assert supports_fused_train(setup, target)
-        loss, words = fused_training_path(setup, 2000)
-        assert loss is kl_bound_fused and "underdamped" in words
-    for mode in ("MCD_U_e-lp", "MCD_U_ea-lp-sn", "MCD_CAIS_UHA_sn"):
-        setup = tb.CMCDSetup(mode=mode, dim=2, nbridges=8, emb_dim=16)
+    """Every underdamped mode trains through the fused KL loss on each target
+    of the kernels at its width (the approximate refresh, LDVI's full width,
+    among them); what stays refused: MCD_DNF (not ported) and a target whose
+    score no kernel inlines, before anything runs."""
+    assert UD_KL_FUSED_MODES == set(ALL) and UD_KL_FUSED_MODES <= KL_FUSED_MODES
+    assert set(UD_TARGETS) == set(TARGETS)
+    for name, dim, nbridges, emb in (("many_gmm", 2, 256, 130), ("gmm", 2, 8, 20),
+                                     ("funnel", 10, 32, 48)):
+        target = load_target(name, device="cpu")
+        for mode in ALL:
+            setup = tb.CMCDSetup(mode=mode, dim=dim, nbridges=nbridges, emb_dim=emb)
+            assert supports_fused_train(setup, target), (name, mode)
+            loss, words = fused_training_path(setup, 2000)
+            assert loss is kl_bound_fused and "underdamped" in words
+    many_gmm = load_target("many_gmm", device="cpu")
+    normal = Target("std_normal", 10, lambda z: -0.5 * torch.sum(z * z, -1))
+    for setup, target in ((tb.CMCDSetup(mode="MCD_DNF", dim=2, nbridges=8), many_gmm),
+                          (tb.CMCDSetup(mode="MCD_U_ea-lp-sn", dim=10, nbridges=8, emb_dim=16),
+                           normal)):
         assert not supports_fused_train(setup, target)
         with pytest.raises(NotImplementedError):
             kl_bound_fused({}, 8, None, setup, target)
@@ -210,15 +308,14 @@ def test_kl_modes_and_training_path_cover_the_approximate_refresh():
 STEPS = 5
 
 
-def test_five_ldvi_steps_match_the_jax_trainer():
+def _five_steps_against_the_jax_trainer(case, lr, trainable):
     """train in both packages from the same parameters under the same draws,
-    the fused LDVI loss on the port's side: losses and every parameter after
-    five Adam steps (eta's gradient is zero on both sides, so eta stays)."""
-    case = make_ud_case("MCD_U_a-lp-sn", n=64)
-    n, k = case["n"], case["k"]
+    the fused KL loss on the port's side: losses and every parameter after
+    STEPS Adam steps. Returns the port's TrainResult."""
+    n, k, dim = case["n"], case["k"], case["dim"]
     rng = np.random.default_rng(11)
-    draws = [(rng.standard_normal((n, 2)).astype(np.float32),
-              rng.standard_normal((k + 1, n, 2)).astype(np.float32)) for _ in range(STEPS)]
+    draws = [(rng.standard_normal((n, dim)).astype(np.float32),
+              rng.standard_normal((k + 1, n, dim)).astype(np.float32)) for _ in range(STEPS)]
     base_all = jnp.asarray(np.stack([d[0] for d in draws]))
     noise_all = jnp.asarray(np.stack([d[1] for d in draws]))
     key = jax.random.PRNGKey(0)
@@ -239,8 +336,7 @@ def test_five_ldvi_steps_match_the_jax_trainer():
         neg = -(w + wd + ctx.target_log_prob(z))
         return jnp.mean(neg), (neg, z)
 
-    trainable = jb.default_trainable("MCD_U_a-lp-sn", train_eps=False, train_vi=False)
-    want = jtrainer.train(case["jsetup"], case["jparams"], case["jctx"], lr=0.005, iters=STEPS,
+    want = jtrainer.train(case["jsetup"], case["jparams"], case["jctx"], lr=lr, iters=STEPS,
                           batch_size=n, key=jax.random.PRNGKey(0), trainable=trainable,
                           loss_fn=j_loss, log_every=1, steps_per_call=1)
     step = {"i": 0}
@@ -252,7 +348,7 @@ def test_five_ldvi_steps_match_the_jax_trainer():
                               base_normals=torch.from_numpy(base),
                               noise=torch.from_numpy(noise))
 
-    got = train(case["setup"], case["params"], case["ctx"], lr=0.005, iters=STEPS,
+    got = train(case["setup"], case["params"], case["ctx"], lr=lr, iters=STEPS,
                 batch_size=n, trainable=trainable, loss_fn=loss_fn, log_every=1)
     assert got.steps_done == STEPS and not got.diverged and not bool(want.diverged)
     np.testing.assert_allclose(got.losses.numpy(), np.asarray(want.losses), rtol=1e-4)
@@ -265,8 +361,30 @@ def test_five_ldvi_steps_match_the_jax_trainer():
         assert np.linalg.norm(g - w) <= 1e-4 * np.linalg.norm(w) + 1e-7
         moved += float(np.linalg.norm(np.asarray(w) - np.asarray(s)))
     assert moved > 0.1
+    return got
+
+
+def test_five_ldvi_steps_match_the_jax_trainer():
+    """LDVI on many_gmm (eta's gradient is zero on both sides, so eta stays)."""
+    case = make_ud_case("MCD_U_a-lp-sn", n=64)
+    trainable = jb.default_trainable("MCD_U_a-lp-sn", train_eps=False, train_vi=False)
+    got = _five_steps_against_the_jax_trainer(case, 0.005, trainable)
     eta = float(got.params["train"]["eta"])
     assert eta == float(case["jparams"]["train"]["eta"])
+
+
+def test_five_cais_uha_funnel_steps_match_the_jax_trainer():
+    """MCD_CAIS_UHA_sn on the funnel with the gate's flags (train_vi on,
+    train_eps off, FUNNEL_EPS_DICT[32]'s init_eps 0.1 and lr 0.005, gamma
+    10), cut to K=8, N=64, emb 16; gamma moves, eta (unread) stays."""
+    case = make_ud_case("MCD_CAIS_UHA_sn", n=64, k=8, eps=0.1, gamma=10.0, init_sigma=1.0,
+                        target="funnel")
+    trainable = jb.default_trainable("MCD_CAIS_UHA_sn", train_eps=False, train_vi=True)
+    assert "eps" not in trainable and "vd" in trainable and "gamma" in trainable
+    got = _five_steps_against_the_jax_trainer(case, 0.005, trainable)
+    train_p = got.params["train"]
+    assert float(train_p["eta"]) == float(case["jparams"]["train"]["eta"])
+    assert float(train_p["gamma"]) != float(case["jparams"]["train"]["gamma"])
 
 
 LDVI_TINY = ("--config.model many_gmm --config.boundmode MCD_U_a-lp-sn --config.nbridges 4 "
@@ -291,3 +409,28 @@ def test_run_experiment_trains_ldvi_on_cpu(capsys):
     assert len(losses) == 40 and torch.isfinite(losses).all()
     assert np.isfinite(out["final_ln_Z"]) and np.isfinite(out["final_elbo"])
     assert out["neg_elbos"].shape == (2, 64)
+
+
+CAIS_UHA_TINY = ("--config.model funnel --config.boundmode MCD_CAIS_UHA_sn --config.nbridges 8 "
+                 "--config.emb_dim 8 --config.N 64 --config.n_samples 64 "
+                 "--config.n_input_dist_seeds 2 --config.init_sigma 1 --config.train_vi True "
+                 "--config.train_eps False --config.iters 20 --config.log.every 1 "
+                 "--noconfig.pretrain_mfvi").split()
+
+
+def test_run_experiment_trains_cais_uha_on_the_funnel_on_cpu(capsys):
+    """MCD_CAIS_UHA_sn on the funnel through the CLI's phases on the CPU
+    (FUNNEL_EPS_DICT[8]: init_eps 0.1, lr 0.01): the fused KL loss (plain
+    versions of the underdamped rollout and sweep) and the fused evaluation,
+    at dim 10."""
+    cfg = parse_flags(CAIS_UHA_TINY)
+    out = run_experiment(cfg, device="cpu")
+    printed = capsys.readouterr().out
+    assert "kl_bound_fused, underdamped rollout and KL reverse sweep" in printed
+    assert "Using the fused evaluation path on cpu" in printed
+    assert (cfg.init_eps, cfg.lr) == (0.1, 0.01)
+    result = out["train"]
+    assert result.steps_done == 20 and not result.diverged
+    assert torch.isfinite(result.losses).all()
+    assert np.isfinite(out["final_ln_Z"]) and np.isfinite(out["final_elbo"])
+    assert out["neg_elbos"].shape == (2, 64) and out["samples"].shape == (2 * 64, 10)

@@ -1,7 +1,7 @@
 """The port's UHA (Uncorrected Hamiltonian Annealing) against the JAX
 package, on the CPU, under the same base normals and injected noise (K + 1
 rows: the initial momentum's base draw, then one refresh draw per bridge),
-on many_gmm and the 3-mode gmm, with lfsteps 1 and 3.
+on many_gmm, the 3-mode gmm and Neal's funnel (dim 10), with lfsteps 1 and 3.
 
 Layers, each held to the next: the momentum distribution; the eager stepper
 (integrators/uha.py) against JAX's scan stepper (z, w and delta_H); the fused
@@ -36,6 +36,7 @@ from cmcd_tpu.distributions import diag_gaussian_log_prob as j_log_prob
 from cmcd_tpu.distributions import momentum_log_prob as j_momentum_log_prob
 from cmcd_tpu.integrators import uha as juha
 from cmcd_tpu.ops import target_grads as jtg
+from cmcd_tpu.ops.fused import _dim_pad
 from cmcd_tpu.ops.fused_train import kl_bound_pallas
 from cmcd_tpu.ops.pallas_kl import evolve_kl_bwd_uha as j_sweep
 from cmcd_tpu.ops.pallas_uha import evolve_uha_pallas
@@ -68,8 +69,8 @@ from test_torch_vargrad import assert_grads_close
 torch.set_num_threads(1)
 
 K, N = 4, 96
-CASES = [("gmm", 1), ("gmm", 3), ("many_gmm", 1), ("many_gmm", 3)]
-SIGMA = {"gmm": 5.0, "many_gmm": 8.0}
+CASES = [("gmm", 1), ("gmm", 3), ("many_gmm", 1), ("many_gmm", 3), ("funnel", 1), ("funnel", 3)]
+SIGMA = {"gmm": 5.0, "many_gmm": 8.0, "funnel": 1.0}
 
 
 def make_uha_case(target_name, lfsteps, eta=0.5, train_md=False, n=N, k=K):
@@ -78,25 +79,28 @@ def make_uha_case(target_name, lfsteps, eta=0.5, train_md=False, n=N, k=K):
     trainable (md too if train_md), non-uniform beta knots, an off-centre
     variational mean, a momentum log-scale away from zero."""
     jt = cmcd_tpu.load_target(target_name)
-    kw = dict(mode="UHA", dim=2, nbridges=k, lfsteps=lfsteps)
+    dim = jt.dim
+    kw = dict(mode="UHA", dim=dim, nbridges=k, lfsteps=lfsteps)
     jsetup = jb.CMCDSetup(**kw)
     trainable = jb.default_trainable("UHA") + (("md",) if train_md else ())
     params, jctx = jb.initialize(jsetup, jt.log_prob, eps=0.05, eta=eta,
                                  init_sigma=SIGMA[target_name], trainable=trainable)
-    params["train" if train_md else "notrain"]["md"] = jnp.array([0.1, -0.2])
+    params["train" if train_md else "notrain"]["md"] = jnp.asarray(
+        [(0.1, -0.2)[d % 2] for d in range(dim)], jnp.float32)
     params["train"]["mgridref_y"] = jax.random.uniform(
         jax.random.PRNGKey(4), params["train"]["mgridref_y"].shape, minval=0.5, maxval=1.5)
-    params["train"]["vd"]["mean"] = jnp.array([0.5, -0.5])
+    params["train"]["vd"]["mean"] = jnp.asarray([0.5 * (-1) ** d for d in range(dim)],
+                                                jnp.float32)
     key = jax.random.PRNGKey(0)
-    base = np.array(jax.random.normal(jax.random.split(key)[0], (n, 2)))
+    base = np.array(jax.random.normal(jax.random.split(key)[0], (n, dim)))
     rng = np.random.default_rng(2)
-    noise = rng.standard_normal((k + 1, n, 2)).astype(np.float32)
+    noise = rng.standard_normal((k + 1, n, dim)).astype(np.float32)
     target = load_target(target_name, device="cpu")
     tsetup = tb.CMCDSetup(**kw)
     _, tctx = tb.initialize(tsetup, target.log_prob, device="cpu")
     return {
         "jt": jt, "jsetup": jsetup, "jparams": params, "jctx": jctx, "key": key,
-        "jnoise": jnp.asarray(noise), "n": n, "k": k, "lfsteps": lfsteps, "rng": rng,
+        "jnoise": jnp.asarray(noise), "n": n, "k": k, "lfsteps": lfsteps, "rng": rng, "dim": dim,
         "target": target, "setup": tsetup, "ctx": tctx, "trainable": trainable,
         "params": params_from_jax(jax.device_get(params), device="cpu"),
         "draws": {"base_normals": torch.from_numpy(base), "noise": torch.from_numpy(noise)},
@@ -111,8 +115,8 @@ def jax_args(case):
     z0 = p["vd"]["mean"] + jnp.exp(p["vd"]["logdiag"]) * jnp.asarray(
         case["draws"]["base_normals"].numpy())
     args = (betas, p["eps"], p["eta"], p["md"], p["vd"]["mean"], p["vd"]["logdiag"],
-            jtg.grad_t_for_target(case["jt"], 8))
-    return z0, args, dict(dim=2, nbridges=case["k"], lfsteps=case["lfsteps"])
+            jtg.grad_t_for_target(case["jt"], _dim_pad(case["dim"])))
+    return z0, args, dict(dim=case["dim"], nbridges=case["k"], lfsteps=case["lfsteps"])
 
 
 def port_args(case):
@@ -124,7 +128,7 @@ def port_args(case):
     args = (betas, p["eps"].detach(), p["eta"].detach(), p["md"].detach(),
             p["vd"]["mean"].detach(), p["vd"]["logdiag"].detach(),
             score_for_target(case["target"]))
-    return z0, args, dict(dim=2, nbridges=case["k"], lfsteps=case["lfsteps"])
+    return z0, args, dict(dim=case["dim"], nbridges=case["k"], lfsteps=case["lfsteps"])
 
 
 def test_momentum_distribution_matches_jax():
@@ -168,7 +172,8 @@ def test_rollout_plain_matches_pallas_kernel(target_name, lfsteps):
     np.testing.assert_allclose(z.numpy(), np.asarray(z_j), atol=2e-4, rtol=1e-4)
     np.testing.assert_allclose(w.numpy(), np.asarray(w_j), atol=1e-3, rtol=1e-4)
     for got, want in ((zs, zt), (rs, rt), (ds, nt)):
-        np.testing.assert_allclose(got.numpy(), from_t(want, N), atol=2e-4, rtol=1e-4)
+        np.testing.assert_allclose(got.numpy(), from_t(want, N, case["dim"]), atol=2e-4,
+                                   rtol=1e-4)
     assert ds is case["draws"]["noise"]  # injected noise is handed on as it is
     # Without stores: the same (z, w).
     z2, w2 = evolve_uha_fused(z0, *args, **kw, noise=case["draws"]["noise"])
@@ -182,11 +187,11 @@ def test_sweep_plain_matches_jax_sweep_kernel(target_name, lfsteps):
     _, _, zt, rt, nt = evolve_uha_pallas(z0_j, *j_args, **j_kw, noise=case["jnoise"],
                                          block=128, interpret=True, return_state_t=True)
     cot = case["rng"].standard_normal(N).astype(np.float32)
-    g_zfinal = case["rng"].standard_normal((N, 2)).astype(np.float32)
+    g_zfinal = case["rng"].standard_normal((N, case["dim"])).astype(np.float32)
     want, want_z0 = j_sweep(zt, rt, nt, jnp.asarray(cot), jnp.asarray(g_zfinal), *j_args,
                             n_chains=N, block=128, interpret=True, **j_kw)
     _, args, kw = port_args(case)
-    stack = lambda x_t: torch.from_numpy(np.ascontiguousarray(from_t(x_t, N)))
+    stack = lambda x_t: torch.from_numpy(np.ascontiguousarray(from_t(x_t, N, case["dim"])))
     before = evolve_kl_bwd_uha.launches
     got, got_z0 = evolve_kl_bwd_uha(stack(zt), stack(rt), stack(nt), torch.from_numpy(cot),
                                     torch.from_numpy(g_zfinal), *args, **kw)
@@ -227,7 +232,8 @@ def scan_loss(case):
     def loss(train):
         p = jb.merged_params({"train": train, "notrain": params["notrain"]})
         z_key, evolve_key = jax.random.split(key)
-        z = p["vd"]["mean"] + jnp.exp(p["vd"]["logdiag"]) * jax.random.normal(z_key, (n, 2))
+        z = p["vd"]["mean"] + jnp.exp(p["vd"]["logdiag"]) * jax.random.normal(
+            z_key, (n, case["dim"]))
         w = -j_log_prob(p["vd"], z)
         betas = j_betas_from_grid(p["mgridref_y"], p["gridref_x"], p["target_x"])
         z, wd, _ = juha.evolve_uha(evolve_key, z, betas, p, ctx, noise=case["jnoise"])
@@ -263,10 +269,11 @@ def fused_loss(case):
     return lambda p, n, c, s, **d: kl_bound_fused(p, n, c, s, case["target"], **d)
 
 
-# (target, lfsteps, eta, md trainable): both targets, both leapfrog lengths,
-# eta at 0 and inside (0, 1), md's gradient checked in two of them.
+# (target, lfsteps, eta, md trainable): the three targets, both leapfrog
+# lengths, eta at 0 and inside (0, 1), md's gradient checked in three of them.
 FUSED_CASES = [("gmm", 1, 0.5, False), ("gmm", 3, 0.0, True),
-               ("many_gmm", 1, 0.0, True), ("many_gmm", 3, 0.5, False)]
+               ("many_gmm", 1, 0.0, True), ("many_gmm", 3, 0.5, False),
+               ("funnel", 1, 0.0, False), ("funnel", 3, 0.5, True)]
 
 
 @pytest.mark.parametrize("target_name,lfsteps,eta,train_md", FUSED_CASES)
@@ -281,7 +288,7 @@ def test_kl_bound_fused_matches_jax_scan_and_pallas(target_name, lfsteps, eta, t
         assert_grads_close(got_g, want_g, rel=2e-4)
 
 
-@pytest.mark.parametrize("target_name,lfsteps", [("gmm", 3), ("many_gmm", 1)])
+@pytest.mark.parametrize("target_name,lfsteps", [("gmm", 3), ("many_gmm", 1), ("funnel", 1)])
 def test_eager_kl_bound_grad_matches_jax_scan(target_name, lfsteps):
     case = make_uha_case(target_name, lfsteps, train_md=True)
     want_l, want_g = jax.value_and_grad(scan_loss(case))(case["jparams"]["train"])
@@ -320,25 +327,23 @@ def test_compute_elbos_fused_matches_eager_compute_elbos():
 
 def test_coverage_and_the_training_path_words():
     assert UHA_KL_FUSED_MODES == {"UHA"} and UHA_KL_FUSED_MODES <= KL_FUSED_MODES
-    for name in ("many_gmm", "gmm"):
+    assert uha.UHA_TARGETS == ("many_gmm", "gmm", "funnel")
+    for name in ("many_gmm", "gmm", "funnel"):
         target = load_target(name, device="cpu")
         for lf in (1, MAX_LFSTEPS):
-            setup = tb.CMCDSetup(mode="UHA", dim=2, nbridges=256, lfsteps=lf)
+            setup = tb.CMCDSetup(mode="UHA", dim=target.dim, nbridges=256, lfsteps=lf)
             assert supports_fused(setup, target) and supports_fused_train(setup, target)
         loss, words = fused_training_path(setup, 2000)
         assert loss is kl_bound_fused and "UHA" in words
-        too_long = tb.CMCDSetup(mode="UHA", dim=2, nbridges=8, lfsteps=MAX_LFSTEPS + 1)
+        too_long = tb.CMCDSetup(mode="UHA", dim=target.dim, nbridges=8, lfsteps=MAX_LFSTEPS + 1)
         assert not supports_fused(too_long, target) and not supports_fused_train(too_long, target)
         with pytest.raises(NotImplementedError):
             kl_bound_fused({}, 8, None, too_long, target)
-    # The overdamped kernels take the 3-mode gmm too; the underdamped ones
-    # inline many_gmm only, so the underdamped modes stay eager on gmm.
+    # The overdamped and the underdamped kernels take the 3-mode gmm too.
     gmm = load_target("gmm", device="cpu")
-    for mode in ("MCD_CAIS_var_sn", "MCD_CAIS_sn"):
+    for mode in ("MCD_CAIS_var_sn", "MCD_CAIS_sn", "MCD_U_a-lp-sn", "MCD_CAIS_UHA_sn"):
         setup = tb.CMCDSetup(mode=mode, dim=2, nbridges=8, emb_dim=16)
         assert supports_fused(setup, gmm) and supports_fused_train(setup, gmm)
-    setup = tb.CMCDSetup(mode="MCD_U_a-lp-sn", dim=2, nbridges=8, emb_dim=16)
-    assert not supports_fused(setup, gmm) and not supports_fused_train(setup, gmm)
 
 
 @pytest.mark.parametrize("bad", ["score", "lfsteps", "shape", "noise", "dim"])

@@ -1,6 +1,7 @@
 """The port's underdamped family against the JAX package, on the CPU, under
 the same base normals and injected noise (K + 1 rows: the initial momentum,
-then one refresh draw per step).
+then one refresh draw per step), on many_gmm, the 3-mode gmm and Neal's
+funnel (dim 10; CAIS_UHA's with its clip at 1e2 engaged).
 
 Three layers, each held to the next: the eager stepper
 (integrators/underdamped.py) against JAX's scan stepper for all seven specs;
@@ -26,13 +27,14 @@ from cmcd_tpu import bounds as jb
 from cmcd_tpu.integrators import underdamped as jud
 from cmcd_tpu.networks.geffner import build_geffner_network
 from cmcd_tpu.ops import target_grads as jtg
+from cmcd_tpu.ops.fused import _dim_pad
 from cmcd_tpu.ops.pallas_underdamped import evolve_underdamped_pallas, pack_geffner_ud_t
 from cmcd_tpu.schedules import betas_from_grid as j_betas_from_grid
 from cmcd_tpu_torch import bounds as tb
 from cmcd_tpu_torch.integrators import UNDERDAMPED, mode_sn_rho_dim
 from cmcd_tpu_torch.integrators import underdamped as tud
 from cmcd_tpu_torch.ops.fused import compute_elbos_fused, supports_fused
-from cmcd_tpu_torch.ops.target_grads import make_many_gmm_score
+from cmcd_tpu_torch.ops.target_grads import score_for_target
 from cmcd_tpu_torch.ops.underdamped import (
     evolve_underdamped_fused,
     evolve_underdamped_fused_plain,
@@ -46,15 +48,29 @@ torch.set_num_threads(1)
 
 K, N, EMB = 4, 96, 16
 MODES = list(UNDERDAMPED)
+TARGETS = ("many_gmm", "gmm", "funnel")
+# The variational spread per target: many_gmm's modes lie 40 apart; on the
+# funnel CAIS_UHA starts wider, so that v < -4.6 on many chains and its
+# target score clip at 1e2 engages.
+SIGMA = {"many_gmm": 8.0, "gmm": 3.0, "funnel": 1.0, "funnel CAIS_UHA": 3.0}
 
 
-def make_ud_case(mode, n=N, k=K, eps=0.05, gamma=5.0, eta=0.5, init_sigma=8.0):
+def case_sigma(mode, target):
+    return SIGMA[f"{target} CAIS_UHA" if (target, mode) == ("funnel", "MCD_CAIS_UHA_sn")
+                 else target]
+
+
+def make_ud_case(mode, n=N, k=K, eps=0.05, gamma=5.0, eta=0.5, init_sigma=None,
+                 target="many_gmm"):
     """One underdamped problem in both packages (the sizes and scales of
     tests/test_pallas_kl.py:251-314, gamma eps = 0.25): every leaf
     trainable, factor_sn 0.3 and a random head where there is a net,
-    non-uniform beta knots, an off-centre variational mean."""
-    jt = cmcd_tpu.load_target("many_gmm")
-    kw = dict(mode=mode, dim=2, nbridges=k, emb_dim=EMB)
+    non-uniform beta knots, an off-centre variational mean; init_sigma
+    default case_sigma(mode, target)."""
+    jt = cmcd_tpu.load_target(target)
+    dim = jt.dim
+    init_sigma = case_sigma(mode, target) if init_sigma is None else init_sigma
+    kw = dict(mode=mode, dim=dim, nbridges=k, emb_dim=EMB)
     jsetup = jb.CMCDSetup(**kw)
     params, jctx = jb.initialize(jsetup, jt.log_prob, eps=eps, gamma=gamma, eta=eta,
                                  init_sigma=init_sigma,
@@ -65,18 +81,19 @@ def make_ud_case(mode, n=N, k=K, eps=0.05, gamma=5.0, eta=0.5, init_sigma=8.0):
         sn["head"]["w"] = 0.05 * jax.random.normal(jax.random.PRNGKey(9), sn["head"]["w"].shape)
     params["train"]["mgridref_y"] = jax.random.uniform(
         jax.random.PRNGKey(4), params["train"]["mgridref_y"].shape, minval=0.5, maxval=1.5)
-    params["train"]["vd"]["mean"] = jnp.array([0.5, -0.5])
+    params["train"]["vd"]["mean"] = jnp.asarray([0.5 * (-1) ** d for d in range(dim)],
+                                                jnp.float32)
     key = jax.random.PRNGKey(0)
-    base = np.array(jax.random.normal(jax.random.split(key)[0], (n, 2)))
+    base = np.array(jax.random.normal(jax.random.split(key)[0], (n, dim)))
     rng = np.random.default_rng(2)
-    noise = rng.standard_normal((k + 1, n, 2)).astype(np.float32)
-    target = load_target("many_gmm", device="cpu")
+    noise = rng.standard_normal((k + 1, n, dim)).astype(np.float32)
+    target = load_target(target, device="cpu")
     tsetup = tb.CMCDSetup(**kw)
     _, tctx = tb.initialize(tsetup, target.log_prob, device="cpu")
     return {
         "mode": mode, "spec": UNDERDAMPED[mode], "jspec": jb.integrators._UNDERDAMPED[mode],
         "jt": jt, "jsetup": jsetup, "jparams": params, "jctx": jctx, "key": key,
-        "jnoise": jnp.asarray(noise), "n": n, "k": k, "rng": rng,
+        "jnoise": jnp.asarray(noise), "n": n, "k": k, "rng": rng, "dim": dim,
         "target": target, "setup": tsetup, "ctx": tctx,
         "params": params_from_jax(jax.device_get(params), device="cpu"),
         "draws": {"base_normals": torch.from_numpy(base), "noise": torch.from_numpy(noise)},
@@ -90,12 +107,14 @@ def jax_rollout_args(case):
     betas = j_betas_from_grid(p["mgridref_y"], p["gridref_x"], p["target_x"])
     z0 = p["vd"]["mean"] + jnp.exp(p["vd"]["logdiag"]) * jnp.asarray(
         case["draws"]["base_normals"].numpy())
+    dim = case["dim"]
     weights = meta = None
     if uses_net(case["spec"]):
-        weights, meta = pack_geffner_ud_t(p["sn"], 2, 8, case["spec"].bwd_sn == "full")
+        weights, meta = pack_geffner_ud_t(p["sn"], dim, _dim_pad(dim),
+                                          case["spec"].bwd_sn == "full")
     args = (betas, p["eps"], p["gamma"], p["eta"], p["vd"]["mean"], p["vd"]["logdiag"],
-            jtg.grad_t_for_target(case["jt"], 8), case["jspec"])
-    kw = dict(dim=2, nbridges=case["k"], sn_weights=weights, sn_meta=meta)
+            jtg.grad_t_for_target(case["jt"], _dim_pad(dim)), case["jspec"])
+    kw = dict(dim=dim, nbridges=case["k"], sn_weights=weights, sn_meta=meta)
     return z0, args, kw
 
 
@@ -106,22 +125,23 @@ def port_rollout_args(case):
     z0 = (p["vd"]["mean"] + torch.exp(p["vd"]["logdiag"])
           * case["draws"]["base_normals"]).detach()
     args = (betas, p["eps"].detach(), p["gamma"].detach(), p["eta"].detach(),
-            p["vd"]["mean"].detach(), p["vd"]["logdiag"].detach(), make_many_gmm_score("cpu"),
-            case["spec"])
-    return z0, args, dict(dim=2, nbridges=case["k"], sn=p.get("sn"))
+            p["vd"]["mean"].detach(), p["vd"]["logdiag"].detach(),
+            score_for_target(case["target"]), case["spec"])
+    return z0, args, dict(dim=case["dim"], nbridges=case["k"], sn=p.get("sn"))
 
 
-def from_t(x_t, n):
-    """A (rows, dim_pad, n_pad) stack of the TPU kernel as (rows, n, 2)."""
-    return np.asarray(x_t)[:, :2, :n].transpose(0, 2, 1)
+def from_t(x_t, n, dim=2):
+    """A (rows, dim_pad, n_pad) stack of the TPU kernel as (rows, n, dim)."""
+    return np.asarray(x_t)[:, :dim, :n].transpose(0, 2, 1)
 
 
+@pytest.mark.parametrize("target", TARGETS)
 @pytest.mark.parametrize("mode", MODES)
-def test_eager_stepper_matches_jax_scan(mode):
-    case = make_ud_case(mode)
+def test_eager_stepper_matches_jax_scan(mode, target):
+    case = make_ud_case(mode, target=target)
     jp = jb.merged_params(case["jparams"])
     jbetas = j_betas_from_grid(jp["mgridref_y"], jp["gridref_x"], jp["target_x"])
-    z0 = 8.0 * case["draws"]["base_normals"]
+    z0 = case_sigma(mode, target) * case["draws"]["base_normals"]
     want_z, want_w, _ = jud.evolve_underdamped(
         case["key"], jnp.asarray(z0.numpy()), jbetas, jp, case["jctx"], case["jspec"],
         noise=case["jnoise"])
@@ -154,9 +174,11 @@ def test_geffner_net_on_z_and_rho_matches_jax_apply(rho_dim):
     assert mode_sn_rho_dim("MCD_U_a-lp-sn", 2) == 2 and mode_sn_rho_dim("MCD_U_a-lp-sna", 2) == 0
 
 
+@pytest.mark.parametrize("target", TARGETS)
 @pytest.mark.parametrize("mode", MODES)
-def test_rollout_plain_matches_pallas_kernel(mode):
-    case = make_ud_case(mode)
+def test_rollout_plain_matches_pallas_kernel(mode, target):
+    case = make_ud_case(mode, target=target)
+    dim = case["dim"]
     z0_j, j_args, j_kw = jax_rollout_args(case)
     z_j, w_j, zt_j, rt_j, nt_j = evolve_underdamped_pallas(
         z0_j, *j_args, **j_kw, noise=case["jnoise"], block=128, interpret=True,
@@ -169,9 +191,9 @@ def test_rollout_plain_matches_pallas_kernel(mode):
     assert draws is case["draws"]["noise"]  # injected noise is handed on as it is
     np.testing.assert_allclose(z.numpy(), np.asarray(z_j), atol=2e-4, rtol=1e-4)
     np.testing.assert_allclose(w.numpy(), np.asarray(w_j), atol=5e-4, rtol=1e-4)
-    np.testing.assert_allclose(ztraj.numpy(), from_t(zt_j, N), atol=2e-4, rtol=1e-4)
-    np.testing.assert_allclose(rtraj.numpy(), from_t(rt_j, N), atol=2e-4, rtol=1e-4)
-    np.testing.assert_array_equal(draws.numpy(), from_t(nt_j, N))
+    np.testing.assert_allclose(ztraj.numpy(), from_t(zt_j, N, dim), atol=2e-4, rtol=1e-4)
+    np.testing.assert_allclose(rtraj.numpy(), from_t(rt_j, N, dim), atol=2e-4, rtol=1e-4)
+    np.testing.assert_array_equal(draws.numpy(), from_t(nt_j, N, dim))
     assert torch.equal(ztraj[0], z0) and torch.equal(ztraj[K], z)
     assert torch.equal(rtraj[0], draws[0])
 
@@ -213,10 +235,15 @@ def test_compute_elbos_fused_matches_eager_compute_elbos(mode):
 
 
 def test_supports_fused_covers_the_underdamped_family_at_full_width():
-    target = load_target("many_gmm", device="cpu")
-    for mode in MODES:
-        for emb in (16, 130):
-            assert supports_fused(tb.CMCDSetup(mode=mode, dim=2, nbridges=256, emb_dim=emb),
-                                  target), (mode, emb)
+    """Every spec on the three targets of the kernels at their widths (the
+    funnel's recipe emb 48), no other net."""
+    for name, dim, embs in (("many_gmm", 2, (16, 130)), ("gmm", 2, (16, 20)),
+                            ("funnel", 10, (16, 48))):
+        target = load_target(name, device="cpu")
+        for mode in MODES:
+            for emb in embs:
+                setup = tb.CMCDSetup(mode=mode, dim=dim, nbridges=256, emb_dim=emb)
+                assert supports_fused(setup, target), (name, mode, emb)
     assert not supports_fused(tb.CMCDSetup(mode="MCD_U_a-lp-sn", dim=2, nbridges=8,
-                                           emb_dim=16, nn_arch="dds"), target)
+                                           emb_dim=16, nn_arch="dds"),
+                              load_target("many_gmm", device="cpu"))
