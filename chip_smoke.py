@@ -196,6 +196,33 @@ Phases, one line each; any failure exits non-zero:
      its device time per launch under torch.profiler; the CAIS_UHA funnel
      optimizer step over 50 and 500 steps against the eager step, with its
      device busy share.
+ 29. the PIS nets ("dds", "dds_grad", the net a template parameter of B1, B2,
+     B3 and B5) against the plain versions, under injected noise: on
+     many_gmm (units [64, 64]), gmm and the funnel ([16, 16]) at the test
+     size, every rollout form (CAIS, CAIS_VAR, ULA_sn; noise stack), the KL
+     sweep's carry and per-point forms (float64 arbiter), the replay and
+     the reroll (and the reroll from a seed against the replay kernel); at
+     the recipes' full width (N=2000 and 500, K=256, init_eps 1.0, cos_sq,
+     init_sigma 60; VarGrad at 15) rollout, sweep, replay and reroll; the
+     sweeps and the reroll at four groups (N=8192); the reroll at
+     N=REROLL_N from a seed against the replay kernel (float64 arbiter);
+     the count of score elements past dds_grad's clip (must be above 0);
+     the whole steps of many_gmm_kl_dds, many_gmm_kl_dds_grad and VarGrad
+     with dds.
+ 30. the PIS paths through the CLI, each form's launches counted from 0
+     just before its run and no other kernel: many_gmm_kl_dds's and
+     many_gmm_kl_dds_grad's flags for PIS_PATH_ITERS steps (rollout
+     PIS_PATH_ITERS + 30, sweep PIS_PATH_ITERS; ELBO above its value at
+     init), ULA_sn with dds, the gmm_cais flags with dds and funnel_k8's with
+     dds_grad for PIS_SHORT_ITERS, VarGrad with dds (replay) for
+     PIS_SHORT_ITERS and the re-rolling backward at N=REROLL_N for
+     REROLL_ITERS; an inf loss (a chain past many_gmm's floor) is no
+     divergence.
+ 31. timing (CUDA events, plain, kernel, kernel, plain) of every PIS form at
+     its path's shape, each beside its bound (_work_pis) and its device time
+     per launch under torch.profiler, the instances' registers and spill
+     stores from ptxas, and both recipes' optimizer steps over 50 and 500
+     steps against the eager step, with their device busy share.
 Then a JSON line with each kernel's launches, error, times and bound, and as
 the last line {"ok": true, "device": {...}}.
 """
@@ -223,7 +250,9 @@ FLAGSHIP = (
     "--noconfig.pretrain_mfvi --config.n_samples 500 --config.n_input_dist_seeds 30"
 ).split()
 
-TRAIN_ITERS = 2000
+# 1000 steps (2000 before the PIS phases 29-31 joined the run, to keep it
+# near half its time limit).
+TRAIN_ITERS = 1000
 TRAIN = FLAGSHIP + ["--config.iters", str(TRAIN_ITERS), "--config.lr", "0.005",
                     "--config.log.every", "1"]
 
@@ -341,18 +370,39 @@ def phase_build():
     print(f"[2 build] all {len(sources)} sources in {secs:.2f} s", flush=True)
 
 
+def _pis_tree(rng, dim, units, arch):
+    """A PIS net's weights in the JAX layout from a numpy generator: haiku's
+    scale 1 / sqrt(fan_in), the output layers (zero at init) at 0.05 as the
+    JAX tests randomise them, a phase away from zero."""
+    c = units[0]
+    dense = lambda i, o, std=None: {"w": rng.normal(0, std or 1 / math.sqrt(i), (i, o)),
+                                    "b": rng.normal(0, 1e-2, o)}
+    tree = {"timestep_phase": rng.normal(0, 0.3, c),
+            "state_net": [dense(dim + c, units[0]), dense(units[0], units[1]),
+                          dense(units[1], dim, 0.05)]}
+    coder = [dense(2 * c, c), dense(c, c)]
+    if arch == "dds":
+        tree["time_coder"] = coder
+    else:
+        tree["time_coder_state"] = coder
+        tree["time_coder_grad"] = ([dense(2 * c, c)] + [dense(c, c) for _ in units]
+                                   + [dense(c, dim, 0.05)])
+    return tree
+
+
 def make_problem(n, k, emb_dim, *, seed, factor_sn=0.3, sigma=3.0, eps=0.1, din=None,
-                 noise_rows=None, target="many_gmm"):
+                 noise_rows=None, target="many_gmm", net="geffner", units=(64, 64)):
     """Inputs from a numpy seed: net weights on din input columns ahead of
     the embedding (default the target's dim; JAX layout, converted; din 0: no
-    net), z0, w0, non-uniform betas, noise (noise_rows, default K, x N x
+    net), or with net "dds" / "dds_grad" a PIS net of widths `units` on the
+    state, z0, w0, non-uniform betas, noise (noise_rows, default K, x N x
     dim), the target's kernel-form score (many_gmm or the 3-mode gmm, dim 2;
     the funnel or the standard normal, dim 10)."""
     from cmcd_tpu_torch.distributions import std_normal_log_prob
     from cmcd_tpu_torch.ops.target_grads import KERNEL_DIMS, score_for_target
     from cmcd_tpu_torch.schedules import betas_from_grid, make_beta_grid_params
     from cmcd_tpu_torch.targets import Target, load_target
-    from cmcd_tpu_torch.utils.convert import geffner_from_jax
+    from cmcd_tpu_torch.utils.convert import geffner_from_jax, pis_from_jax
 
     rng = np.random.default_rng(seed)
     dim = KERNEL_DIMS[target]
@@ -369,6 +419,10 @@ def make_problem(n, k, emb_dim, *, seed, factor_sn=0.3, sigma=3.0, eps=0.1, din=
     mg = f32(rng.uniform(0.5, 1.5, mg.shape[0]))
     tgt = (Target("std_normal", dim, std_normal_log_prob) if target == "std_normal"
            else load_target(target, device=dev))
+    if net != "geffner":
+        sn = pis_from_jax(_pis_tree(rng, dim, units, net), dev, target_log_prob=tgt.log_prob)
+    else:
+        sn = geffner_from_jax(tree, dev) if din else None
     return dict(
         z0=f32(sigma * rng.standard_normal((n, dim))),
         w0=f32(rng.standard_normal(n)),
@@ -377,7 +431,7 @@ def make_problem(n, k, emb_dim, *, seed, factor_sn=0.3, sigma=3.0, eps=0.1, din=
         vd_mean=f32([0.5 * (-1) ** d for d in range(dim)]),
         vd_logdiag=f32([math.log(sigma)] * dim),
         grad_logp=score_for_target(tgt, dev),
-        sn=geffner_from_jax(tree, dev) if din else None,
+        sn=sn,
         noise=f32(rng.standard_normal((noise_rows or k, n, dim))),
         dim=dim,
         nbridges=k,
@@ -743,10 +797,15 @@ def compare_training_step(flags=None, name="VarGrad", arbitrate=False, tag="3 co
     cfg, setup, target, params, ctx = flagship(flags)
     loss_fn, _ = fused_training_path(setup, cfg.N)
     gen = torch.Generator(device="cuda").manual_seed(23)
-    if "sn" in params["train"]:
-        with torch.no_grad():  # a live net that leaves the chains inside the target's support
-            params["train"]["sn"].factor_sn.fill_(0.3)
-            params["train"]["sn"].head.weight.normal_(0.0, 0.05, generator=gen)
+    sn = params["train"].get("sn")
+    with torch.no_grad():  # a live net that leaves the chains inside the target's support
+        if hasattr(sn, "factor_sn"):
+            sn.factor_sn.fill_(0.3)
+            sn.head.weight.normal_(0.0, 0.05, generator=gen)
+        elif sn is not None:  # a PIS net: its output layers (zero at init), as the JAX tests
+            sn.state_net[-1].weight.normal_(0.0, 0.05, generator=gen)
+            if hasattr(sn, "time_coder_grad"):
+                sn.time_coder_grad[-1].weight.normal_(0.0, 0.05, generator=gen)
     # An underdamped or UHA rollout draws the initial momentum too: K + 1 rows.
     rows = cfg.nbridges + (cfg.boundmode in UNDERDAMPED or cfg.boundmode == "UHA")
     draws = dict(base_normals=torch.randn(cfg.N, setup.dim, generator=gen, device="cuda"),
@@ -2088,7 +2147,7 @@ ULA_MG_FLAGS = [f if f != "MCD_CAIS_sn" else "MCD_ULA" for f in KL_FLAGS]
 # The VarGrad kernels' gmm forms: the gmm CAIS recipe's shape in VarGrad, and
 # at REROLL_N chains and K=256, where "auto" takes the re-rolling backward.
 GMM_VAR_FLAGS = [f if f != "MCD_CAIS_sn" else "MCD_CAIS_var_sn" for f in GMM_CAIS_FLAGS]
-OD_PATH_ITERS, OD_WIDE_ITERS = 2000, 200
+OD_PATH_ITERS, OD_WIDE_ITERS = 1000, 200  # the gmm paths (2000 until the PIS phases)
 
 
 def _od_wrappers():
@@ -3272,9 +3331,570 @@ def _ud_new_kernel_entries(errors, paths, times, bounds_, err_is):
     return entries
 
 
+# The PIS nets ("dds", "dds_grad"; phases 29-31). The recipes
+# many_gmm_kl_dds and many_gmm_kl_dds_grad (experiments/recipes.py:108-181:
+# MCD_CAIS_sn, N=2000, K=256, init_sigma 60, init_eps 1.0, cos_sq, grad
+# clipping, lr 0.001, units [64, 64]); the same net in VarGrad (init_sigma
+# 15: a VarGrad loss past many_gmm's floor would be NaN) and in ULA_sn; the
+# gmm_cais and funnel_k8 flags with a PIS net for the D = 2 and D = 10
+# targets' instances.
+KL_DDS_FLAGS = (
+    "--config.model many_gmm --config.boundmode MCD_CAIS_sn --config.N 2000 "
+    "--config.nbridges 256 --noconfig.pretrain_mfvi --config.init_sigma 60 "
+    "--config.grad_clipping True --config.init_eps 1.0 --config.eps_schedule cos_sq "
+    "--config.lr 0.001 --config.train_eps False --config.train_vi False --config.nn_arch dds "
+    "--config.n_samples 500 --config.n_input_dist_seeds 30 --config.log.every 1"
+).split()
+KL_DDS_GRAD_FLAGS = [f if f != "dds" else "dds_grad" for f in KL_DDS_FLAGS]
+DDS_VAR_FLAGS = [{"MCD_CAIS_sn": "MCD_CAIS_var_sn", "60": "15"}.get(f, f) for f in KL_DDS_FLAGS]
+DDS_ULA_SN_FLAGS = [f if f != "MCD_CAIS_sn" else "MCD_ULA_sn" for f in KL_DDS_FLAGS]
+GMM_DDS_FLAGS = GMM_CAIS_FLAGS + ["--config.nn_arch", "dds"]
+FUNNEL_DDS_GRAD_FLAGS = FUNNEL_FLAGS + ["--config.nn_arch", "dds_grad"]
+PIS_PATH_ITERS, PIS_SHORT_ITERS = 2000, 200
+PIS_ARCHS = ("dds", "dds_grad")
+# Each target's compare: (units at the test size, init_sigma).
+PIS_TARGETS = {"many_gmm": ((64, 64), 8.0), "gmm": ((16, 16), 3.0), "funnel": ((16, 16), 1.0)}
+# The recipes' full width on many_gmm: N, K, units, init_eps, init_sigma, schedule.
+PIS_FULL = (2000, 256, (64, 64), 1.0, 60.0, "cos_sq")
+
+
+def compare_arbitrated(case, spec, tol, **kw):
+    """compare() with the float64 arbiter of PERF.md §2 for the chains it
+    finds beyond a limit (final z, w, or a stored path element past
+    TRAJ_ATOL): at most TRAJ_SHARE of the chains (and at least one may), on
+    which the kernel must be at most F64_SLACK times as far from the plain
+    version in float64 as a float32 computation is (the median over those
+    chains of the ratio of their largest distances). A float32 computation's
+    distance is the farther of the float32 plain version's and the float32
+    floor: the float64 rollout with its state rounded to float32 at every
+    step (half an ulp of each element of the float64 path, a random sign,
+    two draws). At the recipes' start (init_sigma 60) a rare chain falling
+    between modes amplifies that rounding to ~1e-2 for a few steps (one
+    chain of 500: floor 8e-3 to 1.5e-2, kernel 7.8e-3, the float32 plain
+    1.3e-3 on the card's order); on the others the floor is ~1e-5."""
+    from cmcd_tpu_torch.ops.overdamped import (
+        evolve_overdamped_fused,
+        evolve_overdamped_fused_plain,
+    )
+    from cmcd_tpu_torch.schedules import eps_at_step
+    from cmcd_tpu_torch.train.trainer import double_tree
+
+    stats, good = compare(case, spec, tol, **kw)
+    if good or not (stats["finite"] and stats["traj_ends_exact_and_outputs_unchanged"]):
+        return stats, good
+    pos, args, noise = _split(case)
+    out_k = evolve_overdamped_fused(*pos, spec, **args, noise=noise, return_trajectory=True, **kw)
+    out_p = evolve_overdamped_fused_plain(*pos, spec, **args, noise=noise,
+                                          return_trajectory=True, **kw)
+    f64 = lambda t: t.double() if torch.is_tensor(t) and t.is_floating_point() else t
+    args64 = dict(args, sn=double_tree(args["sn"]))
+    run64 = lambda xi: evolve_overdamped_fused_plain(*(f64(t) for t in pos), spec, **args64,
+                                                     noise=xi, return_trajectory=True, **kw)
+    out_d = run64(noise.double())
+    (z_k, w_k, t_k), (z_p, w_p, t_p), (z_d, w_d, t_d) = out_k, out_p, out_d
+    dz, dw, dt = (z_k - z_p).abs(), (w_k - w_p).abs(), (t_k - t_p).abs()
+    bad = ((dz > tol["z_atol"] + tol["z_rtol"] * z_p.abs()).any(-1)
+           | (dw > tol["w_atol"] + tol["w_rtol"] * w_p.abs())
+           | (dt > TRAJ_ATOL).any(-1).any(0))
+    if not bad.any():  # compare() failed on something the arbiter does not decide
+        return stats, False
+    # The float32 floor: z_{i+1} = fk_mean_i + sqrt(2 eps_i) xi_i, so half an
+    # ulp of z_{i+1} enters through xi_i.
+    k = args["nbridges"]
+    scale = torch.tensor([math.sqrt(2.0 * float(eps_at_step(float(pos[3]), i, k,
+                                                            kw.get("eps_schedule", ""))))
+                          for i in range(k)], dtype=torch.float64, device=z_d.device)
+    ulp = torch.from_numpy(np.spacing(t_d[1:].abs().float().cpu().numpy())).to(z_d.device)
+    floors = []
+    for draw in range(2):
+        gen = torch.Generator(device=z_d.device).manual_seed(41 + draw)
+        sign = torch.randint(0, 2, noise.shape, generator=gen, device=z_d.device) * 2.0 - 1.0
+        floors.append(run64(noise.double() + 0.5 * ulp.double() * sign / scale[:, None, None]))
+    # Per chain beyond a limit: each quantity's largest distance from float64.
+    far = {"z": lambda z: (z.double() - z_d).abs().amax(-1),
+           "w": lambda w: (w.double() - w_d).abs(),
+           "path": lambda t: (t.double() - t_d).abs().amax(-1).amax(0)}
+    ratios, floor_max = {}, {}
+    for j, (q, (k_, p_)) in enumerate({"z": (z_k, z_p), "w": (w_k, w_p),
+                                       "path": (t_k, t_p)}.items()):
+        e_floor = torch.stack([far[q](out[j]) for out in floors]).amax(0)[bad]
+        e_k, e_p = far[q](k_)[bad], torch.maximum(far[q](p_)[bad], e_floor)
+        ratios[q] = float((e_k / e_p.clamp_min(1e-30)).median())
+        floor_max[q] = float(e_floor.max())
+    n_bad, n = int(bad.sum()), z_k.shape[0]
+    stats["float64_arbiter"] = {"chains": n_bad, "median_ratio": ratios,
+                                "float32_floor": floor_max}
+    good = n_bad <= max(1, TRAJ_SHARE * n) and all(r <= F64_SLACK for r in ratios.values())
+    return stats, good
+
+
+def clipped_gate_elements(case, spec, **kw):
+    """How many elements of the target score along the kernel's trajectory
+    lie past dds_grad's feature clip (|gt| > 1e2): the clip is only held to
+    its plain version where this is not 0."""
+    from cmcd_tpu_torch.networks.pis import LGV_CLIP
+    from cmcd_tpu_torch.ops.overdamped import evolve_overdamped_fused
+
+    pos, args, noise = _split(case)
+    _, _, traj = evolve_overdamped_fused(*pos, spec, **args, noise=noise, return_trajectory=True,
+                                         **kw)
+    return int((case["grad_logp"](traj.reshape(-1, traj.shape[-1])).abs() > LGV_CLIP).sum())
+
+
+def phase_pis_compare():
+    """Every PIS instance against its plain version (phase 29)."""
+    from cmcd_tpu_torch.integrators.overdamped import CAIS, CAIS_VAR, ULA_SN
+    from cmcd_tpu_torch.ops.vargrad import sweep_grid
+
+    ok, errors, clipped = True, {}, {}
+
+    def keep(key, value, n=None):
+        keys = [key] + ([f"{key}/NG={sweep_grid(n, 'cuda')[0]}"] if n else [])
+        for k in keys:
+            errors[k] = max(errors.get(k, 0.0), value)
+
+    specs = (("CAIS", CAIS), ("CAIS_VAR", CAIS_VAR), ("ULA_sn", ULA_SN))
+    kw = dict(grad_clipping=True, eps_schedule="cos_sq")
+    for target, (units, sigma) in PIS_TARGETS.items():
+        for arch in PIS_ARCHS:
+            tag = f"{target}/{arch}"
+            for i, (name, spec) in enumerate(specs):
+                case = make_problem(256, 8, 0, seed=80 + i, sigma=sigma, target=target, net=arch,
+                                    units=units)
+                stats, good = compare(case, spec, TOL_SMALL, **kw)
+                ok &= good
+                keep(f"rollout {name}/{tag}", max(stats["z_max_abs"], stats["w_max_abs"]))
+                print(f"[29 compare] rollout small N=256 K=8 {units} {name} {tag}: "
+                      f"{json.dumps(stats)}", flush=True)
+                if name == "CAIS":
+                    stats, good = compare_noise_stack(case, spec, **kw)
+                    ok &= good
+                    print(f"[29 compare] rollout noise stack N=256 K=8 {name} {tag}: "
+                          f"{json.dumps(stats)}", flush=True)
+            for i, (name, spec) in enumerate((("CAIS", CAIS), ("ULA_sn", ULA_SN))):
+                case = make_problem(128, 6, 0, seed=85 + i, sigma=sigma, target=target, net=arch,
+                                    units=units)
+                worst, line, good = compare_sweep(case, GRAD_TOL_SMALL, arbitrate=True,
+                                                  spec=spec, **kw)
+                ok &= good
+                keep(f"sweep {name}/{tag}", worst, 128)
+                print(f"[29 compare] KL sweep small N=128 K=6 {units} {name} {tag}: {line}, "
+                      f"ok {good}", flush=True)
+            case = make_problem(250, 8, 0, seed=87, sigma=sigma, target=target, net=arch,
+                                units=units)
+            for kind, fn in (("replay", compare_backward), ("reroll", compare_reroll)):
+                worst, leaf, good = fn(case, GRAD_TOL_SMALL, **kw)
+                if not good:  # the plain version in float64 decides (PERF.md §2)
+                    worst, line, good = _arbitrate_vargrad(case, kind, GRAD_TOL_SMALL, **kw)
+                    leaf += line
+                ok &= good
+                keep(f"{kind}/{tag}", worst, 250 if kind == "reroll" else None)
+                print(f"[29 compare] {kind} small N=250 K=8 {units} {tag}: worst relative error "
+                      f"{worst:.3e} (leaf {leaf}), limit {GRAD_TOL_SMALL}, ok {good}", flush=True)
+            worst, leaf, good = compare_reroll_with_replay(case, **kw)
+            ok &= good
+            print(f"[29 compare] reroll small {tag} (seed, vs the replay kernel): worst relative "
+                  f"error {worst:.3e} (leaf {leaf}), limit {REROLL_VS_REPLAY_TOL}, ok {good}",
+                  flush=True)
+    # The recipes' full width, and the evaluation's N=500 rollout.
+    n, k, units, eps, sigma, sched = PIS_FULL
+    kw = dict(grad_clipping=True, eps_schedule=sched)
+    for arch in PIS_ARCHS:
+        tag = f"many_gmm/{arch}"
+        for i, (name, spec) in enumerate(specs):
+            if name == "ULA_sn" and arch == "dds_grad":
+                continue
+            sig = 15.0 if spec == CAIS_VAR else sigma
+            case = make_problem(n, k, 0, seed=90 + i, sigma=sig, eps=eps, net=arch, units=units)
+            stats, good = compare_arbitrated(case, spec, TOL_FULL, **kw)
+            ok &= good
+            keep(f"rollout {name}/{tag}", max(stats["z_max_abs"], stats["w_max_abs"]))
+            print(f"[29 compare] rollout full N={n} K={k} {units} {name} {tag} eps {eps} sigma "
+                  f"{sig}: {json.dumps(stats)} tol {json.dumps(TOL_FULL)}, ok {good}", flush=True)
+            if arch == "dds_grad":
+                clipped[f"{name}/{tag}"] = clipped_gate_elements(case, spec, **kw)
+            if spec == CAIS_VAR:
+                for kind, fn in (("replay", compare_backward), ("reroll", compare_reroll)):
+                    worst, leaf, good = fn(case, GRAD_TOL_FULL, **kw)
+                    if not good:
+                        worst, line, good = _arbitrate_vargrad(case, kind, GRAD_TOL_FULL, **kw)
+                        leaf += line
+                    ok &= good
+                    keep(f"{kind}/{tag}", worst, n if kind == "reroll" else None)
+                    print(f"[29 compare] {kind} full N={n} K={k} {tag}: worst relative error "
+                          f"{worst:.3e} (leaf {leaf}), limit {GRAD_TOL_FULL}, ok {good}",
+                          flush=True)
+                continue
+            worst, line, good = compare_sweep(case, GRAD_TOL_FULL, arbitrate=True, spec=spec, **kw)
+            ok &= good
+            keep(f"sweep {name}/{tag}", worst, n)
+            print(f"[29 compare] KL sweep full N={n} K={k} {units} {name} {tag}: {line}, ok "
+                  f"{good}", flush=True)
+        case = make_problem(500, k, 0, seed=95, sigma=sigma, eps=eps, net=arch, units=units)
+        stats, good = compare_arbitrated(case, CAIS, TOL_FULL, **kw)
+        ok &= good
+        keep(f"rollout CAIS/{tag}", max(stats["z_max_abs"], stats["w_max_abs"]))
+        print(f"[29 compare] rollout N=500 K={k} CAIS {tag}: {json.dumps(stats)}, ok {good}", flush=True)
+    # Four groups: N=8192 at K=8 (more tiles than blocks).
+    big = 8192
+    groups, blocks = sweep_grid(big, "cuda")
+    if groups != 4 or blocks >= -(-big // 32):
+        fail(f"N={big} does not take four groups with more tiles than blocks")
+    for arch in PIS_ARCHS:
+        tag = f"many_gmm/{arch}"
+        for i, (name, spec) in enumerate((("CAIS", CAIS), ("ULA_sn", ULA_SN))):
+            case = make_problem(big, 8, 0, seed=96 + i, sigma=8.0, eps=0.1, net=arch,
+                                units=units)
+            worst, line, good = compare_sweep(case, GRAD_TOL_FULL, arbitrate=True, spec=spec,
+                                              **kw)
+            ok &= good
+            keep(f"sweep {name}/{tag}", worst, big)
+            print(f"[29 compare] KL sweep four groups N={big} K=8 {name} {tag}: {line}, ok {good}",
+                  flush=True)
+        case = make_problem(big, 8, 0, seed=98, sigma=8.0, eps=0.1, net=arch, units=units)
+        worst, leaf, good = compare_reroll(case, GRAD_TOL_FULL, **kw)
+        ok &= good
+        keep(f"reroll/{tag}", worst, big)
+        print(f"[29 compare] reroll four groups N={big} K=8 {tag}: worst relative error "
+              f"{worst:.3e} (leaf {leaf}), limit {GRAD_TOL_FULL}, ok {good}", flush=True)
+    # The re-rolling path's own shape: N=REROLL_N, K=256, from a seed against
+    # the replay kernel, the replay's plain version in float64 the arbiter.
+    big = make_problem(REROLL_N, k, 0, seed=99, sigma=15.0, eps=eps, net="dds", units=units)
+    worst, leaf, good, more = compare_reroll_with_replay_f64(big, PLAIN_CHUNK, **kw)
+    ok &= good
+    errors["reroll/many_gmm/dds/path_n"] = worst
+    print(f"[29 compare] reroll N={REROLL_N} K={k} dds (seed, vs the replay kernel on the "
+          f"rollout's trajectory): worst relative error {worst:.3e} (leaf {leaf}), limit "
+          f"{REROLL_VS_REPLAY_TOL}{more}, ok {good}", flush=True)
+    del big
+    print(f"[29 compare] target score elements past dds_grad's clip (|gt| > 1e2) along the "
+          f"full-width trajectories: {json.dumps(clipped)}", flush=True)
+    if not any(clipped.values()):
+        fail("dds_grad's feature clip never engaged: its VJP went unchecked")
+    for flags, name in ((KL_DDS_FLAGS, "many_gmm_kl_dds"), (KL_DDS_GRAD_FLAGS,
+                                                          "many_gmm_kl_dds_grad"),
+                        (DDS_VAR_FLAGS, "VarGrad dds")):
+        ok &= compare_training_step(flags + ["--config.iters", "0"], name, arbitrate=True,
+                                    tag="29 compare")
+    if not ok:
+        fail("a PIS kernel form and its plain version disagree beyond tolerance")
+    return errors, clipped
+
+
+def _arbitrate_vargrad(case, kind, tol, **kw):
+    """A VarGrad backward kernel (kind "replay" or "reroll") against its
+    plain version with the plain version in float64 the arbiter (the eps
+    leaf's sum cancels: PERF.md §2). Returns (worst, words, ok)."""
+    from cmcd_tpu_torch.integrators.overdamped import CAIS_VAR
+    from cmcd_tpu_torch.ops.overdamped import evolve_overdamped_fused_plain
+    from cmcd_tpu_torch.ops.vargrad import (
+        evolve_vargrad_bwd_replay,
+        evolve_vargrad_bwd_replay_plain,
+        evolve_vargrad_bwd_reroll,
+    )
+
+    pos, args, noise = _split(case)
+    _, _, traj = evolve_overdamped_fused_plain(*pos, CAIS_VAR, **args, noise=noise,
+                                               return_trajectory=True, **kw)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    cot = torch.randn(pos[0].shape[0], generator=gen, device="cuda")
+    if kind == "replay":
+        got = _flat(evolve_vargrad_bwd_replay(traj, cot, *pos[2:], CAIS_VAR, **args, **kw))
+    else:
+        got = _flat(evolve_vargrad_bwd_reroll(pos[0], cot, *pos[2:], CAIS_VAR, **args,
+                                              noise=noise, **kw))
+    want = _flat(evolve_vargrad_bwd_replay_plain(traj, cot, *pos[2:], CAIS_VAR, **args, **kw))
+    ref = _flat(evolve_vargrad_bwd_replay_plain(traj.double(), cot, *pos[2:], CAIS_VAR, **args,
+                                                **kw))
+    worst, _, _ = _grad_errors(got, want, tol)
+    ok, line = _arbitrate(got, want, ref, tol)
+    return worst, line, ok
+
+
+def phase_pis_paths():
+    """The PIS paths through the CLI (phase 30): each form's launches,
+    counted from 0 just before its run, and no other kernel."""
+    rollout, sweep = "evolve_overdamped_fused", "evolve_kl_bwd"
+    replay, reroll = "evolve_vargrad_bwd_replay", "evolve_vargrad_bwd_reroll"
+    seeds = 30
+    runs = {}
+    for key, flags, iters in (("CAIS/many_gmm/dds", KL_DDS_FLAGS, PIS_PATH_ITERS),
+                              ("CAIS/many_gmm/dds_grad", KL_DDS_GRAD_FLAGS, PIS_PATH_ITERS),
+                              ("ULA_sn/many_gmm/dds", DDS_ULA_SN_FLAGS, PIS_SHORT_ITERS),
+                              ("CAIS/gmm/dds", GMM_DDS_FLAGS, PIS_SHORT_ITERS),
+                              ("CAIS/funnel/dds_grad", FUNNEL_DDS_GRAD_FLAGS, PIS_SHORT_ITERS)):
+        expect = {rollout: {key: iters + seeds}, sweep: {key: iters}}
+        runs[key] = _od_path(flags, iters, "30 path", expect,
+                             elbo_must_rise=iters == PIS_PATH_ITERS)
+    runs["replay/many_gmm/dds"] = _od_path(DDS_VAR_FLAGS, PIS_SHORT_ITERS, "30 path", {
+        rollout: {"CAIS/many_gmm/dds": PIS_SHORT_ITERS + seeds},
+        replay: {"many_gmm/dds": PIS_SHORT_ITERS}}, elbo_must_rise=False)
+    big = DDS_VAR_FLAGS + ["--config.N", str(REROLL_N)]
+    runs["reroll/many_gmm/dds"] = _od_path(big, REROLL_ITERS, "30 path", {
+        rollout: {"CAIS/many_gmm/dds": REROLL_ITERS + seeds},
+        reroll: {"many_gmm/dds": REROLL_ITERS}}, elbo_must_rise=False)
+    return {key: table for key, (table, _, _) in runs.items()}
+
+
+def _work_pis(n, k, width, target="many_gmm", net_fwd=True, dim=2, gate=False):
+    """_work_od for a PIS net of width F (two F x F layers on [z, h_t]): the
+    same net FMAs a point (layer 2, layer 1's z part, the head), gelu and
+    its derivative (an erf and an exp, ~20 operations each) a feature, the
+    gate term's 3 operations a dimension; its tables c1 ((K + 1) x F) and
+    gate ((K + 1) x D) in place of geffner's embedding."""
+    b = _work_od(n, k, width, target, net_fwd=net_fwd, dim=dim)
+    points = (k + 1) * n
+    applies = points if net_fwd else k * n
+    extra_flops = 2 * applies * (20 * width + (3 * dim if gate else 0))
+    extra_bytes = 4 * ((k + 1) * width + ((k + 1) * dim if gate else 0)
+                       - (k * width + k * max(width - dim, 0)))
+    out = {}
+    for kind, bound in b.items():
+        flops = bound["gflop"] * 1e9 + extra_flops * (2 if kind != "rollout" else 1)
+        out[kind] = _bound(flops, bound["mbytes"] * 1e6 + extra_bytes)
+    return out
+
+
+def _ptxas(source):
+    """{demangled kernel name: (registers, spill store bytes)} of every PIS
+    instance in the ptxas report of csrc/<source>.cu's build."""
+    import re
+
+    from cmcd_tpu_torch.ops import build
+
+    with open(build.build(source)[:-3] + ".log") as f:
+        lines = f.read().splitlines()
+    report, current = {}, None
+    for ln in lines:
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            current = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and current:
+            report.setdefault(current, [None, None])[1] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and current:
+            report.setdefault(current, [None, None])[0] = int(m.group(1))
+    names = [n for n in report if "PisNet" in n]
+    try:
+        demangled = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                                   text=True, timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        demangled = names
+    if len(demangled) != len(names):
+        demangled = names
+    clean = lambda d: d.replace("(anonymous namespace)::", "").replace("cmcd::", "").replace(
+        "void ", "").split("(")[0]
+    return {clean(d): tuple(report[n]) for n, d in zip(names, demangled)}
+
+
+def phase_pis_timing():
+    """CUDA-event and device times of every PIS form on its path's shape,
+    beside its plain version, its bound and its registers and spills, and
+    the two recipes' optimizer steps (phase 31)."""
+    from cmcd_tpu_torch import bounds
+    from cmcd_tpu_torch.integrators.overdamped import CAIS, CAIS_VAR, ULA_SN
+    from cmcd_tpu_torch.ops.fused_train import fused_training_path
+    from cmcd_tpu_torch.ops.kl import evolve_kl_bwd, evolve_kl_bwd_plain
+    from cmcd_tpu_torch.ops.overdamped import (
+        evolve_overdamped_fused,
+        evolve_overdamped_fused_plain,
+    )
+    from cmcd_tpu_torch.ops.vargrad import (
+        evolve_vargrad_bwd_replay,
+        evolve_vargrad_bwd_replay_plain,
+        evolve_vargrad_bwd_reroll,
+        evolve_vargrad_bwd_reroll_plain,
+    )
+    from cmcd_tpu_torch.train import train
+
+    seed = torch.tensor([7], device="cuda")
+    order = ("plain", "kernel", "kernel", "plain")
+    n, k, units, eps, sigma, sched = PIS_FULL
+    width = units[0]
+    shapes = {  # form: (spec, target, N, K, init_eps, init_sigma, schedule, dim)
+        "CAIS/many_gmm/dds": (CAIS, "many_gmm", n, k, eps, sigma, sched, 2),
+        "CAIS/many_gmm/dds_grad": (CAIS, "many_gmm", n, k, eps, sigma, sched, 2),
+        "ULA_sn/many_gmm/dds": (ULA_SN, "many_gmm", n, k, eps, sigma, sched, 2),
+        "CAIS/gmm/dds": (CAIS, "gmm", 300, 8, 0.01, 1.0, "", 2),
+        "CAIS/funnel/dds_grad": (CAIS, "funnel", 300, 8, 0.1, 1.0, "cos_sq", 10),
+    }
+    times, bounds_ = {}, {}
+    for form, (spec, target, n_, k_, eps_, sig, sch, dim) in shapes.items():
+        arch = form.split("/")[2]
+        pos, kw, _ = _split(make_problem(n_, k_, 0, seed=2, sigma=sig, eps=eps_, target=target,
+                                         net=arch, units=units))
+        kw = dict(kw, grad_clipping=True, eps_schedule=sch)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        cot = torch.randn(n_, generator=gen, device="cuda")
+        g_zf = torch.randn(n_, dim, generator=gen, device="cuda")
+        _, _, traj, noise = evolve_overdamped_fused(*pos, spec, **kw, seed=seed,
+                                                    return_trajectory=True, return_noise=True)
+        plain_reps = 2 if k_ <= 8 else 1
+        fns = {
+            "rollout": (lambda: evolve_overdamped_fused(
+                *pos, spec, **kw, seed=seed, return_trajectory=True, return_noise=True), 20),
+            "rollout_plain": (lambda: evolve_overdamped_fused_plain(
+                *pos, spec, **kw, seed=7, return_trajectory=True, return_noise=True), plain_reps),
+            "sweep": (lambda: evolve_kl_bwd(traj, noise, cot, g_zf, *pos[2:], spec, **kw), 10),
+            "sweep_plain": (lambda: evolve_kl_bwd_plain(traj, noise, cot, g_zf, *pos[2:], spec,
+                                                        **kw), plain_reps),
+        }
+        t = times[form] = {key: [] for key in fns}
+        for which in order:
+            for kind in ("rollout", "sweep"):
+                key = kind if which == "kernel" else f"{kind}_plain"
+                fn, reps = fns[key]
+                t[key].append(_event_ms(fn, reps))
+        t["rollout_device"] = _device_ms(fns["rollout"][0], 10, "overdamped_rollout")
+        t["sweep_device"] = _device_ms(fns["sweep"][0], 10, "kl_reverse_sweep")
+        b = bounds_[form] = _work_pis(n_, k_, width, target, net_fwd=spec.fwd_sn, dim=dim,
+                                      gate=arch == "dds_grad")
+        print(f"[31 timing] {form} N={n_} K={k_} {units} ms {json.dumps(t)}; bounds rollout "
+              f"{json.dumps(b['rollout'])} sweep {json.dumps(b['sweep'])}", flush=True)
+    # The VarGrad backwards at their paths' shapes (replay N=2000, reroll
+    # N=2000 and N=REROLL_N), K=256, init_sigma 15.
+    for n_ in (n, REROLL_N):
+        pos, kw, _ = _split(make_problem(n_, k, 0, seed=4, sigma=15.0, eps=eps, net="dds",
+                                         units=units))
+        kw = dict(kw, grad_clipping=True, eps_schedule=sched)
+        cot = torch.randn(n_, generator=torch.Generator(device="cuda").manual_seed(6),
+                          device="cuda")
+        fns = {"reroll": (lambda: evolve_vargrad_bwd_reroll(pos[0], cot, *pos[2:], CAIS_VAR,
+                                                            **kw, seed=seed), 3 if n_ > n else 10)}
+        if n_ == n:
+            _, _, traj = evolve_overdamped_fused(*pos, CAIS_VAR, **kw, seed=seed,
+                                                 return_trajectory=True)
+            fns.update({
+                "replay": (lambda: evolve_vargrad_bwd_replay(traj, cot, *pos[2:], CAIS_VAR, **kw),
+                           10),
+                "replay_plain": (lambda: evolve_vargrad_bwd_replay_plain(
+                    traj, cot, *pos[2:], CAIS_VAR, **kw), 1),
+                "reroll_plain": (lambda: evolve_vargrad_bwd_reroll_plain(
+                    pos[0], cot, *pos[2:], CAIS_VAR, **kw, seed=7), 1),
+            })
+        form = "VarGrad/many_gmm/dds" + ("" if n_ == n else f" N={n_}")
+        t = times[form] = {key: [] for key in fns}
+        for which in order:
+            for key in fns:
+                if key.endswith("_plain") == (which == "plain"):
+                    fn, reps = fns[key]
+                    t[key].append(_event_ms(fn, reps))
+        for kind in ("replay", "reroll"):
+            if kind in fns:
+                t[f"{kind}_device"] = _device_ms(fns[kind][0], 3, f"vargrad_{kind}")
+        b = bounds_[form] = _work_pis(n_, k, width)
+        print(f"[31 timing] {form} N={n_} K={k} {units} ms {json.dumps(t)}; bounds replay "
+              f"{json.dumps(b['replay'])} reroll {json.dumps(b['reroll'])}", flush=True)
+    regs = {src: _ptxas(src) for src in ("overdamped", "kl", "vargrad")}
+    print(f"[31 timing] registers and spill store bytes of the PIS instances (ptxas): "
+          f"{json.dumps(regs)}", flush=True)
+    step_ms = {}
+    for name, flags in (("many_gmm_kl_dds", KL_DDS_FLAGS),
+                        ("many_gmm_kl_dds_grad", KL_DDS_GRAD_FLAGS)):
+        cfg, setup, target, params, ctx = flagship(flags + ["--config.iters", "0"])
+        trainable = bounds.default_trainable(setup.mode, cfg.train_eps, cfg.train_vi,
+                                             cfg.train_betas)
+        fused_loss, _ = fused_training_path(setup, cfg.N)
+        fused = lambda p, n_, c, s, generator: fused_loss(p, n_, c, s, target,
+                                                          generator=generator)
+
+        def steps(loss_fn, iters):
+            g = torch.Generator(device="cuda").manual_seed(1)
+            return lambda: train(setup, params, ctx, lr=cfg.lr, iters=iters, batch_size=cfg.N,
+                                 generator=g, trainable=trainable, loss_fn=loss_fn,
+                                 steps_per_call=max(iters, 1), nan_check_every=10**9)
+
+        steps(fused, 5)()
+        ms = step_ms[name] = {"eager": [], "kernel": []}
+        for which in order:
+            loss_fn, iters = (bounds.kl_bound, 1) if which == "plain" else (fused, 50)
+            ms["eager" if which == "plain" else "kernel"].append(_wall_ms(steps(loss_fn, iters))
+                                                                 / iters)
+        ms["kernel_500"] = [_wall_ms(steps(fused, 500)) / 500]
+        prof_wall, prof_dev, top = _profile(steps(fused, 10))
+        ms["busy_ms"] = prof_dev / 10
+        ms["busy_share_of_500"] = prof_dev / 10 / ms["kernel_500"][0]
+        print(f"[31 timing] {name} optimizer step N={cfg.N} K={cfg.nbridges} ms per step "
+              f"{json.dumps(ms)} (kernel: 50 steps, kernel_500: 500, eager: 1 per reading); 10 "
+              f"fused steps under the profiler: wall {prof_wall!r} ms, device busy {prof_dev!r} "
+              f"ms, device records {json.dumps(top)}", flush=True)
+    return times, bounds_, regs, step_ms
+
+
+def _pis_kernel_entries(compared, paths, timing, err_is):
+    """The kernels line's entries of the PIS forms (phases 29-31): each
+    form's launches on its own path (phase 30), its worst error against the
+    plain version (phase 29), its times and bound on the path's shape
+    (phase 31), its instance's registers and spill stores."""
+    errors, clipped = compared
+    times, bounds_, regs, _ = timing
+    keep = lambda b: {k: b[k] for k in ("bound_ms", "bound_by")}
+    rollout, sweep = "evolve_overdamped_fused", "evolve_kl_bwd"
+    target_t = {"many_gmm": "ManyGmmTarget", "gmm": "Gmm3Target", "funnel": "FunnelTarget"}
+
+    def ptxas(source, kernel, *parts):
+        return {name: v for name, v in regs[source].items()
+                if f"{kernel}<" in name and all(p in name for p in parts)}
+
+    entries = []
+    for form in ("CAIS/many_gmm/dds", "CAIS/many_gmm/dds_grad", "ULA_sn/many_gmm/dds",
+                 "CAIS/gmm/dds", "CAIS/funnel/dds_grad"):
+        spec, target, arch = form.split("/")
+        cais = spec == "CAIS"
+        t, b, table = times[form], bounds_[form], paths[form]
+        tt = target_t[target]
+        extra = {"clipped_gate_elements": clipped.get(f"CAIS/{target}/{arch}")} \
+            if arch == "dds_grad" and target == "many_gmm" else {}
+        entries.append({
+            "name": f"overdamped_rollout<{tt}, PisNet, {'true, 1' if cais else 'false, 0'}>",
+            "route": "cuda", "source": "cmcd_tpu_torch/csrc/overdamped.cu",
+            "replaces": "cmcd_tpu/ops/pallas_overdamped.py:102", "form": form,
+            "launches": table[rollout][1][form],
+            "max_abs_err": errors[f"rollout {spec}/{target}/{arch}"],
+            "ms": min(t["rollout"]), "device_ms": t["rollout_device"],
+            "plain_ms": min(t["rollout_plain"]), **keep(b["rollout"]), "library_ms": None,
+            "registers_spill": ptxas("overdamped", "overdamped_rollout", tt), **extra,
+        })
+        entries.append({
+            "name": f"kl_reverse_sweep<NG, {tt}, {'true' if cais else 'false'}, PisNet>",
+            "route": "cuda", "source": "cmcd_tpu_torch/csrc/kl.cu",
+            "replaces": "cmcd_tpu/ops/pallas_kl.py:49", "form": form,
+            "launches": table[sweep][1][form],
+            "max_abs_err": errors[f"sweep {spec}/{target}/{arch}"], "max_abs_err_is": err_is,
+            "max_abs_err_by_groups": {g: errors.get(f"sweep {spec}/{target}/{arch}/NG={g}")
+                                      for g in (2, 4)},
+            "ms": min(t["sweep"]), "device_ms": t["sweep_device"],
+            "plain_ms": min(t["sweep_plain"]), **keep(b["sweep"]), "library_ms": None,
+            "registers_spill": ptxas("kl", "kl_reverse_sweep", tt), **extra,
+        })
+    t, b = times["VarGrad/many_gmm/dds"], bounds_["VarGrad/many_gmm/dds"]
+    big_t, big_b = times[f"VarGrad/many_gmm/dds N={REROLL_N}"], \
+        bounds_[f"VarGrad/many_gmm/dds N={REROLL_N}"]
+    for kind, wrapper, replaces in (
+            ("replay", "evolve_vargrad_bwd_replay", "cmcd_tpu/ops/pallas_vargrad.py:67"),
+            ("reroll", "evolve_vargrad_bwd_reroll", "cmcd_tpu/ops/pallas_vargrad.py:385")):
+        entries.append({
+            "name": f"vargrad_{kind}<{'NG, ' if kind == 'reroll' else ''}ManyGmmTarget, PisNet>",
+            "route": "cuda", "source": "cmcd_tpu_torch/csrc/vargrad.cu", "replaces": replaces,
+            "form": "many_gmm/dds",
+            "launches": paths[f"{kind}/many_gmm/dds"][wrapper][1]["many_gmm/dds"],
+            "max_abs_err": errors[f"{kind}/many_gmm/dds"], "max_abs_err_is": err_is,
+            "ms": min(t[kind]), "device_ms": t[f"{kind}_device"],
+            "plain_ms": min(t[f"{kind}_plain"]), **keep(b[kind]), "library_ms": None,
+            "registers_spill": ptxas("vargrad", f"vargrad_{kind}", "ManyGmmTarget"),
+            **({"path_n": REROLL_N, "ms_at_path_n": min(big_t["reroll"]),
+                "device_ms_at_path_n": big_t["reroll_device"],
+                "bound_ms_at_path_n": big_b["reroll"]["bound_ms"],
+                "max_abs_err_vs_replay_at_path_n": errors["reroll/many_gmm/dds/path_n"]}
+               if kind == "reroll" else {}),
+        })
+    return entries
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    everything = ",".join(str(p) for p in range(1, 29))
+    everything = ",".join(str(p) for p in range(1, 32))
     ap.add_argument("--phases", default=everything,
                     help="comma-separated phases to run (default: all)")
     phases = {int(p) for p in ap.parse_args(argv).phases.split(",")}
@@ -3311,6 +3931,9 @@ def main(argv=None):
     ud_new_errors = phase_ud_new_compare() if 26 in phases else None
     ud_new_paths = phase_ud_new_paths() if 27 in phases else None
     ud_new_timing = phase_ud_new_timing() if 28 in phases else None
+    pis_errors = phase_pis_compare() if 29 in phases else None
+    pis_paths = phase_pis_paths() if 30 in phases else None
+    pis_timing = phase_pis_timing() if 31 in phases else None
     if phases != {int(p) for p in everything.split(",")}:
         print(f"partial run (phases {sorted(phases)}): no result line")
         return 1
@@ -3350,6 +3973,9 @@ def main(argv=None):
     print(f"[bounds] the new underdamped and UHA forms (phase 28 shapes; rollout with stores, "
           f"sweep): {json.dumps({f: [keep(b[1]), keep(b[2])] for f, b in ud_new_bounds.items()})}"
           f"; CAIS_UHA funnel K=32 optimizer step ms {json.dumps(cais_uha_step_ms)}")
+    print(f"[bounds] the PIS forms (phase 31 shapes): "
+          f"{json.dumps({f: {k: keep(b) for k, b in v.items()} for f, v in pis_timing[1].items()})}"
+          f"; recipe optimizer step ms {json.dumps(pis_timing[3])}")
     print(smi)
     # launches: of each kernel's own main path, counted from 0 just before it
     # (phase 7: VarGrad training and the 30 x 500 evaluation; phase 9: the KL
@@ -3477,7 +4103,8 @@ def main(argv=None):
         + _funnel_kernel_entries(funnel_errors, funnel_paths, funnel_times, funnel_bounds,
                                  err_is)
         + _ud_new_kernel_entries(ud_new_errors, ud_new_paths, ud_new_times, ud_new_bounds,
-                                 err_is)}))
+                                 err_is)
+        + _pis_kernel_entries(pis_errors, pis_paths, pis_timing, err_is)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

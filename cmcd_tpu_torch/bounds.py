@@ -3,7 +3,8 @@
 
 Parameters live in a dict {"train": {...}, "notrain": {...}}; the frozen
 subtree is detached at loss time where JAX applies stop_gradient. The score
-net is a GeffnerNet module under params["train"]["sn"]. The losses build an
+net is a module under params["train"]["sn"]: a GeffnerNet, or a PISNet /
+PISGradNet (nn_arch "dds" / "dds_grad"). The losses build an
 autograd graph where JAX differentiates: torch.autograd of var_bound is the
 oracle the fused training loss (ops/fused_train.py) is held against.
 """
@@ -43,6 +44,7 @@ class CMCDSetup:
     emb_dim: int = 20
     nlayers: int = 2
     nn_arch: str = "geffner"
+    fully_connected_units: tuple = (64, 64)  # the PIS nets' widths
     lfsteps: int = 1
 
     def __post_init__(self):
@@ -114,6 +116,8 @@ def initialize(
             setup.dim, setup.emb_dim, setup.nbridges, nlayers=setup.nlayers,
             arch=setup.nn_arch, generator=gen, device=device,
             rho_dim=integrators.mode_sn_rho_dim(setup.mode, setup.dim),
+            fully_connected_units=list(setup.fully_connected_units),
+            target_log_prob=target_log_prob,
         )
 
     if setup.mode == "UHA":

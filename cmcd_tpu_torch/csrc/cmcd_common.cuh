@@ -3,14 +3,23 @@
 // (the rollouts) and, through cmcd_tile.cuh, by vargrad.cu, kl.cu,
 // kl_underdamped.cu and kl_uha.cu (the backward kernels).
 //
-// The score net is the two-layer geffner net on h0 = [x, emb_i], where x is
-// the state z (DIN = D columns, D the target's dimension) or, for the
-// underdamped modes whose net sees the momentum too, [z, rho'] (DIN = 2 D);
-// the head has D outputs either way:
+// The score net is a template parameter (GeffnerNet, PisNet below). The
+// geffner net is the two-layer net on h0 = [x, emb_i], where x is the state
+// z (DIN = D columns, D the target's dimension) or, for the underdamped
+// modes whose net sees the momentum too, [z, rho'] (DIN = 2 D); the head has
+// D outputs either way:
 //   a1 = x @ W1[:DIN] + c1[i]        c1 = emb @ W1[DIN:] + b1 (per call, wrapper)
 //   h1 = h0 + softplus(a1)
 //   a2 = h1 @ W2 + b2,  h2 = h1 + softplus(a2)
 //   sn = (h2 @ headW^T + headb) * factor_sn
+// The PIS nets ("dds", "dds_grad") take the same two layers of F features on
+// x = z, with the time coder's output h_t in the place of the embedding,
+// gelu in the place of the residual softplus and the output clipped:
+//   a1 = z @ W1[:D] + c1[t]          c1[t] = W1[D:] h_t(t) + b1 (per call, wrapper)
+//   h1 = gelu(a1),  a2 = h1 @ W2 + b2,  h2 = gelu(a2)
+//   sn = clip(h2 @ headW^T + headb, 1e4) [+ g_t[t] * clip(gt(z), 1e2)]
+// where the bracket is dds_grad's gate term: g_t (K + 1 x D) the gate MLP's
+// table, gt the target score the kernel already forms at z, stop-gradient.
 // and the target is a template parameter of every kernel (ManyGmmTarget,
 // Gmm3Target, FunnelTarget, StdNormalTarget<D> below): its dimension D, its
 // score and the Hessian product the sweeps need, one warp per chain, from a
@@ -39,10 +48,12 @@ constexpr int MAX_MIX = 64;   // many_gmm components: two per lane
 constexpr int MAX_PAR = 2 * MAX_MIX;  // floats of a target's constants
 constexpr size_t MAX_SMEM = 232448;  // 227 KiB a block may use on sm_90
 
-// The net and the target as a kernel sees them (device pointers, f32).
+// The net and the target as a kernel sees them (device pointers, f32). For a
+// PIS net in_dim is its width F, emb_dim 0 and emb null.
 struct NetArgs {
   const float* w1z;    // (DIN, in): rows of layer-1 W (in x out) for x
-  const float* c1;     // (K, in): emb_i @ W1[DIN:] + b1
+  const float* c1;     // (rows, in): per row of the net's time index, K rows
+                       // (geffner: emb_i @ W1[DIN:] + b1) or K + 1 (PIS: W1[D:] h_t + b1)
   const float* emb;    // (K, emb_dim)
   const float* w2;     // (in, in): layer-2 W, row k = input feature k
   const float* b2;     // (in,)
@@ -51,6 +62,7 @@ struct NetArgs {
   const float* tpar;   // (n_par,): the target's constants
   int in_dim, in_pad, emb_dim, n_par;
   float inv_var_t;     // many_gmm's 1 / scale^2 (unused by the 3-mode gmm)
+  const float* gate;   // (K + 1, D) dds_grad's gate table, or null (dds, geffner)
 };
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
@@ -77,6 +89,73 @@ __device__ __forceinline__ float sigmoid_f(float x) {
 // jnp.clip semantics: NaN passes through.
 __device__ __forceinline__ float clip_f(float x, float c) {
   return x < -c ? -c : (x > c ? c : x);
+}
+
+// Exact (erf-based) gelu, as the JAX package's scan path (networks/pis.py),
+// and its derivative Phi(x) + x phi(x).
+__device__ __forceinline__ float gelu_f(float x) {
+  return x * 0.5f * (1.0f + erff(x * 0.70710678118654752f));
+}
+
+__device__ __forceinline__ float dgelu_f(float x) {
+  return 0.5f * (1.0f + erff(x * 0.70710678118654752f)) +
+         x * 0.39894228040143268f * expf(-0.5f * x * x);
+}
+
+constexpr float PIS_OUT_CLIP = 1.0e4f;   // the PIS nets' output clip
+constexpr float PIS_GATE_CLIP = 1.0e2f;  // dds_grad's clip of the score feature
+
+// The score nets as template parameters of the kernels with a net tile (B1,
+// B2, B3, B5): what differs between geffner and PIS inside a kernel.
+//  * RESIDUAL: h_l = h_{l-1} + act(a_l) (geffner, h0 = [x, emb]), so the
+//    VJP's g_h1 and g_x take the identity path; else h_l = act(a_l).
+//  * act / dact: softplus and its derivative, or gelu and gelu'.
+//  * row(idx, K): the table row of the net at time index idx. Geffner's
+//    embedding has K rows and the CAIS backward net asks for row K at the
+//    last step: clamped. PIS embeds the time itself, its tables have K + 1
+//    rows, unclamped (the JAX package calls it at t = K).
+//  * GATE: the PIS nets' per-warp sums of dds_grad's gate gradient (D slots
+//    beside the scalars of Slots, one per state dimension).
+// The output (factor_sn, or the clip and the gate term) is net_out below.
+struct GeffnerNet {
+  static constexpr bool RESIDUAL = true, PIS = false;
+  __host__ __device__ static constexpr int gate_slots(int) { return 0; }
+  __device__ static float act(float a) { return softplus_f(a); }
+  __device__ static float dact(float a) { return sigmoid_f(a); }
+  __host__ __device__ static int row(int idx, int k) { return idx < k - 1 ? idx : k - 1; }
+};
+
+struct PisNet {
+  static constexpr bool RESIDUAL = false, PIS = true;
+  __host__ __device__ static constexpr int gate_slots(int d) { return d; }
+  __device__ static float act(float a) { return gelu_f(a); }
+  __device__ static float dact(float a) { return dgelu_f(a); }
+  __host__ __device__ static int row(int idx, int) { return idx; }
+};
+
+// The net's output in dimension d from its head's raw output plus bias o:
+// geffner o * factor; PIS clip(o, 1e4) plus, with a gate row (dds_grad),
+// gate_row[d] * clip(gt_d, 1e2) for the target score gt_d at the net's z.
+template <class NET>
+__device__ __forceinline__ float net_out(float o, float factor, const float* gate_row, int d,
+                                         float gt_d) {
+  if constexpr (NET::PIS) {
+    const float s = clip_f(o, PIS_OUT_CLIP);
+    return gate_row != nullptr ? s + gate_row[d] * clip_f(gt_d, PIS_GATE_CLIP) : s;
+  } else {
+    return o * factor;
+  }
+}
+
+// The cotangent of the head's raw output from that of the net's output:
+// geffner g * factor; PIS g where the clip passed o, else 0.
+template <class NET>
+__device__ __forceinline__ float net_out_cot(float g, float o, float factor) {
+  if constexpr (NET::PIS) {
+    return o == clip_f(o, PIS_OUT_CLIP) ? g : 0.f;
+  } else {
+    return g * factor;
+  }
 }
 
 // The eps schedule: 0 constant, 1 linear, 2 cos_sq. eps_i = eps0 * eps_slope
@@ -167,14 +246,15 @@ __device__ __forceinline__ void load_w1x(const NetArgs& net, int f, float w1x[DI
   for (int d = 0; d < DIN; ++d) w1x[d] = f < net.in_dim ? net.w1z[d * net.in_dim + f] : 0.f;
 }
 
-// Layer 1 for feature f of TC chains at bridge row idx: a1 and
-// h1 = h0 + softplus(a1), h0 = [x, emb_idx]. xs: TC x DIN inputs.
-template <int DIN>
+// Layer 1 for feature f of TC chains at table row idx: a1 and h1, geffner
+// h0 + softplus(a1) with h0 = [x, emb_idx], PIS gelu(a1). xs: TC x DIN inputs.
+template <int DIN, class NET = GeffnerNet>
 __device__ __forceinline__ void layer1_feature(const NetArgs& net, int idx, int f,
                                                const float w1x[DIN], const float* xs,
                                                float a1[TC], float h1[TC]) {
   const float cf = net.c1[(size_t)idx * net.in_dim + f];
-  const float e = f >= DIN ? net.emb[(size_t)idx * net.emb_dim + f - DIN] : 0.f;
+  float e = 0.f;
+  if constexpr (NET::RESIDUAL) e = f >= DIN ? net.emb[(size_t)idx * net.emb_dim + f - DIN] : 0.f;
 #pragma unroll
   for (int c = 0; c < TC; ++c) {
     float acc = cf, h0 = e;
@@ -185,7 +265,11 @@ __device__ __forceinline__ void layer1_feature(const NetArgs& net, int idx, int 
       if (f == d) h0 = x;
     }
     a1[c] = acc;
-    h1[c] = h0 + softplus_f(a1[c]);
+    if constexpr (NET::RESIDUAL) {
+      h1[c] = h0 + softplus_f(a1[c]);
+    } else {
+      h1[c] = NET::act(a1[c]);
+    }
   }
 }
 
@@ -480,6 +564,25 @@ struct StdNormalTarget {
   }
 };
 
+// A launch's net: arch 0 the geffner net (in_dim = din + emb_dim, no gate
+// table), 1 a PIS net (in_dim its width F, emb_dim 0, the gate table of
+// dds_grad or null).
+__host__ inline bool net_ok(int arch, int in_dim, int emb_dim, int din, const float* gate) {
+  if (arch == 0) return in_dim == din + emb_dim && gate == nullptr;
+  return arch == 1 && emb_dim == 0;
+}
+
+// Calls f(NetTag<NET>{}) with the net policy of arch (net_ok).
+template <class N>
+struct NetTag {
+  using type = N;
+};
+
+template <class F>
+__host__ inline cudaError_t dispatch_net(int arch, F f) {
+  return arch == 0 ? f(NetTag<GeffnerNet>{}) : f(NetTag<PisNet>{});
+}
+
 // The state dimension of a launch's target code (ops/target_grads.TARGETS).
 __host__ inline int target_dim(int target) {
   return target == 0 || target == 1 ? ManyGmmTarget::D : FunnelTarget::D;
@@ -523,12 +626,13 @@ __device__ __forceinline__ void score_eval(const T& target, const float* zs, flo
   __syncthreads();
 }
 
-// Net output at the TC inputs in xin_s (TC x DIN), bridge row idx, and,
+// Net output at the TC inputs in xin_s (TC x DIN), table row idx, and,
 // unless zs is null, the target score at the TC points in zs (TC x D),
 // by a block of round_up(in_dim, 32) threads; writes sn_s and gt_s (TC x
 // D each). w2s has row stride in_pad; h1s, h2s are TC x in_pad tiles; hws
-// the D x in_pad head rows. Every thread of the block must call it.
-template <int DIN, class T>
+// the D x in_pad head rows. dds_grad's gate term reads the score at zs,
+// which must then be the net's z. Every thread of the block must call it.
+template <int DIN, class T, class NET = GeffnerNet>
 __device__ __forceinline__ void point_eval(const NetArgs& net, int idx, const float w1x[DIN],
                                            float b2f, float factor,
                                            const float* w2s, float* h1s, float* h2s,
@@ -542,7 +646,7 @@ __device__ __forceinline__ void point_eval(const NetArgs& net, int idx, const fl
 
   if (feat) {
     float a1[TC], h1[TC];
-    layer1_feature<DIN>(net, idx, tid, w1x, xin_s, a1, h1);
+    layer1_feature<DIN, NET>(net, idx, tid, w1x, xin_s, a1, h1);
 #pragma unroll
     for (int c = 0; c < TC; ++c) h1s[c * ip + tid] = h1[c];
   }
@@ -552,19 +656,27 @@ __device__ __forceinline__ void point_eval(const NetArgs& net, int idx, const fl
     float acc[TC];
     layer2_feature(w2s, ip, h1s, ip, tid, acc);
 #pragma unroll
-    for (int c = 0; c < TC; ++c)
-      h2s[c * ip + tid] = h1s[c * ip + tid] + softplus_f(acc[c] + b2f);
+    for (int c = 0; c < TC; ++c) {
+      if constexpr (NET::RESIDUAL) {
+        h2s[c * ip + tid] = h1s[c * ip + tid] + softplus_f(acc[c] + b2f);
+      } else {
+        h2s[c * ip + tid] = NET::act(acc[c] + b2f);
+      }
+    }
   }
   __syncthreads();
 
+  const float* gate_row = NET::PIS && net.gate != nullptr ? net.gate + (size_t)idx * D : nullptr;
   for (int c = warp; c < TC; c += nwarp) {
     float out[D], gt[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) gt[d] = 0.f;
     head_raw<D>(net, h2s + c * ip, hws, out);
     if (zs != nullptr) target.score(zs + c * D, gt);
     if (lane == 0) {
 #pragma unroll
       for (int d = 0; d < D; ++d) {
-        sn_s[c * D + d] = (out[d] + net.headb[d]) * factor;
+        sn_s[c * D + d] = net_out<NET>(out[d] + net.headb[d], factor, gate_row, d, gt[d]);
         if (zs != nullptr) gt_s[c * D + d] = gt[d];
       }
     }

@@ -16,6 +16,16 @@
 // over chains G1[j] = sum_n g_a1 and GH1[j] = sum_n g_h1, from which two
 // small products give demb, dW1[DIN:], db1.
 //
+// The net is a template parameter (cmcd_common.cuh: GeffnerNet, PisNet).
+// A PIS net has no identity path (g_h1 = W2 g_a2, g_x = W1[:D] g_a1), gelu'
+// in the place of the sigmoids, and its table c1[t] = W1[D:] h_t(t) + b1
+// is the wrapper's product as geffner's is: G1[j] is d c1 at point j's row,
+// and autograd carries it to the time coder outside the kernel (GH1 is
+// summed but unused). dds_grad's gate term g_t[t] * clip(gt(z), 1e2) is
+// stop-gradient in z, so it adds nothing to the VJP in z; its table's
+// gradient is the per-point sum sum_n g_sn * clip(gt) (D floats, after the
+// two betas of len_b).
+//
 // Work split of one block of NG groups of feature threads on a tile of
 // TB = NG * TC chains: thread (g, f) owns feature f for the TC chains of
 // group g through the apply and the VJP (activations and sigmoids stay in
@@ -43,10 +53,13 @@ constexpr int FW_MAX = 160;  // feature threads of one group: in_dim <= 160
 // are slots 0..HEADB+D-1 and gamma (ops/vargrad.scalar_slots).
 __host__ __device__ constexpr int nscal(int d) { return 5 + 3 * d; }      // slots a warp keeps
 __host__ __device__ constexpr int nsc_block(int d) { return 3 + 3 * d; }  // scalars of len_a
+// A PIS net's warp keeps D more slots after gamma (GATE: the point's sums of
+// dds_grad's gate gradient), a geffner net's none: NET::gate_slots(D).
 template <int D>
 struct Slots {
   static constexpr int EPS = 0, MEAN = 1, LOGDIAG = 1 + D, FACTOR = 1 + 2 * D,
-                       HEADB = 2 + 2 * D, BETA = 2 + 3 * D, GAMMA = 4 + 3 * D;
+                       HEADB = 2 + 2 * D, BETA = 2 + 3 * D, GAMMA = 4 + 3 * D,
+                       GATE = 5 + 3 * D;
   static constexpr int N = nscal(D), BLOCK = nsc_block(D);
 };
 
@@ -58,23 +71,27 @@ __host__ __device__ constexpr int nfeat(int d, int din) { return 3 + d + din; }
 __host__ __device__ inline int len_a(int in_dim, int d, int din) {
   return in_dim * in_dim + (1 + d + din) * in_dim + nsc_block(d);
 }
-// Partials of one point: G1 (in), GH1 (in), dbeta_j, dbeta_{j-1}.
-__host__ __device__ inline int len_b(int in_dim) { return 2 * in_dim + 2; }
+// Partials of one point: G1 (in), GH1 (in), dbeta_j, dbeta_{j-1}, and the
+// `gate` sums of a PIS net (NET::gate_slots(D): D, or 0 for geffner).
+__host__ __device__ inline int len_b(int in_dim, int gate = 0) { return 2 * in_dim + 2 + gate; }
 
 // Floats of shared memory the tile itself takes (the layout in Tile), for a
-// D-dimensional state.
-__host__ __device__ inline size_t tile_floats(int ng, int in_dim, int n_par, int d) {
+// D-dimensional state and `gate` slots a warp (NET::gate_slots(D)).
+__host__ __device__ inline size_t tile_floats(int ng, int in_dim, int n_par, int d,
+                                              int gate = 0) {
   const int ip = round_up(in_dim, 4), tb = ng * TC;
   return (size_t)2 * ip * (ip + 1) + 2 * tb * ip + (size_t)ip * (tb + 4) + (size_t)d * ip +
-         round_up(n_par, 4) + nscal(d) * (ng * FW_MAX / 32);
+         round_up(n_par, 4) + (nscal(d) + gate) * (ng * FW_MAX / 32);
 }
 
 // The tile's shared memory, carved from `base`; `rest` is the first float
 // past it, for the kernel's own per-chain buffers.
-template <int NG, int D>
+template <int NG, int D, class NET = GeffnerNet>
 struct Tile {
   static constexpr int TB = NG * TC;   // chains per tile
   static constexpr int TBP = TB + 4;   // row stride of the transposed hidden tile
+  static constexpr int G = NET::gate_slots(D);  // gate slots a warp
+  static constexpr int NS = Slots<D>::N + G;    // slots a warp
   float *w2s, *gw2s, *h1s, *xs, *h1t, *hws, *par, *sc_s, *rest;
   int ws;
 
@@ -88,8 +105,8 @@ struct Tile {
     h1t = xs + TB * ip;                        // in_pad x TBP: h1 transposed
     hws = h1t + ip * TBP;                      // D x in_pad
     par = hws + D * ip;                        // the target's n_par constants
-    sc_s = par + round_up(net.n_par, 4);       // warps x Slots<D>::N
-    rest = sc_s + Slots<D>::N * (NG * FW_MAX / 32);
+    sc_s = par + round_up(net.n_par, 4);       // warps x NS
+    rest = sc_s + NS * (NG * FW_MAX / 32);
   }
 };
 
@@ -119,8 +136,8 @@ struct FeatRegs {
 
 // Fills the tile's constants and zeroes its accumulators; every thread of
 // the block calls it, and the block synchronizes before the first use.
-template <int NG, int D>
-__device__ __forceinline__ void tile_init(const Tile<NG, D>& t, const NetArgs& net) {
+template <int NG, int D, class NET>
+__device__ __forceinline__ void tile_init(const Tile<NG, D, NET>& t, const NetArgs& net) {
   const int ip = net.in_pad, in = net.in_dim, tid = threadIdx.x, nthr = blockDim.x;
   load_w2(net, t.w2s, t.ws);
   // gw2s, h1s, xs and h1t follow w2s: zero them all (pad columns stay zero).
@@ -130,24 +147,24 @@ __device__ __forceinline__ void tile_init(const Tile<NG, D>& t, const NetArgs& n
     t.hws[i] = k < in ? net.headw[d * in + k] : 0.f;
   }
   for (int i = tid; i < net.n_par; i += nthr) t.par[i] = net.tpar[i];
-  for (int i = tid; i < (nthr >> 5) * Slots<D>::N; i += nthr) t.sc_s[i] = 0.f;
+  for (int i = tid; i < (nthr >> 5) * t.NS; i += nthr) t.sc_s[i] = 0.f;
 }
 
-// The net's two layers at the TB inputs in xc_s (TB x DIN), bridge row idx:
-// h1 into h1s and (transposed) h1t, h2 into xs; the sigmoids and h2 of this
-// thread's feature stay in r. Ends with a barrier.
-template <int NG, int D, int DIN>
-__device__ __forceinline__ void tile_layers(const Tile<NG, D>& t, const NetArgs& net,
+// The net's two layers at the TB inputs in xc_s (TB x DIN), table row idx:
+// h1 into h1s and (transposed) h1t, h2 into xs; the activations'
+// derivatives and h2 of this thread's feature stay in r. Ends with a barrier.
+template <int NG, int D, int DIN, class NET>
+__device__ __forceinline__ void tile_layers(const Tile<NG, D, NET>& t, const NetArgs& net,
                                             const FeatThread<D, DIN>& th, int idx,
                                             const float* xc_s, FeatRegs& r) {
   const int ip = net.in_pad, g = th.g, f = th.f;
   float h1v[TC];
   if (th.feat) {
     float a1[TC];
-    layer1_feature<DIN>(net, idx, f, th.w1x, xc_s + g * TC * DIN, a1, h1v);
+    layer1_feature<DIN, NET>(net, idx, f, th.w1x, xc_s + g * TC * DIN, a1, h1v);
 #pragma unroll
     for (int c = 0; c < TC; ++c) {
-      r.sig1[c] = sigmoid_f(a1[c]);
+      r.sig1[c] = NET::dact(a1[c]);
       t.h1s[(g * TC + c) * ip + f] = h1v[c];
     }
     float4* col = reinterpret_cast<float4*>(t.h1t + f * t.TBP + g * TC);
@@ -162,8 +179,12 @@ __device__ __forceinline__ void tile_layers(const Tile<NG, D>& t, const NetArgs&
 #pragma unroll
     for (int c = 0; c < TC; ++c) {
       const float a2 = acc[c] + th.b2f;
-      r.sig2[c] = sigmoid_f(a2);
-      r.h2v[c] = h1v[c] + softplus_f(a2);
+      r.sig2[c] = NET::dact(a2);
+      if constexpr (NET::RESIDUAL) {
+        r.h2v[c] = h1v[c] + softplus_f(a2);
+      } else {
+        r.h2v[c] = NET::act(a2);
+      }
       t.xs[(g * TC + c) * ip + f] = r.h2v[c];
     }
   }
@@ -174,11 +195,11 @@ __device__ __forceinline__ void tile_layers(const Tile<NG, D>& t, const NetArgs&
 // the cotangent of the head's raw output per chain: adds this thread's sums
 // into ft (dheadW xD, db2, dW1[:DIN] xDIN, G1, GH1) and the tile's dW2 into
 // gw2s. With gz_s (warps x TC x DIN) each warp also leaves its share of
-// g_x = g_h1[:DIN] + W1[:DIN] g_a1 for its group's chains there. Every
-// thread of the block calls it after the block has synchronized on go_s;
-// ends with a barrier.
-template <int NG, int D, int DIN>
-__device__ __forceinline__ void tile_vjp(const Tile<NG, D>& t, const NetArgs& net,
+// g_x = g_h1[:DIN] + W1[:DIN] g_a1 (PIS: W1[:DIN] g_a1) for its group's
+// chains there. Every thread of the block calls it after the block has
+// synchronized on go_s; ends with a barrier.
+template <int NG, int D, int DIN, class NET>
+__device__ __forceinline__ void tile_vjp(const Tile<NG, D, NET>& t, const NetArgs& net,
                                          const FeatThread<D, DIN>& th, const float* xc_s,
                                          const float* go_s, const FeatRegs& r,
                                          float ft[nfeat(D, DIN)], float* gz_s) {
@@ -234,7 +255,7 @@ __device__ __forceinline__ void tile_vjp(const Tile<NG, D>& t, const NetArgs& ne
 #pragma unroll
     for (int c = 0; c < TC; ++c) {
       const int cc = g * TC + c;
-      gh1[c] = gh2[c] + acc[c];
+      gh1[c] = NET::RESIDUAL ? gh2[c] + acc[c] : acc[c];
       ga1[c] = gh1[c] * r.sig1[c];
 #pragma unroll
       for (int d = 0; d < DIN; ++d) ft[D + 1 + d] = fmaf(xc_s[cc * DIN + d], ga1[c], ft[D + 1 + d]);
@@ -248,7 +269,8 @@ __device__ __forceinline__ void tile_vjp(const Tile<NG, D>& t, const NetArgs& ne
     for (int d = 0; d < DIN; ++d) {
 #pragma unroll
       for (int c = 0; c < TC; ++c) {
-        const float sd = warp_sum(fmaf(ga1[c], th.w1x[d], f == d ? gh1[c] : 0.f));
+        const float sd =
+            warp_sum(fmaf(ga1[c], th.w1x[d], NET::RESIDUAL && f == d ? gh1[c] : 0.f));
         if (lane == 0) gz_s[(warp * TC + c) * DIN + d] = sd;
       }
     }
@@ -290,15 +312,16 @@ __device__ __forceinline__ float tile_gz(const float* gz_s, int chain_in_tile, i
   return s;
 }
 
-// The per-point partials of this block (G1, GH1 and the two beta scalars)
-// into pb (len_b floats): written, or added to what an earlier tile of the
-// same block left there. Zeroes them for the next point. Every thread calls
-// it after a barrier; it ends with one.
-template <int NG, int D, int DIN>
-__device__ __forceinline__ void flush_point(const Tile<NG, D>& t, const NetArgs& net,
+// The per-point partials of this block (G1, GH1, the two beta scalars and a
+// PIS net's gate sums) into pb (len_b floats): written, or added to what an
+// earlier tile of the same block left there. Zeroes them for the next point.
+// Every thread calls it after a barrier; it ends with one.
+template <int NG, int D, int DIN, class NET>
+__device__ __forceinline__ void flush_point(const Tile<NG, D, NET>& t, const NetArgs& net,
                                             const FeatThread<D, DIN>& th,
                                             float ft[nfeat(D, DIN)], float* pb, bool add) {
-  constexpr int NS = Slots<D>::N, BETA = Slots<D>::BETA;
+  constexpr int NS = Tile<NG, D, NET>::NS, BETA = Slots<D>::BETA, GATE = Slots<D>::GATE;
+  constexpr int G = Tile<NG, D, NET>::G;
   const int ip = net.in_pad, in = net.in_dim, tid = threadIdx.x, nthr = blockDim.x;
   const int nwarp = nthr >> 5;
   if (th.feat) {
@@ -313,11 +336,12 @@ __device__ __forceinline__ void flush_point(const Tile<NG, D>& t, const NetArgs&
     for (int gg = 0; gg < NG; ++gg) s += t.xs[(gg * 2 + q) * ip + c];
     pb[i] = add ? pb[i] + s : s;
   }
-  if (tid < 2) {
+  if (tid < 2 + G) {  // the betas, then the gate sums: slots BETA, BETA + 1, GATE..
+    const int slot = tid < 2 ? BETA + tid : GATE + tid - 2;
     float s = 0.f;
     for (int w = 0; w < nwarp; ++w) {
-      s += t.sc_s[w * NS + BETA + tid];
-      t.sc_s[w * NS + BETA + tid] = 0.f;
+      s += t.sc_s[w * NS + slot];
+      t.sc_s[w * NS + slot] = 0.f;
     }
     pb[2 * in + tid] = add ? pb[2 * in + tid] + s : s;
   }
@@ -330,12 +354,12 @@ __device__ __forceinline__ void flush_point(const Tile<NG, D>& t, const NetArgs&
 // through xs (TB = NG x TC rows) TC rows a group at a time: at D = 10 there
 // are 21 of them a feature. Every thread calls it after a barrier; it ends
 // with one.
-template <int NG, int D, int DIN>
-__device__ __forceinline__ void flush_block(const Tile<NG, D>& t, const NetArgs& net,
+template <int NG, int D, int DIN, class NET>
+__device__ __forceinline__ void flush_block(const Tile<NG, D, NET>& t, const NetArgs& net,
                                             const FeatThread<D, DIN>& th,
                                             const float ft[nfeat(D, DIN)], float* pa) {
   constexpr int NQ = 1 + D + DIN;  // dheadW (D x in), db2, dW1[:DIN] (DIN x in)
-  constexpr int NS = Slots<D>::N, NB = Slots<D>::BLOCK;
+  constexpr int NS = Tile<NG, D, NET>::NS, NB = Slots<D>::BLOCK;
   const int ip = net.in_pad, in = net.in_dim, tid = threadIdx.x, nthr = blockDim.x;
   const int nwarp = nthr >> 5;
   for (int i = tid; i < in * in; i += nthr) {
@@ -386,11 +410,13 @@ __global__ void partials_reduce(const float* part_a, const float* part_b, float*
 }
 
 // Launches partials_reduce for part_a (nblocks, len_a) and part_b (npoints,
-// splits, len_b) on `stream`; d, din: the state's and the net input's columns.
+// splits, len_b) on `stream`; d, din: the state's and the net input's columns;
+// gate: the net's gate sums a point (len_b).
 inline cudaError_t launch_reduce(const float* part_a, const float* part_b, float* out_a,
                                  float* out_b, int nblocks, int npoints, int splits,
-                                 int in_dim, int d, int din, cudaStream_t stream) {
-  const int la = len_a(in_dim, d, din), lb = len_b(in_dim), total = la + npoints * lb;
+                                 int in_dim, int d, int din, cudaStream_t stream,
+                                 int gate = 0) {
+  const int la = len_a(in_dim, d, din), lb = len_b(in_dim, gate), total = la + npoints * lb;
   partials_reduce<<<(total + 255) / 256, 256, 0, stream>>>(part_a, part_b, out_a, out_b,
                                                            nblocks, la, npoints, splits, lb);
   return cudaGetLastError();

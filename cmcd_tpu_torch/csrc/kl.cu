@@ -11,7 +11,14 @@
 //    (z_{i+1}, i) (MCD_ULA_sn), the per-point case of the TPU kernel
 //    (pallas_kl.py point_fn, :320-333);
 //  * kl_ula_sweep<T>: no net (MCD_ULA), one warp per chain.
-// The net is the two-layer geffner net. The Python wrapper is
+// The net is a template parameter (cmcd_common.cuh): the two-layer geffner
+// net or a PIS net ("dds", "dds_grad"; the TPU kernel's PIS branch is
+// pallas_kl.py:147-158, 175-185, 227-241). A PIS net's output is clipped
+// (its cotangent masked where the clip bit) and dds_grad's gate term
+// g_t[t] * clip(gt(z_p), 1e2) enters sn with no cotangent in z_p: it adds
+// the per-point sum sum_n g_sn * clip(gt) to the point's partials. The
+// point's table row is NET::row(p, K) in the carry form (geffner clamps it
+// to K - 1, PIS takes K at the last point). The Python wrapper is
 // cmcd_tpu_torch/ops/kl.py::evolve_kl_bwd; its plain PyTorch version
 // evolve_kl_bwd_plain walks the same sweep. The TPU kernel traces jax.vjp of
 // the step (twice per point in its per-point form); here every derivative is
@@ -29,7 +36,7 @@
 // the state chain carry gradient. Each point p = K..0 is visited once, and
 // both steps that touch z_p, step p - 1 (z_p is where its backward kernel's
 // mean is formed) and step p (its forward kernel starts there), use the same
-// score gt(z_p) and net output sn(z_p, min(p, K - 1)), so each is applied and
+// score gt(z_p) and net output sn(z_p, NET::row(p, K)), so each is applied and
 // transposed once per point. Carried from point p + 1: F_p, the cotangent of
 // fk_mean_p, and Z_p = F_p - c r_p / (2 e_p), the cotangent z_p gets directly
 // from step p (at p = K: Z_K = g_K, no F). At point p, with e, b of step p
@@ -116,32 +123,32 @@ struct KlArgs {
   float clip_t, clip_q;
 };
 
-// Shared memory of one block of NG groups at state dimension d: the tile;
-// per chain z_p, z_{p-1}, xi_{p-1}, g_out, the state cotangent so far, the
-// carries F and Z (d-vectors), the cotangent c; and the warps' shares of
-// the net's input VJP.
-__host__ inline size_t smem_bytes(int ng, int in_dim, int n_par, int d) {
+// Shared memory of one block of NG groups at state dimension d with `gate`
+// slots a warp (NET::gate_slots(d)): the tile; per chain z_p, z_{p-1},
+// xi_{p-1}, g_out, the state cotangent so far, the carries F and Z
+// (d-vectors), the cotangent c; and the warps' shares of the net's input VJP.
+__host__ inline size_t smem_bytes(int ng, int in_dim, int n_par, int d, int gate = 0) {
   const int tb = ng * TC;
-  return (tile_floats(ng, in_dim, n_par, d) + 7 * tb * d + tb +
+  return (tile_floats(ng, in_dim, n_par, d, gate) + 7 * tb * d + tb +
           (ng * FW_MAX / 32) * TC * d) * sizeof(float);
 }
 
 // What one block holds (NG = 4, the larger of the two forms).
-__host__ inline bool fits(int in_dim, int n_par, int d) {
+__host__ inline bool fits(int in_dim, int n_par, int d, int gate = 0) {
   return in_dim >= 1 && round_up(in_dim, 32) <= FW_MAX && n_par >= 1 && n_par <= MAX_PAR &&
-         smem_bytes(4, in_dim, n_par, d) <= MAX_SMEM;
+         smem_bytes(4, in_dim, n_par, d, gate) <= MAX_SMEM;
 }
 
-// CAIS: the net in both kernels at (z_p, min(p, K - 1)); else (ULA_sn) in the
-// backward kernel only, at (z_p, p - 1).
-template <int NG, class T, bool CAIS>
+// CAIS: the net in both kernels at (z_p, NET::row(p, K)); else (ULA_sn) in
+// the backward kernel only, at (z_p, p - 1).
+template <int NG, class T, bool CAIS, class NET>
 __global__ void __launch_bounds__(NG* FW_MAX) kl_reverse_sweep(const KlArgs a) {
   constexpr int TB = NG * TC, D = T::D;
   using S = Slots<D>;
   extern __shared__ float4 smem4[];
   const NetArgs& net = a.net;
   const int ip = net.in_pad, in = net.in_dim, K = a.nbridges, sched = a.eps_schedule;
-  const Tile<NG, D> t(reinterpret_cast<float*>(smem4), net);
+  const Tile<NG, D, NET> t(reinterpret_cast<float*>(smem4), net);
   const T target(t.par, net.n_par, net.inv_var_t);
   float* zc_s = t.rest;            // TB x D: z_p
   float* zp_s = zc_s + TB * D;     // TB x D: z_{p-1}
@@ -168,7 +175,7 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_reverse_sweep(const KlArgs a) {
   float ft[nfeat(D, D)];
 #pragma unroll
   for (int q = 0; q < nfeat(D, D); ++q) ft[q] = 0.f;
-  float* sc = t.sc_s + warp * S::N;
+  float* sc = t.sc_s + warp * t.NS;
   __syncthreads();
 
   const int ntiles = (a.n + TB - 1) / TB;
@@ -201,8 +208,11 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_reverse_sweep(const KlArgs a) {
 
       // ULA_sn applies no net at point 0 (block-uniform).
       const bool net_on = CAIS || p >= 1;
+      const int row = NET::row(CAIS ? p : p - 1, K);
+      const float* gate_row =
+          NET::PIS && net_on && net.gate != nullptr ? net.gate + (size_t)row * D : nullptr;
       FeatRegs r;
-      if (net_on) tile_layers(t, net, th, CAIS ? min(p, K - 1) : p - 1, zc_s, r);
+      if (net_on) tile_layers(t, net, th, row, zc_s, r);
 
       // Head, score, Hessian product and the scalar derivatives: one warp
       // per chain, every lane the same scalars, lane 0 keeps the sums.
@@ -215,11 +225,12 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_reverse_sweep(const KlArgs a) {
         target.score(zc_s + c * D, gt, &sl);
         const float cn = cot_s[c];
         float ge_f = 0.f, ge_b = 0.f, gb_f = 0.f, gb_b = 0.f, r2 = 0.f;
-        float g_factor = 0.f, g_sn[D], g_mu[D], g_ld[D];
+        float g_factor = 0.f, g_sn[D], g_mu[D], g_ld[D], ov[D];
 #pragma unroll
         for (int d = 0; d < D; ++d) {
           const float z = zc_s[c * D + d];
-          const float o = out[d] + hb[d], sn = o * factor;
+          const float o = out[d] + hb[d], sn = net_out<NET>(o, factor, gate_row, d, gt[d]);
+          ov[d] = o;
           const float gq = -(z - vm[d]) * viv[d];
           const float gtc = clip_f(gt[d], a.clip_t), gqc = clip_f(gq, a.clip_q);
           const float diff = gtc - gqc;
@@ -259,15 +270,17 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_reverse_sweep(const KlArgs a) {
             ge_b += cn * r2 * is2 * is2;
           }
           sc[S::EPS] += s_f * ge_f + s_b * ge_b;
-          sc[S::FACTOR] += g_factor;
+          if constexpr (!NET::PIS) sc[S::FACTOR] += g_factor;
           sc[S::BETA] += gb_f;
           sc[S::BETA + 1] += gb_b;
 #pragma unroll
           for (int d = 0; d < D; ++d) {
+            const float go = net_out_cot<NET>(g_sn[d], ov[d], factor);
             sc[S::MEAN + d] += g_mu[d];
             sc[S::LOGDIAG + d] += g_ld[d];
-            sc[S::HEADB + d] += g_sn[d] * factor;
-            go_s[c * D + d] = g_sn[d] * factor;
+            sc[S::HEADB + d] += go;
+            go_s[c * D + d] = go;
+            if (gate_row != nullptr) sc[S::GATE + d] += g_sn[d] * clip_f(gt[d], PIS_GATE_CLIP);
             tz_s[c * D + d] = ((zd_s[c * D + d] + bk[d]) - viv[d] * g_gq[d]) + hv[d];
             zd_s[c * D + d] = -bk[d];
           }
@@ -299,7 +312,7 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_reverse_sweep(const KlArgs a) {
         if (lane == 0 && m_bk) sc[S::EPS] += s_b * ge * (1.0f / sqrtf(2.0f * e_b));
       }
       flush_point(t, net, th, ft,
-                  a.part_b + ((size_t)p * gridDim.x + blockIdx.x) * len_b(in),
+                  a.part_b + ((size_t)p * gridDim.x + blockIdx.x) * len_b(in, t.G),
                   tile != (int)blockIdx.x);
     }
   }
@@ -307,24 +320,26 @@ __global__ void __launch_bounds__(NG* FW_MAX) kl_reverse_sweep(const KlArgs a) {
   flush_block(t, net, th, ft, a.part_a + (size_t)blockIdx.x * len_a(in, D, D));
 }
 
-template <int NG, class T, bool CAIS>
+template <int NG, class T, bool CAIS, class NET>
 cudaError_t launch_sweep(const KlArgs& a, int blocks, cudaStream_t stream) {
-  const size_t smem = smem_bytes(NG, a.net.in_dim, a.net.n_par, T::D);
-  cudaError_t err = cudaFuncSetAttribute(kl_reverse_sweep<NG, T, CAIS>,
+  const size_t smem =
+      smem_bytes(NG, a.net.in_dim, a.net.n_par, T::D, NET::gate_slots(T::D));
+  cudaError_t err = cudaFuncSetAttribute(kl_reverse_sweep<NG, T, CAIS, NET>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kl_reverse_sweep<NG, T, CAIS><<<blocks, NG * round_up(a.net.in_dim, 32), smem, stream>>>(a);
+  kl_reverse_sweep<NG, T, CAIS, NET>
+      <<<blocks, NG * round_up(a.net.in_dim, 32), smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <class T>
+template <class T, class NET>
 cudaError_t launch_tiles(const KlArgs& a, int blocks, int groups, bool cais, cudaStream_t s) {
   if (cais) {
-    return groups == 2 ? launch_sweep<2, T, true>(a, blocks, s)
-                       : launch_sweep<4, T, true>(a, blocks, s);
+    return groups == 2 ? launch_sweep<2, T, true, NET>(a, blocks, s)
+                       : launch_sweep<4, T, true, NET>(a, blocks, s);
   }
-  return groups == 2 ? launch_sweep<2, T, false>(a, blocks, s)
-                     : launch_sweep<4, T, false>(a, blocks, s);
+  return groups == 2 ? launch_sweep<2, T, false, NET>(a, blocks, s)
+                     : launch_sweep<4, T, false, NET>(a, blocks, s);
 }
 
 // The net-free sweep (ULA).
@@ -466,10 +481,11 @@ extern "C" {
 // Launches the reverse sweep with a net and its reduction on `stream`:
 // `blocks` blocks of `groups` (2 or 4) groups of feature threads, blocks <=
 // the number of chain tiles of 8 x groups chains. cais: 1 the carry form
-// (MCD_CAIS_sn), 0 the backward net at i (MCD_ULA_sn). target as in
-// cmcd_overdamped_rollout (overdamped.cu), D its dimension. part_a: (blocks,
-// len_a) and part_b: (points, blocks, len_b) are scratch; out_a: (len_a,),
-// out_b: (points, len_b) and g_z0: (n, D) receive the results. Returns a
+// (MCD_CAIS_sn), 0 the backward net at i (MCD_ULA_sn). target, arch and
+// gate as in cmcd_overdamped_rollout (overdamped.cu), D the target's
+// dimension. part_a: (blocks, len_a) and part_b: (points, blocks, len_b,
+// with a PIS net's D gate sums) are scratch; out_a: (len_a,), out_b:
+// (points, len_b) and g_z0: (n, D) receive the results. Returns a
 // cudaError_t.
 int cmcd_kl_reverse_sweep(const float* traj, const float* noise, const float* cot,
                           const float* g_zfinal, const float* betas, const float* scal,
@@ -479,24 +495,29 @@ int cmcd_kl_reverse_sweep(const float* traj, const float* noise, const float* co
                           float* part_a, float* part_b, float* out_a, float* out_b, float* g_z0,
                           int n, int nbridges, int in_dim, int emb_dim, int n_par,
                           int eps_schedule, int blocks, int groups, int cais, int target,
-                          float inv_var_t, float clip_t, float clip_q, void* stream) {
+                          float inv_var_t, float clip_t, float clip_q, int arch,
+                          const float* gate, void* stream) {
   if (n <= 0 || nbridges <= 0 || (groups != 2 && groups != 4)) return (int)cudaErrorInvalidValue;
   if (blocks <= 0 || blocks > (n + groups * TC - 1) / (groups * TC))
     return (int)cudaErrorInvalidValue;
   if (!target_ok(target, n_par)) return (int)cudaErrorInvalidValue;
-  const int d = target_dim(target);
-  if (in_dim != d + emb_dim || !fits(in_dim, n_par, d)) return (int)cudaErrorInvalidValue;
+  const int d = target_dim(target), gs = arch == 1 ? d : 0;  // gate slots
+  if (!net_ok(arch, in_dim, emb_dim, d, gate) || !fits(in_dim, n_par, d, gs))
+    return (int)cudaErrorInvalidValue;
   const NetArgs net{w1z, c1, emb, w2, b2, headw, headb, tpar,
-                    in_dim, round_up(in_dim, 4), emb_dim, n_par, inv_var_t};
+                    in_dim, round_up(in_dim, 4), emb_dim, n_par, inv_var_t, gate};
   const KlArgs a{traj, noise, cot, g_zfinal, betas, scal, net, vd_mean, vd_logdiag,
                  part_a, part_b, g_z0, n, nbridges, eps_schedule, clip_t, clip_q};
   const cudaStream_t s = (cudaStream_t)stream;
   const cudaError_t err = dispatch_target(target, [&](auto tag) {
-    return launch_tiles<typename decltype(tag)::type>(a, blocks, groups, cais != 0, s);
+    return dispatch_net(arch, [&](auto net_tag) {
+      return launch_tiles<typename decltype(tag)::type, typename decltype(net_tag)::type>(
+          a, blocks, groups, cais != 0, s);
+    });
   });
   if (err != cudaSuccess) return (int)err;
   return (int)launch_reduce(part_a, part_b, out_a, out_b, blocks, nbridges + 1, blocks, in_dim,
-                            d, d, s);
+                            d, d, s, gs);
 }
 
 // Launches the net-free sweep (MCD_ULA) and its reduction on `stream`, one
@@ -532,17 +553,20 @@ const char* cmcd_error_string(int code) { return cudaGetErrorString((cudaError_t
 
 int cmcd_kl_chains_per_group() { return TC; }
 
-// The launch's own limits and buffer lengths at state dimension d, for the
-// wrapper to check its copy against.
-int cmcd_kl_fits(int in_dim, int n_par, int d) { return fits(in_dim, n_par, d) ? 1 : 0; }
+// The launch's own limits and buffer lengths at state dimension d with
+// `gate` slots a warp (0 geffner, d PIS), for the wrapper to check its copy
+// against.
+int cmcd_kl_fits(int in_dim, int n_par, int d, int gate) {
+  return fits(in_dim, n_par, d, gate) ? 1 : 0;
+}
 
-long long cmcd_kl_smem_bytes(int groups, int in_dim, int n_par, int d) {
-  return (long long)smem_bytes(groups, in_dim, n_par, d);
+long long cmcd_kl_smem_bytes(int groups, int in_dim, int n_par, int d, int gate) {
+  return (long long)smem_bytes(groups, in_dim, n_par, d, gate);
 }
 
 int cmcd_kl_len_a(int in_dim, int d) { return len_a(in_dim, d, d); }
 
-int cmcd_kl_len_b(int in_dim) { return len_b(in_dim); }
+int cmcd_kl_len_b(int in_dim, int gate) { return len_b(in_dim, gate); }
 
 int cmcd_kl_ula_chains_per_block() { return ULA_CPB; }
 

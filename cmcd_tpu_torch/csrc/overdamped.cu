@@ -10,8 +10,15 @@
 //  * overdamped_rollout<T, false, 0>: the net in the backward kernel only, at
 //    (z_{i+1}, i) (ULA_sn); step i's forward mean has no net;
 //  * ula_rollout<T>: no net at all (ULA), one warp per chain.
-// The score net is the geffner net (two residual softplus layers, a head, a
-// per-bridge embedding table and factor_sn). The Python wrapper is
+// The score net is a template parameter (cmcd_common.cuh): the geffner net
+// (two residual softplus layers, a head, a per-bridge embedding table and
+// factor_sn) or a PIS net ("dds", "dds_grad": two gelu layers on [z, h_t],
+// the time coder's output a table c1 of K + 1 rows the wrapper forms, the
+// output clipped, dds_grad's gate table g_t when its pointer is set; the
+// replaced PIS apply is cmcd_tpu/ops/pallas_nets.py::pis_apply_t and
+// ::pis_grad_apply_t). The net's table row at the backward net of step i is
+// NET::row(i + off, K): geffner clamps it to K - 1, PIS takes K. The
+// Python wrapper is
 // cmcd_tpu_torch/ops/overdamped.py::evolve_overdamped_fused; its plain
 // PyTorch twin evolve_overdamped_fused_plain states the same math step by
 // step. The step's pieces (net layers, head, score, schedule, Philox) are
@@ -24,7 +31,7 @@
 //   fk_mean  = z - eps_i * gradU(gt, z) [- eps_i * sn(z, i)]          (CAIS)
 //   z'       = fk_mean + scale * xi
 //   gt'      = the target's score at z'; sn' = net output at
-//              (z', min(i + off, K - 1)), off 1 (CAIS) or 0 (ULA_sn)
+//              (z', NET::row(i + off, K)), off 1 (CAIS) or 0 (ULA_sn)
 //   bk_mean  = z' - eps_i * gradU(gt', z') [+ eps_i * sn']           (CAIS, ULA_sn)
 //   w       += -0.5 * (|(z - bk_mean) / scale|^2 - |xi|^2)
 // and gt' (and for CAIS sn') is carried into step i + 1, so each step costs
@@ -138,8 +145,8 @@ __device__ __forceinline__ void draw(const RolloutArgs& a, unsigned long long se
 
 // FWD_SN: the net in the forward mean at (z_i, i), carried from the step
 // before; BWD_OFF: the backward net's row offset (1 with FWD_SN, CAIS; 0
-// without, ULA_sn).
-template <class T, bool FWD_SN, int BWD_OFF>
+// without, ULA_sn); NET: GeffnerNet or PisNet.
+template <class T, class NET, bool FWD_SN, int BWD_OFF>
 __global__ void __launch_bounds__(MAX_THREADS) overdamped_rollout(const RolloutArgs a) {
   constexpr int D = T::D;
   extern __shared__ float4 smem4[];
@@ -193,8 +200,8 @@ __global__ void __launch_bounds__(MAX_THREADS) overdamped_rollout(const RolloutA
   __syncthreads();
 
   if constexpr (FWD_SN) {
-    point_eval<D>(net, 0, w1z, b2f, factor, w2s, h1s, h2s, hws, target, zn_s, zn_s, gt_s,
-                  sn_s);
+    point_eval<D, T, NET>(net, 0, w1z, b2f, factor, w2s, h1s, h2s, hws, target, zn_s, zn_s,
+                          gt_s, sn_s);
   } else {
     score_eval(target, zn_s, gt_s);
   }
@@ -226,8 +233,8 @@ __global__ void __launch_bounds__(MAX_THREADS) overdamped_rollout(const RolloutA
       }
     }
     __syncthreads();
-    point_eval<D>(net, min(i + BWD_OFF, K - 1), w1z, b2f, factor, w2s, h1s, h2s, hws, target,
-                  zn_s, zn_s, gt_s, sn_s);
+    point_eval<D, T, NET>(net, NET::row(i + BWD_OFF, K), w1z, b2f, factor, w2s, h1s, h2s, hws,
+                          target, zn_s, zn_s, gt_s, sn_s);
     if (owner) {
       float r2 = 0.f;
 #pragma unroll
@@ -316,22 +323,31 @@ __global__ void __launch_bounds__(ULA_CPB * 32) ula_rollout(const RolloutArgs a)
   }
 }
 
-template <class T, bool FWD_SN, int BWD_OFF>
+template <class T, class NET, bool FWD_SN, int BWD_OFF>
 cudaError_t launch_tile(const RolloutArgs& a, cudaStream_t stream) {
   const size_t smem = smem_bytes(a.net.in_dim, a.net.n_par, T::D);
-  cudaError_t err = cudaFuncSetAttribute(overdamped_rollout<T, FWD_SN, BWD_OFF>,
+  cudaError_t err = cudaFuncSetAttribute(overdamped_rollout<T, NET, FWD_SN, BWD_OFF>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int blocks = (a.n + TC - 1) / TC;
-  overdamped_rollout<T, FWD_SN, BWD_OFF>
+  overdamped_rollout<T, NET, FWD_SN, BWD_OFF>
       <<<blocks, round_up(a.net.in_dim, 32), smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+template <class T, class NET>
+cudaError_t launch_net_form(const RolloutArgs& a, int form, cudaStream_t stream) {
+  return form == 0 ? launch_tile<T, NET, true, 1>(a, stream)
+                   : launch_tile<T, NET, false, 0>(a, stream);
+}
+
 template <class T>
-cudaError_t launch_form(const RolloutArgs& a, int form, cudaStream_t stream) {
-  if (form == 0) return launch_tile<T, true, 1>(a, stream);
-  if (form == 1) return launch_tile<T, false, 0>(a, stream);
+cudaError_t launch_form(const RolloutArgs& a, int form, int arch, cudaStream_t stream) {
+  if (form < 2) {
+    return dispatch_net(arch, [&](auto tag) {
+      return launch_net_form<T, typename decltype(tag)::type>(a, form, stream);
+    });
+  }
   ula_rollout<T><<<(a.n + ULA_CPB - 1) / ULA_CPB, ULA_CPB * 32, 0, stream>>>(a);
   return cudaGetLastError();
 }
@@ -342,7 +358,10 @@ extern "C" {
 
 // Launches the rollout on `stream`. form: 0 CAIS (net in both kernels,
 // backward net at i + 1), 1 ULA_sn (net in the backward kernel only, at i),
-// 2 ULA (no net: the net pointers may be null, in_dim and emb_dim 0).
+// 2 ULA (no net: the net pointers may be null, in_dim and emb_dim 0). arch:
+// 0 the geffner net (in_dim = D + emb_dim), 1 a PIS net (in_dim its width,
+// emb_dim 0, emb null, c1 K + 1 rows; gate the dds_grad gate table (K + 1,
+// D), or null for dds).
 // target: 0 many_gmm (tpar its n_par / 2 means, inv_var_t its 1 / scale^2),
 // 1 the 3-mode gmm (tpar its 18 constants), both 2-D; 2 the funnel (tpar its
 // sig), 3 the standard normal (tpar its precision), both 10-D; every
@@ -356,19 +375,20 @@ int cmcd_overdamped_rollout(const float* z0, const float* w0, const float* betas
                             const float* vd_inv_var, float* z_out, float* w_out, float* traj,
                             float* noise_out, int n, int nbridges, int in_dim, int emb_dim,
                             int n_par, int eps_schedule, int form, int target, float inv_var_t,
-                            float clip_t, float clip_q, void* stream) {
+                            float clip_t, float clip_q, int arch, const float* gate,
+                            void* stream) {
   if (n <= 0 || nbridges <= 0) return (int)cudaSuccess;
   if (form < 0 || form > 2 || !target_ok(target, n_par)) return (int)cudaErrorInvalidValue;
   const int d = target_dim(target);
-  if (form < 2 && (in_dim != d + emb_dim || !fits(in_dim, n_par, d)))
+  if (form < 2 && (!net_ok(arch, in_dim, emb_dim, d, gate) || !fits(in_dim, n_par, d)))
     return (int)cudaErrorInvalidValue;
   const NetArgs net{w1z, c1, emb, w2, b2, headw, headb, tpar,
-                    in_dim, round_up(in_dim, 4), emb_dim, n_par, inv_var_t};
+                    in_dim, round_up(in_dim, 4), emb_dim, n_par, inv_var_t, gate};
   const RolloutArgs a{z0, w0, betas, noise, scal, seed, net, vd_mean, vd_inv_var, z_out, w_out,
                       traj, noise_out, n, nbridges, eps_schedule, clip_t, clip_q};
   const cudaStream_t s = (cudaStream_t)stream;
   return (int)dispatch_target(target, [&](auto tag) {
-    return launch_form<typename decltype(tag)::type>(a, form, s);
+    return launch_form<typename decltype(tag)::type>(a, form, arch, s);
   });
 }
 

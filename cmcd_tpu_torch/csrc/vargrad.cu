@@ -6,7 +6,12 @@
 // kernel "B2") and ::evolve_vargrad_bwd_pallas ("B5") on the many_gmm and
 // the 3-mode gmm targets (dim 2), Neal's funnel and the standard normal
 // (dim 10), the target a template parameter whose D sizes every per-chain
-// array (cmcd_common.cuh), with the two-layer geffner net. The Python wrappers are
+// array (cmcd_common.cuh), and the net a template parameter: the two-layer
+// geffner net or a PIS net ("dds", "dds_grad"; the TPU kernels' PIS branch
+// is pallas_vargrad.py:151-156, 455-460: its output clipped and its
+// cotangent masked where the clip bit, dds_grad's gate term a per-point sum
+// sum_n g_sn * clip(gt) in the point's partials, the table row NET::row(j,
+// K)). The Python wrappers are
 // cmcd_tpu_torch/ops/vargrad.py::evolve_vargrad_bwd_replay and
 // ::evolve_vargrad_bwd_reroll; their plain PyTorch versions state the same
 // point loss and let autograd differentiate it. The TPU kernels trace
@@ -17,7 +22,7 @@
 //   L = sum_n c_n sum_i (bk_lp_i - fk_lp_i)
 // splits into one term per stored point j = 0..K, and the CAIS structure
 // (backward net at i + 1) makes both kernels that touch z_j use the same
-// net output sn = net(z_j, min(j, K - 1)). Per point and chain:
+// net output sn = net(z_j, NET::row(j, K)). Per point and chain:
 //   gq = -(z_j - mu) * exp(-2 logdiag);  gtc = clip(gt(z_j), ct), gqc = clip(gq, cq)
 //   D(b) = b * gtc + (1 - b) * gqc
 //   forward term, live for j <= K-1 (e = eps_j, b = beta_j):
@@ -34,8 +39,9 @@
 //   dL/deps0     = -c m_fk s_j  [r_fk.(D(b) - sn)/(2e)  + |r_fk|^2/(2e)^2  - D/(2e)]
 //                  +c m_bk s_j-1[r_bk.(D(b') + sn)/(2e') + |r_bk|^2/(2e')^2 - D/(2e')]
 //                  with s_i = d eps_i / d eps0 of the schedule (cmcd_common.cuh)
-//   dL/dout     = G * factor_sn, dfactor = G . out: the net's own VJP from
-//                  there is cmcd_tile.cuh's
+//   dL/dout     = G * factor_sn, dfactor = G . out (PIS: G where the clip
+//                  passed out; the gate table's dL/dg_t = G * clip(gt)): the
+//                  net's own VJP from there is cmcd_tile.cuh's
 //   each summed over chains and points. Masked terms are never divided by
 //   their eps (0 * inf would be NaN): r is set to 0 where its term is dead.
 //
@@ -101,17 +107,18 @@ struct RerollArgs {
   float clip_t, clip_q;
 };
 
-// Shared memory of one block of NG groups at state dimension d: the tile
-// and, per chain, z_j, z_{j-1}, z_{j+1}, g_out (d-vectors) and the cotangent.
-__host__ inline size_t smem_bytes(int ng, int in_dim, int n_par, int d) {
+// Shared memory of one block of NG groups at state dimension d with `gate`
+// slots a warp (NET::gate_slots(d)): the tile and, per chain, z_j, z_{j-1},
+// z_{j+1}, g_out (d-vectors) and the cotangent.
+__host__ inline size_t smem_bytes(int ng, int in_dim, int n_par, int d, int gate = 0) {
   const int tb = ng * TC;
-  return (tile_floats(ng, in_dim, n_par, d) + 4 * tb * d + tb) * sizeof(float);
+  return (tile_floats(ng, in_dim, n_par, d, gate) + 4 * tb * d + tb) * sizeof(float);
 }
 
 // What one block holds (NG = 4, the larger of the two forms).
-__host__ inline bool fits(int in_dim, int n_par, int d) {
+__host__ inline bool fits(int in_dim, int n_par, int d, int gate = 0) {
   return in_dim >= 1 && round_up(in_dim, 32) <= FW_MAX && n_par >= 1 && n_par <= MAX_PAR &&
-         smem_bytes(NG_REPLAY, in_dim, n_par, d) <= MAX_SMEM;
+         smem_bytes(NG_REPLAY, in_dim, n_par, d, gate) <= MAX_SMEM;
 }
 
 
@@ -151,20 +158,21 @@ __device__ __forceinline__ PointArgs<D> make_point(int j, int K, int sched, cons
 }
 
 // One chain at one point (lane 0 of the chain's warp): the scalar
-// derivatives into this warp's sums sc (slots Slots<D>), the head's
-// cotangent into go. out: the head's raw output; gt: the score; zc, zp, zn:
-// z_j, z_{j-1}, z_{j+1}.
-template <int D>
+// derivatives into this warp's sums sc (slots Slots<D>, a PIS net's gate
+// sums after them), the head's cotangent into go. out: the head's raw
+// output; gt: the score; zc, zp, zn: z_j, z_{j-1}, z_{j+1}; gate_row: the
+// point's row of dds_grad's gate table, or null.
+template <int D, class NET>
 __device__ __forceinline__ void vargrad_chain(const PointArgs<D>& p, const float out[D],
                                               const float gt[D], const float* zc,
                                               const float* zp, const float* zn, float cn,
-                                              float* go, float* sc) {
+                                              float* go, float* sc, const float* gate_row) {
   using S = Slots<D>;
   float t_fk = 0.f, t_bk = 0.f, r2_fk = 0.f, r2_bk = 0.f;
 #pragma unroll
   for (int d = 0; d < D; ++d) {
     const float z = zc[d];
-    const float o = out[d] + p.hb[d], sn = o * p.factor;
+    const float o = out[d] + p.hb[d], sn = net_out<NET>(o, p.factor, gate_row, d, gt[d]);
     const float gq = -(z - p.vm[d]) * p.viv[d];
     const float gtc = clip_f(gt[d], p.clip_t), gqc = clip_f(gq, p.clip_q);
     const float dj = p.beta_j * gtc + (1.0f - p.beta_j) * gqc;
@@ -172,9 +180,10 @@ __device__ __forceinline__ void vargrad_chain(const PointArgs<D>& p, const float
     const float r_fk = p.m_fk ? zn[d] - ((z + p.eps_j * dj) - p.eps_j * sn) : 0.f;
     const float r_bk = p.m_bk ? zp[d] - ((z + p.eps_p * dp) + p.eps_p * sn) : 0.f;
     const float gsn = 0.5f * cn * (r_bk + r_fk);
-    go[d] = gsn * p.factor;
-    sc[S::FACTOR] += gsn * o;
-    sc[S::HEADB + d] += gsn * p.factor;
+    go[d] = net_out_cot<NET>(gsn, o, p.factor);
+    if constexpr (!NET::PIS) sc[S::FACTOR] += gsn * o;
+    sc[S::HEADB + d] += go[d];
+    if (gate_row != nullptr) sc[S::GATE + d] += gsn * clip_f(gt[d], PIS_GATE_CLIP);
     const float diff = gtc - gqc;
     sc[S::BETA] += -0.5f * cn * r_fk * diff;
     sc[S::BETA + 1] += 0.5f * cn * r_bk * diff;
@@ -198,13 +207,13 @@ __device__ __forceinline__ void vargrad_chain(const PointArgs<D>& p, const float
   }
 }
 
-template <class T>
+template <class T, class NET>
 __global__ void __launch_bounds__(NG_REPLAY* FW_MAX) vargrad_replay(const VargradArgs a) {
   constexpr int NG = NG_REPLAY, TB = NG * TC, D = T::D;
   extern __shared__ float4 smem4[];
   const NetArgs& net = a.net;
   const int ip = net.in_pad, in = net.in_dim, K = a.nbridges;
-  const Tile<NG, D> t(reinterpret_cast<float*>(smem4), net);
+  const Tile<NG, D, NET> t(reinterpret_cast<float*>(smem4), net);
   const T target(t.par, net.n_par, net.inv_var_t);
   float* zc_s = t.rest;            // TB x D: z_j
   float* zp_s = zc_s + TB * D;     // TB x D: z_{j-1}
@@ -220,11 +229,13 @@ __global__ void __launch_bounds__(NG_REPLAY* FW_MAX) vargrad_replay(const Vargra
                                        a.vd_logdiag, net, a.clip_t, a.clip_q);
   tile_init(t, net);
   // Sums of this block. Per feature thread, in registers: ft. Per warp, in
-  // shared memory and touched by lane 0 only: the Slots<D>::N scalars.
+  // shared memory and touched by lane 0 only: the t.NS scalars.
   float ft[nfeat(D, D)];
 #pragma unroll
   for (int q = 0; q < nfeat(D, D); ++q) ft[q] = 0.f;
-  float* sc = t.sc_s + warp * Slots<D>::N;
+  float* sc = t.sc_s + warp * t.NS;
+  const int row = NET::row(j, K);
+  const float* gate_row = NET::PIS && net.gate != nullptr ? net.gate + (size_t)row * D : nullptr;
   __syncthreads();
 
   const int ntiles = (a.n + TB - 1) / TB;
@@ -241,7 +252,7 @@ __global__ void __launch_bounds__(NG_REPLAY* FW_MAX) vargrad_replay(const Vargra
     __syncthreads();
 
     FeatRegs r;
-    tile_layers(t, net, th, min(j, K - 1), zc_s, r);
+    tile_layers(t, net, th, row, zc_s, r);
 
     // Head, score and the scalar derivatives: one warp per chain.
     for (int c = warp; c < TB; c += nwarp) {
@@ -249,8 +260,8 @@ __global__ void __launch_bounds__(NG_REPLAY* FW_MAX) vargrad_replay(const Vargra
       head_raw<D>(net, t.xs + c * ip, t.hws, out);
       target.score(zc_s + c * D, gt);
       if (lane == 0)
-        vargrad_chain<D>(p, out, gt, zc_s + c * D, zp_s + c * D, zn_s + c * D, cot_s[c],
-                         go_s + c * D, sc);
+        vargrad_chain<D, NET>(p, out, gt, zc_s + c * D, zp_s + c * D, zn_s + c * D, cot_s[c],
+                              go_s + c * D, sc, gate_row);
     }
     __syncthreads();
 
@@ -258,16 +269,16 @@ __global__ void __launch_bounds__(NG_REPLAY* FW_MAX) vargrad_replay(const Vargra
   }
 
   flush_block(t, net, th, ft, a.part_a + (size_t)blockIdx.x * len_a(in, D, D));
-  flush_point(t, net, th, ft, a.part_b + (size_t)blockIdx.x * len_b(in), false);
+  flush_point(t, net, th, ft, a.part_b + (size_t)blockIdx.x * len_b(in, t.G), false);
 }
 
-template <int NG, class T>
+template <int NG, class T, class NET>
 __global__ void __launch_bounds__(NG* FW_MAX) vargrad_reroll(const RerollArgs a) {
   constexpr int TB = NG * TC, D = T::D;
   extern __shared__ float4 smem4[];
   const NetArgs& net = a.net;
   const int ip = net.in_pad, in = net.in_dim, K = a.nbridges;
-  const Tile<NG, D> t(reinterpret_cast<float*>(smem4), net);
+  const Tile<NG, D, NET> t(reinterpret_cast<float*>(smem4), net);
   const T target(t.par, net.n_par, net.inv_var_t);
   float* zc_s = t.rest;            // TB x D: z_j
   float* zp_s = zc_s + TB * D;     // TB x D: z_{j-1}
@@ -283,7 +294,7 @@ __global__ void __launch_bounds__(NG* FW_MAX) vargrad_reroll(const RerollArgs a)
   float ft[nfeat(D, D)];
 #pragma unroll
   for (int q = 0; q < nfeat(D, D); ++q) ft[q] = 0.f;
-  float* sc = t.sc_s + warp * Slots<D>::N;
+  float* sc = t.sc_s + warp * t.NS;
   __syncthreads();
 
   const int ntiles = (a.n + TB - 1) / TB;
@@ -301,8 +312,11 @@ __global__ void __launch_bounds__(NG* FW_MAX) vargrad_reroll(const RerollArgs a)
     for (int j = 0; j <= K; ++j) {
       const PointArgs<D> p = make_point<D>(j, K, a.eps_schedule, a.scal, a.betas, a.vd_mean,
                                            a.vd_logdiag, net, a.clip_t, a.clip_q);
+      const int row = NET::row(j, K);
+      const float* gate_row =
+          NET::PIS && net.gate != nullptr ? net.gate + (size_t)row * D : nullptr;
       FeatRegs r;
-      tile_layers(t, net, th, min(j, K - 1), zc_s, r);
+      tile_layers(t, net, th, row, zc_s, r);
 
       for (int c = warp; c < TB; c += nwarp) {
         float out[D], gt[D];
@@ -323,7 +337,7 @@ __global__ void __launch_bounds__(NG* FW_MAX) vargrad_reroll(const RerollArgs a)
 #pragma unroll
             for (int d = 0; d < D; ++d) {
               const float z = zc_s[c * D + d];
-              const float sn = (out[d] + p.hb[d]) * p.factor;
+              const float sn = net_out<NET>(out[d] + p.hb[d], p.factor, gate_row, d, gt[d]);
               const float gq = -(z - p.vm[d]) * p.viv[d];
               const float gu = -(p.beta_j * clip_f(gt[d], p.clip_t) +
                                  (1.0f - p.beta_j) * clip_f(gq, p.clip_q));
@@ -331,8 +345,8 @@ __global__ void __launch_bounds__(NG* FW_MAX) vargrad_reroll(const RerollArgs a)
               zn_s[c * D + d] = fk + scale * xi[d];
             }
           }
-          vargrad_chain<D>(p, out, gt, zc_s + c * D, zp_s + c * D, zn_s + c * D, cot_s[c],
-                           go_s + c * D, sc);
+          vargrad_chain<D, NET>(p, out, gt, zc_s + c * D, zp_s + c * D, zn_s + c * D,
+                                cot_s[c], go_s + c * D, sc, gate_row);
         }
       }
       __syncthreads();
@@ -343,7 +357,7 @@ __global__ void __launch_bounds__(NG* FW_MAX) vargrad_reroll(const RerollArgs a)
         zc_s[i] = zn_s[i];
       }
       flush_point(t, net, th, ft,
-                  a.part_b + ((size_t)j * gridDim.x + blockIdx.x) * len_b(in),
+                  a.part_b + ((size_t)j * gridDim.x + blockIdx.x) * len_b(in, t.G),
                   tile != (int)blockIdx.x);
     }
   }
@@ -351,30 +365,32 @@ __global__ void __launch_bounds__(NG* FW_MAX) vargrad_reroll(const RerollArgs a)
   flush_block(t, net, th, ft, a.part_a + (size_t)blockIdx.x * len_a(in, D, D));
 }
 
-template <class T>
+template <class T, class NET>
 cudaError_t launch_replay(const VargradArgs& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes(NG_REPLAY, a.net.in_dim, a.net.n_par, T::D);
-  cudaError_t err = cudaFuncSetAttribute(vargrad_replay<T>,
+  const size_t smem =
+      smem_bytes(NG_REPLAY, a.net.in_dim, a.net.n_par, T::D, NET::gate_slots(T::D));
+  cudaError_t err = cudaFuncSetAttribute(vargrad_replay<T, NET>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int blocks = (a.nbridges + 1) * a.splits;
-  vargrad_replay<T><<<blocks, NG_REPLAY * round_up(a.net.in_dim, 32), smem, stream>>>(a);
+  vargrad_replay<T, NET><<<blocks, NG_REPLAY * round_up(a.net.in_dim, 32), smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int NG, class T>
+template <int NG, class T, class NET>
 cudaError_t launch_reroll(const RerollArgs& a, int blocks, cudaStream_t stream) {
-  const size_t smem = smem_bytes(NG, a.net.in_dim, a.net.n_par, T::D);
-  cudaError_t err = cudaFuncSetAttribute(vargrad_reroll<NG, T>,
+  const size_t smem = smem_bytes(NG, a.net.in_dim, a.net.n_par, T::D, NET::gate_slots(T::D));
+  cudaError_t err = cudaFuncSetAttribute(vargrad_reroll<NG, T, NET>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  vargrad_reroll<NG, T><<<blocks, NG * round_up(a.net.in_dim, 32), smem, stream>>>(a);
+  vargrad_reroll<NG, T, NET><<<blocks, NG * round_up(a.net.in_dim, 32), smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <class T>
+template <class T, class NET>
 cudaError_t launch_reroll_groups(const RerollArgs& a, int blocks, int groups, cudaStream_t s) {
-  return groups == 2 ? launch_reroll<2, T>(a, blocks, s) : launch_reroll<4, T>(a, blocks, s);
+  return groups == 2 ? launch_reroll<2, T, NET>(a, blocks, s)
+                     : launch_reroll<4, T, NET>(a, blocks, s);
 }
 
 }  // namespace
@@ -385,8 +401,9 @@ extern "C" {
 // (points x splits, len_a) and part_b: (points, splits, len_b) are scratch;
 // out_a: (len_a,) and out_b: (points, len_b) receive the sums. target as in
 // cmcd_overdamped_rollout (overdamped.cu): 0 many_gmm, 1 the 3-mode gmm (2-D),
-// 2 the funnel, 3 the standard normal (10-D), tpar its n_par constants.
-// Returns a cudaError_t.
+// 2 the funnel, 3 the standard normal (10-D), tpar its n_par constants; arch
+// and gate as there (a PIS net's len_b holds D gate sums more). Returns a
+// cudaError_t.
 int cmcd_vargrad_replay(const float* traj, const float* cot, const float* betas,
                         const float* scal, const float* w1z, const float* c1,
                         const float* emb, const float* w2, const float* b2,
@@ -394,31 +411,35 @@ int cmcd_vargrad_replay(const float* traj, const float* cot, const float* betas,
                         const float* vd_mean, const float* vd_logdiag, float* part_a,
                         float* part_b, float* out_a, float* out_b, int n, int nbridges,
                         int in_dim, int emb_dim, int n_par, int eps_schedule, int splits,
-                        int target, float inv_var_t, float clip_t, float clip_q, void* stream) {
+                        int target, float inv_var_t, float clip_t, float clip_q, int arch,
+                        const float* gate, void* stream) {
   if (n <= 0 || nbridges <= 0 || splits <= 0 || !target_ok(target, n_par))
     return (int)cudaErrorInvalidValue;
-  const int d = target_dim(target);
-  if (in_dim != d + emb_dim || !fits(in_dim, n_par, d)) return (int)cudaErrorInvalidValue;
+  const int d = target_dim(target), gs = arch == 1 ? d : 0;  // gate slots
+  if (!net_ok(arch, in_dim, emb_dim, d, gate) || !fits(in_dim, n_par, d, gs))
+    return (int)cudaErrorInvalidValue;
   const NetArgs net{w1z, c1, emb, w2, b2, headw, headb, tpar,
-                    in_dim, round_up(in_dim, 4), emb_dim, n_par, inv_var_t};
+                    in_dim, round_up(in_dim, 4), emb_dim, n_par, inv_var_t, gate};
   const VargradArgs a{traj, cot, betas, scal, net, vd_mean, vd_logdiag, part_a, part_b,
                       n, nbridges, splits, eps_schedule, clip_t, clip_q};
   const cudaStream_t s = (cudaStream_t)stream;
   const cudaError_t err = dispatch_target(target, [&](auto tag) {
-    return launch_replay<typename decltype(tag)::type>(a, s);
+    return dispatch_net(arch, [&](auto net_tag) {
+      return launch_replay<typename decltype(tag)::type, typename decltype(net_tag)::type>(a, s);
+    });
   });
   if (err != cudaSuccess) return (int)err;
   const int points = nbridges + 1;
   return (int)launch_reduce(part_a, part_b, out_a, out_b, points * splits, points, splits,
-                            in_dim, d, d, s);
+                            in_dim, d, d, s, gs);
 }
 
 // Launches the re-rolling backward and its reduction on `stream`: `blocks`
 // blocks of `groups` (2 or 4) groups of feature threads, blocks <= the
 // number of chain tiles of 8 x groups chains. noise may be null (Philox from
 // seed). part_a: (blocks, len_a) and part_b: (points, blocks, len_b) are
-// scratch; out_a and out_b as above; target and tpar as above. Returns a
-// cudaError_t.
+// scratch; out_a and out_b as above; target, tpar, arch and gate as above.
+// Returns a cudaError_t.
 int cmcd_vargrad_reroll(const float* z0, const float* cot, const float* betas,
                         const float* noise, const float* scal, const long long* seed,
                         const float* w1z, const float* c1, const float* emb, const float* w2,
@@ -427,39 +448,46 @@ int cmcd_vargrad_reroll(const float* z0, const float* cot, const float* betas,
                         float* part_a, float* part_b, float* out_a, float* out_b, int n,
                         int nbridges, int in_dim, int emb_dim, int n_par, int eps_schedule,
                         int blocks, int groups, int target, float inv_var_t, float clip_t,
-                        float clip_q, void* stream) {
+                        float clip_q, int arch, const float* gate, void* stream) {
   if (n <= 0 || nbridges <= 0 || (groups != 2 && groups != 4)) return (int)cudaErrorInvalidValue;
   if (blocks <= 0 || blocks > (n + groups * TC - 1) / (groups * TC) || !target_ok(target, n_par))
     return (int)cudaErrorInvalidValue;
-  const int d = target_dim(target);
-  if (in_dim != d + emb_dim || !fits(in_dim, n_par, d)) return (int)cudaErrorInvalidValue;
+  const int d = target_dim(target), gs = arch == 1 ? d : 0;  // gate slots
+  if (!net_ok(arch, in_dim, emb_dim, d, gate) || !fits(in_dim, n_par, d, gs))
+    return (int)cudaErrorInvalidValue;
   const NetArgs net{w1z, c1, emb, w2, b2, headw, headb, tpar,
-                    in_dim, round_up(in_dim, 4), emb_dim, n_par, inv_var_t};
+                    in_dim, round_up(in_dim, 4), emb_dim, n_par, inv_var_t, gate};
   const RerollArgs a{z0, cot, betas, noise, scal, seed, net, vd_mean, vd_logdiag, part_a,
                      part_b, n, nbridges, eps_schedule, clip_t, clip_q};
   const cudaStream_t s = (cudaStream_t)stream;
   const cudaError_t err = dispatch_target(target, [&](auto tag) {
-    return launch_reroll_groups<typename decltype(tag)::type>(a, blocks, groups, s);
+    return dispatch_net(arch, [&](auto net_tag) {
+      return launch_reroll_groups<typename decltype(tag)::type,
+                                  typename decltype(net_tag)::type>(a, blocks, groups, s);
+    });
   });
   if (err != cudaSuccess) return (int)err;
   return (int)launch_reduce(part_a, part_b, out_a, out_b, blocks, nbridges + 1, blocks, in_dim,
-                            d, d, s);
+                            d, d, s, gs);
 }
 
 const char* cmcd_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 int cmcd_vargrad_chains_per_group() { return TC; }
 
-// The launch's own limits and buffer lengths at state dimension d, for the
-// wrapper to check its copy against.
-int cmcd_vargrad_fits(int in_dim, int n_par, int d) { return fits(in_dim, n_par, d) ? 1 : 0; }
+// The launch's own limits and buffer lengths at state dimension d with
+// `gate` slots a warp (0 geffner, d PIS), for the wrapper to check its copy
+// against.
+int cmcd_vargrad_fits(int in_dim, int n_par, int d, int gate) {
+  return fits(in_dim, n_par, d, gate) ? 1 : 0;
+}
 
-long long cmcd_vargrad_smem_bytes(int groups, int in_dim, int n_par, int d) {
-  return (long long)smem_bytes(groups, in_dim, n_par, d);
+long long cmcd_vargrad_smem_bytes(int groups, int in_dim, int n_par, int d, int gate) {
+  return (long long)smem_bytes(groups, in_dim, n_par, d, gate);
 }
 
 int cmcd_vargrad_len_a(int in_dim, int d) { return len_a(in_dim, d, d); }
 
-int cmcd_vargrad_len_b(int in_dim) { return len_b(in_dim); }
+int cmcd_vargrad_len_b(int in_dim, int gate) { return len_b(in_dim, gate); }
 
 }  // extern "C"

@@ -135,6 +135,7 @@ def init_experiment(config: Config, device, target=None, vdparams=None) -> tuple
         emb_dim=config.emb_dim,
         nlayers=config.nlayers,
         nn_arch=config.nn_arch,
+        fully_connected_units=tuple(config.fully_connected_units),
         lfsteps=config.lfsteps,
     )
     trainable = bounds.default_trainable(

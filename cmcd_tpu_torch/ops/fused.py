@@ -20,15 +20,34 @@ from cmcd_tpu_torch.ops import overdamped, uha, underdamped
 from cmcd_tpu_torch.ops.target_grads import KERNEL_DIMS, n_target_floats, score_for_target
 from cmcd_tpu_torch.schedules import betas_from_grid
 
+# The PIS nets (ops/nets.py): the kernels take them in the overdamped modes
+# with one net (cmcd_tpu/ops/fused.py::_arch_supported), not in the
+# underdamped ones.
+PIS_ARCHS = ("dds", "dds_grad")
+
 
 def net_width(setup: bounds.CMCDSetup) -> int:
-    """The score net's in_dim in the mode of `setup` (0 without a net)."""
+    """The kernels' feature count of the score net in the mode of `setup`
+    (0 without a net): geffner's in_dim, a PIS net's first width."""
     if setup.mode in UNDERDAMPED:
         din = underdamped.net_input_width(UNDERDAMPED[setup.mode], setup.dim)
         return din + setup.emb_dim if din else 0
     if setup.mode in OVERDAMPED and not overdamped.uses_net(OVERDAMPED[setup.mode]):
         return 0
+    if setup.nn_arch in PIS_ARCHS:
+        return setup.fully_connected_units[0]
     return setup.dim + setup.emb_dim
+
+
+def net_supported(setup: bounds.CMCDSetup) -> bool:
+    """The net the kernels inline for a mode that has one: the two-layer
+    geffner net anywhere, a PIS net of two equal widths in an overdamped
+    mode (MCD_CAIS_sn, MCD_CAIS_var_sn, MCD_ULA_sn)."""
+    if setup.nn_arch == "geffner":
+        return setup.nlayers == 2
+    units = tuple(setup.fully_connected_units)
+    return (setup.nn_arch in PIS_ARCHS and setup.mode in OVERDAMPED
+            and len(units) == 2 and units[0] == units[1])
 
 
 def supports_fused(setup: bounds.CMCDSetup, target) -> bool:
@@ -37,7 +56,7 @@ def supports_fused(setup: bounds.CMCDSetup, target) -> bool:
     at the setup's dim (many_gmm, the 3-mode gmm: 2; the funnel: 10;
     ops/target_grads.KERNEL_DIMS), or an underdamped mode on a target of
     ops/underdamped.UD_TARGETS (the three), with (where the mode has a net)
-    the two-layer geffner net of a width that fits one block's threads and
+    the net of net_supported at a width that fits one block's threads and
     shared memory (the rollout's kernel_fits); or UHA on a target of
     ops/uha.UHA_TARGETS with lfsteps the kernel takes
     (ops/uha.kernel_covers)."""
@@ -59,8 +78,7 @@ def supports_fused(setup: bounds.CMCDSetup, target) -> bool:
     width = net_width(setup)
     if width == 0:  # no net: the target alone decides
         return n_target_floats(score) <= overdamped.MAX_TARGET_FLOATS
-    return (setup.nn_arch == "geffner" and setup.nlayers == 2
-            and fits(width, n_target_floats(score), setup.dim))
+    return net_supported(setup) and fits(width, n_target_floats(score), setup.dim)
 
 
 @torch.no_grad()
@@ -78,7 +96,8 @@ def compute_elbos_fused(params, n_chains: int, setup: bounds.CMCDSetup, target,
     if not supports_fused(setup, target):
         raise NotImplementedError(
             f"no fused kernel for mode {setup.mode} on {target.name} "
-            f"(nn {setup.nn_arch}, emb_dim {setup.emb_dim}); see ROADMAP queue B"
+            f"(nn {setup.nn_arch}, emb_dim {setup.emb_dim}, units "
+            f"{list(setup.fully_connected_units)}); see ROADMAP queue B"
         )
     p = bounds.merged_params(params)
     vd = p["vd"]

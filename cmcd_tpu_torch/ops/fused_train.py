@@ -54,8 +54,8 @@ from cmcd_tpu_torch import bounds
 from cmcd_tpu_torch.distributions import diag_gaussian_log_prob, diag_gaussian_sample
 from cmcd_tpu_torch.integrators import OVERDAMPED, UNDERDAMPED
 from cmcd_tpu_torch.integrators import overdamped as od
-from cmcd_tpu_torch.ops import kl, kl_underdamped, uha, vargrad
-from cmcd_tpu_torch.ops.fused import net_width, supports_fused
+from cmcd_tpu_torch.ops import kl, kl_underdamped, nets, uha, vargrad
+from cmcd_tpu_torch.ops.fused import PIS_ARCHS, net_width, supports_fused
 from cmcd_tpu_torch.ops.kl import evolve_kl_bwd, evolve_kl_bwd_plain
 from cmcd_tpu_torch.ops.kl_uha import evolve_kl_bwd_uha, evolve_kl_bwd_uha_plain
 from cmcd_tpu_torch.ops.kl_underdamped import (
@@ -96,8 +96,9 @@ _REPLAY_BYTES_BUDGET = 256 * 1024 * 1024
 def supports_fused_train(setup: bounds.CMCDSetup, target) -> bool:
     """True if a fused training loss can run: what supports_fused asks of
     the rollout, the VarGrad mode or a mode of KL_FUSED_MODES, and a net that
-    also fits one block of that mode's backward kernel (a mode without a net,
-    ULA or UHA: its sweep takes whatever its rollout takes)."""
+    also fits one block of that mode's backward kernel (a PIS net with its
+    gate sums; a mode without a net, ULA or UHA: its sweep takes whatever
+    its rollout takes)."""
     if not supports_fused(setup, target):
         return False
     if setup.mode == "MCD_CAIS_var_sn":
@@ -107,8 +108,9 @@ def supports_fused_train(setup: bounds.CMCDSetup, target) -> bool:
     else:
         return False
     width = net_width(setup)
+    gate = {"gate": setup.dim} if setup.nn_arch in PIS_ARCHS else {}
     return (fits is None or width == 0
-            or fits(width, n_target_floats(score_for_target(target)), dim=setup.dim))
+            or fits(width, n_target_floats(score_for_target(target)), dim=setup.dim, **gate))
 
 
 def choose_backward(backward: str, setup: bounds.CMCDSetup, n_chains: int) -> str:
@@ -122,11 +124,17 @@ def choose_backward(backward: str, setup: bounds.CMCDSetup, n_chains: int) -> st
     return "replay" if traj_bytes <= _REPLAY_BYTES_BUDGET else "reroll"
 
 
+def _net_inputs(p, nbridges):
+    """(names, tensors) of the score net's inputs to a Function
+    (ops/nets.function_inputs; none without a net)."""
+    return nets.function_inputs(p["sn"], nbridges) if p.get("sn") is not None else ([], [])
+
+
 def _theta_grads(call, g, eps):
     """A backward kernel's gradient dict in the order of the Functions' theta
-    inputs: eps, betas, vd_mean, vd_logdiag, the net's parameters."""
-    sn = call["static"]["sn"]
-    g_weights = [] if sn is None else [g["sn"][name] for name, _ in sn.named_parameters()]
+    inputs: eps, betas, vd_mean, vd_logdiag, the net's inputs (call["net"]:
+    geffner's parameters, a PIS net's kernel view)."""
+    g_weights = [g["sn"][name] for name in call["net"]]
     return (g["eps"].reshape(eps.shape), g["betas"], g["vd_mean"], g["vd_logdiag"], *g_weights)
 
 
@@ -136,8 +144,9 @@ class _Evolve(torch.autograd.Function):
     Forward: the fused rollout, storing the trajectory if call["replay"].
     Backward: the replay kernel on the stored trajectory, or the re-rolling
     kernel on (z0, seed, noise), with the cotangent of deltas. theta is eps,
-    betas, vd_mean, vd_logdiag and the net's parameters (passed as inputs so
-    that autograd routes their gradients; the net module itself rides in
+    betas, vd_mean, vd_logdiag and the net's inputs (geffner's parameters,
+    or a PIS net's kernel view formed from its parameters: passed as inputs
+    so that autograd routes their gradients; the net module itself rides in
     `call`); z0, seed and noise are data and z_final carries no gradient.
     """
 
@@ -336,7 +345,8 @@ def _prepare(params, n_chains, setup, target, generator, base_normals):
     if not supports_fused_train(setup, target):
         raise NotImplementedError(
             f"no fused training kernels for mode {setup.mode} on {target.name} "
-            f"(nn {setup.nn_arch}, emb_dim {setup.emb_dim}); see ROADMAP queue B"
+            f"(nn {setup.nn_arch}, emb_dim {setup.emb_dim}, units "
+            f"{list(setup.fully_connected_units)}); see ROADMAP queue B"
         )
     p = bounds.merged_params(params)
     vd = p["vd"]
@@ -367,19 +377,20 @@ def neg_elbos_fused(params, n_chains: int, ctx, setup: bounds.CMCDSetup, target,
     replay = choose_backward(backward, setup, n_chains) == "replay"
     wrappers = ((evolve_vargrad_bwd_replay, evolve_vargrad_bwd_replay_plain) if replay
                 else (evolve_vargrad_bwd_reroll, evolve_vargrad_bwd_reroll_plain))
+    names, weights = _net_inputs(p, setup.nbridges)
     call = {
         "rollout": (evolve_overdamped_fused, evolve_overdamped_fused_plain)[plain],
         "backward": wrappers[plain],
         "replay": replay,
         "score": score,
         "static": _overdamped_static(setup, p),
+        "net": names,
     }
     vd = p["vd"]
     # The rollout sees z0 as data.
     deltas, z = _Evolve.apply(
         call, z0.detach().contiguous(), seed, noise,
-        torch.as_tensor(p["eps"], device=z0.device), betas, vd["mean"], vd["logdiag"],
-        *p["sn"].parameters(),
+        torch.as_tensor(p["eps"], device=z0.device), betas, vd["mean"], vd["logdiag"], *weights,
     )
     w = w0 + deltas + ctx.target_log_prob(z.detach())
     return -w, z
@@ -410,16 +421,17 @@ def neg_elbos_fused_kl(params, n_chains: int, ctx, setup: bounds.CMCDSetup, targ
     family = _kl_family(setup.mode)
     p, z0, w0, betas, seed, score = _prepare(params, n_chains, setup, target, generator,
                                              base_normals)
+    names, weights = _net_inputs(p, setup.nbridges)
     call = {
         "rollout": family.rollout[plain],
         "backward": family.sweep[plain],
         "score": score,
         "static": family.static(setup, p),
         "spec": {**OVERDAMPED, **UNDERDAMPED}.get(setup.mode),
+        "net": names,
     }
     vd = p["vd"]
     leaves = (torch.as_tensor(p[name], device=z0.device) for name in family.leaves)
-    weights = p["sn"].parameters() if "sn" in p else ()
     deltas, z = family.function.apply(
         call, z0.contiguous(), seed, noise, *leaves, betas, vd["mean"], vd["logdiag"], *weights,
     )

@@ -17,8 +17,10 @@ score's Jacobian and the net's. Returns (grads, g_z0): the gradient of
 in theta as the dict of ops/vargrad.py,
   {"eps": (), "betas": (K,), "vd_mean": (dim,), "vd_logdiag": (dim,),
    "sn": {parameter name of the GeffnerNet: gradient in that parameter's shape}}
-("sn" empty for ULA), and in the initial state, g_z0 (N, dim), for the
-reparameterised draw.
+("sn" empty for ULA; for a PIS net keyed by its kernel view's names,
+ops/nets.py), and in the initial state, g_z0 (N, dim), for the
+reparameterised draw. The net is the geffner net or a PIS net ("dds",
+"dds_grad"), whose point p takes table row p (geffner: min(p, K - 1)).
 
 The sweep visits each stored point once, from z_K down to z_0 (the
 derivation is the header of csrc/kl.cu): the point's score (and net output)
@@ -41,7 +43,7 @@ import functools
 import torch
 
 from cmcd_tpu_torch.integrators.overdamped import CAIS, ULA, ULA_SN, OverdampedSpec
-from cmcd_tpu_torch.ops import build
+from cmcd_tpu_torch.ops import build, nets
 from cmcd_tpu_torch.ops import vargrad as vg
 from cmcd_tpu_torch.ops.overdamped import EPS_SCHEDULES, count_launch, form_key
 from cmcd_tpu_torch.ops.target_grads import KERNEL_DIMS, kernel_target
@@ -66,9 +68,10 @@ def extra_floats(dim: int) -> tuple:
     return (7 * dim + 1, dim * vg.CHAINS_PER_GROUP)
 
 
-def kernel_fits(in_dim: int, n_par: int, dim: int) -> bool:
-    """ops/vargrad.kernel_fits for one block of the sweep kernel."""
-    return vg.kernel_fits(in_dim, n_par, dim, extra_floats(dim))
+def kernel_fits(in_dim: int, n_par: int, dim: int, gate: int = 0) -> bool:
+    """ops/vargrad.kernel_fits for one block of the sweep kernel (gate: a PIS
+    net's gate sums a warp, ops/nets.gate_slots)."""
+    return vg.kernel_fits(in_dim, n_par, dim, extra_floats(dim), gate)
 
 
 def _check(traj, noise, cot, g_zfinal, betas, grad_logp, spec, dim, nbridges, sn, eps_schedule):
@@ -94,9 +97,11 @@ def evolve_kl_bwd_plain(
     in traj's dtype, for every spec of SWEEP_SPECS. Carried between points:
     fk, the cotangent of the forward mean of the step that starts at the
     point, and direct, what the point's state gets from that step besides
-    (g_zfinal at z_K). Point p's net output is sn(z_p, min(p, K - 1)) for
-    CAIS, serving both steps, and sn(z_p, p - 1) for ULA_SN, serving the
-    backward mean of step p - 1 only (none at p = 0)."""
+    (g_zfinal at z_K). Point p's net output is sn(z_p, row p) for CAIS
+    (ops/nets.net_row: geffner's min(p, K - 1)), serving both steps, and
+    sn(z_p, p - 1) for ULA_SN, serving the backward mean of step p - 1 only
+    (none at p = 0). A PIS net is its kernel view (ops/nets.plain_weights),
+    dds_grad's gate term on the kernel score at z_p."""
     K, dt, dev = nbridges, traj.dtype, traj.device
     as_t = lambda t: torch.as_tensor(t, device=dev).detach().to(dt)
     clip_t = spec.clip_target if grad_clipping else None
@@ -109,8 +114,7 @@ def evolve_kl_bwd_plain(
              for j in range(K)]
     viv = torch.exp(-2.0 * logdiag)
     net = spec.bwd_sn
-    weights = {name: as_t(p).requires_grad_(True) for name, p in sn.named_parameters()} if net \
-        else {}
+    weights = nets.plain_weights(sn, K, dt, dev) if net else {}
     g_w = {name: torch.zeros_like(w) for name, w in weights.items()}
     g_eps = torch.zeros((), dtype=dt, device=dev)
     g_betas, g_mu, g_ld = torch.zeros_like(betas), torch.zeros_like(mu), torch.zeros_like(mu)
@@ -121,13 +125,13 @@ def evolve_kl_bwd_plain(
         z = traj[p].detach()
         net_on = net and (spec.fwd_sn or p >= 1)
         sn_out = torch.zeros_like(z)
+        gt = grad_logp(z)
         if net_on:
             with torch.enable_grad():
                 z_in = z.clone().requires_grad_(True)
-                row = min(p, K - 1) if spec.fwd_sn else p - 1
-                sn_graph = vg.geffner_from_weights(weights, z_in, row)
+                row = nets.net_row(sn, p, K) if spec.fwd_sn else p - 1
+                sn_graph = nets.apply_from_weights(sn, weights, z_in, row, gt)
             sn_out = sn_graph.detach()
-        gt = grad_logp(z)
         gq = -(z - mu) * viv
         gtc = gt if clip_t is None else torch.clamp(gt, -clip_t, clip_t)
         gqc = gq if clip_q is None else torch.clamp(gq, -clip_q, clip_q)
@@ -173,7 +177,7 @@ def evolve_kl_bwd_plain(
 def _library() -> ctypes.CDLL:
     lib = build.load("kl")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.cmcd_kl_reverse_sweep.argtypes = [p] * 21 + [i] * 10 + [f] * 3 + [p]
+    lib.cmcd_kl_reverse_sweep.argtypes = [p] * 21 + [i] * 10 + [f] * 3 + [i, p, p]
     lib.cmcd_kl_reverse_sweep.restype = i
     lib.cmcd_kl_ula_sweep.argtypes = [p] * 14 + [i] * 5 + [f] * 3 + [p]
     lib.cmcd_kl_ula_sweep.restype = i
@@ -192,18 +196,19 @@ def _launch(lib, traj, noise, cot, g_zfinal, betas, eps, vd_mean, vd_logdiag, gr
     """Marshal the arguments, launch the sweep with a net, and assemble
     (grads, g_z0)."""
     points = nbridges + 1
-    scal, weights, (code, tpar, inv_var), buffers = vg.marshal(
-        "KL reverse sweep", sn, dim, eps, grad_logp, traj.device, blocks, points, blocks)
+    scal, net, (code, tpar, inv_var), buffers = vg.marshal(
+        "KL reverse sweep", sn, dim, nbridges, eps, grad_logp, traj.device, blocks, points,
+        blocks)
     g_z0 = torch.empty_like(g_zfinal)
     ptr = vg.ptr
     err = lib.cmcd_kl_reverse_sweep(
         ptr(traj), ptr(noise), ptr(cot), ptr(g_zfinal), ptr(betas), ptr(scal),
-        *(ptr(t) for t in weights),
+        *(ptr(t) for t in net["weights"]),
         ptr(tpar), ptr(vd_mean), ptr(vd_logdiag),
         *(ptr(t) for t in buffers), ptr(g_z0),
-        cot.shape[0], nbridges, sn.in_dim, sn.emb_dim, tpar.numel(),
+        cot.shape[0], nbridges, net["in_dim"], net["emb_dim"], tpar.numel(),
         EPS_SCHEDULES[eps_schedule], blocks, groups, int(spec.fwd_sn), code,
-        inv_var, *vg.clips(spec, grad_clipping),
+        inv_var, *vg.clips(spec, grad_clipping), net["arch"], ptr(net["gate"]),
         ctypes.c_void_p(stream),
     )
     vg.raise_on(err, lib, "KL reverse sweep")
@@ -249,7 +254,7 @@ def evolve_kl_bwd(
     traj: (K + 1, N, dim) f32; noise: (K, N, dim) f32; cot: (N,); g_zfinal:
     (N, dim); betas: (K,); eps: scalar tensor or float; vd_mean / vd_logdiag:
     (dim,); grad_logp: a kernel-form score of ops/target_grads at its
-    KERNEL_DIMS dim; spec: one of SWEEP_SPECS; sn: the GeffnerNet (None for
+    KERNEL_DIMS dim; spec: one of SWEEP_SPECS; sn: the GeffnerNet or a PIS net (None for
     ULA). Returns (the gradient
     dict of the module docstring, g_z0 (N, dim)).
     """
@@ -274,10 +279,11 @@ def evolve_kl_bwd(
         groups, blocks = vg.sweep_grid(cot.shape[0], dev)
         out = _launch(_library(), *args, sn=sn, groups=groups, blocks=blocks, stream=stream,
                       **kwargs)
-    count_launch(evolve_kl_bwd, form_key(spec, grad_logp))
+    count_launch(evolve_kl_bwd, form_key(spec, grad_logp, sn))
     return out
 
 
-# Launches in all, and by form ("<CAIS|ULA_sn|ULA>/<target>", ops/overdamped.form_key).
+# Launches in all, and by form ("<CAIS|ULA_sn|ULA>/<target>[/dds|/dds_grad]",
+# ops/overdamped.form_key).
 evolve_kl_bwd.launches = 0
 evolve_kl_bwd.form_launches = {}

@@ -47,9 +47,10 @@ import functools
 import torch
 
 from cmcd_tpu_torch.integrators import underdamped as ud
-from cmcd_tpu_torch.ops import build
+from cmcd_tpu_torch.ops import build, nets
 from cmcd_tpu_torch.ops import vargrad as vg
-from cmcd_tpu_torch.ops.overdamped import MAX_SMEM, count_launch, pack_geffner
+from cmcd_tpu_torch.ops.nets import pack_geffner
+from cmcd_tpu_torch.ops.overdamped import MAX_SMEM, count_launch
 from cmcd_tpu_torch.ops.target_grads import KERNEL_DIMS, MAX_TARGET_FLOATS, kernel_target
 from cmcd_tpu_torch.ops.underdamped import (
     KERNEL_SPECS,
@@ -134,7 +135,7 @@ def evolve_kl_bwd_underdamped_plain(
         x's."""
         with torch.enable_grad():
             x_in = x.clone().requires_grad_(True)
-            out = vg.geffner_from_weights(weights, x_in, row)
+            out = nets.geffner_from_weights(weights, x_in, row)
 
         def vjp(g):
             g_x, *g_wp = torch.autograd.grad(out, [x_in, *weights.values()], g)

@@ -11,8 +11,10 @@ every overdamped spec (FORMS: CAIS and CAIS_VAR, ULA_SN with the net in
 the backward kernel only, and ULA without a net) on the many_gmm and the
 3-mode gmm scores (dim 2) and on the funnel's and the standard normal's
 (dim 10; ops/target_grads.py: TARGETS, KERNEL_DIMS) with the two-layer
-geffner net; the wrapper raises on anything else, a dim other than the
-target's instance included.
+geffner net or a PIS net ("dds", "dds_grad" of two equal widths; ops/nets.py
+forms its tables, csrc/overdamped.cu takes it as a template parameter); the
+wrapper raises on anything else, a dim other than the target's instance
+included.
 
 On a CPU tensor the wrapper runs the plain twin; on a CUDA tensor it
 launches the kernel or raises, never falling back.
@@ -27,8 +29,7 @@ import math
 import torch
 
 from cmcd_tpu_torch.integrators.overdamped import CAIS, CAIS_VAR, ULA, ULA_SN, OverdampedSpec
-from cmcd_tpu_torch.networks.geffner import GeffnerNet
-from cmcd_tpu_torch.ops import build
+from cmcd_tpu_torch.ops import build, nets
 from cmcd_tpu_torch.ops.target_grads import (
     KERNEL_DIMS,
     MAX_TARGET_FLOATS,
@@ -98,9 +99,20 @@ def check_target(what, grad_logp, dim):
         raise NotImplementedError(f"{what}: more than {MAX_TARGET_FLOATS // 2} components")
 
 
-def form_key(spec: OverdampedSpec, grad_logp) -> str:
-    """The name of a launch's form in form_launches: "<form>/<target>"."""
-    return f"{FORM_WORDS[FORMS[spec]]}/{grad_logp.kernel_name}"
+def check_net(what, sn, nbridges, dim, fits):
+    """Raise unless a kernel with a net tile takes `sn`
+    (ops/nets.check_kernel_net) at a width that `fits`(width)."""
+    nets.check_kernel_net(what, sn, nbridges, dim)
+    width = nets.net_width(sn)
+    if not fits(width):
+        raise NotImplementedError(f"{what}: a net of width {width} does not fit one block")
+
+
+def form_key(spec: OverdampedSpec, grad_logp, sn=None) -> str:
+    """The name of a launch's form in form_launches: "<form>/<target>", and
+    "/dds" or "/dds_grad" after it for a PIS net."""
+    word = nets.net_word(sn) if uses_net(spec) else None
+    return f"{FORM_WORDS[FORMS[spec]]}/{grad_logp.kernel_name}" + (f"/{word}" if word else "")
 
 
 def count_launch(wrapper, form: str):
@@ -117,14 +129,8 @@ def _check(z0, w0, betas, grad_logp, spec, dim, nbridges, sn, eps_schedule, nois
         raise NotImplementedError(f"{what}: spec {spec} has no kernel")
     check_target(what, grad_logp, dim)
     if uses_net(spec):
-        if not isinstance(sn, GeffnerNet) or len(sn.layers) != 2:
-            raise NotImplementedError(
-                f"{what}: the kernel inlines the two-layer geffner net on the state"
-            )
-        if sn.nbridges != nbridges:
-            raise ValueError(f"{what}: net embedding rows != nbridges")
-        if not kernel_fits(sn.in_dim, n_target_floats(grad_logp), dim):
-            raise NotImplementedError(f"{what}: in_dim {sn.in_dim} does not fit one block")
+        check_net(what, sn, nbridges, dim, lambda width: kernel_fits(
+            width, n_target_floats(grad_logp), dim))
     if eps_schedule not in EPS_SCHEDULES:
         raise ValueError(f"unknown eps schedule {eps_schedule!r}")
     n = z0.shape[0]
@@ -169,8 +175,9 @@ def evolve_overdamped_fused_plain(
 
     z, w = z0, w0
     traj, draws = [z0], []
+    net = nets.plain_apply(sn, nbridges) if uses_net(spec) else None
     gt = grad_logp(z)
-    sn_cur = sn(z, 0) if spec.fwd_sn else None
+    sn_cur = net(z, 0, gt) if spec.fwd_sn else None
     for i in range(nbridges):
         eps_i = eps_at_step(eps, i, nbridges, eps_schedule)
         scale = torch.sqrt(2.0 * torch.as_tensor(eps_i))
@@ -188,7 +195,7 @@ def evolve_overdamped_fused_plain(
         gt_new = grad_logp(z_new)
         bk_mean = z_new - eps_i * grad_u(gt_new, z_new, beta)
         if spec.bwd_sn:
-            sn_new = sn(z_new, i + spec.bwd_sn_offset)
+            sn_new = net(z_new, i + spec.bwd_sn_offset, gt_new)
             bk_mean = bk_mean + eps_i * sn_new
         resid = (z - bk_mean) * (1.0 / scale)
         w = w - 0.5 * (torch.sum(resid * resid, -1) - torch.sum(xi * xi, -1))
@@ -209,7 +216,7 @@ def evolve_overdamped_fused_plain(
 def _library() -> ctypes.CDLL:
     lib = build.load("overdamped")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.cmcd_overdamped_rollout.argtypes = [p] * 20 + [i] * 8 + [f] * 3 + [p]
+    lib.cmcd_overdamped_rollout.argtypes = [p] * 20 + [i] * 8 + [f] * 3 + [i, p, p]
     lib.cmcd_overdamped_rollout.restype = ctypes.c_int
     lib.cmcd_error_string.argtypes = [ctypes.c_int]
     lib.cmcd_error_string.restype = ctypes.c_char_p
@@ -242,28 +249,6 @@ def _f32(t, device):
 
 
 @torch.no_grad()
-def pack_geffner(sn: GeffnerNet):
-    """The kernel's view of the net: (w1x (din, in), c1 (K, in), emb,
-    w2 (in, in) as input x output, b2, headw (x_dim, in), headb, factor),
-    din = x_dim + rho_dim the columns of the net's input ahead of the
-    embedding.
-
-    c1 = emb @ W1[din:] + b1 is the embedding half of layer 1, the same for
-    every chain; it is formed in float64 so that the TF32 setting of the
-    card cannot round it."""
-    din = sn.x_dim + sn.rho_dim
-    l1, l2 = sn.layers
-    w1 = l1.weight.t()                                   # (in, in): input x output
-    c1 = (sn.emb.double() @ w1[din:].double() + l1.bias.double()).float()
-    return (
-        w1[:din].contiguous(), c1.contiguous(), sn.emb.detach().contiguous(),
-        l2.weight.t().contiguous(), l2.bias.detach().contiguous(),
-        sn.head.weight.detach().contiguous(), sn.head.bias.detach().contiguous(),
-        sn.factor_sn.detach().reshape(()),
-    )
-
-
-@torch.no_grad()
 def evolve_overdamped_fused(
     z0, w0, betas, eps, vd_mean, vd_logdiag, grad_logp, spec: OverdampedSpec,
     *, dim: int, nbridges: int, sn=None, eps_schedule: str = "",
@@ -274,8 +259,8 @@ def evolve_overdamped_fused(
 
     z0: (N, dim) f32; w0: (N,) f32; betas: (K,); eps: scalar tensor or float;
     vd_mean / vd_logdiag: (dim,); grad_logp: a kernel-form score of
-    ops/target_grads (TARGETS) at its KERNEL_DIMS dim; sn: the GeffnerNet
-    (None for ULA); seed: int or one-element
+    ops/target_grads (TARGETS) at its KERNEL_DIMS dim; sn: the GeffnerNet or
+    a PIS net (None for ULA); seed: int or one-element
     integer tensor (read on the device, so no host sync); noise: optional
     (K, N, dim) standard normals. Returns (z (N, dim), w (N,)); with
     return_trajectory also traj (K + 1, N, dim): row 0 is z0, row K equals z;
@@ -303,7 +288,7 @@ def evolve_overdamped_fused(
     out = _launch(_library(), z0, w0, betas, eps, vd_mean, vd_logdiag, grad_logp, spec,
                   stored=(return_trajectory, return_noise),
                   stream=torch.cuda.current_stream(dev).cuda_stream, **kwargs)
-    count_launch(evolve_overdamped_fused, form_key(spec, grad_logp))
+    count_launch(evolve_overdamped_fused, form_key(spec, grad_logp, sn))
     return out
 
 
@@ -314,14 +299,14 @@ def _launch(lib, z0, w0, betas, eps, vd_mean, vd_logdiag, grad_logp, spec, *, di
     dev = z0.device
     form = FORMS[spec]
     if form < 2:
-        w1z, c1, emb, w2, b2, headw, headb, factor = pack_geffner(sn)
-        weights = [w1z, c1, emb, w2, b2, headw, headb]
-        for t in weights:
-            if t.device != dev or t.dtype != torch.float32:
+        packed = nets.pack(sn, nbridges)
+        weights, factor = packed["weights"], packed["factor"]
+        for t in weights + [packed["gate"]]:
+            if t is not None and (t.device != dev or t.dtype != torch.float32):
                 raise ValueError(f"fused rollout: net weights must be f32 on {dev}")
-        in_dim, emb_dim = sn.in_dim, sn.emb_dim
+        in_dim, emb_dim, arch, gate = (packed[k] for k in ("in_dim", "emb_dim", "arch", "gate"))
     else:
-        factor, weights, in_dim, emb_dim = 0.0, [None] * 7, 0, 0
+        factor, weights, in_dim, emb_dim, arch, gate = 0.0, [None] * 7, 0, 0, 0, None
     scal = torch.stack([_f32(eps, dev).reshape(()), _f32(factor, dev).reshape(())])
     seed_t = torch.as_tensor(seed, dtype=torch.int64, device=dev).reshape(1)
     code, tpar, inv_var = kernel_target(grad_logp, dev)
@@ -344,7 +329,7 @@ def _launch(lib, z0, w0, betas, eps, vd_mean, vd_logdiag, grad_logp, spec, *, di
         inv_var,
         math.inf if clip_t is None else clip_t,
         math.inf if clip_q is None else clip_q,
-        ctypes.c_void_p(stream),
+        arch, ptr(gate), ctypes.c_void_p(stream),
     )
     if err != 0:
         raise RuntimeError(
@@ -357,6 +342,6 @@ def _launch(lib, z0, w0, betas, eps, vd_mean, vd_logdiag, grad_logp, spec, *, di
     return out
 
 
-# Launches in all, and by form ("<CAIS|ULA_sn|ULA>/<target>", form_key).
+# Launches in all, and by form ("<CAIS|ULA_sn|ULA>/<target>[/dds|/dds_grad]", form_key).
 evolve_overdamped_fused.launches = 0
 evolve_overdamped_fused.form_launches = {}

@@ -31,12 +31,12 @@ from cmcd_tpu_torch.integrators import UNDERDAMPED
 from cmcd_tpu_torch.integrators import underdamped as ud
 from cmcd_tpu_torch.networks.geffner import GeffnerNet
 from cmcd_tpu_torch.ops import build
+from cmcd_tpu_torch.ops.nets import pack_geffner
 from cmcd_tpu_torch.ops.overdamped import (
     MAX_SMEM,
     _f32,
     check_target,
     count_launch,
-    pack_geffner,
 )
 from cmcd_tpu_torch.ops.target_grads import (
     KERNEL_DIMS,

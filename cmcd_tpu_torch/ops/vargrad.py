@@ -12,13 +12,17 @@ every z_j again, so nothing is stored between forward and backward. Both
 return the gradient of  sum_n cot_n * sum_i (bk_lp_i - fk_lp_i)  with every
 state held fixed (VarGrad's stop-gradient), as a dict
   {"eps": (), "betas": (K,), "vd_mean": (dim,), "vd_logdiag": (dim,),
-   "sn": {parameter name of the GeffnerNet: gradient in that parameter's shape}}.
+   "sn": {parameter name of the GeffnerNet: gradient in that parameter's shape}}
+or, for a PIS net, "sn" keyed by the names of its kernel view (ops/nets.py:
+w1x, c1, w2, b2, headw, headb and dds_grad's gate), which the fused losses
+hand on to autograd.
 
 The kernels write every derivative out by hand and reduce over chains and
 points themselves; the wrapper only transposes the one product it also makes on
-the way in (c1 = emb @ W1[dim:] + b1, ops/overdamped.pack_geffner): from
+the way in (c1 = emb @ W1[dim:] + b1, ops/nets.pack_geffner): from
 the kernel's per-point sums over chains it forms d emb, d W1[dim:] and d b1
-with two small matrix products. The plain version states the point loss
+with two small matrix products. A PIS net's tables (ops/nets.pis_view) get
+the per-point sums as they are. The plain version states the point loss
 over the whole (K + 1, N) array and lets torch.autograd differentiate it.
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
@@ -32,19 +36,17 @@ import functools
 import math
 
 import torch
-import torch.nn.functional as F
 
 from cmcd_tpu_torch.distributions import LOG_2PI
 from cmcd_tpu_torch.integrators.overdamped import CAIS_VAR, OverdampedSpec
-from cmcd_tpu_torch.networks.geffner import GeffnerNet, softplus
-from cmcd_tpu_torch.ops import build
+from cmcd_tpu_torch.ops import build, nets
 from cmcd_tpu_torch.ops.overdamped import (
     EPS_SCHEDULES,
     MAX_SMEM,
+    check_net,
     check_target,
     count_launch,
     evolve_overdamped_fused_plain,
-    pack_geffner,
 )
 from cmcd_tpu_torch.ops.target_grads import (
     KERNEL_DIMS,
@@ -86,14 +88,14 @@ def warp_scalars(dim: int) -> int:
     return block_scalars(dim) + 2
 
 
-def tile_floats(groups: int, in_dim: int, n_par: int, dim: int) -> int:
+def tile_floats(groups: int, in_dim: int, n_par: int, dim: int, gate: int = 0) -> int:
     """Floats of shared memory of the backward kernels' tile (csrc/
     cmcd_tile.cuh: W2 and the dW2 accumulator, the hidden tile both ways,
     the h2 / g_a2 tile, the dim head rows, the target's n_par constants and
-    the per-warp scalars)."""
+    the per-warp scalars, with a PIS net's `gate` sums)."""
     ip, tb = _round_up(in_dim, 4), groups * CHAINS_PER_GROUP
     return (2 * ip * (ip + 1) + 2 * tb * ip + ip * (tb + 4) + dim * ip
-            + _round_up(n_par, 4) + warp_scalars(dim) * (groups * GROUP_THREADS // 32))
+            + _round_up(n_par, 4) + (warp_scalars(dim) + gate) * (groups * GROUP_THREADS // 32))
 
 
 def extra_floats(dim: int) -> tuple:
@@ -103,25 +105,28 @@ def extra_floats(dim: int) -> tuple:
     return (4 * dim + 1, 0)
 
 
-def smem_bytes(in_dim: int, n_par: int, groups: int = GROUPS, extra=None, *, dim: int) -> int:
+def smem_bytes(in_dim: int, n_par: int, groups: int = GROUPS, extra=None, *, dim: int,
+               gate: int = 0) -> int:
     """Dynamic shared memory of one block of a backward kernel for a target
-    of dimension dim: the tile and the kernel's own `extra` floats per chain
-    and per warp (default this module's extra_floats(dim))."""
+    of dimension dim: the tile (with `gate` sums a warp: a PIS net's dim,
+    ops/nets.gate_slots) and the kernel's own `extra` floats per chain and
+    per warp (default this module's extra_floats(dim))."""
     per_chain, per_warp = extra_floats(dim) if extra is None else extra
-    return 4 * (tile_floats(groups, in_dim, n_par, dim) + per_chain * groups * CHAINS_PER_GROUP
+    return 4 * (tile_floats(groups, in_dim, n_par, dim, gate)
+                + per_chain * groups * CHAINS_PER_GROUP
                 + per_warp * (groups * GROUP_THREADS // 32))
 
 
-def kernel_fits(in_dim: int, n_par: int, dim: int, extra=None) -> bool:
+def kernel_fits(in_dim: int, n_par: int, dim: int, extra=None, gate: int = 0) -> bool:
     """True if a net of width in_dim and a target of n_par constants and
     dimension dim fit one block of a backward kernel at four groups, the
-    larger form: a group's feature threads, the shared memory (`extra` as
-    in smem_bytes)."""
+    larger form: a group's feature threads, the shared memory (`extra` and
+    `gate` as in smem_bytes)."""
     return (
         in_dim >= 1
         and _round_up(in_dim, 32) <= GROUP_THREADS
         and 1 <= n_par <= MAX_TARGET_FLOATS
-        and smem_bytes(in_dim, n_par, GROUPS, extra, dim=dim) <= MAX_SMEM
+        and smem_bytes(in_dim, n_par, GROUPS, extra, dim=dim, gate=gate) <= MAX_SMEM
     )
 
 
@@ -143,8 +148,10 @@ def len_a(in_dim: int, dim: int, din: int | None = None) -> int:
     return in_dim * in_dim + (1 + dim + din) * in_dim + block_scalars(dim)
 
 
-def len_b(in_dim: int) -> int:
-    return 2 * in_dim + 2
+def len_b(in_dim: int, gate: int = 0) -> int:
+    """Floats of a block's sums at one point: G1, GH1, the two betas and a
+    PIS net's `gate` sums."""
+    return 2 * in_dim + 2 + gate
 
 
 # The VarGrad kernels' spec: the point loss with every state held fixed.
@@ -155,20 +162,16 @@ def check_backward_config(what, betas, grad_logp, spec, dim, nbridges, sn, eps_s
                           fits=None, specs=VARGRAD_SPECS):
     """Raise on what the backward kernels do not take (both devices): a spec
     outside `specs`, a target the kernels do not inline at this dim, and for
-    a spec with a net the two-layer geffner net and a width that fits one
-    block (`fits`(in_dim, n_par, dim), default this module's kernel_fits)."""
+    a spec with a net the two-layer geffner net or a PIS net of two equal
+    widths (ops/nets.kernel_net_ok) at a width that fits one block
+    (`fits`(width, n_par, dim, gate=...), default this module's
+    kernel_fits)."""
     if spec not in specs:
         raise NotImplementedError(f"{what}: no kernel for spec {spec}")
     check_target(what, grad_logp, dim)
     if spec.fwd_sn or spec.bwd_sn:
-        if not isinstance(sn, GeffnerNet) or len(sn.layers) != 2:
-            raise NotImplementedError(
-                f"{what}: the kernel inlines the two-layer geffner net on the state"
-            )
-        if sn.nbridges != nbridges:
-            raise ValueError(f"{what}: net embedding rows != nbridges")
-        if not (fits or kernel_fits)(sn.in_dim, n_target_floats(grad_logp), dim):
-            raise NotImplementedError(f"{what}: in_dim {sn.in_dim} does not fit one block")
+        check_net(what, sn, nbridges, dim, lambda width: (fits or kernel_fits)(
+            width, n_target_floats(grad_logp), dim, gate=nets.gate_slots(sn, dim)))
     if eps_schedule not in EPS_SCHEDULES:
         raise ValueError(f"unknown eps schedule {eps_schedule!r}")
     if betas.shape != (nbridges,):
@@ -193,23 +196,13 @@ def _check(traj, cot, betas, grad_logp, spec, dim, nbridges, sn, eps_schedule):
         )
 
 
-def geffner_from_weights(weights: dict, z, rows):
-    """The geffner net from a dict of its parameters (so that autograd
-    differentiates in them, in their dtype): z (..., N, dim) with embedding
-    row(s) `rows`, an index or a tensor of one index per leading entry."""
-    emb = weights["emb"][rows]
-    emb = emb[..., None, :].expand(*z.shape[:-1], -1)
-    h = torch.cat([z, emb], dim=-1)
-    for i in range(2):
-        h = h + softplus(F.linear(h, weights[f"layers.{i}.weight"], weights[f"layers.{i}.bias"]))
-    return F.linear(h, weights["head.weight"], weights["head.bias"]) * weights["factor_sn"]
-
-
-def _net_at_all_points(weights: dict, traj, nbridges: int):
-    """The geffner net at every stored point: traj (K + 1, N, dim) ->
-    (K + 1, N, dim), point j with embedding row min(j, K - 1)."""
-    rows = torch.arange(nbridges + 1, device=traj.device).clamp(max=nbridges - 1)
-    return geffner_from_weights(weights, traj, rows)
+def _net_at_all_points(sn, weights: dict, traj, nbridges: int, gt):
+    """The net at every stored point from its leaves (ops/nets.plain_weights):
+    traj (K + 1, N, dim) -> (K + 1, N, dim), point j at table row
+    ops/nets.net_row(j) (geffner min(j, K - 1), PIS j); gt the kernel score
+    at every point, for dds_grad's gate term."""
+    rows = nets.net_row(sn, torch.arange(nbridges + 1, device=traj.device), nbridges)
+    return nets.apply_from_weights(sn, weights, traj, rows, gt)
 
 
 def evolve_vargrad_bwd_replay_plain(
@@ -226,14 +219,14 @@ def evolve_vargrad_bwd_replay_plain(
         .clone().requires_grad_(True)
     theta = {"eps": leaf(eps), "betas": leaf(betas), "vd_mean": leaf(vd_mean),
              "vd_logdiag": leaf(vd_logdiag)}
-    weights = {name: leaf(p) for name, p in sn.named_parameters()}
+    weights = nets.plain_weights(sn, nbridges, traj.dtype, traj.device)
     traj = traj.detach()
     with torch.no_grad():
-        gt = grad_logp(traj.reshape(-1, dim)).reshape(traj.shape)
+        gt_raw = gt = grad_logp(traj.reshape(-1, dim)).reshape(traj.shape)
         if clip_t is not None:
             gt = torch.clamp(gt, -clip_t, clip_t)
     with torch.enable_grad():
-        sn_out = _net_at_all_points(weights, traj, nbridges)
+        sn_out = _net_at_all_points(sn, weights, traj, nbridges, gt_raw)
         gq = -(traj - theta["vd_mean"]) * torch.exp(-2.0 * theta["vd_logdiag"])
         if clip_q is not None:
             gq = torch.clamp(gq, -clip_q, clip_q)
@@ -279,47 +272,51 @@ def evolve_vargrad_bwd_reroll_plain(
 def declare_limits(lib, prefix: str, extra, what: str):
     """Declare the limit queries of a backward kernel's library and check the
     module's formula (with the kernel's `extra`, a function of the state's
-    dim) against them at every instantiated dim: shared memory at both group
-    counts, and what fits at the edges of the threads (160 / 161 features),
-    the shared memory (144 / 145 at dim 2; at dim 10 136 / 137 for the KL
-    sweep, 140 / 141 for the VarGrad kernels) and the target's constants."""
+    dim) against them at every instantiated dim, for the geffner net (gate 0)
+    and a PIS net (gate: its dim gate sums a warp): shared memory at both
+    group counts, and what fits at the edges of the threads (160 / 161
+    features), the shared memory (144 / 145 at dim 2; at dim 10 136 / 137
+    for the KL sweep, 140 / 141 for the VarGrad kernels) and the target's
+    constants."""
     i = ctypes.c_int
     get = lambda name: getattr(lib, f"cmcd_{prefix}_{name}")
     lib.cmcd_error_string.argtypes = [i]
     lib.cmcd_error_string.restype = ctypes.c_char_p
     get("chains_per_group").restype = i
-    get("fits").argtypes = [i, i, i]
+    get("fits").argtypes = [i, i, i, i]
     get("fits").restype = i
-    get("smem_bytes").argtypes = [i, i, i, i]
+    get("smem_bytes").argtypes = [i, i, i, i, i]
     get("smem_bytes").restype = ctypes.c_longlong
     get("len_a").argtypes = [i, i]
-    get("len_b").argtypes = [i]
+    get("len_b").argtypes = [i, i]
     get("len_a").restype = get("len_b").restype = i
     if get("chains_per_group")() != CHAINS_PER_GROUP:
         raise RuntimeError(f"{what} and its wrapper disagree on the chains of a group")
     for dim in sorted(set(KERNEL_DIMS.values())):
-        for in_dim, n_par in ((0, 80), (18, 1), (22, 18), (58, 1), (132, 80), (136, 1),
-                              (137, 1), (140, 1), (141, 1), (144, 128), (145, 80), (160, 129),
-                              (161, 80), (132, 0)):
-            if (bool(get("fits")(in_dim, n_par, dim)) != kernel_fits(in_dim, n_par, dim,
-                                                                      extra(dim))
-                    or any(get("smem_bytes")(g, in_dim, n_par, dim)
-                           != smem_bytes(in_dim, n_par, g, extra(dim), dim=dim) for g in (2, 4))
-                    or get("len_a")(in_dim, dim) != len_a(in_dim, dim)
-                    or get("len_b")(in_dim) != len_b(in_dim)):
-                raise RuntimeError(
-                    f"{what} and its wrapper disagree on what fits one block at "
-                    f"in_dim {in_dim}, {n_par} target floats, dim {dim}"
-                )
+        for gate in (0, dim):
+            for in_dim, n_par in ((0, 80), (18, 1), (22, 18), (58, 1), (64, 80), (132, 80),
+                                  (136, 1), (137, 1), (140, 1), (141, 1), (144, 128), (145, 80),
+                                  (160, 129), (161, 80), (132, 0)):
+                if (bool(get("fits")(in_dim, n_par, dim, gate))
+                        != kernel_fits(in_dim, n_par, dim, extra(dim), gate)
+                        or any(get("smem_bytes")(g, in_dim, n_par, dim, gate)
+                               != smem_bytes(in_dim, n_par, g, extra(dim), dim=dim, gate=gate)
+                               for g in (2, 4))
+                        or get("len_a")(in_dim, dim) != len_a(in_dim, dim)
+                        or get("len_b")(in_dim, gate) != len_b(in_dim, gate)):
+                    raise RuntimeError(
+                        f"{what} and its wrapper disagree on what fits one block at "
+                        f"in_dim {in_dim}, {n_par} target floats, dim {dim}, gate {gate}"
+                    )
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = build.load("vargrad")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.cmcd_vargrad_replay.argtypes = [p] * 18 + [i] * 8 + [f] * 3 + [p]
+    lib.cmcd_vargrad_replay.argtypes = [p] * 18 + [i] * 8 + [f] * 3 + [i, p, p]
     lib.cmcd_vargrad_replay.restype = ctypes.c_int
-    lib.cmcd_vargrad_reroll.argtypes = [p] * 20 + [i] * 9 + [f] * 3 + [p]
+    lib.cmcd_vargrad_reroll.argtypes = [p] * 20 + [i] * 9 + [f] * 3 + [i, p, p]
     lib.cmcd_vargrad_reroll.restype = ctypes.c_int
     declare_limits(lib, "vargrad", extra_floats, "csrc/vargrad.cu")
     return lib
@@ -329,22 +326,23 @@ def ptr(t):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
-def marshal(what, sn, dim, eps, grad_logp, dev, blocks, points, splits):
+def marshal(what, sn, dim, nbridges, eps, grad_logp, dev, blocks, points, splits):
     """What every backward launch with a net passes besides its own data:
-    ([eps0, factor_sn], the net as the kernels see it, the target
+    ([eps0, factor_sn], the net as the kernels see it (ops/nets.pack: its
+    weights, in_dim, emb_dim, arch and gate table), the target
     (ops/target_grads.kernel_target: code, constants, inverse variance), the
     scratch and result buffers (part_a, part_b, out_a, out_b))."""
     f32 = lambda t: torch.as_tensor(t, dtype=torch.float32, device=dev).contiguous()
-    w1z, c1, emb, w2, b2, headw, headb, factor = pack_geffner(sn)
-    scal = torch.stack([f32(eps).reshape(()), factor.to(dev, torch.float32)])
-    weights = [w1z, c1, emb, w2, b2, headw, headb]
-    for t in weights:
-        if t.device != dev or t.dtype != torch.float32:
+    packed = nets.pack(sn, nbridges)
+    scal = torch.stack([f32(eps).reshape(()), packed["factor"].to(dev, torch.float32)])
+    for t in packed["weights"] + [packed["gate"]]:
+        if t is not None and (t.device != dev or t.dtype != torch.float32):
             raise ValueError(f"{what}: net weights must be f32 on {dev}")
-    la, lb = len_a(sn.in_dim, dim), len_b(sn.in_dim)
+    width = packed["in_dim"]
+    la, lb = len_a(width, dim), len_b(width, nets.gate_slots(sn, dim))
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
     buffers = [new(blocks, la), new(points, splits, lb), new(la), new(points, lb)]
-    return scal, weights, kernel_target(grad_logp, dev), buffers
+    return scal, packed, kernel_target(grad_logp, dev), buffers
 
 
 def clips(spec, grad_clipping):
@@ -364,17 +362,24 @@ def assemble_grads(out_a, out_b, sn, dim, nbridges, row_shift=False):
     then eps, mean (dim), logdiag (dim), factor, headb (dim), gamma (left out
     here: only the underdamped sweep has it, ops/kl_underdamped.py). out_b per point: G1 = sum_n g_a1,
     GH1 = sum_n g_h1, dbeta_j (the point's forward term), dbeta_{j-1} (its
-    backward term). Point j's net used embedding row min(j, K - 1), or with
-    row_shift (the backward net at i, ULA_sn) row j - 1 and none at j = 0."""
-    in_dim, din = sn.in_dim, dim + sn.rho_dim
+    backward term), and a PIS net's gate sums. Point j's net used embedding
+    row min(j, K - 1) (a PIS net: table row j), or with row_shift (the
+    backward net at i, ULA_sn) row j - 1 and none at j = 0."""
+    in_dim = nets.net_width(sn)
+    din = dim + sn.rho_dim
     sq = in_dim * in_dim
+    s, at = out_a[sq + (dim + 1 + din) * in_dim:], scalar_slots(dim)
+    g_betas = out_b[:nbridges, 2 * in_dim] + out_b[1:, 2 * in_dim + 1]
+    head = {"eps": s[at["eps"]], "betas": g_betas, "vd_mean": s[at["vd_mean"]],
+            "vd_logdiag": s[at["vd_logdiag"]]}
+    if nets.is_pis(sn):
+        g_sn = nets.pis_grads(out_a, out_b, sn, dim, nbridges, row_shift)
+        return {**head, "sn": {**g_sn, "headb": s[at["head.bias"]]}}
     g_w2 = out_a[:sq].view(in_dim, in_dim)
     g_headw = out_a[sq:sq + dim * in_dim].view(dim, in_dim)
     g_b2 = out_a[sq + dim * in_dim:sq + (dim + 1) * in_dim]
     g_w1x = out_a[sq + (dim + 1) * in_dim:sq + (dim + 1 + din) * in_dim].view(din, in_dim)
-    s, at = out_a[sq + (dim + 1 + din) * in_dim:], scalar_slots(dim)
     g1, gh1 = out_b[:, :in_dim], out_b[:, in_dim:2 * in_dim]
-    g_betas = out_b[:nbridges, 2 * in_dim] + out_b[1:, 2 * in_dim + 1]
     # Point K used embedding row K - 1: fold it in (or shift every point one
     # row down), then transpose c1's product: d c1 -> d emb, d W1[din:], d b1;
     # emb also feeds h0 directly.
@@ -389,8 +394,7 @@ def assemble_grads(out_a, out_b, sn, dim, nbridges, row_shift=False):
     d_emb = d_emb + d_c1 @ w1[din:].t()
     g_w1 = torch.cat([g_w1x, sn.emb.detach().t() @ d_c1])  # (in, out)
     return {
-        "eps": s[at["eps"]], "betas": g_betas, "vd_mean": s[at["vd_mean"]],
-        "vd_logdiag": s[at["vd_logdiag"]],
+        **head,
         "sn": {
             "layers.0.weight": g_w1.t(), "layers.0.bias": d_c1.sum(0),
             "layers.1.weight": g_w2.t(), "layers.1.bias": g_b2,
@@ -404,16 +408,17 @@ def _launch(lib, traj, cot, betas, eps, vd_mean, vd_logdiag, grad_logp, spec, *,
             dim, nbridges, sn, eps_schedule, grad_clipping, splits, stream):
     """Marshal the arguments, launch the replay kernel, assemble the dict."""
     points = nbridges + 1
-    scal, weights, (code, tpar, inv_var), buffers = marshal(
-        "replay backward", sn, dim, eps, grad_logp, traj.device, points * splits, points, splits)
+    scal, net, (code, tpar, inv_var), buffers = marshal(
+        "replay backward", sn, dim, nbridges, eps, grad_logp, traj.device, points * splits,
+        points, splits)
     err = lib.cmcd_vargrad_replay(
         ptr(traj), ptr(cot), ptr(betas), ptr(scal),
-        *(ptr(t) for t in weights),
+        *(ptr(t) for t in net["weights"]),
         ptr(tpar), ptr(vd_mean), ptr(vd_logdiag),
         *(ptr(t) for t in buffers),
-        cot.shape[0], nbridges, sn.in_dim, sn.emb_dim, tpar.numel(),
+        cot.shape[0], nbridges, net["in_dim"], net["emb_dim"], tpar.numel(),
         EPS_SCHEDULES[eps_schedule], splits, code,
-        inv_var, *clips(spec, grad_clipping),
+        inv_var, *clips(spec, grad_clipping), net["arch"], ptr(net["gate"]),
         ctypes.c_void_p(stream),
     )
     raise_on(err, lib, "vargrad replay")
@@ -425,17 +430,17 @@ def _launch_reroll(lib, z0, cot, betas, eps, vd_mean, vd_logdiag, grad_logp, spe
                    stream):
     """Marshal the arguments, launch the re-rolling kernel, assemble the dict."""
     points = nbridges + 1
-    scal, weights, (code, tpar, inv_var), buffers = marshal(
-        "reroll backward", sn, dim, eps, grad_logp, z0.device, blocks, points, blocks)
+    scal, net, (code, tpar, inv_var), buffers = marshal(
+        "reroll backward", sn, dim, nbridges, eps, grad_logp, z0.device, blocks, points, blocks)
     seed_t = torch.as_tensor(seed, dtype=torch.int64, device=z0.device).reshape(1)
     err = lib.cmcd_vargrad_reroll(
         ptr(z0), ptr(cot), ptr(betas), ptr(noise), ptr(scal), ptr(seed_t),
-        *(ptr(t) for t in weights),
+        *(ptr(t) for t in net["weights"]),
         ptr(tpar), ptr(vd_mean), ptr(vd_logdiag),
         *(ptr(t) for t in buffers),
-        cot.shape[0], nbridges, sn.in_dim, sn.emb_dim, tpar.numel(),
+        cot.shape[0], nbridges, net["in_dim"], net["emb_dim"], tpar.numel(),
         EPS_SCHEDULES[eps_schedule], blocks, groups, code,
-        inv_var, *clips(spec, grad_clipping),
+        inv_var, *clips(spec, grad_clipping), net["arch"], ptr(net["gate"]),
         ctypes.c_void_p(stream),
     )
     raise_on(err, lib, "vargrad reroll")
@@ -453,7 +458,7 @@ def evolve_vargrad_bwd_replay(
 
     traj: (K + 1, N, dim) f32; cot: (N,) f32; betas: (K,); eps: scalar tensor
     or float; vd_mean / vd_logdiag: (dim,); grad_logp: a kernel-form score of
-    ops/target_grads at its KERNEL_DIMS dim; sn: the GeffnerNet. Returns the
+    ops/target_grads at its KERNEL_DIMS dim; sn: the GeffnerNet or a PIS net. Returns the
     gradient dict described in the module docstring.
     """
     _check(traj, cot, betas, grad_logp, spec, dim, nbridges, sn, eps_schedule)
@@ -475,11 +480,18 @@ def evolve_vargrad_bwd_replay(
         _library(), traj, cot, betas, eps, vd_mean, vd_logdiag, grad_logp, spec,
         splits=splits, stream=torch.cuda.current_stream(dev).cuda_stream, **kwargs,
     )
-    count_launch(evolve_vargrad_bwd_replay, grad_logp.kernel_name)
+    count_launch(evolve_vargrad_bwd_replay, launch_form(grad_logp, sn))
     return grads
 
 
-# Launches in all, and by target (form_launches).
+def launch_form(grad_logp, sn) -> str:
+    """The VarGrad kernels' form of a launch: the target, and "/dds" or
+    "/dds_grad" after it for a PIS net."""
+    word = nets.net_word(sn)
+    return grad_logp.kernel_name + (f"/{word}" if word else "")
+
+
+# Launches in all, and by form (launch_form).
 evolve_vargrad_bwd_replay.launches = 0
 evolve_vargrad_bwd_replay.form_launches = {}
 
@@ -522,7 +534,7 @@ def evolve_vargrad_bwd_reroll(
         groups=groups, blocks=blocks, stream=torch.cuda.current_stream(dev).cuda_stream,
         **kwargs,
     )
-    count_launch(evolve_vargrad_bwd_reroll, grad_logp.kernel_name)
+    count_launch(evolve_vargrad_bwd_reroll, launch_form(grad_logp, sn))
     return grads
 
 

@@ -46,8 +46,8 @@ def test_net_starts_as_zero_correction_and_other_archs_raise():
     net, apply = build_score_network(2, EMB, K, generator=torch.Generator().manual_seed(0))
     assert net.in_dim == 2 + EMB
     assert torch.all(apply(net, torch.randn(4, 2), 3) == 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_score_network(2, EMB, K, arch="dds")
+    with pytest.raises(ValueError, match="Unknown nn arch"):
+        build_score_network(2, EMB, K, arch="mlp")
 
 
 def test_params_from_jax_initialize_tree():

@@ -45,6 +45,7 @@ from cmcd_tpu_torch.ops.vargrad import (
     kernel_fits,
 )
 from cmcd_tpu_torch.schedules import betas_from_grid
+from cmcd_tpu_torch.train.trainer import tree_leaves
 from cmcd_tpu_torch.targets import load_target
 from cmcd_tpu_torch.utils.convert import grads_to_numpy, params_from_jax
 
@@ -114,11 +115,10 @@ def scan_loss(case):
 
 def torch_value_and_grad(case, loss_fn):
     """loss_fn(params, n, ctx, setup, **draws) under autograd: the loss and
-    the gradient tree in the JAX layout."""
+    the gradient of the trainable tree in the JAX layout (zeros where a leaf
+    gets none, as jax.grad's)."""
     train = case["params"]["train"]
-    leaves = [train[k] for k in ("eps", "eta", "gamma", "mgridref_y")]
-    leaves += [*train["vd"].values(), *train["sn"].parameters()]
-    for leaf in leaves:
+    for leaf in tree_leaves(train):
         leaf.requires_grad_(True)
         leaf.grad = None
     loss, _ = loss_fn(case["params"], case["n"], case["ctx"], case["setup"], **case["draws"])
