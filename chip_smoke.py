@@ -7,10 +7,11 @@
 Phases, one line each; any failure exits non-zero:
   1. device: needs CUDA (no CPU run); prints the card's name and power limit.
   2. build: compiles csrc/overdamped.cu, csrc/vargrad.cu, csrc/kl.cu,
-     csrc/underdamped.cu, csrc/kl_underdamped.cu, csrc/uha.cu and
-     csrc/kl_uha.cu with nvcc for sm_90a, all at once (ptxas report per
-     kernel: every target instance, the D = 10 ones of the funnel and the
-     standard normal included).
+     csrc/underdamped.cu, csrc/kl_underdamped.cu, csrc/uha.cu,
+     csrc/kl_uha.cu, csrc/overdamped_wide.cu and csrc/kl_split.cu with nvcc
+     for sm_90a, all at once (ptxas report per kernel: every target
+     instance, the D = 10 ones of the funnel and the standard normal and the
+     LGCP's wide forms included).
   3. kernels vs their plain versions. The rollout under injected noise, at
      the CPU tests' size and at full width (K=256, emb_dim 130, grad clipping,
      factor_sn 0.3, random embedding) for N=2000 and for the evaluation's
@@ -223,6 +224,29 @@ Phases, one line each; any failure exits non-zero:
      per launch under torch.profiler, the instances' registers and spill
      stores from ptxas, and both recipes' optimizer steps over 50 and 500
      steps against the eager step, with their device busy share.
+ 32. the wide forms (the 1600-D LGCP, unwhitened and whitened) against their
+     plain versions: the inlined score and Hessian product (a probe kernel
+     running the same device functions) against float64 at N=20 and N=500,
+     at the variational start and at moved states (limit 1e-5 of the
+     largest entry); the wide rollout under injected noise at N=20 and 37
+     (K=8, with the trajectory store, 37 a partial tile) and N=500 (the
+     evaluation's) against the plain version (TOL_FULL, the float64
+     arbiter); its noise stack injected again (the same bits); the split
+     sweep (B12) at N=20 and N=37: eps, betas, vd, every net leaf of the
+     batched weight pass, g_z0 and gsn (GRAD_TOL_FULL, the float64
+     arbiter); one whole lgcp_k8 step each through the kernels against the
+     plain versions, the float64 step arbitrating.
+ 33. lgcp_k8's path through the CLI: LGCP_MFVI_ITERS MFVI iterations, then
+     LGCP_PATH_ITERS steps (wide rollout LGCP_PATH_ITERS + 30 launches,
+     split sweep LGCP_PATH_ITERS, no other kernel; no NaN loss, the ELBO
+     above its value at init, the same MFVI before both), then whitened
+     for LGCP_WHITENED_ITERS steps.
+ 34. timing (CUDA events, plain, kernel, kernel, plain) of the wide rollout
+     (N=20 with its stores, N=500 without) and the split sweep at lgcp_k8's
+     shapes, each beside its bound (_work_wide) and its device time per
+     launch under torch.profiler, the instances' registers and spill
+     stores from ptxas, and the lgcp_k8 optimizer step over 50 and 200
+     steps against the eager step, with its device busy share.
 Then a JSON line with each kernel's launches, error, times and bound, and as
 the last line {"ok": true, "device": {...}}.
 """
@@ -347,19 +371,23 @@ def phase_build():
     from cmcd_tpu_torch.ops import (
         build,
         kl,
+        kl_split,
         kl_uha,
         kl_underdamped,
         overdamped,
+        overdamped_wide,
         uha,
         underdamped,
         vargrad,
     )
 
-    sources = ("overdamped", "vargrad", "kl", "underdamped", "kl_underdamped", "uha", "kl_uha")
+    sources = ("overdamped", "vargrad", "kl", "underdamped", "kl_underdamped", "uha", "kl_uha",
+               "overdamped_wide", "kl_split")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, started together
         libs = list(pool.map(build.build, sources))
-    for module in (overdamped, vargrad, kl, underdamped, kl_underdamped, uha, kl_uha):
+    for module in (overdamped, vargrad, kl, underdamped, kl_underdamped, uha, kl_uha,
+                   overdamped_wide, kl_split):
         module._library()
     secs = time.perf_counter() - t0
     for so in libs:
@@ -447,12 +475,19 @@ def _split(case):
     return [kw.pop(a) for a in names], kw, noise
 
 
-def compare(case, spec, tol, **kw):
+def _rollouts(wrappers=None):
+    """(kernel wrapper, plain version) of a rollout: `wrappers`, or the
+    overdamped tile form's."""
     from cmcd_tpu_torch.ops.overdamped import (
         evolve_overdamped_fused,
         evolve_overdamped_fused_plain,
     )
 
+    return wrappers or (evolve_overdamped_fused, evolve_overdamped_fused_plain)
+
+
+def compare(case, spec, tol, wrappers=None, **kw):
+    evolve_overdamped_fused, evolve_overdamped_fused_plain = _rollouts(wrappers)
     args = dict(case)
     pos = [args.pop(a) for a in ("z0", "w0", "betas", "eps", "vd_mean", "vd_logdiag", "grad_logp")]
     z_k, w_k, t_k = evolve_overdamped_fused(*pos, spec, **args, return_trajectory=True, **kw)
@@ -533,13 +568,13 @@ def compare_backward(case, tol, **kw):
     return _grad_errors(_flat(g_k), _flat(g_p), tol)
 
 
-def compare_noise_stack(case, spec=None, **kw):
+def compare_noise_stack(case, spec=None, wrappers=None, **kw):
     """The rollout's noise stack is what the kernel used: its Philox draws,
     injected again, give the same z, w and trajectory bit for bit (spec
     default CAIS)."""
     from cmcd_tpu_torch.integrators.overdamped import CAIS
-    from cmcd_tpu_torch.ops.overdamped import evolve_overdamped_fused
 
+    evolve_overdamped_fused = _rollouts(wrappers)[0]
     spec = spec or CAIS
     pos, args, _ = _split(case)
     seed = torch.tensor([13], device="cuda")
@@ -2152,12 +2187,23 @@ OD_PATH_ITERS, OD_WIDE_ITERS = 1000, 200  # the gmm paths (2000 until the PIS ph
 
 def _od_wrappers():
     """Every kernel wrapper of the port, for the launch counts of a path."""
-    from cmcd_tpu_torch.ops import kl, kl_uha, kl_underdamped, overdamped, uha, underdamped, vargrad
+    from cmcd_tpu_torch.ops import (
+        kl,
+        kl_split,
+        kl_uha,
+        kl_underdamped,
+        overdamped,
+        overdamped_wide,
+        uha,
+        underdamped,
+        vargrad,
+    )
 
     return (overdamped.evolve_overdamped_fused, kl.evolve_kl_bwd,
             vargrad.evolve_vargrad_bwd_replay, vargrad.evolve_vargrad_bwd_reroll,
             underdamped.evolve_underdamped_fused, kl_underdamped.evolve_kl_bwd_underdamped,
-            uha.evolve_uha_fused, kl_uha.evolve_kl_bwd_uha)
+            uha.evolve_uha_fused, kl_uha.evolve_kl_bwd_uha,
+            overdamped_wide.evolve_overdamped_wide, kl_split.evolve_kl_split)
 
 
 def _reset_launches():
@@ -3358,7 +3404,7 @@ PIS_TARGETS = {"many_gmm": ((64, 64), 8.0), "gmm": ((16, 16), 3.0), "funnel": ((
 PIS_FULL = (2000, 256, (64, 64), 1.0, 60.0, "cos_sq")
 
 
-def compare_arbitrated(case, spec, tol, **kw):
+def compare_arbitrated(case, spec, tol, wrappers=None, **kw):
     """compare() with the float64 arbiter of PERF.md §2 for the chains it
     finds beyond a limit (final z, w, or a stored path element past
     TRAJ_ATOL): at most TRAJ_SHARE of the chains (and at least one may), on
@@ -3372,14 +3418,11 @@ def compare_arbitrated(case, spec, tol, **kw):
     between modes amplifies that rounding to ~1e-2 for a few steps (one
     chain of 500: floor 8e-3 to 1.5e-2, kernel 7.8e-3, the float32 plain
     1.3e-3 on the card's order); on the others the floor is ~1e-5."""
-    from cmcd_tpu_torch.ops.overdamped import (
-        evolve_overdamped_fused,
-        evolve_overdamped_fused_plain,
-    )
     from cmcd_tpu_torch.schedules import eps_at_step
     from cmcd_tpu_torch.train.trainer import double_tree
 
-    stats, good = compare(case, spec, tol, **kw)
+    evolve_overdamped_fused, evolve_overdamped_fused_plain = _rollouts(wrappers)
+    stats, good = compare(case, spec, tol, wrappers, **kw)
     if good or not (stats["finite"] and stats["traj_ends_exact_and_outputs_unchanged"]):
         return stats, good
     pos, args, noise = _split(case)
@@ -3655,9 +3698,10 @@ def _work_pis(n, k, width, target="many_gmm", net_fwd=True, dim=2, gate=False):
     return out
 
 
-def _ptxas(source):
-    """{demangled kernel name: (registers, spill store bytes)} of every PIS
-    instance in the ptxas report of csrc/<source>.cu's build."""
+def _ptxas(source, match="PisNet"):
+    """{demangled kernel name: (registers, spill store bytes)} of every
+    instance whose mangled name holds `match` (default: the PIS instances)
+    in the ptxas report of csrc/<source>.cu's build."""
     import re
 
     from cmcd_tpu_torch.ops import build
@@ -3675,7 +3719,7 @@ def _ptxas(source):
         m = re.search(r"Used (\d+) registers", ln)
         if m and current:
             report.setdefault(current, [None, None])[0] = int(m.group(1))
-    names = [n for n in report if "PisNet" in n]
+    names = [n for n in report if match in n]
     try:
         demangled = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
                                    text=True, timeout=60).stdout.splitlines()
@@ -3891,10 +3935,333 @@ def _pis_kernel_entries(compared, paths, timing, err_is):
         })
     return entries
 
+# lgcp_k8 (experiments/recipes.py:78-106): the 1600-D LGCP, MCD_CAIS_sn,
+# N=20, K=8, emb 20, lr 1e-4 (LR_DICT), eps from 1e-5 trained, MFVI first;
+# cut for the path to LGCP_MFVI_ITERS MFVI and LGCP_PATH_ITERS training
+# steps (the recipe: 20 000 and 37 500), then the 30 x 500 evaluation.
+LGCP_FLAGS = (
+    "--config.model lgcp --config.boundmode MCD_CAIS_sn --config.N 20 "
+    "--config.nbridges 8 --config.emb_dim 20 --config.n_samples 500 "
+    "--config.n_input_dist_seeds 30 --config.log.every 1"
+).split()
+LGCP_WHITENED_FLAGS = LGCP_FLAGS + ["--config.use_whitened", "True"]
+LGCP_MFVI_ITERS, LGCP_PATH_ITERS, LGCP_WHITENED_ITERS = 300, 300, 100
+LGCP_D, LGCP_EMB = 1600, 20
+LGCP_MU = math.log(126.0) - 0.5 * 1.91
+# The inlined score and Hessian product against float64: float32 sums of
+# 1600 products, held to 1e-5 of the largest entry (as the funnel's).
+LGCP_SCORE_TOL = 1e-5
+
+
+def make_lgcp_problem(n, k, *, seed, whitened=False, moved=False, eps=1e-5):
+    """An LGCP problem as make_problem's, from a numpy seed: the geffner net
+    at in_dim 1620 (factor_sn 0.3, a random embedding), z0 around 0 (the
+    variational start, sigma 1) or, moved, around the posterior's level (mu
+    unwhitened; 0.5 whitened), non-uniform betas, injected noise."""
+    from cmcd_tpu_torch.ops.target_grads import score_for_target
+    from cmcd_tpu_torch.schedules import betas_from_grid, make_beta_grid_params
+    from cmcd_tpu_torch.targets import load_target
+    from cmcd_tpu_torch.utils.convert import geffner_from_jax
+
+    rng = np.random.default_rng(seed)
+    dim, in_dim = LGCP_D, LGCP_D + LGCP_EMB
+    dense = lambda i, o: {"w": rng.normal(0, math.sqrt(2 / (i + o)), (i, o)),
+                          "b": rng.normal(0, 1e-2, o)}
+    tree = {"layers": [dense(in_dim, in_dim), dense(in_dim, in_dim)],
+            "head": dense(in_dim, dim), "emb": rng.normal(0, 1.0, (k, LGCP_EMB)),
+            "factor_sn": np.float32(0.3)}
+    dev = torch.device("cuda")
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    mg, gx, tx = make_beta_grid_params(k, device=dev)
+    mg = f32(rng.uniform(0.5, 1.5, mg.shape[0]))
+    tgt = load_target("lgcp", type("C", (), {"use_whitened": whitened})(), device=dev)
+    center = (0.5 if whitened else LGCP_MU) if moved else 0.0
+    return dict(
+        z0=f32(center + rng.standard_normal((n, dim))),
+        w0=f32(rng.standard_normal(n)),
+        betas=betas_from_grid(mg, gx, tx).contiguous(),
+        eps=f32(eps),
+        vd_mean=f32(center + 0.1 * rng.standard_normal(dim)),
+        vd_logdiag=f32(0.1 * rng.standard_normal(dim)),
+        grad_logp=score_for_target(tgt, dev),
+        sn=geffner_from_jax(tree, dev),
+        noise=f32(rng.standard_normal((k, n, dim))),
+        dim=dim,
+        nbridges=k,
+    )
+
+
+def _wide_wrappers():
+    from cmcd_tpu_torch.ops.overdamped_wide import (
+        evolve_overdamped_wide,
+        evolve_overdamped_wide_plain,
+    )
+
+    return evolve_overdamped_wide, evolve_overdamped_wide_plain
+
+
+def compare_split_sweep(case, tol):
+    """The split sweep's kernel against its plain version on the plain
+    rollout's path and noise with random cotangents: eps, betas, vd mean
+    and logdiag, every net leaf (the batched weight pass on each side's
+    gsn), g_z0 and gsn itself; the plain version in float64 arbitrates a
+    leaf beyond `tol` (F64_SLACK)."""
+    from cmcd_tpu_torch.integrators.overdamped import CAIS
+    from cmcd_tpu_torch.ops.kl_split import evolve_kl_split, evolve_kl_split_plain
+    from cmcd_tpu_torch.ops.overdamped_wide import evolve_overdamped_wide_plain
+
+    pos, args, noise = _split(case)
+    _, _, traj = evolve_overdamped_wide_plain(*pos, CAIS, **args, noise=noise,
+                                              return_trajectory=True)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    n = pos[0].shape[0]
+    cot = torch.randn(n, generator=gen, device="cuda")
+    g_zf = torch.randn(n, pos[0].shape[1], generator=gen, device="cuda")
+    tree = lambda out: {**_flat(out[0]), "g_z0": out[1], "gsn": out[2]}
+    got = tree(evolve_kl_split(traj, noise, cot, g_zf, *pos[2:], CAIS, **args))
+    want = tree(evolve_kl_split_plain(traj, noise, cot, g_zf, *pos[2:], CAIS, **args))
+    torch.cuda.synchronize()
+    worst, leaf, _ = _grad_errors(got, want, tol)
+    ref = tree(evolve_kl_split_plain(traj.double(), noise.double(), cot, g_zf, *pos[2:], CAIS,
+                                     **args))
+    ok, more = _arbitrate(got, want, ref, tol)
+    return worst, f"worst relative error {worst:.3e} (leaf {leaf}), limit {tol}{more}", ok
+
+
+def phase_lgcp_compare():
+    """The wide forms against their plain versions (phase 32): the inlined
+    LGCP score and Hessian product against float64, the wide rollout, its
+    noise stack, the split sweep and whole lgcp_k8 steps."""
+    from cmcd_tpu_torch.integrators.overdamped import CAIS
+    from cmcd_tpu_torch.ops.overdamped_wide import score_and_hvp
+
+    errors, ok = {}, True
+
+    def keep(key, value, good):
+        nonlocal ok
+        errors[key] = value
+        ok &= bool(good)
+
+    for whitened in (False, True):
+        form = "lgcp_whitened" if whitened else "lgcp"
+        for n in (20, 500):
+            for moved in (False, True):
+                case = make_lgcp_problem(n, 1, seed=3 + n, whitened=whitened, moved=moved)
+                score, x = case["grad_logp"], case["z0"]
+                u = torch.randn(x.shape, generator=torch.Generator(device="cuda").manual_seed(5),
+                                device="cuda")
+                g_k, h_k = score_and_hvp(score, x, u)
+                g_p, h_p = score(x), score.hvp(x, u)
+                g_d, h_d = score(x.double()), score.hvp(x.double(), u.double())
+                rel = lambda a, b: float((a.double() - b).abs().max() / b.abs().max())
+                errs = {"score": rel(g_k, g_d), "hvp": rel(h_k, h_d),
+                        "plain_score": rel(g_p, g_d), "plain_hvp": rel(h_p, h_d)}
+                where = "moved" if moved else "init"
+                print(f"[32 compare] {form} score and Hessian product N={n} {where} against "
+                      f"float64 (relative to the largest entry, limit {LGCP_SCORE_TOL}): "
+                      f"{json.dumps(errs)}", flush=True)
+                keep(f"score {form} N={n} {where}", max(errs["score"], errs["hvp"]),
+                     max(errs["score"], errs["hvp"]) <= LGCP_SCORE_TOL)
+        for n, k, moved in ((20, 8, False), (20, 8, True), (500, 8, False), (37, 8, True)):
+            case = make_lgcp_problem(n, k, seed=7 + n, whitened=whitened, moved=moved)
+            stats, good = compare_arbitrated(case, CAIS, TOL_FULL, _wide_wrappers())
+            where = "moved" if moved else "init"
+            print(f"[32 compare] wide rollout {form} N={n} K={k} {where} (injected noise, "
+                  f"TOL_FULL): {json.dumps(stats)} ok {good}", flush=True)
+            keep(f"rollout {form} N={n} {where}", stats["z_max_abs"], good)
+        stats, good = compare_noise_stack(make_lgcp_problem(20, 8, seed=11, whitened=whitened),
+                                          CAIS, _wide_wrappers())
+        print(f"[32 compare] wide rollout {form} noise stack: {json.dumps(stats)}", flush=True)
+        keep(f"noise stack {form}", 0.0, good)
+        for n in (20, 37):
+            case = make_lgcp_problem(n, 8, seed=13 + n, whitened=whitened, moved=True)
+            worst, line, good = compare_split_sweep(case, GRAD_TOL_FULL)
+            print(f"[32 compare] split sweep {form} N={n} K=8: {line} ok {good}", flush=True)
+            keep(f"sweep {form} N={n}", worst, good)
+        flags = LGCP_WHITENED_FLAGS if whitened else LGCP_FLAGS
+        good = compare_training_step(flags + ["--config.iters", "0"], f"lgcp_k8 {form}",
+                                     arbitrate=True, tag="32 compare")
+        keep(f"step {form}", 0.0, good)
+    if not ok:
+        fail(f"the wide forms disagree with their plain versions: {errors}")
+    return errors
+
+
+def phase_lgcp_path():
+    """lgcp_k8's path through the CLI (phase 33): MFVI, then the wide
+    rollout and the split sweep every step and the wide rollout once per
+    evaluation group, no other kernel; unwhitened, then whitened."""
+    rollout, sweep = "evolve_overdamped_wide", "evolve_kl_split"
+    seeds = 30
+    mfvi = ["--config.mfvi_iters", str(LGCP_MFVI_ITERS)]
+    runs = {}
+    for form, flags, iters, rise in (("CAIS/lgcp", LGCP_FLAGS, LGCP_PATH_ITERS, True),
+                                     ("CAIS/lgcp_whitened", LGCP_WHITENED_FLAGS,
+                                      LGCP_WHITENED_ITERS, False)):
+        expect = {rollout: {form: iters + seeds}, sweep: {form: iters}}
+        runs[form] = _od_path(flags + mfvi, iters, "33 path", expect, elbo_must_rise=rise)
+    return {form: table for form, (table, _, _) in runs.items()}
+
+
+def _work_wide(n, k, whitened, dim=LGCP_D, in_dim=LGCP_D + LGCP_EMB):
+    """Least time the card could take for the wide forms at these shapes
+    (the rule of _work): {"rollout" (with trajectory and noise stores),
+    "rollout_nostore" (the evaluation's), "sweep"}. A point costs the net
+    (layer 1's z part D x F, layer 2 F x F, the head D x F), the score (one
+    D x D product, two whitened) and ~30 operations a dimension besides;
+    the sweep the same again for the VJP in z and the Hessian product. The
+    bytes: the weights and the target's matrix once, the states in and out."""
+    points = (k + 1) * n
+    net = 2 * (2 * dim * in_dim + in_dim * in_dim)
+    score = 2 * dim * dim * (2 if whitened else 1)
+    elem = 30 * dim
+    weights = 4 * (2 * dim * in_dim + in_dim * in_dim + 2 * in_dim + dim + k * (in_dim + 20))
+    consts = 4 * (dim * dim + dim + 2)
+    io = 4 * (dim * n + 2 * n + 2 * dim + k)
+    stores = 4 * dim * (points + k * n)
+    fwd_flops = points * (net + score + elem)
+    bwd_flops = points * (2 * (net + score) + 2 * elem)
+    bwd_bytes = weights + consts + 4 * dim * (points + k * n) + 4 * (n + dim * n) \
+        + 4 * (dim * points + dim * n) + 4 * (1 + k + 2 * dim)
+    return {"rollout": _bound(fwd_flops, weights + consts + io + stores),
+            "rollout_nostore": _bound(fwd_flops, weights + consts + io),
+            "sweep": _bound(bwd_flops, bwd_bytes)}
+
+
+def phase_lgcp_timing():
+    """CUDA-event and device times of the wide forms at lgcp_k8's shapes
+    beside their plain versions, bounds, registers and spills, and the
+    lgcp_k8 optimizer step with its device busy share (phase 34)."""
+    from cmcd_tpu_torch import bounds
+    from cmcd_tpu_torch.integrators.overdamped import CAIS
+    from cmcd_tpu_torch.ops.fused_train import fused_training_path
+    from cmcd_tpu_torch.ops.kl_split import evolve_kl_split, evolve_kl_split_plain
+    from cmcd_tpu_torch.ops.overdamped_wide import (
+        evolve_overdamped_wide,
+        evolve_overdamped_wide_plain,
+    )
+    from cmcd_tpu_torch.train import train
+
+    seed = torch.tensor([7], device="cuda")
+    order = ("plain", "kernel", "kernel", "plain")
+    times, bounds_ = {}, {}
+    for whitened in (False, True):
+        form = "CAIS/lgcp" + ("_whitened" if whitened else "")
+        pos, kw, _ = _split(make_lgcp_problem(20, 8, seed=2, whitened=whitened, moved=True))
+        big, big_kw, _ = _split(make_lgcp_problem(500, 8, seed=3, whitened=whitened, moved=True))
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        cot = torch.randn(20, generator=gen, device="cuda")
+        g_zf = torch.randn(20, LGCP_D, generator=gen, device="cuda")
+        _, _, traj, noise = evolve_overdamped_wide(*pos, CAIS, **kw, seed=seed,
+                                                   return_trajectory=True, return_noise=True)
+        fns = {
+            "rollout": (lambda: evolve_overdamped_wide(
+                *pos, CAIS, **kw, seed=seed, return_trajectory=True, return_noise=True), 20),
+            "rollout_plain": (lambda: evolve_overdamped_wide_plain(
+                *pos, CAIS, **kw, seed=7, return_trajectory=True, return_noise=True), 5),
+            "rollout_n500": (lambda: evolve_overdamped_wide(*big, CAIS, **big_kw, seed=seed), 5),
+            "rollout_n500_plain": (lambda: evolve_overdamped_wide_plain(
+                *big, CAIS, **big_kw, seed=7), 2),
+            "sweep": (lambda: evolve_kl_split(traj, noise, cot, g_zf, *pos[2:], CAIS, **kw), 10),
+            "sweep_plain": (lambda: evolve_kl_split_plain(traj, noise, cot, g_zf, *pos[2:], CAIS,
+                                                          **kw), 2),
+        }
+        t = times[form] = {key: [] for key in fns}
+        for which in order:
+            for key, (fn, reps) in fns.items():
+                if key.endswith("_plain") == (which == "plain"):
+                    t[key].append(_event_ms(fn, reps))
+        t["rollout_device"] = _device_ms(fns["rollout"][0], 5, "wide_rollout")
+        t["rollout_n500_device"] = _device_ms(fns["rollout_n500"][0], 3, "wide_rollout")
+        t["sweep_device"] = _device_ms(fns["sweep"][0], 5, "kl_split_sweep")
+        b = bounds_[form] = {"rollout": _work_wide(20, 8, whitened)["rollout"],
+                             "rollout_n500": _work_wide(500, 8, whitened)["rollout_nostore"],
+                             "sweep": _work_wide(20, 8, whitened)["sweep"]}
+        print(f"[34 timing] {form} ms {json.dumps(t)}; bounds {json.dumps(b)}", flush=True)
+    regs = {src: _ptxas(src, match) for src, match in (("overdamped_wide", "wide_rollout"),
+                                                       ("kl_split", "kl_split_sweep"))}
+    print(f"[34 timing] registers and spill store bytes of the wide instances (ptxas): "
+          f"{json.dumps(regs)}", flush=True)
+    step_ms = {}
+    for name, flags in (("lgcp_k8", LGCP_FLAGS), ("lgcp_k8 whitened", LGCP_WHITENED_FLAGS)):
+        cfg, setup, target, params, ctx = flagship(flags + ["--config.iters", "0"])
+        trainable = bounds.default_trainable(setup.mode, cfg.train_eps, cfg.train_vi,
+                                             cfg.train_betas)
+        fused_loss, _ = fused_training_path(setup, cfg.N)
+        fused = lambda p, n_, c, s, generator: fused_loss(p, n_, c, s, target,
+                                                          generator=generator)
+
+        def steps(loss_fn, iters):
+            g = torch.Generator(device="cuda").manual_seed(1)
+            return lambda: train(setup, params, ctx, lr=cfg.lr, iters=iters, batch_size=cfg.N,
+                                 generator=g, trainable=trainable, loss_fn=loss_fn,
+                                 steps_per_call=max(iters, 1), nan_check_every=10**9)
+
+        steps(fused, 5)()
+        ms = step_ms[name] = {"eager": [], "kernel": []}
+        for which in order:
+            loss_fn, iters = (bounds.kl_bound, 2) if which == "plain" else (fused, 50)
+            ms["eager" if which == "plain" else "kernel"].append(_wall_ms(steps(loss_fn, iters))
+                                                                 / iters)
+        ms["kernel_200"] = [_wall_ms(steps(fused, 200)) / 200]
+        prof_wall, prof_dev, top = _profile(steps(fused, 10))
+        ms["busy_ms"] = prof_dev / 10
+        ms["busy_share_of_200"] = prof_dev / 10 / ms["kernel_200"][0]
+        print(f"[34 timing] {name} optimizer step N={cfg.N} K={cfg.nbridges} ms per step "
+              f"{json.dumps(ms)} (kernel: 50 steps, kernel_200: 200, eager: 2 per reading); 10 "
+              f"fused steps under the profiler: wall {prof_wall!r} ms, device busy {prof_dev!r} "
+              f"ms, device records {json.dumps(top)}", flush=True)
+    return times, bounds_, regs, step_ms
+
+
+def _lgcp_kernel_entries(errors, paths, timing):
+    """The kernels line's entries of the wide forms (phases 32-34): each
+    instance's launches on its own path (phase 33), its worst error against
+    the plain version (phase 32), its times and bound at lgcp_k8's shapes
+    (phase 34), its registers and spill stores."""
+    times, bounds_, regs, _ = timing
+    keep = lambda b: {k: b[k] for k in ("bound_ms", "bound_by")}
+    entries = []
+    for whitened in (False, True):
+        name = "lgcp_whitened" if whitened else "lgcp"
+        form, flag = f"CAIS/{name}", "true" if whitened else "false"
+        t, b, table = times[form], bounds_[form], paths[form]
+        entries.append({
+            "name": f"wide_rollout<{flag}>", "route": "cuda",
+            "source": "cmcd_tpu_torch/csrc/overdamped_wide.cu",
+            "replaces": "cmcd_tpu/ops/pallas_overdamped.py:102", "form": form,
+            "launches": table["evolve_overdamped_wide"][1][form],
+            "max_abs_err": max(v for k, v in errors.items() if k.startswith(f"rollout {name} ")),
+            "max_abs_err_is": "worst |z_kernel - z_plain| of the compares (TOL_FULL)",
+            "ms": min(t["rollout"]), "device_ms": t["rollout_device"],
+            "plain_ms": min(t["rollout_plain"]), **keep(b["rollout"]), "library_ms": None,
+            "ms_at_n500": min(t["rollout_n500"]), "device_ms_at_n500": t["rollout_n500_device"],
+            "plain_ms_at_n500": min(t["rollout_n500_plain"]),
+            "bound_ms_at_n500": b["rollout_n500"]["bound_ms"],
+            "score_err_vs_float64": max(v for k, v in errors.items()
+                                        if k.startswith(f"score {name} ")),
+            "registers_spill": {k: v for k, v in regs["overdamped_wide"].items()
+                                if f"wide_rollout<{flag}>" in k},
+        })
+        entries.append({
+            "name": f"kl_split_sweep<{flag}>", "route": "cuda",
+            "source": "cmcd_tpu_torch/csrc/kl_split.cu",
+            "replaces": "cmcd_tpu/ops/pallas_kl.py:49", "form": form,
+            "launches": table["evolve_kl_split"][1][form],
+            "max_abs_err": max(v for k, v in errors.items() if k.startswith(f"sweep {name} ")),
+            "max_abs_err_is": "worst per-leaf |g_kernel - g_plain| / |g_plain| (gsn and g_z0 "
+                              "included)",
+            "ms": min(t["sweep"]), "device_ms": t["sweep_device"],
+            "plain_ms": min(t["sweep_plain"]), **keep(b["sweep"]), "library_ms": None,
+            "registers_spill": {k: v for k, v in regs["kl_split"].items()
+                                if f"kl_split_sweep<{flag}>" in k},
+        })
+    return entries
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    everything = ",".join(str(p) for p in range(1, 32))
+    everything = ",".join(str(p) for p in range(1, 35))
     ap.add_argument("--phases", default=everything,
                     help="comma-separated phases to run (default: all)")
     phases = {int(p) for p in ap.parse_args(argv).phases.split(",")}
@@ -3934,6 +4301,9 @@ def main(argv=None):
     pis_errors = phase_pis_compare() if 29 in phases else None
     pis_paths = phase_pis_paths() if 30 in phases else None
     pis_timing = phase_pis_timing() if 31 in phases else None
+    lgcp_errors = phase_lgcp_compare() if 32 in phases else None
+    lgcp_paths = phase_lgcp_path() if 33 in phases else None
+    lgcp_timing = phase_lgcp_timing() if 34 in phases else None
     if phases != {int(p) for p in everything.split(",")}:
         print(f"partial run (phases {sorted(phases)}): no result line")
         return 1
@@ -3976,6 +4346,9 @@ def main(argv=None):
     print(f"[bounds] the PIS forms (phase 31 shapes): "
           f"{json.dumps({f: {k: keep(b) for k, b in v.items()} for f, v in pis_timing[1].items()})}"
           f"; recipe optimizer step ms {json.dumps(pis_timing[3])}")
+    print(f"[bounds] the wide forms (phase 34 shapes): "
+          f"{json.dumps({f: {k: keep(b) for k, b in v.items()} for f, v in lgcp_timing[1].items()})}"
+          f"; lgcp_k8 optimizer step ms {json.dumps(lgcp_timing[3])}")
     print(smi)
     # launches: of each kernel's own main path, counted from 0 just before it
     # (phase 7: VarGrad training and the 30 x 500 evaluation; phase 9: the KL
@@ -4104,7 +4477,8 @@ def main(argv=None):
                                  err_is)
         + _ud_new_kernel_entries(ud_new_errors, ud_new_paths, ud_new_times, ud_new_bounds,
                                  err_is)
-        + _pis_kernel_entries(pis_errors, pis_paths, pis_timing, err_is)}))
+        + _pis_kernel_entries(pis_errors, pis_paths, pis_timing, err_is)
+        + _lgcp_kernel_entries(lgcp_errors, lgcp_paths, lgcp_timing)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

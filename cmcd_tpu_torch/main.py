@@ -28,7 +28,11 @@ one launch per seed group. Every family runs on many_gmm, the 3-mode gmm
 (the gmm recipes of experiments/recipes.py: gmm_cais, gmm_cais_tuned,
 gmm_ula) and Neal's funnel at funnel_d 10 (funnel_k8: MCD_CAIS_sn,
 n_samples 2000, so a 30 x 2000 evaluation; with nbridges 32 and
-MCD_CAIS_UHA_sn the underdamped CAIS record); a configuration the kernels
+MCD_CAIS_UHA_sn the underdamped CAIS record); the 1600-D LGCP
+(`--config.model lgcp`, `--config.use_whitened`, `--config.file_path`;
+lgcp_k8: MFVI pretraining, then MCD_CAIS_sn through the wide rollout and
+the split KL sweep, kl_bound_fused's "wide rollout and split KL reverse
+sweep (B12)") takes MCD_CAIS_sn with the geffner net only; a configuration the kernels
 do not cover, or use_pallas_train / use_pallas_eval off, raises there
 instead of running eagerly. On the CPU the two switches pick the kernels'
 plain versions or the eager integrator. The fields in IGNORED are accepted and ignored with
@@ -56,10 +60,13 @@ NOT_PORTED = ("checkpoint_dir", "checkpoint_every", "resume", "plot_dir",
               "profile_dir")
 
 # Switches that the fused training path accepts and ignores when on, each with why.
-# bf16_residuals and remat_steps size the JAX package's KL residuals to a
-# TPU's on-chip memory; here trajectory and noise are f32 in device memory.
+# bf16_fused_net, bf16_residuals and remat_steps size the JAX package's KL
+# sweep and its residuals to a TPU's on-chip memory (its bf16 split sweep
+# fits the LGCP's net there); here the weights and the trajectory and noise
+# stay f32 in device memory, the split sweep (B12) included. bf16 compute
+# is queued (ROADMAP B13).
 IGNORED = {
-    "bf16_fused_net": "the backward kernels compute in f32",
+    "bf16_fused_net": "the backward kernels compute in f32, the split sweep (B12) included",
     "bf16_residuals": "the KL residuals (trajectory, noise) are stored in f32",
     "remat_steps": "the fused KL backward keeps no per-step residuals to rematerialise",
 }

@@ -14,6 +14,7 @@ from cmcd_tpu_torch.ops.fused_train import (
     var_bound_fused,
 )
 from cmcd_tpu_torch.ops.kl import evolve_kl_bwd, evolve_kl_bwd_plain
+from cmcd_tpu_torch.ops.kl_split import evolve_kl_split, evolve_kl_split_plain
 from cmcd_tpu_torch.ops.kl_uha import evolve_kl_bwd_uha, evolve_kl_bwd_uha_plain
 from cmcd_tpu_torch.ops.kl_underdamped import (
     evolve_kl_bwd_underdamped,
@@ -22,6 +23,10 @@ from cmcd_tpu_torch.ops.kl_underdamped import (
 from cmcd_tpu_torch.ops.overdamped import (
     evolve_overdamped_fused,
     evolve_overdamped_fused_plain,
+)
+from cmcd_tpu_torch.ops.overdamped_wide import (
+    evolve_overdamped_wide,
+    evolve_overdamped_wide_plain,
 )
 from cmcd_tpu_torch.ops.target_grads import score_for_target
 from cmcd_tpu_torch.ops.uha import evolve_uha_fused, evolve_uha_fused_plain
@@ -43,12 +48,16 @@ __all__ = [
     "compute_elbos_fused",
     "evolve_kl_bwd",
     "evolve_kl_bwd_plain",
+    "evolve_kl_split",
+    "evolve_kl_split_plain",
     "evolve_kl_bwd_underdamped",
     "evolve_kl_bwd_uha",
     "evolve_kl_bwd_uha_plain",
     "evolve_kl_bwd_underdamped_plain",
     "evolve_overdamped_fused",
     "evolve_overdamped_fused_plain",
+    "evolve_overdamped_wide",
+    "evolve_overdamped_wide_plain",
     "evolve_underdamped_fused",
     "evolve_uha_fused",
     "evolve_uha_fused_plain",

@@ -5,8 +5,9 @@ The variational draw, the initial and final log-prob terms and the beta grid
 stay in plain torch; the K-step loop runs in one launch of a CUDA kernel:
 the overdamped rollout (ops/overdamped.py) for the CAIS, ULA_sn and ULA modes, the
 underdamped rollout (ops/underdamped.py) for the seven underdamped modes,
-the UHA rollout (ops/uha.py) for UHA. Forward only: evaluation, sampling,
-ln Z.
+the UHA rollout (ops/uha.py) for UHA; on the 1600-D LGCP the wide rollout
+(ops/overdamped_wide.py), for MCD_CAIS_sn with the geffner net. Forward
+only: evaluation, sampling, ln Z.
 """
 
 from __future__ import annotations
@@ -16,14 +17,23 @@ import torch
 from cmcd_tpu_torch import bounds
 from cmcd_tpu_torch.distributions import diag_gaussian_log_prob, diag_gaussian_sample
 from cmcd_tpu_torch.integrators import OVERDAMPED, UNDERDAMPED
-from cmcd_tpu_torch.ops import overdamped, uha, underdamped
-from cmcd_tpu_torch.ops.target_grads import KERNEL_DIMS, n_target_floats, score_for_target
+from cmcd_tpu_torch.ops import overdamped, overdamped_wide, uha, underdamped
+from cmcd_tpu_torch.ops.target_grads import (
+    KERNEL_DIMS,
+    WIDE_TARGETS,
+    n_target_floats,
+    score_for_target,
+)
 from cmcd_tpu_torch.schedules import betas_from_grid
 
 # The PIS nets (ops/nets.py): the kernels take them in the overdamped modes
 # with one net (cmcd_tpu/ops/fused.py::_arch_supported), not in the
 # underdamped ones.
 PIS_ARCHS = ("dds", "dds_grad")
+# The modes of the wide forms (the LGCP): the wide rollout and the split
+# sweep take the CAIS carry with one net. The JAX package's other modes on
+# the LGCP wait in ROADMAP queue B.
+WIDE_MODES = ("MCD_CAIS_sn",)
 
 
 def net_width(setup: bounds.CMCDSetup) -> int:
@@ -50,6 +60,17 @@ def net_supported(setup: bounds.CMCDSetup) -> bool:
             and len(units) == 2 and units[0] == units[1])
 
 
+def wide_supported(setup: bounds.CMCDSetup, score) -> bool:
+    """True if the wide forms take (mode, net) on a target of WIDE_TARGETS:
+    MCD_CAIS_sn with the two-layer geffner net at the score's dim, at a
+    width the wide kernels take (ops/overdamped_wide.kernel_fits). Every
+    other mode and net on the LGCP is refused before any launch."""
+    return (setup.mode in WIDE_MODES and setup.nn_arch == "geffner" and setup.nlayers == 2
+            and setup.dim == score.dim and setup.nbridges >= 1
+            and overdamped_wide.kernel_fits(net_width(setup), n_target_floats(score),
+                                            setup.dim))
+
+
 def supports_fused(setup: bounds.CMCDSetup, target) -> bool:
     """True if a kernel implements (mode, target score, net) at this size:
     an overdamped mode (all four) on a target whose template is instantiated
@@ -59,10 +80,13 @@ def supports_fused(setup: bounds.CMCDSetup, target) -> bool:
     the net of net_supported at a width that fits one block's threads and
     shared memory (the rollout's kernel_fits); or UHA on a target of
     ops/uha.UHA_TARGETS with lfsteps the kernel takes
-    (ops/uha.kernel_covers)."""
+    (ops/uha.kernel_covers); or on the LGCP what the wide forms take
+    (wide_supported)."""
     score = score_for_target(target)
     if score is None:
         return False
+    if score.kernel_name in WIDE_TARGETS:
+        return wide_supported(setup, score)
     if setup.mode == "UHA":
         return uha.kernel_covers(score, setup.dim, setup.nbridges, setup.lfsteps)
     if setup.mode in OVERDAMPED:
@@ -123,7 +147,9 @@ def compute_elbos_fused(params, n_chains: int, setup: bounds.CMCDSetup, target,
             UNDERDAMPED[setup.mode], sn=p.get("sn"), **common,
         )
     else:
-        z, w = (rollout or overdamped.evolve_overdamped_fused)(
+        wide = score.kernel_name in WIDE_TARGETS
+        z, w = (rollout or (overdamped_wide.evolve_overdamped_wide if wide
+                            else overdamped.evolve_overdamped_fused))(
             z0.contiguous(), w0.contiguous(), betas.contiguous(), p["eps"],
             vd["mean"].contiguous(), vd["logdiag"].contiguous(), score,
             OVERDAMPED[setup.mode], eps_schedule=setup.eps_schedule,

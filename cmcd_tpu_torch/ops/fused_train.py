@@ -37,6 +37,12 @@ not gamma, the others gamma and not eta; the JAX package gives zeros too);
 the UHA sweep returns eta's and md's (md is not trained: the
 trainable set never names it, as in the JAX package).
 
+A net past _NET_GRADS_OUTSIDE_BYTES (the 1600-D LGCP's: 31.4 MB) takes the
+split form of the KL sweep, as the JAX package does: MCD_CAIS_sn through
+the wide rollout (ops/overdamped_wide.py) and the split sweep
+(ops/kl_split.py), whose weight gradients come from one batched pass
+outside the kernel.
+
 On CPU tensors the Functions run the plain versions; on CUDA tensors they
 launch the kernels or raise. plain=True runs the plain versions wherever the
 tensors lie: the card's check of a whole step through the kernels against the
@@ -54,15 +60,20 @@ from cmcd_tpu_torch import bounds
 from cmcd_tpu_torch.distributions import diag_gaussian_log_prob, diag_gaussian_sample
 from cmcd_tpu_torch.integrators import OVERDAMPED, UNDERDAMPED
 from cmcd_tpu_torch.integrators import overdamped as od
-from cmcd_tpu_torch.ops import kl, kl_underdamped, nets, uha, vargrad
-from cmcd_tpu_torch.ops.fused import PIS_ARCHS, net_width, supports_fused
+from cmcd_tpu_torch.ops import kl, kl_underdamped, nets, overdamped_wide, uha, vargrad
+from cmcd_tpu_torch.ops.fused import PIS_ARCHS, WIDE_MODES, net_width, supports_fused
 from cmcd_tpu_torch.ops.kl import evolve_kl_bwd, evolve_kl_bwd_plain
+from cmcd_tpu_torch.ops.kl_split import evolve_kl_split, evolve_kl_split_plain
 from cmcd_tpu_torch.ops.kl_uha import evolve_kl_bwd_uha, evolve_kl_bwd_uha_plain
 from cmcd_tpu_torch.ops.kl_underdamped import (
     evolve_kl_bwd_underdamped,
     evolve_kl_bwd_underdamped_plain,
 )
 from cmcd_tpu_torch.ops.overdamped import evolve_overdamped_fused, evolve_overdamped_fused_plain
+from cmcd_tpu_torch.ops.overdamped_wide import (
+    evolve_overdamped_wide,
+    evolve_overdamped_wide_plain,
+)
 from cmcd_tpu_torch.ops.target_grads import n_target_floats, score_for_target
 from cmcd_tpu_torch.ops.underdamped import (
     evolve_underdamped_fused,
@@ -92,6 +103,31 @@ UHA_KL_FUSED_MODES = frozenset({"UHA"})
 # backward, which stores nothing.
 _REPLAY_BYTES_BUDGET = 256 * 1024 * 1024
 
+# The score net's bytes past which the KL backward takes the split sweep
+# (cmcd_tpu/ops/fused_train.py, same name and size): the weights' gradients
+# leave the kernel for one batched pass. The port's tile sweeps take nets
+# up to 160 features (~0.2 MB); the LGCP's geffner net is 31.4 MB.
+_NET_GRADS_OUTSIDE_BYTES = 4 * 1024 * 1024
+
+
+def net_bytes(setup: bounds.CMCDSetup) -> int:
+    """Bytes of the geffner net's parameters in the mode's setup (0 for a
+    PIS net, which the split sweep does not take): nlayers square layers of
+    dim + emb_dim features with biases, the head, the embedding table and
+    factor_sn, in f32."""
+    if setup.nn_arch != "geffner":
+        return 0
+    f = setup.dim + setup.emb_dim
+    return 4 * (setup.nlayers * (f * f + f) + setup.dim * (f + 1)
+                + setup.nbridges * setup.emb_dim + 1)
+
+
+def uses_split_sweep(setup: bounds.CMCDSetup) -> bool:
+    """True if the KL loss of `setup` takes the wide rollout and the split
+    sweep: the CAIS carry (WIDE_MODES) with a net past
+    _NET_GRADS_OUTSIDE_BYTES."""
+    return setup.mode in WIDE_MODES and net_bytes(setup) > _NET_GRADS_OUTSIDE_BYTES
+
 
 def supports_fused_train(setup: bounds.CMCDSetup, target) -> bool:
     """True if a fused training loss can run: what supports_fused asks of
@@ -104,7 +140,7 @@ def supports_fused_train(setup: bounds.CMCDSetup, target) -> bool:
     if setup.mode == "MCD_CAIS_var_sn":
         fits = vargrad.kernel_fits
     elif setup.mode in KL_FUSED_MODES:
-        fits = _kl_family(setup.mode).fits
+        fits = _kl_family(setup).fits
     else:
         return False
     width = net_width(setup)
@@ -201,7 +237,8 @@ class _EvolveKL(torch.autograd.Function):
     def backward(ctx, g_deltas, g_z):
         call = ctx.call
         traj, draws, eps, betas, vd_mean, vd_logdiag = ctx.saved_tensors
-        g, g_z0 = call["backward"](
+        # The split sweep returns the net-output cotangents third.
+        g, g_z0, *_ = call["backward"](
             traj, draws, g_deltas.contiguous(), g_z.contiguous(), betas.contiguous(), eps,
             vd_mean.contiguous(), vd_logdiag.contiguous(), call["score"], call["spec"],
             **call["static"],
@@ -332,12 +369,25 @@ def _kl_families() -> tuple:
     )
 
 
+def _split_family() -> _KLFamily:
+    """The row of a net past _NET_GRADS_OUTSIDE_BYTES (uses_split_sweep)."""
+    return _KLFamily(
+        frozenset(WIDE_MODES),
+        (evolve_overdamped_wide, evolve_overdamped_wide_plain),
+        (evolve_kl_split, evolve_kl_split_plain),
+        _EvolveKL, ("eps",), _overdamped_static, overdamped_wide.kernel_fits,
+        "wide rollout and split KL reverse sweep (B12)",
+    )
+
+
 # The modes whose KL loss has a fused backward. Still to port: MCD_DNF.
 KL_FUSED_MODES = frozenset().union(*(f.modes for f in _kl_families()))
 
 
-def _kl_family(mode: str) -> _KLFamily:
-    return next(f for f in _kl_families() if mode in f.modes)
+def _kl_family(setup: bounds.CMCDSetup) -> _KLFamily:
+    if uses_split_sweep(setup):
+        return _split_family()
+    return next(f for f in _kl_families() if setup.mode in f.modes)
 
 
 def _prepare(params, n_chains, setup, target, generator, base_normals):
@@ -418,7 +468,7 @@ def neg_elbos_fused_kl(params, n_chains: int, ctx, setup: bounds.CMCDSetup, targ
             f"the fused KL loss implements {sorted(KL_FUSED_MODES)}, not {setup.mode}; "
             "see ROADMAP queue B"
         )
-    family = _kl_family(setup.mode)
+    family = _kl_family(setup)
     p, z0, w0, betas, seed, score = _prepare(params, n_chains, setup, target, generator,
                                              base_normals)
     names, weights = _net_inputs(p, setup.nbridges)
@@ -457,4 +507,4 @@ def fused_training_path(setup: bounds.CMCDSetup, n_chains: int) -> tuple:
                 f"var_bound_fused, VarGrad {backward} backward")
     if setup.mode not in KL_FUSED_MODES:
         raise NotImplementedError(f"no fused training loss for {setup.mode}")
-    return kl_bound_fused, f"kl_bound_fused, {_kl_family(setup.mode).words}"
+    return kl_bound_fused, f"kl_bound_fused, {_kl_family(setup).words}"

@@ -91,7 +91,7 @@ def _check(traj, noise, cot, g_zfinal, betas, grad_logp, spec, dim, nbridges, sn
 def evolve_kl_bwd_plain(
     traj, noise, cot, g_zfinal, betas, eps, vd_mean, vd_logdiag, grad_logp,
     spec: OverdampedSpec, *, dim: int, nbridges: int, sn=None, eps_schedule: str = "",
-    grad_clipping: bool = False,
+    grad_clipping: bool = False, split: bool = False,
 ):
     """The kernels' function in plain torch, point by point from z_K to z_0,
     in traj's dtype, for every spec of SWEEP_SPECS. Carried between points:
@@ -101,7 +101,11 @@ def evolve_kl_bwd_plain(
     (ops/nets.net_row: geffner's min(p, K - 1)), serving both steps, and
     sn(z_p, p - 1) for ULA_SN, serving the backward mean of step p - 1 only
     (none at p = 0). A PIS net is its kernel view (ops/nets.plain_weights),
-    dds_grad's gate term on the kernel score at z_p."""
+    dds_grad's gate term on the kernel score at z_p.
+
+    split (the split sweep's plain version, ops/kl_split.py): the net's VJP
+    in z only, "sn" left empty, and a third result, the stack (K + 1, N,
+    dim) of each point's net-output cotangent g_sn."""
     K, dt, dev = nbridges, traj.dtype, traj.device
     as_t = lambda t: torch.as_tensor(t, device=dev).detach().to(dt)
     clip_t = spec.clip_target if grad_clipping else None
@@ -120,7 +124,7 @@ def evolve_kl_bwd_plain(
     g_betas, g_mu, g_ld = torch.zeros_like(betas), torch.zeros_like(mu), torch.zeros_like(mu)
     c = cot[:, None]
 
-    fk, direct = None, as_t(g_zfinal)
+    fk, direct, gsn = None, as_t(g_zfinal), []
     for p in range(K, -1, -1):
         z = traj[p].detach()
         net_on = net and (spec.fwd_sn or p >= 1)
@@ -161,14 +165,19 @@ def evolve_kl_bwd_plain(
         g_ld += torch.sum(g_gq * (-2.0 * gq), dim=0)
         total = total - viv * g_gq + grad_logp.hvp(z, g_gt)
         if net_on:
-            g_zin, *g_wp = torch.autograd.grad(sn_graph, [z_in, *weights.values()], g_sn)
+            leaves = [z_in] if split else [z_in, *weights.values()]
+            g_zin, *g_wp = torch.autograd.grad(sn_graph, leaves, g_sn)
             for name, g in zip(g_w, g_wp):
                 g_w[name] += g
             total = total + g_zin
+            gsn.append(g_sn)
         if p >= 1:  # z_p = fk_mean_{p-1} + sqrt(2 e) xi_{p-1}
             g_e = g_e + torch.sum(total * noise[p - 1]) / torch.sqrt(2.0 * e)
             g_eps = g_eps + slope[p - 1] * g_e
             fk, direct = total, total - g_mean
+    if split:
+        grads = {"eps": g_eps, "betas": g_betas, "vd_mean": g_mu, "vd_logdiag": g_ld, "sn": {}}
+        return grads, total, torch.stack(gsn[::-1])
     grads = {"eps": g_eps, "betas": g_betas, "vd_mean": g_mu, "vd_logdiag": g_ld, "sn": g_w}
     return grads, total
 

@@ -34,6 +34,7 @@ from cmcd_tpu_torch.ops.target_grads import (
     KERNEL_DIMS,
     MAX_TARGET_FLOATS,
     TARGETS,
+    WIDE_TARGETS,
     kernel_target,
     n_target_floats,
 )
@@ -87,10 +88,11 @@ def check_target(what, grad_logp, dim):
     the dim its template is instantiated at (KERNEL_DIMS: 2 for the
     mixtures, 10 for the funnel and the standard normal)."""
     name = getattr(grad_logp, "kernel_name", None)
-    if name not in TARGETS:
+    if name not in TARGETS or name in WIDE_TARGETS:
         raise NotImplementedError(
             f"{what}: the kernel inlines the many_gmm, gmm, funnel and standard normal "
-            "scores only (ops/target_grads.score_for_target)"
+            "scores only (ops/target_grads.score_for_target; the LGCP runs through the "
+            "wide forms, ops/overdamped_wide.py and ops/kl_split.py)"
         )
     want = KERNEL_DIMS[name]
     if dim != want or getattr(grad_logp, "dim", want) != want:

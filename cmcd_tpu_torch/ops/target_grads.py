@@ -1,23 +1,28 @@
 """Target scores in the form the fused rollout computes them
 (cmcd_tpu/ops/target_grads.py).
 
-The CUDA kernels take the target as a template parameter
+The tile kernels take the target as a template parameter
 (csrc/cmcd_common.cuh: ManyGmmTarget, Gmm3Target, FunnelTarget,
 StdNormalTarget<10>), whose dimension D sizes every per-chain array: the
 many_gmm score in every kernel, the 3-mode gmm's in all but the underdamped
 ones, the funnel's and the standard normal's (D = 10) in the overdamped
-ones. This module holds their plain twins, with the Hessian products the
-reverse sweeps need, the registry that tells a wrapper which target its
-kernel integrates and at which D (`kernel_name`, TARGETS, KERNEL_DIMS) and
-the flat vector of constants every kernel reads its target from
-(target_floats). Like the TPU kernel, the many_gmm score ignores the -1e4
-floor of the batched log_prob: inside the support the two agree, outside it
-the floored log_prob has a zero gradient and this score does not.
+ones. The wide forms (csrc/cmcd_wide.cuh: the rollout of
+csrc/overdamped_wide.cu and the split sweep of csrc/kl_split.cu) take the
+1600-D LGCP, unwhitened and whitened (WIDE_TARGETS), whose dense float32
+matrix they read through a pointer of its own. This module holds their
+plain twins, with the Hessian products the reverse sweeps need, the
+registry that tells a wrapper which target its kernel integrates and at
+which D (`kernel_name`, TARGETS, KERNEL_DIMS) and the flat vector of
+constants every kernel reads its target from (target_floats). Like the TPU
+kernel, the many_gmm score ignores the -1e4 floor of the batched log_prob:
+inside the support the two agree, outside it the floored log_prob has a
+zero gradient and this score does not.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -25,11 +30,17 @@ import torch
 
 from cmcd_tpu_torch.targets.gmm import gmm_constants, many_gmm_means, many_gmm_scale
 
-# The kernels' target template parameters (csrc/cmcd_common.cuh), the state
-# dimension each is instantiated at (T::D), and how many constants a target
-# may hand them (64 many_gmm components).
-TARGETS = {"many_gmm": 0, "gmm": 1, "funnel": 2, "std_normal": 3}
-KERNEL_DIMS = {"many_gmm": 2, "gmm": 2, "funnel": 10, "std_normal": 10}
+# The kernels' target codes (csrc/cmcd_common.cuh for the tile kernels'
+# template parameters, csrc/cmcd_wide.cuh for the LGCP's two forms), the
+# state dimension each serves (T::D; the wide kernels take D at run time and
+# the LGCP score is built for 1600), and how many constants a target may hand
+# the tile kernels (64 many_gmm components).
+TARGETS = {"many_gmm": 0, "gmm": 1, "funnel": 2, "std_normal": 3, "lgcp": 4,
+           "lgcp_whitened": 5}
+KERNEL_DIMS = {"many_gmm": 2, "gmm": 2, "funnel": 10, "std_normal": 10, "lgcp": 1600,
+               "lgcp_whitened": 1600}
+# The targets only the wide forms take (their net does not fit a tile).
+WIDE_TARGETS = ("lgcp", "lgcp_whitened")
 MAX_TARGET_FLOATS = 128
 
 
@@ -167,6 +178,60 @@ class StdNormalScore:
         return -u
 
 
+@dataclasses.dataclass(frozen=True)
+class LgcpScore:
+    """grad log p for the LGCP (cmcd_tpu/ops/target_grads.py::make_lgcp_grad_t),
+    mat the target's own float32 constants (targets/lgcp.py):
+      unwhitened (mat = Sigma^{-1}):  -Sigma^{-1}(z - mu) + counts - a e^z
+      whitened (mat = L):             -w + L^T (counts - a e^{L w + mu})
+    in the input's dtype, e^z unclipped as in JAX."""
+
+    whitened: bool
+    mat: torch.Tensor     # (dim, dim) f32: Sigma^{-1}, or L
+    counts: torch.Tensor  # (dim,) f32
+    mu: float
+    a: float
+
+    @property
+    def kernel_name(self) -> str:
+        return "lgcp_whitened" if self.whitened else "lgcp"
+
+    @property
+    def dim(self) -> int:
+        return self.mat.shape[0]
+
+    def _consts(self, x):
+        return self.mat.to(x.device, x.dtype), self.counts.to(x.device, x.dtype)
+
+    def __call__(self, x):
+        """x: (N, dim) -> (N, dim)."""
+        m, counts = self._consts(x)
+        if not self.whitened:
+            return -((x - self.mu) @ m.T) + counts - self.a * torch.exp(x)
+        return -x + (counts - self.a * torch.exp(x @ m.T + self.mu)) @ m
+
+    def hvp(self, x, u):
+        """The score's Jacobian applied to u, both (N, dim) -> (N, dim),
+        written out (it is symmetric, which is why JAX's custom VJP reuses
+        the same constants):
+          unwhitened  -Sigma^{-1} u - a e^z * u
+          whitened    -u - L^T (a e^{L w + mu} * L u)."""
+        m, _ = self._consts(x)
+        if not self.whitened:
+            return -(u @ m.T) - self.a * torch.exp(x) * u
+        return -u - (self.a * torch.exp(x @ m.T + self.mu) * (u @ m.T)) @ m
+
+
+def lgcp_score(target, device=None) -> LgcpScore:
+    """The LGCP score of `target` at any num_dim, from the constants the
+    target built (moved only if `device` is another)."""
+    c, whitened = target.constants, bool(target.params["use_whitened"])
+    move = lambda t: t if device is None else t.to(device)
+    return LgcpScore(whitened=whitened, mat=move(c["chol" if whitened else "prec"]),
+                     counts=move(c["counts"]), mu=c["mu"], a=c["a"])
+
+
+@functools.lru_cache(maxsize=None)
 def make_gmm_score(device=None) -> GMMScore:
     means, chols, _, log_norm = gmm_constants()
     precs = np.linalg.inv(chols @ np.swapaxes(chols, -1, -2))
@@ -174,17 +239,25 @@ def make_gmm_score(device=None) -> GMMScore:
     return GMMScore(means=f32(means), precs=f32(precs), log_norm=f32(log_norm))
 
 
+@functools.lru_cache(maxsize=None)
 def make_many_gmm_score(device=None, log_var_scaling: float = 0.1) -> ManyGMMScore:
     scale = many_gmm_scale(log_var_scaling)
     return ManyGMMScore(means=many_gmm_means(device), inv_var=1.0 / (scale * scale))
 
 
 def score_for_target(target, device=None) -> Optional[
-        ManyGMMScore | GMMScore | FunnelScore | StdNormalScore]:
+        ManyGMMScore | GMMScore | FunnelScore | StdNormalScore | LgcpScore]:
     """The kernel-form score of `target`, or None where no score is written
     out (see ROADMAP queue B, B11). Which kernels take it, and at which
     dimension: its kernel_name (KERNEL_DIMS; a funnel of another funnel_d
-    has a score but no kernel)."""
+    has a score but no kernel). The LGCP's only where JAX's _build_lgcp
+    gives one: num_dim 1600 on the bundled data; it wraps the constants the
+    target built, so a call builds nothing."""
+    if target.name == "lgcp":
+        p = target.params
+        if p.get("num_dim") != KERNEL_DIMS["lgcp"] or not p.get("default_data"):
+            return None
+        return lgcp_score(target, device)
     if target.name == "gmm":
         return make_gmm_score(device)
     if target.name == "funnel":
@@ -203,9 +276,13 @@ def target_floats(grad_logp) -> torch.Tensor:
     """The constants a kernel's target reads, as one flat f32 tensor: the
     many_gmm means (n_mix x 2); the gmm means (3 x 2), the precisions'
     (p11, p12, p22) per component and the log-normalisers (3); the funnel's
-    sig; the standard normal's precision, 1. Nothing dimension-sized: the
-    kernel's D is the template's."""
+    sig; the standard normal's precision, 1; the LGCP's mu and a (its
+    matrix and counts go to the wide kernels through pointers of their own).
+    Nothing dimension-sized: the kernel's D is the template's, or the wide
+    forms' run-time dim."""
     name = grad_logp.kernel_name
+    if name in WIDE_TARGETS:
+        return torch.tensor([grad_logp.mu, grad_logp.a], dtype=torch.float32)
     if name == "many_gmm":
         return grad_logp.means.reshape(-1).to(torch.float32).contiguous()
     if name in ("funnel", "std_normal"):

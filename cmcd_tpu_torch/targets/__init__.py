@@ -1,9 +1,9 @@
 """Target registry: name -> Target (cmcd_tpu/targets/__init__.py).
 
-many_gmm, the 3-mode gmm and Neal's funnel are ported; every other name
-raises NotImplementedError and names the ROADMAP queue that holds it. Names
-are matched as the JAX package matches them: "funnel" first, then
-"many_gmm" before "gmm".
+many_gmm, the 3-mode gmm, Neal's funnel and the 1600-D LGCP are ported;
+every other name raises NotImplementedError and names the ROADMAP queue that
+holds it. Names are matched as the JAX package matches them: "funnel"
+first, then "lgcp", then "many_gmm" before "gmm".
 """
 
 from __future__ import annotations
@@ -22,6 +22,12 @@ def load_target(name: str, config=None, device=None) -> Target:
 
         return make_funnel(d=get("funnel_d", 10), sig=get("funnel_sig", 3.0),
                            clip_y=get("funnel_clipy", 11.0))
+    if "lgcp" in name:
+        from cmcd_tpu_torch.targets.lgcp import make_lgcp
+
+        return make_lgcp(use_whitened=get("use_whitened", False),
+                         file_path=get("file_path", None) or None,  # "" -> bundled pines.csv
+                         device=device)
     if "many_gmm" in name:
         from cmcd_tpu_torch.targets.gmm import make_many_gmm
 

@@ -20,3 +20,6 @@ class Target:
     # reads them so that a target it cannot honour is refused, never
     # integrated against the wrong density.
     params: dict = dataclasses.field(default_factory=dict)
+    # What a target builds once and its kernel-form score wraps at no cost
+    # (LGCP's float32 matrices and counts, on the target's device).
+    constants: dict = dataclasses.field(default_factory=dict)

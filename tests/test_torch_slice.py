@@ -225,6 +225,7 @@ import chip_smoke
 assert callable(chip_smoke.main)
 assert "jax" not in sys.modules
 for name in ("ops.kl", "ops.underdamped", "ops.kl_underdamped", "ops.uha", "ops.kl_uha",
+             "ops.overdamped_wide", "ops.kl_split", "targets.lgcp",
              "tools.recipe_trace", "integrators.uha", "main"):
     assert "cmcd_tpu_torch." + name in names, name
 print("clean", len(names))

@@ -386,11 +386,14 @@ GMM_ULA = ("--config.model gmm --config.boundmode MCD_ULA --config.N 300 --confi
 OTHER_WRAPPERS = {
     fused.uha: ["evolve_uha_fused"],
     fused.underdamped: ["evolve_underdamped_fused"],
+    fused.overdamped_wide: ["evolve_overdamped_wide"],
     fused_train: ["evolve_underdamped_fused", "evolve_underdamped_fused_plain",
                   "evolve_vargrad_bwd_replay", "evolve_vargrad_bwd_replay_plain",
                   "evolve_vargrad_bwd_reroll", "evolve_vargrad_bwd_reroll_plain",
                   "evolve_kl_bwd_underdamped", "evolve_kl_bwd_underdamped_plain",
-                  "evolve_kl_bwd_uha", "evolve_kl_bwd_uha_plain"],
+                  "evolve_kl_bwd_uha", "evolve_kl_bwd_uha_plain",
+                  "evolve_overdamped_wide", "evolve_overdamped_wide_plain",
+                  "evolve_kl_split", "evolve_kl_split_plain"],
 }
 
 
