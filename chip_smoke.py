@@ -190,8 +190,8 @@ Phases, one line each; any failure exits non-zero:
      30, sweep CAIS_UHA_PATH_ITERS; ELBO above its value at init), the exact
      and exact_fwd modes on many_gmm with the LDVI flags, LDVI with the
      gmm_cais flags and UHA with funnel_k8's for UD_SHORT_ITERS, each
-     followed by the evaluation; MCD_DNF, still unported, refused with no
-     launch.
+     followed by the evaluation; MCD_DNF with a PIS net (dds_grad) refused
+     with no launch.
  28. timing (CUDA events, plain, kernel, kernel, plain) of the new forms at
      their paths' shapes, each beside its bound (_work_ud, _work_uha) and
      its device time per launch under torch.profiler; the CAIS_UHA funnel
@@ -247,8 +247,29 @@ Phases, one line each; any failure exits non-zero:
      launch under torch.profiler, the instances' registers and spill
      stores from ptxas, and the lgcp_k8 optimizer step over 50 and 200
      steps against the eager step, with its device busy share.
-Then a JSON line with each kernel's launches, error, times and bound, and as
-the last line {"ok": true, "device": {...}}.
+ 35. MCD_DNF's forms (zero drift, two geffner nets: dnf_rollout<D> in B1,
+     kl_dnf_sweep<NG, D> in B3) against their plain versions under injected
+     noise: at the test size on many_gmm, gmm and the funnel (the sweep under
+     three schedules, the noise stacks), at full width (many_gmm, N=2000 and
+     500, K=256, emb 130), at four groups (N=8192, K=8) and on the funnel at
+     funnel_k8's shape and at N=2000, K=256 (TOL_SMALL / TOL_FULL,
+     GRAD_TOL_SMALL / GRAD_TOL_FULL per leaf, sn2's included, the float64
+     arbiter); the whole DNF step of each path's flags.
+ 36. the DNF paths through the CLI, each form's launches counted from 0 just
+     before its run and no other kernel: the KL cell's flags on many_gmm with
+     the mode swapped for DNF_PATH_ITERS steps, the gmm_cais flags and
+     funnel_k8's for DNF_SHORT_ITERS (rollout iters + 30, sweep iters), each
+     followed by the evaluation; no NaN loss, no divergence, the ELBO above
+     its value at init on each.
+ 37. timing (CUDA events, plain, kernel, kernel, plain) of both DNF forms at
+     each path's shape (the rollout also at the evaluation's N=500), each
+     beside its bound (_work_dnf) and its device time per launch under
+     torch.profiler, the instances' registers and spill stores from ptxas,
+     and the many_gmm DNF optimizer step over 50 and 200 steps against the
+     eager step, with its device busy share.
+Then a line with each phase's seconds, a JSON line with each kernel's
+launches, error, times and bound, and as the last line {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -419,13 +440,14 @@ def _pis_tree(rng, dim, units, arch):
 
 
 def make_problem(n, k, emb_dim, *, seed, factor_sn=0.3, sigma=3.0, eps=0.1, din=None,
-                 noise_rows=None, target="many_gmm", net="geffner", units=(64, 64)):
+                 noise_rows=None, target="many_gmm", net="geffner", units=(64, 64), sn2=False):
     """Inputs from a numpy seed: net weights on din input columns ahead of
     the embedding (default the target's dim; JAX layout, converted; din 0: no
     net), or with net "dds" / "dds_grad" a PIS net of widths `units` on the
     state, z0, w0, non-uniform betas, noise (noise_rows, default K, x N x
     dim), the target's kernel-form score (many_gmm or the 3-mode gmm, dim 2;
-    the funnel or the standard normal, dim 10)."""
+    the funnel or the standard normal, dim 10); with sn2 (MCD_DNF) a second
+    geffner net of the same width, factor_sn 0.2, drawn last."""
     from cmcd_tpu_torch.distributions import std_normal_log_prob
     from cmcd_tpu_torch.ops.target_grads import KERNEL_DIMS, score_for_target
     from cmcd_tpu_torch.schedules import betas_from_grid, make_beta_grid_params
@@ -451,7 +473,7 @@ def make_problem(n, k, emb_dim, *, seed, factor_sn=0.3, sigma=3.0, eps=0.1, din=
         sn = pis_from_jax(_pis_tree(rng, dim, units, net), dev, target_log_prob=tgt.log_prob)
     else:
         sn = geffner_from_jax(tree, dev) if din else None
-    return dict(
+    out = dict(
         z0=f32(sigma * rng.standard_normal((n, dim))),
         w0=f32(rng.standard_normal(n)),
         betas=betas_from_grid(mg, gx, tx).contiguous(),
@@ -464,6 +486,12 @@ def make_problem(n, k, emb_dim, *, seed, factor_sn=0.3, sigma=3.0, eps=0.1, din=
         dim=dim,
         nbridges=k,
     )
+    if sn2:  # drawn after everything else, so the other inputs keep their bits
+        tree2 = {"layers": [dense(in_dim, in_dim), dense(in_dim, in_dim)],
+                 "head": dense(in_dim, dim), "emb": rng.normal(0, 1.0, (k, emb_dim)),
+                 "factor_sn": np.float32(0.2)}
+        out["sn2"] = geffner_from_jax(tree2, dev)
+    return out
 
 
 def _split(case):
@@ -526,8 +554,10 @@ def compare(case, spec, tol, wrappers=None, **kw):
 
 
 def _flat(grads):
-    """A backward kernel's gradient dict as {leaf name: tensor}."""
-    return {**{k: v for k, v in grads.items() if k != "sn"}, **grads.get("sn", {})}
+    """A backward kernel's gradient dict as {leaf name: tensor} (DNF's
+    second net's leaves as "sn2.<name>")."""
+    return {**{k: v for k, v in grads.items() if k not in ("sn", "sn2")}, **grads.get("sn", {}),
+            **{f"sn2.{name}": v for name, v in grads.get("sn2", {}).items()}}
 
 
 def _grad_errors(got, want, tol):
@@ -709,7 +739,8 @@ def compare_rollout_chunked(case, spec, tol, chunk, **kw):
         # whose median may be at most F64_SLACK (the norms over those chains,
         # which one chain can dominate, are printed beside it).
         f64 = lambda t: t.double() if torch.is_tensor(t) and t.is_floating_point() else t
-        args64 = dict(args, sn=double_tree(args["sn"]))
+        args64 = dict(args, **{net: double_tree(args[net]) for net in ("sn", "sn2")
+                           if args.get(net) is not None})
         z_d, w_d = evolve_overdamped_fused_plain(
             *(f64(t[bad]) for t in pos[:2]), *(f64(t) for t in pos[2:]), spec, **args64,
             noise=noise[:, bad].double(), **kw)
@@ -837,6 +868,9 @@ def compare_training_step(flags=None, name="VarGrad", arbitrate=False, tag="3 co
         if hasattr(sn, "factor_sn"):
             sn.factor_sn.fill_(0.3)
             sn.head.weight.normal_(0.0, 0.05, generator=gen)
+            if "sn2" in params["train"]:  # DNF's second net, as make_problem's
+                params["train"]["sn2"].factor_sn.fill_(0.2)
+                params["train"]["sn2"].head.weight.normal_(0.0, 0.05, generator=gen)
         elif sn is not None:  # a PIS net: its output layers (zero at init), as the JAX tests
             sn.state_net[-1].weight.normal_(0.0, 0.05, generator=gen)
             if hasattr(sn, "time_coder_grad"):
@@ -2640,7 +2674,9 @@ FUNNEL_FLAGS = (
 ).split()
 FUNNEL_MODE_FLAGS = {mode: [f if f != "MCD_CAIS_sn" else mode for f in FUNNEL_FLAGS]
                      for mode in ("MCD_CAIS_var_sn", "MCD_ULA_sn", "MCD_ULA")}
-FUNNEL_PATH_ITERS, FUNNEL_SHORT_ITERS = 2000, 200
+# 1000 steps (2000 before the DNF phases 35-37 joined the run, to keep it
+# under 900 s); the ELBO must still rise.
+FUNNEL_PATH_ITERS, FUNNEL_SHORT_ITERS = 1000, 200
 FUNNEL_SHAPES = {"funnel_k8": (300, 8, 48, 0.1), "stress": (2000, 256, 48, 0.01)}
 # A funnel_k8-like shape whose chain count passes 32 chains a tile times the
 # H100's 132 SMs: the sweeps and the reroll take four groups (sweep_grid).
@@ -3038,7 +3074,8 @@ GMM_LDVI_FLAGS = [f if f != "MCD_CAIS_sn" else "MCD_U_a-lp-sn" for f in GMM_CAIS
 CAIS_UHA_FLAGS = ([f if f != "MCD_CAIS_sn" else "MCD_CAIS_UHA_sn" for f in FUNNEL_FLAGS]
                   + ["--config.nbridges", "32"])
 FUNNEL_UHA_FLAGS = [f if f != "MCD_CAIS_sn" else "UHA" for f in FUNNEL_FLAGS]
-CAIS_UHA_PATH_ITERS, UD_SHORT_ITERS = 2000, 200
+# 1000 steps (2000 before the DNF phases), the ELBO still gated.
+CAIS_UHA_PATH_ITERS, UD_SHORT_ITERS = 1000, 200
 # Each new form's shapes: (mode, target, N, K, emb, init_sigma, init_eps, init_gamma), the
 # path's own first.
 UD_NEW_SHAPES = {
@@ -3186,7 +3223,9 @@ def phase_ud_new_paths():
     counted from 0 just before its run: CAIS_UHA on the funnel at K=32 for
     CAIS_UHA_PATH_ITERS steps (ELBO above its value at init), the exact and
     exact_fwd modes on many_gmm, LDVI on gmm and UHA on the funnel for
-    UD_SHORT_ITERS; then MCD_DNF, still unported, refused before any launch."""
+    UD_SHORT_ITERS; then MCD_DNF with a PIS net (dds_grad), which no kernel
+    takes (DNF runs with the geffner nets: phases 35-37), refused before any
+    launch."""
     rollout, sweep = "evolve_underdamped_fused", "evolve_kl_bwd_underdamped"
     seeds = 30
     runs = {}
@@ -3207,11 +3246,11 @@ def phase_ud_new_paths():
     _reset_launches()
     bad = [f if f != "MCD_CAIS_sn" else "MCD_DNF" for f in FUNNEL_FLAGS]
     try:
-        run_experiment(parse_flags(bad + ["--config.iters", "0"]))
+        run_experiment(parse_flags(bad + ["--config.iters", "0", "--config.nn_arch", "dds_grad"]))
     except NotImplementedError as err:
-        print(f"[27 path] MCD_DNF on the funnel: refused ({err})", flush=True)
+        print(f"[27 path] MCD_DNF with dds_grad on the funnel: refused ({err})", flush=True)
     else:
-        fail("MCD_DNF ran on the card without a kernel")
+        fail("MCD_DNF with a PIS net ran on the card without a kernel")
     if _launch_table():
         fail("a refused configuration launched a kernel")
     return {key: table for key, (table, _, _) in runs.items()}
@@ -3396,7 +3435,8 @@ DDS_VAR_FLAGS = [{"MCD_CAIS_sn": "MCD_CAIS_var_sn", "60": "15"}.get(f, f) for f 
 DDS_ULA_SN_FLAGS = [f if f != "MCD_CAIS_sn" else "MCD_ULA_sn" for f in KL_DDS_FLAGS]
 GMM_DDS_FLAGS = GMM_CAIS_FLAGS + ["--config.nn_arch", "dds"]
 FUNNEL_DDS_GRAD_FLAGS = FUNNEL_FLAGS + ["--config.nn_arch", "dds_grad"]
-PIS_PATH_ITERS, PIS_SHORT_ITERS = 2000, 200
+# 1000 steps (2000 before the DNF phases), the ELBO still gated.
+PIS_PATH_ITERS, PIS_SHORT_ITERS = 1000, 200
 PIS_ARCHS = ("dds", "dds_grad")
 # Each target's compare: (units at the test size, init_sigma).
 PIS_TARGETS = {"many_gmm": ((64, 64), 8.0), "gmm": ((16, 16), 3.0), "funnel": ((16, 16), 1.0)}
@@ -3430,7 +3470,8 @@ def compare_arbitrated(case, spec, tol, wrappers=None, **kw):
     out_p = evolve_overdamped_fused_plain(*pos, spec, **args, noise=noise,
                                           return_trajectory=True, **kw)
     f64 = lambda t: t.double() if torch.is_tensor(t) and t.is_floating_point() else t
-    args64 = dict(args, sn=double_tree(args["sn"]))
+    args64 = dict(args, **{net: double_tree(args[net]) for net in ("sn", "sn2")
+                           if args.get(net) is not None})
     run64 = lambda xi: evolve_overdamped_fused_plain(*(f64(t) for t in pos), spec, **args64,
                                                      noise=xi, return_trajectory=True, **kw)
     out_d = run64(noise.double())
@@ -4259,52 +4300,333 @@ def _lgcp_kernel_entries(errors, paths, timing):
     return entries
 
 
+# MCD_DNF (phases 35-37): zero drift and two geffner nets, the second in the
+# backward mean, through B1's and B3's two-net forms (dnf_rollout<D>,
+# kl_dnf_sweep<NG, D>, instantiated by the state's D). Paths: the KL cell's
+# flags on many_gmm at full width, the gmm_cais flags and funnel_k8's, each
+# with the mode swapped (the setup gives DNF no eps schedule, as JAX's).
+DNF_KL_FLAGS = [f if f != "MCD_CAIS_sn" else "MCD_DNF" for f in KL_FLAGS]
+GMM_DNF_FLAGS = [f if f != "MCD_CAIS_sn" else "MCD_DNF" for f in GMM_CAIS_FLAGS]
+FUNNEL_DNF_FLAGS = [f if f != "MCD_CAIS_sn" else "MCD_DNF" for f in FUNNEL_FLAGS]
+DNF_PATH_ITERS, DNF_SHORT_ITERS = 500, 200
+# Each DNF form's shape (timing) and its path: N, K, emb, init_eps, init_sigma, flags.
+DNF_FORMS = {
+    "DNF/many_gmm": (2000, 256, 130, 0.1, 15.0, DNF_KL_FLAGS, DNF_PATH_ITERS),
+    "DNF/gmm": (300, 8, 20, 0.01, 1.0, GMM_DNF_FLAGS, DNF_SHORT_ITERS),
+    "DNF/funnel": (300, 8, 48, 0.1, 1.0, FUNNEL_DNF_FLAGS, DNF_SHORT_ITERS),
+}
+
+
+def phase_dnf_compare():
+    """B1's and B3's DNF forms against their plain versions (phase 35), under
+    injected noise: at the test size on many_gmm, gmm and the funnel (three
+    schedules for the sweep; the noise stacks); at full width (many_gmm,
+    N=2000 and 500, K=256, emb 130); at four groups (N=8192, K=8); on the
+    funnel at funnel_k8's shape and at N=2000, K=256; the whole DNF steps of
+    the three paths' flags. Rollouts TOL_SMALL / TOL_FULL, sweeps
+    GRAD_TOL_SMALL / GRAD_TOL_FULL per leaf (sn2's included), the float64
+    arbiter of PERF.md §2 where a chain or leaf misses."""
+    from cmcd_tpu_torch.integrators.overdamped import DNF
+    from cmcd_tpu_torch.ops.vargrad import sweep_grid
+
+    ok, errors = True, {}
+
+    def keep(key, value, n=None):
+        keys = [key] + ([f"{key}/NG={sweep_grid(n, 'cuda')[0]}"] if n else [])
+        for k in keys:
+            errors[k] = max(errors.get(k, 0.0), value)
+
+    for i, (target, sigma) in enumerate((("many_gmm", 8.0), ("gmm", 3.0), ("funnel", 1.0))):
+        case = make_problem(256, 8, 16, seed=100 + i, sigma=sigma, target=target, sn2=True)
+        stats, good = compare(case, DNF, TOL_SMALL)
+        ok &= good
+        keep(f"rollout DNF/{target}", max(stats["z_max_abs"], stats["w_max_abs"]))
+        print(f"[35 compare] rollout small N=256 K=8 emb 16 DNF/{target}: {json.dumps(stats)}, "
+              f"ok {good}", flush=True)
+        stats, good = compare_noise_stack(case, DNF)
+        ok &= good
+        print(f"[35 compare] rollout noise stack N=256 K=8 DNF/{target}: {json.dumps(stats)}, "
+              f"ok {good}", flush=True)
+        case = make_problem(128, 6, 16, seed=104 + i, sigma=sigma, target=target, sn2=True)
+        for sched in ("", "cos_sq", "linear"):
+            worst, line, good = compare_sweep(case, GRAD_TOL_SMALL, arbitrate=True, spec=DNF,
+                                              eps_schedule=sched)
+            ok &= good
+            keep(f"sweep DNF/{target}", worst, 128)
+            print(f"[35 compare] KL sweep small N=128 K=6 DNF/{target} schedule {sched!r}: "
+                  f"{line}, ok {good}", flush=True)
+    # Full width: many_gmm at the KL cell's shape, and the evaluation's N=500.
+    for n in (2000, 500):
+        case = make_problem(n, 256, 130, seed=110, sigma=15.0, eps=0.1, sn2=True)
+        stats, good = compare_arbitrated(case, DNF, TOL_FULL)
+        ok &= good
+        keep("rollout DNF/many_gmm", max(stats["z_max_abs"], stats["w_max_abs"]))
+        print(f"[35 compare] rollout full N={n} K=256 emb 130 DNF/many_gmm: {json.dumps(stats)} "
+              f"tol {json.dumps(TOL_FULL)}, ok {good}", flush=True)
+        if n == 2000:
+            worst, line, good = compare_sweep(case, GRAD_TOL_FULL, arbitrate=True, spec=DNF)
+            ok &= good
+            keep("sweep DNF/many_gmm", worst, n)
+            print(f"[35 compare] KL sweep full N={n} K=256 emb 130 DNF/many_gmm: {line}, ok "
+                  f"{good}", flush=True)
+    # Four groups: N=8192 at K=8 (more tiles than blocks), both D.
+    big = 8192
+    groups, blocks = sweep_grid(big, "cuda")
+    if groups != 4 or blocks >= -(-big // 32):
+        fail(f"N={big} does not take four groups with more tiles than blocks")
+    for target, emb, sigma in (("many_gmm", 130, 8.0), ("funnel", 48, 1.0)):
+        case = make_problem(big, 8, emb, seed=112, sigma=sigma, eps=0.1, target=target, sn2=True)
+        worst, line, good = compare_sweep(case, GRAD_TOL_FULL, arbitrate=True, spec=DNF)
+        ok &= good
+        keep(f"sweep DNF/{target}", worst, big)
+        print(f"[35 compare] KL sweep four groups N={big} K=8 emb {emb} DNF/{target}: {line}, "
+              f"ok {good}", flush=True)
+    # The funnel at D = 10: funnel_k8's shape and the stress shape.
+    for name, (n, k, emb, eps) in FUNNEL_SHAPES.items():
+        case = make_problem(n, k, emb, seed=114, sigma=1.0, eps=eps, target="funnel", sn2=True)
+        tol = TOL_SMALL if k <= 8 else TOL_FULL
+        stats, good = compare_arbitrated(case, DNF, tol)
+        ok &= good
+        keep("rollout DNF/funnel", max(stats["z_max_abs"], stats["w_max_abs"]))
+        print(f"[35 compare] rollout {name} N={n} K={k} emb {emb} DNF/funnel: "
+              f"{json.dumps(stats)}, ok {good}", flush=True)
+        worst, line, good = compare_sweep(case, GRAD_TOL_FULL, arbitrate=True, spec=DNF)
+        ok &= good
+        keep("sweep DNF/funnel", worst, n)
+        print(f"[35 compare] KL sweep {name} N={n} K={k} emb {emb} DNF/funnel: {line}, ok "
+              f"{good}", flush=True)
+    for form, (_, _, _, _, _, flags, _) in DNF_FORMS.items():
+        ok &= compare_training_step(flags + ["--config.iters", "0"], form, arbitrate=True,
+                                    tag="35 compare")
+    if not ok:
+        fail("a DNF kernel form and its plain version disagree beyond tolerance")
+    return errors
+
+
+def phase_dnf_paths():
+    """The DNF paths through the CLI (phase 36), each form's launches counted
+    from 0 just before its run and no other kernel; the ELBO above its value
+    at init on each."""
+    rollout, sweep = "evolve_overdamped_fused", "evolve_kl_bwd"
+    runs = {}
+    for form, (_, _, _, _, _, flags, iters) in DNF_FORMS.items():
+        expect = {rollout: {form: iters + 30}, sweep: {form: iters}}
+        runs[form] = _od_path(flags, iters, "36 path", expect)
+    return {key: table for key, (table, _, _) in runs.items()}
+
+
+def _work_dnf(n, k, in_dim, dim=2):
+    """Least time the card could take for one call of DNF's forms (the rule
+    of _work): {"rollout" (with trajectory and noise stores), "sweep"}. Each
+    step applies two nets and no score; the sweep transposes each net at the
+    K points it served (3 in_dim^2 FMAs and the head's a point)."""
+    points, applies = (k + 1) * n, 2 * k * n
+    net_apply = in_dim * in_dim + 2 * dim * in_dim
+    weights = 4 * (dim * in_dim + 2 * k * in_dim + in_dim * in_dim + in_dim + dim * in_dim + dim)
+    fwd_flops = 2 * (applies * net_apply + k * n * 8 * dim)
+    stores = 4 * dim * points + 4 * dim * k * n              # trajectory, noise
+    fwd_bytes = 4 * ((dim + 1) * n + k) + 2 * weights + 4 * (dim + 1) * n + stores
+    bwd_flops = 2 * (applies * (3 * in_dim * in_dim + (4 + 2 * dim) * in_dim) + points * 10 * dim)
+    sums = 2 * 4 * (in_dim * in_dim + (1 + 2 * dim) * in_dim + 3 * dim + 2
+                    + (k + 1) * (2 * in_dim + 2))
+    bwd_bytes = stores + 4 * (n + k) + 2 * weights + 8 * dim * n + sums
+    return {"rollout": _bound(fwd_flops, fwd_bytes), "sweep": _bound(bwd_flops, bwd_bytes)}
+
+
+def phase_dnf_timing():
+    """CUDA-event and device times of each DNF form at its path's shape (the
+    rollout also at the evaluation's N=500 on many_gmm) beside its plain
+    version, its bound and its instance's registers and spills, and the
+    many_gmm DNF optimizer step (phase 37)."""
+    from cmcd_tpu_torch import bounds
+    from cmcd_tpu_torch.integrators.overdamped import DNF
+    from cmcd_tpu_torch.ops.fused_train import fused_training_path
+    from cmcd_tpu_torch.ops.kl import evolve_kl_bwd, evolve_kl_bwd_plain
+    from cmcd_tpu_torch.ops.overdamped import (
+        evolve_overdamped_fused,
+        evolve_overdamped_fused_plain,
+    )
+    from cmcd_tpu_torch.train import train
+
+    seed = torch.tensor([7], device="cuda")
+    order = ("plain", "kernel", "kernel", "plain")
+    times, bounds_ = {}, {}
+    for form, (n, k, emb, eps, sigma, _, _) in DNF_FORMS.items():
+        target = form.split("/")[1]
+        pos, kw, _ = _split(make_problem(n, k, emb, seed=2, sigma=sigma, eps=eps, target=target,
+                                         sn2=True))
+        dim = pos[0].shape[1]
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        cot = torch.randn(n, generator=gen, device="cuda")
+        g_zf = torch.randn(n, dim, generator=gen, device="cuda")
+        _, _, traj, noise = evolve_overdamped_fused(*pos, DNF, **kw, seed=seed,
+                                                    return_trajectory=True, return_noise=True)
+        plain_reps = 2 if k <= 8 else 1
+        fns = {
+            "rollout": (lambda: evolve_overdamped_fused(
+                *pos, DNF, **kw, seed=seed, return_trajectory=True, return_noise=True), 20),
+            "rollout_plain": (lambda: evolve_overdamped_fused_plain(
+                *pos, DNF, **kw, seed=7, return_trajectory=True, return_noise=True), plain_reps),
+            "sweep": (lambda: evolve_kl_bwd(traj, noise, cot, g_zf, *pos[2:], DNF, **kw), 10),
+            "sweep_plain": (lambda: evolve_kl_bwd_plain(traj, noise, cot, g_zf, *pos[2:], DNF,
+                                                        **kw), plain_reps),
+        }
+        t = times[form] = {key: [] for key in fns}
+        for which in order:
+            for kind in ("rollout", "sweep"):
+                key = kind if which == "kernel" else f"{kind}_plain"
+                fn, reps = fns[key]
+                t[key].append(_event_ms(fn, reps))
+        t["rollout_device"] = _device_ms(fns["rollout"][0], 10, "dnf_rollout")
+        t["sweep_device"] = _device_ms(fns["sweep"][0], 10, "kl_dnf_sweep")
+        b = bounds_[form] = _work_dnf(n, k, dim + emb, dim)
+        if form == "DNF/many_gmm":  # the evaluation's rollout: N=500, no stores
+            pos5, kw5, _ = _split(make_problem(500, k, emb, seed=3, sigma=sigma, eps=eps,
+                                               sn2=True))
+            ev = lambda: evolve_overdamped_fused(*pos5, DNF, **kw5, seed=seed)
+            t["rollout_n500"] = [_event_ms(ev, 20)]
+            t["rollout_n500_device"] = _device_ms(ev, 10, "dnf_rollout")
+            b["rollout_n500"] = _work_dnf(500, k, dim + emb, dim)["rollout"]
+        print(f"[37 timing] {form} N={n} K={k} emb {emb} ms {json.dumps(t)}; bounds "
+              f"{json.dumps(b)}", flush=True)
+    regs = {src: _ptxas(src, match) for src, match in (("overdamped", "dnf_rollout"),
+                                                        ("kl", "kl_dnf_sweep"))}
+    print(f"[37 timing] registers and spill store bytes of the DNF instances (ptxas): "
+          f"{json.dumps(regs)}", flush=True)
+    cfg, setup, target, params, ctx = flagship(DNF_KL_FLAGS + ["--config.iters", "0"])
+    trainable = bounds.default_trainable(setup.mode, cfg.train_eps, cfg.train_vi,
+                                         cfg.train_betas)
+    fused_loss, _ = fused_training_path(setup, cfg.N)
+    fused = lambda p, n_, c, s, generator: fused_loss(p, n_, c, s, target, generator=generator)
+
+    def steps(loss_fn, iters):
+        g = torch.Generator(device="cuda").manual_seed(1)
+        return lambda: train(setup, params, ctx, lr=cfg.lr, iters=iters, batch_size=cfg.N,
+                             generator=g, trainable=trainable, loss_fn=loss_fn,
+                             steps_per_call=max(iters, 1), nan_check_every=10**9)
+
+    steps(fused, 5)()
+    ms = {"eager": [], "kernel": []}
+    for which in order:
+        loss_fn, iters = (bounds.kl_bound, 1) if which == "plain" else (fused, 50)
+        ms["eager" if which == "plain" else "kernel"].append(_wall_ms(steps(loss_fn, iters))
+                                                             / iters)
+    ms["kernel_200"] = [_wall_ms(steps(fused, 200)) / 200]
+    prof_wall, prof_dev, top = _profile(steps(fused, 10))
+    ms["busy_ms"] = prof_dev / 10
+    ms["busy_share_of_200"] = prof_dev / 10 / ms["kernel_200"][0]
+    print(f"[37 timing] DNF many_gmm optimizer step N={cfg.N} K={cfg.nbridges} ms per step "
+          f"{json.dumps(ms)} (kernel: 50 steps, kernel_200: 200, eager: 1 per reading); 10 fused "
+          f"steps under the profiler: wall {prof_wall!r} ms, device busy {prof_dev!r} ms, device "
+          f"records {json.dumps(top)}", flush=True)
+    return times, bounds_, regs, ms
+
+
+def _dnf_kernel_entries(errors, paths, timing, err_is):
+    """The kernels line's entries of the DNF forms (phases 35-37): each
+    form's launches on its own path (phase 36), its worst error against the
+    plain version (phase 35), its times and bound at the path's shape (phase
+    37), its instance's registers and spill stores."""
+    times, bounds_, regs, _ = timing
+    keep = lambda b: {k: b[k] for k in ("bound_ms", "bound_by")}
+    entries = []
+    for form in DNF_FORMS:
+        target = form.split("/")[1]
+        d = 10 if target == "funnel" else 2
+        t, b, table = times[form], bounds_[form], paths[form]
+        rollout_extra = ({"ms_at_n500": min(t["rollout_n500"]),
+                          "device_ms_at_n500": t["rollout_n500_device"],
+                          "bound_ms_at_n500": b["rollout_n500"]["bound_ms"]}
+                         if "rollout_n500" in t else {})
+        entries.append({
+            "name": f"dnf_rollout<{d}>", "route": "cuda",
+            "source": "cmcd_tpu_torch/csrc/overdamped.cu",
+            "replaces": "cmcd_tpu/ops/pallas_overdamped.py:102", "form": form,
+            "launches": table["evolve_overdamped_fused"][1][form],
+            "max_abs_err": errors[f"rollout {form}"],
+            "ms": min(t["rollout"]), "device_ms": t["rollout_device"],
+            "plain_ms": min(t["rollout_plain"]), **keep(b["rollout"]), "library_ms": None,
+            "registers_spill": {n: v for n, v in regs["overdamped"].items() if f"<{d}>" in n},
+            **rollout_extra,
+        })
+        entries.append({
+            "name": f"kl_dnf_sweep<NG, {d}>", "route": "cuda",
+            "source": "cmcd_tpu_torch/csrc/kl.cu",
+            "replaces": "cmcd_tpu/ops/pallas_kl.py:49", "form": form,
+            "launches": table["evolve_kl_bwd"][1][form],
+            "max_abs_err": errors[f"sweep {form}"], "max_abs_err_is": err_is,
+            "max_abs_err_by_groups": {g: errors.get(f"sweep {form}/NG={g}") for g in (2, 4)},
+            "ms": min(t["sweep"]), "device_ms": t["sweep_device"],
+            "plain_ms": min(t["sweep_plain"]), **keep(b["sweep"]), "library_ms": None,
+            "registers_spill": {n: v for n, v in regs["kl"].items() if f", {d}>" in n},
+        })
+    return entries
+
+
 def main(argv=None):
+    t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    everything = ",".join(str(p) for p in range(1, 35))
+    everything = ",".join(str(p) for p in range(1, 38))
     ap.add_argument("--phases", default=everything,
                     help="comma-separated phases to run (default: all)")
     phases = {int(p) for p in ap.parse_args(argv).phases.split(",")}
-    smi = phase_device()
-    phase_build()
-    errors = phase_compare() if 3 in phases else None
-    eval_launches = phase_main_path() if 4 in phases else None
-    if 5 in phases:
-        phase_statistics()
-    timing = phase_timing() if 6 in phases else None
-    train_launches = phase_training_path() if 7 in phases else None
-    train_timing = phase_training_timing() if 8 in phases else None
-    kl_launches = phase_kl_training_path() if 9 in phases else None
-    reroll = phase_reroll_path() if 10 in phases else None
-    kl_timing = phase_kl_timing() if 11 in phases else None
-    ud_errors = phase_ud_compare() if 12 in phases else None
-    ud_eval_launches, ud_init = phase_ud_eval_path() if 13 in phases else (None, None)
+    seconds = {}
+
+    def run(p, fn, *args, default=None):
+        """fn(*args) if phase p is asked for (else default), its seconds kept."""
+        if p not in phases:
+            return default
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[p] = round(seconds.get(p, 0.0) + time.perf_counter() - t0, 2)
+        return out
+
+    phases |= {1, 2}
+    smi = run(1, phase_device)
+    run(2, phase_build)
+    errors = run(3, phase_compare)
+    eval_launches = run(4, phase_main_path)
+    run(5, phase_statistics)
+    timing = run(6, phase_timing)
+    train_launches = run(7, phase_training_path)
+    train_timing = run(8, phase_training_timing)
+    kl_launches = run(9, phase_kl_training_path)
+    reroll = run(10, phase_reroll_path)
+    kl_timing = run(11, phase_kl_timing)
+    ud_errors = run(12, phase_ud_compare)
+    ud_eval_launches, ud_init = run(13, phase_ud_eval_path, default=(None, None))
     if 14 in phases and ud_init is None:  # the ELBO at init that phase 14 must beat
-        ud_init = phase_ud_eval_path()[1]
-    ud_launches = phase_ud_training_path(ud_init) if 14 in phases else None
-    ud_timing = phase_ud_timing() if 15 in phases else None
-    uha_errors = phase_uha_compare() if 16 in phases else None
-    uha_eval_launches, uha_init = phase_uha_eval_path() if 17 in phases else (None, None)
+        ud_init = run(14, phase_ud_eval_path)[1]
+    ud_launches = run(14, phase_ud_training_path, ud_init)
+    ud_timing = run(15, phase_ud_timing)
+    uha_errors = run(16, phase_uha_compare)
+    uha_eval_launches, uha_init = run(17, phase_uha_eval_path, default=(None, None))
     if 18 in phases and uha_init is None:  # the ELBO at init that phase 18 must beat
-        uha_init = phase_uha_eval_path()[1]
-    uha_launches = phase_uha_training_path(uha_init) if 18 in phases else None
-    uha_timing = phase_uha_timing() if 19 in phases else None
-    od_errors = phase_od_compare() if 20 in phases else None
-    od_paths = phase_od_paths() if 21 in phases else None
-    od_timing = phase_od_timing() if 22 in phases else None
-    funnel_errors = phase_funnel_compare() if 23 in phases else None
-    funnel_paths = phase_funnel_paths() if 24 in phases else None
-    funnel_timing = phase_funnel_timing() if 25 in phases else None
-    ud_new_errors = phase_ud_new_compare() if 26 in phases else None
-    ud_new_paths = phase_ud_new_paths() if 27 in phases else None
-    ud_new_timing = phase_ud_new_timing() if 28 in phases else None
-    pis_errors = phase_pis_compare() if 29 in phases else None
-    pis_paths = phase_pis_paths() if 30 in phases else None
-    pis_timing = phase_pis_timing() if 31 in phases else None
-    lgcp_errors = phase_lgcp_compare() if 32 in phases else None
-    lgcp_paths = phase_lgcp_path() if 33 in phases else None
-    lgcp_timing = phase_lgcp_timing() if 34 in phases else None
+        uha_init = run(18, phase_uha_eval_path)[1]
+    uha_launches = run(18, phase_uha_training_path, uha_init)
+    uha_timing = run(19, phase_uha_timing)
+    od_errors = run(20, phase_od_compare)
+    od_paths = run(21, phase_od_paths)
+    od_timing = run(22, phase_od_timing)
+    funnel_errors = run(23, phase_funnel_compare)
+    funnel_paths = run(24, phase_funnel_paths)
+    funnel_timing = run(25, phase_funnel_timing)
+    ud_new_errors = run(26, phase_ud_new_compare)
+    ud_new_paths = run(27, phase_ud_new_paths)
+    ud_new_timing = run(28, phase_ud_new_timing)
+    pis_errors = run(29, phase_pis_compare)
+    pis_paths = run(30, phase_pis_paths)
+    pis_timing = run(31, phase_pis_timing)
+    lgcp_errors = run(32, phase_lgcp_compare)
+    lgcp_paths = run(33, phase_lgcp_path)
+    lgcp_timing = run(34, phase_lgcp_timing)
+    dnf_errors = run(35, phase_dnf_compare)
+    dnf_paths = run(36, phase_dnf_paths)
+    dnf_timing = run(37, phase_dnf_timing)
+    print(f"[seconds] by phase {json.dumps(seconds)}; total "
+          f"{time.perf_counter() - t_start:.2f} s", flush=True)
     if phases != {int(p) for p in everything.split(",")}:
+        print(smi)
         print(f"partial run (phases {sorted(phases)}): no result line")
         return 1
     times, step_ms = train_timing
@@ -4349,6 +4671,9 @@ def main(argv=None):
     print(f"[bounds] the wide forms (phase 34 shapes): "
           f"{json.dumps({f: {k: keep(b) for k, b in v.items()} for f, v in lgcp_timing[1].items()})}"
           f"; lgcp_k8 optimizer step ms {json.dumps(lgcp_timing[3])}")
+    print(f"[bounds] the DNF forms (phase 37 shapes): "
+          f"{json.dumps({f: {k: keep(b) for k, b in v.items()} for f, v in dnf_timing[1].items()})}"
+          f"; DNF many_gmm optimizer step ms {json.dumps(dnf_timing[3])}")
     print(smi)
     # launches: of each kernel's own main path, counted from 0 just before it
     # (phase 7: VarGrad training and the 30 x 500 evaluation; phase 9: the KL
@@ -4478,7 +4803,8 @@ def main(argv=None):
         + _ud_new_kernel_entries(ud_new_errors, ud_new_paths, ud_new_times, ud_new_bounds,
                                  err_is)
         + _pis_kernel_entries(pis_errors, pis_paths, pis_timing, err_is)
-        + _lgcp_kernel_entries(lgcp_errors, lgcp_paths, lgcp_timing)}))
+        + _lgcp_kernel_entries(lgcp_errors, lgcp_paths, lgcp_timing)
+        + _dnf_kernel_entries(dnf_errors, dnf_paths, dnf_timing, err_is)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -8,19 +8,16 @@ layout: `z` is (N, dim), `w` is (N,), injected noise is (K, N, dim) for the
 overdamped modes and (K + 1, N, dim) for the underdamped ones (row 0 the
 initial momentum), f32.
 
-What it covers so far: the many_gmm target, the overdamped CAIS / CAIS_VAR
-modes and the seven underdamped (leapfrog) modes, the geffner score net on
-[z] or [z, rho], the ELBO/VarGrad/KL losses with their gradients, the trainer
-(elementwise clip then Adam, projection, EMA, NaN guard, MFVI pretraining),
-the 30x500 evaluation and the `--config.*` CLI. On the card each training
-step runs two hand-written CUDA kernels, a rollout that stores what its
-backward needs and that backward: VarGrad (`csrc/overdamped.cu`,
-`csrc/vargrad.cu`), KL for MCD_CAIS_sn (`csrc/overdamped.cu`, `csrc/kl.cu`)
-and KL for the approximate-refresh underdamped modes, LDVI among them
-(`csrc/underdamped.cu`, `csrc/kl_underdamped.cu`), joined in
+What it covers so far: all 13 boundmodes (the five overdamped ones, MCD_DNF
+with its second net among them, the seven underdamped ones and UHA) on the
+many_gmm, 3-mode gmm, funnel and LGCP targets, the geffner score net on [z]
+or [z, rho] and the PIS nets, the ELBO/VarGrad/KL losses with their
+gradients, the trainer (elementwise clip then Adam, projection, EMA, NaN
+guard, MFVI pretraining), the 30x500 evaluation and the `--config.*` CLI. On
+the card each training step runs two hand-written CUDA kernels (`csrc/`), a
+rollout that stores what its backward needs and that backward, joined in
 `ops/fused_train.py`; evaluation runs the mode's rollout alone. The other
-targets, modes and nets, checkpoints and W2 are still to be ported (ROADMAP
-queues A and B).
+targets, checkpoints and W2 are still to be ported (ROADMAP queues A and B).
 
 Entry points and constructors run on the card unless the caller passes
 `device="cpu"` (`utils/device.py`).

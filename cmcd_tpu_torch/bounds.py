@@ -4,7 +4,8 @@
 Parameters live in a dict {"train": {...}, "notrain": {...}}; the frozen
 subtree is detached at loss time where JAX applies stop_gradient. The score
 net is a module under params["train"]["sn"]: a GeffnerNet, or a PISNet /
-PISGradNet (nn_arch "dds" / "dds_grad"). The losses build an
+PISGradNet (nn_arch "dds" / "dds_grad"); MCD_DNF has a second, state-only
+net of the same arch under params["train"]["sn2"]. The losses build an
 autograd graph where JAX differentiates: torch.autograd of var_bound is the
 oracle the fused training loss (ops/fused_train.py) is held against.
 """
@@ -51,12 +52,13 @@ class CMCDSetup:
         if self.eps_schedule and self.mode not in _EPS_SCHEDULE_MODES:
             object.__setattr__(self, "eps_schedule", "")
 
-    def context(self, target_log_prob: Callable, apply_sn=None):
+    def context(self, target_log_prob: Callable, apply_sn=None, apply_sn2=None):
         return IntegratorContext(
             target_log_prob=target_log_prob,
             nbridges=self.nbridges,
             dim=self.dim,
             apply_sn=apply_sn,
+            apply_sn2=apply_sn2,
             eps_schedule=self.eps_schedule,
             grad_clipping=self.grad_clipping,
             lfsteps=self.lfsteps,
@@ -92,8 +94,9 @@ def initialize(
     """Build the parameter dict and the evolve context: (params, ctx).
 
     device=None is the card (utils/device.resolve_device). The net is
-    initialised from torch.Generator().manual_seed(seed); its bits differ
-    from JAX's PRNGKey(seed) init (compare through utils/convert.py).
+    initialised from torch.Generator().manual_seed(seed), MCD_DNF's second
+    net from seed + 1 (JAX: PRNGKey(seed + 1)); their bits differ from JAX's
+    (compare through utils/convert.py).
     """
     integrators.check_mode(setup.mode)
     device = resolve_device(device)
@@ -109,16 +112,20 @@ def initialize(
     place("gamma", torch.tensor(gamma, dtype=torch.float32, device=device))
     place("eta", torch.tensor(eta, dtype=torch.float32, device=device))
 
-    apply_sn = None
+    apply_sn = apply_sn2 = None
     if integrators.mode_uses_score_network(setup.mode):
-        gen = torch.Generator(device=device).manual_seed(seed)
-        train["sn"], apply_sn = build_score_network(
-            setup.dim, setup.emb_dim, setup.nbridges, nlayers=setup.nlayers,
-            arch=setup.nn_arch, generator=gen, device=device,
-            rho_dim=integrators.mode_sn_rho_dim(setup.mode, setup.dim),
-            fully_connected_units=list(setup.fully_connected_units),
-            target_log_prob=target_log_prob,
-        )
+        def net(net_seed, rho_dim):
+            return build_score_network(
+                setup.dim, setup.emb_dim, setup.nbridges, nlayers=setup.nlayers,
+                arch=setup.nn_arch, device=device, rho_dim=rho_dim,
+                generator=torch.Generator(device=device).manual_seed(net_seed),
+                fully_connected_units=list(setup.fully_connected_units),
+                target_log_prob=target_log_prob,
+            )
+
+        train["sn"], apply_sn = net(seed, integrators.mode_sn_rho_dim(setup.mode, setup.dim))
+        if setup.mode == "MCD_DNF":  # the backward mean's own net, state only
+            train["sn2"], apply_sn2 = net(seed + 1, 0)
 
     if setup.mode == "UHA":
         # default_trainable never names md: it stays where it starts.
@@ -132,7 +139,7 @@ def initialize(
     notrain["target_x"] = target_x
 
     params = {"train": train, "notrain": notrain}
-    return params, setup.context(target_log_prob, apply_sn)
+    return params, setup.context(target_log_prob, apply_sn, apply_sn2)
 
 
 def _detach(tree):

@@ -564,6 +564,19 @@ struct StdNormalTarget {
   }
 };
 
+// MCD_DNF's kernels have no target in the bridge (zero drift): the state's
+// dimension alone. point_eval takes one and, called with no score points,
+// never asks it for a score.
+template <int DD>
+struct NoTarget {
+  static constexpr int D = DD;
+  struct Lanes {};
+  __device__ void score(const float*, float gt[D], Lanes* = nullptr) const {
+#pragma unroll
+    for (int d = 0; d < D; ++d) gt[d] = 0.f;
+  }
+};
+
 // A launch's net: arch 0 the geffner net (in_dim = din + emb_dim, no gate
 // table), 1 a PIS net (in_dim its width F, emb_dim 0, the gate table of
 // dds_grad or null).

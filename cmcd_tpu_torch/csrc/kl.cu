@@ -10,7 +10,11 @@
 //  * kl_reverse_sweep<NG, T, false>: the net in the backward kernel only, at
 //    (z_{i+1}, i) (MCD_ULA_sn), the per-point case of the TPU kernel
 //    (pallas_kl.py point_fn, :320-333);
-//  * kl_ula_sweep<T>: no net (MCD_ULA), one warp per chain.
+//  * kl_ula_sweep<T>: no net (MCD_ULA), one warp per chain;
+//  * kl_dnf_sweep<NG, D>: MCD_DNF, zero drift and two geffner nets, the
+//    per-point case of the TPU kernel with its second net (pallas_kl.py
+//    point_fn, :202-215, :273, :286-307; the sn2 gradients :977-978),
+//    instantiated by the state's dimension D (no score enters it).
 // The net is a template parameter (cmcd_common.cuh): the two-layer geffner
 // net or a PIS net ("dds", "dds_grad"; the TPU kernel's PIS branch is
 // pallas_kl.py:147-158, 175-185, 227-241). A PIS net's output is clipped
@@ -76,6 +80,40 @@
 // Without the net (ULA) a point is the score, its Hessian product and O(1)
 // state: latency along the chain, as the UHA sweep (kl_uha.cu).
 //
+// DNF (kl_dnf_sweep). The steps are
+//   fk_mean_j = z_j - e_j sn(z_j, j),  z_{j+1} = fk_mean_j + sqrt(2 e_j) xi_j
+//   bk_mean_j = z_{j+1} + e_j sn2(z_{j+1}, row(j + 1, K)),  r_j = z_j - bk_mean_j
+// with no drift, so no score, no Hessian product, no betas and no vd in the
+// bridge: their gradients are zero. At point p the two nets are different
+// applications at the same state: sn(z_p, p) serves the forward role of
+// step p (p < K), sn2(z_p, row(p, K)) the backward role of step p - 1
+// (p >= 1), and each is transposed once at its point:
+//   forward role   g_e_p   += F . (-sn);  g_sn = -e F          (known before the point)
+//   backward role  r = z_{p-1} - (z_p + e' sn2);  B = c r / (2 e')
+//                  g_e_p-1 += B . sn2 + c |r|^2 / (2 e')^2;  g_sn2 = e' B
+//   state          T = Z_p + B + J_sn(z_p)^T g_sn + J_sn2(z_p)^T g_sn2
+// and from T on as in the carry form (g_e_p-1 += T . xi_{p-1} / sqrt(2 e'),
+// F_{p-1} = T, Z_{p-1} = T - B; dL/dz_0 = T). Each net sums its own weight
+// gradients (dW2, dheadW, db2, dW1[:D], head bias, factor, G1 and GH1 a
+// point); eps's gradient sits in the first net's sums.
+//
+// DNF's design. Two nets do not fit the tile as the carry form lays it out:
+// W2 and the block's dW2 at row stride in_pad + 1 are 2 x 70 KiB for one net
+// at in_dim 132, 281 KiB for two, past the 227 KiB a block may use. Of the
+// four matrices, the two W2 stay in shared memory (both are read every
+// point, by the layer-2 apply and by W2 g_a2, in column and in row walks),
+// and the two dW2 accumulators go to this block's own slice of a global
+// scratch buffer (2 x 70 KiB a block; 17.6 MB at the 125 blocks of N=2000,
+// L2-resident), where each point's outer product reads and writes them:
+// thread (g, f) updates column f of its group's rows, so a warp touches 32
+// neighbouring floats, and no two threads touch one element. That costs
+// 280 KiB of L2 traffic a point a block, half of what reading both W2 from
+// L2 would (each group reads W2 twice a point). The block's sums stay in
+// block order: no atomics, the same inputs give the same bits. The hidden
+// tiles, the transposed h1 and the per-chain buffers are shared by the two
+// nets, which run one after the other at a point: the forward net's
+// cotangent (-e F) is known before the point, so its VJP goes first.
+//
 // What the design does about it:
 //  * A block owns chain tiles b, b + B, ... and walks each from point K to
 //    point 0 with the carries (F, Z: 2 D floats per chain) in shared
@@ -121,6 +159,8 @@ struct KlArgs {
   float* g_z0;              // (n, D)
   int n, nbridges, eps_schedule;
   float clip_t, clip_q;
+  NetArgs net2;             // DNF's second net (kl_dnf_sweep only)
+  float* gw2;               // (blocks, 2, in_pad, in_pad + 1): DNF's dW2 accumulators
 };
 
 // Shared memory of one block of NG groups at state dimension d with `gate`
@@ -342,6 +382,210 @@ cudaError_t launch_tiles(const KlArgs& a, int blocks, int groups, bool cais, cud
                      : launch_sweep<4, T, false, NET>(a, blocks, s);
 }
 
+// Shared memory of one block of kl_dnf_sweep at state dimension d: the tile
+// with no target constants (its dW2 slot holds sn2's W2), sn2's head rows
+// and per-warp slots, the per-chain buffers of the carry form, and two
+// nets' shares of the input VJP.
+__host__ inline size_t dnf_smem_bytes(int ng, int in_dim, int d) {
+  const int tb = ng * TC, ip = round_up(in_dim, 4), warps = ng * FW_MAX / 32;
+  return (tile_floats(ng, in_dim, 0, d) + (size_t)d * ip + (size_t)nscal(d) * warps +
+          7 * tb * d + tb + 2 * warps * TC * d) * sizeof(float);
+}
+
+__host__ inline bool dnf_fits(int in_dim, int d) {
+  return in_dim >= 1 && round_up(in_dim, 32) <= FW_MAX && dnf_smem_bytes(4, in_dim, d) <= MAX_SMEM;
+}
+
+template <int NG, int D>
+__global__ void __launch_bounds__(NG* FW_MAX) kl_dnf_sweep(const KlArgs a) {
+  constexpr int TB = NG * TC;
+  using NET = GeffnerNet;
+  using TileT = Tile<NG, D, NET>;
+  using S = Slots<D>;
+  constexpr int NS = TileT::NS;
+  extern __shared__ float4 smem4[];
+  const NetArgs& net = a.net;
+  const NetArgs& net2 = a.net2;
+  const int ip = net.in_pad, K = a.nbridges, sched = a.eps_schedule;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarp = blockDim.x >> 5;
+  const int nthr = blockDim.x;
+  // t1 is the tile as the carry form lays it out (n_par 0); its dW2 slot
+  // holds sn2's W2 and both dW2 go to the block's global scratch.
+  TileT t1(reinterpret_cast<float*>(smem4), net);
+  tile_init(t1, net);  // sn's W2 and head; zeroes the slot, the tiles, the slots
+  TileT t2 = t1;
+  t2.w2s = t1.gw2s;
+  t2.hws = t1.rest;                                   // D x in_pad
+  t2.sc_s = t2.hws + D * ip;                          // warps x NS
+  float* zc_s = t2.sc_s + NS * (NG * FW_MAX / 32);    // TB x D: z_p
+  float* zp_s = zc_s + TB * D;     // TB x D: z_{p-1}
+  float* xi_s = zp_s + TB * D;     // TB x D: xi_{p-1}
+  float* go_s = xi_s + TB * D;     // TB x D: g_out of the net being transposed
+  float* tz_s = go_s + TB * D;     // TB x D: T without the nets' shares
+  float* fc_s = tz_s + TB * D;     // TB x D: carry F
+  float* zd_s = fc_s + TB * D;     // TB x D: carry Z (holds -B inside a point)
+  float* cot_s = zd_s + TB * D;    // TB
+  float* gz1_s = cot_s + TB;       // warps x TC x D: sn's share of g_x
+  float* gz2_s = gz1_s + (NG * FW_MAX / 32) * TC * D;  // sn2's
+  float* gw = a.gw2 + (size_t)blockIdx.x * 2 * ip * t1.ws;
+  t1.gw2s = gw;
+  t2.gw2s = gw + ip * t1.ws;
+  __syncthreads();  // tile_init's zeroes of the slot before sn2's W2 lands there
+  load_w2(net2, t2.w2s, t2.ws);
+  for (int i = tid; i < 2 * ip * t1.ws; i += nthr) gw[i] = 0.f;
+  for (int i = tid; i < D * ip; i += nthr) {
+    const int d = i / ip, k = i - d * ip;
+    t2.hws[i] = k < net2.in_dim ? net2.headw[d * net2.in_dim + k] : 0.f;
+  }
+  for (int i = tid; i < nwarp * NS; i += nthr) t2.sc_s[i] = 0.f;
+
+  const FeatThread<D, D> th1(net, NG), th2(net2, NG);
+  const float eps0 = a.scal[0], factor1 = a.scal[1], factor2 = a.scal[2];
+  float hb1[D], hb2[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    hb1[d] = net.headb[d];
+    hb2[d] = net2.headb[d];
+  }
+  float ft1[nfeat(D, D)], ft2[nfeat(D, D)];
+#pragma unroll
+  for (int q = 0; q < nfeat(D, D); ++q) ft1[q] = ft2[q] = 0.f;
+  float* sc1 = t1.sc_s + warp * NS;
+  float* sc2 = t2.sc_s + warp * NS;
+  __syncthreads();
+
+  const int ntiles = (a.n + TB - 1) / TB;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int base = tile * TB;
+    for (int i = tid; i < TB * D; i += nthr) {
+      const bool live = base + i / D < a.n;
+      zd_s[i] = live ? a.g_zfinal[(size_t)base * D + i] : 0.f;
+      fc_s[i] = 0.f;
+    }
+    if (tid < TB) cot_s[tid] = base + tid < a.n ? a.cot[base + tid] : 0.f;
+
+    for (int p = K; p >= 0; --p) {
+      const bool m_fk = p <= K - 1, m_bk = p >= 1;
+      const float e_f = m_fk ? eps_at(eps0, p, K, sched) : 1.f;
+      const float e_b = m_bk ? eps_at(eps0, p - 1, K, sched) : 1.f;
+      const float s_f = eps_slope(p, K, sched), s_b = eps_slope(p - 1, K, sched);
+      for (int i = tid; i < TB * D; i += nthr) {
+        const bool live = base + i / D < a.n;
+        const size_t at = (size_t)base * D + i, row = (size_t)a.n * D;
+        zc_s[i] = live ? a.traj[p * row + at] : 0.f;
+        zp_s[i] = live && m_bk ? a.traj[(p - 1) * row + at] : 0.f;
+        xi_s[i] = live && m_bk ? a.noise[(p - 1) * row + at] : 0.f;
+      }
+      __syncthreads();
+
+      FeatRegs r;
+      if (m_fk) {  // step p's forward mean: sn(z_p, p), cotangent -e F
+        tile_layers(t1, net, th1, p, zc_s, r);
+        for (int c = warp; c < TB; c += nwarp) {
+          float out[D];
+          head_raw<D>(net, t1.xs + c * ip, t1.hws, out);
+          float ge_f = 0.f, g_factor = 0.f;
+#pragma unroll
+          for (int d = 0; d < D; ++d) {
+            const float o = out[d] + hb1[d], f = fc_s[c * D + d];
+            const float gsn = -e_f * f;
+            ge_f -= f * (o * factor1);
+            g_factor += gsn * o;
+            if (lane == 0) {
+              const float go = gsn * factor1;
+              sc1[S::HEADB + d] += go;
+              go_s[c * D + d] = go;
+            }
+          }
+          if (lane == 0) {
+            sc1[S::EPS] += s_f * ge_f;
+            sc1[S::FACTOR] += g_factor;
+          }
+        }
+        __syncthreads();
+        tile_vjp(t1, net, th1, zc_s, go_s, r, ft1, gz1_s);
+      }
+      if (m_bk) {  // step p - 1's backward mean: sn2(z_p, row(p, K))
+        tile_layers(t2, net2, th2, NET::row(p, K), zc_s, r);
+        for (int c = warp; c < TB; c += nwarp) {
+          float out[D];
+          head_raw<D>(net2, t2.xs + c * ip, t2.hws, out);
+          const float cn = cot_s[c];
+          float ge_b = 0.f, r2 = 0.f, g_factor = 0.f;
+#pragma unroll
+          for (int d = 0; d < D; ++d) {
+            const float o = out[d] + hb2[d], sn2 = o * factor2;
+            const float rb = zp_s[c * D + d] - (zc_s[c * D + d] + e_b * sn2);
+            const float gd = 0.5f * cn * rb;  // e' B, the cotangent of sn2
+            const float bk = gd / e_b;
+            ge_b += bk * sn2;
+            r2 += rb * rb;
+            g_factor += gd * o;
+            if (lane == 0) {
+              const float go = gd * factor2;
+              sc2[S::HEADB + d] += go;
+              go_s[c * D + d] = go;
+              tz_s[c * D + d] = zd_s[c * D + d] + bk;
+              zd_s[c * D + d] = -bk;
+            }
+          }
+          if (lane == 0) {
+            const float is2 = 1.0f / (2.0f * e_b);
+            sc1[S::EPS] += s_b * (ge_b + cn * r2 * is2 * is2);
+            sc2[S::FACTOR] += g_factor;
+          }
+        }
+        __syncthreads();
+        tile_vjp(t2, net2, th2, zc_s, go_s, r, ft2, gz2_s);
+      } else {  // point 0: T is what step 0 sent back
+        for (int i = tid; i < TB * D; i += nthr) tz_s[i] = zd_s[i];
+        __syncthreads();
+      }
+
+      // T complete: the next carries, the noise scale's share of d eps, or
+      // dL/dz_0. One thread per chain, all in the first warp.
+      if (warp == 0) {
+        float ge = 0.f;
+        if (lane < TB) {
+#pragma unroll
+          for (int d = 0; d < D; ++d) {
+            float tot = tz_s[lane * D + d];
+            if (m_fk) tot += tile_gz<NG, D>(gz1_s, lane, d);
+            if (m_bk) tot += tile_gz<NG, D>(gz2_s, lane, d);
+            if (m_bk) {
+              ge = fmaf(tot, xi_s[lane * D + d], ge);
+              fc_s[lane * D + d] = tot;
+              zd_s[lane * D + d] += tot;
+            } else if (base + lane < a.n) {
+              a.g_z0[(size_t)(base + lane) * D + d] = tot;
+            }
+          }
+        }
+        ge = warp_sum(ge);
+        if (lane == 0 && m_bk) sc1[S::EPS] += s_b * ge * (1.0f / sqrtf(2.0f * e_b));
+      }
+      const int lb = len_b(net.in_dim);
+      float* pb = a.part_b + ((size_t)p * gridDim.x + blockIdx.x) * 2 * lb;
+      flush_point(t1, net, th1, ft1, pb, tile != (int)blockIdx.x);
+      flush_point(t2, net2, th2, ft2, pb + lb, tile != (int)blockIdx.x);
+    }
+  }
+
+  const int la = len_a(net.in_dim, D, D);
+  flush_block(t1, net, th1, ft1, a.part_a + (size_t)blockIdx.x * 2 * la);
+  flush_block(t2, net2, th2, ft2, a.part_a + (size_t)blockIdx.x * 2 * la + la);
+}
+
+template <int NG, int D>
+cudaError_t launch_dnf(const KlArgs& a, int blocks, cudaStream_t stream) {
+  const size_t smem = dnf_smem_bytes(NG, a.net.in_dim, D);
+  cudaError_t err = cudaFuncSetAttribute(kl_dnf_sweep<NG, D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kl_dnf_sweep<NG, D><<<blocks, NG * round_up(a.net.in_dim, 32), smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 // The net-free sweep (ULA).
 constexpr int ULA_CPB = 8;  // chains (warps) per block
 // Floats of a block's sums at state dimension d: eps, vd mean, vd logdiag.
@@ -549,9 +793,62 @@ int cmcd_kl_ula_sweep(const float* traj, const float* noise, const float* cot,
   return (int)cudaGetLastError();
 }
 
+// Launches MCD_DNF's sweep and its reduction on `stream`: `blocks` blocks of
+// `groups` (2 or 4) groups, as cmcd_kl_reverse_sweep. The first net (w1z ..
+// headb) is the forward mean's, the second (w1z2 .. headb2) the backward
+// mean's, both geffner nets of width in_dim; scal is [eps0, factor_sn of
+// each]; d the state's dimension (2 or 10). gw2: (blocks, 2, in_pad, in_pad
+// + 1), part_a: (blocks, 2 len_a) and part_b: (points, blocks, 2 len_b) are
+// scratch; out_a: (2 len_a,) and out_b: (points, 2 len_b) receive each net's
+// sums in turn (eps in the first net's; betas and vd zero), g_z0: (n, d).
+// Returns a cudaError_t.
+int cmcd_kl_dnf_sweep(const float* traj, const float* noise, const float* cot,
+                      const float* g_zfinal, const float* scal, const float* w1z,
+                      const float* c1, const float* emb, const float* w2, const float* b2,
+                      const float* headw, const float* headb, const float* w1z2,
+                      const float* c12, const float* emb2, const float* w22, const float* b22,
+                      const float* headw2, const float* headb2, float* gw2, float* part_a,
+                      float* part_b, float* out_a, float* out_b, float* g_z0, int n,
+                      int nbridges, int in_dim, int emb_dim, int d, int eps_schedule,
+                      int blocks, int groups, void* stream) {
+  if (n <= 0 || nbridges <= 0 || (groups != 2 && groups != 4) || (d != 2 && d != 10))
+    return (int)cudaErrorInvalidValue;
+  if (blocks <= 0 || blocks > (n + groups * TC - 1) / (groups * TC))
+    return (int)cudaErrorInvalidValue;
+  if (!net_ok(0, in_dim, emb_dim, d, nullptr) || !dnf_fits(in_dim, d))
+    return (int)cudaErrorInvalidValue;
+  const int ip = round_up(in_dim, 4);
+  const NetArgs net{w1z, c1, emb, w2, b2, headw, headb, nullptr,
+                    in_dim, ip, emb_dim, 0, 0.f, nullptr};
+  const NetArgs net2{w1z2, c12, emb2, w22, b22, headw2, headb2, nullptr,
+                     in_dim, ip, emb_dim, 0, 0.f, nullptr};
+  const KlArgs a{traj, noise, cot, g_zfinal, nullptr, scal, net, nullptr, nullptr,
+                 part_a, part_b, g_z0, n, nbridges, eps_schedule, INFINITY, INFINITY,
+                 net2, gw2};
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+  if (d == 2) {
+    err = groups == 2 ? launch_dnf<2, 2>(a, blocks, s) : launch_dnf<4, 2>(a, blocks, s);
+  } else {
+    err = groups == 2 ? launch_dnf<2, 10>(a, blocks, s) : launch_dnf<4, 10>(a, blocks, s);
+  }
+  if (err != cudaSuccess) return (int)err;
+  const int la = 2 * len_a(in_dim, d, d), lb = 2 * len_b(in_dim), total = la + (nbridges + 1) * lb;
+  partials_reduce<<<(total + 255) / 256, 256, 0, s>>>(part_a, part_b, out_a, out_b, blocks, la,
+                                                      nbridges + 1, blocks, lb);
+  return (int)cudaGetLastError();
+}
+
 const char* cmcd_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 int cmcd_kl_chains_per_group() { return TC; }
+
+// DNF's limits at state dimension d, for the wrapper to check its copy against.
+int cmcd_kl_dnf_fits(int in_dim, int d) { return dnf_fits(in_dim, d) ? 1 : 0; }
+
+long long cmcd_kl_dnf_smem_bytes(int groups, int in_dim, int d) {
+  return (long long)dnf_smem_bytes(groups, in_dim, d);
+}
 
 // The launch's own limits and buffer lengths at state dimension d with
 // `gate` slots a warp (0 geffner, d PIS), for the wrapper to check its copy

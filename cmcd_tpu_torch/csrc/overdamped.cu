@@ -9,7 +9,13 @@
 //    net at i + 1 (CAIS, CAIS_VAR; the clip constants are the spec's);
 //  * overdamped_rollout<T, false, 0>: the net in the backward kernel only, at
 //    (z_{i+1}, i) (ULA_sn); step i's forward mean has no net;
-//  * ula_rollout<T>: no net at all (ULA), one warp per chain.
+//  * ula_rollout<T>: no net at all (ULA), one warp per chain;
+//  * dnf_rollout<D>: MCD_DNF, zero drift and two geffner nets: the forward
+//    net sn at (z_i, i), the second net sn2 in the backward mean at
+//    (z_{i+1}, row(i + 1, K)), each with its own factor (the replaced
+//    branch is pallas_overdamped.py:412-422). No score enters the bridge,
+//    so the form is instantiated by the state's dimension D (2, 10) and
+//    serves every target of that D.
 // The score net is a template parameter (cmcd_common.cuh): the geffner net
 // (two residual softplus layers, a head, a per-bridge embedding table and
 // factor_sn) or a PIS net ("dds", "dds_grad": two gelu layers on [z, h_t],
@@ -36,7 +42,13 @@
 //   w       += -0.5 * (|(z - bk_mean) / scale|^2 - |xi|^2)
 // and gt' (and for CAIS sn') is carried into step i + 1, so each step costs
 // one score evaluation and, with a net, one net apply. ULA's spec has no
-// clip constants: it never clips, under grad_clipping too.
+// clip constants: it never clips, under grad_clipping too. DNF's step is
+//   fk_mean = z - eps_i * sn(z, i);  z' = fk_mean + scale * xi
+//   bk_mean = z' + eps_i * sn2(z', row(i + 1, K))
+//   w      += -0.5 * (|(z - bk_mean) / scale|^2 - |xi|^2)
+// with nothing to carry: sn at z_{i+1} is the other net's, so a step costs
+// two net applies. W2 of both nets (2 x 68 KiB at in_dim 132) sits in shared
+// memory beside one pair of hidden tiles, which the two applies take in turn.
 //
 // What bounds it on the H100. With the net, per chain-step about
 // 2 x 132^2 FMAs at emb_dim 130 (in_dim 132), the score 40 components with
@@ -97,9 +109,10 @@ struct RolloutArgs {
   const float* w0;          // (n,)
   const float* betas;       // (K,)
   const float* noise;       // (K, n, D) or nullptr: in-kernel Philox
-  const float* scal;        // [eps0, factor_sn]
+  const float* scal;        // [eps0, factor_sn, DNF's sn2 factor_sn]
   const long long* seed;    // one int64
   NetArgs net;              // net pointers null for ULA
+  NetArgs net2;             // DNF's second net; pointers null for the other forms
   const float* vd_mean;     // (D,)
   const float* vd_inv_var;  // (D,): exp(-2 logdiag)
   float* z_out;             // (n, D)
@@ -110,21 +123,24 @@ struct RolloutArgs {
   float clip_t, clip_q;
 };
 
-// Dynamic shared memory of one block for a d-dimensional target: W2, the
-// two hidden tiles, the head, the target's constants and the per-chain
-// exchange (the layout in overdamped_rollout).
-__host__ inline size_t smem_bytes(int in_dim, int n_par, int d) {
+// Dynamic shared memory of one block for a d-dimensional target: W2 and the
+// head of each of `nets` nets, the two hidden tiles, the target's constants
+// and the per-chain exchange (the layouts in overdamped_rollout and, nets 2
+// with no constants, dnf_rollout).
+__host__ inline size_t smem_bytes(int in_dim, int n_par, int d, int nets = 1) {
   const int in_pad = round_up(in_dim, 4);
-  size_t floats = (size_t)in_pad * in_pad + 2 * TC * in_pad + (size_t)d * in_pad +
-                  round_up(n_par, 4) + 3 * TC * d;
+  size_t floats = (size_t)nets * ((size_t)in_pad * in_pad + (size_t)d * in_pad) +
+                  2 * TC * in_pad + round_up(n_par, 4) + 3 * TC * d;
   return floats * sizeof(float);
 }
 
 // What one block holds: one thread per net feature, the target's constants
-// and the shared memory above.
-__host__ inline bool fits(int in_dim, int n_par, int d) {
-  return in_dim >= 1 && round_up(in_dim, 32) <= MAX_THREADS && n_par >= 1 &&
-         n_par <= MAX_PAR && smem_bytes(in_dim, n_par, d) <= MAX_SMEM;
+// (none read by DNF's two-net form) and the shared memory above.
+__host__ inline bool fits(int in_dim, int n_par, int d, int nets = 1) {
+  if (nets == 2) n_par = 0;
+  return in_dim >= 1 && round_up(in_dim, 32) <= MAX_THREADS &&
+         (nets == 2 || (n_par >= 1 && n_par <= MAX_PAR)) &&
+         smem_bytes(in_dim, n_par, d, nets) <= MAX_SMEM;
 }
 
 // The draws of step i of a chain: injected, or Philox (stored when asked).
@@ -323,6 +339,118 @@ __global__ void __launch_bounds__(ULA_CPB * 32) ula_rollout(const RolloutArgs a)
   }
 }
 
+// MCD_DNF: zero drift, the forward net at (z_i, i) and the second net in
+// the backward mean at (z_{i+1}, row(i + 1, K)), both geffner nets of one
+// width; each step applies both in turn on the block's one pair of hidden
+// tiles. Thread c < TC owns chain blockIdx.x * TC + c as in
+// overdamped_rollout.
+template <int D>
+__global__ void __launch_bounds__(MAX_THREADS) dnf_rollout(const RolloutArgs a) {
+  using NET = GeffnerNet;
+  extern __shared__ float4 smem4[];
+  const NetArgs& net = a.net;
+  const NetArgs& net2 = a.net2;
+  const int ip = net.in_pad, K = a.nbridges;
+  float* w2s = reinterpret_cast<float*>(smem4);  // in_pad x in_pad: sn's W2
+  float* w2s2 = w2s + ip * ip;                   // in_pad x in_pad: sn2's W2
+  float* h1s = w2s2 + ip * ip;                   // TC x in_pad
+  float* h2s = h1s + TC * ip;                    // TC x in_pad
+  float* hws = h2s + TC * ip;                    // D x in_pad: sn's head rows
+  float* hws2 = hws + D * ip;                    // D x in_pad: sn2's head rows
+  float* z_s = hws2 + D * ip;                    // TC x D: z_i
+  float* zn_s = z_s + TC * D;                    // TC x D: z_{i+1}
+  float* sn_s = zn_s + TC * D;                   // TC x D: the last apply's output
+
+  const int tid = threadIdx.x, nthr = blockDim.x, in = net.in_dim;
+  load_w2(net, w2s, ip);
+  load_w2(net2, w2s2, ip);
+  for (int idx = tid; idx < 2 * TC * ip; idx += nthr) h1s[idx] = 0.f;  // h1s and h2s
+  for (int idx = tid; idx < D * ip; idx += nthr) {
+    const int j = idx / ip, k = idx - j * ip;
+    hws[idx] = k < in ? net.headw[j * in + k] : 0.f;
+    hws2[idx] = k < in ? net2.headw[j * in + k] : 0.f;
+  }
+  const NoTarget<D> none{};  // point_eval's target: no score is asked for (zs null)
+
+  const bool feat = tid < in;
+  float w1z[D], w1z2[D];
+  load_w1x<D>(net, tid, w1z);
+  load_w1x<D>(net2, tid, w1z2);
+  const float b2f = feat ? net.b2[tid] : 0.f, b2f2 = feat ? net2.b2[tid] : 0.f;
+  const float eps0 = a.scal[0], factor = a.scal[1], factor2 = a.scal[2];
+  const unsigned long long seed = (unsigned long long)a.seed[0];
+
+  const bool owner = tid < TC;
+  const int chain = blockIdx.x * TC + tid;
+  const bool live = owner && chain < a.n;
+  float z[D], w = 0.f;
+#pragma unroll
+  for (int d = 0; d < D; ++d) z[d] = 0.f;
+  if (owner) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      if (live) z[d] = a.z0[(size_t)chain * D + d];
+      if (live && a.traj != nullptr) a.traj[(size_t)chain * D + d] = z[d];
+    }
+    if (live) w = a.w0[chain];
+  }
+
+  for (int i = 0; i < K; ++i) {
+    if (owner) {
+#pragma unroll
+      for (int d = 0; d < D; ++d) z_s[tid * D + d] = z[d];
+    }
+    __syncthreads();
+    point_eval<D, NoTarget<D>, NET>(net, i, w1z, b2f, factor, w2s, h1s, h2s, hws, none, z_s,
+                                    nullptr, nullptr, sn_s);
+    float eps_i = 0.f, inv_scale = 0.f, xi2 = 0.f;
+    if (owner) {
+      eps_i = eps_at(eps0, i, K, a.eps_schedule);
+      const float scale = sqrtf(2.0f * eps_i);
+      inv_scale = 1.0f / scale;
+      float xi[D];
+      draw<D>(a, seed, chain, live, true, i, xi);
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        zn_s[tid * D + d] = (z[d] - eps_i * sn_s[tid * D + d]) + scale * xi[d];
+        xi2 += xi[d] * xi[d];
+      }
+    }
+    __syncthreads();
+    point_eval<D, NoTarget<D>, NET>(net2, NET::row(i + 1, K), w1z2, b2f2, factor2, w2s2, h1s,
+                                    h2s, hws2, none, zn_s, nullptr, nullptr, sn_s);
+    if (owner) {
+      float r2 = 0.f;
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        const float zn = zn_s[tid * D + d];
+        const float r = (z[d] - (zn + eps_i * sn_s[tid * D + d])) * inv_scale;
+        r2 += r * r;
+        z[d] = zn;
+        if (live && a.traj != nullptr)
+          a.traj[((size_t)(i + 1) * a.n + chain) * D + d] = zn;
+      }
+      w += -0.5f * (r2 - xi2);
+    }
+  }
+
+  if (live) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) a.z_out[(size_t)chain * D + d] = z[d];
+    a.w_out[chain] = w;
+  }
+}
+
+template <int D>
+cudaError_t launch_dnf(const RolloutArgs& a, cudaStream_t stream) {
+  const size_t smem = smem_bytes(a.net.in_dim, 0, D, 2);
+  cudaError_t err = cudaFuncSetAttribute(dnf_rollout<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dnf_rollout<D><<<(a.n + TC - 1) / TC, round_up(a.net.in_dim, 32), smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <class T, class NET, bool FWD_SN, int BWD_OFF>
 cudaError_t launch_tile(const RolloutArgs& a, cudaStream_t stream) {
   const size_t smem = smem_bytes(a.net.in_dim, a.net.n_par, T::D);
@@ -358,7 +486,10 @@ extern "C" {
 
 // Launches the rollout on `stream`. form: 0 CAIS (net in both kernels,
 // backward net at i + 1), 1 ULA_sn (net in the backward kernel only, at i),
-// 2 ULA (no net: the net pointers may be null, in_dim and emb_dim 0). arch:
+// 2 ULA (no net: the net pointers may be null, in_dim and emb_dim 0), 3 DNF
+// (zero drift; the forward net and, in the w1z2..headb2 pointers, the
+// backward mean's second net, both geffner of one width; the target's
+// constants are not read, only its D). arch:
 // 0 the geffner net (in_dim = D + emb_dim), 1 a PIS net (in_dim its width,
 // emb_dim 0, emb null, c1 K + 1 rows; gate the dds_grad gate table (K + 1,
 // D), or null for dds).
@@ -376,17 +507,26 @@ int cmcd_overdamped_rollout(const float* z0, const float* w0, const float* betas
                             float* noise_out, int n, int nbridges, int in_dim, int emb_dim,
                             int n_par, int eps_schedule, int form, int target, float inv_var_t,
                             float clip_t, float clip_q, int arch, const float* gate,
-                            void* stream) {
+                            const float* w1z2, const float* c12, const float* emb2,
+                            const float* w22, const float* b22, const float* headw2,
+                            const float* headb2, void* stream) {
   if (n <= 0 || nbridges <= 0) return (int)cudaSuccess;
-  if (form < 0 || form > 2 || !target_ok(target, n_par)) return (int)cudaErrorInvalidValue;
+  if (form < 0 || form > 3 || !target_ok(target, n_par)) return (int)cudaErrorInvalidValue;
   const int d = target_dim(target);
-  if (form < 2 && (!net_ok(arch, in_dim, emb_dim, d, gate) || !fits(in_dim, n_par, d)))
+  const int nets = form == 3 ? 2 : 1;
+  if (form != 2 && (!net_ok(arch, in_dim, emb_dim, d, gate) || !fits(in_dim, n_par, d, nets)))
+    return (int)cudaErrorInvalidValue;
+  if (form == 3 && (arch != 0 || w1z2 == nullptr || c12 == nullptr || emb2 == nullptr ||
+                    w22 == nullptr || b22 == nullptr || headw2 == nullptr || headb2 == nullptr))
     return (int)cudaErrorInvalidValue;
   const NetArgs net{w1z, c1, emb, w2, b2, headw, headb, tpar,
                     in_dim, round_up(in_dim, 4), emb_dim, n_par, inv_var_t, gate};
-  const RolloutArgs a{z0, w0, betas, noise, scal, seed, net, vd_mean, vd_inv_var, z_out, w_out,
-                      traj, noise_out, n, nbridges, eps_schedule, clip_t, clip_q};
+  const NetArgs net2{w1z2, c12, emb2, w22, b22, headw2, headb2, tpar,
+                     in_dim, round_up(in_dim, 4), emb_dim, n_par, inv_var_t, nullptr};
+  const RolloutArgs a{z0, w0, betas, noise, scal, seed, net, net2, vd_mean, vd_inv_var, z_out,
+                      w_out, traj, noise_out, n, nbridges, eps_schedule, clip_t, clip_q};
   const cudaStream_t s = (cudaStream_t)stream;
+  if (form == 3) return (int)(d == 2 ? launch_dnf<2>(a, s) : launch_dnf<10>(a, s));
   return (int)dispatch_target(target, [&](auto tag) {
     return launch_form<typename decltype(tag)::type>(a, form, arch, s);
   });
@@ -396,12 +536,14 @@ const char* cmcd_error_string(int code) { return cudaGetErrorString((cudaError_t
 
 int cmcd_overdamped_chains_per_block() { return TC; }
 
-// The launch's own limits at state dimension d, for the wrapper to check its
-// copy against.
-int cmcd_overdamped_fits(int in_dim, int n_par, int d) { return fits(in_dim, n_par, d) ? 1 : 0; }
+// The launch's own limits at state dimension d with `nets` nets (2: DNF),
+// for the wrapper to check its copy against.
+int cmcd_overdamped_fits(int in_dim, int n_par, int d, int nets) {
+  return fits(in_dim, n_par, d, nets) ? 1 : 0;
+}
 
-long long cmcd_overdamped_smem_bytes(int in_dim, int n_par, int d) {
-  return (long long)smem_bytes(in_dim, n_par, d);
+long long cmcd_overdamped_smem_bytes(int in_dim, int n_par, int d, int nets) {
+  return (long long)smem_bytes(in_dim, n_par, d, nets);
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 """Integrator mode registry (cmcd_tpu/integrators/__init__.py).
 
-Serves the overdamped modes ported so far, the seven underdamped modes and
-UHA; every other mode (DNF) raises NotImplementedError naming ROADMAP.
+Serves all 13 boundmodes: the five overdamped ones (MCD_DNF with its second
+net working, as in the JAX package), the seven underdamped ones and UHA; any
+other name raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ OVERDAMPED = {
     "MCD_ULA_sn": od.ULA_SN,
     "MCD_CAIS_sn": od.CAIS,
     "MCD_CAIS_var_sn": od.CAIS_VAR,
+    "MCD_DNF": od.DNF,
 }
 
 UNDERDAMPED = {
@@ -33,7 +35,7 @@ ALL_MODES = ["UHA"] + list(OVERDAMPED) + list(UNDERDAMPED)
 # Modes whose score net sees the state only, and those whose net sees
 # [z, rho] (rho_dim = dim).
 MODES_WITH_STATE_SN = ["MCD_ULA_sn", "MCD_U_e-lp-sna", "MCD_U_a-lp-sna", "MCD_CAIS_sn",
-                       "MCD_CAIS_var_sn"]
+                       "MCD_CAIS_var_sn", "MCD_DNF"]
 MODES_WITH_FULL_SN = ["MCD_U_a-lp-sn", "MCD_U_ea-lp-sn", "MCD_CAIS_UHA_sn"]
 
 
@@ -49,7 +51,7 @@ def check_mode(mode: str) -> None:
     """Raise NotImplementedError unless `mode` is served here."""
     if mode not in ALL_MODES:
         raise NotImplementedError(
-            f"mode {mode!r} is not ported yet: see ROADMAP queue A"
+            f"mode {mode!r} is not a boundmode: one of {ALL_MODES}"
         )
 
 

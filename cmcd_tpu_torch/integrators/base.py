@@ -20,12 +20,14 @@ class IntegratorContext:
 
     target_log_prob: batched (N, dim) -> (N,)
     apply_sn: batched score net (net, x, i) -> (N, dim), or None
+    apply_sn2: MCD_DNF's second (backward) net, the same signature, or None
     """
 
     target_log_prob: Callable
     nbridges: int
     dim: int
     apply_sn: Optional[Callable] = None
+    apply_sn2: Optional[Callable] = None
     eps_schedule: str = ""
     grad_clipping: bool = False
     lfsteps: int = 1  # leapfrog steps per UHA bridge

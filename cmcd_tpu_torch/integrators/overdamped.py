@@ -5,6 +5,10 @@ Forward kernel:  z' ~ N(z - eps * gradU(z, b) [- eps * sn(z, i)], 2 eps I)
 Backward kernel: log N(z; z' - eps * gradU(z', b) [+ eps * sn(z', i+off)], 2 eps I)
 Weight update:   w += log B - log F
 
+MCD_DNF drops gradU from both means (zero_drift) and forms the backward mean
+with a second net, sn2(z', i + 1) (use_sn2_bwd); the target enters only
+through the final log pi(z_K).
+
 This eager path calls the target score through autograd and the net once
 per use, step by step; it is the reference the fused rollout
 (ops/overdamped.py) is held against. Without stop_grad_state the score stays
@@ -32,6 +36,8 @@ class OverdampedSpec:
     stop_grad_state: bool = False  # VarGrad: cut BPTT through the state
     clip_target: Optional[float] = None  # grad clip when ctx.grad_clipping
     clip_vd: Optional[float] = None
+    zero_drift: bool = False      # DNF: annealed drift removed entirely
+    use_sn2_bwd: bool = False     # DNF: backward uses the second net
 
 
 ULA = OverdampedSpec()
@@ -47,6 +53,9 @@ CAIS_VAR = OverdampedSpec(
     clip_target=1e2,
     clip_vd=1e2,
 )
+DNF = OverdampedSpec(
+    fwd_sn=True, bwd_sn=True, bwd_sn_offset=1, zero_drift=True, use_sn2_bwd=True
+)
 
 
 def evolve_overdamped(
@@ -58,9 +67,14 @@ def evolve_overdamped(
     noise: optional (nbridges, N, dim) standard normals replacing the
     per-step draws from `generator`.
     """
-    clips = (spec.clip_target, spec.clip_vd) if ctx.grad_clipping else (None, None)
-    grad_u = make_grad_u(ctx, params["vd"], *clips, differentiable=not spec.stop_grad_state)
+    if spec.zero_drift:
+        grad_u = lambda zz, bb: torch.zeros_like(zz)
+    else:
+        clips = (spec.clip_target, spec.clip_vd) if ctx.grad_clipping else (None, None)
+        grad_u = make_grad_u(ctx, params["vd"], *clips, differentiable=not spec.stop_grad_state)
     apply_sn = ctx.apply_sn
+    apply_sn_bwd, bwd_net = ((ctx.apply_sn2, params["sn2"]) if spec.use_sn2_bwd
+                             else (ctx.apply_sn, params.get("sn")))
 
     w = torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)
     for i in range(ctx.nbridges):
@@ -84,9 +98,7 @@ def evolve_overdamped(
 
         bk_mean = z_new - eps * grad_u(z_new, beta)
         if spec.bwd_sn:
-            bk_mean = bk_mean + eps * apply_sn(
-                params["sn"], z_new, i + spec.bwd_sn_offset
-            )
+            bk_mean = bk_mean + eps * apply_sn_bwd(bwd_net, z_new, i + spec.bwd_sn_offset)
 
         w = w + kernel_log_prob(z, bk_mean, scale) - kernel_log_prob(
             z_new, fk_mean, scale

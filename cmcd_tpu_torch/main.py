@@ -16,9 +16,10 @@ evaluation (and the EMA parameters' when use_ema), JSONL metrics
 (log.jsonl). On a CUDA device training runs through a fused loss
 (ops/fused_train: var_bound_fused for MCD_CAIS_var_sn, the rollout kernel
 with its trajectory and the replay or re-rolling backward kernel;
-kl_bound_fused for MCD_CAIS_sn, MCD_ULA_sn and plain MCD_ULA, the rollout
-kernel with trajectory and noise and the reverse-sweep kernel of the mode's
-form (the net in both kernels, in the backward kernel only, or none); for
+kl_bound_fused for MCD_CAIS_sn, MCD_ULA_sn, plain MCD_ULA and MCD_DNF, the
+rollout kernel with trajectory and noise and the reverse-sweep kernel of the
+mode's form (the net in both kernels, in the backward kernel only, none, or
+DNF's two geffner nets with zero drift); for
 the seven underdamped modes (MCD_U_a-lp, -sna, -sn (LDVI), the exact
 refresh's MCD_U_e-lp and -sna, MCD_U_ea-lp-sn and MCD_CAIS_UHA_sn), the
 underdamped rollout kernel with its stores and the underdamped sweep; for

@@ -3,7 +3,7 @@
 
 The variational draw, the initial and final log-prob terms and the beta grid
 stay in plain torch; the K-step loop runs in one launch of a CUDA kernel:
-the overdamped rollout (ops/overdamped.py) for the CAIS, ULA_sn and ULA modes, the
+the overdamped rollout (ops/overdamped.py) for the CAIS, ULA_sn, ULA and DNF modes, the
 underdamped rollout (ops/underdamped.py) for the seven underdamped modes,
 the UHA rollout (ops/uha.py) for UHA; on the 1600-D LGCP the wide rollout
 (ops/overdamped_wide.py), for MCD_CAIS_sn with the geffner net. Forward
@@ -52,12 +52,20 @@ def net_width(setup: bounds.CMCDSetup) -> int:
 def net_supported(setup: bounds.CMCDSetup) -> bool:
     """The net the kernels inline for a mode that has one: the two-layer
     geffner net anywhere, a PIS net of two equal widths in an overdamped
-    mode (MCD_CAIS_sn, MCD_CAIS_var_sn, MCD_ULA_sn)."""
+    mode with one net (MCD_CAIS_sn, MCD_CAIS_var_sn, MCD_ULA_sn; the JAX
+    package fuses no DNF with a PIS net either)."""
     if setup.nn_arch == "geffner":
         return setup.nlayers == 2
     units = tuple(setup.fully_connected_units)
     return (setup.nn_arch in PIS_ARCHS and setup.mode in OVERDAMPED
+            and not OVERDAMPED[setup.mode].use_sn2_bwd
             and len(units) == 2 and units[0] == units[1])
+
+
+def kernel_nets(setup: bounds.CMCDSetup) -> dict:
+    """The keyword a kernel_fits takes for the nets of the setup's mode:
+    {"nets": 2} for MCD_DNF (sn and sn2 in one block), else nothing."""
+    return {"nets": 2} if setup.mode == "MCD_DNF" else {}
 
 
 def wide_supported(setup: bounds.CMCDSetup, score) -> bool:
@@ -73,7 +81,8 @@ def wide_supported(setup: bounds.CMCDSetup, score) -> bool:
 
 def supports_fused(setup: bounds.CMCDSetup, target) -> bool:
     """True if a kernel implements (mode, target score, net) at this size:
-    an overdamped mode (all four) on a target whose template is instantiated
+    an overdamped mode (all five; MCD_DNF reads only the target's D, with
+    both of its nets geffner) on a target whose template is instantiated
     at the setup's dim (many_gmm, the 3-mode gmm: 2; the funnel: 10;
     ops/target_grads.KERNEL_DIMS), or an underdamped mode on a target of
     ops/underdamped.UD_TARGETS (the three), with (where the mode has a net)
@@ -102,7 +111,8 @@ def supports_fused(setup: bounds.CMCDSetup, target) -> bool:
     width = net_width(setup)
     if width == 0:  # no net: the target alone decides
         return n_target_floats(score) <= overdamped.MAX_TARGET_FLOATS
-    return net_supported(setup) and fits(width, n_target_floats(score), setup.dim)
+    return net_supported(setup) and fits(width, n_target_floats(score), setup.dim,
+                                         **kernel_nets(setup))
 
 
 @torch.no_grad()
@@ -153,7 +163,8 @@ def compute_elbos_fused(params, n_chains: int, setup: bounds.CMCDSetup, target,
             z0.contiguous(), w0.contiguous(), betas.contiguous(), p["eps"],
             vd["mean"].contiguous(), vd["logdiag"].contiguous(), score,
             OVERDAMPED[setup.mode], eps_schedule=setup.eps_schedule,
-            grad_clipping=setup.grad_clipping, sn=p.get("sn"), **common,
+            grad_clipping=setup.grad_clipping, sn=p.get("sn"),
+            **({"sn2": p["sn2"]} if "sn2" in p else {}), **common,
         )
     w = w + target.log_prob(z)
     return -w, z

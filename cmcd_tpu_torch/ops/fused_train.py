@@ -5,7 +5,9 @@ neg_elbos_pallas_kl, kl_bound_pallas).
 
 var_bound_fused stands in for bounds.var_bound on MCD_CAIS_var_sn and
 kl_bound_fused for bounds.kl_bound on the overdamped modes that keep the
-state in the graph (OD_KL_FUSED_MODES: MCD_CAIS_sn, MCD_ULA_sn, MCD_ULA), the
+state in the graph (OD_KL_FUSED_MODES: MCD_CAIS_sn, MCD_ULA_sn, MCD_ULA and
+MCD_DNF, whose second net's parameters enter the Function beside the
+first's), the
 seven underdamped modes (UD_KL_FUSED_MODES; LDVI is MCD_U_a-lp-sn) and UHA:
 the same (loss, (neg_elbos, z)) contract and the same math, but the K-step
 rollout runs in a fused rollout kernel (ops/overdamped.py,
@@ -61,7 +63,13 @@ from cmcd_tpu_torch.distributions import diag_gaussian_log_prob, diag_gaussian_s
 from cmcd_tpu_torch.integrators import OVERDAMPED, UNDERDAMPED
 from cmcd_tpu_torch.integrators import overdamped as od
 from cmcd_tpu_torch.ops import kl, kl_underdamped, nets, overdamped_wide, uha, vargrad
-from cmcd_tpu_torch.ops.fused import PIS_ARCHS, WIDE_MODES, net_width, supports_fused
+from cmcd_tpu_torch.ops.fused import (
+    PIS_ARCHS,
+    WIDE_MODES,
+    kernel_nets,
+    net_width,
+    supports_fused,
+)
 from cmcd_tpu_torch.ops.kl import evolve_kl_bwd, evolve_kl_bwd_plain
 from cmcd_tpu_torch.ops.kl_split import evolve_kl_split, evolve_kl_split_plain
 from cmcd_tpu_torch.ops.kl_uha import evolve_kl_bwd_uha, evolve_kl_bwd_uha_plain
@@ -87,10 +95,10 @@ from cmcd_tpu_torch.ops.vargrad import (
 )
 from cmcd_tpu_torch.schedules import betas_from_grid
 
-# The overdamped modes whose KL loss has a fused backward: the sweep's three
+# The overdamped modes whose KL loss has a fused backward: the sweep's four
 # forms (ops/kl.SWEEP_SPECS), on every target of the overdamped kernels (the
-# funnel included). Still to port: MCD_DNF.
-OD_KL_FUSED_MODES = frozenset({"MCD_CAIS_sn", "MCD_ULA_sn", "MCD_ULA"})
+# funnel included; DNF with geffner nets only, and not on the LGCP).
+OD_KL_FUSED_MODES = frozenset({"MCD_CAIS_sn", "MCD_ULA_sn", "MCD_ULA", "MCD_DNF"})
 # The underdamped modes whose KL loss has a fused backward: all seven (B7's
 # kernel covers every refresh and CAIS_UHA's forward net), on the targets of
 # ops/underdamped.UD_TARGETS.
@@ -146,7 +154,8 @@ def supports_fused_train(setup: bounds.CMCDSetup, target) -> bool:
     width = net_width(setup)
     gate = {"gate": setup.dim} if setup.nn_arch in PIS_ARCHS else {}
     return (fits is None or width == 0
-            or fits(width, n_target_floats(score_for_target(target)), dim=setup.dim, **gate))
+            or fits(width, n_target_floats(score_for_target(target)), dim=setup.dim, **gate,
+                    **kernel_nets(setup)))
 
 
 def choose_backward(backward: str, setup: bounds.CMCDSetup, n_chains: int) -> str:
@@ -161,16 +170,23 @@ def choose_backward(backward: str, setup: bounds.CMCDSetup, n_chains: int) -> st
 
 
 def _net_inputs(p, nbridges):
-    """(names, tensors) of the score net's inputs to a Function
-    (ops/nets.function_inputs; none without a net)."""
-    return nets.function_inputs(p["sn"], nbridges) if p.get("sn") is not None else ([], [])
+    """(names, tensors) of the score nets' inputs to a Function
+    (ops/nets.function_inputs of "sn" and, for MCD_DNF, "sn2"; none without
+    a net): each name a (net key, input name) pair."""
+    names, tensors = [], []
+    for key in ("sn", "sn2"):
+        if p.get(key) is not None:
+            n, t = nets.function_inputs(p[key], nbridges)
+            names += [(key, name) for name in n]
+            tensors += t
+    return names, tensors
 
 
 def _theta_grads(call, g, eps):
     """A backward kernel's gradient dict in the order of the Functions' theta
-    inputs: eps, betas, vd_mean, vd_logdiag, the net's inputs (call["net"]:
-    geffner's parameters, a PIS net's kernel view)."""
-    g_weights = [g["sn"][name] for name in call["net"]]
+    inputs: eps, betas, vd_mean, vd_logdiag, the nets' inputs (call["net"]:
+    geffner's parameters, a PIS net's kernel view; sn2's after sn's)."""
+    g_weights = [g[key][name] for key, name in call["net"]]
     return (g["eps"].reshape(eps.shape), g["betas"], g["vd_mean"], g["vd_logdiag"], *g_weights)
 
 
@@ -318,8 +334,11 @@ class _EvolveKLUHA(torch.autograd.Function):
 
 
 def _overdamped_static(setup, p):
+    """The overdamped wrappers' fixed keywords (sn2 only for MCD_DNF, the
+    only mode whose wrappers take it)."""
     return dict(dim=setup.dim, nbridges=setup.nbridges, sn=p.get("sn"),
-                eps_schedule=setup.eps_schedule, grad_clipping=setup.grad_clipping)
+                eps_schedule=setup.eps_schedule, grad_clipping=setup.grad_clipping,
+                **({"sn2": p["sn2"]} if "sn2" in p else {}))
 
 
 class _KLFamily(NamedTuple):
@@ -380,7 +399,7 @@ def _split_family() -> _KLFamily:
     )
 
 
-# The modes whose KL loss has a fused backward. Still to port: MCD_DNF.
+# The modes whose KL loss has a fused backward.
 KL_FUSED_MODES = frozenset().union(*(f.modes for f in _kl_families()))
 
 

@@ -4,7 +4,10 @@ plain PyTorch version.
 Counterpart of cmcd_tpu/ops/pallas_kl.py::evolve_kl_bwd_pallas for the
 overdamped specs that differentiate through the state (SWEEP_SPECS: CAIS,
 with one net in both kernels and the backward net at i + 1; ULA_SN, with the
-net in the backward kernel at i; ULA, with no net), on the many_gmm and the
+net in the backward kernel at i; ULA, with no net; DNF, with zero drift, the
+net sn in the forward mean and a second geffner net sn2 in the backward
+mean, whose sweep reads no score: "sn2" joins the gradient dict, keyed as
+"sn", and betas and vd get zeros), on the many_gmm and the
 3-mode gmm scores (dim 2) and the funnel's and the standard normal's (dim
 10), with the port's layout: traj (K + 1, N, dim) and noise
 (K, N, dim) as the fused rollout stored them (ops/overdamped.py,
@@ -42,15 +45,15 @@ import functools
 
 import torch
 
-from cmcd_tpu_torch.integrators.overdamped import CAIS, ULA, ULA_SN, OverdampedSpec
+from cmcd_tpu_torch.integrators.overdamped import CAIS, DNF, ULA, ULA_SN, OverdampedSpec
 from cmcd_tpu_torch.ops import build, nets
 from cmcd_tpu_torch.ops import vargrad as vg
 from cmcd_tpu_torch.ops.overdamped import EPS_SCHEDULES, count_launch, form_key
-from cmcd_tpu_torch.ops.target_grads import KERNEL_DIMS, kernel_target
+from cmcd_tpu_torch.ops.target_grads import KERNEL_DIMS, MAX_TARGET_FLOATS, kernel_target
 from cmcd_tpu_torch.schedules import eps_at_step
 
 # The specs the sweep takes: those that keep the state in the graph.
-SWEEP_SPECS = (CAIS, ULA, ULA_SN)
+SWEEP_SPECS = (CAIS, ULA, ULA_SN, DNF)
 # The net-free sweep (kl_ula_sweep): chains per block.
 ULA_CHAINS_PER_BLOCK = 8
 
@@ -68,16 +71,33 @@ def extra_floats(dim: int) -> tuple:
     return (7 * dim + 1, dim * vg.CHAINS_PER_GROUP)
 
 
-def kernel_fits(in_dim: int, n_par: int, dim: int, gate: int = 0) -> bool:
+def dnf_smem_bytes(in_dim: int, dim: int, groups: int = vg.GROUPS) -> int:
+    """Dynamic shared memory of one block of DNF's sweep (csrc/kl.cu
+    dnf_smem_bytes): the tile with no target constants, whose dW2 slot holds
+    the second net's W2, that net's head rows and per-warp sums, the carry
+    form's per-chain buffers and two nets' shares of the input VJP."""
+    ip = vg._round_up(in_dim, 4)
+    per_chain, per_warp = extra_floats(dim)
+    return vg.smem_bytes(in_dim, 0, groups, (per_chain, 2 * per_warp + vg.warp_scalars(dim)),
+                         dim=dim) + 4 * dim * ip
+
+
+def kernel_fits(in_dim: int, n_par: int, dim: int, gate: int = 0, nets: int = 1) -> bool:
     """ops/vargrad.kernel_fits for one block of the sweep kernel (gate: a PIS
-    net's gate sums a warp, ops/nets.gate_slots)."""
+    net's gate sums a warp, ops/nets.gate_slots); nets 2: DNF's form, two
+    geffner nets, no score (n_par not read)."""
+    if nets == 2:
+        return (in_dim >= 1 and vg._round_up(in_dim, 32) <= vg.GROUP_THREADS and gate == 0
+                and n_par <= MAX_TARGET_FLOATS and dnf_smem_bytes(in_dim, dim) <= vg.MAX_SMEM)
     return vg.kernel_fits(in_dim, n_par, dim, extra_floats(dim), gate)
 
 
-def _check(traj, noise, cot, g_zfinal, betas, grad_logp, spec, dim, nbridges, sn, eps_schedule):
+
+def _check(traj, noise, cot, g_zfinal, betas, grad_logp, spec, dim, nbridges, sn, sn2,
+           eps_schedule):
     n = cot.shape[0]
     vg.check_backward_config("KL reverse sweep", betas, grad_logp, spec, dim, nbridges, sn,
-                             eps_schedule, fits=kernel_fits, specs=SWEEP_SPECS)
+                             eps_schedule, fits=kernel_fits, specs=SWEEP_SPECS, sn2=sn2)
     if (traj.shape != (nbridges + 1, n, dim) or noise.shape != (nbridges, n, dim)
             or cot.shape != (n,) or g_zfinal.shape != (n, dim)):
         raise ValueError(
@@ -87,11 +107,72 @@ def _check(traj, noise, cot, g_zfinal, betas, grad_logp, spec, dim, nbridges, sn
         )
 
 
+def _dnf_sweep_plain(traj, noise, cot, g_zfinal, eps, sn, sn2, nbridges, eps_schedule):
+    """DNF's sweep (the derivation in csrc/kl.cu), point by point from z_K to
+    z_0 in traj's dtype: sn(z_p, p) serves step p's forward mean (p < K),
+    sn2(z_p, row(p, K)) step p - 1's backward mean (p >= 1), each
+    transposed at its point by torch.autograd; no drift, so betas and vd
+    get zeros."""
+    K, dt, dev = nbridges, traj.dtype, traj.device
+    as_t = lambda t: torch.as_tensor(t, device=dev).detach().to(dt)
+    cot, eps0 = as_t(cot), as_t(eps).reshape(())
+    step = [eps_at_step(eps0, j, K, eps_schedule) for j in range(K)]
+    slope = [eps_at_step(1.0, j, K, eps_schedule) - eps_at_step(0.0, j, K, eps_schedule)
+             for j in range(K)]
+    leaves = {"sn": nets.plain_weights(sn, K, dt, dev), "sn2": nets.plain_weights(sn2, K, dt, dev)}
+    g_w = {key: {name: torch.zeros_like(w) for name, w in ws.items()}
+           for key, ws in leaves.items()}
+    g_eps = torch.zeros((), dtype=dt, device=dev)
+    c = cot[:, None]
+
+    def vjp(key, net, z, row, g_out):
+        """The net's output at (z, row) and, for the cotangent g_out(output)
+        of it, the state's: its weights' gradients are summed into g_w."""
+        with torch.enable_grad():
+            z_in = z.clone().requires_grad_(True)
+            out = nets.apply_from_weights(net, leaves[key], z_in, row)
+        g = g_out(out.detach())
+        g_z, *g_wp = torch.autograd.grad(out, [z_in, *leaves[key].values()], g)
+        for name, gw in zip(g_w[key], g_wp):
+            g_w[key][name] += gw
+        return out.detach(), g_z
+
+    fk, direct = None, as_t(g_zfinal)
+    for p in range(K, -1, -1):
+        z = traj[p].detach()
+        total = direct
+        if p <= K - 1:  # z_p starts step p: fk_mean = z_p - e sn(z_p, p)
+            e = step[p]
+            out, g_z = vjp("sn", sn, z, p, lambda o: -e * fk)
+            g_eps = g_eps - slope[p] * torch.sum(fk * out)
+            total = total + g_z
+        if p >= 1:  # step p - 1's backward mean: z_p + e sn2(z_p, row(p, K))
+            e = step[p - 1]
+            parts = {}
+
+            def g_sn2(o):
+                r = traj[p - 1] - (z + e * o)
+                parts["r"], parts["g_mean"] = r, c * r / (2.0 * e)
+                return e * parts["g_mean"]
+
+            out, g_z = vjp("sn2", sn2, z, nets.net_row(sn2, p, K), g_sn2)
+            r, g_mean = parts["r"], parts["g_mean"]
+            g_e = torch.sum(g_mean * out) + torch.sum(c * r * r) / (2.0 * e) ** 2
+            total = total + g_mean + g_z
+            g_e = g_e + torch.sum(total * noise[p - 1]) / torch.sqrt(2.0 * e)
+            g_eps = g_eps + slope[p - 1] * g_e
+            fk, direct = total, total - g_mean
+    zeros = torch.zeros(traj.shape[-1], dtype=dt, device=dev)
+    grads = {"eps": g_eps, "betas": torch.zeros(K, dtype=dt, device=dev), "vd_mean": zeros,
+             "vd_logdiag": zeros.clone(), **g_w}
+    return grads, total
+
+
 @torch.no_grad()
 def evolve_kl_bwd_plain(
     traj, noise, cot, g_zfinal, betas, eps, vd_mean, vd_logdiag, grad_logp,
-    spec: OverdampedSpec, *, dim: int, nbridges: int, sn=None, eps_schedule: str = "",
-    grad_clipping: bool = False, split: bool = False,
+    spec: OverdampedSpec, *, dim: int, nbridges: int, sn=None, sn2=None,
+    eps_schedule: str = "", grad_clipping: bool = False, split: bool = False,
 ):
     """The kernels' function in plain torch, point by point from z_K to z_0,
     in traj's dtype, for every spec of SWEEP_SPECS. Carried between points:
@@ -105,7 +186,12 @@ def evolve_kl_bwd_plain(
 
     split (the split sweep's plain version, ops/kl_split.py): the net's VJP
     in z only, "sn" left empty, and a third result, the stack (K + 1, N,
-    dim) of each point's net-output cotangent g_sn."""
+    dim) of each point's net-output cotangent g_sn.
+
+    DNF (sn2 its second net): _dnf_sweep_plain, no split form."""
+    if spec.use_sn2_bwd:
+        return _dnf_sweep_plain(traj, noise, cot, g_zfinal, eps, sn, sn2, nbridges,
+                                eps_schedule)
     K, dt, dev = nbridges, traj.dtype, traj.device
     as_t = lambda t: torch.as_tensor(t, device=dev).detach().to(dt)
     clip_t = spec.clip_target if grad_clipping else None
@@ -193,7 +279,22 @@ def _library() -> ctypes.CDLL:
     lib.cmcd_kl_ula_chains_per_block.restype = i
     lib.cmcd_kl_ula_len_sums.argtypes = [i]
     lib.cmcd_kl_ula_len_sums.restype = i
+    lib.cmcd_kl_dnf_sweep.argtypes = [p] * 25 + [i] * 8 + [p]
+    lib.cmcd_kl_dnf_sweep.restype = i
+    lib.cmcd_kl_dnf_fits.argtypes = [i, i]
+    lib.cmcd_kl_dnf_fits.restype = i
+    lib.cmcd_kl_dnf_smem_bytes.argtypes = [i, i, i]
+    lib.cmcd_kl_dnf_smem_bytes.restype = ctypes.c_longlong
     vg.declare_limits(lib, "kl", extra_floats, "csrc/kl.cu")
+    # DNF's form at both dims: the shared memory's edge (at dim 2 140 / 141
+    # features, at dim 10 132 / 133) and past the threads' (161).
+    for dim in sorted(set(KERNEL_DIMS.values())):
+        for in_dim in (0, 1, 18, 22, 58, 132, 133, 140, 141, 160, 161):
+            if (bool(lib.cmcd_kl_dnf_fits(in_dim, dim)) != kernel_fits(in_dim, 0, dim, nets=2)
+                    or any(lib.cmcd_kl_dnf_smem_bytes(g, in_dim, dim)
+                           != dnf_smem_bytes(in_dim, dim, g) for g in (2, 4))):
+                raise RuntimeError("csrc/kl.cu and ops/kl.py disagree on what fits one block "
+                                   f"of DNF's sweep at in_dim {in_dim}, dim {dim}")
     if lib.cmcd_kl_ula_chains_per_block() != ULA_CHAINS_PER_BLOCK or any(
             lib.cmcd_kl_ula_len_sums(d) != ula_len_sums(d) for d in set(KERNEL_DIMS.values())):
         raise RuntimeError("csrc/kl.cu and ops/kl.py disagree on the net-free sweep's layout")
@@ -226,6 +327,38 @@ def _launch(lib, traj, noise, cot, g_zfinal, betas, eps, vd_mean, vd_logdiag, gr
     return grads, g_z0
 
 
+def _launch_dnf(lib, traj, noise, cot, g_zfinal, eps, *, dim, nbridges, sn, sn2,
+                eps_schedule, groups, blocks, stream):
+    """Marshal the arguments, launch DNF's sweep, and assemble (grads, g_z0):
+    each net's sums as ops/vargrad.assemble_grads reads them, eps from the
+    first net's, zeros for betas and vd."""
+    dev, n, points = traj.device, cot.shape[0], nbridges + 1
+    f32 = lambda t: torch.as_tensor(t, dtype=torch.float32, device=dev).reshape(())
+    packed = [nets.pack(net, nbridges) for net in (sn, sn2)]
+    for t in packed[0]["weights"] + packed[1]["weights"]:
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError(f"KL reverse sweep: net weights must be f32 on {dev}")
+    scal = torch.stack([f32(eps), f32(packed[0]["factor"]), f32(packed[1]["factor"])])
+    in_dim, ip = packed[0]["in_dim"], vg._round_up(packed[0]["in_dim"], 4)
+    la, lb = vg.len_a(in_dim, dim), vg.len_b(in_dim)
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    gw2, part_a, part_b = new(blocks, 2, ip, ip + 1), new(blocks, 2 * la), new(points, blocks,
+                                                                               2 * lb)
+    out_a, out_b, g_z0 = new(2 * la), new(points, 2 * lb), torch.empty_like(g_zfinal)
+    ptr = vg.ptr
+    err = lib.cmcd_kl_dnf_sweep(
+        ptr(traj), ptr(noise), ptr(cot), ptr(g_zfinal), ptr(scal),
+        *(ptr(t) for t in packed[0]["weights"]), *(ptr(t) for t in packed[1]["weights"]),
+        ptr(gw2), ptr(part_a), ptr(part_b), ptr(out_a), ptr(out_b), ptr(g_z0),
+        n, nbridges, in_dim, packed[0]["emb_dim"], dim, EPS_SCHEDULES[eps_schedule], blocks,
+        groups, ctypes.c_void_p(stream),
+    )
+    vg.raise_on(err, lib, "KL reverse sweep (DNF)")
+    g1 = vg.assemble_grads(out_a[:la], out_b[:, :lb], sn, dim, nbridges)
+    g2 = vg.assemble_grads(out_a[la:], out_b[:, lb:], sn2, dim, nbridges)
+    return {**{k: v for k, v in g1.items() if k != "sn"}, "sn": g1["sn"], "sn2": g2["sn"]}, g_z0
+
+
 def _launch_ula(lib, traj, noise, cot, g_zfinal, betas, eps, vd_mean, vd_logdiag, grad_logp,
                 spec, *, dim, nbridges, eps_schedule, grad_clipping, stream):
     """Marshal the arguments, launch the net-free sweep, and assemble
@@ -254,8 +387,8 @@ def _launch_ula(lib, traj, noise, cot, g_zfinal, betas, eps, vd_mean, vd_logdiag
 @torch.no_grad()
 def evolve_kl_bwd(
     traj, noise, cot, g_zfinal, betas, eps, vd_mean, vd_logdiag, grad_logp,
-    spec: OverdampedSpec, *, dim: int, nbridges: int, sn=None, eps_schedule: str = "",
-    grad_clipping: bool = False,
+    spec: OverdampedSpec, *, dim: int, nbridges: int, sn=None, sn2=None,
+    eps_schedule: str = "", grad_clipping: bool = False,
 ):
     """KL (backprop-through-time) gradient from the stored trajectory and
     noise, in one launch of a sweep kernel and one of its reduction.
@@ -264,16 +397,17 @@ def evolve_kl_bwd(
     (N, dim); betas: (K,); eps: scalar tensor or float; vd_mean / vd_logdiag:
     (dim,); grad_logp: a kernel-form score of ops/target_grads at its
     KERNEL_DIMS dim; spec: one of SWEEP_SPECS; sn: the GeffnerNet or a PIS net (None for
-    ULA). Returns (the gradient
-    dict of the module docstring, g_z0 (N, dim)).
+    ULA); sn2: DNF's second net (None for every other spec). Returns (the
+    gradient dict of the module docstring, g_z0 (N, dim)).
     """
-    _check(traj, noise, cot, g_zfinal, betas, grad_logp, spec, dim, nbridges, sn, eps_schedule)
+    _check(traj, noise, cot, g_zfinal, betas, grad_logp, spec, dim, nbridges, sn, sn2,
+           eps_schedule)
     kwargs = dict(dim=dim, nbridges=nbridges, eps_schedule=eps_schedule,
                   grad_clipping=grad_clipping)
     if traj.device.type == "cpu":
         return evolve_kl_bwd_plain(
             traj, noise, cot, g_zfinal, betas, eps, vd_mean, vd_logdiag, grad_logp, spec,
-            sn=sn, **kwargs
+            sn=sn, sn2=sn2, **kwargs
         )
     if traj.device.type != "cuda":
         raise ValueError(f"KL reverse sweep: no kernel for device {traj.device}")
@@ -284,6 +418,11 @@ def evolve_kl_bwd(
     args = (traj, noise, cot, g_zfinal, betas, eps, vd_mean, vd_logdiag, grad_logp, spec)
     if spec == ULA:
         out = _launch_ula(_library(), *args, stream=stream, **kwargs)
+    elif spec == DNF:
+        groups, blocks = vg.sweep_grid(cot.shape[0], dev)
+        out = _launch_dnf(_library(), traj, noise, cot, g_zfinal, eps, sn=sn, sn2=sn2,
+                          dim=dim, nbridges=nbridges, eps_schedule=eps_schedule, groups=groups,
+                          blocks=blocks, stream=stream)
     else:
         groups, blocks = vg.sweep_grid(cot.shape[0], dev)
         out = _launch(_library(), *args, sn=sn, groups=groups, blocks=blocks, stream=stream,
@@ -292,7 +431,7 @@ def evolve_kl_bwd(
     return out
 
 
-# Launches in all, and by form ("<CAIS|ULA_sn|ULA>/<target>[/dds|/dds_grad]",
+# Launches in all, and by form ("<CAIS|ULA_sn|ULA|DNF>/<target>[/dds|/dds_grad]",
 # ops/overdamped.form_key).
 evolve_kl_bwd.launches = 0
 evolve_kl_bwd.form_launches = {}

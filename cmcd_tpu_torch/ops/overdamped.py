@@ -8,13 +8,15 @@ z_0..z_K as (K + 1, N, dim), which the VarGrad backward (ops/vargrad.py)
 reads, and with return_noise=True the draws xi_0..xi_{K-1} as (K, N, dim),
 which the KL reverse sweep (ops/kl.py) reads beside it. The kernel covers
 every overdamped spec (FORMS: CAIS and CAIS_VAR, ULA_SN with the net in
-the backward kernel only, and ULA without a net) on the many_gmm and the
+the backward kernel only, ULA without a net, and DNF with zero drift and two
+geffner nets, the second in the backward mean: sn2) on the many_gmm and the
 3-mode gmm scores (dim 2) and on the funnel's and the standard normal's
 (dim 10; ops/target_grads.py: TARGETS, KERNEL_DIMS) with the two-layer
 geffner net or a PIS net ("dds", "dds_grad" of two equal widths; ops/nets.py
-forms its tables, csrc/overdamped.cu takes it as a template parameter); the
-wrapper raises on anything else, a dim other than the target's instance
-included.
+forms its tables, csrc/overdamped.cu takes it as a template parameter; DNF
+takes geffner nets only, as the JAX package); the wrapper raises on anything
+else, a dim other than the target's instance included. DNF reads no score:
+its form is instantiated by the state's dimension alone.
 
 On a CPU tensor the wrapper runs the plain twin; on a CUDA tensor it
 launches the kernel or raises, never falling back.
@@ -28,7 +30,14 @@ import math
 
 import torch
 
-from cmcd_tpu_torch.integrators.overdamped import CAIS, CAIS_VAR, ULA, ULA_SN, OverdampedSpec
+from cmcd_tpu_torch.integrators.overdamped import (
+    CAIS,
+    CAIS_VAR,
+    DNF,
+    ULA,
+    ULA_SN,
+    OverdampedSpec,
+)
 from cmcd_tpu_torch.ops import build, nets
 from cmcd_tpu_torch.ops.target_grads import (
     KERNEL_DIMS,
@@ -49,9 +58,10 @@ MAX_SMEM = 232448         # bytes of shared memory a block may use on sm_90
 EPS_SCHEDULES = {"": 0, "linear": 1, "cos_sq": 2}
 # The kernel's form of each spec (csrc/overdamped.cu): 0 the net in both
 # kernels, backward net at i + 1; 1 the net in the backward kernel at i; 2 no
-# net. The words name a form in the launch counts (form_launches).
-FORMS = {CAIS: 0, CAIS_VAR: 0, ULA_SN: 1, ULA: 2}
-FORM_WORDS = ("CAIS", "ULA_sn", "ULA")
+# net; 3 DNF's two nets and no drift. The words name a form in the launch
+# counts (form_launches).
+FORMS = {CAIS: 0, CAIS_VAR: 0, ULA_SN: 1, ULA: 2, DNF: 3}
+FORM_WORDS = ("CAIS", "ULA_sn", "ULA", "DNF")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -63,24 +73,30 @@ def uses_net(spec: OverdampedSpec) -> bool:
     return spec.fwd_sn or spec.bwd_sn
 
 
-def smem_bytes(in_dim: int, n_par: int, dim: int) -> int:
+def smem_bytes(in_dim: int, n_par: int, dim: int, nets: int = 1) -> int:
     """Dynamic shared memory of one block of the tile form for a target of
-    dimension dim (the kernel's layout: W2, two hidden tiles, the dim head
-    rows, the target's n_par constants and the per-chain exchange)."""
+    dimension dim (the kernel's layout: W2 and the dim head rows of each of
+    `nets` nets, two hidden tiles, the target's n_par constants and the
+    per-chain exchange). nets 2: DNF's form, which keeps no constants."""
     ip = _round_up(in_dim, 4)
     tc = CHAINS_PER_BLOCK
-    return 4 * (ip * ip + 2 * tc * ip + dim * ip + _round_up(n_par, 4) + 3 * tc * dim)
+    return 4 * (nets * (ip * ip + dim * ip) + 2 * tc * ip + _round_up(n_par, 4)
+                + 3 * tc * dim)
 
 
-def kernel_fits(in_dim: int, n_par: int, dim: int) -> bool:
-    """True if a net of width in_dim and a target of n_par constants and
-    dimension dim fit one block of the tile form (threads, shared memory)."""
+def kernel_fits(in_dim: int, n_par: int, dim: int, nets: int = 1) -> bool:
+    """True if `nets` nets of width in_dim and a target of n_par constants
+    and dimension dim fit one block of the tile form (threads, shared
+    memory). With nets 2 (DNF, no score in the bridge) n_par is not read."""
+    if nets == 2:
+        n_par = 0
     return (
         in_dim >= 1
         and _round_up(in_dim, 32) <= MAX_THREADS
-        and 1 <= n_par <= MAX_TARGET_FLOATS
-        and smem_bytes(in_dim, n_par, dim) <= MAX_SMEM
+        and (nets == 2 or 1 <= n_par <= MAX_TARGET_FLOATS)
+        and smem_bytes(in_dim, n_par, dim, nets) <= MAX_SMEM
     )
+
 
 
 def check_target(what, grad_logp, dim):
@@ -101,11 +117,19 @@ def check_target(what, grad_logp, dim):
         raise NotImplementedError(f"{what}: more than {MAX_TARGET_FLOATS // 2} components")
 
 
-def check_net(what, sn, nbridges, dim, fits):
+def check_net(what, sn, nbridges, dim, fits, sn2=None):
     """Raise unless a kernel with a net tile takes `sn`
-    (ops/nets.check_kernel_net) at a width that `fits`(width)."""
+    (ops/nets.check_kernel_net) at a width that `fits`(width); with sn2 (DNF)
+    also the second net, a geffner net of the same width, as both are."""
     nets.check_kernel_net(what, sn, nbridges, dim)
     width = nets.net_width(sn)
+    if sn2 is not None:
+        nets.check_kernel_net(what, sn2, nbridges, dim)
+        if nets.is_pis(sn) or nets.is_pis(sn2):
+            raise NotImplementedError(f"{what}: DNF takes geffner nets only (JAX: "
+                                      "no fused DNF with the PIS nets)")
+        if nets.net_width(sn2) != width or sn2.rho_dim or sn.rho_dim:
+            raise ValueError(f"{what}: DNF's two nets must be state-only and of one width")
     if not fits(width):
         raise NotImplementedError(f"{what}: a net of width {width} does not fit one block")
 
@@ -124,15 +148,18 @@ def count_launch(wrapper, form: str):
     wrapper.form_launches[form] = wrapper.form_launches.get(form, 0) + 1
 
 
-def _check(z0, w0, betas, grad_logp, spec, dim, nbridges, sn, eps_schedule, noise):
+def _check(z0, w0, betas, grad_logp, spec, dim, nbridges, sn, sn2, eps_schedule, noise):
     """Raise on what the kernel does not take (both devices)."""
     what = "fused rollout"
     if spec not in FORMS:
         raise NotImplementedError(f"{what}: spec {spec} has no kernel")
     check_target(what, grad_logp, dim)
+    if spec.use_sn2_bwd and sn2 is None:
+        raise ValueError(f"{what}: DNF needs the second net's weights (sn2)")
     if uses_net(spec):
         check_net(what, sn, nbridges, dim, lambda width: kernel_fits(
-            width, n_target_floats(grad_logp), dim))
+            width, n_target_floats(grad_logp), dim, 2 if spec.use_sn2_bwd else 1),
+            sn2 if spec.use_sn2_bwd else None)
     if eps_schedule not in EPS_SCHEDULES:
         raise ValueError(f"unknown eps schedule {eps_schedule!r}")
     n = z0.shape[0]
@@ -148,13 +175,14 @@ def _check(z0, w0, betas, grad_logp, spec, dim, nbridges, sn, eps_schedule, nois
 @torch.no_grad()
 def evolve_overdamped_fused_plain(
     z0, w0, betas, eps, vd_mean, vd_logdiag, grad_logp, spec: OverdampedSpec,
-    *, dim: int, nbridges: int, sn=None, eps_schedule: str = "",
+    *, dim: int, nbridges: int, sn=None, sn2=None, eps_schedule: str = "",
     grad_clipping: bool = False, seed=0, noise=None, generator=None,
     return_trajectory: bool = False, return_noise: bool = False,
 ):
     """The kernel's math in eager torch, step by step: the same clips, the
     same carry of the score (and, for CAIS, of the net output) and the same
-    weight formula, for every spec of FORMS (sn unused by ULA).
+    weight formula, for every spec of FORMS (sn unused by ULA). DNF: no
+    drift and no score; the forward net at (z_i, i), sn2 at (z_{i+1}, i + 1).
     Without injected noise the draws come from `generator`, or from a
     generator seeded with `seed` on z0's device (not the kernel's Philox
     stream: the two agree in distribution only). Returns (z (N, dim), w (N,)),
@@ -178,15 +206,21 @@ def evolve_overdamped_fused_plain(
     z, w = z0, w0
     traj, draws = [z0], []
     net = nets.plain_apply(sn, nbridges) if uses_net(spec) else None
-    gt = grad_logp(z)
-    sn_cur = net(z, 0, gt) if spec.fwd_sn else None
+    bwd_net = nets.plain_apply(sn2, nbridges) if spec.use_sn2_bwd else net
+    score = (lambda x: None) if spec.zero_drift else grad_logp
+    drift = (lambda gt_, z_, beta_: 0.0) if spec.zero_drift else grad_u
+    gt = score(z)
+    # CAIS carries the net output from one step's backward mean into the
+    # next's forward mean; DNF's forward net is applied afresh each step.
+    carry = spec.fwd_sn and not spec.use_sn2_bwd
+    sn_cur = net(z, 0, gt) if carry else None
     for i in range(nbridges):
         eps_i = eps_at_step(eps, i, nbridges, eps_schedule)
         scale = torch.sqrt(2.0 * torch.as_tensor(eps_i))
         beta = betas[i]
-        fk_mean = z - eps_i * grad_u(gt, z, beta)
+        fk_mean = z - eps_i * drift(gt, z, beta)
         if spec.fwd_sn:
-            fk_mean = fk_mean - eps_i * sn_cur
+            fk_mean = fk_mean - eps_i * (sn_cur if carry else net(z, i, gt))
         if noise is None:
             xi = torch.randn(z.shape, generator=generator, device=z.device)
             if return_noise:
@@ -194,15 +228,15 @@ def evolve_overdamped_fused_plain(
         else:
             xi = noise[i]
         z_new = fk_mean + scale * xi
-        gt_new = grad_logp(z_new)
-        bk_mean = z_new - eps_i * grad_u(gt_new, z_new, beta)
+        gt_new = score(z_new)
+        bk_mean = z_new - eps_i * drift(gt_new, z_new, beta)
         if spec.bwd_sn:
-            sn_new = net(z_new, i + spec.bwd_sn_offset, gt_new)
+            sn_new = bwd_net(z_new, i + spec.bwd_sn_offset, gt_new)
             bk_mean = bk_mean + eps_i * sn_new
         resid = (z - bk_mean) * (1.0 / scale)
         w = w - 0.5 * (torch.sum(resid * resid, -1) - torch.sum(xi * xi, -1))
         z, gt = z_new, gt_new
-        if spec.fwd_sn:
+        if carry:
             sn_cur = sn_new
         if return_trajectory:
             traj.append(z)
@@ -218,31 +252,35 @@ def evolve_overdamped_fused_plain(
 def _library() -> ctypes.CDLL:
     lib = build.load("overdamped")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.cmcd_overdamped_rollout.argtypes = [p] * 20 + [i] * 8 + [f] * 3 + [i, p, p]
+    lib.cmcd_overdamped_rollout.argtypes = [p] * 20 + [i] * 8 + [f] * 3 + [i] + [p] * 9
     lib.cmcd_overdamped_rollout.restype = ctypes.c_int
     lib.cmcd_error_string.argtypes = [ctypes.c_int]
     lib.cmcd_error_string.restype = ctypes.c_char_p
     lib.cmcd_overdamped_chains_per_block.restype = ctypes.c_int
-    lib.cmcd_overdamped_fits.argtypes = [i, i, i]
+    lib.cmcd_overdamped_fits.argtypes = [i, i, i, i]
     lib.cmcd_overdamped_fits.restype = ctypes.c_int
-    lib.cmcd_overdamped_smem_bytes.argtypes = [i, i, i]
+    lib.cmcd_overdamped_smem_bytes.argtypes = [i, i, i, i]
     lib.cmcd_overdamped_smem_bytes.restype = ctypes.c_longlong
     if lib.cmcd_overdamped_chains_per_block() != CHAINS_PER_BLOCK:
         raise RuntimeError("csrc/overdamped.cu and ops/overdamped.py disagree on TC")
     # Every edge of the limits at both instantiated dims: shared memory
-    # (228/229 features at dim 2, 224/225 at dim 10), threads (256/257) and
-    # the target's constants (0, 1, 18, 80, 128, 129 floats).
+    # (228/229 features at dim 2, 224/225 at dim 10; two nets 164/165 and
+    # 160/161), threads (256/257) and the target's constants (0, 1, 18, 80,
+    # 128, 129 floats).
     for dim in sorted(set(KERNEL_DIMS.values())):
-        for in_dim in (0, 1, 3, 18, 58, 132, 224, 225, 228, 229, 256, 257, 302):
+        for in_dim in (0, 1, 3, 18, 58, 132, 160, 161, 164, 165, 224, 225, 228, 229, 256, 257,
+                       302):
             for n_par in (0, 1, 18, 80, 128, 129):
-                if (bool(lib.cmcd_overdamped_fits(in_dim, n_par, dim))
-                        != kernel_fits(in_dim, n_par, dim)
-                        or lib.cmcd_overdamped_smem_bytes(in_dim, n_par, dim)
-                        != smem_bytes(in_dim, n_par, dim)):
-                    raise RuntimeError(
-                        "csrc/overdamped.cu and ops/overdamped.py disagree on what fits "
-                        f"one block at in_dim {in_dim}, {n_par} target floats, dim {dim}"
-                    )
+                for n_nets in (1, 2):
+                    if (bool(lib.cmcd_overdamped_fits(in_dim, n_par, dim, n_nets))
+                            != kernel_fits(in_dim, n_par, dim, n_nets)
+                            or lib.cmcd_overdamped_smem_bytes(in_dim, n_par, dim, n_nets)
+                            != smem_bytes(in_dim, n_par, dim, n_nets)):
+                        raise RuntimeError(
+                            "csrc/overdamped.cu and ops/overdamped.py disagree on what fits "
+                            f"one block at in_dim {in_dim}, {n_par} target floats, dim {dim}, "
+                            f"{n_nets} nets"
+                        )
     return lib
 
 
@@ -253,7 +291,7 @@ def _f32(t, device):
 @torch.no_grad()
 def evolve_overdamped_fused(
     z0, w0, betas, eps, vd_mean, vd_logdiag, grad_logp, spec: OverdampedSpec,
-    *, dim: int, nbridges: int, sn=None, eps_schedule: str = "",
+    *, dim: int, nbridges: int, sn=None, sn2=None, eps_schedule: str = "",
     grad_clipping: bool = False, seed=0, noise=None, return_trajectory: bool = False,
     return_noise: bool = False,
 ):
@@ -262,15 +300,16 @@ def evolve_overdamped_fused(
     z0: (N, dim) f32; w0: (N,) f32; betas: (K,); eps: scalar tensor or float;
     vd_mean / vd_logdiag: (dim,); grad_logp: a kernel-form score of
     ops/target_grads (TARGETS) at its KERNEL_DIMS dim; sn: the GeffnerNet or
-    a PIS net (None for ULA); seed: int or one-element
+    a PIS net (None for ULA); sn2: DNF's second net (geffner, the width of
+    sn), None for every other spec; seed: int or one-element
     integer tensor (read on the device, so no host sync); noise: optional
     (K, N, dim) standard normals. Returns (z (N, dim), w (N,)); with
     return_trajectory also traj (K + 1, N, dim): row 0 is z0, row K equals z;
     with return_noise also the draws (K, N, dim) the kernel used: its Philox
     normals as it stored them, or the injected tensor itself.
     """
-    _check(z0, w0, betas, grad_logp, spec, dim, nbridges, sn, eps_schedule, noise)
-    kwargs = dict(dim=dim, nbridges=nbridges, sn=sn, eps_schedule=eps_schedule,
+    _check(z0, w0, betas, grad_logp, spec, dim, nbridges, sn, sn2, eps_schedule, noise)
+    kwargs = dict(dim=dim, nbridges=nbridges, sn=sn, sn2=sn2, eps_schedule=eps_schedule,
                   grad_clipping=grad_clipping, seed=seed, noise=noise)
     if z0.device.type == "cpu":
         return evolve_overdamped_fused_plain(
@@ -294,22 +333,33 @@ def evolve_overdamped_fused(
     return out
 
 
+def _pack_net(sn, nbridges, dev):
+    """ops/nets.pack of a launch's net, its tensors checked f32 on dev."""
+    packed = nets.pack(sn, nbridges)
+    for t in packed["weights"] + [packed["gate"]]:
+        if t is not None and (t.device != dev or t.dtype != torch.float32):
+            raise ValueError(f"fused rollout: net weights must be f32 on {dev}")
+    return packed
+
+
 def _launch(lib, z0, w0, betas, eps, vd_mean, vd_logdiag, grad_logp, spec, *, dim, nbridges,
-            sn, eps_schedule, grad_clipping, seed, noise, stored, stream):
+            sn, sn2, eps_schedule, grad_clipping, seed, noise, stored, stream):
     """Marshal the arguments and launch the rollout on `stream`: (z, w) and
     the stores asked for (stored: trajectory, noise)."""
     dev = z0.device
     form = FORMS[spec]
-    if form < 2:
-        packed = nets.pack(sn, nbridges)
+    if uses_net(spec):
+        packed = _pack_net(sn, nbridges, dev)
         weights, factor = packed["weights"], packed["factor"]
-        for t in weights + [packed["gate"]]:
-            if t is not None and (t.device != dev or t.dtype != torch.float32):
-                raise ValueError(f"fused rollout: net weights must be f32 on {dev}")
         in_dim, emb_dim, arch, gate = (packed[k] for k in ("in_dim", "emb_dim", "arch", "gate"))
     else:
         factor, weights, in_dim, emb_dim, arch, gate = 0.0, [None] * 7, 0, 0, 0, None
-    scal = torch.stack([_f32(eps, dev).reshape(()), _f32(factor, dev).reshape(())])
+    factor2, weights2 = 0.0, [None] * 7
+    if spec.use_sn2_bwd:
+        packed2 = _pack_net(sn2, nbridges, dev)
+        weights2, factor2 = packed2["weights"], packed2["factor"]
+    scal = torch.stack([_f32(eps, dev).reshape(()), _f32(factor, dev).reshape(()),
+                        _f32(factor2, dev).reshape(())])
     seed_t = torch.as_tensor(seed, dtype=torch.int64, device=dev).reshape(1)
     code, tpar, inv_var = kernel_target(grad_logp, dev)
     vd_inv_var = torch.exp(-2.0 * vd_logdiag).contiguous()
@@ -331,7 +381,7 @@ def _launch(lib, z0, w0, betas, eps, vd_mean, vd_logdiag, grad_logp, spec, *, di
         inv_var,
         math.inf if clip_t is None else clip_t,
         math.inf if clip_q is None else clip_q,
-        arch, ptr(gate), ctypes.c_void_p(stream),
+        arch, ptr(gate), *(ptr(t) for t in weights2), ctypes.c_void_p(stream),
     )
     if err != 0:
         raise RuntimeError(
@@ -344,6 +394,6 @@ def _launch(lib, z0, w0, betas, eps, vd_mean, vd_logdiag, grad_logp, spec, *, di
     return out
 
 
-# Launches in all, and by form ("<CAIS|ULA_sn|ULA>/<target>[/dds|/dds_grad]", form_key).
+# Launches in all, and by form ("<CAIS|ULA_sn|ULA|DNF>/<target>[/dds|/dds_grad]", form_key).
 evolve_overdamped_fused.launches = 0
 evolve_overdamped_fused.form_launches = {}

@@ -159,19 +159,23 @@ VARGRAD_SPECS = (CAIS_VAR,)
 
 
 def check_backward_config(what, betas, grad_logp, spec, dim, nbridges, sn, eps_schedule,
-                          fits=None, specs=VARGRAD_SPECS):
+                          fits=None, specs=VARGRAD_SPECS, sn2=None):
     """Raise on what the backward kernels do not take (both devices): a spec
     outside `specs`, a target the kernels do not inline at this dim, and for
     a spec with a net the two-layer geffner net or a PIS net of two equal
     widths (ops/nets.kernel_net_ok) at a width that fits one block
     (`fits`(width, n_par, dim, gate=...), default this module's
-    kernel_fits)."""
+    kernel_fits; for DNF also sn2, a geffner net as sn, and nets=2)."""
     if spec not in specs:
         raise NotImplementedError(f"{what}: no kernel for spec {spec}")
     check_target(what, grad_logp, dim)
+    if spec.use_sn2_bwd and sn2 is None:
+        raise ValueError(f"{what}: DNF needs the second net's weights (sn2)")
     if spec.fwd_sn or spec.bwd_sn:
+        two = {"nets": 2} if spec.use_sn2_bwd else {}
         check_net(what, sn, nbridges, dim, lambda width: (fits or kernel_fits)(
-            width, n_target_floats(grad_logp), dim, gate=nets.gate_slots(sn, dim)))
+            width, n_target_floats(grad_logp), dim, gate=nets.gate_slots(sn, dim), **two),
+            sn2 if spec.use_sn2_bwd else None)
     if eps_schedule not in EPS_SCHEDULES:
         raise ValueError(f"unknown eps schedule {eps_schedule!r}")
     if betas.shape != (nbridges,):

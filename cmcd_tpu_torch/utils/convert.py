@@ -8,7 +8,8 @@ GeffnerNet, PISNet or PISGradNet (picked from the tree's keys: "emb",
 (in, out) matrices transposed. The tests feed both packages the same
 weights this way. The PIS nets' time coefficients are no leaf of JAX's
 tree (jnp.linspace inside the apply): the caller hands JAX's bits in as
-`pis_coeff`, and dds_grad its `target_log_prob`.
+`pis_coeff`, and dds_grad its `target_log_prob`. MCD_DNF's second net,
+"sn2", converts as "sn" does.
 
 params_to_numpy and grads_to_numpy go back: a port tree (values, or the
 `.grad` of every leaf after `loss.backward()`) as nested dicts of numpy
@@ -147,9 +148,9 @@ def params_from_jax(tree, device=None, pis_coeff=None, target_log_prob=None):
     device = resolve_device(device)
 
     def convert(key, value):
-        if key == "sn" and "emb" in value:
+        if key in ("sn", "sn2") and "emb" in value:
             return geffner_from_jax(value, device)
-        if key == "sn":
+        if key in ("sn", "sn2"):
             return pis_from_jax(value, device, pis_coeff, target_log_prob)
         if isinstance(value, dict):
             return {k: convert(k, v) for k, v in value.items()}

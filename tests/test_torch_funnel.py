@@ -544,7 +544,8 @@ def test_refusals_before_any_launch():
     underdamped ones and UHA); what stays refused, on both devices and
     before anything launches: the standard normal in the underdamped and UHA
     kernels (their instances are the recipes' three targets), gmm at dim 10,
-    a funnel of another funnel_d, MCD_DNF."""
+    a funnel of another funnel_d, MCD_DNF with a PIS net (DNF itself runs on
+    the funnel through the two-net forms, instantiated at D = 10)."""
     funnel = load_target("funnel", device="cpu")
     for mode in ("MCD_CAIS_sn", "MCD_ULA_sn", "MCD_ULA", "MCD_CAIS_var_sn", "MCD_U_a-lp-sn",
                  "MCD_U_e-lp", "MCD_U_ea-lp-sn", "MCD_CAIS_UHA_sn", "UHA"):
@@ -552,7 +553,11 @@ def test_refusals_before_any_launch():
         assert supports_fused(setup, funnel) and supports_fused_train(setup, funnel)
     assert fused_training_path(tb.CMCDSetup(mode="MCD_CAIS_sn", dim=D, nbridges=8), 300)[1] \
         == "kl_bound_fused, KL reverse sweep"
-    assert not supports_fused(tb.CMCDSetup(mode="MCD_DNF", dim=D, nbridges=8), funnel)
+    dnf = tb.CMCDSetup(mode="MCD_DNF", dim=D, nbridges=8, emb_dim=48)
+    assert supports_fused(dnf, funnel) and supports_fused_train(dnf, funnel)
+    assert not supports_fused(tb.CMCDSetup(mode="MCD_DNF", dim=D, nbridges=8,
+                                           nn_arch="dds_grad", fully_connected_units=(16, 16)),
+                              funnel)
     score, normal = FunnelScore(dim=D, sig=3.0), StdNormalScore(dim=D)
     z = torch.zeros(4, D)
     with pytest.raises(NotImplementedError, match="B11"):

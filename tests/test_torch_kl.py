@@ -212,12 +212,13 @@ def test_kl_bound_fused_carries_the_state_gradient_to_the_draw():
 
 def test_fused_kl_gate_and_mode_checks():
     target = load_target("many_gmm", device="cpu")
-    # The overdamped members (the sweep's three forms); the approximate-refresh
+    # The overdamped members (the sweep's four forms, DNF's two-net form
+    # among them: tests/test_torch_dnf.py); the approximate-refresh
     # underdamped modes and UHA joined them with their own sweeps
-    # (tests/test_torch_kl_underdamped.py, tests/test_torch_uha.py); DNF has none.
+    # (tests/test_torch_kl_underdamped.py, tests/test_torch_uha.py).
     assert (KL_FUSED_MODES - UD_KL_FUSED_MODES - UHA_KL_FUSED_MODES
-            == {"MCD_CAIS_sn", "MCD_ULA_sn", "MCD_ULA"})
-    assert "MCD_DNF" not in KL_FUSED_MODES
+            == {"MCD_CAIS_sn", "MCD_ULA_sn", "MCD_ULA", "MCD_DNF"})
+    assert "MCD_DNF" in KL_FUSED_MODES
     assert supports_fused_train(
         tb.CMCDSetup(mode="MCD_CAIS_sn", dim=2, nbridges=256, emb_dim=130), target)
     assert kl.kernel_fits(132, 80, 2) and not kl.kernel_fits(148, 80, 2)
@@ -233,15 +234,21 @@ def test_fused_kl_gate_and_mode_checks():
 
 @pytest.mark.parametrize("mode", ["MCD_U_e-lp", "MCD_DNF"])
 def test_fused_training_path_refuses_a_mode_without_a_fused_loss(mode):
-    """DNF has no fused loss to hand the trainer, so the path raises instead
-    of naming kl_bound_fused. The exact refresh (MCD_U_e-lp) has one since
-    its sweep was ported; its refusal is now a target whose score no
-    underdamped kernel inlines (the standard normal at dim 10), before
-    anything runs."""
+    """DNF and the exact refresh (MCD_U_e-lp) each have a fused loss since
+    their sweeps were ported, so the path names kl_bound_fused. What stays
+    refused before anything runs: DNF with a PIS net (the JAX package fuses
+    none), and for the exact refresh a target whose score no underdamped
+    kernel inlines (the standard normal at dim 10)."""
     setup = tb.CMCDSetup(mode=mode, dim=2, nbridges=8, emb_dim=16)
     if mode == "MCD_DNF":
+        assert fused_training_path(setup, 256)[0] is kl_bound_fused
+        target = load_target("many_gmm", device="cpu")
+        assert supports_fused_train(setup, target)
+        pis = tb.CMCDSetup(mode=mode, dim=2, nbridges=8, nn_arch="dds",
+                           fully_connected_units=(16, 16))
+        assert not supports_fused_train(pis, target)
         with pytest.raises(NotImplementedError, match=mode):
-            fused_training_path(setup, 256)
+            kl_bound_fused({}, 8, None, pis, target)
         return
     assert fused_training_path(setup, 256)[0] is kl_bound_fused
     normal = Target("std_normal", 10, std_normal_log_prob)

@@ -283,8 +283,9 @@ def test_kl_bound_fused_ldvi_matches_kl_bound_pallas():
 def test_kl_modes_and_training_path_cover_the_approximate_refresh():
     """Every underdamped mode trains through the fused KL loss on each target
     of the kernels at its width (the approximate refresh, LDVI's full width,
-    among them); what stays refused: MCD_DNF (not ported) and a target whose
-    score no kernel inlines, before anything runs."""
+    among them); what stays refused: MCD_DNF with a PIS net (DNF trains
+    through the overdamped sweep's two-net form with the geffner nets only)
+    and a target whose score no kernel inlines, before anything runs."""
     assert UD_KL_FUSED_MODES == set(ALL) and UD_KL_FUSED_MODES <= KL_FUSED_MODES
     assert set(UD_TARGETS) == set(TARGETS)
     for name, dim, nbridges, emb in (("many_gmm", 2, 256, 130), ("gmm", 2, 8, 20),
@@ -297,7 +298,8 @@ def test_kl_modes_and_training_path_cover_the_approximate_refresh():
             assert loss is kl_bound_fused and "underdamped" in words
     many_gmm = load_target("many_gmm", device="cpu")
     normal = Target("std_normal", 10, lambda z: -0.5 * torch.sum(z * z, -1))
-    for setup, target in ((tb.CMCDSetup(mode="MCD_DNF", dim=2, nbridges=8), many_gmm),
+    for setup, target in ((tb.CMCDSetup(mode="MCD_DNF", dim=2, nbridges=8, nn_arch="dds",
+                                        fully_connected_units=(16, 16)), many_gmm),
                           (tb.CMCDSetup(mode="MCD_U_ea-lp-sn", dim=10, nbridges=8, emb_dim=16),
                            normal)):
         assert not supports_fused_train(setup, target)

@@ -610,9 +610,10 @@ def test_refusals_before_any_launch(bad):
         kw["mode"] = "MCD_U_a-lp-sn"
     setup = tb.CMCDSetup(**kw)
     assert not supports_fused(setup, target) and not supports_fused_train(setup, target)
-    if bad == "dnf":
+    if bad == "dnf":  # DNF trains fused with the geffner nets only
+        assert fused_training_path(setup, 64)[0] is kl_bound_fused
         with pytest.raises(NotImplementedError):
-            fused_training_path(setup, 64)
+            kl_bound_fused({}, 8, None, setup, target)
         return
     if bad == "underdamped":
         with pytest.raises(NotImplementedError):

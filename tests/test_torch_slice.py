@@ -175,10 +175,12 @@ def test_supports_fused_gate():
     ok = tb.CMCDSetup(mode="MCD_CAIS_var_sn", dim=2, nbridges=256, emb_dim=130)
     assert supports_fused(ok, target)
     assert supports_fused(tb.CMCDSetup(mode="MCD_CAIS_sn", dim=2, nbridges=8), target)
-    # ULA_sn and plain ULA run through the rollout kernel's other forms; the
-    # DNF mode has none.
+    # ULA_sn, plain ULA and DNF run through the rollout kernel's other forms;
+    # DNF with a PIS net is refused, as the JAX package fuses none.
     assert supports_fused(tb.CMCDSetup(mode="MCD_ULA_sn", dim=2, nbridges=8), target)
-    assert not supports_fused(tb.CMCDSetup(mode="MCD_DNF", dim=2, nbridges=8), target)
+    assert supports_fused(tb.CMCDSetup(mode="MCD_DNF", dim=2, nbridges=8), target)
+    assert not supports_fused(tb.CMCDSetup(mode="MCD_DNF", dim=2, nbridges=8, nn_arch="dds",
+                                           fully_connected_units=(16, 16)), target)
     # in_dim 302 needs more threads and shared memory than one block has.
     assert not supports_fused(
         tb.CMCDSetup(mode="MCD_CAIS_var_sn", dim=2, nbridges=8, emb_dim=300), target)

@@ -333,10 +333,10 @@ def test_five_gmm_ula_steps_match_the_jax_trainer():
 
 
 def test_gates_words_and_the_dropped_schedule():
-    """ULA, ULA_sn and CAIS on both targets take the fused paths; ULA has no
-    net to ask for; its setup drops an eps schedule, and the rollout then
-    runs the constant one."""
-    assert OD_KL_FUSED_MODES == {"MCD_CAIS_sn", "MCD_ULA_sn", "MCD_ULA"}
+    """ULA, ULA_sn, CAIS and DNF on both targets take the fused paths; ULA
+    has no net to ask for; its setup drops an eps schedule, and the rollout
+    then runs the constant one."""
+    assert OD_KL_FUSED_MODES == {"MCD_CAIS_sn", "MCD_ULA_sn", "MCD_ULA", "MCD_DNF"}
     for name in ("many_gmm", "gmm"):
         target = load_target(name, device="cpu")
         for mode in OD_KL_FUSED_MODES:

@@ -280,14 +280,18 @@ def test_supports_fused_train_gate():
     target = load_target("many_gmm", device="cpu")
     assert supports_fused_train(
         tb.CMCDSetup(mode="MCD_CAIS_var_sn", dim=2, nbridges=256, emb_dim=130), target)
-    # The KL twin trains through the reverse-sweep kernel, and so does
-    # ULA_sn (the sweep's per-point form); DNF has no fused backward yet.
+    # The KL twin trains through the reverse-sweep kernel, and so do ULA_sn
+    # (the sweep's per-point form) and DNF (its two-net form), DNF with the
+    # geffner nets only.
     assert supports_fused_train(
         tb.CMCDSetup(mode="MCD_CAIS_sn", dim=2, nbridges=8), target)
     assert supports_fused_train(
         tb.CMCDSetup(mode="MCD_ULA_sn", dim=2, nbridges=8), target)
-    assert not supports_fused_train(
+    assert supports_fused_train(
         tb.CMCDSetup(mode="MCD_DNF", dim=2, nbridges=8), target)
+    assert not supports_fused_train(
+        tb.CMCDSetup(mode="MCD_DNF", dim=2, nbridges=8, nn_arch="dds",
+                     fully_connected_units=(16, 16)), target)
     # in_dim 162 fits the rollout's block but not the backward's (many_gmm:
     # 80 constants, its 40 means).
     assert kernel_fits(132, 80, 2) and kernel_fits(144, 80, 2) and not kernel_fits(148, 80, 2)
