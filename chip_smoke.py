@@ -8,10 +8,11 @@ Phases, one line each; any failure exits non-zero:
   1. device: needs CUDA (no CPU run); prints the card's name and power limit.
   2. build: compiles csrc/overdamped.cu, csrc/vargrad.cu, csrc/kl.cu,
      csrc/underdamped.cu, csrc/kl_underdamped.cu, csrc/uha.cu,
-     csrc/kl_uha.cu, csrc/overdamped_wide.cu and csrc/kl_split.cu with nvcc
-     for sm_90a, all at once (ptxas report per kernel: every target
-     instance, the D = 10 ones of the funnel and the standard normal and the
-     LGCP's wide forms included).
+     csrc/kl_uha.cu, csrc/overdamped_wide.cu, csrc/kl_split.cu,
+     csrc/overdamped_logreg.cu and csrc/kl_logreg.cu with nvcc for sm_90a,
+     all at once (ptxas report per kernel: every target instance, the D = 10
+     ones of the funnel and the standard normal, the LGCP's wide forms and
+     the logistic regressions' instances included).
   3. kernels vs their plain versions. The rollout under injected noise, at
      the CPU tests' size and at full width (K=256, emb_dim 130, grad clipping,
      factor_sn 0.3, random embedding) for N=2000 and for the evaluation's
@@ -169,7 +170,7 @@ Phases, one line each; any failure exits non-zero:
  25. timing (CUDA events, plain, kernel, kernel, plain) of the D = 10 forms
      on the funnel at funnel_k8's shape and the stress shape, each beside its
      bound (_work_od at dim 10) and its device time per launch under
-     torch.profiler; funnel_k8's optimizer step over 50 and 500 steps
+     torch.profiler; funnel_k8's optimizer step over 50 and 200 steps
      against the eager step, with its device busy share.
  26. the underdamped family's new forms against their plain versions: the
      underdamped rollout and KL sweep of all seven specs on gmm and the
@@ -195,7 +196,7 @@ Phases, one line each; any failure exits non-zero:
  28. timing (CUDA events, plain, kernel, kernel, plain) of the new forms at
      their paths' shapes, each beside its bound (_work_ud, _work_uha) and
      its device time per launch under torch.profiler; the CAIS_UHA funnel
-     optimizer step over 50 and 500 steps against the eager step, with its
+     optimizer step over 50 and 200 steps against the eager step, with its
      device busy share.
  29. the PIS nets ("dds", "dds_grad", the net a template parameter of B1, B2,
      B3 and B5) against the plain versions, under injected noise: on
@@ -222,7 +223,7 @@ Phases, one line each; any failure exits non-zero:
  31. timing (CUDA events, plain, kernel, kernel, plain) of every PIS form at
      its path's shape, each beside its bound (_work_pis) and its device time
      per launch under torch.profiler, the instances' registers and spill
-     stores from ptxas, and both recipes' optimizer steps over 50 and 500
+     stores from ptxas, and both recipes' optimizer steps over 50 and 200
      steps against the eager step, with their device busy share.
  32. the wide forms (the 1600-D LGCP, unwhitened and whitened) against their
      plain versions: the inlined score and Hessian product (a probe kernel
@@ -267,6 +268,29 @@ Phases, one line each; any failure exits non-zero:
      torch.profiler, the instances' registers and spill stores from ptxas,
      and the many_gmm DNF optimizer step over 50 and 200 steps against the
      eager step, with its device busy share.
+ 38. the Bayesian logistic regressions' instances (australian D=15,
+     ionosphere D=35, sonar D=61: overdamped_rollout<LogregTarget<D, R>,
+     GeffnerNet, true, 1> in B1, kl_reverse_sweep<NG, LogregTarget<D, R>,
+     true, GeffnerNet> in B3, the dataset read in place) against their plain
+     versions: the inlined score and Hessian product through a probe kernel
+     against float64 (512 points, logits past 88; limit 1e-5 of the point's
+     scale); the CAIS rollout under injected noise at the test size (N=64,
+     K=6, emb 16) and at the posterior protocol's (N=300, K=8, emb 20, grad
+     clipping; TOL_SMALL / TOL_FULL, the float64 arbiter), its noise stack;
+     the CAIS sweep at both sizes and at four groups (N=8192, K=4;
+     GRAD_TOL_SMALL / GRAD_TOL_FULL, the float64 arbiter); the whole
+     MCD_CAIS_sn step of each set's flags.
+ 39. each set's protocol flags through the CLI, cut to LOGREG_MFVI_ITERS
+     MFVI iterations and LOGREG_PATH_ITERS steps, then the 10 x 500
+     evaluation: the set's rollout launched LOGREG_PATH_ITERS + 10 times and
+     its sweep LOGREG_PATH_ITERS times, no other kernel; no NaN loss, no
+     divergence, the ELBO above its value at init after the same MFVI.
+ 40. timing (CUDA events, plain, kernel, kernel, plain; at K=256 the plain
+     versions once) of both instances of each set at N=300 for K=8 and
+     K=256, each beside its bound (_work_logreg) and its device time per
+     launch under torch.profiler, the instances' registers and spill stores
+     from ptxas, and the log_sonar optimizer step over 50 and 200 steps
+     against the eager step, with its device busy share.
 Then a line with each phase's seconds, a JSON line with each kernel's
 launches, error, times and bound, and as the last line {"ok": true,
 "device": {...}}.
@@ -403,13 +427,15 @@ def phase_build():
     )
 
     sources = ("overdamped", "vargrad", "kl", "underdamped", "kl_underdamped", "uha", "kl_uha",
-               "overdamped_wide", "kl_split")
+               "overdamped_wide", "kl_split", "overdamped_logreg", "kl_logreg")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, started together
         libs = list(pool.map(build.build, sources))
     for module in (overdamped, vargrad, kl, underdamped, kl_underdamped, uha, kl_uha,
                    overdamped_wide, kl_split):
         module._library()
+    overdamped._library("overdamped_logreg")
+    kl._library("kl_logreg")
     secs = time.perf_counter() - t0
     for so in libs:
         with open(so[:-3] + ".log") as f:
@@ -2216,7 +2242,9 @@ ULA_MG_FLAGS = [f if f != "MCD_CAIS_sn" else "MCD_ULA" for f in KL_FLAGS]
 # The VarGrad kernels' gmm forms: the gmm CAIS recipe's shape in VarGrad, and
 # at REROLL_N chains and K=256, where "auto" takes the re-rolling backward.
 GMM_VAR_FLAGS = [f if f != "MCD_CAIS_sn" else "MCD_CAIS_var_sn" for f in GMM_CAIS_FLAGS]
-OD_PATH_ITERS, OD_WIDE_ITERS = 1000, 200  # the gmm paths (2000 until the PIS phases)
+# The gmm paths: 700 steps (2000 until the PIS phases, 1000 until the logreg
+# phases 38-40).
+OD_PATH_ITERS, OD_WIDE_ITERS = 700, 200
 
 
 def _od_wrappers():
@@ -2593,7 +2621,7 @@ def phase_od_timing():
             # step over a window ten times as long, to hold the 50-step
             # reading against the CLI log's median.
             ms["setup_ms"] = [_wall_ms(steps(fused, 0)) for _ in range(2)]
-            ms["kernel_500"] = [_wall_ms(steps(fused, 500)) / 500 for _ in range(2)]
+            ms["kernel_200"] = [_wall_ms(steps(fused, 200)) / 200]
         prof_wall, prof_dev, top = _profile(steps(fused, 10))
         print(f"[22 timing] {name} optimizer step N={cfg.N} K={cfg.nbridges} ms per step "
               f"{json.dumps(ms)} (kernel: 50 steps, kernel_500: 500, eager: {eager_iters} per "
@@ -2992,14 +3020,14 @@ def phase_funnel_timing():
         loss_fn, iters = (bounds.kl_bound, 3) if which == "plain" else (fused, 50)
         ms["eager" if which == "plain" else "kernel"].append(_wall_ms(steps(loss_fn, iters))
                                                              / iters)
-    ms["kernel_500"] = [_wall_ms(steps(fused, 500)) / 500]
+    ms["kernel_200"] = [_wall_ms(steps(fused, 200)) / 200]
     prof_wall, prof_dev, top = _profile(steps(fused, 10))
     ms["busy_ms"] = prof_dev / 10
     # The 50-step readings of this host-bound step can differ 2x within a
-    # call; the share is taken against the 500-step window.
-    ms["busy_share_of_500"] = prof_dev / 10 / ms["kernel_500"][0]
+    # call; the share is taken against the 200-step window.
+    ms["busy_share_of_200"] = prof_dev / 10 / ms["kernel_200"][0]
     print(f"[25 timing] funnel_k8 optimizer step N={cfg.N} K={cfg.nbridges} emb{cfg.emb_dim} ms "
-          f"per step {json.dumps(ms)} (kernel: 50 steps, kernel_500: 500, eager: 3 per reading); "
+          f"per step {json.dumps(ms)} (kernel: 50 steps, kernel_200: 200, eager: 3 per reading); "
           f"10 fused steps under the profiler: wall {prof_wall!r} ms, device busy {prof_dev!r} "
           f"ms, device records {json.dumps(top)}", flush=True)
     return times, bounds_, ms
@@ -3349,12 +3377,12 @@ def phase_ud_new_timing():
         loss_fn, iters = (bounds.kl_bound, 2) if which == "plain" else (fused, 50)
         ms["eager" if which == "plain" else "kernel"].append(_wall_ms(steps(loss_fn, iters))
                                                              / iters)
-    ms["kernel_500"] = [_wall_ms(steps(fused, 500)) / 500]
+    ms["kernel_200"] = [_wall_ms(steps(fused, 200)) / 200]
     prof_wall, prof_dev, top = _profile(steps(fused, 10))
     ms["busy_ms"] = prof_dev / 10
-    ms["busy_share_of_500"] = prof_dev / 10 / ms["kernel_500"][0]
+    ms["busy_share_of_200"] = prof_dev / 10 / ms["kernel_200"][0]
     print(f"[28 timing] CAIS_UHA funnel optimizer step N={cfg.N} K={cfg.nbridges} "
-          f"emb{cfg.emb_dim} ms per step {json.dumps(ms)} (kernel: 50 steps, kernel_500: 500, "
+          f"emb{cfg.emb_dim} ms per step {json.dumps(ms)} (kernel: 50 steps, kernel_200: 200, "
           f"eager: 2 per reading); 10 fused steps under the profiler: wall {prof_wall!r} ms, "
           f"device busy {prof_dev!r} ms, device records {json.dumps(top)}", flush=True)
     return times, bounds_, ms
@@ -3435,8 +3463,9 @@ DDS_VAR_FLAGS = [{"MCD_CAIS_sn": "MCD_CAIS_var_sn", "60": "15"}.get(f, f) for f 
 DDS_ULA_SN_FLAGS = [f if f != "MCD_CAIS_sn" else "MCD_ULA_sn" for f in KL_DDS_FLAGS]
 GMM_DDS_FLAGS = GMM_CAIS_FLAGS + ["--config.nn_arch", "dds"]
 FUNNEL_DDS_GRAD_FLAGS = FUNNEL_FLAGS + ["--config.nn_arch", "dds_grad"]
-# 1000 steps (2000 before the DNF phases), the ELBO still gated.
-PIS_PATH_ITERS, PIS_SHORT_ITERS = 1000, 200
+# 700 steps (2000 before the DNF phases, 1000 before the logreg phases
+# 38-40), the ELBO still gated.
+PIS_PATH_ITERS, PIS_SHORT_ITERS = 700, 200
 PIS_ARCHS = ("dds", "dds_grad")
 # Each target's compare: (units at the test size, init_sigma).
 PIS_TARGETS = {"many_gmm": ((64, 64), 8.0), "gmm": ((16, 16), 3.0), "funnel": ((16, 16), 1.0)}
@@ -3896,12 +3925,12 @@ def phase_pis_timing():
             loss_fn, iters = (bounds.kl_bound, 1) if which == "plain" else (fused, 50)
             ms["eager" if which == "plain" else "kernel"].append(_wall_ms(steps(loss_fn, iters))
                                                                  / iters)
-        ms["kernel_500"] = [_wall_ms(steps(fused, 500)) / 500]
+        ms["kernel_200"] = [_wall_ms(steps(fused, 200)) / 200]
         prof_wall, prof_dev, top = _profile(steps(fused, 10))
         ms["busy_ms"] = prof_dev / 10
-        ms["busy_share_of_500"] = prof_dev / 10 / ms["kernel_500"][0]
+        ms["busy_share_of_200"] = prof_dev / 10 / ms["kernel_200"][0]
         print(f"[31 timing] {name} optimizer step N={cfg.N} K={cfg.nbridges} ms per step "
-              f"{json.dumps(ms)} (kernel: 50 steps, kernel_500: 500, eager: 1 per reading); 10 "
+              f"{json.dumps(ms)} (kernel: 50 steps, kernel_200: 200, eager: 1 per reading); 10 "
               f"fused steps under the profiler: wall {prof_wall!r} ms, device busy {prof_dev!r} "
               f"ms, device records {json.dumps(top)}", flush=True)
     return times, bounds_, regs, step_ms
@@ -4563,10 +4592,285 @@ def _dnf_kernel_entries(errors, paths, timing, err_is):
     return entries
 
 
+# The Bayesian logistic regressions (phases 38-40): the posterior protocol
+# of experiments/baseline_grid.py:55-58 (MCD_CAIS_sn, N=300, K=8, emb 20,
+# init_eps 0.01, MFVI first, train_vi, train_eps, grad_clipping; the lr of
+# config.LR_DICT, australian the default) through the CAIS rollout's and the
+# CAIS sweep's logreg instances (csrc/overdamped_logreg.cu,
+# csrc/kl_logreg.cu). The paths cut MFVI to LOGREG_MFVI_ITERS and training
+# to LOGREG_PATH_ITERS steps, and evaluate 10 x 500 as the protocol does.
+LOGREG_SETS = {"log_australian": 15, "log_ionosphere": 35, "log_sonar": 61}
+LOGREG_MFVI_ITERS, LOGREG_PATH_ITERS = 500, 300
+LOGREG_SEEDS = 10
+LOGREG_SCORE_TOL = 1e-5
+
+
+def logreg_flags(model):
+    return (f"--config.model {model} --config.boundmode MCD_CAIS_sn --config.N 300 "
+            "--config.nbridges 8 --config.emb_dim 20 --config.init_eps 0.01 "
+            "--config.train_vi True --config.train_eps True --config.grad_clipping True "
+            f"--config.mfvi_iters {LOGREG_MFVI_ITERS} --config.n_samples 500 "
+            f"--config.n_input_dist_seeds {LOGREG_SEEDS} --config.log.every 1").split()
+
+
+def _logreg_probe(model):
+    """The logreg score and Hessian product through the probe kernel (the
+    device functions the two kernels inline) against float64 at 512 points
+    w = s z, z standard normal, s log-spaced from 1e-2 to 10 (logits past 88
+    at the large end), u standard normal: per point |got - want64| over
+    |w| + |want64| (score) or |u| + |want64| (product). Returns (errors,
+    ok)."""
+    from cmcd_tpu_torch.ops.overdamped import logreg_score_probe
+    from cmcd_tpu_torch.ops.target_grads import score_for_target
+    from cmcd_tpu_torch.targets import load_target
+
+    target = load_target(model, device="cuda")
+    score, dim = score_for_target(target, "cuda"), target.dim
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    n = 512
+    scale = torch.logspace(-2.0, 1.0, n, device="cuda")[:, None]
+    w = scale * torch.randn(n, dim, generator=gen, device="cuda")
+    u = torch.randn(n, dim, generator=gen, device="cuda")
+    g_k, h_k = logreg_score_probe(score, w, u)
+    torch.cuda.synchronize()
+    got = {"score": g_k.double(), "hvp": h_k.double()}
+    want32 = {"score": score(w).double(), "hvp": score.hvp(w, u).double()}
+    want64 = {"score": score(w.double()), "hvp": score.hvp(w.double(), u.double())}
+    base = {"score": w.double().norm(dim=1), "hvp": u.double().norm(dim=1)}
+    logits = (w.double() @ score.x.double().T).abs().max()
+    errs, ok = {"max_abs_logit": float(logits)}, True
+    for what in ("score", "hvp"):
+        row = base[what] + want64[what].norm(dim=1)
+        e_k = float(((got[what] - want64[what]).norm(dim=1) / row).max())
+        e_p = float(((want32[what] - want64[what]).norm(dim=1) / row).max())
+        errs[what] = {"kernel_vs_float64": e_k, "float32_plain_vs_float64": e_p}
+        ok &= bool(torch.isfinite(got[what]).all()) and e_k <= LOGREG_SCORE_TOL
+    return errs, ok
+
+
+def phase_logreg_compare():
+    """The logistic regressions' instances against their plain versions and
+    float64 (phase 38): the probe; at the test size (N=64, K=6, emb 16) and
+    at the protocol's (N=300, K=8, emb 20, grad clipping) the CAIS rollout
+    under injected noise with and without its stores, its noise stack, the
+    CAIS sweep (the float64 arbiter of PERF.md §2); the sweep at four groups
+    (N=8192, K=4); the whole MCD_CAIS_sn step of each set's flags."""
+    from cmcd_tpu_torch.integrators.overdamped import CAIS
+    from cmcd_tpu_torch.ops.vargrad import sweep_grid
+
+    ok, errors = True, {}
+
+    def keep(key, value, good, n=None):
+        nonlocal ok
+        ok &= bool(good)
+        keys = [key] + ([f"{key}/NG={sweep_grid(n, 'cuda')[0]}"] if n else [])
+        for k in keys:
+            errors[k] = max(errors.get(k, 0.0), value)
+
+    for i, model in enumerate(LOGREG_SETS):
+        errs, good = _logreg_probe(model)
+        keep(f"score {model}", max(errs["score"]["kernel_vs_float64"],
+                                   errs["hvp"]["kernel_vs_float64"]), good)
+        print(f"[38 compare] {model} score and Hessian product through the probe kernel against "
+              f"float64 (relative to the point's scale, limit {LOGREG_SCORE_TOL}): "
+              f"{json.dumps(errs)}, ok {good}", flush=True)
+        for (n, k, emb, tol, gtol, clip) in ((64, 6, 16, TOL_SMALL, GRAD_TOL_SMALL, False),
+                                             (300, 8, 20, TOL_FULL, GRAD_TOL_FULL, True)):
+            case = make_problem(n, k, emb, seed=120 + i, sigma=0.3, eps=0.01, target=model)
+            stats, good = compare_arbitrated(case, CAIS, tol, grad_clipping=clip)
+            keep(f"rollout {model}", max(stats["z_max_abs"], stats["w_max_abs"]), good)
+            print(f"[38 compare] rollout N={n} K={k} emb {emb} clip {clip} CAIS/{model}: "
+                  f"{json.dumps(stats)}, ok {good}", flush=True)
+            worst, line, good = compare_sweep(case, gtol, arbitrate=True, grad_clipping=clip)
+            keep(f"sweep {model}", worst, good, n)
+            print(f"[38 compare] KL sweep N={n} K={k} emb {emb} clip {clip} CAIS/{model}: "
+                  f"{line}, ok {good}", flush=True)
+        stats, good = compare_noise_stack(case)
+        keep(f"noise stack {model}", 0.0, good)
+        print(f"[38 compare] rollout noise stack N=300 K=8 CAIS/{model}: {json.dumps(stats)}, "
+              f"ok {good}", flush=True)
+        big = 8192
+        groups, blocks = sweep_grid(big, "cuda")
+        if groups != 4 or blocks >= -(-big // 32):
+            fail(f"N={big} does not take four groups with more tiles than blocks")
+        case = make_problem(big, 4, 20, seed=125 + i, sigma=0.3, eps=0.01, target=model)
+        worst, line, good = compare_sweep(case, GRAD_TOL_FULL, arbitrate=True, grad_clipping=True)
+        keep(f"sweep {model}", worst, good, big)
+        print(f"[38 compare] KL sweep four groups N={big} K=4 emb 20 CAIS/{model}: {line}, ok "
+              f"{good}", flush=True)
+        good = compare_training_step(logreg_flags(model) + ["--config.iters", "0"],
+                                     f"MCD_CAIS_sn {model}", arbitrate=True, tag="38 compare")
+        keep(f"step {model}", 0.0, good)
+    if not ok:
+        fail(f"a logreg instance and its plain version disagree beyond tolerance: {errors}")
+    return errors
+
+
+def phase_logreg_paths():
+    """Each set's protocol flags through the CLI (phase 39), cut to
+    LOGREG_MFVI_ITERS MFVI and LOGREG_PATH_ITERS steps: the rollout and the
+    sweep of the set's form launched iters + 10 and iters times, no other
+    kernel, the ELBO above its value at init after the same MFVI."""
+    rollout, sweep = "evolve_overdamped_fused", "evolve_kl_bwd"
+    runs = {}
+    for model in LOGREG_SETS:
+        form = f"CAIS/{model}"
+        expect = {rollout: {form: LOGREG_PATH_ITERS + LOGREG_SEEDS},
+                  sweep: {form: LOGREG_PATH_ITERS}}
+        runs[form] = _od_path(logreg_flags(model), LOGREG_PATH_ITERS, "39 path", expect)
+    return {form: table for form, (table, _, _) in runs.items()}
+
+
+def _work_logreg(n, k, dim, n_data, in_dim):
+    """Least time the card could take for the logreg instances (the rule of
+    _work): {"rollout" (with trajectory and noise stores), "sweep"}. A point
+    costs the net (layer 1's z part D x F, layer 2 F x F, the head D x F) and
+    the score's 2 n_data D FMAs; the sweep the net's apply and VJP (3 F^2 +
+    4 D F) and the score and its Hessian product (4 n_data D). Bytes: the
+    weights and the dataset once, the states, stores and sums."""
+    points = (k + 1) * n
+    weights = 4 * (2 * dim * in_dim + in_dim * in_dim + 2 * in_dim + dim + k * in_dim)
+    data = 4 * (dim + 1) * n_data
+    stores = 4 * dim * (points + k * n)
+    fwd_flops = 2 * points * (in_dim * in_dim + 2 * dim * in_dim + 2 * n_data * dim)
+    fwd_bytes = weights + data + 4 * (2 * (dim + 1) * n + k) + stores
+    bwd_flops = 2 * points * (3 * in_dim * in_dim + 4 * dim * in_dim + 4 * n_data * dim)
+    sums = 4 * (in_dim * in_dim + (1 + 2 * dim) * in_dim + 3 * dim + 3
+                + (k + 1) * (2 * in_dim + 2))
+    bwd_bytes = weights + data + stores + 4 * (n + 2 * dim * n + k) + sums
+    return {"rollout": _bound(fwd_flops, fwd_bytes), "sweep": _bound(bwd_flops, bwd_bytes)}
+
+
+def phase_logreg_timing():
+    """CUDA-event and device times of both instances of each set at the
+    protocol's N=300 for K=8 and K=256 beside their plain versions and
+    bounds, the instances' registers and spills, and the log_sonar optimizer
+    step with its device busy share (phase 40)."""
+    from cmcd_tpu_torch import bounds
+    from cmcd_tpu_torch.integrators.overdamped import CAIS
+    from cmcd_tpu_torch.ops.fused_train import fused_training_path
+    from cmcd_tpu_torch.ops.kl import evolve_kl_bwd, evolve_kl_bwd_plain
+    from cmcd_tpu_torch.ops.overdamped import (
+        evolve_overdamped_fused,
+        evolve_overdamped_fused_plain,
+    )
+    from cmcd_tpu_torch.train import train
+
+    seed = torch.tensor([7], device="cuda")
+    order = ("plain", "kernel", "kernel", "plain")
+    times, bounds_ = {}, {}
+    for model, dim in LOGREG_SETS.items():
+        for k in (8, 256):
+            key = f"CAIS/{model} K={k}"
+            case = make_problem(300, k, 20, seed=2, sigma=0.3, eps=0.01, target=model)
+            pos, kw, _ = _split(case)
+            kw = dict(kw, grad_clipping=True)
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            cot = torch.randn(300, generator=gen, device="cuda")
+            g_zf = torch.randn(300, dim, generator=gen, device="cuda")
+            _, _, traj, noise = evolve_overdamped_fused(*pos, CAIS, **kw, seed=seed,
+                                                        return_trajectory=True, return_noise=True)
+            plain_reps = 2 if k <= 8 else 1
+            fns = {
+                "rollout": (lambda: evolve_overdamped_fused(
+                    *pos, CAIS, **kw, seed=seed, return_trajectory=True, return_noise=True), 20),
+                "rollout_plain": (lambda: evolve_overdamped_fused_plain(
+                    *pos, CAIS, **kw, seed=7, return_trajectory=True, return_noise=True),
+                    plain_reps),
+                "sweep": (lambda: evolve_kl_bwd(traj, noise, cot, g_zf, *pos[2:], CAIS, **kw),
+                          10),
+                "sweep_plain": (lambda: evolve_kl_bwd_plain(traj, noise, cot, g_zf, *pos[2:],
+                                                            CAIS, **kw), plain_reps),
+            }
+            t = times[key] = {name: [] for name in fns}
+            # At K=256 a plain sweep takes ~1 s: read once, before the kernels.
+            for which in order if k <= 8 else order[:3]:
+                for kind in ("rollout", "sweep"):
+                    name = kind if which == "kernel" else f"{kind}_plain"
+                    fn, reps = fns[name]
+                    t[name].append(_event_ms(fn, reps))
+            t["rollout_device"] = _device_ms(fns["rollout"][0], 10, "overdamped_rollout")
+            t["sweep_device"] = _device_ms(fns["sweep"][0], 10, "kl_reverse_sweep")
+            n_data = case["grad_logp"].n_data
+            b = bounds_[key] = _work_logreg(300, k, dim, n_data, dim + 20)
+            print(f"[40 timing] {key} N=300 emb 20 ms {json.dumps(t)}; bounds {json.dumps(b)}",
+                  flush=True)
+    regs = {src: _ptxas(src, "LogregTarget") for src in ("overdamped_logreg", "kl_logreg")}
+    print(f"[40 timing] registers and spill store bytes of the logreg instances (ptxas): "
+          f"{json.dumps(regs)}", flush=True)
+    cfg, setup, target, params, ctx = flagship(logreg_flags("log_sonar") + ["--config.iters", "0"])
+    trainable = bounds.default_trainable(setup.mode, cfg.train_eps, cfg.train_vi,
+                                         cfg.train_betas)
+    fused_loss, _ = fused_training_path(setup, cfg.N)
+    fused = lambda p, n_, c, s, generator: fused_loss(p, n_, c, s, target, generator=generator)
+
+    def steps(loss_fn, iters):
+        g = torch.Generator(device="cuda").manual_seed(1)
+        return lambda: train(setup, params, ctx, lr=1e-3, iters=iters, batch_size=cfg.N,
+                             generator=g, trainable=trainable, loss_fn=loss_fn,
+                             steps_per_call=max(iters, 1), nan_check_every=10**9)
+
+    steps(fused, 5)()
+    ms = {"eager": [], "kernel": []}
+    for which in order:
+        loss_fn, iters = (bounds.kl_bound, 3) if which == "plain" else (fused, 50)
+        ms["eager" if which == "plain" else "kernel"].append(_wall_ms(steps(loss_fn, iters))
+                                                             / iters)
+    ms["kernel_200"] = [_wall_ms(steps(fused, 200)) / 200]
+    prof_wall, prof_dev, top = _profile(steps(fused, 10))
+    ms["busy_ms"] = prof_dev / 10
+    ms["busy_share_of_200"] = prof_dev / 10 / ms["kernel_200"][0]
+    print(f"[40 timing] log_sonar optimizer step N={cfg.N} K={cfg.nbridges} ms per step "
+          f"{json.dumps(ms)} (kernel: 50 steps, kernel_200: 200, eager: 3 per reading); 10 fused "
+          f"steps under the profiler: wall {prof_wall!r} ms, device busy {prof_dev!r} ms, device "
+          f"records {json.dumps(top)}", flush=True)
+    return times, bounds_, regs, ms
+
+
+def _logreg_kernel_entries(errors, paths, timing, err_is):
+    """The kernels line's entries of the logreg instances (phases 38-40):
+    each set's launches on its own path (phase 39), its worst error against
+    the plain version (phase 38), its times and bound at N=300, K=8 (and
+    K=256 beside them; phase 40), its registers and spill stores."""
+    times, bounds_, regs, _ = timing
+    keep = lambda b: {k: b[k] for k in ("bound_ms", "bound_by")}
+    entries = []
+    for model, dim in LOGREG_SETS.items():
+        form = f"CAIS/{model}"
+        t, t256 = times[f"{form} K=8"], times[f"{form} K=256"]
+        b, b256 = bounds_[f"{form} K=8"], bounds_[f"{form} K=256"]
+        table = paths[form]
+        inst = f"LogregTarget<{dim}"
+        for kind, name, source, replaces, wrapper in (
+                ("rollout", f"overdamped_rollout<LogregTarget<{dim}>, GeffnerNet, true, 1>",
+                 "cmcd_tpu_torch/csrc/overdamped_logreg.cu",
+                 "cmcd_tpu/ops/pallas_overdamped.py:102", "evolve_overdamped_fused"),
+                ("sweep", f"kl_reverse_sweep<NG, LogregTarget<{dim}>, true, GeffnerNet>",
+                 "cmcd_tpu_torch/csrc/kl_logreg.cu", "cmcd_tpu/ops/pallas_kl.py:49",
+                 "evolve_kl_bwd")):
+            src = source.split("/")[-1][:-3]
+            entries.append({
+                "name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "form": form, "launches": table[wrapper][1][form],
+                "max_abs_err": errors[f"{kind} {model}"],
+                **({"max_abs_err_is": err_is,
+                    "max_abs_err_by_groups": {g: errors.get(f"sweep {model}/NG={g}")
+                                              for g in (2, 4)}} if kind == "sweep" else {}),
+                "score_err_vs_float64": errors[f"score {model}"],
+                "ms": min(t[kind]), "device_ms": t[f"{kind}_device"],
+                "plain_ms": min(t[f"{kind}_plain"]), **keep(b[kind]), "library_ms": None,
+                "ms_at_k256": min(t256[kind]), "device_ms_at_k256": t256[f"{kind}_device"],
+                "plain_ms_at_k256": min(t256[f"{kind}_plain"]),
+                "bound_ms_at_k256": b256[kind]["bound_ms"],
+                "registers_spill": {n: v for n, v in regs[src].items() if inst in n},
+            })
+    return entries
+
+
 def main(argv=None):
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    everything = ",".join(str(p) for p in range(1, 38))
+    everything = ",".join(str(p) for p in range(1, 41))
     ap.add_argument("--phases", default=everything,
                     help="comma-separated phases to run (default: all)")
     phases = {int(p) for p in ap.parse_args(argv).phases.split(",")}
@@ -4623,6 +4927,9 @@ def main(argv=None):
     dnf_errors = run(35, phase_dnf_compare)
     dnf_paths = run(36, phase_dnf_paths)
     dnf_timing = run(37, phase_dnf_timing)
+    logreg_errors = run(38, phase_logreg_compare)
+    logreg_paths = run(39, phase_logreg_paths)
+    logreg_timing = run(40, phase_logreg_timing)
     print(f"[seconds] by phase {json.dumps(seconds)}; total "
           f"{time.perf_counter() - t_start:.2f} s", flush=True)
     if phases != {int(p) for p in everything.split(",")}:
@@ -4674,6 +4981,9 @@ def main(argv=None):
     print(f"[bounds] the DNF forms (phase 37 shapes): "
           f"{json.dumps({f: {k: keep(b) for k, b in v.items()} for f, v in dnf_timing[1].items()})}"
           f"; DNF many_gmm optimizer step ms {json.dumps(dnf_timing[3])}")
+    print(f"[bounds] the logreg instances (phase 40 shapes): "
+          f"{json.dumps({f: {k: keep(b) for k, b in v.items()} for f, v in logreg_timing[1].items()})}"
+          f"; log_sonar optimizer step ms {json.dumps(logreg_timing[3])}")
     print(smi)
     # launches: of each kernel's own main path, counted from 0 just before it
     # (phase 7: VarGrad training and the 30 x 500 evaluation; phase 9: the KL
@@ -4804,7 +5114,8 @@ def main(argv=None):
                                  err_is)
         + _pis_kernel_entries(pis_errors, pis_paths, pis_timing, err_is)
         + _lgcp_kernel_entries(lgcp_errors, lgcp_paths, lgcp_timing)
-        + _dnf_kernel_entries(dnf_errors, dnf_paths, dnf_timing, err_is)}))
+        + _dnf_kernel_entries(dnf_errors, dnf_paths, dnf_timing, err_is)
+        + _logreg_kernel_entries(logreg_errors, logreg_paths, logreg_timing, err_is)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

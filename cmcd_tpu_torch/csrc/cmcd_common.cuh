@@ -21,14 +21,16 @@
 // where the bracket is dds_grad's gate term: g_t (K + 1 x D) the gate MLP's
 // table, gt the target score the kernel already forms at z, stop-gradient.
 // and the target is a template parameter of every kernel (ManyGmmTarget,
-// Gmm3Target, FunnelTarget, StdNormalTarget<D> below): its dimension D, its
-// score and the Hessian product the sweeps need, one warp per chain, from a
-// vector of n_par constants the kernel keeps in shared memory (many_gmm: its
-// n_par / 2 means, the isotropic, equally weighted mixture's score
-// gt = inv_var * (sum_k r_k(z) m_k - z), r = softmax_k(-inv_var/2 |z - m_k|^2);
-// the 3-mode gmm: its 18 constants, gmm3_score; the funnel: its sig; the
-// standard normal: its precision, 1). Every array of a chain's state is
-// sized by the target's D, a compile-time constant.
+// Gmm3Target, FunnelTarget, StdNormalTarget<D>, LogregTarget<D, R> below):
+// its dimension D, its score and the Hessian product the sweeps need, one
+// warp per chain, from a vector of n_par constants the kernel keeps in
+// shared memory (many_gmm: its n_par / 2 means, the isotropic, equally
+// weighted mixture's score gt = inv_var * (sum_k r_k(z) m_k - z),
+// r = softmax_k(-inv_var/2 |z - m_k|^2); the 3-mode gmm: its 18 constants,
+// gmm3_score; the funnel: its sig; the standard normal and the logistic
+// regressions: the prior precision, 1) and, for the logistic regressions, a
+// dataset read through a pointer of its own (NetArgs::tdata). Every array of
+// a chain's state is sized by the target's D, a compile-time constant.
 //
 // Work split of one block. Thread f owns net feature f for a tile of TC
 // chains (so each W2 element read from shared memory feeds TC FMAs and the
@@ -63,17 +65,23 @@ struct NetArgs {
   int in_dim, in_pad, emb_dim, n_par;
   float inv_var_t;     // many_gmm's 1 / scale^2 (unused by the 3-mode gmm)
   const float* gate;   // (K + 1, D) dds_grad's gate table, or null (dds, geffner)
+  // A logistic regression's dataset ((D + 1) x n_data: X^T row-major, then
+  // y), read in place through the L1 cache; null and 0 for the other targets.
+  const float* tdata = nullptr;
+  int n_data = 0;
 };
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 // The constants a launch's target takes (ops/target_grads.TARGETS): many_gmm
 // (0) an even count of at most MAX_PAR, its means; the 3-mode gmm (1) its 18;
-// the funnel (2) its sig; the standard normal (3) its precision.
+// the funnel (2) its sig; the standard normal (3) and the logistic
+// regressions (6 australian, 7 ionosphere, 8 sonar) their prior precision.
+// Codes 4 and 5 (the LGCP) belong to the wide forms (cmcd_wide.cuh).
 __host__ inline bool target_ok(int target, int n_par) {
   if (target == 0) return n_par >= 2 && n_par <= MAX_PAR && n_par % 2 == 0;
   if (target == 1) return n_par == 18;
-  return (target == 2 || target == 3) && n_par == 1;
+  return (target == 2 || target == 3 || (target >= 6 && target <= 8)) && n_par == 1;
 }
 
 __device__ __forceinline__ float softplus_f(float x) {
@@ -564,6 +572,115 @@ struct StdNormalTarget {
   }
 };
 
+// Bayesian logistic regression, w ~ N(0, I / a), y_i ~ Bernoulli(sigmoid(x_i . w))
+// (cmcd_tpu/ops/target_grads.py::make_logreg_grad_t, a = 1):
+//   score  g = -a w + X^T (y - sigmoid(X w))
+//   H u    = -a u - X^T (s * X u),  s_i = sigmoid(l_i) sigmoid(-l_i),  l = X w
+// The dataset (n_data rows of D features, the bias column first) is 41-51 KB
+// at the three instances, past the MAX_PAR floats of shared memory the
+// constants get, so it stays in device memory and is read in place: the
+// kernels' read-only loads keep it in the SM's L1 cache, beside a tile of at
+// most 220 KB of shared memory at the largest D; staging it in shared memory
+// would cost every block 41-51 KB more and the backward tile at D = 61 would
+// no longer fit. It is laid out feature-major (X^T, then y), so the lanes of a
+// warp, one data row each, read 32 neighbouring floats of one feature.
+//
+// One warp per chain: lane j takes rows j, j + 32, ... (R = ceil(n_data / 32)
+// at most), forms l_i = x_i . w from the chain's point, r_i = y_i -
+// sigmoid(l_i) with one exp, and adds r_i x_i into D sums that D warp
+// reductions close. For the Hessian product a lane keeps only s_i of its own
+// rows (Lanes: R floats, 22 at australian's 690 rows); X u is formed again
+// from the data, not kept per lane (D x R floats would spill).
+template <int DD, int R>
+struct LogregTarget {
+  static constexpr int D = DD;
+  static constexpr int MAX_ROWS = 32 * R;  // the most data rows the lanes take
+  struct Lanes {
+    float s[R];  // sigmoid(l) sigmoid(-l) of the lane's rows, 0 past n_data
+  };
+  const float* par;  // the prior precision a (read at each use: see FunnelTarget)
+  const float* xt;   // D x n_data
+  const float* y;    // n_data
+  int n;
+  __device__ LogregTarget(const float* p, const float* data, int n_data)
+      : par(p), xt(data), y(data + (size_t)DD * n_data), n(n_data) {}
+
+  __device__ void score(const float w[D], float gt[D], Lanes* sl = nullptr) const {
+    const int lane = threadIdx.x & 31;
+    float acc[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) acc[d] = 0.f;
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int i = lane + 32 * q;
+      float s = 0.f;
+      if (i < n) {
+        float l = 0.f;
+#pragma unroll
+        for (int d = 0; d < D; ++d) l = fmaf(__ldg(xt + (size_t)d * n + i), w[d], l);
+        const float e = expf(-fabsf(l)), inv = 1.0f / (1.0f + e);
+        const float sig = l >= 0.f ? inv : e * inv;
+        const float r = __ldg(y + i) - sig;
+#pragma unroll
+        for (int d = 0; d < D; ++d) acc[d] = fmaf(r, __ldg(xt + (size_t)d * n + i), acc[d]);
+        s = e * inv * inv;
+      }
+      if (sl != nullptr) sl->s[q] = s;
+    }
+    const float a = par[0];
+#pragma unroll
+    for (int d = 0; d < D; ++d) gt[d] = warp_sum(acc[d]) - a * w[d];
+  }
+
+  __device__ void hvp(const Lanes& sl, const float u[D], float hu[D]) const {
+    const int lane = threadIdx.x & 31;
+    float acc[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) acc[d] = 0.f;
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int i = lane + 32 * q;
+      if (i < n) {
+        float t = 0.f;
+#pragma unroll
+        for (int d = 0; d < D; ++d) t = fmaf(__ldg(xt + (size_t)d * n + i), u[d], t);
+        t *= sl.s[q];
+#pragma unroll
+        for (int d = 0; d < D; ++d) acc[d] = fmaf(t, __ldg(xt + (size_t)d * n + i), acc[d]);
+      }
+    }
+    const float a = par[0];
+#pragma unroll
+    for (int d = 0; d < D; ++d) hu[d] = -a * u[d] - warp_sum(acc[d]);
+  }
+};
+
+// The three datasets' instances (ops/target_grads.KERNEL_DIMS): australian
+// 690 rows of 15, ionosphere 351 of 35, sonar 208 of 61.
+using LogregAustralian = LogregTarget<15, 22>;
+using LogregIonosphere = LogregTarget<35, 11>;
+using LogregSonar = LogregTarget<61, 7>;
+
+// A kernel builds its target from the block's copy of the constants (par)
+// and the launch's NetArgs: a logistic regression also takes the dataset.
+template <class T>
+struct TargetData {
+  static constexpr bool value = false;
+};
+template <int DD, int R>
+struct TargetData<LogregTarget<DD, R>> {
+  static constexpr bool value = true;
+};
+
+template <class T>
+__device__ __forceinline__ T make_target(const float* par, const NetArgs& net) {
+  if constexpr (TargetData<T>::value) {
+    return T(par, net.tdata, net.n_data);
+  } else {
+    return T(par, net.n_par, net.inv_var_t);
+  }
+}
+
 // MCD_DNF's kernels have no target in the bridge (zero drift): the state's
 // dimension alone. point_eval takes one and, called with no score points,
 // never asks it for a score.
@@ -598,7 +715,13 @@ __host__ inline cudaError_t dispatch_net(int arch, F f) {
 
 // The state dimension of a launch's target code (ops/target_grads.TARGETS).
 __host__ inline int target_dim(int target) {
-  return target == 0 || target == 1 ? ManyGmmTarget::D : FunnelTarget::D;
+  switch (target) {
+    case 0: case 1: return ManyGmmTarget::D;
+    case 6: return LogregAustralian::D;
+    case 7: return LogregIonosphere::D;
+    case 8: return LogregSonar::D;
+    default: return FunnelTarget::D;
+  }
 }
 
 // Calls f(TargetTag<T>{}) with the template of target code `target`.
@@ -620,6 +743,29 @@ __host__ inline cudaError_t dispatch_target(int target, F f) {
       return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The logistic regressions (codes 6-8) have a dispatch of their own, so
+// that only the sources that instantiate them (overdamped_logreg.cu,
+// kl_logreg.cu) compile their kernels; dispatch_target refuses them.
+// logreg_ok: the dataset a launch passes fits the instance's R rows a lane.
+template <class F>
+__host__ inline cudaError_t dispatch_logreg(int target, F f) {
+  switch (target) {
+    case 6: return f(TargetTag<LogregAustralian>{});
+    case 7: return f(TargetTag<LogregIonosphere>{});
+    case 8: return f(TargetTag<LogregSonar>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+__host__ inline bool logreg_ok(int target, const float* data, int n_data) {
+  int rows = 0;
+  dispatch_logreg(target, [&](auto tag) {
+    rows = decltype(tag)::type::MAX_ROWS;
+    return cudaSuccess;
+  });
+  return data != nullptr && n_data >= 1 && n_data <= rows;
 }
 
 // One warp per chain: the target score at the TC points in zs into gt_s

@@ -33,7 +33,10 @@ MCD_CAIS_UHA_sn the underdamped CAIS record); the 1600-D LGCP
 (`--config.model lgcp`, `--config.use_whitened`, `--config.file_path`;
 lgcp_k8: MFVI pretraining, then MCD_CAIS_sn through the wide rollout and
 the split KL sweep, kl_bound_fused's "wide rollout and split KL reverse
-sweep (B12)") takes MCD_CAIS_sn with the geffner net only; a configuration the kernels
+sweep (B12)") takes MCD_CAIS_sn with the geffner net only, and so do the
+Bayesian logistic regressions (`--config.model log_australian`,
+`log_ionosphere`, `log_sonar`: MFVI pretraining, then the overdamped rollout's
+and the KL sweep's logreg instances); a configuration the kernels
 do not cover, or use_pallas_train / use_pallas_eval off, raises there
 instead of running eagerly. On the CPU the two switches pick the kernels'
 plain versions or the eager integrator. The fields in IGNORED are accepted and ignored with

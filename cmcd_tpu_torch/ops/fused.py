@@ -6,8 +6,9 @@ stay in plain torch; the K-step loop runs in one launch of a CUDA kernel:
 the overdamped rollout (ops/overdamped.py) for the CAIS, ULA_sn, ULA and DNF modes, the
 underdamped rollout (ops/underdamped.py) for the seven underdamped modes,
 the UHA rollout (ops/uha.py) for UHA; on the 1600-D LGCP the wide rollout
-(ops/overdamped_wide.py), for MCD_CAIS_sn with the geffner net. Forward
-only: evaluation, sampling, ln Z.
+(ops/overdamped_wide.py), for MCD_CAIS_sn with the geffner net; on the
+Bayesian logistic regressions the overdamped rollout's logreg instances, for
+MCD_CAIS_sn with the geffner net. Forward only: evaluation, sampling, ln Z.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from cmcd_tpu_torch.integrators import OVERDAMPED, UNDERDAMPED
 from cmcd_tpu_torch.ops import overdamped, overdamped_wide, uha, underdamped
 from cmcd_tpu_torch.ops.target_grads import (
     KERNEL_DIMS,
+    LOGREG_TARGETS,
     WIDE_TARGETS,
     n_target_floats,
     score_for_target,
@@ -34,6 +36,10 @@ PIS_ARCHS = ("dds", "dds_grad")
 # sweep take the CAIS carry with one net. The JAX package's other modes on
 # the LGCP wait in ROADMAP queue B.
 WIDE_MODES = ("MCD_CAIS_sn",)
+# The modes of the logistic regressions' instances (ops/target_grads.
+# LOGREG_TARGETS): the CAIS rollout and the CAIS KL sweep with the geffner
+# net. Their other modes and nets wait in ROADMAP queue B.
+LOGREG_MODES = ("MCD_CAIS_sn",)
 
 
 def net_width(setup: bounds.CMCDSetup) -> int:
@@ -79,6 +85,13 @@ def wide_supported(setup: bounds.CMCDSetup, score) -> bool:
                                             setup.dim))
 
 
+def logreg_supported(setup: bounds.CMCDSetup) -> bool:
+    """True if the logistic regressions' instances take (mode, net):
+    MCD_CAIS_sn with the geffner net. Every other mode and net on them is
+    refused before any launch."""
+    return setup.mode in LOGREG_MODES and setup.nn_arch == "geffner"
+
+
 def supports_fused(setup: bounds.CMCDSetup, target) -> bool:
     """True if a kernel implements (mode, target score, net) at this size:
     an overdamped mode (all five; MCD_DNF reads only the target's D, with
@@ -90,12 +103,15 @@ def supports_fused(setup: bounds.CMCDSetup, target) -> bool:
     shared memory (the rollout's kernel_fits); or UHA on a target of
     ops/uha.UHA_TARGETS with lfsteps the kernel takes
     (ops/uha.kernel_covers); or on the LGCP what the wide forms take
-    (wide_supported)."""
+    (wide_supported); or on a logistic regression (dim 15, 35, 61) what
+    its instances take (logreg_supported) at a width that fits."""
     score = score_for_target(target)
     if score is None:
         return False
     if score.kernel_name in WIDE_TARGETS:
         return wide_supported(setup, score)
+    if score.kernel_name in LOGREG_TARGETS and not logreg_supported(setup):
+        return False
     if setup.mode == "UHA":
         return uha.kernel_covers(score, setup.dim, setup.nbridges, setup.lfsteps)
     if setup.mode in OVERDAMPED:

@@ -9,7 +9,9 @@ net sn in the forward mean and a second geffner net sn2 in the backward
 mean, whose sweep reads no score: "sn2" joins the gradient dict, keyed as
 "sn", and betas and vd get zeros), on the many_gmm and the
 3-mode gmm scores (dim 2) and the funnel's and the standard normal's (dim
-10), with the port's layout: traj (K + 1, N, dim) and noise
+10), and CAIS with the geffner net on the Bayesian logistic regressions
+(dim 15, 35, 61; built from csrc/kl_logreg.cu, ops/overdamped.source_for),
+with the port's layout: traj (K + 1, N, dim) and noise
 (K, N, dim) as the fused rollout stored them (ops/overdamped.py,
 return_trajectory and return_noise), cot (N,) the cotangent of each chain's
 summed log-weight increments, g_zfinal (N, dim) that of its final state.
@@ -48,7 +50,13 @@ import torch
 from cmcd_tpu_torch.integrators.overdamped import CAIS, DNF, ULA, ULA_SN, OverdampedSpec
 from cmcd_tpu_torch.ops import build, nets
 from cmcd_tpu_torch.ops import vargrad as vg
-from cmcd_tpu_torch.ops.overdamped import EPS_SCHEDULES, count_launch, form_key
+from cmcd_tpu_torch.ops.overdamped import (
+    EPS_SCHEDULES,
+    checked_data,
+    count_launch,
+    form_key,
+    source_for,
+)
 from cmcd_tpu_torch.ops.target_grads import KERNEL_DIMS, MAX_TARGET_FLOATS, kernel_target
 from cmcd_tpu_torch.schedules import eps_at_step
 
@@ -269,11 +277,18 @@ def evolve_kl_bwd_plain(
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = build.load("kl")
+def _library(source: str = "kl") -> ctypes.CDLL:
+    """The built library of csrc/<source>.cu: "kl" (every form), or
+    "kl_logreg" (cmcd_kl_reverse_sweep and the limits only, the carry form
+    on the logistic regressions); its limits checked against this module's
+    copy."""
+    lib = build.load(source)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.cmcd_kl_reverse_sweep.argtypes = [p] * 21 + [i] * 10 + [f] * 3 + [i, p, p]
+    lib.cmcd_kl_reverse_sweep.argtypes = [p] * 21 + [i] * 10 + [f] * 3 + [i, p, p, i, p]
     lib.cmcd_kl_reverse_sweep.restype = i
+    if source == "kl_logreg":
+        vg.declare_limits(lib, "kl", extra_floats, "csrc/kl_logreg.cu")
+        return lib
     lib.cmcd_kl_ula_sweep.argtypes = [p] * 14 + [i] * 5 + [f] * 3 + [p]
     lib.cmcd_kl_ula_sweep.restype = i
     lib.cmcd_kl_ula_chains_per_block.restype = i
@@ -309,6 +324,7 @@ def _launch(lib, traj, noise, cot, g_zfinal, betas, eps, vd_mean, vd_logdiag, gr
     scal, net, (code, tpar, inv_var), buffers = vg.marshal(
         "KL reverse sweep", sn, dim, nbridges, eps, grad_logp, traj.device, blocks, points,
         blocks)
+    data, n_data = checked_data(grad_logp, traj.device, "KL reverse sweep")
     g_z0 = torch.empty_like(g_zfinal)
     ptr = vg.ptr
     err = lib.cmcd_kl_reverse_sweep(
@@ -318,8 +334,8 @@ def _launch(lib, traj, noise, cot, g_zfinal, betas, eps, vd_mean, vd_logdiag, gr
         *(ptr(t) for t in buffers), ptr(g_z0),
         cot.shape[0], nbridges, net["in_dim"], net["emb_dim"], tpar.numel(),
         EPS_SCHEDULES[eps_schedule], blocks, groups, int(spec.fwd_sn), code,
-        inv_var, *vg.clips(spec, grad_clipping), net["arch"], ptr(net["gate"]),
-        ctypes.c_void_p(stream),
+        inv_var, *vg.clips(spec, grad_clipping), net["arch"], ptr(net["gate"]), ptr(data),
+        n_data, ctypes.c_void_p(stream),
     )
     vg.raise_on(err, lib, "KL reverse sweep")
     grads = vg.assemble_grads(buffers[2], buffers[3], sn, dim, nbridges,
@@ -425,8 +441,8 @@ def evolve_kl_bwd(
                           blocks=blocks, stream=stream)
     else:
         groups, blocks = vg.sweep_grid(cot.shape[0], dev)
-        out = _launch(_library(), *args, sn=sn, groups=groups, blocks=blocks, stream=stream,
-                      **kwargs)
+        out = _launch(_library(source_for(grad_logp, "kl")), *args, sn=sn, groups=groups,
+                      blocks=blocks, stream=stream, **kwargs)
     count_launch(evolve_kl_bwd, form_key(spec, grad_logp, sn))
     return out
 

@@ -14,9 +14,13 @@ geffner nets, the second in the backward mean: sn2) on the many_gmm and the
 (dim 10; ops/target_grads.py: TARGETS, KERNEL_DIMS) with the two-layer
 geffner net or a PIS net ("dds", "dds_grad" of two equal widths; ops/nets.py
 forms its tables, csrc/overdamped.cu takes it as a template parameter; DNF
-takes geffner nets only, as the JAX package); the wrapper raises on anything
-else, a dim other than the target's instance included. DNF reads no score:
-its form is instantiated by the state's dimension alone.
+takes geffner nets only, as the JAX package); and, built from a source of
+its own (csrc/overdamped_logreg.cu, source_for), CAIS with the geffner net
+on the Bayesian logistic regressions (dim 15, 35, 61; LOGREG_TARGETS),
+whose dataset the kernel reads through a pointer of its own. The wrapper
+raises on anything else, a dim other than the target's instance included.
+DNF reads no score: its form is instantiated by the state's dimension
+alone.
 
 On a CPU tensor the wrapper runs the plain twin; on a CUDA tensor it
 launches the kernel or raises, never falling back.
@@ -41,9 +45,11 @@ from cmcd_tpu_torch.integrators.overdamped import (
 from cmcd_tpu_torch.ops import build, nets
 from cmcd_tpu_torch.ops.target_grads import (
     KERNEL_DIMS,
+    LOGREG_TARGETS,
     MAX_TARGET_FLOATS,
     TARGETS,
     WIDE_TARGETS,
+    kernel_data,
     kernel_target,
     n_target_floats,
 )
@@ -117,6 +123,28 @@ def check_target(what, grad_logp, dim):
         raise NotImplementedError(f"{what}: more than {MAX_TARGET_FLOATS // 2} components")
 
 
+def source_for(grad_logp, source: str = "overdamped") -> str:
+    """The csrc source whose library launches `source`'s kernel on this
+    target: "<source>_logreg" for a logistic regression (its instances
+    compile apart, csrc/overdamped_logreg.cu and csrc/kl_logreg.cu), else
+    `source` itself."""
+    return f"{source}_logreg" if grad_logp.kernel_name in LOGREG_TARGETS else source
+
+
+def check_logreg_form(what, grad_logp, spec, sn):
+    """Raise unless the logistic regression instances take (spec, net):
+    they are built for the CAIS carry with the geffner net (MCD_CAIS_sn's
+    rollout and KL sweep) only."""
+    if grad_logp.kernel_name not in LOGREG_TARGETS:
+        return
+    if spec != CAIS or sn is None or nets.is_pis(sn):
+        raise NotImplementedError(
+            f"{what}: on {grad_logp.kernel_name} the kernels are instantiated for "
+            "MCD_CAIS_sn with the geffner net only (ROADMAP queue B: the logistic "
+            "regressions in B2/B5, in the ULA, ULA_sn and DNF forms, with the PIS nets, "
+            "in B6-B9)")
+
+
 def check_net(what, sn, nbridges, dim, fits, sn2=None):
     """Raise unless a kernel with a net tile takes `sn`
     (ops/nets.check_kernel_net) at a width that `fits`(width); with sn2 (DNF)
@@ -154,6 +182,7 @@ def _check(z0, w0, betas, grad_logp, spec, dim, nbridges, sn, sn2, eps_schedule,
     if spec not in FORMS:
         raise NotImplementedError(f"{what}: spec {spec} has no kernel")
     check_target(what, grad_logp, dim)
+    check_logreg_form(what, grad_logp, spec, sn)
     if spec.use_sn2_bwd and sn2 is None:
         raise ValueError(f"{what}: DNF needs the second net's weights (sn2)")
     if uses_net(spec):
@@ -249,11 +278,17 @@ def evolve_overdamped_fused_plain(
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = build.load("overdamped")
+def _library(source: str = "overdamped") -> ctypes.CDLL:
+    """The built library of csrc/<source>.cu ("overdamped", or
+    "overdamped_logreg": the same entry points), its limits checked
+    against this module's copy."""
+    lib = build.load(source)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.cmcd_overdamped_rollout.argtypes = [p] * 20 + [i] * 8 + [f] * 3 + [i] + [p] * 9
+    lib.cmcd_overdamped_rollout.argtypes = [p] * 20 + [i] * 8 + [f] * 3 + [i] + [p] * 9 + [i, p]
     lib.cmcd_overdamped_rollout.restype = ctypes.c_int
+    if source == "overdamped_logreg":
+        lib.cmcd_logreg_probe.argtypes = [p] * 4 + [i] * 3 + [p] * 3
+        lib.cmcd_logreg_probe.restype = ctypes.c_int
     lib.cmcd_error_string.argtypes = [ctypes.c_int]
     lib.cmcd_error_string.restype = ctypes.c_char_p
     lib.cmcd_overdamped_chains_per_block.restype = ctypes.c_int
@@ -262,7 +297,7 @@ def _library() -> ctypes.CDLL:
     lib.cmcd_overdamped_smem_bytes.argtypes = [i, i, i, i]
     lib.cmcd_overdamped_smem_bytes.restype = ctypes.c_longlong
     if lib.cmcd_overdamped_chains_per_block() != CHAINS_PER_BLOCK:
-        raise RuntimeError("csrc/overdamped.cu and ops/overdamped.py disagree on TC")
+        raise RuntimeError(f"csrc/{source}.cu and ops/overdamped.py disagree on TC")
     # Every edge of the limits at both instantiated dims: shared memory
     # (228/229 features at dim 2, 224/225 at dim 10; two nets 164/165 and
     # 160/161), threads (256/257) and the target's constants (0, 1, 18, 80,
@@ -277,11 +312,21 @@ def _library() -> ctypes.CDLL:
                             or lib.cmcd_overdamped_smem_bytes(in_dim, n_par, dim, n_nets)
                             != smem_bytes(in_dim, n_par, dim, n_nets)):
                         raise RuntimeError(
-                            "csrc/overdamped.cu and ops/overdamped.py disagree on what fits "
+                            f"csrc/{source}.cu and ops/overdamped.py disagree on what fits "
                             f"one block at in_dim {in_dim}, {n_par} target floats, dim {dim}, "
                             f"{n_nets} nets"
                         )
     return lib
+
+
+def checked_data(grad_logp, dev, what):
+    """ops/target_grads.kernel_data of a launch's target, its dataset (if it
+    has one) checked contiguous f32 on dev: (tensor or None, n_data)."""
+    data, n_data = kernel_data(grad_logp)
+    if data is not None and (data.device != dev or data.dtype != torch.float32
+                             or not data.is_contiguous()):
+        raise ValueError(f"{what}: the target's dataset must be contiguous f32 on {dev}")
+    return data, n_data
 
 
 def _f32(t, device):
@@ -326,11 +371,37 @@ def evolve_overdamped_fused(
                 "fused rollout: z0, w0, betas, vd params and noise must be "
                 f"contiguous f32 on {dev}"
             )
-    out = _launch(_library(), z0, w0, betas, eps, vd_mean, vd_logdiag, grad_logp, spec,
+    out = _launch(_library(source_for(grad_logp)), z0, w0, betas, eps, vd_mean, vd_logdiag,
+                  grad_logp, spec,
                   stored=(return_trajectory, return_noise),
                   stream=torch.cuda.current_stream(dev).cuda_stream, **kwargs)
     count_launch(evolve_overdamped_fused, form_key(spec, grad_logp, sn))
     return out
+
+
+def logreg_score_probe(grad_logp, x, u):
+    """(score(x), H(x) u) of a logistic regression for x, u (N, dim): on
+    CUDA tensors through the device functions the kernels inline (a probe
+    kernel of csrc/overdamped_logreg.cu that no path launches, for the
+    card's check against float64), on the CPU the plain LogregScore."""
+    if grad_logp.kernel_name not in LOGREG_TARGETS:
+        raise NotImplementedError("logreg score probe: not a logistic regression")
+    check_target("logreg score probe", grad_logp, x.shape[1])
+    if x.device.type == "cpu":
+        return grad_logp(x), grad_logp.hvp(x, u)
+    dev = x.device
+    code, tpar, _ = kernel_target(grad_logp, dev)
+    data, n_data = checked_data(grad_logp, dev, "logreg score probe")
+    xc, uc = x.float().contiguous(), u.float().contiguous()
+    gt, hv = torch.empty_like(xc), torch.empty_like(xc)
+    lib = _library("overdamped_logreg")
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    err = lib.cmcd_logreg_probe(ptr(xc), ptr(uc), ptr(tpar), ptr(data), n_data, x.shape[0],
+                                code, ptr(gt), ptr(hv),
+                                ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"logreg score probe failed: {lib.cmcd_error_string(err).decode()}")
+    return gt, hv
 
 
 def _pack_net(sn, nbridges, dev):
@@ -362,6 +433,7 @@ def _launch(lib, z0, w0, betas, eps, vd_mean, vd_logdiag, grad_logp, spec, *, di
                         _f32(factor2, dev).reshape(())])
     seed_t = torch.as_tensor(seed, dtype=torch.int64, device=dev).reshape(1)
     code, tpar, inv_var = kernel_target(grad_logp, dev)
+    data, n_data = checked_data(grad_logp, dev, "fused rollout")
     vd_inv_var = torch.exp(-2.0 * vd_logdiag).contiguous()
     n = z0.shape[0]
     z_out = torch.empty_like(z0)
@@ -381,7 +453,8 @@ def _launch(lib, z0, w0, betas, eps, vd_mean, vd_logdiag, grad_logp, spec, *, di
         inv_var,
         math.inf if clip_t is None else clip_t,
         math.inf if clip_q is None else clip_q,
-        arch, ptr(gate), *(ptr(t) for t in weights2), ctypes.c_void_p(stream),
+        arch, ptr(gate), *(ptr(t) for t in weights2), ptr(data), n_data,
+        ctypes.c_void_p(stream),
     )
     if err != 0:
         raise RuntimeError(

@@ -3,10 +3,14 @@
 
 The tile kernels take the target as a template parameter
 (csrc/cmcd_common.cuh: ManyGmmTarget, Gmm3Target, FunnelTarget,
-StdNormalTarget<10>), whose dimension D sizes every per-chain array: the
-many_gmm score in every kernel, the 3-mode gmm's in all but the underdamped
-ones, the funnel's and the standard normal's (D = 10) in the overdamped
-ones. The wide forms (csrc/cmcd_wide.cuh: the rollout of
+StdNormalTarget<10>, LogregTarget<D, R>), whose dimension D sizes every
+per-chain array: the many_gmm score in every kernel, the 3-mode gmm's in all
+but the underdamped ones, the funnel's and the standard normal's (D = 10) in
+the overdamped ones, the Bayesian logistic regressions' (D = 15, 35, 61;
+LOGREG_TARGETS) in the CAIS forms of the rollout and the KL sweep only,
+built from sources of their own (csrc/overdamped_logreg.cu,
+csrc/kl_logreg.cu), which read the dataset through a pointer of its own
+(kernel_data). The wide forms (csrc/cmcd_wide.cuh: the rollout of
 csrc/overdamped_wide.cu and the split sweep of csrc/kl_split.cu) take the
 1600-D LGCP, unwhitened and whitened (WIDE_TARGETS), whose dense float32
 matrix they read through a pointer of its own. This module holds their
@@ -36,11 +40,16 @@ from cmcd_tpu_torch.targets.gmm import gmm_constants, many_gmm_means, many_gmm_s
 # the LGCP score is built for 1600), and how many constants a target may hand
 # the tile kernels (64 many_gmm components).
 TARGETS = {"many_gmm": 0, "gmm": 1, "funnel": 2, "std_normal": 3, "lgcp": 4,
-           "lgcp_whitened": 5}
+           "lgcp_whitened": 5, "log_australian": 6, "log_ionosphere": 7, "log_sonar": 8}
 KERNEL_DIMS = {"many_gmm": 2, "gmm": 2, "funnel": 10, "std_normal": 10, "lgcp": 1600,
-               "lgcp_whitened": 1600}
+               "lgcp_whitened": 1600, "log_australian": 15, "log_ionosphere": 35,
+               "log_sonar": 61}
 # The targets only the wide forms take (their net does not fit a tile).
 WIDE_TARGETS = ("lgcp", "lgcp_whitened")
+# The Bayesian logistic regressions: the CAIS rollout and the CAIS KL sweep
+# with the geffner net are instantiated for them, in sources of their own
+# (ops/overdamped.source_for); every other kernel form refuses them.
+LOGREG_TARGETS = ("log_australian", "log_ionosphere", "log_sonar")
 MAX_TARGET_FLOATS = 128
 
 
@@ -222,6 +231,58 @@ class LgcpScore:
         return -u - (self.a * torch.exp(x @ m.T + self.mu) * (u @ m.T)) @ m
 
 
+@dataclasses.dataclass(frozen=True)
+class LogregScore:
+    """grad log p for the Bayesian logistic regression
+    (cmcd_tpu/ops/target_grads.py::make_logreg_grad_t) on the target's own
+    float32 data (targets/logreg.py):
+      g = -w + X^T (y - sigmoid(X w))
+    in the input's dtype, sigmoid the stable torch.sigmoid. `data` is the
+    kernels' copy: X^T (dim x n_data, row-major) then y."""
+
+    kernel_name: str
+    x: torch.Tensor     # (n_data, dim) f32
+    y: torch.Tensor     # (n_data,) f32
+    data: torch.Tensor  # ((dim + 1) * n_data,) f32
+
+    @property
+    def dim(self) -> int:
+        return self.x.shape[1]
+
+    @property
+    def n_data(self) -> int:
+        return self.x.shape[0]
+
+    def _consts(self, w):
+        return self.x.to(w.device, w.dtype), self.y.to(w.device, w.dtype)
+
+    def __call__(self, w):
+        """w: (N, dim) -> (N, dim)."""
+        x, y = self._consts(w)
+        return -w + (y - torch.sigmoid(w @ x.T)) @ x
+
+    def hvp(self, w, u):
+        """The score's Jacobian applied to u, both (N, dim) -> (N, dim),
+        written out (the Pallas sweep traces it with jax.vjp and never
+        states it; the Hessian is symmetric):
+          H u = -u - X^T (s * X u),  s = sigmoid(l) (1 - sigmoid(l)),  l = X w,
+        s formed as sigmoid(l) sigmoid(-l), which keeps its size where
+        1 - sigmoid(l) would round to 0."""
+        x, _ = self._consts(w)
+        logits = w @ x.T
+        s = torch.sigmoid(logits) * torch.sigmoid(-logits)
+        return -u - (s * (u @ x.T)) @ x
+
+
+def logreg_score(target, device=None) -> LogregScore:
+    """The logistic regression score of `target`, from the float32 data the
+    target built (moved only if `device` is another)."""
+    c = target.constants
+    move = lambda t: t if device is None else t.to(device)
+    return LogregScore(kernel_name=target.name, x=move(c["x"]), y=move(c["y"]),
+                       data=move(c["kernel_data"]))
+
+
 def lgcp_score(target, device=None) -> LgcpScore:
     """The LGCP score of `target` at any num_dim, from the constants the
     target built (moved only if `device` is another)."""
@@ -246,13 +307,19 @@ def make_many_gmm_score(device=None, log_var_scaling: float = 0.1) -> ManyGMMSco
 
 
 def score_for_target(target, device=None) -> Optional[
-        ManyGMMScore | GMMScore | FunnelScore | StdNormalScore | LgcpScore]:
+        ManyGMMScore | GMMScore | FunnelScore | StdNormalScore | LgcpScore | LogregScore]:
     """The kernel-form score of `target`, or None where no score is written
     out (see ROADMAP queue B, B11). Which kernels take it, and at which
     dimension: its kernel_name (KERNEL_DIMS; a funnel of another funnel_d
     has a score but no kernel). The LGCP's only where JAX's _build_lgcp
-    gives one: num_dim 1600 on the bundled data; it wraps the constants the
-    target built, so a call builds nothing."""
+    gives one: num_dim 1600 on the bundled data; a logistic regression's only
+    for a target make_logreg built (its recorded dset, the JAX rule of
+    grad_t_for_target). Both wrap the constants the target built, so a call
+    builds nothing."""
+    if target.name.startswith("log_"):
+        if target.name not in LOGREG_TARGETS or not target.params.get("dset"):
+            return None
+        return logreg_score(target, device)
     if target.name == "lgcp":
         p = target.params
         if p.get("num_dim") != KERNEL_DIMS["lgcp"] or not p.get("default_data"):
@@ -279,8 +346,11 @@ def target_floats(grad_logp) -> torch.Tensor:
     sig; the standard normal's precision, 1; the LGCP's mu and a (its
     matrix and counts go to the wide kernels through pointers of their own).
     Nothing dimension-sized: the kernel's D is the template's, or the wide
-    forms' run-time dim."""
+    forms' run-time dim. A logistic regression's: its prior precision, 1 (its
+    data goes to the kernels through a pointer of its own, kernel_data)."""
     name = grad_logp.kernel_name
+    if name in LOGREG_TARGETS:
+        return torch.tensor([1.0], dtype=torch.float32)
     if name in WIDE_TARGETS:
         return torch.tensor([grad_logp.mu, grad_logp.a], dtype=torch.float32)
     if name == "many_gmm":
@@ -298,6 +368,15 @@ def kernel_target(grad_logp, device):
     `device`, many_gmm's inverse variance or 0)."""
     return (TARGETS[grad_logp.kernel_name], target_floats(grad_logp).to(device),
             float(getattr(grad_logp, "inv_var", 0.0)))
+
+
+def kernel_data(grad_logp):
+    """What a tile launch passes for a target's dataset: (its flat f32
+    tensor, n_data) for a logistic regression (LogregScore.data: X^T, then
+    y), else (None, 0)."""
+    if grad_logp.kernel_name in LOGREG_TARGETS:
+        return grad_logp.data, grad_logp.n_data
+    return None, 0
 
 
 def n_target_floats(grad_logp) -> int:

@@ -43,6 +43,7 @@ from cmcd_tpu_torch.ops import build, nets
 from cmcd_tpu_torch.ops.overdamped import (
     EPS_SCHEDULES,
     MAX_SMEM,
+    check_logreg_form,
     check_net,
     check_target,
     count_launch,
@@ -169,6 +170,7 @@ def check_backward_config(what, betas, grad_logp, spec, dim, nbridges, sn, eps_s
     if spec not in specs:
         raise NotImplementedError(f"{what}: no kernel for spec {spec}")
     check_target(what, grad_logp, dim)
+    check_logreg_form(what, grad_logp, spec, sn)
     if spec.use_sn2_bwd and sn2 is None:
         raise ValueError(f"{what}: DNF needs the second net's weights (sn2)")
     if spec.fwd_sn or spec.bwd_sn:

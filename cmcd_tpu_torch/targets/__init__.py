@@ -1,9 +1,11 @@
 """Target registry: name -> Target (cmcd_tpu/targets/__init__.py).
 
-many_gmm, the 3-mode gmm, Neal's funnel and the 1600-D LGCP are ported;
-every other name raises NotImplementedError and names the ROADMAP queue that
-holds it. Names are matched as the JAX package matches them: "funnel"
-first, then "lgcp", then "many_gmm" before "gmm".
+many_gmm, the 3-mode gmm, Neal's funnel, the 1600-D LGCP and the Bayesian
+logistic regressions on australian, ionosphere and sonar are ported; every
+other name (log_a1a and log_madelon among them) raises NotImplementedError
+and names the ROADMAP queue that holds it. Names are matched as the JAX
+package matches them: "funnel" first, then "lgcp", then "many_gmm" before
+"gmm", then the logistic regressions by their whole name.
 """
 
 from __future__ import annotations
@@ -40,6 +42,16 @@ def load_target(name: str, config=None, device=None) -> Target:
         from cmcd_tpu_torch.targets.gmm import make_gmm
 
         return make_gmm(device=device)
+    if name in ("log_australian", "log_ionosphere", "log_sonar"):
+        from cmcd_tpu_torch.targets.logreg import make_logreg
+
+        return make_logreg(name[len("log_"):], device=device)
+    if name in ("log_a1a", "log_madelon"):
+        raise NotImplementedError(
+            f"target {name!r} is not ported yet: see ROADMAP queue A "
+            f"({'A5c2' if name == 'log_a1a' else 'A5c3'}, the logistic regressions on the "
+            "larger datasets)"
+        )
     raise NotImplementedError(
         f"target {name!r} is not ported yet: see ROADMAP queue A "
         "(A5c, the rest of the target zoo)"
