@@ -1,0 +1,7 @@
+"""The whole evaluation request's share of the FP32 peak: every counted operation of the window's requests over peak times window."""
+
+from portbench.trace import mfu_pct
+
+
+def read(t):
+    return mfu_pct(t)
