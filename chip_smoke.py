@@ -4075,7 +4075,8 @@ def compare_split_sweep(case, tol):
     rollout's path and noise with random cotangents: eps, betas, vd mean
     and logdiag, every net leaf (the batched weight pass on each side's
     gsn), g_z0 and gsn itself; the plain version in float64 arbitrates a
-    leaf beyond `tol` (F64_SLACK)."""
+    leaf beyond `tol` (F64_SLACK). A second launch on the same inputs must
+    give the kernel's outputs (the sums, g_z0, gsn) bit for bit."""
     from cmcd_tpu_torch.integrators.overdamped import CAIS
     from cmcd_tpu_torch.ops.kl_split import evolve_kl_split, evolve_kl_split_plain
     from cmcd_tpu_torch.ops.overdamped_wide import evolve_overdamped_wide_plain
@@ -4089,13 +4090,18 @@ def compare_split_sweep(case, tol):
     g_zf = torch.randn(n, pos[0].shape[1], generator=gen, device="cuda")
     tree = lambda out: {**_flat(out[0]), "g_z0": out[1], "gsn": out[2]}
     got = tree(evolve_kl_split(traj, noise, cot, g_zf, *pos[2:], CAIS, **args))
+    again = tree(evolve_kl_split(traj, noise, cot, g_zf, *pos[2:], CAIS, **args))
+    grid = evolve_kl_split.last_grid
     want = tree(evolve_kl_split_plain(traj, noise, cot, g_zf, *pos[2:], CAIS, **args))
     torch.cuda.synchronize()
+    kernel_out = ("eps", "betas", "vd_mean", "vd_logdiag", "g_z0", "gsn")
+    same = all(torch.equal(got[k], again[k]) for k in kernel_out)
     worst, leaf, _ = _grad_errors(got, want, tol)
     ref = tree(evolve_kl_split_plain(traj.double(), noise.double(), cot, g_zf, *pos[2:], CAIS,
                                      **args))
     ok, more = _arbitrate(got, want, ref, tol)
-    return worst, f"worst relative error {worst:.3e} (leaf {leaf}), limit {tol}{more}", ok
+    return worst, (f"worst relative error {worst:.3e} (leaf {leaf}), limit {tol}{more}; "
+                   f"grid {json.dumps(grid)}, second launch same bits {same}"), ok and same
 
 
 def phase_lgcp_compare():
@@ -4143,7 +4149,7 @@ def phase_lgcp_compare():
                                           CAIS, _wide_wrappers())
         print(f"[32 compare] wide rollout {form} noise stack: {json.dumps(stats)}", flush=True)
         keep(f"noise stack {form}", 0.0, good)
-        for n in (20, 37):
+        for n in (20, 37, 100):
             case = make_lgcp_problem(n, 8, seed=13 + n, whitened=whitened, moved=True)
             worst, line, good = compare_split_sweep(case, GRAD_TOL_FULL)
             print(f"[32 compare] split sweep {form} N={n} K=8: {line} ok {good}", flush=True)
@@ -4251,7 +4257,8 @@ def phase_lgcp_timing():
     regs = {src: _ptxas(src, match) for src, match in (("overdamped_wide", "wide_rollout"),
                                                        ("kl_split", "kl_split_sweep"))}
     print(f"[34 timing] registers and spill store bytes of the wide instances (ptxas): "
-          f"{json.dumps(regs)}", flush=True)
+          f"{json.dumps(regs)}; the split sweep's last grid {json.dumps(evolve_kl_split.last_grid)}",
+          flush=True)
     step_ms = {}
     for name, flags in (("lgcp_k8", LGCP_FLAGS), ("lgcp_k8 whitened", LGCP_WHITENED_FLAGS)):
         cfg, setup, target, params, ctx = flagship(flags + ["--config.iters", "0"])

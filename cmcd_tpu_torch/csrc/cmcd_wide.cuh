@@ -1,8 +1,10 @@
-// What the wide forms share (csrc/overdamped_wide.cu, the K-step CAIS rollout
-// of B1 at LGCP's width, and csrc/kl_split.cu, the split KL reverse sweep
-// B12): the geffner net's apply and its VJP in z, the LGCP score and its
-// Hessian product, all for a tile of TBW chains whose vectors are D = 1600
-// and F = D + emb_dim = 1620 floats long.
+// The tile form of the wide kernels (csrc/overdamped_wide.cu, the K-step CAIS
+// rollout of B1 at LGCP's width): the geffner net's apply, the LGCP score
+// and its Hessian product, all for a tile of TBW chains whose vectors are
+// D = 1600 and F = D + emb_dim = 1620 floats long. The split KL reverse
+// sweep B12 (csrc/kl_split.cu) takes only the net's and the target's
+// argument structs, block_sum and dispatch_lgcp from here: it spreads each
+// product over the whole grid instead (its header says how).
 //
 // Why a form of its own. The tile kernels (cmcd_tile.cuh, cmcd_common.cuh)
 // keep W2 in shared memory and give each net feature a thread, so their net
@@ -22,11 +24,11 @@
 //  * col_product (out[j] = sum_i v[i] M[i][j], M row-major R x C): thread q
 //    walks the columns 4q..4q+3 down the rows with float4 loads, so
 //    neighbouring threads read neighbouring addresses. Layers 1 and 2 (W in
-//    x out), the head's transpose in the VJP and L^T in the whitened score;
+//    x out) and L^T in the whitened score;
 //  * row_product (out[i] = sum_j M[i][j] v[j]): a warp walks two rows with
-//    float4 loads over its lanes and reduces with shuffles. The head, W2 and
-//    W1[:D] in the VJP, Sigma^{-1} (symmetric in exact arithmetic, read as
-//    rows as the JAX kernel reads it) and L.
+//    float4 loads over its lanes and reduces with shuffles. The head,
+//    Sigma^{-1} (symmetric in exact arithmetic, read as rows as the JAX
+//    kernel reads it) and L.
 // A block is alone in reading its matrices, so what bounds it is how many
 // bytes each SM keeps in flight from L2: each thread issues eight float4
 // loads (col_product) or eight (row_product, four of each row) before it
@@ -42,9 +44,10 @@
 // whitened) FLOPs, ~20.8 M at LGCP; a block moves all 41.6 MB of matrices
 // from L2 once a point, whatever TBW. So the rollout is FP32-operations-bound
 // in principle (3.7 GFLOP at N=20, K=8: 0.056 ms at 67 TFLOP/s) but a block
-// streams 374 MB from L2 through one SM over K + 1 points. At N=20 the grid
-// fills 5 of 132 SMs: spreading a product's outputs over several blocks is
-// later work (a cooperative grid), as are wgmma, TMA and bf16.
+// streams 374 MB from L2 through one SM over K + 1 points. At N=20 the
+// rollout's grid fills 5 of 132 SMs (at N=500, 125): spreading its products
+// over several blocks is later work (kl_split.cu does so for the sweep, a
+// cooperative grid), as are wgmma, TMA and bf16.
 
 #pragma once
 
@@ -336,41 +339,6 @@ __device__ __forceinline__ void net_apply(const WideNet& net, int d, int idx, fl
   row_product(net.headw, d, f, vs, sp, [&](int c, int i, float s) {
     sn(c, i) = (s + net.headb[i]) * factor;
   });
-}
-
-// The net's VJP in x from g_sn, the cotangent of its output sn, added to acc:
-//   g_h2 = (g_sn * factor) @ headW;  g_a2 = g_h2 * sigmoid(a2)
-//   g_h1 = g_h2 + W2 g_a2;           g_a1 = g_h1 * sigmoid(a1)
-//   g_x  = g_h1[:D] + W1[:D] g_a1     (the identity path counts)
-// gh, ga (f) are scratch. The weights' cotangents are not formed here: the
-// split sweep's wrapper takes them from g_sn in one batched pass.
-__device__ __forceinline__ void net_vjp_add(const WideNet& net, int d, float factor, float* vs,
-                                            int sp, const Vec& g_sn, const Vec& s1,
-                                            const Vec& s2, const Vec& gh, const Vec& ga,
-                                            const Vec& acc) {
-  const int f = net.f;
-  stage(vs, sp, d, [&](int c, int k) { return g_sn(c, k) * factor; });
-  col_product(net.headw, d, f, vs, sp, [&](int c, int j, float s) {
-    gh(c, j) = s;
-    ga(c, j) = s * s2(c, j);
-  });
-  stage(vs, sp, f, [&](int c, int k) { return ga(c, k); });
-  row_product(net.w2, f, f, vs, sp, [&](int c, int i, float s) {
-    const float g1 = gh(c, i) + s;
-    gh(c, i) = g1;
-    ga(c, i) = g1 * s1(c, i);
-  });
-  stage(vs, sp, f, [&](int c, int k) { return ga(c, k); });
-  row_product(net.w1z, d, f, vs, sp, [&](int c, int i, float s) { acc(c, i) += gh(c, i) + s; });
-}
-
-// Adds the blocks' partial sums in block order: out[e] = sum_b part[b][e].
-__global__ void partials_sum(const float* part, float* out, int nblocks, int len) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= len) return;
-  float s = 0.f;
-  for (int b = 0; b < nblocks; ++b) s += part[(size_t)b * len + e];
-  out[e] = s;
 }
 
 // Calls f(std::bool_constant-like tag) with the whitened flag of target code

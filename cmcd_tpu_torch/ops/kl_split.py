@@ -21,6 +21,11 @@ about an ulp of z over the step scale. The plain version is ops/kl.py's
 plain sweep in its split mode (the net's VJP in z only), then the same
 weight pass.
 
+The kernel is one cooperative launch of as many blocks as the card holds
+at once (one an SM), which carry every chain through each point together
+(csrc/kl_split.cu says how). The wrapper takes the sizes of its scratch
+from the library.
+
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises, never falling back.
 """
@@ -41,8 +46,6 @@ from cmcd_tpu_torch.ops.vargrad import check_device_tensors, clips, ptr, raise_o
 
 # The spec of the split sweep: one net in both kernels, carried.
 SPLIT_SPECS = (CAIS,)
-# One chain's workspace vectors: (of length dim, of length in_dim).
-SWEEP_WS = (11, 6)
 
 
 def len_sums(dim: int, nbridges: int) -> int:
@@ -101,44 +104,60 @@ def evolve_kl_split_plain(
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = build.load("kl_split")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.cmcd_kl_split_sweep.argtypes = [p] * 23 + [i] * 7 + [f] * 2 + [p]
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    lib.cmcd_kl_split_sweep.argtypes = [p] * 24 + [i] * 7 + [f] * 2 + [i, p]
     lib.cmcd_kl_split_sweep.restype = i
-    lib.cmcd_kl_split_len_sums.argtypes = [i, i]
-    lib.cmcd_kl_split_len_sums.restype = i
-    wide.declare_layout(lib, "kl_split", SWEEP_WS, "csrc/kl_split.cu")
+    lib.cmcd_error_string.argtypes = [i]
+    lib.cmcd_error_string.restype = ctypes.c_char_p
+    for name, args, res in (("blocks", [i], i), ("groups", [i], i), ("ws_floats", [i, i, i], ll),
+                            ("slot_floats", [i, i, i, i], ll), ("len_sums", [i, i], i)):
+        fn = getattr(lib, f"cmcd_kl_split_{name}")
+        fn.argtypes, fn.restype = args, res
     if any(lib.cmcd_kl_split_len_sums(d, k) != len_sums(d, k) for d, k in ((1600, 8), (64, 3))):
         raise RuntimeError("csrc/kl_split.cu and ops/kl_split.py disagree on the sums' layout")
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _blocks(dev: torch.device, code: int) -> int:
+    """Blocks of one launch on the card: as many as are co-resident."""
+    lib = _library()
+    with torch.cuda.device(dev):
+        blocks = lib.cmcd_kl_split_blocks(code)
+    raise_on(max(-blocks, 0), lib, "split KL sweep")
+    if blocks == 0:
+        raise RuntimeError("split KL sweep: no block of the kernel fits an SM of the card")
+    return blocks
+
+
 def _launch(lib, traj, noise, cot, g_zfinal, betas, eps, vd_mean, vd_logdiag, grad_logp, spec,
             *, dim, nbridges, sn, eps_schedule, grad_clipping, stream):
-    """Marshal the arguments and launch the sweep and its reduction:
-    (the small gradients, g_z0, gsn)."""
+    """Marshal the arguments and launch the sweep: (the small gradients,
+    g_z0, gsn, the grid)."""
     dev, n = traj.device, cot.shape[0]
     weights, factor, in_dim, emb_dim = wide.wide_net_args(sn, nbridges, dev)
     code, mat, counts, tpar = wide.wide_target_args(grad_logp, dev)
     f32 = lambda t: torch.as_tensor(t, dtype=torch.float32, device=dev).reshape(())
     scal = torch.stack([f32(eps), f32(factor)])
-    blocks = -(-n // wide.CHAINS_PER_BLOCK)
+    blocks = _blocks(dev, code)
     ls = len_sums(dim, nbridges)
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
-    part, out = new(blocks, ls), new(ls)
-    ws = new(blocks * wide.CHAINS_PER_BLOCK * wide.ws_floats(SWEEP_WS, in_dim, dim))
+    bsum, out = new(blocks, 1 + nbridges), new(ls)
+    part = new(2 * lib.cmcd_kl_split_slot_floats(n, in_dim, dim, blocks))
+    ws = new(lib.cmcd_kl_split_ws_floats(n, in_dim, dim))
     g_z0, gsn = torch.empty_like(g_zfinal), new(nbridges + 1, n, dim)
     err = lib.cmcd_kl_split_sweep(
         ptr(traj), ptr(noise), ptr(cot), ptr(g_zfinal), ptr(betas), ptr(scal),
         *(ptr(t) for t in weights), ptr(mat), ptr(counts), ptr(tpar), ptr(vd_mean),
-        ptr(vd_logdiag), ptr(part), ptr(out), ptr(g_z0), ptr(gsn), ptr(ws),
+        ptr(vd_logdiag), ptr(bsum), ptr(part), ptr(out), ptr(g_z0), ptr(gsn), ptr(ws),
         n, nbridges, dim, in_dim, emb_dim, EPS_SCHEDULES[eps_schedule], code,
-        *clips(spec, grad_clipping), ctypes.c_void_p(stream),
+        *clips(spec, grad_clipping), blocks, ctypes.c_void_p(stream),
     )
     raise_on(err, lib, "split KL sweep")
     grads = {"eps": out[0], "betas": out[1:1 + nbridges],
              "vd_mean": out[1 + nbridges:1 + nbridges + dim],
              "vd_logdiag": out[1 + nbridges + dim:ls]}
-    return grads, g_z0, gsn
+    return grads, g_z0, gsn, {"blocks": blocks, "chain_groups": lib.cmcd_kl_split_groups(n)}
 
 
 @torch.no_grad()
@@ -148,8 +167,8 @@ def evolve_kl_split(
     grad_clipping: bool = False,
 ):
     """KL (backprop-through-time) gradient of CAIS on the LGCP from the
-    stored trajectory and noise: one launch of the split sweep (and of its
-    reduction), then the batched weight pass. The arguments are
+    stored trajectory and noise: one cooperative launch of the split sweep,
+    then the batched weight pass. The arguments are
     ops/kl.evolve_kl_bwd's with grad_logp the LGCP score and sn the
     two-layer GeffnerNet on [z, emb]; returns (grads, g_z0, gsn)."""
     _check(traj, noise, cot, g_zfinal, betas, grad_logp, spec, dim, nbridges, sn, eps_schedule)
@@ -163,13 +182,16 @@ def evolve_kl_split(
     dev = traj.device
     check_device_tensors("split KL sweep", dev,
                          (traj, noise, cot, g_zfinal, betas, vd_mean, vd_logdiag))
-    grads, g_z0, gsn = _launch(_library(), *args,
-                               stream=torch.cuda.current_stream(dev).cuda_stream, **kwargs)
+    grads, g_z0, gsn, grid = _launch(_library(), *args,
+                                     stream=torch.cuda.current_stream(dev).cuda_stream, **kwargs)
     count_launch(evolve_kl_split, wide.form_key(grad_logp))
+    evolve_kl_split.last_grid = grid
     grads["sn"] = net_weight_grads(sn, traj, gsn, nbridges)
     return grads, g_z0, gsn
 
 
-# Launches in all, and by form ("CAIS/lgcp", "CAIS/lgcp_whitened").
+# Launches in all, and by form ("CAIS/lgcp", "CAIS/lgcp_whitened"); the
+# last launch's grid ({"blocks", "chain_groups"}).
 evolve_kl_split.launches = 0
 evolve_kl_split.form_launches = {}
+evolve_kl_split.last_grid = None

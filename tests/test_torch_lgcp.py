@@ -600,17 +600,23 @@ def test_refusals_before_any_launch():
 
 def test_wide_host_layout():
     """The formulas the wrappers hold against the kernels' (ops/*._library)
-    at LGCP's widths: a block's shared memory (4 staging rows of 1620 floats
-    and 16 warps x 8 sums), a chain's workspace (rollout 8 x 1600 + 2 x
-    1620, sweep 11 x 1600 + 6 x 1620 floats), the sweep's sums."""
+    at LGCP's widths: the rollout block's shared memory (4 staging rows of
+    1620 floats and 16 warps x 8 sums) and a chain's workspace (8 x 1600 +
+    2 x 1620 floats), and the split sweep's sums."""
     assert overdamped_wide.smem_bytes(1620, 1600) == 4 * (4 * 1620 + 16 * 8)
     assert overdamped_wide.ws_floats(overdamped_wide.ROLLOUT_WS, 1620, 1600) == 16040
-    assert overdamped_wide.ws_floats(kl_split.SWEEP_WS, 1620, 1600) == 27320
     assert kl_split.len_sums(1600, 8) == 3209
     assert overdamped_wide.kernel_fits(1620, 2, 1600)
     assert not overdamped_wide.kernel_fits(1618, 2, 1600)   # widths a multiple of 4
     assert not overdamped_wide.kernel_fits(1620, 80, 1600)  # the LGCP's two floats
     assert overdamped_wide.kernel_fits(84, 2, 64) and not overdamped_wide.kernel_fits(22, 2, 2)
+
+
+@pytest.mark.parametrize("dim, k, want", [(1600, 8, 3209), (4, 1, 10), (64, 3, 132),
+                                          (1600, 256, 3457)])
+def test_split_sweep_len_sums(dim, k, want):
+    """The sweep's output: d eps0, d betas (K), d vd_mean and d vd_logdiag."""
+    assert kl_split.len_sums(dim, k) == want
 
 
 def test_geffner_from_jax_at_x_dim_1600():
